@@ -3,25 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — StandardScaler → LogisticRegression served by
-``InferenceServer`` with ``fusion.mode=fast`` at d=100 — on the card, after
-building every hand-written kernel from ``flink_ml_tpu_torch/csrc`` and holding
-each against its plain PyTorch version. Phases, one JSON line each:
+Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
+against its plain PyTorch version, and drives the port's two main paths on
+the card. Phases, one JSON line each:
 
-1. device  — the card, its power limit;
-2. build   — nvcc for every kernel source, all started together, with the
-             ``-Xptxas -v`` resource lines;
-3. kernels — each kernel against its plain version over a grid of shapes,
-             then CUDA-event times of kernel, plain version and the bound at
-             the serving shape (4096 × 100);
-4. serve   — a d=100 pipeline from a numpy seed, 64 requests of 1..4096 rows
-             from 4 client threads, every response checked against a float64
-             numpy computation; launch counts, fallbacks and post-warmup
-             builds asserted; p50/p99 latency and rows/s.
+1. device    — the card, its power limit;
+2. build     — nvcc for every kernel source, all started together, with the
+               ``-Xptxas -v`` resource lines;
+3. kernels   — the serving megakernel against its plain version over a grid
+               of shapes, then CUDA-event times of kernel, plain version and
+               the bound at the serving shape (4096 × 100);
+4. serve     — a StandardScaler → LogisticRegression pipeline (d=100) served
+               by ``InferenceServer`` with ``fusion.mode=fast``: 64 requests
+               from 4 client threads, every response checked against float64
+               numpy; megakernel launches, fallbacks, post-warmup builds;
+5. crossings — the four one-hot row crossings of sparse SGD against their
+               plain versions over a grid of (n_sub, row_hi, n): mult
+               bit-equal, dot within 1e-5 · Σ_row |q|, build-form dot
+               bit-equal to premat dot;
+6. train     — LogisticRegression.fit on the headline wide-sparse workload
+               (250,000 rows of 39 hashed features, d = 2^22, batch 65,536,
+               20 iterations; data from seed 1): premat crossings launched 20
+               times each and no plain crossing called; then SGD.optimize
+               with onehot_premat "off" (build-form crossings, 20 launches
+               each) and "on" on one DeviceDataCache — all three
+               coefficients bit-identical, and held against a float64 numpy
+               SGD of the same schedule; steady-state ms/step of both forms
+               by differencing two iteration counts;
+7. crossings — the four crossings at the headline unit shape taken from the
+               real layout: checks as in 5, and CUDA-event times of kernel,
+               plain version and one PyTorch library call, with the bound.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line,
-and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
-nonzero without that last line; so does a machine without a CUDA device.
+Then a ``{"kernels": [...]}`` line for every kernel, the ``nvidia-smi``
+name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure exits nonzero without that last line; so does a machine without
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -53,6 +69,16 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 N_CLIENTS = 4
 REQUESTS_PER_CLIENT = 16
 PREDICTION_MARGIN = 1e-4
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+# The headline wide-sparse workload (bench.py bench_logreg_sparse): Criteo's
+# 39 feature fields hashed into 2^22 features, 250,000 rows, values 1.0.
+TRAIN_ROWS, TRAIN_DIM, TRAIN_NNZ = 250_000, 1 << 22, 39
+TRAIN_BATCH, TRAIN_LR, TRAIN_ITERS, TRAIN_SEED = 65_536, 0.5, 20, 1
+STEP_ITERS = (20, 120)  # the two iteration counts differenced for ms/step
+PROFILE_ITERS = 10  # iterations of each form traced with torch.profiler
+CROSS_GRID = [(s, h, n) for s in (1, 4) for h in (1, 4, 128) for n in (1, 1000, 8192 + 7)]
+DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another summation order
+COEF_TOL = 1e-4  # max |f32 fit - float64 SGD| / max |coef|
 
 
 def emit(phase: str, **fields) -> None:
@@ -71,13 +97,14 @@ def phase_build(kernels):
     from flink_ml_tpu_torch.native import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
-        results = list(pool.map(lambda k: build(k.source), kernels))
-    for kernel, res in zip(kernels, results):
+    sources = sorted({k.source for k in kernels})
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        results = dict(zip(sources, pool.map(build, sources)))
+    for source, res in results.items():
         emit(
             "build",
-            kernel=kernel.name,
-            source=kernel.source_path,
+            kernels=[k.name for k in kernels if k.source == source],
+            source=source,
             seconds=res.seconds,
             cached=res.cached,
             # registers, shared memory, stack and spills of each kernel
@@ -229,6 +256,419 @@ def phase_kernels(rng, card: str):
     return {"max_abs_err": max_abs_err, **timing}
 
 
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2]
+
+
+def _count_plain_calls():
+    """Wrap the crossings' plain versions so a run can show none was called;
+    returns the call list and a function that restores the originals."""
+    import flink_ml_tpu_torch.linalg.onehot_sparse as oh
+
+    names = ("dot_crossing_plain", "mult_crossing_plain",
+             "dot_crossing_premat_plain", "mult_crossing_premat_plain")
+    saved = {n: getattr(oh, n) for n in names}
+    calls = []
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return counted
+
+    for n in names:
+        setattr(oh, n, wrap(n, saved[n]))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(oh, n, fn)
+
+    return calls, restore
+
+
+def _check_crossings(q, rowid, m3, row_hi, order, oh, where):
+    """Each crossing kernel against its plain version on one input set;
+    returns {kernel name: max |kernel - plain|}."""
+    import torch
+
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+
+    n_sub, n = q.shape
+    dot_b = O.dot_crossing(q, rowid, row_hi, order)
+    dot_p = O.dot_crossing_premat(q, *oh)
+    dot_plain = O.dot_crossing_plain(q, rowid, row_hi)
+    mult_b = O.mult_crossing(m3, rowid)
+    mult_p = O.mult_crossing_premat(m3, *oh)
+    mult_plain = O.mult_crossing_plain(m3, rowid)
+    mult_p_plain = O.mult_crossing_premat_plain(m3, *oh)
+    torch.cuda.synchronize()
+    rows = row_hi * 128
+    flat = (torch.arange(n_sub, device=q.device)[:, None] * rows + rowid.long()).reshape(-1)
+    live = (rowid >= 0) & (rowid < rows)
+    absum = torch.zeros(n_sub * rows, dtype=torch.float64, device=q.device).index_add_(
+        0, flat[live.reshape(-1)], q.abs().double().reshape(-1)[live.reshape(-1)])
+    tol = DOT_RTOL * absum.reshape(n_sub, row_hi, 128) + 1e-6
+    err = (dot_b.double() - dot_plain.double()).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"dot crossing off its plain version by {float(err.max())}: {where}")
+    if not torch.equal(dot_b, dot_p):
+        raise AssertionError(f"build-form dot not bit-equal to premat dot: {where}")
+    if not torch.equal(mult_b, mult_plain):
+        raise AssertionError(f"mult crossing not bit-equal to its plain version: {where}")
+    if not torch.equal(mult_p, mult_p_plain) or not torch.equal(mult_p[:, :n], mult_b):
+        raise AssertionError(f"premat mult crossing not bit-equal: {where}")
+    perr = float((dot_p.double() - O.dot_crossing_premat_plain(q, *oh).double()).abs().max())
+    return {
+        O.DOT_CROSSING.name: float(err.max()),
+        O.MULT_CROSSING.name: float((mult_b - mult_plain).abs().max()),
+        O.DOT_CROSSING_PREMAT.name: perr,
+        O.MULT_CROSSING_PREMAT.name: float((mult_p - mult_p_plain).abs().max()),
+    }
+
+
+def phase_crossings_grid(rng, card: str):
+    """The four crossings against their plain versions over CROSS_GRID."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+
+    dev = torch.device("cuda", 0)
+    errs = {}
+    for n_sub, row_hi, n in CROSS_GRID:
+        rowid = torch.from_numpy(rng.integers(0, row_hi * 128, (n_sub, n)).astype(np.int16)).to(dev)
+        q = torch.from_numpy(rng.normal(size=(n_sub, n)).astype(np.float32)).to(dev)
+        m3 = torch.from_numpy(rng.normal(size=(n_sub, row_hi, 128)).astype(np.float32)).to(dev)
+        got = _check_crossings(q, rowid, m3, row_hi, O.row_order(rowid, row_hi),
+                               O.premat_row_onehots(rowid, row_hi), f"n_sub={n_sub} row_hi={row_hi} n={n}")
+        for k, v in got.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    emit("crossings", card=card, configurations=len(CROSS_GRID), max_abs_err=errs,
+         mult="bit-equal", dot=f"within {DOT_RTOL} * sum_row |q| + 1e-6",
+         build_vs_premat_dot="bit-equal")
+    return errs
+
+
+def _headline_data():
+    """The headline dataset from TRAIN_SEED: 39 distinct hashed features per
+    row, value 1.0, labels from a sparse random separator (bench.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    idx = np.sort(rng.integers(0, TRAIN_DIM, size=(TRAIN_ROWS, TRAIN_NNZ)), axis=1)
+    while True:  # redraw the rows where two hashes collide
+        dup = np.flatnonzero((np.diff(idx, axis=1) == 0).any(axis=1))
+        if not dup.size:
+            break
+        idx[dup] = np.sort(rng.integers(0, TRAIN_DIM, size=(dup.size, TRAIN_NNZ)), axis=1)
+    w_true = (rng.random(TRAIN_DIM) < 0.001) * rng.standard_normal(TRAIN_DIM)
+    y = (w_true[idx].sum(axis=1) > 0).astype(np.float64)
+    return idx, y
+
+
+def _reference_sgd(indices, values, y, dim):
+    """Float64 numpy SGD of SGD's schedule and update (BinaryLogisticLoss,
+    no regularization): the coefficient and the loss history."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.ops.schedule import offset_schedule
+
+    n = y.shape[0]
+    batch = min(TRAIN_BATCH, n)
+    coef = np.zeros(dim)
+    losses = []
+    idx = indices.astype(np.int64)
+    val = values.astype(np.float64)
+    for start, offset in zip(*offset_schedule(n, batch, TRAIN_ITERS)):
+        rows = slice(start, start + batch)
+        ib, vb, yb = idx[rows], val[rows], y[rows].astype(np.float64)
+        wb = (start + np.arange(batch) >= offset).astype(np.float64)
+        ys = 2.0 * yb - 1.0
+        z = (vb * coef[ib]).sum(axis=1) * ys
+        loss = (wb * np.logaddexp(0.0, -z)).sum()
+        mult = wb * (-ys / (1.0 + np.exp(z)))
+        grad = np.bincount(ib.ravel(), weights=(vb * mult[:, None]).ravel(), minlength=dim)
+        coef -= TRAIN_LR / wb.sum() * grad
+        losses.append(loss / wb.sum())
+    return coef, losses
+
+
+def _profile_steps(run):
+    """Device time by kernel name over one ``run()`` under torch.profiler:
+    the top entries, the device-busy total and the wall time (whose
+    difference is the device's idle share while the host drives it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm: layout, one-hots and kernels built
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    # device-side events only (kernels, copies): an operator's own entry
+    # carries its kernels' time again
+    events = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms, _ in events)
+    return {
+        "iterations": PROFILE_ITERS, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None,
+        "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in events[:12]],
+    }
+
+
+def phase_train(card: str):
+    """LogisticRegression.fit on the headline workload, then SGD.optimize
+    with the build-form and premat crossings on one cache."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+    from flink_ml_tpu_torch.models.common import extract_labeled_data
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+    build_k = (O.DOT_CROSSING, O.MULT_CROSSING)
+    t0 = time.perf_counter()
+    idx, y = _headline_data()
+    ones = np.ones(TRAIN_NNZ)
+    df = DataFrame.from_dict({
+        "features": [SparseVector(TRAIN_DIM, row, ones) for row in idx], "label": y,
+    })
+    data_s = time.perf_counter() - t0
+
+    # Main path 1: LogisticRegression.fit — the premat crossings.
+    est = (LogisticRegression().set_max_iter(TRAIN_ITERS).set_global_batch_size(TRAIN_BATCH)
+           .set_learning_rate(TRAIN_LR).set_tol(0.0))
+    calls, restore = _count_plain_calls()
+    try:
+        for k in premat_k + build_k:
+            k.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        fit_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in premat_k + build_k}
+    finally:
+        restore()
+    fit_peak = torch.cuda.max_memory_allocated()
+    if not est.onehot_premat_active:
+        raise AssertionError("the fit did not take the premat one-hot path")
+    for k in premat_k:
+        if launches[k.name] != TRAIN_ITERS:
+            raise AssertionError(f"{k.name} launched {launches[k.name]} times in the fit, not {TRAIN_ITERS}")
+    for k in build_k:
+        if launches[k.name] != 0:
+            raise AssertionError(f"{k.name} launched {launches[k.name]} times in the premat fit")
+    if calls:
+        raise AssertionError(f"plain crossings were called on the card: {sorted(set(calls))}")
+    coef_fit = model.coefficient
+    losses = est.loss_history
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss_history does not fall: {losses[0]} -> {losses[-1]}")
+
+    # Main path 2: SGD.optimize, build form ("off") then premat ("on"), one cache.
+    cols = extract_labeled_data(df, "features", "label", None, allow_sparse=True)
+    dim = cols.pop("dim")
+    cache = DeviceDataCache(cols)
+    del df
+
+    def sgd(premat, iters=TRAIN_ITERS):
+        opt = SGD(max_iter=iters, global_batch_size=TRAIN_BATCH, tol=0.0,
+                  learning_rate=TRAIN_LR, onehot_premat=premat)
+        return opt, opt.optimize(np.zeros(dim, np.float32), cache, BinaryLogisticLoss.INSTANCE)
+
+    runs = {}
+    for premat, ks in (("off", build_k), ("on", premat_k)):
+        calls, restore = _count_plain_calls()
+        try:
+            for k in premat_k + build_k:
+                k.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            opt, coef = sgd(premat)
+            seconds = time.perf_counter() - t0
+            got = {k.name: k.launches for k in premat_k + build_k}
+        finally:
+            restore()
+        if calls:
+            raise AssertionError(f"plain crossings were called on the card: {sorted(set(calls))}")
+        if opt.onehot_premat_active != (premat == "on"):
+            raise AssertionError(f"onehot_premat={premat} ran premat={opt.onehot_premat_active}")
+        for k in premat_k + build_k:
+            want = TRAIN_ITERS if k in ks else 0
+            if got[k.name] != want:
+                raise AssertionError(f"{k.name} launched {got[k.name]} times with premat {premat}, not {want}")
+        runs[premat] = {"coef": coef, "launches": got, "seconds": seconds,
+                        "layout_s": opt.layout_seconds, "peak_bytes": torch.cuda.max_memory_allocated()}
+    for name, coef in (("off", runs["off"]["coef"]), ("on", runs["on"]["coef"])):
+        if not np.array_equal(coef.view(np.int32), coef_fit.view(np.int32)):
+            raise AssertionError(f"SGD premat={name} coefficient is not bit-identical to the fit's")
+
+    ref, ref_losses = _reference_sgd(cols["indices"], cols["values"], cols["labels"], dim)
+    scale = float(np.abs(ref).max())
+    coef_err = float(np.abs(coef_fit.astype(np.float64) - ref).max())
+    loss_err = float(np.max(np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)))
+    if not coef_err <= COEF_TOL * scale:
+        raise AssertionError(f"coefficient off the float64 SGD by {coef_err} (scale {scale})")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"loss history off the float64 SGD by {loss_err} (relative)")
+
+    # Steady-state ms/step of both forms: difference two iteration counts.
+    step_ms = {}
+    for premat in ("on", "off", "off", "on"):  # ends on "on": the premat memo stays for phase 7
+        t = []
+        for iters in STEP_ITERS:
+            t0 = time.perf_counter()
+            sgd(premat, iters)
+            t.append(time.perf_counter() - t0)
+        step_ms.setdefault(premat, []).append((t[1] - t[0]) / (STEP_ITERS[1] - STEP_ITERS[0]) * 1e3)
+    profile = {premat: _profile_steps(lambda: sgd(premat, PROFILE_ITERS)) for premat in ("off", "on")}
+    lay = cache._onehot_memo[1]
+    result = {
+        "rows": TRAIN_ROWS, "dim": TRAIN_DIM, "nnz_per_row": TRAIN_NNZ, "batch": TRAIN_BATCH,
+        "iterations": TRAIN_ITERS, "data_s": data_s, "fit_s": fit_s, "fit_peak_bytes": fit_peak,
+        "fit_launches": launches, "premat_active": True,
+        "layout": {"n_windows": lay.n_windows, "n_sub": lay.n_sub, "sub_batch": lay.sub_batch,
+                   "row_hi": lay.row_hi, "n_flat": lay.n_flat,
+                   "live_slots_per_unit": float(np.count_nonzero(lay.lvals)) / (lay.n_windows * lay.n_sub),
+                   "classes": [[f, w] for f, w, _, _ in lay.class_meta]},
+        "layout_build_s": runs["off"]["layout_s"],
+        "sgd": {k: {kk: v[kk] for kk in ("launches", "seconds", "peak_bytes")} for k, v in runs.items()},
+        "coefficients": "fit == SGD premat on == SGD premat off, bit for bit",
+        "coef_max_abs_err_vs_f64": coef_err, "coef_scale": scale,
+        "loss_max_rel_err_vs_f64": loss_err, "loss_first": losses[0], "loss_last": losses[-1],
+        "ms_per_step": {k: _median(v) for k, v in step_ms.items()},
+        "ms_per_step_runs": step_ms,
+        "rows_per_s": {k: TRAIN_BATCH / (_median(v) / 1e3) for k, v in step_ms.items()},
+        "profile": profile,
+    }
+    emit("train", card=card, **result)
+    return cache, {
+        O.DOT_CROSSING.name: runs["off"]["launches"][O.DOT_CROSSING.name],
+        O.MULT_CROSSING.name: runs["off"]["launches"][O.MULT_CROSSING.name],
+        O.DOT_CROSSING_PREMAT.name: launches[O.DOT_CROSSING_PREMAT.name],
+        O.MULT_CROSSING_PREMAT.name: launches[O.MULT_CROSSING_PREMAT.name],
+    }
+
+
+def phase_crossings_headline(cache, card: str):
+    """The crossings at the headline unit shape (window 0 of the real
+    layout): checks, then L2-cold and warm times of kernel, plain version
+    and one library call, and the bound."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+
+    dev = torch.device("cuda", 0)
+    lay, (lidx, rowid, lvals, row_ptr, entry_of) = cache._onehot_memo[1:]
+    oh_hi, oh_lo = cache._onehot_premat_memo[1]
+    wi = 0
+    rng = np.random.default_rng(SEED + 1)
+    coef_perm = torch.from_numpy(rng.normal(size=lay.nblk * O.BLOCK).astype(np.float32)).to(dev)
+    q = lvals[wi] * O.gather_round(coef_perm, lidx[wi], lay.class_meta)
+    m3 = torch.from_numpy(rng.normal(size=(lay.n_sub, lay.row_hi, 128)).astype(np.float32)).to(dev)
+    rid, order, prem = rowid[wi], (row_ptr[wi], entry_of[wi]), (oh_hi, oh_lo, wi)
+    errs = _check_crossings(q, rid, m3, lay.row_hi, order, prem, "headline unit shape")
+
+    n_sub, n = (int(v) for v in q.shape)
+    n_pad, row_hi, rows = int(oh_hi.shape[2]), lay.row_hi, lay.row_hi * 128
+    live = int(order[0][:, -1].sum())
+    # library calls: one PyTorch call each on the same inputs, operands prepared outside
+    flat = (torch.arange(n_sub, device=dev)[:, None] * rows + rid.long()).reshape(-1)
+    acc = torch.zeros(n_sub * rows, device=dev)
+    q_flat = q.reshape(-1)
+    rid_long = rid.long()
+    m3_flat = m3.reshape(n_sub, rows)
+    hi_t = oh_hi[wi].transpose(1, 2)
+    q_hi = q.to(torch.bfloat16).float()
+    q_pad = torch.nn.functional.pad(torch.cat([q_hi, (q - q_hi)], 0), (0, n_pad - n))
+    lo_q = torch.cat([oh_lo[wi] * q_pad[:n_sub, :, None].to(torch.bfloat16),
+                      oh_lo[wi] * q_pad[n_sub:, :, None].to(torch.bfloat16)], dim=2)
+    m_hi = m3.to(torch.bfloat16)
+    m_cat = torch.cat([m_hi, (m3 - m_hi.float()).to(torch.bfloat16)], dim=2)
+    del q_pad
+    cases = {
+        O.DOT_CROSSING.name: (
+            lambda: O.dot_crossing(q, rid, row_hi, order),
+            lambda: O.dot_crossing_plain(q, rid, row_hi),
+            lambda: acc.index_add_(0, flat, q_flat),
+            4 * live * 2 + 4 * n_sub * (rows + 1) + 4 * n_sub * rows,  # q + entry_of (live), row_ptr, out
+            5 * 2 * live,  # split and add per live entry and half (f32)
+            F32_OPS_PER_S,
+        ),
+        O.MULT_CROSSING.name: (
+            lambda: O.mult_crossing(m3, rid),
+            lambda: O.mult_crossing_plain(m3, rid),
+            lambda: torch.gather(m3_flat, 1, rid_long),
+            2 * n_sub * n + 4 * n_sub * n + 4 * n_sub * rows,  # rowid in, u out, mult3
+            4 * n_sub * n,
+            F32_OPS_PER_S,
+        ),
+        O.DOT_CROSSING_PREMAT.name: (
+            lambda: O.dot_crossing_premat(q, *prem),
+            lambda: O.dot_crossing_premat_plain(q, *prem),
+            lambda: torch.bmm(hi_t, lo_q),
+            2 * n_sub * n_pad * (row_hi + 128) + 4 * n_sub * n + 4 * n_sub * rows,
+            2 * 2 * n_sub * n_pad * row_hi * 128,  # two halves of the dense contraction
+            BF16_OPS_PER_S,
+        ),
+        O.MULT_CROSSING_PREMAT.name: (
+            lambda: O.mult_crossing_premat(m3, *prem),
+            lambda: O.mult_crossing_premat_plain(m3, *prem),
+            lambda: torch.bmm(oh_hi[wi], m_cat),
+            2 * n_sub * n_pad * (row_hi + 128) + 4 * n_sub * rows + 4 * n_sub * n_pad,
+            2 * 2 * n_sub * n_pad * row_hi * 128,
+            BF16_OPS_PER_S,
+        ),
+    }
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, (kernel, plain, library, nbytes, ops, peak) in cases.items():
+        reps = 10 if "premat" in name else 50
+        for fn in (kernel, plain, library):
+            for _ in range(3):
+                fn()
+        torch.cuda.synchronize()
+        t = {"kernel": {"cold": [], "warm": []}, "plain": {"cold": [], "warm": []},
+             "library": {"cold": [], "warm": []}}
+        for which, fn in (("plain", plain), ("kernel", kernel), ("library", library),
+                          ("library", library), ("kernel", kernel), ("plain", plain)):
+            t[which]["cold"] += _cold_times(fn, reps, flush)
+            t[which]["warm"].append(_warm_time(fn, reps))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        out[name] = {
+            "max_abs_err": errs[name],
+            "ms": _median(t["kernel"]["cold"]),
+            "ms_l2_warm": _median(t["kernel"]["warm"]),
+            "plain_ms": _median(t["plain"]["cold"]),
+            "library_ms": _median(t["library"]["cold"]),
+            "library_ms_l2_warm": _median(t["library"]["warm"]),
+            "bytes": nbytes,
+            "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+    emit("crossings", card=card, shape={"n_sub": n_sub, "n": n, "n_pad": n_pad, "row_hi": row_hi,
+                                        "live_entries": live}, timing=out)
+    return out
+
+
 def phase_serve(rng, card: str):
     import numpy as np
 
@@ -360,7 +800,9 @@ def main() -> int:
     import numpy as np
 
     from flink_ml_tpu_torch.native import KERNELS
-    import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the kernels of the path
+    import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
+    import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernel
+    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -370,24 +812,33 @@ def main() -> int:
     kernels = list(KERNELS)
     phase_build(kernels)
     rng = np.random.default_rng(SEED)
-    measured = phase_kernels(rng, smi)
-    launches = phase_serve(rng, smi)
-    kernel = kernels[0]
-    line = {
-        "name": kernel.name,
-        "route": "cuda",
-        "source": kernel.source_path,
-        "replaces": kernel.replaces,
-        "launches": launches,
-        "max_abs_err": measured["max_abs_err"],
-        "ms": measured["ms"],
-        "plain_ms": measured["plain_ms"],
-        "bound_ms": measured["bound_ms"],
-        "bound_by": measured["bound_by"],
-        "library_ms": measured["library_ms"],
-    }
+    measured = {SCALE_LOGISTIC.name: phase_kernels(rng, smi)}
+    launches = {SCALE_LOGISTIC.name: phase_serve(rng, smi)}
+    grid_errs = phase_crossings_grid(rng, smi)
+    cache, train_launches = phase_train(smi)
+    launches.update(train_launches)
+    measured.update(phase_crossings_headline(cache, smi))
+    del cache
+    lines = []
+    for kernel in kernels:
+        m = measured[kernel.name]
+        lines.append({
+            "name": kernel.name,
+            "route": "cuda",
+            "source": kernel.source_path,
+            "replaces": kernel.replaces,
+            "launches": launches[kernel.name],
+            "max_abs_err": max(m["max_abs_err"], grid_errs.get(kernel.name, 0.0)),
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
+        if not launches[kernel.name] > 0:
+            raise AssertionError(f"{kernel.name} was never launched on its path")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
-    print(json.dumps({"kernels": [line]}), flush=True)
+    print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -179,6 +179,20 @@ class DataFrame:
         col = self.column(name)
         return isinstance(col, list) and bool(col) and isinstance(col[0], SparseVector)
 
+    def sparse_batch(self, name: str):
+        """Column as a padded-CSR ``SparseBatch`` (``linalg/sparse_batch.py``);
+        a mixed column's DenseVectors are converted row-wise."""
+        from flink_ml_tpu_torch.linalg.sparse_batch import SparseBatch
+
+        col = self.column(name)
+        if not (isinstance(col, list) and col and all(isinstance(v, Vector) for v in col)):
+            raise TypeError(f"column {name!r} is not a vector column")
+        return SparseBatch.from_vectors([v.to_sparse() for v in col])
+
+    def scalars(self, name: str, dtype=np.float64) -> np.ndarray:
+        """Column as a [n] array of ``dtype``."""
+        return np.asarray(self.column(name), dtype=dtype)
+
     # --- mutation-style API (returns self) -----------------------------------
     def add_column(self, name: str, data_type: DataType, values: Column) -> "DataFrame":
         values = _normalize_column(values)

@@ -1,5 +1,5 @@
 """Runtime configuration tier — the ``serving.*`` and ``fusion.*`` options the
-serving path reads.
+serving path reads, and the ``train.*`` options the trainer checks.
 
 Twin of ``flink_ml_tpu/config.py``: the option keys, defaults and the
 environment-variable names derived from them (``serving.max.batch.size`` →
@@ -112,6 +112,15 @@ class Options:
         "Cost-model hotness bar for the megakernel: a chain runs as the "
         "megakernel only when rows x estimated-FLOPs-per-row (from stage "
         "shapes) reaches this score for the key being built.",
+    )
+
+    TRAIN_MESH = ConfigOption(
+        "train.mesh",
+        int,
+        None,
+        "Data-axis width of the sharded training mesh. The port trains on one "
+        "device: SGD raises while this is set (the sharded tier is still to "
+        "be ported, ROADMAP.md).",
     )
 
     @classmethod

@@ -1,0 +1,446 @@
+"""Minibatch SGD on one device — twin of ``flink_ml_tpu/ops/optimizer.py``.
+
+Reference: ``SGD.java`` — per epoch the next ``globalBatchSize`` rows of the
+cached data (``nextBatchOffset`` cycling), the feedback ``[gradSum,
+weightSum, lossSum]``, the update ``coef -= lr/totalWeight · grad`` followed
+by regularization, and ``TerminateOnMaxIterOrTol`` on loss/totalWeight.
+
+The dataset lives on the device (``DeviceDataCache``) and epochs run in
+fused chunks, as in the JAX package: the host computes the whole minibatch
+schedule up front, launches a chunk of epochs without reading anything
+back, and carries the termination flag ``done``, the executed-epoch count
+and the per-epoch losses on the device (``torch.where`` freezes the
+coefficient once ``done``). The host reads them once per chunk
+(``fused_chunk_len`` bounds the chunk), so no epoch waits for the device.
+
+Three epoch forms:
+
+- dense features: ``loss_and_grad_sum`` (two matrix products);
+- sparse padded CSR, scatter path: gather dot and ``index_add_`` gradient;
+- sparse, one-hot path (wide coefficients): the class-major layout of
+  ``linalg/onehot_sparse.py`` and its four hand-written CUDA crossings —
+  the premat pair when the materialised one-hots fit the device's memory
+  budget (``onehot_premat``), else the build-form pair.
+
+Not ported yet, each raising an error that names ROADMAP.md: the host loop
+with checkpoints or listeners, the sharded ``train.mesh`` tier (and with it
+tensor parallelism and multi-slice), and streamed (``HostDataCache``) fits.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from flink_ml_tpu_torch.device import resolve_device
+from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.ops.lossfunc import LossFunc
+from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
+
+__all__ = ["Optimizer", "SGD", "fused_chunk_len", "regularize"]
+
+_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+
+
+def regularize(coef, reg: float, elastic_net: float, learning_rate: float):
+    """Prox-style regularization update; returns (new_coef, reg_loss).
+    The three branches of RegularizationUtils.regularize (L2, L1, elastic net)."""
+    if reg == 0.0:
+        return coef, torch.zeros((), dtype=coef.dtype, device=coef.device)
+    if elastic_net == 0.0:  # pure L2
+        return coef * (1.0 - learning_rate * reg), reg / 2.0 * torch.sum(coef * coef)
+    if elastic_net == 1.0:  # pure L1
+        return coef - learning_rate * reg * torch.sign(coef), reg * torch.sum(torch.abs(coef))
+    l1 = elastic_net * reg
+    l2 = (1.0 - elastic_net) * reg
+    loss = l1 * torch.sum(torch.abs(coef)) + l2 / 2.0 * torch.sum(coef * coef)
+    update = learning_rate * (l1 * torch.sign(coef) + l2 * coef)
+    return coef - update, loss
+
+
+class Optimizer:
+    """optimize(initModel, trainData, lossFunc) — Optimizer.java."""
+
+    def optimize(self, init_model, train_data, loss_func: LossFunc) -> np.ndarray:
+        raise NotImplementedError
+
+
+def _apply_update(coef, grad, weight_sum, loss_sum, lr, reg, elastic_net):
+    """The update every epoch form shares: ``(new_coef, mean_loss)``."""
+    safe_w = torch.clamp(weight_sum, min=1e-30)
+    new_coef = torch.where(weight_sum > 0, coef - (lr / safe_w) * grad, coef)
+    new_coef, _reg_loss = regularize(new_coef, reg, elastic_net, lr)
+    # The criteria reads the un-regularized batch loss mean (SGD.java:137-143).
+    mean_loss = torch.where(weight_sum > 0, loss_sum / safe_w, torch.full_like(loss_sum, np.inf))
+    return new_coef, mean_loss
+
+
+def _batch_rows(y, w, mask, start: int, offset: int, local_batch: int):
+    """``(yb, wb)`` of the window at ``start``: rows before ``offset`` in a
+    tail-clamped window are re-reads and weigh 0 (SGD.java:265-268)."""
+    rows = slice(start, start + local_batch)
+    tail_valid = (start + torch.arange(local_batch, device=y.device) >= offset).to(w.dtype)
+    return y[rows], w[rows] * mask[rows] * tail_valid
+
+
+def _sgd_epoch_math(coef, start: int, offset: int, feats, y, w, mask, loss_func,
+                    local_batch: int, lr: float, reg: float, elastic_net: float):
+    """One epoch of dense or scatter-path sparse SGD. ``feats`` is a dense
+    [m, d] tensor or a padded-CSR ``(indices [m, K], values [m, K])`` pair.
+    Returns ``(new_coef, mean_loss)``."""
+    yb, wb = _batch_rows(y, w, mask, start, offset, local_batch)
+    if isinstance(feats, tuple):
+        # Padding slots (index 0, value 0) and zero-weight rows add 0.
+        ib = feats[0][start:start + local_batch].reshape(-1).long()
+        vb = feats[1][start:start + local_batch]
+        dot = torch.sum(vb * coef[ib].reshape(vb.shape), dim=1)
+        loss_sum, mult = loss_func.loss_and_mult(dot, yb, wb)
+        grad = torch.zeros_like(coef).index_add_(0, ib, (vb * mult[:, None]).reshape(-1))
+    else:
+        loss_sum, grad = loss_func.loss_and_grad_sum(
+            coef, feats[start:start + local_batch], yb, wb
+        )
+    return _apply_update(coef, grad, torch.sum(wb), loss_sum, lr, reg, elastic_net)
+
+
+_TOL_CHUNK = 64  # epochs per readback when a tol criteria is active
+_MAX_CHUNK_DENSE = 4096
+_SERIAL_BUDGET = 300_000_000
+_FLOP_BUDGET = 5e14
+
+
+def fused_chunk_len(max_iter: int, check_loss: bool, serial_elems_per_epoch: int = 0,
+                    flops_per_epoch: float = 0.0) -> int:
+    """Epochs per chunk (the JAX package's policy, kept so both packages
+    read back at the same epochs): tol runs read back every ``_TOL_CHUNK``
+    epochs, so early convergence wastes at most a chunk; otherwise the
+    chunk is capped by the epoch's gather/scatter elements and its
+    matrix-product FLOPs."""
+    cap = _MAX_CHUNK_DENSE
+    if serial_elems_per_epoch > 0:
+        cap = min(cap, max(1, _SERIAL_BUDGET // int(serial_elems_per_epoch)))
+    if flops_per_epoch > 0:
+        cap = min(cap, max(1, int(_FLOP_BUDGET / flops_per_epoch)))
+    if check_loss:
+        cap = min(cap, _TOL_CHUNK)
+    return max(1, min(max_iter, cap))
+
+
+def _host_ram_bytes() -> int:
+    """MemTotal from /proc/meminfo, or 0 when unreadable."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _hbm_bytes_limit(device: torch.device) -> int:
+    """Memory budget of ``device``: the card's total memory, or for the
+    CPU the host's RAM capped at 16 GiB (the JAX package's stand-in)."""
+    if device.type == "cuda":
+        _free, total = torch.cuda.mem_get_info(device)
+        return int(total)
+    ram = _host_ram_bytes()
+    return min(16 << 30, ram) if ram else 16 << 30
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class SGD(Optimizer):
+    """Minibatch SGD on one device (``device`` None → the GPU)."""
+
+    def __init__(
+        self,
+        max_iter: int = 20,
+        learning_rate: float = 0.1,
+        global_batch_size: int = 32,
+        tol: float = 1e-6,
+        reg: float = 0.0,
+        elastic_net: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+        device: Optional[Union[str, torch.device]] = None,
+        checkpoint_manager=None,
+        checkpoint_interval: int = 0,
+        listeners=(),
+        sparse_kernel: str = "auto",
+        onehot_premat: str = "auto",
+    ):
+        if sparse_kernel not in ("auto", "onehot", "scatter"):
+            raise ValueError(
+                f"sparse_kernel must be 'auto', 'onehot' or 'scatter', got {sparse_kernel!r}"
+            )
+        if onehot_premat not in ("auto", "on", "off"):
+            raise ValueError(
+                f"onehot_premat must be 'auto', 'on' or 'off', got {onehot_premat!r}"
+            )
+        if checkpoint_manager is not None or checkpoint_interval or listeners:
+            raise NotImplementedError(
+                f"SGD with checkpoints or listeners (the host iteration loop) {_NOT_PORTED}"
+            )
+        if dtype not in _NP_DTYPES:
+            raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+        self.sparse_kernel = sparse_kernel
+        self.onehot_premat = onehot_premat
+        self.onehot_premat_active = False  # set per fit
+        self.layout_seconds = 0.0  # host seconds spent building the one-hot layout, per fit
+        self.max_iter = max_iter
+        self.learning_rate = learning_rate
+        self.global_batch_size = global_batch_size
+        self.tol = tol
+        self.reg = reg
+        self.elastic_net = elastic_net
+        self.dtype = dtype
+        self.device = device
+        self.loss_history: List[float] = []
+
+    def optimize(
+        self,
+        init_model: np.ndarray,
+        train_data: Union[DeviceDataCache, Mapping[str, np.ndarray]],
+        loss_func: LossFunc,
+    ) -> np.ndarray:
+        """Train and return the final coefficient (host array).
+
+        ``train_data``: a DeviceDataCache or a dict of host columns with
+        ``labels`` [n], optional ``weights`` [n], and either dense
+        ``features`` [n, d] or padded-CSR ``indices``/``values`` [n, K]."""
+        from flink_ml_tpu_torch.config import Options, config
+
+        if config.get(Options.TRAIN_MESH):
+            raise NotImplementedError(
+                f"train.mesh is set: sharded training (and tensor parallelism) {_NOT_PORTED}"
+            )
+        self.onehot_premat_active = False
+        self.layout_seconds = 0.0
+        if isinstance(train_data, Mapping):
+            cols = dict(train_data)
+            if "indices" not in cols and self.sparse_kernel == "onehot":
+                raise ValueError(
+                    "sparse_kernel='onehot' applies to sparse (indices/values) "
+                    "training data; this fit has dense features"
+                )
+            if "weights" not in cols:
+                cols["weights"] = np.ones(np.asarray(cols["labels"]).shape[0])
+            np_dtype = _NP_DTYPES[self.dtype]
+            train_data = DeviceDataCache(
+                {k: np.asarray(v, np.int32 if k == "indices" else np_dtype) for k, v in cols.items()},
+                device=resolve_device(self.device),
+            )
+        elif not isinstance(train_data, DeviceDataCache):
+            raise TypeError(
+                f"train_data must be a DeviceDataCache or a dict of columns, got "
+                f"{type(train_data).__name__}; streamed (HostDataCache) fits {_NOT_PORTED}"
+            )
+        sparse = "indices" in train_data.arrays
+        if not sparse and self.sparse_kernel == "onehot":
+            raise ValueError(
+                "sparse_kernel='onehot' applies to sparse (indices/values) "
+                "training data; this fit has dense features"
+            )
+        dim = int(np.asarray(init_model).shape[0])
+        local_batch = min(self.global_batch_size, train_data.local_rows)
+        check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
+
+        if self._pick_onehot(sparse, train_data, local_batch, dim):
+            result = self._optimize_onehot(init_model, train_data, loss_func, local_batch, check_loss, dim)
+            if result is not None:
+                return result
+            # auto: the layout would not fit the memory budget — scatter instead
+
+        y, w = train_data["labels"], train_data["weights"]
+        mask = train_data.mask.to(self.dtype)
+        if sparse:
+            feats = (train_data["indices"], train_data["values"])
+            serial = 2 * local_batch * int(feats[0].shape[-1])  # gather + scatter
+        else:
+            feats, serial = train_data["features"], 0
+        lr, reg, en = self.learning_rate, self.reg, self.elastic_net
+
+        def epoch(coef, start, offset):
+            return _sgd_epoch_math(coef, start, offset, feats, y, w, mask, loss_func,
+                                   local_batch, lr, reg, en)
+
+        coef = torch.as_tensor(np.asarray(init_model, _NP_DTYPES[self.dtype]), device=train_data.device)
+        coef = self._run_chunks(
+            coef, train_data.local_rows, local_batch,
+            fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
+        )
+        return coef.cpu().numpy()
+
+    def _run_chunks(self, coef, m: int, local_batch: int, chunk: int, check_loss: bool,
+                    epoch: Callable) -> torch.Tensor:
+        """Run the epochs in chunks of ``chunk``: ``done``, the losses and
+        the executed count stay on the device within a chunk, and the host
+        reads them once at its end. Fills ``loss_history``."""
+        starts, offsets = offset_schedule(m, local_batch, self.max_iter)
+        tol = self.tol if check_loss else None
+        done = torch.zeros((), dtype=torch.bool, device=coef.device)
+        self.loss_history = []
+        for starts_c, offsets_c, active_c, n_active in chunked_schedule(
+            starts, offsets, self.max_iter, chunk
+        ):
+            recorded, executed_n = [], torch.zeros((), dtype=coef.dtype, device=coef.device)
+            for start, offset, act in zip(starts_c, offsets_c, active_c):
+                if not act:  # padding epochs of the last chunk: no-ops
+                    continue
+                new_coef, mean_loss = epoch(coef, int(start), int(offset))
+                executed = ~done
+                coef = torch.where(executed, new_coef, coef)
+                recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
+                executed_n = executed_n + executed.to(coef.dtype)
+                if tol is not None:  # stop once loss < tol (NaN continues)
+                    done = done | (executed & (mean_loss < tol))
+            # the one host readback of the chunk
+            host = torch.cat([torch.stack(recorded).to(coef.dtype), executed_n[None]]).cpu().numpy()
+            got = [float(x) for x in host[: int(host[-1])]]
+            self.loss_history.extend(got)
+            if check_loss and len(got) < n_active:  # done flipped mid-chunk
+                break
+        return coef
+
+    # -- one-hot sparse path ---------------------------------------------------
+
+    _ONEHOT_MIN_DIM = 1 << 14
+    _ONEHOT_MAX_WINDOWS = 64
+    # Share of the device memory the packed stacks may claim under 'auto'.
+    _ONEHOT_HBM_FRACTION = 0.35
+    # Share the materialised premat one-hots plus the stacks may claim under
+    # onehot_premat='auto' (the one-hots cost (row_hi + 128) * 2 B per slot).
+    _ONEHOT_PREMAT_HBM_FRACTION = 0.55
+
+    def _pick_onehot(self, sparse, train_data, local_batch, dim) -> bool:
+        """Whether a sparse fit runs the one-hot path: forced by
+        ``sparse_kernel='onehot'``, forbidden by ``'scatter'``; under
+        ``'auto'`` for wide coefficients (``dim >= 2^14``), batches of at
+        least 2^16 index slots and at most 64 windows. f32 only: the
+        crossings carry values as split-bf16 pairs."""
+        if not sparse or self.sparse_kernel == "scatter":
+            return False
+        host = train_data.host_columns
+        feasible = "indices" in host and self.dtype == torch.float32
+        if self.sparse_kernel == "onehot":
+            if not feasible:
+                raise ValueError(
+                    "sparse_kernel='onehot' requires an f32 fit with host-readable "
+                    "sparse columns; use 'auto' or 'scatter' for this configuration"
+                )
+            return True
+        n_windows = -(-train_data.local_rows // local_batch)
+        return (
+            feasible
+            and int(train_data["indices"].numel()) >= 1 << 16
+            and n_windows <= self._ONEHOT_MAX_WINDOWS
+            and dim >= self._ONEHOT_MIN_DIM
+        )
+
+    def _onehot_layout(self, train_data, dim, local_batch, force: bool):
+        """Build (once per cache and batch) the one-hot layout and its
+        device stacks ``(lidx, rowid, lvals, row_ptr, entry_of)``, memoised
+        on the cache. Returns ``(layout, stacks)``; ``stacks`` is None when
+        not ``force`` and they would overrun the memory budget."""
+        import time
+
+        from flink_ml_tpu_torch.linalg.onehot_sparse import OneHotSparseLayout, row_order
+
+        key = (dim, local_batch)
+        memo = train_data._onehot_memo
+        if memo is not None and memo[0] == key and (memo[2] is not None or not force):
+            return memo[1], memo[2]
+        dev = train_data.device
+        budget = None if force else int(self._ONEHOT_HBM_FRACTION * _hbm_bytes_limit(dev))
+        t0 = time.perf_counter()
+        lay = OneHotSparseLayout.build(
+            train_data.host_columns["indices"], train_data.host_columns["values"],
+            dim, local_batch, max_stack_bytes=budget,
+        )
+        self.layout_seconds = time.perf_counter() - t0
+        if lay is None:
+            train_data._onehot_memo = (key, None, None)
+            return None, None
+        lidx = torch.from_numpy(lay.lidx).to(dev)
+        rowid = torch.from_numpy(lay.rowid).to(dev)
+        lvals = torch.from_numpy(np.asarray(lay.lvals, np.float32)).to(dev)
+        row_ptr, entry_of = row_order(rowid, lay.row_hi, live=lvals != 0)
+        stacks = (lidx, rowid, lvals, row_ptr, entry_of)
+        train_data._onehot_memo = (key, lay, stacks)
+        return lay, stacks
+
+    def _premat_onehots(self, lay, stacks, train_data):
+        """Decide the premat path (``onehot_premat`` 'on'/'off', or 'auto'
+        against the memory budget) and materialise the run's row one-hots
+        on the device from the resident rowid stacks, memoised on the cache.
+        Returns ``(premat, (oh_hi, oh_lo) or ())``."""
+        from flink_ml_tpu_torch.linalg.onehot_sparse import premat_bytes, premat_row_onehots
+
+        if self.onehot_premat == "off":
+            self._drop_premat_memo(train_data)
+            return False, ()
+        n_units = lay.n_windows * lay.n_sub
+        need = premat_bytes(n_units, lay.n_flat, lay.row_hi) + 7 * n_units * lay.n_flat
+        if (
+            self.onehot_premat == "auto"
+            and need > self._ONEHOT_PREMAT_HBM_FRACTION * _hbm_bytes_limit(train_data.device)
+        ):
+            self._drop_premat_memo(train_data)
+            return False, ()
+        key = (lay.dim, lay.local_batch, lay.row_hi)
+        memo = train_data._onehot_premat_memo
+        if memo is not None and memo[0] == key:
+            return True, memo[1]
+        # free a stale configuration's one-hots before allocating new ones
+        train_data._onehot_premat_memo = memo = None
+        oh = premat_row_onehots(stacks[1], lay.row_hi)
+        train_data._onehot_premat_memo = (key, oh)
+        return True, oh
+
+    @staticmethod
+    def _drop_premat_memo(train_data) -> None:
+        """Release memoised one-hots when a fit decides against the premat
+        path, so an 'off' fit does not run beside gigabytes it never reads."""
+        train_data._onehot_premat_memo = None
+
+    def _optimize_onehot(self, init_model, train_data, loss_func, local_batch, check_loss, dim):
+        from flink_ml_tpu_torch.linalg.onehot_sparse import BLOCK, onehot_batch_step
+
+        lay, stacks = self._onehot_layout(
+            train_data, dim, local_batch, force=self.sparse_kernel == "onehot"
+        )
+        if stacks is None:
+            return None
+        premat, oh = self._premat_onehots(lay, stacks, train_data)
+        self.onehot_premat_active = premat
+        lidx, rowid, lvals, row_ptr, entry_of = stacks
+        # crossing MACs bound the chunk (split-bf16 doubles them)
+        flops = 4.0 * lay.n_sub * lay.n_flat * (lay.sub_batch + 2 * BLOCK)
+        chunk = fused_chunk_len(self.max_iter, check_loss, 0, flops)
+        win_of = {s: i for i, s in enumerate(lay.window_starts)}
+        y, w = train_data["labels"], train_data["weights"]
+        mask = train_data.mask
+        pad = lay.n_sub * lay.sub_batch - local_batch
+        lr, reg, en = self.learning_rate, self.reg, self.elastic_net
+
+        def epoch(coef_perm, start, offset):
+            wi = win_of[start]
+            yb, wb = _batch_rows(y, w, mask, start, offset, local_batch)
+            if pad:
+                yb, wb = F.pad(yb, (0, pad)), F.pad(wb, (0, pad))
+            grad, loss_sum, wsum = onehot_batch_step(
+                coef_perm, lidx[wi], rowid[wi], lvals[wi], yb, wb, loss_func,
+                lay.class_meta, lay.nblk, lay.sub_batch, lay.row_hi,
+                premat=(oh[0], oh[1], wi) if premat else None,
+                order=None if premat else (row_ptr[wi], entry_of[wi]),
+            )
+            return _apply_update(coef_perm, grad, wsum, loss_sum, lr, reg, en)
+
+        coef = torch.from_numpy(lay.permute_coef(np.asarray(init_model, np.float32)))
+        coef = self._run_chunks(
+            coef.to(train_data.device), train_data.local_rows, local_batch, chunk, check_loss, epoch,
+        )
+        return lay.unpermute_coef(coef.cpu().numpy())

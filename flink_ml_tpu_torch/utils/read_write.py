@@ -16,17 +16,20 @@ import importlib
 import json
 import os
 import time
-from typing import Any, Dict, Optional, Type
+from typing import Any, Dict, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 
 __all__ = [
     "CLASS_TABLE",
+    "STAGE_CLASS_TABLE",
     "save_metadata",
     "load_metadata",
     "save_model_arrays",
     "load_model_arrays",
+    "load_stage",
     "resolve_class",
+    "saved_class_names",
     "stage_class_name",
     "model_data_path",
 ]
@@ -55,6 +58,16 @@ CLASS_TABLE: Dict[str, str] = {
 }
 
 
+#: Saved ``className`` of a JAX training-side stage → the port stage that
+#: loads it with its own ``load(path)`` (``load_stage``). The reverse
+#: direction needs no table: the JAX package reads a port-written directory
+#: through its servables' ``load_servable``, which ignore the class name.
+STAGE_CLASS_TABLE: Dict[str, str] = {
+    "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel":
+        "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel",
+}
+
+
 def stage_class_name(stage: Any) -> str:
     cls = type(stage) if not isinstance(stage, type) else stage
     return f"{cls.__module__}.{cls.__qualname__}"
@@ -74,14 +87,35 @@ def save_metadata(stage, path: str, extra: Optional[Dict[str, Any]] = None) -> N
         json.dump(metadata, f, indent=2, sort_keys=True)
 
 
-def load_metadata(path: str, expected_class_name: str = "") -> Dict[str, Any]:
+def saved_class_names(cls: Type) -> Tuple[str, ...]:
+    """Every ``className`` a directory may carry for ``cls.load`` to read
+    it: the port class's own name and its JAX twins'."""
+    own = stage_class_name(cls)
+    return (own,) + tuple(k for k, v in STAGE_CLASS_TABLE.items() if v == own)
+
+
+def load_metadata(path: str, expected_class_name: Union[str, Sequence[str]] = "") -> Dict[str, Any]:
+    """Read ``<path>/metadata``; with ``expected_class_name`` (one name or
+    several), raise ``ValueError`` if the saved class name is not one of them."""
     with open(os.path.join(path, _METADATA_FILE)) as f:
         metadata = json.load(f)
-    if expected_class_name and metadata["className"] != expected_class_name:
+    expected = (expected_class_name,) if isinstance(expected_class_name, str) else tuple(expected_class_name)
+    if any(expected) and metadata["className"] not in expected:
         raise ValueError(
-            f"Class name {metadata['className']} does not match the expected {expected_class_name}"
+            f"Class name {metadata['className']} does not match the expected "
+            f"{' or '.join(expected)}"
         )
     return metadata
+
+
+def load_stage(path: str):
+    """Load a saved training-side stage — written by either package — as
+    the port stage :data:`STAGE_CLASS_TABLE` (or its own name) resolves to."""
+    name = load_metadata(path)["className"]
+    target = STAGE_CLASS_TABLE.get(name, name)
+    if not target.startswith(_PORT_PACKAGE):
+        raise ValueError(f"no port stage loads a saved {name!r}")
+    return _import_dotted(target).load(path)
 
 
 def resolve_class(class_name: str) -> Type:
@@ -94,6 +128,10 @@ def resolve_class(class_name: str) -> Type:
         if not class_name.startswith(_PORT_PACKAGE):
             raise ValueError(f"no port class loads a saved {class_name!r}")
         target = class_name
+    return _import_dotted(target)
+
+
+def _import_dotted(target: str) -> Type:
     module_name, _, qualname = target.rpartition(".")
     obj = importlib.import_module(module_name)
     for part in qualname.split("."):

@@ -124,3 +124,110 @@ def test_server_launches_the_kernel_for_hot_buckets_only(cuda):
     assert ulp_diff(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction")) <= (
         ULP_ENVELOPE["scale_logistic"]
     )
+
+
+# ---------------------------------------------------------------------------
+# the one-hot row crossings of sparse SGD
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.linalg import onehot_sparse as O  # noqa: E402
+
+CROSSINGS = (O.DOT_CROSSING, O.MULT_CROSSING, O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+
+
+def _crossing_inputs(n_sub, row_hi, n, device, seed=0, live=None):
+    rng = np.random.default_rng(seed)
+    rowid = rng.integers(0, row_hi * 128, (n_sub, n)).astype(np.int16)
+    q = rng.normal(size=(n_sub, n)).astype(np.float32)
+    if live is not None:
+        q[rng.random((n_sub, n)) >= live] = 0.0  # padding slots: value 0
+    m3 = rng.normal(size=(n_sub, row_hi, 128)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (rowid, q, m3)]
+
+
+@pytest.mark.parametrize("n_sub", (1, 4))
+@pytest.mark.parametrize("row_hi", (1, 4, 128, 130))
+@pytest.mark.parametrize("n", (1, 1000, 8192 + 7, 20000))
+def test_crossing_kernels_match_plain_versions(cuda, n_sub, row_hi, n):
+    rowid, q, m3 = _crossing_inputs(n_sub, row_hi, n, cuda, seed=n + row_hi)
+    before = [k.launches for k in CROSSINGS]
+    oh = O.premat_row_onehots(rowid, row_hi)
+    dot = O.dot_crossing(q, rowid, row_hi)
+    dot_p = O.dot_crossing_premat(q, *oh)
+    mult = O.mult_crossing(m3, rowid)
+    mult_p = O.mult_crossing_premat(m3, *oh)
+    torch.cuda.synchronize()
+    assert [k.launches for k in CROSSINGS] == [b + 1 for b in before]
+    rows = row_hi * 128
+    absum = torch.zeros(n_sub, rows, dtype=torch.float64, device=cuda)
+    absum.scatter_add_(1, rowid.long(), q.abs().double())
+    tol = 1e-5 * absum.reshape(n_sub, row_hi, 128) + 1e-6  # another summation order
+    assert bool(((dot.double() - O.dot_crossing_plain(q, rowid, row_hi).double()).abs() <= tol).all())
+    assert torch.equal(dot, dot_p)  # build form == premat form, bit for bit
+    assert torch.equal(mult, O.mult_crossing_plain(m3, rowid))  # one nonzero term: exact
+    assert torch.equal(mult_p, O.mult_crossing_premat_plain(m3, *oh))
+    assert torch.equal(mult_p[:, :n], mult)
+
+
+def test_crossing_kernels_select_the_window_and_skip_dead_entries(cuda):
+    n_win, n_sub, row_hi, n = 3, 2, 4, 5000
+    rng = np.random.default_rng(5)
+    rowid = torch.from_numpy(rng.integers(0, row_hi * 128, (n_win, n_sub, n)).astype(np.int16)).to(cuda)
+    lvals = torch.from_numpy((rng.random((n_win, n_sub, n)) < 0.7).astype(np.float32)).to(cuda)
+    oh_hi, oh_lo = O.premat_row_onehots(rowid, row_hi)
+    row_ptr, entry_of = O.row_order(rowid, row_hi, live=lvals != 0)
+    for wi in range(n_win):
+        q = lvals[wi] * torch.randn(n_sub, n, device=cuda)
+        m3 = torch.randn(n_sub, row_hi, 128, device=cuda)
+        dot = O.dot_crossing(q, rowid[wi], row_hi, (row_ptr[wi], entry_of[wi]))
+        assert torch.equal(dot, O.dot_crossing_premat(q, oh_hi, oh_lo, wi))
+        assert torch.equal(O.mult_crossing_premat(m3, oh_hi, oh_lo, wi)[:, :n],
+                           O.mult_crossing(m3, rowid[wi]))
+
+
+def test_crossing_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    rowid, q, m3 = _crossing_inputs(2, 4, 100, cuda)
+    oh_hi, oh_lo = O.premat_row_onehots(rowid, 4)
+    before = [k.launches for k in CROSSINGS]
+    with pytest.raises(TypeError, match="int16"):
+        O.mult_crossing(m3, rowid.int())
+    with pytest.raises(TypeError, match="float32"):
+        O.dot_crossing(q.double(), rowid, 4)
+    with pytest.raises(ValueError, match="shape"):
+        O.dot_crossing_premat(q, oh_hi[:1], oh_lo[:1])
+    with pytest.raises(ValueError, match="window"):
+        O.mult_crossing_premat(m3, oh_hi, oh_lo, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        O.dot_crossing_premat(q.t().contiguous().t(), oh_hi, oh_lo)
+    assert [k.launches for k in CROSSINGS] == before
+
+
+def test_sparse_sgd_premat_and_build_forms_are_bit_identical_on_the_card(cuda):
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    rng = np.random.default_rng(6)
+    n, d, K = 3000, 1 << 14, 8
+    cols = {
+        "indices": rng.integers(0, d, (n, K)).astype(np.int32),
+        "values": (rng.random((n, K)) < 0.9).astype(np.float32),
+        "labels": (rng.random(n) > 0.5).astype(np.float32),
+        "weights": np.ones(n, np.float32),
+    }
+    cache = DeviceDataCache(cols, device=cuda)
+    coefs, cpu = [], None
+    for premat in ("on", "off"):
+        for k in CROSSINGS:
+            k.reset_launches()
+        sgd = SGD(max_iter=7, global_batch_size=1024, tol=0.0, learning_rate=0.5,
+                  sparse_kernel="onehot", onehot_premat=premat, device=cuda)
+        coefs.append(sgd.optimize(np.zeros(d, np.float32), cache, BinaryLogisticLoss.INSTANCE))
+        used = CROSSINGS[2:] if premat == "on" else CROSSINGS[:2]
+        assert all(k.launches == 7 for k in used)
+        assert all(k.launches == 0 for k in CROSSINGS if k not in used)
+    np.testing.assert_array_equal(coefs[0], coefs[1])
+    cpu = SGD(max_iter=7, global_batch_size=1024, tol=0.0, learning_rate=0.5,
+              sparse_kernel="onehot", device="cpu").optimize(
+        np.zeros(d, np.float32), cols, BinaryLogisticLoss.INSTANCE)
+    np.testing.assert_allclose(coefs[0], cpu, rtol=1e-4, atol=1e-7)  # plain versions, other orders
