@@ -28,8 +28,9 @@ the card. Phases, one JSON line each:
                with onehot_premat "off" (build-form crossings, 20 launches
                each) and "on" on one DeviceDataCache — all three
                coefficients bit-identical, and held against a float64 numpy
-               SGD of the same schedule; steady-state ms/step of both forms
-               by differencing two iteration counts;
+               SGD of the same schedule, whose copy with bf16-hi-only
+               crossings must fall outside the tolerance; steady-state
+               ms/step of both forms by differencing two iteration counts;
 7. crossings — the four crossings at the headline unit shape taken from the
                real layout: checks as in 5, and CUDA-event times of kernel,
                plain version and one PyTorch library call, with the bound.
@@ -78,7 +79,9 @@ STEP_ITERS = (20, 120)  # the two iteration counts differenced for ms/step
 PROFILE_ITERS = 10  # iterations of each form traced with torch.profiler
 CROSS_GRID = [(s, h, n) for s in (1, 4) for h in (1, 4, 128) for n in (1, 1000, 8192 + 7)]
 DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another summation order
-COEF_TOL = 1e-4  # max |f32 fit - float64 SGD| / max |coef|
+# max |f32 fit - float64 SGD| / max |coef|: between the split-bf16 fit and
+# the float64 SGD whose crossings keep only the bf16 hi half (asserted apart)
+COEF_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -318,11 +321,10 @@ def _check_crossings(q, rowid, m3, row_hi, order, oh, where):
         raise AssertionError(f"mult crossing not bit-equal to its plain version: {where}")
     if not torch.equal(mult_p, mult_p_plain) or not torch.equal(mult_p[:, :n], mult_b):
         raise AssertionError(f"premat mult crossing not bit-equal: {where}")
-    perr = float((dot_p.double() - O.dot_crossing_premat_plain(q, *oh).double()).abs().max())
     return {
         O.DOT_CROSSING.name: float(err.max()),
         O.MULT_CROSSING.name: float((mult_b - mult_plain).abs().max()),
-        O.DOT_CROSSING_PREMAT.name: perr,
+        O.DOT_CROSSING_PREMAT.name: float(err.max()),  # dot_p == dot_b, bit for bit
         O.MULT_CROSSING_PREMAT.name: float((mult_p - mult_p_plain).abs().max()),
     }
 
@@ -367,12 +369,28 @@ def _headline_data():
     return idx, y
 
 
-def _reference_sgd(indices, values, y, dim):
+def _bf16(x):
+    """``x`` rounded to bfloat16 (to nearest even), as float64."""
+    import numpy as np
+
+    b = np.asarray(x, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return b.view(np.float32).astype(np.float64)
+
+
+def _reference_sgd(indices, values, y, dim, hi_only=False):
     """Float64 numpy SGD of SGD's schedule and update (BinaryLogisticLoss,
-    no regularization): the coefficient and the loss history."""
+    no regularization): the coefficient and the loss history. With
+    ``hi_only`` the crossings keep only their bf16 hi half (each entry's
+    term of the margin and each row's multiplier rounded to bf16): the
+    control that shows the coefficient check can tell a crossing that drops
+    its lo half from the split-bf16 one."""
     import numpy as np
 
     from flink_ml_tpu_torch.ops.schedule import offset_schedule
+
+    def cross(x):
+        return _bf16(x) if hi_only else x
 
     n = y.shape[0]
     batch = min(TRAIN_BATCH, n)
@@ -385,9 +403,9 @@ def _reference_sgd(indices, values, y, dim):
         ib, vb, yb = idx[rows], val[rows], y[rows].astype(np.float64)
         wb = (start + np.arange(batch) >= offset).astype(np.float64)
         ys = 2.0 * yb - 1.0
-        z = (vb * coef[ib]).sum(axis=1) * ys
+        z = cross(vb * coef[ib]).sum(axis=1) * ys
         loss = (wb * np.logaddexp(0.0, -z)).sum()
-        mult = wb * (-ys / (1.0 + np.exp(z)))
+        mult = cross(wb * (-ys / (1.0 + np.exp(z))))
         grad = np.bincount(ib.ravel(), weights=(vb * mult[:, None]).ravel(), minlength=dim)
         coef -= TRAIN_LR / wb.sum() * grad
         losses.append(loss / wb.sum())
@@ -519,11 +537,16 @@ def phase_train(card: str):
             raise AssertionError(f"SGD premat={name} coefficient is not bit-identical to the fit's")
 
     ref, ref_losses = _reference_sgd(cols["indices"], cols["values"], cols["labels"], dim)
+    control, _ = _reference_sgd(cols["indices"], cols["values"], cols["labels"], dim, hi_only=True)
     scale = float(np.abs(ref).max())
     coef_err = float(np.abs(coef_fit.astype(np.float64) - ref).max())
+    control_err = float(np.abs(control - ref).max())
     loss_err = float(np.max(np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)))
     if not coef_err <= COEF_TOL * scale:
         raise AssertionError(f"coefficient off the float64 SGD by {coef_err} (scale {scale})")
+    if not control_err > COEF_TOL * scale:
+        raise AssertionError(f"the hi-half-only control is within the tolerance ({control_err}, "
+                             f"scale {scale}): the coefficient check cannot tell the two apart")
     if not loss_err <= 1e-5:
         raise AssertionError(f"loss history off the float64 SGD by {loss_err} (relative)")
 
@@ -550,6 +573,7 @@ def phase_train(card: str):
         "sgd": {k: {kk: v[kk] for kk in ("launches", "seconds", "peak_bytes")} for k, v in runs.items()},
         "coefficients": "fit == SGD premat on == SGD premat off, bit for bit",
         "coef_max_abs_err_vs_f64": coef_err, "coef_scale": scale,
+        "coef_tol": COEF_TOL, "hi_only_control_max_abs_err_vs_f64": control_err,
         "loss_max_rel_err_vs_f64": loss_err, "loss_first": losses[0], "loss_last": losses[-1],
         "ms_per_step": {k: _median(v) for k, v in step_ms.items()},
         "ms_per_step_runs": step_ms,
@@ -623,14 +647,17 @@ def phase_crossings_headline(cache, card: str):
             lambda: O.dot_crossing_premat(q, *prem),
             lambda: O.dot_crossing_premat_plain(q, *prem),
             lambda: torch.bmm(hi_t, lo_q),
-            2 * n_sub * n_pad * (row_hi + 128) + 4 * n_sub * n + 4 * n_sub * rows,
-            2 * 2 * n_sub * n_pad * row_hi * 128,  # two halves of the dense contraction
+            # q at every slot, the one-hot rows of live entries (padding slots
+            # carry q = 0 and add nothing), out; as the build-form dot
+            4 * n_sub * n + 2 * live * (row_hi + 128) + 4 * n_sub * rows,
+            2 * 2 * live * row_hi * 128,  # two halves of the dense contraction, live entries
             BF16_OPS_PER_S,
         ),
         O.MULT_CROSSING_PREMAT.name: (
             lambda: O.mult_crossing_premat(m3, *prem),
             lambda: O.mult_crossing_premat_plain(m3, *prem),
             lambda: torch.bmm(oh_hi[wi], m_cat),
+            # every slot's output is read off its own one-hot rows, padding too
             2 * n_sub * n_pad * (row_hi + 128) + 4 * n_sub * rows + 4 * n_sub * n_pad,
             2 * 2 * n_sub * n_pad * row_hi * 128,
             BF16_OPS_PER_S,

@@ -25,8 +25,8 @@ class Stage(WithParams):
     @classmethod
     def load(cls, path: str) -> "Stage":
         """Restore a stage saved by this class or by its JAX twin
-        (``utils.read_write.STAGE_CLASS_TABLE``)."""
-        metadata = rw.load_metadata(path, rw.saved_class_names(cls))
+        (``utils.read_write.CLASS_TABLE``)."""
+        metadata = rw.load_metadata(path, rw.stage_class_name(cls))
         stage = cls()
         stage.load_param_map_from_json(metadata["paramMap"])
         return stage

@@ -33,9 +33,12 @@
 //   output row walks its ~39 entries, so no entry is read twice.
 // - build-form mult: bytes. rowid (2 B) in, u (4 B) out per entry, mult3
 //   (256 KB) from L2: ~26 MB. One thread per entry.
-// - premat dot: bytes. One window's one-hots, (row_hi + 128) * 2 B per entry,
-//   ~2.2 GB, ~0.66 ms. One block per (sub-batch, chunk) keeps the chunk's
-//   2 x row_hi x 128 f32 accumulators in shared memory (128 KB at row_hi
+// - premat dot: bytes. q at every slot and the one-hot rows of live entries,
+//   (row_hi + 128) * 2 B each (padding slots carry q = 0 and add nothing):
+//   ~1.3 GB, ~0.40 ms. This kernel streams every slot's rows, ~2.2 GB, and
+//   skips only the padding's arithmetic. One block per (sub-batch, chunk)
+//   keeps the chunk's 2 x row_hi x 128 f32 accumulators in shared memory
+//   (128 KB at row_hi
 //   128); 256 threads own one (half, l) column each, so every output is
 //   updated by one thread in entry order. Tiles of kTile entries are staged
 //   in shared memory with 16-byte loads (the next tile's loads in flight

@@ -87,7 +87,7 @@ class ModelArraysMixin:
     @classmethod
     def load(cls, path: str):
         """Load a directory saved by this class or by its JAX twin."""
-        metadata = rw.load_metadata(path, rw.saved_class_names(cls))
+        metadata = rw.load_metadata(path, rw.stage_class_name(cls))
         model = cls()
         model.load_param_map_from_json(metadata["paramMap"])
         model._set_model_arrays(rw.load_model_arrays(path))

@@ -7,7 +7,7 @@ JAX package saved loads here and the reverse.
 
 Class dispatch differs: the saved ``className`` of a JAX-written directory
 names a class of ``flink_ml_tpu``, which the port must never import. So
-:data:`CLASS_TABLE` maps each such name to the port class that loads it, and
+:data:`CLASS_TABLE` maps each such name to the port classes that load it, and
 :func:`resolve_class` imports only from this package.
 """
 from __future__ import annotations
@@ -16,20 +16,18 @@ import importlib
 import json
 import os
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Type, Union
+from typing import Any, Dict, Optional, Tuple, Type
 
 import numpy as np
 
 __all__ = [
     "CLASS_TABLE",
-    "STAGE_CLASS_TABLE",
     "save_metadata",
     "load_metadata",
     "save_model_arrays",
     "load_model_arrays",
     "load_stage",
     "resolve_class",
-    "saved_class_names",
     "stage_class_name",
     "model_data_path",
 ]
@@ -42,29 +40,24 @@ _PORT_PACKAGE = "flink_ml_tpu_torch."
 _PIPELINE = "flink_ml_tpu_torch.servable.builder.PipelineModelServable"
 _SCALER = "flink_ml_tpu_torch.servable.lib.StandardScalerModelServable"
 _LOGISTIC = "flink_ml_tpu_torch.servable.lib.LogisticRegressionModelServable"
+_LOGISTIC_MODEL = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel"
 
-#: Saved ``className`` of the JAX package → the port class that loads it
-#: (every target has a ``load_servable(path)``). Training-side Models load
-#: as their runtime-free servables, as the JAX package's ``load_servable``
-#: hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
-#: ``logistic_regression.py:30``).
-CLASS_TABLE: Dict[str, str] = {
-    "flink_ml_tpu.builder.pipeline.PipelineModel": _PIPELINE,
-    "flink_ml_tpu.servable.builder.PipelineModelServable": _PIPELINE,
-    "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": _SCALER,
-    "flink_ml_tpu.servable.lib.StandardScalerModelServable": _SCALER,
-    "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel": _LOGISTIC,
-    "flink_ml_tpu.servable.lib.LogisticRegressionModelServable": _LOGISTIC,
-}
-
-
-#: Saved ``className`` of a JAX training-side stage → the port stage that
-#: loads it with its own ``load(path)`` (``load_stage``). The reverse
-#: direction needs no table: the JAX package reads a port-written directory
-#: through its servables' ``load_servable``, which ignore the class name.
-STAGE_CLASS_TABLE: Dict[str, str] = {
+#: Saved ``className`` of the JAX package → (the port servable that loads it
+#: with ``load_servable(path)``, the port training-side stage that loads it
+#: with ``load(path)`` or None where that stage is not ported). Training-side
+#: Models load as their runtime-free servables, as the JAX package's
+#: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
+#: ``logistic_regression.py:30``). The reverse direction needs no table: the
+#: JAX package reads a port-written directory through its servables'
+#: ``load_servable``, which ignore the class name.
+CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
+    "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, None),
+    "flink_ml_tpu.servable.builder.PipelineModelServable": (_PIPELINE, None),
+    "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": (_SCALER, None),
+    "flink_ml_tpu.servable.lib.StandardScalerModelServable": (_SCALER, None),
     "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel":
-        "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel",
+        (_LOGISTIC, _LOGISTIC_MODEL),
+    "flink_ml_tpu.servable.lib.LogisticRegressionModelServable": (_LOGISTIC, None),
 }
 
 
@@ -87,51 +80,35 @@ def save_metadata(stage, path: str, extra: Optional[Dict[str, Any]] = None) -> N
         json.dump(metadata, f, indent=2, sort_keys=True)
 
 
-def saved_class_names(cls: Type) -> Tuple[str, ...]:
-    """Every ``className`` a directory may carry for ``cls.load`` to read
-    it: the port class's own name and its JAX twins'."""
-    own = stage_class_name(cls)
-    return (own,) + tuple(k for k, v in STAGE_CLASS_TABLE.items() if v == own)
-
-
-def load_metadata(path: str, expected_class_name: Union[str, Sequence[str]] = "") -> Dict[str, Any]:
-    """Read ``<path>/metadata``; with ``expected_class_name`` (one name or
-    several), raise ``ValueError`` if the saved class name is not one of them."""
+def load_metadata(path: str, expected_class_name: str = "") -> Dict[str, Any]:
+    """Read ``<path>/metadata``; with ``expected_class_name`` (a port
+    stage's), raise ``ValueError`` unless the saved class name is it or a
+    JAX name whose :data:`CLASS_TABLE` stage is it."""
     with open(os.path.join(path, _METADATA_FILE)) as f:
         metadata = json.load(f)
-    expected = (expected_class_name,) if isinstance(expected_class_name, str) else tuple(expected_class_name)
-    if any(expected) and metadata["className"] not in expected:
-        raise ValueError(
-            f"Class name {metadata['className']} does not match the expected "
-            f"{' or '.join(expected)}"
-        )
+    name = metadata["className"]
+    if expected_class_name and expected_class_name not in (name, CLASS_TABLE.get(name, (None, None))[1]):
+        raise ValueError(f"Class name {name} does not match the expected {expected_class_name}")
     return metadata
 
 
 def load_stage(path: str):
     """Load a saved training-side stage — written by either package — as
-    the port stage :data:`STAGE_CLASS_TABLE` (or its own name) resolves to."""
-    name = load_metadata(path)["className"]
-    target = STAGE_CLASS_TABLE.get(name, name)
-    if not target.startswith(_PORT_PACKAGE):
-        raise ValueError(f"no port stage loads a saved {name!r}")
-    return _import_dotted(target).load(path)
+    the port stage its class name resolves to."""
+    return resolve_class(load_metadata(path)["className"], stage=True).load(path)
 
 
-def resolve_class(class_name: str) -> Type:
+def resolve_class(class_name: str, stage: bool = False) -> Type:
     """The port class for a saved ``className``: through :data:`CLASS_TABLE`
-    for names the JAX package wrote, directly for the port's own names.
-    Anything else raises ``ValueError`` naming the class — the port has no
-    counterpart for it yet."""
-    target = CLASS_TABLE.get(class_name)
-    if target is None:
-        if not class_name.startswith(_PORT_PACKAGE):
-            raise ValueError(f"no port class loads a saved {class_name!r}")
-        target = class_name
-    return _import_dotted(target)
-
-
-def _import_dotted(target: str) -> Type:
+    for names the JAX package wrote (its servable, or with ``stage`` its
+    training-side stage), directly for the port's own names. Anything else
+    raises ``ValueError`` naming the class — the port has no counterpart
+    for it yet."""
+    entry = CLASS_TABLE.get(class_name)
+    target = class_name if entry is None else entry[1] if stage else entry[0]
+    if target is None or not target.startswith(_PORT_PACKAGE):
+        kind = "stage" if stage else "class"
+        raise ValueError(f"no port {kind} loads a saved {class_name!r}")
     module_name, _, qualname = target.rpartition(".")
     obj = importlib.import_module(module_name)
     for part in qualname.split("."):

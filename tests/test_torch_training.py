@@ -512,6 +512,16 @@ def test_fit_transform_save_load_across_packages(fitted, tmp_path):
         LogisticRegressionModel.load(str(_saved_other(tmp_path)))
 
 
+def test_one_class_table_resolves_servable_and_stage():
+    name = "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel"
+    from flink_ml_tpu_torch.servable import LogisticRegressionModelServable
+
+    assert rw.resolve_class(name) is LogisticRegressionModelServable
+    assert rw.resolve_class(name, stage=True) is LogisticRegressionModel
+    with pytest.raises(ValueError, match="no port stage"):
+        rw.resolve_class("flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel", stage=True)
+
+
 def _saved_other(tmp_path):
     path = tmp_path / "other"
     from flink_ml_tpu_torch.servable import StandardScalerModelServable
