@@ -33,7 +33,24 @@ the card. Phases, one JSON line each:
                ms/step of both forms by differencing two iteration counts;
 7. crossings — the four crossings at the headline unit shape taken from the
                real layout: checks as in 5, and CUDA-event times of kernel,
-               plain version and one PyTorch library call, with the bound.
+               plain version and one PyTorch library call, with the bound;
+8. kernels_sparse — the sparse IDF → logistic megakernel against its plain
+               version over rows × nnz caps × d × chain (IDF kept, IDF
+               dropped, no IDF), rows shorter than the cap included: tfidf
+               and margin bit-equal, prediction equal; then CUDA-event times
+               at 4096 rows × cap 64 × d = 2^22 on the headline rows' ids, of
+               kernel, plain version and ``F.embedding_bag`` (the head's
+               margin), with the bytes bound;
+9. serve_sparse — the wide-sparse model served: IDF fitted on the headline
+               rows, IDFModel.transform on the card, LogisticRegression.fit on
+               the tf-idf column (the train phase's schedule), both models
+               saved and loaded back through ``load_servable`` into one
+               pipeline, served by ``InferenceServer`` (fusion.mode=fast,
+               warmed on a sparse template over the nnz-cap ladder 1…64): 64
+               requests of 1–4096 new rows from 4 clients, every response
+               checked against float64 numpy; megakernel launches equal the
+               batches whose (bucket, cap) key is hot, 0 fallbacks, 0 chains
+               built after warmup, the plain version never called.
 
 Then a ``{"kernels": [...]}`` line for every kernel, the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +99,12 @@ DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another su
 # max |f32 fit - float64 SGD| / max |coef|: between the split-bf16 fit and
 # the float64 SGD whose crossings keep only the bf16 hi half (asserted apart)
 COEF_TOL = 1e-5
+# the sparse megakernel's check grid (rows shorter than the cap included)
+SPARSE_ROWS = (1, 7, 203, 1024, 2048, 4096)
+SPARSE_CAPS = (1, 2, 8, 16, 32, 64)
+SPARSE_DIMS = (8, 1000, TRAIN_DIM)
+SPARSE_CHAINS = (("idf_kept", True, True), ("idf_dropped", True, False), ("no_idf", False, False))
+SPARSE_SERVE_SEED = TRAIN_SEED + 1  # new rows from the headline generator
 
 
 def emit(phase: str, **fields) -> None:
@@ -264,14 +287,10 @@ def _median(v):
     return v[len(v) // 2]
 
 
-def _count_plain_calls():
-    """Wrap the crossings' plain versions so a run can show none was called;
-    returns the call list and a function that restores the originals."""
-    import flink_ml_tpu_torch.linalg.onehot_sparse as oh
-
-    names = ("dot_crossing_plain", "mult_crossing_plain",
-             "dot_crossing_premat_plain", "mult_crossing_premat_plain")
-    saved = {n: getattr(oh, n) for n in names}
+def _count_calls(module, names):
+    """Wrap ``module``'s functions ``names`` so a run can show none was
+    called; returns the call list and a function that restores them."""
+    saved = {n: getattr(module, n) for n in names}
     calls = []
 
     def wrap(name, fn):
@@ -281,13 +300,21 @@ def _count_plain_calls():
         return counted
 
     for n in names:
-        setattr(oh, n, wrap(n, saved[n]))
+        setattr(module, n, wrap(n, saved[n]))
 
     def restore():
         for n, fn in saved.items():
-            setattr(oh, n, fn)
+            setattr(module, n, fn)
 
     return calls, restore
+
+
+def _count_plain_calls():
+    """The crossings' plain versions, counted (``_count_calls``)."""
+    import flink_ml_tpu_torch.linalg.onehot_sparse as oh
+
+    return _count_calls(oh, ("dot_crossing_plain", "mult_crossing_plain",
+                             "dot_crossing_premat_plain", "mult_crossing_premat_plain"))
 
 
 def _check_crossings(q, rowid, m3, row_hi, order, oh, where):
@@ -352,21 +379,43 @@ def phase_crossings_grid(rng, card: str):
     return errs
 
 
+def _hashed_rows(rng, rows, nnz):
+    """``rows`` rows of ``nnz`` distinct hashed features in [0, TRAIN_DIM),
+    sorted: the headline generator."""
+    import numpy as np
+
+    idx = np.sort(rng.integers(0, TRAIN_DIM, size=(rows, nnz)), axis=1)
+    while True:  # redraw the rows where two hashes collide
+        dup = np.flatnonzero((np.diff(idx, axis=1) == 0).any(axis=1))
+        if not dup.size:
+            return idx
+        idx[dup] = np.sort(rng.integers(0, TRAIN_DIM, size=(dup.size, nnz)), axis=1)
+
+
 def _headline_data():
     """The headline dataset from TRAIN_SEED: 39 distinct hashed features per
     row, value 1.0, labels from a sparse random separator (bench.py)."""
     import numpy as np
 
     rng = np.random.default_rng(TRAIN_SEED)
-    idx = np.sort(rng.integers(0, TRAIN_DIM, size=(TRAIN_ROWS, TRAIN_NNZ)), axis=1)
-    while True:  # redraw the rows where two hashes collide
-        dup = np.flatnonzero((np.diff(idx, axis=1) == 0).any(axis=1))
-        if not dup.size:
-            break
-        idx[dup] = np.sort(rng.integers(0, TRAIN_DIM, size=(dup.size, TRAIN_NNZ)), axis=1)
+    idx = _hashed_rows(rng, TRAIN_ROWS, TRAIN_NNZ)
     w_true = (rng.random(TRAIN_DIM) < 0.001) * rng.standard_normal(TRAIN_DIM)
     y = (w_true[idx].sum(axis=1) > 0).astype(np.float64)
     return idx, y
+
+
+def _sparse_frame(idx_rows, **columns):
+    """A DataFrame of SparseVector rows (value 1.0) from rows of ids, with
+    any further ``columns``."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+
+    ones = np.ones(idx_rows.shape[1])
+    return DataFrame.from_dict({
+        "features": [SparseVector(TRAIN_DIM, row, ones) for row in idx_rows], **columns,
+    })
 
 
 def _bf16(x):
@@ -443,16 +492,14 @@ def _profile_steps(run):
     }
 
 
-def phase_train(card: str):
+def phase_train(card: str, headline):
     """LogisticRegression.fit on the headline workload, then SGD.optimize
     with the build-form and premat crossings on one cache."""
     import numpy as np
     import torch
 
-    from flink_ml_tpu_torch.api.dataframe import DataFrame
     from flink_ml_tpu_torch.iteration import DeviceDataCache
     from flink_ml_tpu_torch.linalg import onehot_sparse as O
-    from flink_ml_tpu_torch.linalg.vectors import SparseVector
     from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
     from flink_ml_tpu_torch.models.common import extract_labeled_data
     from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
@@ -461,11 +508,8 @@ def phase_train(card: str):
     premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
     build_k = (O.DOT_CROSSING, O.MULT_CROSSING)
     t0 = time.perf_counter()
-    idx, y = _headline_data()
-    ones = np.ones(TRAIN_NNZ)
-    df = DataFrame.from_dict({
-        "features": [SparseVector(TRAIN_DIM, row, ones) for row in idx], "label": y,
-    })
+    idx, y = headline
+    df = _sparse_frame(idx, label=y)
     data_s = time.perf_counter() - t0
 
     # Main path 1: LogisticRegression.fit — the premat crossings.
@@ -818,6 +862,389 @@ def phase_serve(rng, card: str):
     return launches
 
 
+def _packed_headline(idx_rows, cap):
+    """The headline rows' ids packed at ``cap`` (value 1.0, padding id 0 /
+    value 0): ``(values f32, ids i32, live slots)``."""
+    import numpy as np
+
+    rows = len(idx_rows)
+    ids = np.zeros((rows, cap), np.int32)
+    vals = np.zeros((rows, cap), np.float32)
+    k = min(cap, idx_rows.shape[1])
+    ids[:, :k] = idx_rows[:, :k]
+    vals[:, :k] = 1.0
+    return vals, ids, rows * k
+
+
+def phase_kernels_sparse(rng, card: str, headline_idx):
+    """The sparse IDF → logistic megakernel against its plain version over
+    the check grid, then its times at the serving shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.servable.megakernels import (
+        SPARSE_IDF_LOGISTIC,
+        sparse_idf_logistic,
+        sparse_idf_logistic_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    checked, max_ulps, max_abs_err = 0, 0, 0.0
+    for d in SPARSE_DIMS:
+        idf = t(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1))
+        coef = t((rng.normal(size=d) * 0.3).astype(np.float32))
+        for rows in SPARSE_ROWS:
+            for cap in SPARSE_CAPS:
+                nnz = rng.integers(0, cap + 1, rows)  # rows shorter than the cap
+                ids = np.sort(rng.integers(0, d, (rows, cap)), axis=1).astype(np.int32)
+                vals = rng.normal(size=(rows, cap)).astype(np.float32)
+                dead = np.arange(cap)[None, :] >= nnz[:, None]
+                ids[dead], vals[dead] = 0, 0.0
+                v_t, i_t = t(vals), t(ids)
+                for label, with_idf, keep in SPARSE_CHAINS:
+                    m_idf = idf if with_idf else None
+                    tfidf, margin, pred, raw = sparse_idf_logistic(v_t, i_t, m_idf, coef, write_tfidf=keep)
+                    p_tfidf, p_margin, p_pred, p_raw = sparse_idf_logistic_plain(v_t, i_t, m_idf, coef)
+                    torch.cuda.synchronize()
+                    where = f"{label} rows={rows} cap={cap} d={d}"
+                    if keep and not same_bits(tfidf, p_tfidf):
+                        raise AssertionError(f"tfidf not bit-equal to the plain version: {where}")
+                    if (tfidf is None) == keep:
+                        raise AssertionError(f"tfidf kept={tfidf is not None}, asked {keep}: {where}")
+                    if not same_bits(margin, p_margin):
+                        raise AssertionError(f"margin not bit-equal to the plain version: {where}")
+                    if not torch.equal(pred, p_pred):
+                        raise AssertionError(f"prediction differs from the plain version: {where}")
+                    ulps = ulp_diff(raw.cpu().numpy(), p_raw.cpu().numpy())
+                    if ulps > ULP_ENVELOPE["sparse_idf_logistic"]:
+                        raise AssertionError(f"rawPrediction {ulps} ulps from the plain version: {where}")
+                    max_ulps = max(max_ulps, ulps)
+                    max_abs_err = max(max_abs_err, float((raw - p_raw).abs().max()))
+                    checked += 1
+    emit("kernels_sparse", kernel=SPARSE_IDF_LOGISTIC.name, configurations=checked,
+         tfidf="bit-equal", margin="bit-equal", prediction="equal",
+         max_raw_ulps=max_ulps, max_abs_err=max_abs_err)
+
+    # Times at the serving shape: 4096 headline rows at cap 64, d = 2^22.
+    rows, cap, d = MAX_BATCH, 64, TRAIN_DIM
+    vals_np, ids_np, live = _packed_headline(headline_idx[:rows], cap)
+    values, ids = t(vals_np), t(ids_np)
+    idf = t(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1))
+    coef = t((rng.normal(size=d) * 0.3).astype(np.float32))
+    coef_col, ids_long = coef[:, None], ids.long()  # the library call's operands, prepared outside
+
+    def kernel():
+        sparse_idf_logistic(values, ids, idf, coef, write_tfidf=True)
+
+    def kernel_head():
+        sparse_idf_logistic(values, ids, None, coef, write_tfidf=False)
+
+    def plain():
+        sparse_idf_logistic_plain(values, ids, idf, coef)
+
+    def library():  # the sparse_logistic chain's margin, one PyTorch call
+        F.embedding_bag(ids_long, coef_col, per_sample_weights=values, mode="sum")
+
+    lib_margin = F.embedding_bag(ids_long, coef_col, per_sample_weights=values, mode="sum")[:, 0]
+    _, head_margin, _, _ = sparse_idf_logistic(values, ids, None, coef, write_tfidf=False)
+    lib_err = float((lib_margin - head_margin).abs().max())
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fns = {"kernel": kernel, "kernel_head": kernel_head, "plain": plain, "library": library}
+    for fn in fns.values():
+        for _ in range(10):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: {"cold": [], "warm": []} for k in fns}
+    for name in ("plain", "kernel", "kernel_head", "library", "library", "kernel_head", "kernel", "plain"):
+        reps = 20 if name == "plain" else 100
+        times[name]["cold"] += _cold_times(fns[name], reps, flush)
+        times[name]["warm"].append(_warm_time(fns[name], reps))
+    # Bytes the chain must move: values and ids read once, tfidf and the
+    # three heads written once, and for each gathered model vector (idf,
+    # coef) each distinct 32-byte sector that this run's ids touch, once (a
+    # repeat hits L2). nnz is not read: the kernel folds all K slots.
+    sectors = np.unique(ids_np // 8).size
+    nbytes = 4 * rows * cap * 2 + 4 * rows * cap + 4 * rows * 4 + 2 * 32 * sectors
+    ops = 3 * rows * cap + 8 * rows  # two multiplies and an add per slot; the head per row
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    timing = {
+        "shape": {"rows": rows, "cap": cap, "d": d, "live_slots": live, "distinct_sectors": sectors},
+        "ms": _median(times["kernel"]["cold"]),
+        "ms_l2_warm": _median(times["kernel"]["warm"]),
+        "ms_head_only": _median(times["kernel_head"]["cold"]),
+        "ms_head_only_l2_warm": _median(times["kernel_head"]["warm"]),
+        "plain_ms": _median(times["plain"]["cold"]),
+        "plain_ms_l2_warm": _median(times["plain"]["warm"]),
+        "library_ms": _median(times["library"]["cold"]),
+        "library_ms_l2_warm": _median(times["library"]["warm"]),
+        "library": "F.embedding_bag(ids, coef[:, None], per_sample_weights=values, mode='sum'): "
+                   "the head's margin, to hold against ms_head_only",
+        "library_margin_max_abs_err": lib_err,
+        "bytes": nbytes,
+        "ops": ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    emit("kernels_sparse", kernel=SPARSE_IDF_LOGISTIC.name, card=card, **timing)
+    del flush
+    return {"max_abs_err": max_abs_err, **timing}
+
+
+def _sparse_batch_breakdown(plan, df, ingest, reps=5):
+    """Where one full-bucket batch's time goes on the plan's path (host
+    clock, the device synchronised after each step; median of ``reps``):
+    packing the SparseVectors, the upload, the chain on the card, and the
+    readback with the tf-idf SparseVectors rebuilt."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.planner import PlanExecution, run_segment
+    from flink_ml_tpu_torch.servable.sparse import resolve_nnz_cap_max
+
+    (segment,) = plan.segments
+    steps = {"pack": [], "pack_and_upload": [], "chain": [], "readback": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        segment.gather_sparse(df, "features", cap_max=resolve_nnz_cap_max())
+        t1 = time.perf_counter()
+        inputs, key = ingest(segment, df, len(df))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outputs = run_segment(segment, key, inputs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        PlanExecution(df, segment.pending(outputs)).finalize()
+        t4 = time.perf_counter()
+        for name, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[name].append(dt * 1e3)
+    return {"rows": len(df), "key": list(key), "kinds": list(segment.plan_kinds[key]),
+            **{name: _median(v) for name, v in steps.items()}}
+
+
+def phase_serve_sparse(card: str, headline):
+    """The wide-sparse model served on the card: IDF → LogisticRegression
+    fitted on the headline rows, saved, loaded, and served."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.linalg.sparse_batch import ladder_cap
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+    from flink_ml_tpu_torch.models.common import extract_labeled_data
+    from flink_ml_tpu_torch.models.feature.idf import IDF
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+    from flink_ml_tpu_torch.servable import PipelineModelServable, load_servable
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    idx, y = headline
+    t0 = time.perf_counter()
+    df = _sparse_frame(idx, label=y)
+    data_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    idf_model = IDF().set_input_col("features").set_output_col("tfidf").fit(df)
+    idf_fit_s = time.perf_counter() - t0
+    doc_freq = np.bincount(idx.ravel(), minlength=TRAIN_DIM)
+    if not np.array_equal(idf_model.doc_freq, doc_freq):
+        raise AssertionError("IDF doc_freq differs from the rows' document counts")
+    t0 = time.perf_counter()
+    tfidf_df = idf_model.transform(df)  # on the card
+    idf_transform_s = time.perf_counter() - t0
+    idf32 = np.asarray(idf_model.idf, np.float32)
+    for i in (0, len(idx) // 2, len(idx) - 1):
+        v = tfidf_df.column("tfidf")[i]
+        if not (np.array_equal(v.indices, idx[i]) and np.array_equal(v.values, idf32[idx[i]].astype(np.float64))):
+            raise AssertionError(f"IDFModel.transform row {i} is not the f32 product")
+
+    premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+
+    est = (LogisticRegression().set_features_col("tfidf").set_max_iter(TRAIN_ITERS)
+           .set_global_batch_size(TRAIN_BATCH).set_learning_rate(TRAIN_LR).set_tol(0.0))
+    for k in premat_k:
+        k.reset_launches()
+    t0 = time.perf_counter()
+    lr_model = est.fit(tfidf_df)
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k.name: k.launches for k in premat_k}
+    if any(n != TRAIN_ITERS for n in fit_launches.values()) or not est.onehot_premat_active:
+        raise AssertionError(f"the tf-idf fit did not run the premat crossings each step: {fit_launches}")
+    if not est.loss_history[-1] < est.loss_history[0]:
+        raise AssertionError(f"tf-idf fit loss does not fall: {est.loss_history[0]} -> {est.loss_history[-1]}")
+    # Steady ms/step as in the train phase: SGD on one cache of the tf-idf
+    # column (its layout and one-hots built once), two iteration counts
+    # differenced; at the fit's schedule its coefficient is the fit's.
+    cols = extract_labeled_data(tfidf_df, "tfidf", "label", None, allow_sparse=True)
+    dim = cols.pop("dim")
+    cache = DeviceDataCache(cols)
+    del df, tfidf_df, cols
+
+    def sgd(iters):
+        opt = SGD(max_iter=iters, global_batch_size=TRAIN_BATCH, tol=0.0, learning_rate=TRAIN_LR)
+        t0 = time.perf_counter()
+        coef = opt.optimize(np.zeros(dim, np.float32), cache, BinaryLogisticLoss.INSTANCE)
+        return coef, time.perf_counter() - t0
+
+    coef, _ = sgd(TRAIN_ITERS)
+    if not np.array_equal(coef.view(np.int32), np.asarray(lr_model.coefficient, np.float32).view(np.int32)):
+        raise AssertionError("SGD on the tf-idf cache is not bit-identical to the fit")
+    t_runs = [sgd(iters)[1] for iters in STEP_ITERS]
+    fit_ms_per_step = (t_runs[1] - t_runs[0]) / (STEP_ITERS[1] - STEP_ITERS[0]) * 1e3
+    del cache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        idf_model.save(f"{tmp}/idf")
+        lr_model.save(f"{tmp}/lr")
+        pipeline = PipelineModelServable([load_servable(f"{tmp}/idf"), load_servable(f"{tmp}/lr")])
+    if not np.array_equal(pipeline.servables[1].coefficient, lr_model.coefficient):
+        raise AssertionError("the loaded coefficient differs from the fitted one")
+    coef32 = np.asarray(lr_model.coefficient, np.float32).astype(np.float64)
+
+    # Traffic: new rows of the headline generator under another seed.
+    rng = np.random.default_rng(SPARSE_SERVE_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    hot_sizes = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2, MAX_BATCH // 4]
+    sizes[::16] = hot_sizes[: len(sizes[::16])]  # hot keys on every run (4096, 1500, 2048, 1024)
+    nnz = [TRAIN_NNZ] * n_req
+    short = rng.choice([i for i in range(n_req) if i % 16], n_req // 4, replace=False)
+    for j, i in enumerate(short):  # a quarter with 1-38 features: caps 1-32 as well
+        nnz[i] = (1, 2, 3, 5, 9, 17, 24, 38)[j % 8]
+    payload_ids = [_hashed_rows(rng, n, k) for n, k in zip(sizes, nnz)]
+    payloads = [_sparse_frame(ids) for ids in payload_ids]
+
+    def check(i, out):
+        ids = payload_ids[i]
+        want = idf32[ids]  # value 1.0 × idf: the f32 product
+        got = out["tfidf"]
+        if len(got) != len(ids):
+            raise AssertionError(f"{len(got)} rows back for {len(ids)}")
+        for r in range(len(ids)):
+            if not (np.array_equal(got[r].indices, ids[r]) and np.array_equal(got[r].values, want[r])):
+                raise AssertionError(f"row {r}: tfidf is not the f32 product")
+        margin = (want.astype(np.float64) * coef32[ids]).sum(axis=1)
+        p = 1.0 / (1.0 + np.exp(-margin))
+        np.testing.assert_allclose(out["rawPrediction"], np.stack([1.0 - p, p], axis=1), rtol=0, atol=1e-5)
+        decided = np.abs(margin) > PREDICTION_MARGIN
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[decided],
+                                      (margin >= 0).astype(np.float64)[decided])
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(pipeline, name="chip-smoke-sparse", serving_config=config,
+                             warmup_template=payloads[0].take([0]), device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = pipeline._fastpath_plan
+        kinds = chain_kinds(plan)
+        keys = []  # the key of every batch the plan ingests from here on
+        ingest = plan._ingest
+
+        def recording_ingest(segment, df, bucket, cap=None, warm=False):
+            got = ingest(segment, df, bucket, cap=cap, warm=warm)
+            keys.append(got[1])
+            return got
+
+        plan._ingest = recording_ingest
+        # The main path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, ("sparse_idf_logistic_plain", "scale_logistic_plain"))
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        latencies = [None] * n_req
+        failures = []
+
+        def client(c):
+            for i in range(c, n_req, N_CLIENTS):
+                t_req = time.perf_counter()
+                try:
+                    resp = server.predict(payloads[i])
+                    latencies[i] = (time.perf_counter() - t_req) * 1000.0
+                    check(i, resp.dataframe)
+                except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                    failures.append(f"request {i} ({sizes[i]} rows): {type(e).__name__}: {e}")
+
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("serve_sparse clients did not finish within 600 s")
+        launches = mk.SPARSE_IDF_LOGISTIC.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.SPARSE_IDF_LOGISTIC}
+        batches = server.executed_batch_sizes[batches_before:]
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    breakdown = _sparse_batch_breakdown(plan, payloads[sizes.index(MAX_BATCH)], ingest)
+    hot = sorted(k for k, kind in kinds.items() if "megakernel" in kind)
+    hot_batches = sum(1 for k in keys if k in hot)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if not launches > 0:
+        raise AssertionError("the sparse megakernel never launched on the main path")
+    if launches != hot_batches:
+        raise AssertionError(f"sparse megakernel launches {launches} != batches with hot keys {hot_batches}")
+    if len(keys) != len(batches):
+        raise AssertionError(f"{len(keys)} batches ingested, {len(batches)} executed")
+    if fallback != 0:
+        raise AssertionError(f"{fallback} batches fell back to the per-stage path")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} chains were built after warmup")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during sparse serving: {other}")
+    lat = sorted(latencies)
+    result = {
+        "dim": TRAIN_DIM, "train_rows": len(idx), "data_s": data_s,
+        "idf_fit_s": idf_fit_s, "idf_transform_s": idf_transform_s,
+        "lr_fit_s": fit_s, "lr_fit_ms_per_step": fit_ms_per_step, "lr_fit_launches": fit_launches,
+        "lr_loss_first": est.loss_history[0], "lr_loss_last": est.loss_history[-1],
+        "warmup_s": warmup_s, "warmed_keys": len(kinds),
+        "requests": n_req, "rows": sum(sizes),
+        "caps_requested": sorted({ladder_cap(k) for k in nnz}),
+        "caps_served": sorted({k[1] for k in keys}),
+        "batches": len(batches),
+        "hot_keys": hot,
+        "hot_batches": hot_batches,
+        "megakernel_launches": launches,
+        "fallback_batches": fallback,
+        "post_warmup_builds": compiles,
+        "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall,
+        "wall_s": wall,
+        "hot_batch_breakdown_ms": breakdown,
+    }
+    emit("serve_sparse", card=card, **result)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -828,8 +1255,8 @@ def main() -> int:
 
     from flink_ml_tpu_torch.native import KERNELS
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
-    import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernel
-    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC
+    import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
+    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC, SPARSE_IDF_LOGISTIC
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -842,10 +1269,14 @@ def main() -> int:
     measured = {SCALE_LOGISTIC.name: phase_kernels(rng, smi)}
     launches = {SCALE_LOGISTIC.name: phase_serve(rng, smi)}
     grid_errs = phase_crossings_grid(rng, smi)
-    cache, train_launches = phase_train(smi)
+    headline = _headline_data()
+    cache, train_launches = phase_train(smi, headline)
     launches.update(train_launches)
     measured.update(phase_crossings_headline(cache, smi))
     del cache
+    torch.cuda.empty_cache()
+    measured[SPARSE_IDF_LOGISTIC.name] = phase_kernels_sparse(rng, smi, headline[0])
+    launches[SPARSE_IDF_LOGISTIC.name] = phase_serve_sparse(smi, headline)
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -864,6 +1295,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
+    if len(lines) != 6:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 6")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Runtime configuration tier — the ``serving.*`` and ``fusion.*`` options the
-serving path reads, and the ``train.*`` options the trainer checks.
+"""Runtime configuration tier — the ``serving.*``, ``fusion.*`` and
+``sparse.*`` options the serving path reads, and the ``train.*`` options the
+trainer checks.
 
 Twin of ``flink_ml_tpu/config.py``: the option keys, defaults and the
 environment-variable names derived from them (``serving.max.batch.size`` →
@@ -112,6 +113,32 @@ class Options:
         "Cost-model hotness bar for the megakernel: a chain runs as the "
         "megakernel only when rows x estimated-FLOPs-per-row (from stage "
         "shapes) reaches this score for the key being built.",
+    )
+    SPARSE_FASTPATH = ConfigOption(
+        "sparse.fastpath",
+        _parse_bool,
+        True,
+        "Let SparseVector columns ride the compiled plans through the sparse "
+        "calling convention (servable/sparse.py): values/ids/nnz as dense "
+        "device tensors on the power-of-two nnz-cap ladder. Off = every "
+        "sparse column falls back to the per-stage path.",
+    )
+    SPARSE_NNZ_CAP_MAX = ConfigOption(
+        "sparse.nnz.cap.max",
+        int,
+        64,
+        "Top rung of the sparse nnz-per-row bucket ladder. A batch whose "
+        "rows carry more entries than this is off-ladder and serves through "
+        "the per-stage fallback (counted under the 'off_ladder' fallback "
+        "reason) instead of building an unbounded chain set.",
+    )
+    SPARSE_WARMUP_CAPS = ConfigOption(
+        "sparse.warmup.caps",
+        str,
+        None,
+        "Comma-separated nnz caps the serving warmup builds per bucket for "
+        "sparse segments (each rounds up to its ladder rung). Default: the "
+        "full power-of-two ladder up to sparse.nnz.cap.max.",
     )
 
     TRAIN_MESH = ConfigOption(

@@ -13,9 +13,20 @@ import numpy as np
 
 from flink_ml_tpu_torch.linalg.vectors import Vector
 
-__all__ = ["SparseBatch"]
+__all__ = ["SparseBatch", "ladder_cap"]
 
 _LANE = 8  # pad K to a multiple of this, as the JAX package does
+
+
+def ladder_cap(max_nnz: int) -> int:
+    """The nnz-per-row bucket ladder of the sparse serving path: the
+    smallest power of two ≥ ``max_nnz`` (floor 1), so a ragged batch pads
+    its row width to a rung and the chain set stays ≤ 1 per (row bucket,
+    nnz cap)."""
+    cap = 1
+    while cap < max(1, int(max_nnz)):
+        cap *= 2
+    return cap
 
 
 class SparseBatch:

@@ -131,6 +131,17 @@ class SparseVector(Vector):
         self.indices = indices
         self.values = values
 
+    @classmethod
+    def from_sorted(cls, size: int, indices: np.ndarray, values: np.ndarray) -> "SparseVector":
+        """A vector from int64 ``indices`` that are already sorted, unique
+        and in range, and float64 ``values`` — the readback of a packed
+        column, whose rows keep that invariant — without re-checking it."""
+        v = cls.__new__(cls)
+        v.n = int(size)
+        v.indices = indices
+        v.values = values
+        return v
+
     def size(self) -> int:
         return self.n
 

@@ -47,8 +47,11 @@ class MLMetrics:
     FUSION_PLAN_CHOICE = "ml.fusion.plan.choice"  # 0 exact / 1 fused / 2 megakernel, gauge
     FUSION_PLAN_SCORE = "ml.fusion.plan.score"  # cost-model score of the last built chain, gauge
 
-    #: Reason labels of the per-reason fast-path fallback counters.
-    FALLBACK_REASONS = ("sparse", "ragged", "signature", "specless")
+    #: Reason labels of the per-reason fast-path fallback counters: a sparse
+    #: column where the segment expects a dense kind, a column that is not a
+    #: dense numeric array, a batch whose nnz exceeds ``sparse.nnz.cap.max``,
+    #: a shape differing from the key's recorded one, a stage with no spec.
+    FALLBACK_REASONS = ("sparse", "ragged", "off_ladder", "signature", "specless")
 
     @staticmethod
     def fallback_reason(tier: str, reason: str) -> str:

@@ -8,33 +8,30 @@ prediction = margin ≥ 0, rawPrediction = [1−p, p] with p = sigmoid(margin)
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.models.linear import LinearEstimatorBase, LinearModelBase
-from flink_ml_tpu_torch.ops.kernels import dot_fn, logistic_from_dots_fn
 from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
 from flink_ml_tpu_torch.params.shared import HasMultiClass, HasRawPredictionCol
+from flink_ml_tpu_torch.servable.lib import LogisticRegressionModelServable, logistic_predict
 
 __all__ = ["LogisticRegression", "LogisticRegressionModel"]
 
 
 class LogisticRegressionModel(LinearModelBase, HasRawPredictionCol, HasMultiClass):
-    """LogisticRegressionModel.java: dense ``transform``, save and load."""
+    """LogisticRegressionModel.java: dense and sparse ``transform``, save and load."""
 
     @classmethod
     def load_servable(cls, path: str):
         """The runtime-free servable of this model's save directory."""
-        from flink_ml_tpu_torch.servable.lib import LogisticRegressionModelServable
-
         return LogisticRegressionModelServable.load_servable(path)
 
     def transform(self, *inputs, device=None):
-        """Predictions on ``device`` (None → the GPU). A sparse features
-        column needs the sparse serving slice, not ported yet."""
+        """Predictions on ``device`` (None → the GPU). A SparseVector
+        features column stays in the padded layout: its margins come from
+        ``sparse_dot_fn`` on the packed triple, as in the servable."""
         (df,) = inputs
-        features_col = self.get_features_col()
         out = df.clone()
         if len(df) == 0:
             out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, np.zeros(0))
@@ -42,16 +39,9 @@ class LogisticRegressionModel(LinearModelBase, HasRawPredictionCol, HasMultiClas
                 self.get_raw_prediction_col(), DataTypes.vector(BasicType.DOUBLE), np.zeros((0, 2))
             )
             return out
-        if df.is_sparse(features_col):
-            raise NotImplementedError(
-                "LogisticRegressionModel.transform on a sparse features column "
-                "(sparse_dot_fn, servable/sparse.py) is not ported to the "
-                "PyTorch package yet (see ROADMAP.md)"
-            )
-        dev = resolve_device(device)
-        X = torch.from_numpy(np.ascontiguousarray(df.vectors(features_col), np.float32)).to(dev)
-        coef = torch.from_numpy(np.ascontiguousarray(self.coefficient, np.float32)).to(dev)
-        pred, raw = logistic_from_dots_fn(dot_fn(X, coef))
+        pred, raw = logistic_predict(
+            df, self.get_features_col(), self.coefficient, resolve_device(device)
+        )
         out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, pred.cpu().numpy().astype(np.float64))
         out.add_column(
             self.get_raw_prediction_col(), DataTypes.vector(BasicType.DOUBLE),

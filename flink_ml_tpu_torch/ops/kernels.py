@@ -2,15 +2,30 @@
 
 Every serving path composes these functions: a servable's per-stage
 ``transform``, its ``KernelSpec.kernel_fn`` (the planner's programs), and the
-plain version of the CUDA megakernel (``servable/megakernels.py``). So the
+plain versions of the CUDA megakernels (``servable/megakernels.py``). So the
 per-stage, merged and plain paths run the same PyTorch operations, and the
-hand-written kernel is held against them. All math is float32.
+hand-written kernels are held against them. All math is float32.
+
+The sparse functions take the sparse calling convention's padded layout
+(``servable/sparse.py``): ``values [n, K] f32`` and ``ids [n, K] i32`` with
+padding slots id 0 / value 0. A gather clamps an id outside ``[0, d)`` the
+way the JAX package's indexing does: a negative id counts from the end, then
+the id is clipped into range.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dot_fn", "logistic_from_dots_fn", "scale_fn"]
+__all__ = [
+    "dot_fn",
+    "gather_clamped",
+    "idf_scale_fn",
+    "logistic_from_dots_fn",
+    "scale_fn",
+    "segment_sum",
+    "sparse_dot_fn",
+    "sparse_idf_scale_fn",
+]
 
 
 def dot_fn(X: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
@@ -36,3 +51,41 @@ def scale_fn(X: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor, *,
     if with_std:
         out = out * inv_std[None, :]
     return out
+
+
+def idf_scale_fn(X: torch.Tensor, idf: torch.Tensor) -> torch.Tensor:
+    """Term-frequency vectors [n, d] scaled elementwise by ``idf`` [d]."""
+    return X * idf[None, :]
+
+
+def gather_clamped(vec: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``vec[ids]`` with the JAX package's out-of-range rule (module
+    docstring); the ids of a packed column are always in range."""
+    d = vec.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + d, ids).clamp_(0, d - 1)
+    return vec[ids]
+
+
+def segment_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``terms [n, K]`` as a strictly sequential left fold over
+    the slot axis, starting from +0.0. A padding slot appends an exact
+    identity add, so a row's sum is bit-identical at every nnz cap the
+    batch was packed at — which ``torch.sum`` (whose order depends on the
+    width and the device) does not promise."""
+    acc = torch.zeros(terms.shape[0], dtype=terms.dtype, device=terms.device)
+    for k in range(terms.shape[1]):
+        acc = acc + terms[:, k]
+    return acc
+
+
+def sparse_dot_fn(values: torch.Tensor, ids: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Padded-layout margins: gather, scale, then the sequential
+    :func:`segment_sum` — [n, K] → [n]."""
+    return segment_sum(values * gather_clamped(coef, ids))
+
+
+def sparse_idf_scale_fn(values: torch.Tensor, ids: torch.Tensor, idf: torch.Tensor) -> torch.Tensor:
+    """Sparse term-frequency entries scaled by their dimension's idf — one
+    gather and one multiply per slot; ids and nnz pass through."""
+    return values * gather_clamped(idf, ids)

@@ -10,8 +10,9 @@ Twin of ``flink_ml_tpu/servable/fusion.py`` for dense chains. ``fusion.mode``:
   the per-chain ulp envelope :data:`ULP_ENVELOPE` instead of bit-equality.
 
 The cost model (rows × estimated per-row FLOPs from the model-array shapes,
-plus the ingest traffic term) is the JAX package's, so both packages choose
-the same program kind for the same shapes.
+or from the nnz cap for a sparse spec, plus the ingest traffic term) is the
+JAX package's, so both packages choose the same program kind for the same
+shapes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 __all__ = [
     "FUSION_EXACT",
     "FUSION_FAST",
+    "SPARSE_FLOPS_PER_NNZ",
     "ULP_ENVELOPE",
     "FusionTier",
     "chain_score",
@@ -51,10 +53,21 @@ ULP_ENVELOPE = {
 }
 
 
-def spec_flops_per_row(spec: Any) -> float:
-    """Estimated FLOPs one row pays in ``spec``'s kernel: 8, plus 2·size per
-    2-D model array (matmul operands) and 1·size per 1-D array (broadcast
-    operands)."""
+#: FLOPs one entry slot of a sparse spec costs by default (gather, multiply,
+#: segment add, bookkeeping) — the per-nnz analogue of the dense estimate.
+SPARSE_FLOPS_PER_NNZ = 8.0
+
+
+def spec_flops_per_row(spec: Any, nnz_cap: int = 0) -> float:
+    """Estimated FLOPs one row pays in ``spec``'s kernel. A dense spec: 8,
+    plus 2·size per 2-D model array (matmul operands) and 1·size per 1-D
+    array (broadcast operands). A sparse spec is costed by what it touches,
+    not what it addresses: 8 plus ``sparse_flops_per_nnz`` × ``nnz_cap``,
+    the padded slots included (the padding-waste term)."""
+    if getattr(spec, "is_sparse", False):
+        declared = getattr(spec, "sparse_flops_per_nnz", None)
+        per_nnz = SPARSE_FLOPS_PER_NNZ if declared is None else float(declared)
+        return 8.0 + per_nnz * float(max(0, nnz_cap))
     total = 8.0  # floor: every kernel pays at least a few elementwise ops
     for arr in spec.model_arrays.values():
         a = np.asarray(arr)
@@ -62,11 +75,12 @@ def spec_flops_per_row(spec: Any) -> float:
     return total
 
 
-def chain_score(specs: Sequence[Any], rows: int, width: int = 0) -> float:
+def chain_score(specs: Sequence[Any], rows: int, width: int = 0, nnz_cap: int = 0) -> float:
     """Hotness of running ``specs`` as one chain at ``rows``: per-row FLOPs
-    plus 4 bytes × ``width`` (the widest ingest column) per stage, times
-    rows. Monotone in rows, width and every model-array size."""
-    per_row = sum(spec_flops_per_row(s) for s in specs) + 4.0 * width * len(specs)
+    (sparse specs at the chain's ``nnz_cap``) plus 4 bytes × ``width`` (the
+    widest dense ingest column) per stage, times rows. Monotone in rows,
+    width, nnz cap and every model-array size."""
+    per_row = sum(spec_flops_per_row(s, nnz_cap) for s in specs) + 4.0 * width * len(specs)
     return rows * per_row
 
 
@@ -93,12 +107,14 @@ class FusionTier:
         """Cache identity: a plan built under one key is stale under another."""
         return (self.mode, self.megakernel, self.min_score)
 
-    def megakernel_hot(self, specs: Sequence[Any], rows: int, width: int = 0) -> bool:
+    def megakernel_hot(self, specs: Sequence[Any], rows: int, width: int = 0,
+                       nnz_cap: int = 0) -> bool:
         """Whether the cost model marks this chain hot enough for the
-        megakernel at ``rows`` (fast mode only)."""
+        megakernel at ``rows`` (and ``nnz_cap``, for a sparse chain; fast
+        mode only)."""
         if not (self.fast and self.megakernel):
             return False
-        return chain_score(specs, rows, width) >= self.min_score
+        return chain_score(specs, rows, width, nnz_cap) >= self.min_score
 
     def __repr__(self) -> str:
         return (

@@ -1,13 +1,27 @@
 """KernelSpec — a transform as a pure, fusable device program.
 
-Twin of ``flink_ml_tpu/servable/kernel_spec.py``, dense fields only. A stage
-that is row-wise and numerically pure describes itself as a spec, and the
-planner (``servable/planner.py``) composes consecutive specs into per-bucket
-chains with device-resident model tensors:
+Twin of ``flink_ml_tpu/servable/kernel_spec.py``. A stage that is row-wise
+and numerically pure describes itself as a spec, and the planner
+(``servable/planner.py``) composes consecutive specs into per-key chains with
+device-resident model tensors:
 
-- ``input_cols`` — columns the kernel reads, ingested the way ``transform``
-  reads them (``df.vectors(col)``) as float32 tensors;
+- ``input_cols`` — columns the kernel reads, each ingested the way
+  ``transform`` reads it; ``input_kinds`` picks the accessor per column:
+
+  * ``"vector"`` (default) — ``df.vectors(col)``: dense [n, d] float32;
+  * ``"dense"`` — ``df.column(col)`` must already be an ndarray, kept at its
+    shape (a list column falls back, as its per-stage path does host math);
+  * ``"sparse"`` — the sparse calling convention (``servable/sparse.py``):
+    the column enters as ``col!values`` / ``col!ids`` / ``col!nnz`` packed
+    at a ladder nnz cap, and ``kernel_fn`` reads the expanded names.
+
+  The JAX package's ``"scalar"``, ``"entries"`` and ``"shape"`` kinds are
+  not ported yet (ROADMAP.md);
 - ``outputs`` — ``(column name, DataType)`` pairs in ``add_column`` order;
+  ``sparse_outputs`` maps those that leave in the sparse convention to their
+  dimension (``kernel_fn`` returns their expanded names);
+- ``sparse_input_dims`` — the expected dimension of each ``"sparse"`` input
+  (a packed batch of another dim falls back per-stage);
 - ``model_arrays`` — name → host ndarray in the dtype the kernel consumes,
   moved to the device once when the plan is built;
 - ``kernel_fn(model_tensors, column_tensors) -> {name: tensor}`` — pure
@@ -19,7 +33,9 @@ chains with device-resident model tensors:
   (``servable/megakernels.py``), or None;
 - ``fusion_params`` — the static arguments the hand-written megakernel needs
   to run this body (the scaler's ``with_mean``/``with_std``); a Pallas kernel
-  traces ``kernel_fn`` and needs none, a CUDA kernel cannot.
+  traces ``kernel_fn`` and needs none, a CUDA kernel cannot;
+- ``sparse_flops_per_nnz`` — the cost model's FLOPs per entry slot of a
+  sparse spec (``servable/fusion.py``; default there).
 """
 from __future__ import annotations
 
@@ -27,14 +43,19 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from flink_ml_tpu_torch.servable.sparse import sparse_names
+
 __all__ = ["KernelSpec"]
+
+_VALID_KINDS = ("vector", "dense", "sparse")
 
 
 class KernelSpec:
     """Pure-kernel description of one pipeline stage (see module docstring)."""
 
-    __slots__ = ("input_cols", "outputs", "model_arrays", "kernel_fn",
-                 "elementwise", "fusable", "fusion_op", "fusion_params")
+    __slots__ = ("input_cols", "outputs", "model_arrays", "kernel_fn", "input_kinds",
+                 "elementwise", "fusable", "fusion_op", "fusion_params", "sparse_outputs",
+                 "sparse_input_dims", "sparse_flops_per_nnz")
 
     def __init__(
         self,
@@ -43,10 +64,14 @@ class KernelSpec:
         outputs: Sequence[Tuple[str, Any]],
         model_arrays: Mapping[str, np.ndarray],
         kernel_fn: Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, Any]],
+        input_kinds: Optional[Mapping[str, str]] = None,
         elementwise: bool = False,
         fusable: bool = True,
         fusion_op: Optional[str] = None,
         fusion_params: Optional[Mapping[str, Any]] = None,
+        sparse_outputs: Optional[Mapping[str, int]] = None,
+        sparse_input_dims: Optional[Mapping[str, int]] = None,
+        sparse_flops_per_nnz: Optional[float] = None,
     ):
         self.input_cols: Tuple[str, ...] = tuple(input_cols)
         self.outputs: Tuple[Tuple[str, Any], ...] = tuple(outputs)
@@ -54,22 +79,55 @@ class KernelSpec:
             k: np.asarray(v) for k, v in model_arrays.items()
         }
         self.kernel_fn = kernel_fn
+        self.input_kinds: Dict[str, str] = dict(input_kinds or {})
+        for name, kind in self.input_kinds.items():
+            if kind not in _VALID_KINDS:
+                raise ValueError(
+                    f"input kind {kind!r} for column {name!r}; the port takes "
+                    f"{_VALID_KINDS} (the others are still to port, see ROADMAP.md)"
+                )
         self.elementwise = bool(elementwise)
         self.fusable = bool(fusable)
         if fusion_op is not None and not isinstance(fusion_op, str):
             raise ValueError(f"fusion_op must be a string op id; got {fusion_op!r}")
         self.fusion_op = fusion_op
         self.fusion_params: Dict[str, Any] = dict(fusion_params or {})
+        self.sparse_outputs: Dict[str, int] = {k: int(v) for k, v in (sparse_outputs or {}).items()}
+        for name in self.sparse_outputs:
+            if name not in self.output_names:
+                raise ValueError(f"sparse output {name!r} not in outputs")
+        self.sparse_input_dims: Dict[str, int] = {
+            k: int(v) for k, v in (sparse_input_dims or {}).items()
+        }
+        self.sparse_flops_per_nnz = (
+            None if sparse_flops_per_nnz is None else float(sparse_flops_per_nnz)
+        )
 
     @property
     def output_names(self) -> Tuple[str, ...]:
         return tuple(name for name, _ in self.outputs)
 
     @property
+    def is_sparse(self) -> bool:
+        """Whether any input or output rides the sparse convention."""
+        return bool(self.sparse_outputs) or "sparse" in self.input_kinds.values()
+
+    def input_kind(self, name: str) -> str:
+        return self.input_kinds.get(name, "vector")
+
+    def program_input_names(self, col: str) -> Tuple[str, ...]:
+        """The program-level names one input column expands to: the
+        convention triple for a sparse column, the column itself otherwise."""
+        return sparse_names(col) if self.input_kind(col) == "sparse" else (col,)
+
+    @property
     def program_outputs(self) -> Tuple[str, ...]:
-        """Every program-level output name, in declaration order (dense specs
-        only: one per declared output)."""
-        return self.output_names
+        """Every program-level output name, in declaration order: the
+        convention triple for a sparse output, the column itself otherwise."""
+        out: Tuple[str, ...] = ()
+        for name in self.output_names:
+            out += sparse_names(name) if name in self.sparse_outputs else (name,)
+        return out
 
     def __repr__(self) -> str:
         return (

@@ -1,9 +1,10 @@
 """Concrete servables — twin of ``flink_ml_tpu/servable/lib.py`` for the
-StandardScaler → LogisticRegression serving path.
+StandardScaler → LogisticRegression serving path, dense and sparse.
 
 Each servable's per-stage ``transform`` and its ``kernel_spec().kernel_fn``
-compose the same ``ops/kernels.py`` functions, so the per-stage path, the
-planner's programs and the megakernel's plain version run the same math.
+(or ``sparse_kernel_spec``) compose the same ``ops/kernels.py`` functions, so
+the per-stage path, the planner's programs and the megakernels' plain
+versions run the same math.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
-from flink_ml_tpu_torch.ops.kernels import dot_fn, logistic_from_dots_fn, scale_fn
+from flink_ml_tpu_torch.ops.kernels import dot_fn, logistic_from_dots_fn, scale_fn, sparse_dot_fn
 from flink_ml_tpu_torch.params.param import BoolParam
 from flink_ml_tpu_torch.params.shared import (
     HasFeaturesCol,
@@ -24,8 +25,14 @@ from flink_ml_tpu_torch.params.shared import (
 )
 from flink_ml_tpu_torch.servable.api import ModelServable
 from flink_ml_tpu_torch.servable.kernel_spec import KernelSpec
+from flink_ml_tpu_torch.servable.sparse import pack_sparse_column, sparse_names
 
-__all__ = ["LogisticRegressionModelServable", "StandardScalerModelServable"]
+__all__ = [
+    "LogisticRegressionModelServable",
+    "StandardScalerModelServable",
+    "logistic_predict",
+    "packed_tensors",
+]
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -37,11 +44,34 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.float64)
 
 
+def packed_tensors(df: DataFrame, col: str, dim: int, device: torch.device):
+    """A SparseVector column as the convention's ``(values, ids, nnz)``
+    tensors on ``device``, packed at its natural ladder cap — never as a
+    dense [n, dim] array."""
+    arrays, _cap, _dim, _nnz = pack_sparse_column(df, col, dim=dim)
+    return tuple(torch.from_numpy(arrays[name]).to(device) for name in sparse_names(col))
+
+
+def logistic_predict(df: DataFrame, features_col: str, coefficient, device: torch.device):
+    """``(prediction, rawPrediction)`` float32 tensors for ``df``'s features:
+    a sparse column through ``sparse_dot_fn`` on its packed triple (whose
+    sequential fold makes the margin the same at every nnz cap), a dense
+    one through ``dot_fn``. Shared by the servable and the training-side
+    model."""
+    coef = _to_device(coefficient, device)
+    if df.is_sparse(features_col):
+        values, ids, _nnz = packed_tensors(df, features_col, int(coef.shape[0]), device)
+        dots = sparse_dot_fn(values, ids, coef)
+    else:
+        dots = dot_fn(_to_device(df.vectors(features_col), device), coef)
+    return logistic_from_dots_fn(dots)
+
+
 class LogisticRegressionModelServable(
     ModelServable, HasFeaturesCol, HasPredictionCol, HasRawPredictionCol
 ):
-    """prediction = margin ≥ 0, rawPrediction = [1−p, p], p = sigmoid(margin).
-    Dense features only: a sparse features column is densified."""
+    """prediction = margin ≥ 0, rawPrediction = [1−p, p], p = sigmoid(margin),
+    for dense or SparseVector features (a sparse column stays packed)."""
 
     _MODEL_ARRAY_NAMES = ("coefficient",)
 
@@ -52,9 +82,9 @@ class LogisticRegressionModelServable(
     def transform(self, df: DataFrame, device=None) -> DataFrame:
         if self.coefficient is None:
             raise RuntimeError("set_model_data must be called before transform")
-        device = resolve_device(device)
-        X = _to_device(df.vectors(self.get_features_col()), device)
-        pred, raw = logistic_from_dots_fn(dot_fn(X, _to_device(self.coefficient, device)))
+        pred, raw = logistic_predict(
+            df, self.get_features_col(), self.coefficient, resolve_device(device)
+        )
         out = df.clone()
         out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, _to_host(pred))
         out.add_column(
@@ -82,6 +112,40 @@ class LogisticRegressionModelServable(
             model_arrays={"coefficient": np.asarray(self.coefficient, np.float32)},
             kernel_fn=kernel_fn,
             fusion_op="logistic",
+        )
+
+    def sparse_kernel_spec(self, known):
+        """The sparse-convention head: when the features column is known
+        sparse at the coefficient's width, the margin is ``sparse_dot_fn``
+        on the packed triple — the body ``transform``'s sparse path runs —
+        feeding the shared logistic head. Otherwise None (the dense spec
+        serves)."""
+        if self.coefficient is None:
+            raise RuntimeError("set_model_data must be called before kernel_spec")
+        features_col = self.get_features_col()
+        pred_col, raw_col = self.get_prediction_col(), self.get_raw_prediction_col()
+        dim = int(np.asarray(self.coefficient).shape[0])
+        if known.get(features_col) != dim:
+            return None
+        in_v, in_i, _in_z = sparse_names(features_col)
+
+        def kernel_fn(model, cols):
+            pred, raw = logistic_from_dots_fn(
+                sparse_dot_fn(cols[in_v], cols[in_i], model["coefficient"])
+            )
+            return {pred_col: pred, raw_col: raw}
+
+        return KernelSpec(
+            input_cols=(features_col,),
+            outputs=(
+                (pred_col, DataTypes.DOUBLE),
+                (raw_col, DataTypes.vector(BasicType.DOUBLE)),
+            ),
+            model_arrays={"coefficient": np.asarray(self.coefficient, np.float32)},
+            kernel_fn=kernel_fn,
+            input_kinds={features_col: "sparse"},
+            sparse_input_dims={features_col: dim},
+            fusion_op="sparse_logistic",
         )
 
 

@@ -1,12 +1,11 @@
 """Stage-chain planner — twin of ``flink_ml_tpu/servable/planner.py`` for the
-dense, unsharded serving path.
+unsharded serving path, dense and sparse.
 
 Consecutive :class:`~flink_ml_tpu_torch.servable.kernel_spec.KernelSpec`
 stages form a :class:`FusedSegment`: its model arrays move to the device once
-when the segment is built (the counterpart of ``device_put``), and per key (the
-padded bucket) it builds a **chain** of programs that pass device tensors to
-each other — one host→device ingest, one device→host readback, no DataFrame
-in between.
+when the segment is built (the counterpart of ``device_put``), and per key
+it builds a **chain** of programs that pass device tensors to each other —
+one host→device ingest, one device→host readback, no DataFrame in between.
 
 Program partition, as in the JAX package:
 
@@ -18,6 +17,12 @@ Program partition, as in the JAX package:
   (``servable/fusion.py``) may run a hot run as the hand-written CUDA
   megakernel instead (:func:`_fast_megakernels`), when one exists for the
   chain.
+
+Sparse columns ride the sparse calling convention (``servable/sparse.py``):
+a ``"sparse"``-kind input enters as its values/ids/nnz triple
+(:meth:`FusedSegment.gather_sparse`), a sparse output leaves as one and is
+rebuilt into SparseVectors at readback. Which stages take the convention is
+decided statically when the segments are built (:func:`build_segments`).
 
 "Compiling" a key here means choosing each program's kind and recording the
 key's input signature; PyTorch runs eagerly, so nothing is traced. A
@@ -32,8 +37,16 @@ import numpy as np
 import torch
 
 from flink_ml_tpu_torch.api.dataframe import DataFrame
+from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.servable.fusion import chain_score
 from flink_ml_tpu_torch.servable.megakernels import build_megakernel_fn, chain_eligible
+from flink_ml_tpu_torch.servable.sparse import (
+    SPARSE_MARK,
+    OffLadderError,
+    pack_sparse_column,
+    rebuild_sparse_column,
+    sparse_names,
+)
 
 __all__ = [
     "IneligibleBatch",
@@ -54,8 +67,10 @@ PLAN_MEGAKERNEL = "megakernel"
 class IneligibleBatch(Exception):
     """This batch cannot ride the segment's chain — fall back to per-stage.
     ``reason`` labels the per-reason fallback counter: ``"sparse"`` (a sparse
-    column), ``"ragged"`` (a column that is not a dense numeric array),
-    ``"signature"`` (shape differing from the key's recorded signature)."""
+    column where the segment expects a dense kind), ``"ragged"`` (a column
+    that is not a dense numeric array), ``"off_ladder"`` (nnz above
+    ``sparse.nnz.cap.max``), ``"signature"`` (shape or dim differing from the
+    key's recorded signature)."""
 
     def __init__(self, message: str, reason: str = "ragged"):
         super().__init__(message)
@@ -63,11 +78,13 @@ class IneligibleBatch(Exception):
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One float32 host array onto ``device``. For CUDA the bytes are staged
-    in pinned memory (PyTorch's caching host allocator) and copied with
-    ``non_blocking=True`` on the current stream, so the copy queues behind
-    the work already dispatched instead of synchronising with it."""
-    host = torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
+    """One host array onto ``device`` — int32 (ids, nnz) as it is, anything
+    else as float32. For CUDA the bytes are staged in pinned memory
+    (PyTorch's caching host allocator) and copied with ``non_blocking=True``
+    on the current stream, so the copy queues behind the work already
+    dispatched instead of synchronising with it."""
+    dtype = np.int32 if arr.dtype == np.int32 else np.float32
+    host = torch.from_numpy(np.require(arr, dtype, ["C", "W"]))
     if device.type == "cpu":
         return host
     return host.pin_memory().to(device, non_blocking=True)
@@ -87,8 +104,9 @@ class _Program:
         produced: set = set()
         for spec in self.specs:
             for col in spec.input_cols:
-                if col not in produced and col not in needed:
-                    needed.append(col)
+                for name in spec.program_input_names(col):
+                    if name not in produced and name not in needed:
+                        needed.append(name)
             produced.update(spec.program_outputs)
         self.inputs: Tuple[str, ...] = tuple(needed)
 
@@ -163,7 +181,7 @@ class FusedSegment:
 
     __slots__ = (
         "stages", "specs", "external_inputs", "device", "device_models", "programs",
-        "compiled", "signatures", "fusion", "mega", "plan_kinds",
+        "compiled", "signatures", "fusion", "mega", "plan_kinds", "has_sparse_inputs",
     )
 
     def __init__(self, staged: Sequence[Tuple[Any, Any]], device: torch.device,
@@ -176,10 +194,15 @@ class FusedSegment:
         external: List[str] = []
         for spec in self.specs:
             for col in spec.input_cols:
-                if col not in produced and col not in external:
+                if all(n in produced for n in spec.program_input_names(col)):
+                    continue
+                if col not in external:
                     external.append(col)
             produced.update(spec.program_outputs)
         self.external_inputs: Tuple[str, ...] = tuple(external)
+        #: Whether an external input rides the sparse convention — such a
+        #: segment keys its chains by (bucket, nnz cap).
+        self.has_sparse_inputs = any(self.input_kind(n) == "sparse" for n in external)
         # One upload per model array, when the segment is built (warmup/swap
         # time): the hot path only ever passes these tensors back in.
         self.device_models = tuple(
@@ -205,16 +228,62 @@ class FusedSegment:
         #: key -> program kinds chosen for it
         self.plan_kinds: Dict[Hashable, Tuple[str, ...]] = {}
 
+    def input_kind(self, name: str) -> str:
+        """The ingest accessor of an external input: the first consuming
+        spec's declared kind."""
+        for spec in self.specs:
+            if name in spec.input_cols:
+                return spec.input_kind(name)
+        return "vector"
+
     def gather(self, df: DataFrame, name: str) -> np.ndarray:
-        """One host-side read of an external input column, the way the
+        """One host-side read of a dense external input column, the way the
         consuming stage's ``transform`` reads it, as float32. Raises
         :class:`IneligibleBatch` for anything a chain cannot take."""
         if df.is_sparse(name):
             raise IneligibleBatch(f"column {name!r} is sparse", reason="sparse")
         try:
+            if self.input_kind(name) == "dense":
+                col = df.column(name)
+                if not isinstance(col, np.ndarray):
+                    raise IneligibleBatch(f"column {name!r} is ragged: the per-stage path owns it")
+                return np.asarray(col, np.float32)
             return np.asarray(df.vectors(name), np.float32)
+        except IneligibleBatch:
+            raise
         except (ValueError, TypeError, KeyError) as e:  # ragged / non-numeric / missing
             raise IneligibleBatch(f"column {name!r} not fusable: {e}") from e
+
+    def gather_sparse(
+        self,
+        df: DataFrame,
+        name: str,
+        *,
+        cap: Optional[int] = None,
+        cap_max: Optional[int] = None,
+        truncate: bool = False,
+    ) -> Tuple[Dict[str, np.ndarray], int]:
+        """One host-side pack of a ``"sparse"``-kind external input at a
+        ladder cap (``servable/sparse.py``): ``(arrays, nnz_cap)``. Raises
+        :class:`IneligibleBatch` for what the convention cannot take: rows
+        over ``cap_max`` (``off_ladder``), a column that is not sparse or of
+        another dim (``signature``)."""
+        if not df.is_sparse(name):
+            raise IneligibleBatch(
+                f"column {name!r} is not sparse — the segment expects the sparse convention",
+                reason="signature",
+            )
+        dim = next((s.sparse_input_dims[name] for s in self.specs
+                    if name in s.sparse_input_dims), None)
+        try:
+            arrays, used_cap, _dim, _total = pack_sparse_column(
+                df, name, dim=dim, cap=cap, cap_max=cap_max, truncate=truncate
+            )
+        except OffLadderError as e:
+            raise IneligibleBatch(str(e), reason="off_ladder") from e
+        except ValueError as e:  # dim mismatch
+            raise IneligibleBatch(f"column {name!r} not packable: {e}", reason="signature") from e
+        return arrays, used_cap
 
     @property
     def outputs(self) -> List[Tuple[str, Any]]:
@@ -223,10 +292,25 @@ class FusedSegment:
             out.extend(spec.outputs)
         return out
 
-    def pending(self, outputs: Dict[str, torch.Tensor]) -> List[Tuple[str, Any, torch.Tensor]]:
-        """Readback-ready ``(name, DataType, device tensor)`` for every declared
-        stage output, in ``add_column`` order."""
-        return [(name, dtype, outputs[name]) for name, dtype in self.outputs]
+    def pending(self, outputs: Dict[str, torch.Tensor]) -> List[Tuple[str, Any, torch.Tensor, Any]]:
+        """Readback-ready ``(name, DataType, device tensor, numpy dtype)`` for
+        every declared stage output, in ``add_column`` order. A sparse output
+        expands to its three parts, the DataType slot carrying the
+        ``(SPARSE_MARK, column, dim, part)`` marker the readback rebuilds the
+        SparseVector column from."""
+        out = []
+        for spec in self.specs:
+            for name, dtype in spec.outputs:
+                if name in spec.sparse_outputs:
+                    dim = spec.sparse_outputs[name]
+                    for part, pname, np_dtype in zip(
+                        ("values", "ids", "nnz"), sparse_names(name),
+                        (np.float64, np.int64, np.int64),
+                    ):
+                        out.append((pname, (SPARSE_MARK, name, dim, part), outputs[pname], np_dtype))
+                else:
+                    out.append((name, dtype, outputs[name], np.float64))
+        return out
 
 
 class FallbackStage:
@@ -239,24 +323,58 @@ class FallbackStage:
 
 
 def build_segments(stages: Sequence[Any], device: torch.device,
-                   fusion: Optional[Any] = None) -> List[Any]:
+                   fusion: Optional[Any] = None,
+                   sparse: Optional[Dict[str, int]] = None) -> List[Any]:
     """Group consecutive kernel-spec stages into :class:`FusedSegment` runs,
     everything else into :class:`FallbackStage`. Raises whatever
-    ``kernel_spec()`` raises (an unloaded model fails at plan build)."""
+    ``kernel_spec()`` raises (an unloaded model fails at plan build).
+
+    ``sparse`` turns on the sparse calling convention: the ``{column: dim}``
+    of inputs known to arrive sparse (the serving template's), or None when
+    ``sparse.fastpath`` is off. Sparseness then propagates statically:
+    before asking a stage for its dense spec, the planner offers the
+    known-sparse set to its ``sparse_kernel_spec(known)``; a stage whose
+    input arrives sparse returns a sparse-convention spec, and its
+    ``sparse_outputs`` join the known set for the stages after it."""
     segments: List[Any] = []
     run: List[Tuple[Any, Any]] = []
+    known: Dict[str, int] = dict(sparse or {})
     for stage in stages:
-        spec = stage.kernel_spec() if hasattr(stage, "kernel_spec") else None
+        spec = None
+        if sparse is not None and hasattr(stage, "sparse_kernel_spec"):
+            spec = stage.sparse_kernel_spec(dict(known))
+        if spec is None and hasattr(stage, "kernel_spec"):
+            spec = stage.kernel_spec()
         if spec is not None:
             run.append((stage, spec))
+            known.update(spec.sparse_outputs)
+            for name in spec.output_names:
+                if name not in spec.sparse_outputs:
+                    known.pop(name, None)  # a densely overwritten column
             continue
         if run:
             segments.append(FusedSegment(run, device, fusion))
             run = []
+        # A fallback stage's outputs are opaque: the known set keeps the
+        # hints of columns no spec touched; a stage that densifies a hinted
+        # column shows up as a per-batch signature fallback, never a wrong
+        # answer.
         segments.append(FallbackStage(stage))
     if run:
         segments.append(FusedSegment(run, device, fusion))
     return segments
+
+
+def _program_shapes(inputs: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
+    """``(rows, dense width, nnz cap)`` of a key's program inputs: the
+    widest 2-D dense input, and the width of the sparse ``!ids`` inputs,
+    which feeds the cost model's per-slot term instead."""
+    rows = next(iter(inputs.values())).shape[0] if inputs else 0
+    width = max((int(a.shape[1]) for n, a in inputs.items() if a.dim() == 2 and "!" not in n),
+                default=0)
+    nnz_cap = max((int(a.shape[1]) for n, a in inputs.items() if n.endswith("!ids") and a.dim() == 2),
+                  default=0)
+    return rows, width, nnz_cap
 
 
 def run_segment(
@@ -270,21 +388,20 @@ def run_segment(
     """Run the segment's chain for ``key`` on device ``inputs``. The first
     time a key is seen its chain is built: ``on_compile()`` once, and
     ``on_plan(kind, score)`` per program with the cost model's choice (a
-    megakernel candidate runs when the score at this key's rows clears the
-    tier's bar)."""
+    megakernel candidate runs when the score at this key's rows — and nnz
+    cap, for a sparse chain — clears the tier's bar)."""
     chain = segment.compiled.get(key)
     if chain is None:
         if on_compile is not None:
             on_compile()
-        rows = next(iter(inputs.values())).shape[0] if inputs else 0
-        width = max((int(a.shape[1]) for a in inputs.values() if a.dim() == 2), default=0)
+        rows, width, nnz_cap = _program_shapes(inputs)
         chain = []
         for idx, prog in enumerate(segment.programs):
             mega = segment.mega.get(idx)
-            if mega is not None and segment.fusion.megakernel_hot(prog.specs, rows, width):
+            if mega is not None and segment.fusion.megakernel_hot(prog.specs, rows, width, nnz_cap):
                 prog = mega
             if on_plan is not None:
-                on_plan(prog.kind, chain_score(prog.specs, rows, width))
+                on_plan(prog.kind, chain_score(prog.specs, rows, width, nnz_cap))
             chain.append(prog)
         segment.compiled[key] = chain
         segment.plan_kinds[key] = tuple(p.kind for p in chain)
@@ -306,16 +423,32 @@ class PlanExecution:
 
     __slots__ = ("_df", "_pending")
 
-    def __init__(self, df: DataFrame, pending: List[Tuple[str, Any, torch.Tensor]]):
+    def __init__(self, df: DataFrame, pending: List[Tuple[str, Any, torch.Tensor, Any]]):
         self._df = df
         self._pending = pending
 
     def finalize(self) -> DataFrame:
         """Copy the outputs to the host (waiting for the device), float32
-        widened value-exactly to float64 as in the JAX package's readback."""
+        widened value-exactly to float64 and ids to int64 as in the JAX
+        package's readback; a sparse output's three parts are rebuilt into
+        one SparseVector column."""
         if not self._pending:
             return self._df
         out = self._df.clone()
-        for name, dtype, tensor in self._pending:
-            out.add_column(name, dtype, tensor.cpu().numpy().astype(np.float64))
+        sparse_parts: Dict[str, Dict[str, np.ndarray]] = {}
+        for name, dtype, tensor, np_dtype in self._pending:
+            host = tensor.cpu().numpy().astype(np_dtype)
+            if isinstance(dtype, tuple) and dtype and dtype[0] == SPARSE_MARK:
+                # parts arrive adjacent, in convention order: add the column
+                # once the third has come back
+                _mark, col, dim, part = dtype
+                parts = sparse_parts.setdefault(col, {})
+                parts[part] = host
+                if len(parts) == 3:
+                    out.add_column(
+                        col, DataTypes.vector(BasicType.DOUBLE),
+                        rebuild_sparse_column(dim, parts["values"], parts["ids"], parts["nnz"]),
+                    )
+                continue
+            out.add_column(name, dtype, host)
         return out

@@ -21,6 +21,7 @@ from flink_ml_tpu_torch.config import Options, config
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.metrics import MLMetrics
 from flink_ml_tpu_torch.servable.fusion import resolve_fusion_tier
+from flink_ml_tpu_torch.servable.sparse import resolve_sparse_hints
 from flink_ml_tpu_torch.serving.batcher import MicroBatcher, pad_to
 from flink_ml_tpu_torch.serving.errors import ServingClosedError
 from flink_ml_tpu_torch.serving.plan import CompiledServingPlan
@@ -147,20 +148,32 @@ class InferenceServer:
             self.swap(version, servable)
 
     # -- the one place a batch meets a model ----------------------------------
+    def _plan_stale(self, plan, sparse_hints) -> bool:
+        """Whether a cached plan was built for another device, fusion tier or
+        sparseness than this server's: it then holds the wrong model tensors
+        or program partition and must rebuild."""
+        return plan is not None and (
+            plan.device != self.device
+            or plan.fusion.key != self._fusion.key
+            or plan.sparse_hints != sparse_hints
+        )
+
     def _plan_for(self, servable) -> Optional[CompiledServingPlan]:
-        """The servable's plan, cached on it; rebuilt when it was built for
-        another device or fusion tier. Normally built by ``warmup`` off the
-        serving path; a server that never saw a template builds on the first
-        batch instead."""
+        """The servable's plan, cached on it; rebuilt when stale. Its sparse
+        hints come from the warmup template: columns the template shows
+        sparse build sparse-convention segments. Normally built by ``warmup``
+        off the serving path; a server that never saw a template builds on
+        the first batch instead."""
         if not self.config.fastpath:
             return None
+        with self._template_lock:
+            template = self._warmup_template
+        sparse_hints = resolve_sparse_hints(template)
         plan = getattr(servable, "_fastpath_plan", _PLAN_UNSET)
-        if plan is _PLAN_UNSET or (
-            plan is not None
-            and (plan.device != self.device or plan.fusion.key != self._fusion.key)
-        ):
+        if plan is _PLAN_UNSET or self._plan_stale(plan, sparse_hints):
             plan = CompiledServingPlan.build(
-                servable, scope=self.scope, fusion=self._fusion, device=self.device
+                servable, scope=self.scope, fusion=self._fusion, device=self.device,
+                sparse=sparse_hints,
             )
             servable._fastpath_plan = plan
         return plan
@@ -203,11 +216,12 @@ class InferenceServer:
     # -- model lifecycle -------------------------------------------------------
     def warmup(self, servable) -> None:
         """Build the servable's plan (model arrays to the device) and run one
-        template batch per bucket on the caller's thread, so the serving path
-        never builds a chain or uploads weights."""
-        plan = self._plan_for(servable)
+        template batch per bucket — per bucket and nnz cap for sparse
+        segments — on the caller's thread, so the serving path never builds a
+        chain or uploads weights."""
         with self._template_lock:
             template = self._warmup_template
+        plan = self._plan_for(servable)
         if template is None:
             return  # nothing seen yet: the first real batch builds lazily
         if plan is not None:

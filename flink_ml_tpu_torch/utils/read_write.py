@@ -41,6 +41,7 @@ _PIPELINE = "flink_ml_tpu_torch.servable.builder.PipelineModelServable"
 _SCALER = "flink_ml_tpu_torch.servable.lib.StandardScalerModelServable"
 _LOGISTIC = "flink_ml_tpu_torch.servable.lib.LogisticRegressionModelServable"
 _LOGISTIC_MODEL = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel"
+_IDF_MODEL = "flink_ml_tpu_torch.models.feature.idf.IDFModel"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, the port training-side stage that loads it
@@ -58,6 +59,8 @@ CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
     "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel":
         (_LOGISTIC, _LOGISTIC_MODEL),
     "flink_ml_tpu.servable.lib.LogisticRegressionModelServable": (_LOGISTIC, None),
+    # IDFModel is its own servable in both packages (``idf.py``).
+    "flink_ml_tpu.models.feature.idf.IDFModel": (_IDF_MODEL, _IDF_MODEL),
 }
 
 

@@ -170,6 +170,7 @@ def test_config_options_share_keys_defaults_and_env_names():
         "serving.max.batch.size", "serving.max.delay.ms", "serving.queue.capacity.rows",
         "serving.default.timeout.ms", "serving.fastpath", "serving.pipeline.depth",
         "fusion.mode", "fusion.megakernel", "fusion.megakernel.min.score",
+        "sparse.fastpath", "sparse.nnz.cap.max", "sparse.warmup.caps",
         "train.mesh",
     }
     for key, opt in port.items():

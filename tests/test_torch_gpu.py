@@ -231,3 +231,123 @@ def test_sparse_sgd_premat_and_build_forms_are_bit_identical_on_the_card(cuda):
               sparse_kernel="onehot", device="cpu").optimize(
         np.zeros(d, np.float32), cols, BinaryLogisticLoss.INSTANCE)
     np.testing.assert_allclose(coefs[0], cpu, rtol=1e-4, atol=1e-7)  # plain versions, other orders
+
+
+# ---------------------------------------------------------------------------
+# the sparse IDF → logistic megakernel
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
+    SPARSE_IDF_LOGISTIC,
+    sparse_idf_logistic,
+    sparse_idf_logistic_plain,
+)
+
+SPARSE_CHAINS = [(True, True), (True, False), (False, False)]  # (with idf, keep its output)
+
+
+def _sparse_inputs(rows, K, d, device, seed=0):
+    """Packed rows shorter than the cap (padding id 0 / value 0), sorted
+    ids, and model vectors; the same construction as the serving layout."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, K + 1, rows)
+    ids = np.sort(rng.integers(0, d, (rows, K)), axis=1).astype(np.int32)
+    vals = rng.normal(size=(rows, K)).astype(np.float32)
+    dead = np.arange(K)[None, :] >= nnz[:, None]
+    ids[dead], vals[dead] = 0, 0.0
+    idf = np.abs(rng.normal(size=d)).astype(np.float32)
+    coef = (rng.normal(size=d) * 0.3).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (vals, ids, idf, coef)]
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", (8, 1000, 1 << 22))
+@pytest.mark.parametrize("with_idf,write_tfidf", SPARSE_CHAINS)
+def test_sparse_kernel_is_bit_equal_to_its_plain_version(cuda, d, with_idf, write_tfidf):
+    for rows in (1, 33, 4096):
+        for K in (1, 8, 64):
+            where = f"rows={rows} K={K}"
+            vals, ids, idf, coef = _sparse_inputs(rows, K, d, cuda, seed=rows + K)
+            idf = idf if with_idf else None
+            before = SPARSE_IDF_LOGISTIC.launches
+            tfidf, margin, pred, raw = sparse_idf_logistic(vals, ids, idf, coef, write_tfidf=write_tfidf)
+            p_tfidf, p_margin, p_pred, p_raw = sparse_idf_logistic_plain(vals, ids, idf, coef)
+            torch.cuda.synchronize()
+            assert SPARSE_IDF_LOGISTIC.launches == before + 1, where
+            assert (tfidf is None) == (not write_tfidf), where
+            if write_tfidf:
+                assert _same_bits(tfidf, p_tfidf), where
+            assert _same_bits(margin, p_margin), where  # the sequential fold, in slot order
+            assert torch.equal(pred, p_pred), where
+            ulps = ulp_diff(raw.cpu().numpy(), p_raw.cpu().numpy())
+            assert ulps <= ULP_ENVELOPE["sparse_idf_logistic"], where
+
+
+def test_sparse_kernel_folds_padding_and_clamps_ids_as_the_plain_version(cuda):
+    vals, ids, idf, coef = _sparse_inputs(64, 8, 100, cuda, seed=3)
+    coef[0] = float("inf")  # padding slots add 0 * coef[0]: NaN, as in the plain version
+    ids[:4, 0] = torch.tensor([-1, 100, -300, 7], dtype=torch.int32, device=cuda)
+    _, margin, pred, raw = sparse_idf_logistic(vals, ids, idf, coef, write_tfidf=False)
+    _, p_margin, p_pred, p_raw = sparse_idf_logistic_plain(vals, ids, idf, coef)
+    torch.cuda.synchronize()
+    assert _same_bits(margin, p_margin) and torch.equal(pred, p_pred)
+    assert torch.isnan(margin).any()
+    assert _same_bits(raw, p_raw)
+
+
+def test_sparse_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    vals, ids, idf, coef = _sparse_inputs(8, 4, 16, cuda)
+    before = SPARSE_IDF_LOGISTIC.launches
+    with pytest.raises(TypeError, match="float32"):
+        sparse_idf_logistic(vals.double(), ids, idf, coef, write_tfidf=True)
+    with pytest.raises(TypeError, match="int32"):
+        sparse_idf_logistic(vals, ids.long(), idf, coef, write_tfidf=True)
+    with pytest.raises(ValueError, match="shape"):
+        sparse_idf_logistic(vals, ids, idf[:-1], coef, write_tfidf=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_idf_logistic(vals.t().contiguous().t(), ids, idf, coef, write_tfidf=True)
+    with pytest.raises(ValueError, match="K >= 1"):
+        sparse_idf_logistic(vals[:, :0], ids[:, :0], idf, coef, write_tfidf=True)
+    empty = sparse_idf_logistic(vals[:0], ids[:0], idf, coef, write_tfidf=True)
+    assert [t.shape for t in empty] == [(0, 4), (0,), (0,), (0, 2)]
+    assert SPARSE_IDF_LOGISTIC.launches == before
+
+
+def test_server_launches_the_sparse_kernel_for_hot_keys_only(cuda):
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.feature.idf import IDF
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    d, nnz = 1000, 39
+    rng = np.random.default_rng(2)
+
+    def frame(n, k):
+        return DataFrame.from_dict({"features": [
+            SparseVector(d, rng.choice(d, k, replace=False), np.ones(k)) for _ in range(n)
+        ]})
+
+    idf = IDF().set_input_col("features").set_output_col("tfidf").fit(frame(300, nnz))
+    lr = LogisticRegressionModelServable().set_features_col("tfidf")
+    lr.coefficient = rng.normal(size=d) * 0.2
+    pipe = PipelineModelServable([idf, lr])
+    cfg = ServingConfig(max_batch_size=2048, queue_capacity_rows=8192, fusion_mode="fast")
+    with InferenceServer(pipe, name="gpu-sparse-hot", serving_config=cfg,
+                         warmup_template=frame(1, nnz)) as srv:
+        SPARSE_IDF_LOGISTIC.reset_launches()
+        big, small = frame(1500, nnz), frame(5, nnz)
+        r_big, r_small = srv.predict(big), srv.predict(small)
+        assert (r_big.bucket, r_small.bucket) == (2048, 8)
+        kinds = chain_kinds(pipe._fastpath_plan)
+        assert kinds[(2048, 64)] == ("megakernel",) and kinds[(8, 64)] == ("fused",)
+        assert SPARSE_IDF_LOGISTIC.launches == 1  # (2048, 64) is hot, (8, 64) is not
+    ref = pipe.transform(big, device="cpu")
+    for a, b in zip(r_big.dataframe.column("tfidf"), ref.column("tfidf")):
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.values, b.values)
+    np.testing.assert_array_equal(r_big.dataframe.column("prediction"), ref.column("prediction"))
+    assert ulp_diff(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction")) <= (
+        ULP_ENVELOPE["sparse_idf_logistic"]
+    )

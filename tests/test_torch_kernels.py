@@ -202,6 +202,23 @@ def _logistic(inp="scaled", width=4):
                  arrays={"coefficient": np.ones(width, np.float32)})
 
 
+def _sparse_idf(out="tfidf", width=4):
+    return KernelSpec(
+        input_cols=("features",), outputs=[(out, None)],
+        model_arrays={"idf": np.ones(width, np.float32)}, kernel_fn=lambda m, c: {},
+        input_kinds={"features": "sparse"}, sparse_outputs={out: width},
+        sparse_input_dims={"features": width}, elementwise=True, fusion_op="sparse_idf",
+    )
+
+
+def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
+    return KernelSpec(
+        input_cols=(inp,), outputs=[("prediction", None), ("rawPrediction", None)],
+        model_arrays={"coefficient": np.ones(width, np.float32)}, kernel_fn=lambda m, c: {},
+        input_kinds={inp: kind}, fusion_op="sparse_logistic",
+    )
+
+
 #: Chains the JAX package lowers as one Pallas megakernel that the port does
 #: not have a kernel for yet (they stay on the merged program in fast mode).
 NOT_YET_PORTED = {
@@ -210,24 +227,34 @@ NOT_YET_PORTED = {
     "scale_mlp": ["scale", "mlp"],
     "kmeans": ["kmeans"],
     "normalize": ["normalize"],
-    "sparse_idf_logistic": ["sparse_idf", "sparse_logistic"],
 }
 
 
 def test_port_admits_exactly_the_chains_it_has_kernels_for():
-    assert MEGAKERNEL_CHAINS == {("scale", "logistic"), ("logistic",)}
+    assert MEGAKERNEL_CHAINS == {
+        ("scale", "logistic"), ("logistic",), ("sparse_idf", "sparse_logistic"), ("sparse_logistic",)
+    }
     assert chain_eligible([_scale(), _logistic()])
     assert chain_eligible([_logistic(inp="features")])
+    assert chain_eligible([_sparse_idf(), _sparse_logistic()])
+    assert chain_eligible([_sparse_logistic(inp="features")])
+    for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()]):
+        assert jax_chain_eligible(specs)  # the JAX package lowers the sparse chains too
     for name, ops in NOT_YET_PORTED.items():
         specs = [_spec(op) for op in ops]
         assert all(op in MEGAKERNEL_OPS for op in ops), name
         assert jax_chain_eligible(specs), name  # the JAX package lowers it
         assert not chain_eligible(specs), name  # the port does not yet
-    # dataflow and shapes the kernel cannot take
+    # dataflow and shapes the kernels cannot take
     assert not chain_eligible([_scale(out="other"), _logistic()])
     assert not chain_eligible([_scale(), _logistic(width=5)])
     assert not chain_eligible([_logistic(inp="scaled")] * 2)
     assert not chain_eligible([])
+    assert not chain_eligible([_sparse_idf(out="other"), _sparse_logistic()])  # idf feeds another column
+    assert not chain_eligible([_sparse_idf(width=5), _sparse_logistic()])  # idf of another width
+    assert not chain_eligible([_sparse_idf(), _sparse_logistic(kind="vector")])  # a dense head
+    assert not chain_eligible([_sparse_logistic(inp="features", kind="vector")])
+    assert not chain_eligible([_spec("sparse_idf"), _spec("sparse_logistic")])  # no coefficient/idf
     with pytest.raises(ValueError, match="no megakernel"):
         build_megakernel_fn([_spec("kmeans")])
 

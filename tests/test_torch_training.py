@@ -530,10 +530,27 @@ def _saved_other(tmp_path):
     return path
 
 
-def test_sparse_transform_is_not_ported(fitted, sparse_frames):
-    _, model, _, _ = fitted
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.transform(sparse_frames[0].take(np.arange(4)), device="cpu")
+def test_sparse_transform_is_not_ported(fitted, sparse_frames, monkeypatch):
+    """Sparse features are not ported through a dense detour: the fitted
+    model's transform of SparseVector rows runs on their packed triple (a
+    ``DataFrame.vectors`` call would fail the test) and equals the JAX
+    model's — predictions equal, rawPrediction within the sparse head's
+    ulp envelope (the margins are bit-equal; the sigmoids may round apart)."""
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+
+    _, model, _, jmodel = fitted
+    port_df, ref_df = (f.take(np.arange(64)) for f in sparse_frames)
+    ref = jmodel.transform(ref_df)
+
+    def refuse(self, name):
+        raise AssertionError(f"DataFrame.vectors({name!r}) densified a column")
+
+    monkeypatch.setattr(DataFrame, "vectors", refuse)
+    out = model.transform(port_df, device="cpu")
+    np.testing.assert_array_equal(out.column("prediction"), np.asarray(ref.column("prediction")))
+    assert ulp_diff(out.column("rawPrediction"), np.asarray(ref.column("rawPrediction"))) <= (
+        ULP_ENVELOPE["sparse_idf_logistic"]
+    )
 
 
 def test_training_modules_import_neither_jax_nor_the_jax_package():
