@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
-against its plain PyTorch version, and drives the port's two main paths on
-the card. Phases, one JSON line each:
+against its plain PyTorch version, and drives the port's main paths on the
+card — dense, sparse and MLP serving, wide-sparse and MLP training. Phases,
+one JSON line each:
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -50,7 +51,28 @@ the card. Phases, one JSON line each:
                requests of 1–4096 new rows from 4 clients, every response
                checked against float64 numpy; megakernel launches equal the
                batches whose (bucket, cap) key is hot, 0 fallbacks, 0 chains
-               built after warmup, the plain version never called.
+               built after warmup, the plain version never called;
+10. kernels_mlp — the scale → mlp megakernel against its plain version over
+               rows × networks (256→512→512→8, 100→64→2, 8→16→3 and one at
+               the kernel's layer, width and class limits) × chain (the four
+               scaler flag combinations, the MLP alone): scaled bit-equal,
+               probabilities within the fast tier's envelope, prediction
+               equal where the plain top-two logits differ by more than a
+               margin; then CUDA-event times at 4096 × 256→512→512→8 of
+               kernel, plain version and the chain's three products as
+               ``torch.addmm`` (float32, TF32 off), with the operations bound;
+11. serve_mlp — the MLP classifier trained and served: 100,000 rows × 256 of
+               8 classes from a random teacher, StandardScaler fitted and
+               applied on the card, MLPClassifier fitted at the published
+               paramMap (hiddenLayers [512, 512], maxIter 10,
+               globalBatchSize 4096), held against a float64 fit of the same
+               schedule on the card (the bfloat16 fit must land outside the
+               tolerance), ms per epoch; both models saved, loaded through
+               ``load_servable`` into one pipeline and served by
+               ``InferenceServer`` (fusion.mode=fast): 64 requests of 1–4096
+               rows from 4 clients checked against float64 numpy; megakernel
+               launches equal the batches of bucket ≥ 2, 0 fallbacks, 0
+               chains built after warmup, the plain version never called.
 
 Then a ``{"kernels": [...]}`` line for every kernel, the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -105,6 +127,40 @@ SPARSE_CAPS = (1, 2, 8, 16, 32, 64)
 SPARSE_DIMS = (8, 1000, TRAIN_DIM)
 SPARSE_CHAINS = (("idf_kept", True, True), ("idf_dropped", True, False), ("no_idf", False, False))
 SPARSE_SERVE_SEED = TRAIN_SEED + 1  # new rows from the headline generator
+# The MLP classifier: bench.py's mlp / mlp_serving_throughput network and
+# flink_ml_tpu/benchmark/configs/mlpclassifier-benchmark.json (vectorDim 256,
+# hiddenLayers [512, 512], labelArity 8, 100,000 rows, maxIter 10,
+# globalBatchSize 4096).
+MLP_WIDTHS = (256, 512, 512, 8)
+MLP_CHECK_ROWS = (1, 2, 7, 64, 203, 1024, 4096)
+MLP_CHECK_NETWORKS = {"256-512-512-8": MLP_WIDTHS, "100-64-2": (100, 64, 2), "8-16-3": (8, 16, 3)}
+# (chain label, with_mean, with_std, write_scaled), as CHAINS
+MLP_CHAINS = (
+    ("scale_mlp", True, True, True),
+    ("scale_mlp", True, False, True),
+    ("scale_mlp", False, True, True),
+    ("scale_mlp", False, False, True),
+    ("mlp", False, False, False),
+)
+MLP_ROWS, MLP_ITERS, MLP_BATCH, MLP_SEED = 100_000, 10, 4096, 3
+MLP_SERVE_SEED = MLP_SEED + 1  # new rows of the same population
+MLP_EPOCH_ITERS = (10, 60)  # the two iteration counts differenced for ms/epoch
+MLP_HOLDOUT_ROWS = 4096
+MLP_SMALL_ROWS = (2, 32, 256, 1024)  # warm times below the serving shape: one block per 32 rows
+# The fit against its float64 twin. The first epoch's loss is the forward
+# pass at the shared initial weights: float32 rounding of 512-term sums
+# (~1e-7 relative) against bfloat16's 2^-9 per operand (the CPU read 9e-10
+# and 2.6e-5). From the second epoch on, the default learning rate 0.1
+# explodes the loss (2.7 -> ~900) before it settles, which amplifies
+# last-bit differences of float32 gradients: the largest relative
+# difference of the later losses and the mean |difference| of the held-out
+# probabilities get a wider bound. An independent float32 fit of the same
+# schedule (the float32 floor) is reported beside the fit: on the CPU both
+# read ~1e-4, on the card the fit read 1.16e-3; bfloat16 5.3e-2 and 6.1e-4
+# on the CPU.
+FIT_FIRST_LOSS_RTOL = 1e-6
+FIT_LOSS_RTOL = 1e-2
+FIT_PROB_MEAN_ATOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1245,6 +1301,495 @@ def phase_serve_sparse(card: str, headline):
     return launches
 
 
+def _mlp_inputs(rng, rows, widths, dev):
+    """A scaler (zero-std guard included), a He-initialised network with
+    small biases, class values and ``rows`` input rows, on ``dev``."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    d = widths[0]
+    std = (np.abs(rng.normal(size=d)) + 0.5).astype(np.float32)
+    std[0] = 0.0  # the zero-std guard: that feature scales to 0
+    inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std))
+    layers = [(t(rng.normal(size=(a, b)) * np.sqrt(2.0 / a)), t(rng.normal(size=b) * 0.1))
+              for a, b in zip(widths[:-1], widths[1:])]
+    labels = t(rng.permutation(widths[-1]) + 1.0)
+    return t(rng.normal(size=(rows, d))), t(rng.normal(size=d)), t(inv_std), layers, labels
+
+
+def _top_two_gap(layers, h):
+    """The gap between the two largest float32 logits of each row (the
+    plain version's products); infinite with one class."""
+    import torch
+
+    for W, b in layers[:-1]:
+        h = torch.relu(h @ W + b)
+    logits = h @ layers[-1][0] + layers[-1][1]
+    if logits.shape[1] < 2:
+        return torch.full((logits.shape[0],), float("inf"), device=logits.device)
+    top = torch.topk(logits, 2, dim=1).values
+    return top[:, 0] - top[:, 1]
+
+
+def phase_kernels_mlp(rng, card: str):
+    """The scale → mlp megakernel against its plain version over rows ×
+    networks × chains, then its times at the serving shape."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.servable.megakernels import (
+        MLP_MAX_CLASSES,
+        MLP_MAX_LAYERS,
+        MLP_MAX_WIDTH,
+        SCALE_MLP,
+        scale_mlp,
+        scale_mlp_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full float32
+    envelope = ULP_ENVELOPE["scale_mlp"]
+    networks = dict(MLP_CHECK_NETWORKS, limits=(MLP_MAX_WIDTH,) * MLP_MAX_LAYERS + (MLP_MAX_CLASSES,))
+    max_abs_err, max_ulps, checked = 0.0, 0, 0
+    for rows in MLP_CHECK_ROWS:
+        for net, widths in networks.items():
+            x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
+            for label, with_mean, with_std, write_scaled in MLP_CHAINS:
+                kw = dict(with_mean=with_mean, with_std=with_std)
+                scaled, pred, probs = scale_mlp(x, mean, inv_std, layers, labels,
+                                                write_scaled=write_scaled, **kw)
+                p_scaled, p_pred, p_probs = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
+                torch.cuda.synchronize()
+                where = f"{label} rows={rows} net={net} with_mean={with_mean} with_std={with_std}"
+                if write_scaled:
+                    if not torch.equal(scaled, p_scaled):
+                        raise AssertionError(f"scaled not bit-equal to the plain version: {where}")
+                else:
+                    assert scaled is None, where
+                ulps = ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy())
+                if ulps > envelope:
+                    raise AssertionError(f"probabilities {ulps} ulps > {envelope}: {where}")
+                decided = (_top_two_gap(layers, p_scaled) > PREDICTION_MARGIN).cpu().numpy()
+                if not np.array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided]):
+                    raise AssertionError(
+                        f"prediction differs where the top-two logit gap > {PREDICTION_MARGIN}: {where}")
+                errs = [(probs - p_probs).abs().max()]
+                if write_scaled:
+                    errs.append((scaled - p_scaled).abs().max())
+                max_abs_err = max(max_abs_err, max(float(e) for e in errs))
+                max_ulps = max(max_ulps, ulps)
+                checked += 1
+    emit("kernels_mlp", kernel=SCALE_MLP.name, configurations=checked, networks=
+         {k: list(v) for k, v in networks.items()}, max_abs_err=max_abs_err,
+         max_probability_ulps=max_ulps, probability_ulp_envelope=envelope, scaled="bit-equal",
+         prediction=f"equal where the plain top-two logit gap > {PREDICTION_MARGIN}")
+
+    rows, widths = MAX_BATCH, MLP_WIDTHS
+    x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
+    kw = dict(with_mean=True, with_std=True)
+    scaled = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)[0]
+
+    def kernel():
+        scale_mlp(x, mean, inv_std, layers, labels, write_scaled=True, **kw)
+
+    def plain():
+        scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
+
+    def library():  # the chain's three products only: no single call computes the chain
+        h = scaled
+        for W, b in layers:
+            h = torch.addmm(b, h, W)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    for fn in (kernel, plain, library):  # warm-up
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    times = {n: {"cold": [], "warm": []} for n in ("kernel", "plain", "library")}
+    for name, fn in (("plain", plain), ("library", library), ("kernel", kernel),
+                     ("kernel", kernel), ("library", library), ("plain", plain)):
+        times[name]["cold"] += _cold_times(fn, 50, flush)
+        times[name]["warm"].append(_warm_time(fn, 100))
+    by_rows = {}
+    for r in MLP_SMALL_ROWS:
+        xr, sr = x[:r].contiguous(), scaled[:r].contiguous()
+
+        def kernel_r():
+            scale_mlp(xr, mean, inv_std, layers, labels, write_scaled=True, **kw)
+
+        def library_r():
+            h = sr
+            for W, b in layers:
+                h = torch.addmm(b, h, W)
+
+        by_rows[r] = {"ms_l2_warm": _warm_time(kernel_r, 100),
+                      "library_ms_l2_warm": _warm_time(library_r, 100)}
+    weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    # the three products; the scale, bias, relu and softmax add under 0.3%
+    ops = 2 * rows * weights
+    bytes_moved = 4 * (2 * rows * widths[0] + weights + sum(widths[1:]) + 2 * widths[0]
+                       + widths[-1] + rows * widths[-1] + rows)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    timing = {
+        "shape": [rows, *widths],
+        "ms": _median(times["kernel"]["cold"]),
+        "ms_l2_warm": _median(times["kernel"]["warm"]),
+        "plain_ms": _median(times["plain"]["cold"]),
+        "plain_ms_l2_warm": _median(times["plain"]["warm"]),
+        "library_ms": _median(times["library"]["cold"]),
+        "library_ms_l2_warm": _median(times["library"]["warm"]),
+        "library": "three torch.addmm, float32, TF32 off: the chain's products only",
+        "small_batches": by_rows,
+        "bytes": bytes_moved,
+        "ops": ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    emit("kernels_mlp", kernel=SCALE_MLP.name, card=card, **timing)
+    return {"max_abs_err": max_abs_err, **timing}
+
+
+def _mlp_population():
+    """The population of the MLP rows: per-feature location and spread, and
+    a random linear teacher whose argmax over the standardised features is
+    the class, so the classes are learnable."""
+    import numpy as np
+
+    rng = np.random.default_rng(MLP_SEED)
+    d, classes = MLP_WIDTHS[0], MLP_WIDTHS[-1]
+    return rng.normal(size=d) * 3.0, np.abs(rng.normal(size=d)) + 0.5, rng.normal(size=(d, classes))
+
+
+def _mlp_rows(rng, population, rows):
+    """``rows`` rows of the population: features [rows, 256] and class values."""
+    import numpy as np
+
+    loc, spread, teacher = population
+    X = rng.normal(size=(rows, loc.shape[0])) * spread + loc
+    return X, np.argmax(((X - loc) / spread) @ teacher, axis=1).astype(np.float64)
+
+
+def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device):
+    """The MLP fit written out plainly in ``dtype``: the same initial draws,
+    windows (the tail clamped and its re-read rows weighted 0) and adam
+    formula, the gradient of the window's mean loss by autograd. Returns
+    the per-epoch mean losses and the ``(W, b)`` layers."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    params = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        W = (rng.normal(size=(a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
+        params += [torch.tensor(W, dtype=dtype, device=device, requires_grad=True),
+                   torch.zeros(b, dtype=dtype, device=device, requires_grad=True)]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    X = torch.as_tensor(X, device=device).to(dtype)
+    y = torch.as_tensor(y_idx, device=device).long()
+    n, offset, losses = X.shape[0], 0, []
+    for t in range(1, iters + 1):
+        start = min(offset, n - batch)
+        w = ((start + torch.arange(batch, device=device)) >= offset).to(dtype)
+        h = X[start:start + batch]
+        for i in range(0, len(params) - 2, 2):
+            h = torch.relu(h @ params[i] + params[i + 1])
+        logits = h @ params[-2] + params[-1]
+        rows = torch.logsumexp(logits, dim=1) - logits.gather(1, y[start:start + batch, None])[:, 0]
+        loss = (rows * w).sum() / w.sum()
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for i, (p, g) in enumerate(zip(params, grads)):
+                mu[i] = 0.1 * g + 0.9 * mu[i]
+                nu[i] = 0.001 * g * g + 0.999 * nu[i]
+                p -= lr * (mu[i] / (1 - 0.9 ** t)) / (torch.sqrt(nu[i] / (1 - 0.999 ** t)) + 1e-8)
+        losses.append(float(loss.detach()))
+        offset = 0 if offset + batch >= n else offset + batch
+    return losses, [(params[i].detach(), params[i + 1].detach()) for i in range(0, len(params), 2)]
+
+
+def _dense_batch_breakdown(plan, df, ingest, reps=5):
+    """Where one full-bucket batch's time goes on the plan's path (host
+    clock, the device synchronised after each step; median of ``reps``):
+    the host gather, the gather and upload, the chain on the card, and the
+    readback."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.planner import PlanExecution, run_segment
+
+    (segment,) = plan.segments
+    steps = {"gather": [], "gather_and_upload": [], "chain": [], "readback": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        segment.gather(df, "features")
+        t1 = time.perf_counter()
+        inputs, key = ingest(segment, df, len(df))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outputs = run_segment(segment, key, inputs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        PlanExecution(df, segment.pending(outputs)).finalize()
+        t4 = time.perf_counter()
+        for name, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[name].append(dt * 1e3)
+    medians = {name: _median(v) for name, v in steps.items()}
+    total = medians["gather_and_upload"] + medians["chain"] + medians["readback"]
+    return {"rows": len(df), "key": key, "kinds": list(segment.plan_kinds[key]), **medians,
+            "chain_share": medians["chain"] / total}
+
+
+def phase_serve_mlp(card: str):
+    """The MLP classifier trained and served on the card (see the module
+    docstring, phase 11)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.device import resolve_device
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable import PipelineModelServable, load_servable
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    dev = resolve_device()
+    population = _mlp_population()
+    t0 = time.perf_counter()
+    X, y = _mlp_rows(np.random.default_rng(MLP_SEED + 10), population, MLP_ROWS)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    data_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    scaler = (StandardScaler().set_input_col("features").set_output_col("scaled")
+              .set_with_mean(True).set_with_std(True).fit(df))
+    scaler_fit_s = time.perf_counter() - t0
+    X32 = X.astype(np.float32).astype(np.float64)
+    # float32 column sums of 100,000 values, then float64: a few float32 ulps
+    np.testing.assert_allclose(scaler.mean, X32.mean(axis=0), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(scaler.std, X32.std(axis=0, ddof=1), rtol=1e-5)
+    t0 = time.perf_counter()
+    scaled_df = scaler.transform(df)
+    scaler_transform_s = time.perf_counter() - t0
+    mean32 = np.asarray(scaler.mean, np.float32).astype(np.float64)
+    inv_std = np.where(np.asarray(scaler.std, np.float32) == 0, 0.0,
+                       1.0 / np.asarray(scaler.std, np.float32)).astype(np.float32).astype(np.float64)
+    np.testing.assert_allclose(scaled_df.column("scaled"), (X32 - mean32) * inv_std, rtol=1e-6, atol=1e-6)
+
+    def estimator(compute_type="float32", iters=MLP_ITERS):
+        return (MLPClassifier().set_features_col("scaled").set_hidden_layers(*MLP_WIDTHS[1:-1])
+                .set_max_iter(iters).set_global_batch_size(MLP_BATCH).set_compute_type(compute_type))
+
+    est = estimator()
+    t0 = time.perf_counter()
+    model = est.fit(scaled_df)
+    fit_s = time.perf_counter() - t0
+    est_bf16 = estimator("bfloat16")
+    model_bf16 = est_bf16.fit(scaled_df)
+
+    # the float64 twin of the fit, on the card, on the same float32 features
+    Xs = scaled_df.vectors("scaled").astype(np.float32)
+    classes = np.unique(y)
+    y_idx = np.searchsorted(classes, y)
+    ref_losses, ref_layers = _reference_mlp_fit(
+        Xs, y_idx, list(MLP_WIDTHS), est.get_seed(), est.get_learning_rate(), MLP_BATCH,
+        MLP_ITERS, torch.float64, dev)
+    holdout_X, _ = _mlp_rows(np.random.default_rng(MLP_SEED + 20), population, MLP_HOLDOUT_ROWS)
+    holdout = scaler.transform(DataFrame.from_dict({"features": holdout_X}))
+    h = torch.from_numpy(holdout.vectors("scaled").astype(np.float32)).to(dev).double()
+    for W, b in ref_layers[:-1]:
+        h = torch.relu(h @ W + b)
+    ref_probs = torch.softmax(h @ ref_layers[-1][0] + ref_layers[-1][1], dim=1).cpu().numpy()
+
+    def against_reference(losses, probs):
+        rel = np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)
+        diff = np.abs(probs - ref_probs)
+        return {"first_loss_rel": float(rel[0]), "loss_max_rel": float(rel.max()),
+                "loss_rel_by_epoch": rel.tolist(), "prob_mean_abs": float(diff.mean()),
+                "prob_max_abs": float(diff.max())}
+
+    def within(dev):
+        return (dev["first_loss_rel"] <= FIT_FIRST_LOSS_RTOL and dev["loss_max_rel"] <= FIT_LOSS_RTOL
+                and dev["prob_mean_abs"] <= FIT_PROB_MEAN_ATOL)
+
+    f32_dev = against_reference(est.loss_history, model.transform(holdout).column("rawPrediction"))
+    bf16_dev = against_reference(est_bf16.loss_history, model_bf16.transform(holdout).column("rawPrediction"))
+    # the float32 floor: the plain fit of the same schedule in float32
+    floor_losses, floor_layers = _reference_mlp_fit(
+        Xs, y_idx, list(MLP_WIDTHS), est.get_seed(), est.get_learning_rate(), MLP_BATCH,
+        MLP_ITERS, torch.float32, dev)
+    h = torch.from_numpy(holdout.vectors("scaled").astype(np.float32)).to(dev)
+    for W, b in floor_layers[:-1]:
+        h = torch.relu(h @ W + b)
+    floor_dev = against_reference(
+        floor_losses, torch.softmax(h @ floor_layers[-1][0] + floor_layers[-1][1], dim=1).cpu().numpy())
+    fit_check = {
+        "loss_history": est.loss_history, "loss_history_float64": ref_losses,
+        "loss_history_bf16": est_bf16.loss_history, "loss_history_plain_float32": floor_losses,
+        "float32_vs_float64": f32_dev, "bf16_vs_float64": bf16_dev,
+        "plain_float32_vs_float64": floor_dev,
+        "tolerance": {"first_loss_rel": FIT_FIRST_LOSS_RTOL, "loss_max_rel": FIT_LOSS_RTOL,
+                      "prob_mean_abs": FIT_PROB_MEAN_ATOL},
+    }
+    emit("serve_mlp", card=card, fit_check=fit_check)  # before the gates, so a failure shows its numbers
+    if len(est.loss_history) != MLP_ITERS:
+        raise AssertionError(f"the fit ran {len(est.loss_history)} epochs, expected {MLP_ITERS}")
+    if not within(f32_dev):
+        raise AssertionError(f"the float32 fit is off its float64 twin: {f32_dev}")
+    if within(bf16_dev):
+        raise AssertionError(f"the bfloat16 control lies inside the float64 tolerance: {bf16_dev}")
+
+    # steady ms/epoch: two iteration counts on one cache, differenced
+    cache = DeviceDataCache({"x": Xs, "y": y_idx.astype(np.float32),
+                             "w": np.ones(len(Xs), np.float32)})
+    deltas = []
+    for _ in range(3):
+        spans = []
+        for iters in MLP_EPOCH_ITERS:
+            t0 = time.perf_counter()
+            estimator(iters=iters).fit_cache(cache, classes)  # ends in a readback
+            spans.append(time.perf_counter() - t0)
+        deltas.append((spans[1] - spans[0]) / (MLP_EPOCH_ITERS[1] - MLP_EPOCH_ITERS[0]) * 1e3)
+    fit_ms_per_epoch = _median(deltas)
+    fit_profile = _profile_steps(lambda: estimator(iters=PROFILE_ITERS).fit_cache(cache, classes))
+    del cache, Xs, scaled_df
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scaler.save(f"{tmp}/scaler")
+        model.save(f"{tmp}/mlp")
+        pipeline = PipelineModelServable([load_servable(f"{tmp}/scaler"), load_servable(f"{tmp}/mlp")])
+    layers64 = [(np.asarray(W, np.float32).astype(np.float64), np.asarray(b, np.float32).astype(np.float64))
+                for W, b in model.params]
+    for (W, b), (lW, lb) in zip(model.params, pipeline.servables[1].layers):
+        if not (np.array_equal(W, lW) and np.array_equal(b, lb)):
+            raise AssertionError("the loaded network differs from the fitted one")
+    labels = np.asarray(model.labels)
+
+    rng = np.random.default_rng(MLP_SERVE_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    sizes[::16] = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2, 1][: len(sizes[::16])]
+    payloads = [_mlp_rows(rng, population, n)[0] for n in sizes]
+
+    def check(i, out):
+        scaled = (payloads[i].astype(np.float32).astype(np.float64) - mean32) * inv_std
+        np.testing.assert_allclose(out["scaled"], scaled, rtol=1e-6, atol=1e-6)
+        h = scaled
+        for W, b in layers64[:-1]:
+            h = np.maximum(h @ W + b, 0.0)
+        logits = h @ layers64[-1][0] + layers64[-1][1]
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        np.testing.assert_allclose(out["rawPrediction"], e / e.sum(axis=1, keepdims=True), rtol=0, atol=1e-5)
+        top = np.sort(logits, axis=1)
+        decided = top[:, -1] - top[:, -2] > PREDICTION_MARGIN
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[decided],
+                                      labels[np.argmax(logits, axis=1)][decided])
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(pipeline, name="chip-smoke-mlp", serving_config=config,
+                             warmup_template=DataFrame.from_dict({"features": payloads[0][:1]}),
+                             device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = pipeline._fastpath_plan
+        kinds = chain_kinds(plan)
+        ingest = plan._ingest
+        # The main path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, ("scale_mlp_plain", "scale_logistic_plain",
+                                                 "sparse_idf_logistic_plain"))
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        latencies = [None] * n_req
+        failures = []
+
+        def client(c):
+            for i in range(c, n_req, N_CLIENTS):
+                t_req = time.perf_counter()
+                try:
+                    resp = server.predict(DataFrame.from_dict({"features": payloads[i]}))
+                    latencies[i] = (time.perf_counter() - t_req) * 1000.0
+                    check(i, resp.dataframe)
+                except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                    failures.append(f"request {i} ({sizes[i]} rows): {type(e).__name__}: {e}")
+
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("serve_mlp clients did not finish within 600 s")
+        launches = mk.SCALE_MLP.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.SCALE_MLP}
+        batches = server.executed_batch_sizes[batches_before:]
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    breakdown = _dense_batch_breakdown(
+        plan, DataFrame.from_dict({"features": payloads[sizes.index(MAX_BATCH)]}), ingest)
+    hot = sorted(b for b, kind in kinds.items() if "megakernel" in kind)
+    if hot != [b for b in kinds if b >= 2]:
+        raise AssertionError(f"hot buckets {hot}: the cost model should mark every bucket from 2 rows")
+    hot_batches = sum(1 for _, bucket in batches if bucket >= 2)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if not launches > 0:
+        raise AssertionError("the MLP megakernel never launched on the main path")
+    if launches != hot_batches:
+        raise AssertionError(f"MLP megakernel launches {launches} != batches of bucket >= 2 {hot_batches}")
+    if fallback != 0:
+        raise AssertionError(f"{fallback} batches fell back to the per-stage path")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} chains were built after warmup")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during MLP serving: {other}")
+    lat = sorted(latencies)
+    result = {
+        "train_rows": MLP_ROWS, "widths": list(MLP_WIDTHS), "data_s": data_s,
+        "scaler_fit_s": scaler_fit_s, "scaler_transform_s": scaler_transform_s,
+        "fit_s": fit_s, "fit_ms_per_epoch": fit_ms_per_epoch, "fit_profile": fit_profile,
+        "loss_first": est.loss_history[0], "loss_last": est.loss_history[-1],
+        "warmup_s": warmup_s, "warmed_buckets": len(kinds),
+        "requests": n_req, "rows": sum(sizes),
+        "batches": len(batches),
+        "hot_buckets": hot,
+        "hot_batches": hot_batches,
+        "megakernel_launches": launches,
+        "fallback_batches": fallback,
+        "post_warmup_builds": compiles,
+        "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall,
+        "wall_s": wall,
+        "hot_batch_breakdown_ms": breakdown,
+    }
+    emit("serve_mlp", card=card, **result)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1256,7 +1801,7 @@ def main() -> int:
     from flink_ml_tpu_torch.native import KERNELS
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
     import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
-    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC, SPARSE_IDF_LOGISTIC
+    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC, SCALE_MLP, SPARSE_IDF_LOGISTIC
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1277,6 +1822,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     measured[SPARSE_IDF_LOGISTIC.name] = phase_kernels_sparse(rng, smi, headline[0])
     launches[SPARSE_IDF_LOGISTIC.name] = phase_serve_sparse(smi, headline)
+    del headline
+    measured[SCALE_MLP.name] = phase_kernels_mlp(rng, smi)
+    launches[SCALE_MLP.name] = phase_serve_mlp(smi)
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -1295,8 +1843,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
-    if len(lines) != 6:
-        raise AssertionError(f"{len(lines)} kernels registered, expected 6")
+    if len(lines) != 7:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 7")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,348 @@
+"""MLP classifier — twin of ``flink_ml_tpu/models/classification/mlp_classifier.py``
+on one device.
+
+A fully connected relu network with a softmax head, trained by minibatch
+adam on softmax cross-entropy. The network is an ``nn.Module`` that keeps
+the JAX package's ``W [d_in, d_out]`` layout, so model data crosses between
+the packages unchanged; both draw their initial weights from the same numpy
+generator, so a fit starts from bit-equal weights.
+
+fit: the dataset is resident on the device (``DeviceDataCache``); each epoch
+reads the schedule's contiguous window with its clamped tail zero-weighted
+(``_batch_rows``, as SGD does), takes the gradient of the weighted loss sum
+by autograd, divides it by the window's weight, and applies adam written
+out in optax's order (``_adam_step``). Epochs run in chunks
+(``fused_chunk_len``): the ``tol`` criterion's ``done`` flag and the
+per-epoch losses stay on the device within a chunk and are read once at its
+end. ``computeType=bfloat16`` casts each matrix product's operands to
+bfloat16, as ``_forward`` does in the JAX package; parameters, optimizer
+state and loss stay float32.
+
+Not ported yet, each raising an error that names ROADMAP.md: ``fit_stream``
+(the host-tier cache) and the sharded ``train.mesh`` tier.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from flink_ml_tpu_torch.api.core import Estimator, Model
+from flink_ml_tpu_torch.api.dataframe import DataFrame
+from flink_ml_tpu_torch.api.types import BasicType, DataTypes
+from flink_ml_tpu_torch.device import resolve_device
+from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.models.common import extract_labeled_data
+from flink_ml_tpu_torch.ops.kernels import mlp_predict_fn
+from flink_ml_tpu_torch.ops.optimizer import _batch_rows, fused_chunk_len
+from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
+from flink_ml_tpu_torch.params.param import (
+    IntArrayParam,
+    ParamValidators,
+    StringParam,
+    update_existing_params,
+)
+from flink_ml_tpu_torch.params.shared import (
+    HasFeaturesCol,
+    HasGlobalBatchSize,
+    HasLabelCol,
+    HasLearningRate,
+    HasMaxIter,
+    HasPredictionCol,
+    HasRawPredictionCol,
+    HasSeed,
+    HasTol,
+)
+from flink_ml_tpu_torch.servable.lib import MLPClassifierModelServable
+from flink_ml_tpu_torch.utils import read_write as rw
+
+__all__ = ["MLPClassifier", "MLPClassifierModel"]
+
+_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+
+# optax.adam's defaults
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+class _MlpParams(
+    HasFeaturesCol,
+    HasLabelCol,
+    HasPredictionCol,
+    HasRawPredictionCol,
+    HasMaxIter,
+    HasLearningRate,
+    HasGlobalBatchSize,
+    HasTol,
+    HasSeed,
+):
+    HIDDEN_LAYERS = IntArrayParam(
+        "hiddenLayers",
+        "Sizes of the hidden layers.",
+        [64],
+        ParamValidators.non_empty_array(),
+    )
+    COMPUTE_TYPE = StringParam(
+        "computeType",
+        "Matmul compute dtype: 'bfloat16' runs forward/backward matmuls on "
+        "the MXU's native bf16 path (params, optimizer state and loss stay "
+        "float32 — standard mixed precision); 'float32' is exact.",
+        "float32",
+        ParamValidators.in_array(["float32", "bfloat16"]),
+    )
+
+    def get_hidden_layers(self):
+        return self.get(self.HIDDEN_LAYERS)
+
+    def set_hidden_layers(self, *values: int):
+        return self.set(self.HIDDEN_LAYERS, list(values))
+
+    def get_compute_type(self) -> str:
+        return self.get(self.COMPUTE_TYPE)
+
+    def set_compute_type(self, value: str):
+        return self.set(self.COMPUTE_TYPE, value)
+
+    def _compute_dtype(self) -> Optional[torch.dtype]:
+        return torch.bfloat16 if self.get_compute_type() == "bfloat16" else None
+
+
+def _mlp_flops_per_epoch(dims: Sequence[int], local_batch: int) -> float:
+    """Matrix-product FLOPs of one minibatch epoch (forward 2 + backward 4
+    per weight per row): the chunk-length cost model's input."""
+    return 6.0 * local_batch * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _init_params(rng: np.random.Generator, dims: List[int]) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """He-normal weights and zero biases, drawn exactly as the JAX package
+    draws them."""
+    params = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        scale = np.sqrt(2.0 / d_in)
+        params.append(
+            (
+                (rng.normal(size=(d_in, d_out)) * scale).astype(np.float32),
+                np.zeros(d_out, np.float32),
+            )
+        )
+    return params
+
+
+def _forward(layers, X: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Logits. With ``compute_dtype`` the inputs, weights and biases are cast
+    per matrix product; the casts are differentiable, so gradients come back
+    in the parameters' float32."""
+    cast = (lambda a: a.to(compute_dtype)) if compute_dtype is not None else (lambda a: a)
+    h = cast(X)
+    for W, b in layers[:-1]:
+        h = torch.relu(h @ cast(W) + cast(b))
+    W, b = layers[-1]
+    return h @ cast(W) + cast(b)
+
+
+class _MLP(nn.Module):
+    """The network: ``W{i} [d_in, d_out]`` and ``b{i} [d_out]`` per layer."""
+
+    def __init__(self, layers, device: torch.device):
+        super().__init__()
+        self.weights = nn.ParameterList(
+            nn.Parameter(torch.from_numpy(np.ascontiguousarray(W, np.float32)).to(device)) for W, _ in layers
+        )
+        self.biases = nn.ParameterList(
+            nn.Parameter(torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(device)) for _, b in layers
+        )
+
+    def layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return list(zip(self.weights, self.biases))
+
+    def forward(self, X: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return _forward(self.layers(), X, compute_dtype)
+
+
+def _predict(layers, X: torch.Tensor, compute_dtype: Optional[torch.dtype]):
+    """``(argmax class index as float32, probabilities)``: float32 through
+    ``mlp_predict_fn``, the serving body; bfloat16 through ``_forward``'s
+    casts, then the same float32 head."""
+    if compute_dtype is None:
+        return mlp_predict_fn(layers, X)
+    logits = _forward(layers, X, compute_dtype).to(torch.float32)
+    return torch.argmax(logits, dim=-1).to(torch.float32), torch.softmax(logits, dim=-1)
+
+
+class MLPClassifierModel(Model, _MlpParams):
+    """Serving side: one forward pass; prediction = ``labels[argmax]``."""
+
+    def __init__(self):
+        super().__init__()
+        self.params: Optional[list] = None  # [(W [d_in, d_out], b [d_out]), ...] float32
+        self.labels: Optional[np.ndarray] = None  # [classes] class values
+
+    def transform(self, *inputs, device=None):
+        """prediction (DOUBLE) and the class probabilities (a vector
+        column) on ``device`` (None → the GPU), at the model's computeType."""
+        (df,) = inputs
+        if self.params is None:
+            raise RuntimeError("model must be fit/loaded before transform")
+        dev = resolve_device(device)
+        X = torch.from_numpy(np.ascontiguousarray(df.vectors(self.get_features_col()), np.float32)).to(dev)
+        layers = [
+            tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in layer)
+            for layer in self.params
+        ]
+        with torch.no_grad():
+            pred_idx, probs = _predict(layers, X, self._compute_dtype())
+        pred = np.asarray(self.labels)[pred_idx.cpu().numpy().astype(np.int64)]
+        out = df.clone()
+        out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, np.asarray(pred, np.float64))
+        out.add_column(
+            self.get_raw_prediction_col(), DataTypes.vector(BasicType.DOUBLE),
+            probs.cpu().numpy().astype(np.float64),
+        )
+        return out
+
+    # --- persistence ---------------------------------------------------------
+    def save(self, path: str) -> None:
+        rw.save_metadata(self, path, {"numLayers": len(self.params)})
+        arrays = {"labels": self.labels}
+        for i, (W, b) in enumerate(self.params):
+            arrays[f"W{i}"] = np.asarray(W)
+            arrays[f"b{i}"] = np.asarray(b)
+        rw.save_model_arrays(path, arrays)
+
+    @classmethod
+    def load(cls, path: str):
+        """Load a directory saved by this class or by its JAX twin."""
+        metadata = rw.load_metadata(path, rw.stage_class_name(cls))
+        model = cls()
+        model.load_param_map_from_json(metadata["paramMap"])
+        arrays = rw.load_model_arrays(path)
+        model.labels = arrays["labels"]
+        model.params = [(arrays[f"W{i}"], arrays[f"b{i}"]) for i in range(metadata["numLayers"])]
+        return model
+
+    @classmethod
+    def load_servable(cls, path: str) -> MLPClassifierModelServable:
+        """The runtime-free servable of this model's save directory."""
+        return MLPClassifierModelServable.load_servable(path)
+
+    def get_model_data(self):
+        """The JAX package's layout: one row of ``params`` (the list of
+        ``(W, b)`` pairs) and ``labels``."""
+        return [DataFrame(["params", "labels"], None, [[self.params], [self.labels]])]
+
+    def set_model_data(self, *model_data):
+        """Takes :meth:`get_model_data`'s layout, from either package."""
+        df = model_data[0]
+        self.params = [
+            (np.asarray(W, np.float32), np.asarray(b, np.float32)) for W, b in df.column("params")[0]
+        ]
+        self.labels = np.asarray(df.column("labels")[0])
+        return self
+
+
+def _adam_step(params, grads, mu, nu, t: int, lr: float):
+    """One adam step in optax's order (``scale_by_adam`` then
+    ``scale_by_learning_rate``): the moments, their bias corrections with
+    ``1 − b^t`` taken in float32, ``mu_hat / (sqrt(nu_hat) + eps)``, that
+    update times ``−lr``, added to the parameter. ``torch.optim.Adam`` rounds
+    in another order, so it is not used. Returns ``(new param, mu, nu)``
+    per parameter; the caller keeps or discards the step."""
+    bc1 = float(np.float32(1.0) - np.float32(_B1) ** np.float32(t))
+    bc2 = float(np.float32(1.0) - np.float32(_B2) ** np.float32(t))
+    stepped = []
+    for p, g, m, v in zip(params, grads, mu, nu):
+        m = (1.0 - _B1) * g + _B1 * m
+        v = (1.0 - _B2) * (g * g) + _B2 * v
+        update = (m / bc1) / (torch.sqrt(v / bc2) + _EPS) * -lr
+        stepped.append((p + update, m, v))
+    return stepped
+
+
+class MLPClassifier(Estimator, _MlpParams):
+    """Minibatch adam training of the MLP on one device."""
+
+    def fit(self, *inputs, device=None) -> MLPClassifierModel:
+        """Train on ``device`` (None → the GPU). Records ``loss_history``
+        (the mean loss of every executed epoch) on the estimator."""
+        (df,) = inputs
+        data = extract_labeled_data(df, self.get_features_col(), self.get_label_col(), None)
+        classes = np.unique(data["labels"])
+        y_idx = np.searchsorted(classes, data["labels"]).astype(np.float32)
+        cache = DeviceDataCache(
+            {"x": data["features"], "y": y_idx, "w": data["weights"]}, device=device
+        )
+        return self.fit_cache(cache, classes)
+
+    def fit_cache(self, cache: DeviceDataCache, classes: np.ndarray) -> MLPClassifierModel:
+        """The resident fit on ``cache``: columns ``x`` [n, d] float32, ``y``
+        [n] the class index (float32) into ``classes``, ``w`` [n] weights."""
+        from flink_ml_tpu_torch.config import Options, config
+
+        if config.get(Options.TRAIN_MESH):
+            raise NotImplementedError(f"train.mesh is set: sharded MLP training {_NOT_PORTED}")
+        X, y, w = cache["x"], cache["y"], cache["w"]
+        dims = [int(X.shape[1]), *[int(h) for h in self.get_hidden_layers()], len(classes)]
+        net = _MLP(_init_params(np.random.default_rng(self.get_seed()), dims), cache.device)
+        params = list(net.parameters())
+        lr = self.get_learning_rate()
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        local_batch = min(self.get_global_batch_size(), cache.local_rows)
+        tol = self.get_tol()
+        check_loss = bool(np.isfinite(tol) and tol > 0)
+        max_iter = self.get_max_iter()
+        chunk = fused_chunk_len(
+            max_iter, check_loss, flops_per_epoch=_mlp_flops_per_epoch(dims, local_batch)
+        )
+        compute_dtype = self._compute_dtype()
+        starts, offsets = offset_schedule(cache.local_rows, local_batch, max_iter)
+        done = torch.zeros((), dtype=torch.bool, device=cache.device)
+        self.loss_history = []
+        t = 0
+        for starts_c, offsets_c, active_c, n_active in chunked_schedule(starts, offsets, max_iter, chunk):
+            recorded = []
+            executed_n = torch.zeros((), dtype=torch.float32, device=cache.device)
+            for start, offset, act in zip(starts_c, offsets_c, active_c):
+                if not act:  # padding epochs of the last chunk: no-ops
+                    continue
+                start = int(start)
+                yb, wb = _batch_rows(y, w, cache.mask, start, int(offset), local_batch)
+                logits = net(X[start:start + local_batch], compute_dtype).to(torch.float32)
+                losses = torch.logsumexp(logits, dim=-1) - logits.gather(1, yb.long()[:, None])[:, 0]
+                loss_sum = torch.sum(losses * wb)
+                grads = torch.autograd.grad(loss_sum, params)
+                with torch.no_grad():
+                    safe_w = torch.clamp(torch.sum(wb), min=1e-30)
+                    # optax's count advances on executed epochs only; once
+                    # ``done``, no later epoch of the run is kept anyway
+                    t += 1
+                    stepped = _adam_step(params, [g / safe_w for g in grads], mu, nu, t, lr)
+                    mean_loss = loss_sum / safe_w
+                    executed = ~done
+                    for i, (p_new, m_new, v_new) in enumerate(stepped):
+                        if check_loss:
+                            p_new = torch.where(executed, p_new, params[i])
+                            m_new = torch.where(executed, m_new, mu[i])
+                            v_new = torch.where(executed, v_new, nu[i])
+                        params[i].copy_(p_new)
+                        mu[i], nu[i] = m_new, v_new
+                    recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
+                    executed_n = executed_n + executed.to(torch.float32)
+                    if check_loss:  # stop once loss < tol (NaN continues)
+                        done = done | (executed & (mean_loss < tol))
+            host = torch.cat([torch.stack(recorded), executed_n[None]]).cpu().numpy()
+            got = [float(x) for x in host[: int(host[-1])]]
+            self.loss_history.extend(got)
+            if check_loss and len(got) < n_active:  # done flipped mid-chunk
+                break
+        model = MLPClassifierModel()
+        update_existing_params(model, self)
+        model.params = [
+            (W.detach().cpu().numpy(), b.detach().cpu().numpy()) for W, b in net.layers()
+        ]
+        model.labels = np.asarray(classes, np.float64)
+        return model
+
+    def fit_stream(self, cache, classes=None, window_rows=None) -> MLPClassifierModel:
+        raise NotImplementedError(f"MLPClassifier.fit_stream (a host-tier cache) {_NOT_PORTED}")

@@ -21,6 +21,7 @@ __all__ = [
     "gather_clamped",
     "idf_scale_fn",
     "logistic_from_dots_fn",
+    "mlp_predict_fn",
     "scale_fn",
     "segment_sum",
     "sparse_dot_fn",
@@ -38,6 +39,23 @@ def logistic_from_dots_fn(dots: torch.Tensor):
     prob = torch.sigmoid(dots)
     pred = (dots >= 0).to(dots.dtype)
     return pred, torch.stack([1.0 - prob, prob], dim=1)
+
+
+def mlp_predict_fn(layers, X: torch.Tensor):
+    """Float32 MLP forward: ``relu(h @ W + b)`` per hidden layer, then the
+    logits, their softmax and the argmax; returns ``(argmax class index as
+    float32 [n], probabilities [n, classes])``. ``layers`` is a sequence of
+    ``(W [d_in, d_out], b [d_out])`` pairs, any length. The op order is the
+    JAX package's (``mlp_classifier._forward`` + the predict head), and
+    ``torch.argmax`` returns the first maximal index, NaN counting as the
+    maximum, as ``jnp.argmax`` does."""
+    h = X
+    for W, b in layers[:-1]:
+        h = torch.relu(h @ W + b)
+    W, b = layers[-1]
+    logits = (h @ W + b).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.argmax(logits, dim=-1).to(torch.float32), probs
 
 
 def scale_fn(X: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor, *,

@@ -24,6 +24,7 @@ __all__ = [
     "HasMaxIter",
     "HasMultiClass",
     "HasReg",
+    "HasSeed",
     "HasTol",
     "HasWeightCol",
     "HasPredictionCol",
@@ -163,6 +164,17 @@ class HasElasticNet(WithParams):
 
     def set_elastic_net(self, value: float):
         return self.set(self.ELASTIC_NET, value)
+
+
+class HasSeed(WithParams):
+    SEED = IntParam("seed", "The random seed.", None)
+
+    def get_seed(self) -> int:
+        v = self.get(self.SEED)
+        return 0 if v is None else v
+
+    def set_seed(self, value: int):
+        return self.set(self.SEED, value)
 
 
 class HasMultiClass(WithParams):

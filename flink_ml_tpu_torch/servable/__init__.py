@@ -5,6 +5,7 @@ from flink_ml_tpu_torch.servable.builder import PipelineModelServable
 from flink_ml_tpu_torch.servable.convert import servable_from_arrays
 from flink_ml_tpu_torch.servable.lib import (
     LogisticRegressionModelServable,
+    MLPClassifierModelServable,
     StandardScalerModelServable,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "servable_from_arrays",
     "PipelineModelServable",
     "LogisticRegressionModelServable",
+    "MLPClassifierModelServable",
     "StandardScalerModelServable",
 ]

@@ -1,5 +1,6 @@
 """Concrete servables — twin of ``flink_ml_tpu/servable/lib.py`` for the
-StandardScaler → LogisticRegression serving path, dense and sparse.
+StandardScaler → LogisticRegression serving path, dense and sparse, and the
+StandardScaler → MLPClassifier path.
 
 Each servable's per-stage ``transform`` and its ``kernel_spec().kernel_fn``
 (or ``sparse_kernel_spec``) compose the same ``ops/kernels.py`` functions, so
@@ -14,7 +15,13 @@ import torch
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
-from flink_ml_tpu_torch.ops.kernels import dot_fn, logistic_from_dots_fn, scale_fn, sparse_dot_fn
+from flink_ml_tpu_torch.ops.kernels import (
+    dot_fn,
+    logistic_from_dots_fn,
+    mlp_predict_fn,
+    scale_fn,
+    sparse_dot_fn,
+)
 from flink_ml_tpu_torch.params.param import BoolParam
 from flink_ml_tpu_torch.params.shared import (
     HasFeaturesCol,
@@ -29,6 +36,7 @@ from flink_ml_tpu_torch.servable.sparse import pack_sparse_column, sparse_names
 
 __all__ = [
     "LogisticRegressionModelServable",
+    "MLPClassifierModelServable",
     "StandardScalerModelServable",
     "logistic_predict",
     "packed_tensors",
@@ -146,6 +154,77 @@ class LogisticRegressionModelServable(
             input_kinds={features_col: "sparse"},
             sparse_input_dims={features_col: dim},
             fusion_op="sparse_logistic",
+        )
+
+
+class MLPClassifierModelServable(
+    ModelServable, HasFeaturesCol, HasPredictionCol, HasRawPredictionCol
+):
+    """The MLP's forward pass and softmax head through ``mlp_predict_fn``,
+    float32. Model data: ``W0``/``b0`` … ``W{L-1}``/``b{L-1}`` layer pairs and
+    the ``labels`` class-value table (prediction = ``labels[argmax]``). Class
+    values are small integers, exact in float32, so the device-side gather
+    of the kernel spec and the host-side gather of ``transform`` agree."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers = None  # [(W [d_in, d_out], b [d_out]), ...] float32
+        self.labels = None  # [classes] class values
+
+    def _apply_model_arrays(self, arrays) -> "MLPClassifierModelServable":
+        layers = []
+        while f"W{len(layers)}" in arrays:
+            i = len(layers)
+            layers.append((np.asarray(arrays[f"W{i}"], np.float32), np.asarray(arrays[f"b{i}"], np.float32)))
+        if not layers:
+            raise ValueError(
+                f"MLP model data must carry at least one W0/b0 layer pair; got arrays {sorted(arrays)}"
+            )
+        self.layers = layers
+        self.labels = np.asarray(arrays["labels"])
+        return self
+
+    def transform(self, df: DataFrame, device=None) -> DataFrame:
+        if self.layers is None:
+            raise RuntimeError("set_model_data must be called before transform")
+        device = resolve_device(device)
+        layers = [(_to_device(W, device), _to_device(b, device)) for W, b in self.layers]
+        pred_idx, probs = mlp_predict_fn(layers, _to_device(df.vectors(self.get_features_col()), device))
+        pred = np.asarray(self.labels)[pred_idx.cpu().numpy().astype(np.int64)]
+        out = df.clone()
+        out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, np.asarray(pred, np.float64))
+        out.add_column(
+            self.get_raw_prediction_col(), DataTypes.vector(BasicType.DOUBLE), _to_host(probs)
+        )
+        return out
+
+    def kernel_spec(self) -> KernelSpec:
+        """The forward pass and head as a fusable spec — ``transform``'s
+        ``mlp_predict_fn`` body, with the label gather on the device."""
+        if self.layers is None:
+            raise RuntimeError("set_model_data must be called before kernel_spec")
+        features_col = self.get_features_col()
+        pred_col, probs_col = self.get_prediction_col(), self.get_raw_prediction_col()
+        n_layers = len(self.layers)
+        model_arrays = {"labels": np.asarray(self.labels, np.float32)}
+        for i, (W, b) in enumerate(self.layers):
+            model_arrays[f"W{i}"] = W
+            model_arrays[f"b{i}"] = b
+
+        def kernel_fn(model, cols):
+            layers = [(model[f"W{i}"], model[f"b{i}"]) for i in range(n_layers)]
+            pred_idx, probs = mlp_predict_fn(layers, cols[features_col])
+            return {pred_col: model["labels"][pred_idx.long()], probs_col: probs}
+
+        return KernelSpec(
+            input_cols=(features_col,),
+            outputs=(
+                (pred_col, DataTypes.DOUBLE),
+                (probs_col, DataTypes.vector(BasicType.DOUBLE)),
+            ),
+            model_arrays=model_arrays,
+            kernel_fn=kernel_fn,
+            fusion_op="mlp",
         )
 
 

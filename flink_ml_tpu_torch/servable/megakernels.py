@@ -12,11 +12,15 @@ chains (:data:`MEGAKERNEL_CHAINS`):
 - ``("sparse_idf", "sparse_logistic")`` — IDF → LogisticRegression on a
   SparseVector column in the sparse calling convention, and
   ``("sparse_logistic",)`` — the sparse head alone:
-  ``csrc/megakernel_sparse_idf_logistic.cu`` through :func:`sparse_idf_logistic`.
+  ``csrc/megakernel_sparse_idf_logistic.cu`` through :func:`sparse_idf_logistic`;
+- ``("scale", "mlp")`` — StandardScaler → MLPClassifier, and ``("mlp",)`` —
+  the MLP alone: ``csrc/megakernel_scale_mlp.cu`` through :func:`scale_mlp`,
+  for networks within the kernel's limits (:data:`MLP_MAX_LAYERS`,
+  :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`).
 
 Every other chain the JAX package admits (``("scale",)`` alone, the feature6
-chain, scale → mlp, kmeans, normalize) stays on the merged program in fast
-mode until its kernel is written.
+chain, kmeans, normalize), and an MLP past those limits, stays on the merged
+program in fast mode until its kernel is written.
 
 Each wrapper chooses by the device of its input: tensors on the CPU take the
 plain version — the same chain composed from ``ops/kernels.py`` — and CUDA
@@ -26,7 +30,7 @@ or launch to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from flink_ml_tpu_torch.native import CudaKernel
 from flink_ml_tpu_torch.ops.kernels import (
     dot_fn,
     logistic_from_dots_fn,
+    mlp_predict_fn,
     scale_fn,
     sparse_dot_fn,
     sparse_idf_scale_fn,
@@ -43,12 +48,18 @@ from flink_ml_tpu_torch.servable.sparse import sparse_names
 
 __all__ = [
     "MEGAKERNEL_CHAINS",
+    "MLP_MAX_CLASSES",
+    "MLP_MAX_LAYERS",
+    "MLP_MAX_WIDTH",
     "SCALE_LOGISTIC",
+    "SCALE_MLP",
     "SPARSE_IDF_LOGISTIC",
     "build_megakernel_fn",
     "chain_eligible",
     "scale_logistic",
     "scale_logistic_plain",
+    "scale_mlp",
+    "scale_mlp_plain",
     "sparse_idf_logistic",
     "sparse_idf_logistic_plain",
 ]
@@ -59,7 +70,15 @@ MEGAKERNEL_CHAINS = frozenset({
     ("logistic",),
     ("sparse_idf", "sparse_logistic"),
     ("sparse_logistic",),
+    ("scale", "mlp"),
+    ("mlp",),
 })
+
+#: The MLP networks ``csrc/megakernel_scale_mlp.cu`` holds (its kMaxLayers,
+#: kMaxWidth and kMaxClasses).
+MLP_MAX_LAYERS = 8
+MLP_MAX_WIDTH = 512
+MLP_MAX_CLASSES = 32
 
 SCALE_LOGISTIC = CudaKernel(
     name="megakernel_scale_logistic",
@@ -74,6 +93,16 @@ SPARSE_IDF_LOGISTIC = CudaKernel(
     source="megakernel_sparse_idf_logistic.cu",
     symbol="megakernel_sparse_idf_logistic",
     argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    replaces="flink_ml_tpu/servable/megakernels.py:180",
+)
+
+
+SCALE_MLP = CudaKernel(
+    name="megakernel_scale_mlp",
+    source="megakernel_scale_mlp.cu",
+    symbol="megakernel_scale_mlp",
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     replaces="flink_ml_tpu/servable/megakernels.py:180",
 )
 
@@ -93,19 +122,52 @@ def _head_width(head: Any, kind: str) -> Optional[int]:
     return _vector_width(head.model_arrays["coefficient"])
 
 
+def _mlp_widths(head: Any) -> Optional[List[int]]:
+    """The widths ``[d_in, hidden..., classes]`` of an MLP head reading one
+    vector column into two outputs and holding ``W{i}``/``b{i}``/``labels``
+    whose widths chain up, or None when the head is not of that form or the
+    kernel cannot hold the network."""
+    if len(head.input_cols) != 1 or head.input_kind(head.input_cols[0]) != "vector":
+        return None
+    arrays = head.model_arrays
+    n = 0
+    while f"W{n}" in arrays:
+        n += 1
+    names = {"labels", *(f"W{i}" for i in range(n)), *(f"b{i}" for i in range(n))}
+    if len(head.output_names) != 2 or not 1 <= n <= MLP_MAX_LAYERS or set(arrays) != names:
+        return None
+    Ws = [np.asarray(arrays[f"W{i}"]) for i in range(n)]
+    if any(W.ndim != 2 for W in Ws):
+        return None
+    widths = [int(Ws[0].shape[0])] + [int(W.shape[1]) for W in Ws]
+    if any(W.shape[0] != widths[i] or _vector_width(arrays[f"b{i}"]) != widths[i + 1]
+           for i, W in enumerate(Ws)):
+        return None
+    if _vector_width(arrays["labels"]) != widths[-1]:
+        return None
+    if not all(1 <= w <= MLP_MAX_WIDTH for w in widths) or widths[-1] > MLP_MAX_CLASSES:
+        return None
+    return widths
+
+
 def chain_eligible(specs: Sequence[Any]) -> bool:
     """Whether this spec run has a megakernel: its fusion ops form a chain
-    of :data:`MEGAKERNEL_CHAINS`, the head reads one column (dense, or
-    sparse for the sparse chains) and holds one coefficient vector, and a
-    leading stage feeds the head's input column with vectors of the
-    coefficient's width — mean / inv_std for the scaler, idf for the sparse
-    IDF, whose output is the sparse column the head reads."""
+    of :data:`MEGAKERNEL_CHAINS`; the head reads one column (dense, or
+    sparse for the sparse chains) and holds one coefficient vector, or, for
+    the MLP, a network the kernel can hold (:func:`_mlp_widths`); and a
+    leading stage feeds the head's input column with vectors of the head's
+    input width — mean / inv_std for the scaler, idf for the sparse IDF,
+    whose output is the sparse column the head reads."""
     ops = tuple(getattr(s, "fusion_op", None) for s in specs)
     if ops not in MEGAKERNEL_CHAINS:
         return False
     head = specs[-1]
     sparse = ops[-1] == "sparse_logistic"
-    d = _head_width(head, "sparse" if sparse else "vector")
+    if ops[-1] == "mlp":
+        widths = _mlp_widths(head)
+        d = widths[0] if widths else None
+    else:
+        d = _head_width(head, "sparse" if sparse else "vector")
     if d is None:
         return False
     if len(specs) == 1:
@@ -284,6 +346,99 @@ def sparse_idf_logistic(
 
 
 # ---------------------------------------------------------------------------
+# scale → mlp (dense)
+# ---------------------------------------------------------------------------
+
+
+def scale_mlp_plain(
+    x: torch.Tensor,
+    mean: Optional[torch.Tensor],
+    inv_std: Optional[torch.Tensor],
+    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    labels: torch.Tensor,
+    *,
+    with_mean: bool,
+    with_std: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chain in plain PyTorch: ``(scaled, prediction, probabilities)``
+    — ``scale_fn``, ``mlp_predict_fn`` and the label gather."""
+    scaled = scale_fn(x, mean, inv_std, with_mean=with_mean, with_std=with_std)
+    pred_idx, probs = mlp_predict_fn(layers, scaled)
+    return scaled, labels[pred_idx.long()], probs
+
+
+def scale_mlp(
+    x: torch.Tensor,
+    mean: Optional[torch.Tensor],
+    inv_std: Optional[torch.Tensor],
+    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    labels: torch.Tensor,
+    *,
+    with_mean: bool,
+    with_std: bool,
+    write_scaled: bool,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """``(scaled or None, prediction [rows], probabilities [rows, classes])``
+    for ``x`` [rows, d] through the network ``layers`` (``(W [d_in, d_out],
+    b [d_out])`` pairs) and the class values ``labels``. CPU tensors run the
+    plain version; CUDA tensors launch the kernel on the current stream (no
+    synchronisation) or raise — also for a network past the kernel's limits."""
+    if x.device.type == "cpu":
+        scaled, pred, probs = scale_mlp_plain(
+            x, mean, inv_std, layers, labels, with_mean=with_mean, with_std=with_std
+        )
+        return (scaled if write_scaled else None), pred, probs
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{SCALE_MLP.name} needs CPU or CUDA tensors, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [rows, d], got shape {tuple(x.shape)}")
+    rows = int(x.shape[0])
+    widths = [int(x.shape[1])] + [int(W.shape[-1]) for W, _ in layers]
+    if not 1 <= len(layers) <= MLP_MAX_LAYERS or not all(1 <= w <= MLP_MAX_WIDTH for w in widths) \
+            or widths[-1] > MLP_MAX_CLASSES:
+        raise ValueError(
+            f"{SCALE_MLP.name} holds 1-{MLP_MAX_LAYERS} layers of widths 1-{MLP_MAX_WIDTH} and "
+            f"at most {MLP_MAX_CLASSES} classes; got widths {widths}"
+        )
+    device = x.device
+    _check("x", x, (rows, widths[0]), device)
+    for i, (W, b) in enumerate(layers):
+        _check(f"W{i}", W, (widths[i], widths[i + 1]), device)
+        _check(f"b{i}", b, (widths[i + 1],), device)
+    _check("labels", labels, (widths[-1],), device)
+    if with_mean:
+        _check("mean", mean, (widths[0],), device)
+    if with_std:
+        _check("inv_std", inv_std, (widths[0],), device)
+    scaled = torch.empty((rows, widths[0]), dtype=torch.float32, device=device) if write_scaled else None
+    pred = torch.empty((rows,), dtype=torch.float32, device=device)
+    probs = torch.empty((rows, widths[-1]), dtype=torch.float32, device=device)
+    n = len(layers)
+    weights = (ctypes.c_void_p * n)(*[W.data_ptr() for W, _ in layers])
+    biases = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
+    c_widths = (ctypes.c_int * (n + 1))(*widths)
+    if not rows:
+        return scaled, pred, probs
+    with torch.cuda.device(device):
+        SCALE_MLP.launch(
+            x.data_ptr(),
+            mean.data_ptr() if with_mean else None,
+            inv_std.data_ptr() if with_std else None,
+            ctypes.addressof(weights),
+            ctypes.addressof(biases),
+            ctypes.addressof(c_widths),
+            n,
+            labels.data_ptr(),
+            scaled.data_ptr() if write_scaled else None,
+            pred.data_ptr(),
+            probs.data_ptr(),
+            rows, int(with_mean), int(with_std), int(write_scaled),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    return scaled, pred, probs
+
+
+# ---------------------------------------------------------------------------
 # the planner's calling convention
 # ---------------------------------------------------------------------------
 
@@ -314,18 +469,22 @@ def _build_sparse(specs: Tuple[Any, ...]):
     return mega
 
 
-def _build_dense(specs: Tuple[Any, ...]):
-    head = specs[-1]
-    pred_col, raw_col = head.output_names
+def _scale_stage(specs: Tuple[Any, ...]):
+    """``(input column, scaled column or None, with_mean, with_std)`` of a
+    dense chain: the scaler's, or the head's input when it runs alone."""
     if len(specs) == 2:
         scale = specs[0]
         (in_col,) = scale.input_cols
         (scaled_col,) = scale.output_names
-        with_mean = bool(scale.fusion_params["with_mean"])
-        with_std = bool(scale.fusion_params["with_std"])
-    else:
-        (in_col,) = head.input_cols
-        scaled_col, with_mean, with_std = None, False, False
+        return in_col, scaled_col, bool(scale.fusion_params["with_mean"]), bool(
+            scale.fusion_params["with_std"])
+    (in_col,) = specs[-1].input_cols
+    return in_col, None, False, False
+
+
+def _build_dense(specs: Tuple[Any, ...]):
+    pred_col, raw_col = specs[-1].output_names
+    in_col, scaled_col, with_mean, with_std = _scale_stage(specs)
 
     def mega(models, cols):
         scale_model = models[0] if scaled_col is not None else {}
@@ -346,6 +505,32 @@ def _build_dense(specs: Tuple[Any, ...]):
     return mega
 
 
+def _build_mlp(specs: Tuple[Any, ...]):
+    pred_col, probs_col = specs[-1].output_names
+    n_layers = len(_mlp_widths(specs[-1])) - 1
+    in_col, scaled_col, with_mean, with_std = _scale_stage(specs)
+
+    def mega(models, cols):
+        scale_model = models[0] if scaled_col is not None else {}
+        head = models[-1]
+        scaled, pred, probs = scale_mlp(
+            cols[in_col],
+            scale_model.get("mean"),
+            scale_model.get("inv_std"),
+            [(head[f"W{i}"], head[f"b{i}"]) for i in range(n_layers)],
+            head["labels"],
+            with_mean=with_mean,
+            with_std=with_std,
+            write_scaled=scaled_col is not None,
+        )
+        out = {} if scaled_col is None else {scaled_col: scaled}
+        out[pred_col] = pred
+        out[probs_col] = probs
+        return out
+
+    return mega
+
+
 def build_megakernel_fn(
     specs: Sequence[Any],
 ) -> Callable[[Sequence[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
@@ -358,4 +543,6 @@ def build_megakernel_fn(
         raise ValueError(f"no megakernel for chain {[s.fusion_op for s in specs]}")
     if specs[-1].fusion_op == "sparse_logistic":
         return _build_sparse(specs)
+    if specs[-1].fusion_op == "mlp":
+        return _build_mlp(specs)
     return _build_dense(specs)

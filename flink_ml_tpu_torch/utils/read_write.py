@@ -42,23 +42,28 @@ _SCALER = "flink_ml_tpu_torch.servable.lib.StandardScalerModelServable"
 _LOGISTIC = "flink_ml_tpu_torch.servable.lib.LogisticRegressionModelServable"
 _LOGISTIC_MODEL = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel"
 _IDF_MODEL = "flink_ml_tpu_torch.models.feature.idf.IDFModel"
+_SCALER_MODEL = "flink_ml_tpu_torch.models.feature.standard_scaler.StandardScalerModel"
+_MLP = "flink_ml_tpu_torch.servable.lib.MLPClassifierModelServable"
+_MLP_MODEL = "flink_ml_tpu_torch.models.classification.mlp_classifier.MLPClassifierModel"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, the port training-side stage that loads it
 #: with ``load(path)`` or None where that stage is not ported). Training-side
 #: Models load as their runtime-free servables, as the JAX package's
 #: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
-#: ``logistic_regression.py:30``). The reverse direction needs no table: the
-#: JAX package reads a port-written directory through its servables'
-#: ``load_servable``, which ignore the class name.
+#: ``logistic_regression.py:30``, ``mlp_classifier.py:195``). The reverse
+#: direction needs no table: the JAX package reads a port-written directory
+#: through its servables' ``load_servable``, which ignore the class name.
 CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
     "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, None),
     "flink_ml_tpu.servable.builder.PipelineModelServable": (_PIPELINE, None),
-    "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": (_SCALER, None),
+    "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": (_SCALER, _SCALER_MODEL),
     "flink_ml_tpu.servable.lib.StandardScalerModelServable": (_SCALER, None),
     "flink_ml_tpu.models.classification.logistic_regression.LogisticRegressionModel":
         (_LOGISTIC, _LOGISTIC_MODEL),
     "flink_ml_tpu.servable.lib.LogisticRegressionModelServable": (_LOGISTIC, None),
+    "flink_ml_tpu.models.classification.mlp_classifier.MLPClassifierModel": (_MLP, _MLP_MODEL),
+    "flink_ml_tpu.servable.lib.MLPClassifierModelServable": (_MLP, None),
     # IDFModel is its own servable in both packages (``idf.py``).
     "flink_ml_tpu.models.feature.idf.IDFModel": (_IDF_MODEL, _IDF_MODEL),
 }

@@ -22,8 +22,11 @@ import flink_ml_tpu_torch.metrics as tmetrics
 import flink_ml_tpu_torch.servable.fusion as tfusion
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.device import resolve_device
+from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier, MLPClassifierModel
+from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler, StandardScalerModel
 from flink_ml_tpu_torch.servable import (
     LogisticRegressionModelServable,
+    MLPClassifierModelServable,
     PipelineModelServable,
     StandardScalerModelServable,
     servable_from_arrays,
@@ -104,6 +107,19 @@ def _pipeline(d=8, seed=3):
     return PipelineModelServable([sc, lr])
 
 
+def _mlp_arrays(d=8):
+    return {"W0": np.ones((d, 4)), "b0": np.zeros(4), "labels": np.arange(4.0)}
+
+
+def _mlp_model(d=8):
+    model = MLPClassifierModel()
+    model.params, model.labels = [(np.ones((d, 4), np.float32), np.zeros(4, np.float32))], np.arange(4.0)
+    return model
+
+
+_FEATURES = DataFrame.from_dict({"features": np.zeros((2, 8)), "label": np.array([0.0, 1.0])})
+
+
 @pytest.mark.parametrize(
     "entry",
     [
@@ -112,8 +128,13 @@ def _pipeline(d=8, seed=3):
         lambda: CompiledServingPlan.build(_pipeline()),
         lambda: _pipeline().transform(DataFrame.from_dict({"features": np.zeros((2, 8))})),
         lambda: resolve_device("cuda"),
+        lambda: MLPClassifier().fit(_FEATURES),
+        lambda: _mlp_model().transform(_FEATURES),
+        lambda: StandardScaler().set_input_col("features").fit(_FEATURES),
+        lambda: MLPClassifierModelServable()._apply_model_arrays(_mlp_arrays()).transform(_FEATURES),
     ],
-    ids=["server", "server-with-model", "plan", "transform", "resolve"],
+    ids=["server", "server-with-model", "plan", "transform", "resolve", "mlp-fit", "mlp-transform",
+         "scaler-fit", "mlp-servable"],
 )
 def test_default_device_is_cuda_and_raises_without_a_card(entry):
     if torch.cuda.is_available():
@@ -218,6 +239,12 @@ def test_class_table_maps_jax_names_to_port_classes():
         is LogisticRegressionModelServable
     )
     assert rw.resolve_class(rw.stage_class_name(StandardScalerModelServable)) is StandardScalerModelServable
+    mlp = "flink_ml_tpu.models.classification.mlp_classifier.MLPClassifierModel"
+    assert rw.resolve_class(mlp) is MLPClassifierModelServable
+    assert rw.resolve_class(mlp, stage=True) is MLPClassifierModel
+    assert rw.resolve_class("flink_ml_tpu.servable.lib.MLPClassifierModelServable") is MLPClassifierModelServable
+    scaler = "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel"
+    assert rw.resolve_class(scaler, stage=True) is StandardScalerModel
     with pytest.raises(ValueError, match="no port class"):
         rw.resolve_class("flink_ml_tpu.models.clustering.kmeans.KMeansModel")
 

@@ -351,3 +351,147 @@ def test_server_launches_the_sparse_kernel_for_hot_keys_only(cuda):
     assert ulp_diff(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction")) <= (
         ULP_ENVELOPE["sparse_idf_logistic"]
     )
+
+
+# ---------------------------------------------------------------------------
+# the scale → mlp serving megakernel
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.servable import MLPClassifierModelServable  # noqa: E402
+from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
+    MLP_MAX_CLASSES,
+    MLP_MAX_LAYERS,
+    MLP_MAX_WIDTH,
+    SCALE_MLP,
+    scale_mlp,
+    scale_mlp_plain,
+)
+
+#: The published network, two small ones, and one at every limit of the kernel.
+MLP_NETWORKS = {
+    "256-512-512-8": [256, 512, 512, 8],
+    "100-64-2": [100, 64, 2],
+    "8-16-3": [8, 16, 3],
+    "limits": [MLP_MAX_WIDTH] * MLP_MAX_LAYERS + [MLP_MAX_CLASSES],
+}
+MLP_PREDICTION_MARGIN = 1e-4  # predictions compared where the plain top-two logits differ by more
+
+
+def _mlp_inputs(rows, widths, device, seed=0):
+    rng = np.random.default_rng(seed)
+    d = widths[0]
+    std = np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.5)
+    std[0] = 0.0
+    inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    layers = [
+        (t(rng.normal(size=(a, b)) * np.sqrt(2.0 / a)), t(rng.normal(size=b) * 0.1))
+        for a, b in zip(widths[:-1], widths[1:])
+    ]
+    labels = t(rng.permutation(widths[-1]) * 2.0 + 1.0)
+    return t(rng.normal(size=(rows, d))), t(rng.normal(size=d)), t(inv_std), layers, labels
+
+
+def _top_two_gap(layers, scaled):
+    h = scaled
+    for W, b in layers[:-1]:
+        h = torch.relu(h @ W + b)
+    logits = h @ layers[-1][0] + layers[-1][1]
+    if logits.shape[1] < 2:
+        return torch.full((logits.shape[0],), float("inf"), device=logits.device)
+    top = torch.topk(logits, 2, dim=1).values
+    return top[:, 0] - top[:, 1]
+
+
+@pytest.mark.parametrize("rows", (1, 2, 33, 4096))
+@pytest.mark.parametrize("net", sorted(MLP_NETWORKS))
+@pytest.mark.parametrize("with_mean,with_std,write_scaled", CHAINS)
+def test_mlp_kernel_matches_plain_version(cuda, rows, net, with_mean, with_std, write_scaled):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full float32
+    x, mean, inv_std, layers, labels = _mlp_inputs(rows, MLP_NETWORKS[net], cuda, seed=rows)
+    before = SCALE_MLP.launches
+    kw = dict(with_mean=with_mean, with_std=with_std)
+    scaled, pred, probs = scale_mlp(x, mean, inv_std, layers, labels, write_scaled=write_scaled, **kw)
+    p_scaled, p_pred, p_probs = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
+    torch.cuda.synchronize()
+    assert SCALE_MLP.launches == before + 1
+    if write_scaled:
+        assert torch.equal(scaled, p_scaled)  # bit-equal: no contraction, same roundings
+    else:
+        assert scaled is None
+    assert probs.shape == p_probs.shape
+    assert ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"]
+    decided = (_top_two_gap(layers, p_scaled) > MLP_PREDICTION_MARGIN).cpu().numpy()
+    np.testing.assert_array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided])
+
+
+def test_mlp_kernel_takes_the_first_maximal_logit_and_nan_as_the_maximum(cuda):
+    W = torch.eye(4, device=cuda)
+    layers = [(W, torch.zeros(4, device=cuda))]
+    labels = torch.tensor([10.0, 20.0, 30.0, 40.0], device=cuda)
+    x = torch.tensor([[1.0, 3.0, 3.0, 0.0], [float("nan"), 5.0, float("nan"), 1.0],
+                      [-1.0, -1.0, -1.0, -1.0]], device=cuda)
+    kw = dict(with_mean=False, with_std=False)
+    _, pred, probs = scale_mlp(x, None, None, layers, labels, write_scaled=False, **kw)
+    _, p_pred, p_probs = scale_mlp_plain(x, None, None, layers, labels, **kw)
+    assert pred.tolist() == p_pred.tolist() == [20.0, 10.0, 10.0]
+    assert torch.isnan(probs[1]).all() and torch.isnan(p_probs[1]).all()
+
+
+def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, mean, inv_std, layers, labels = _mlp_inputs(8, [16, 32, 3], cuda)
+    before = SCALE_MLP.launches
+    kw = dict(with_mean=True, with_std=True, write_scaled=True)
+    with pytest.raises(TypeError, match="float32"):
+        scale_mlp(x.double(), mean, inv_std, layers, labels, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        scale_mlp(x, mean, inv_std, [(layers[0][0].t().contiguous().t(), layers[0][1]), layers[1]],
+                  labels, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        scale_mlp(x, mean, inv_std, layers, labels[:-1], **kw)
+    with pytest.raises(ValueError, match="expected"):
+        scale_mlp(x, mean.cpu(), inv_std, layers, labels, **kw)
+    wide = _mlp_inputs(2, [MLP_MAX_WIDTH + 1, 4, 3], cuda)
+    with pytest.raises(ValueError, match="holds"):
+        scale_mlp(*wide[:3], wide[3], wide[4], **kw)
+    many = _mlp_inputs(2, [8] + [8] * MLP_MAX_LAYERS + [3], cuda)
+    with pytest.raises(ValueError, match="holds"):
+        scale_mlp(*many[:3], many[3], many[4], **kw)
+    classes = _mlp_inputs(2, [8, 16, MLP_MAX_CLASSES + 1], cuda)
+    with pytest.raises(ValueError, match="holds"):
+        scale_mlp(*classes[:3], classes[3], classes[4], **kw)
+    empty = scale_mlp(x[:0], mean, inv_std, layers, labels, **kw)
+    assert [t.shape for t in empty] == [(0, 16), (0,), (0, 3)]
+    assert SCALE_MLP.launches == before
+
+
+def test_server_launches_the_mlp_kernel_from_two_rows(cuda):
+    d = 64
+    rng = np.random.default_rng(2)
+    sc = StandardScalerModelServable().set_input_col("features").set_output_col("scaled")
+    sc.set_with_mean(True)
+    sc.mean, sc.std = rng.normal(size=d), np.abs(rng.normal(size=d)) + 0.5
+    mlp = MLPClassifierModelServable().set_features_col("scaled")
+    mlp._apply_model_arrays({
+        "W0": rng.normal(size=(d, 512)) * np.sqrt(2.0 / d), "b0": np.zeros(512),
+        "W1": rng.normal(size=(512, 512)) * np.sqrt(2.0 / 512), "b1": np.zeros(512),
+        "W2": rng.normal(size=(512, 4)) * np.sqrt(2.0 / 512), "b2": np.zeros(4),
+        "labels": np.array([0.0, 1.0, 2.0, 3.0]),
+    })
+    pipe = PipelineModelServable([sc, mlp])
+    cfg = ServingConfig(max_batch_size=2048, queue_capacity_rows=8192, fusion_mode="fast")
+    template = DataFrame.from_dict({"features": rng.normal(size=(1, d))})
+    with InferenceServer(pipe, name="gpu-mlp", serving_config=cfg, warmup_template=template) as srv:
+        SCALE_MLP.reset_launches()
+        big = DataFrame.from_dict({"features": rng.normal(size=(1500, d))})
+        one = DataFrame.from_dict({"features": rng.normal(size=(1, d))})
+        r_big, r_one = srv.predict(big), srv.predict(one)
+        assert (r_big.bucket, r_one.bucket) == (2048, 1)
+        assert SCALE_MLP.launches == 1  # bucket 2048 is hot, bucket 1 is not
+    ref = pipe.transform(big, device="cpu")
+    np.testing.assert_array_equal(r_big.dataframe.column("scaled"), ref.column("scaled"))
+    np.testing.assert_allclose(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction"),
+                               rtol=0, atol=1e-5)

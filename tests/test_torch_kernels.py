@@ -30,6 +30,9 @@ from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, FusionTier, ulp_dif
 from flink_ml_tpu_torch.servable.kernel_spec import KernelSpec
 from flink_ml_tpu_torch.servable.megakernels import (
     MEGAKERNEL_CHAINS,
+    MLP_MAX_CLASSES,
+    MLP_MAX_LAYERS,
+    MLP_MAX_WIDTH,
     SCALE_LOGISTIC,
     build_megakernel_fn,
     chain_eligible,
@@ -224,22 +227,38 @@ def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
 NOT_YET_PORTED = {
     "scale": ["scale"],
     "feature6": ["scale", "normalize", "elementwise_product", "idf", "scale", "binarize"],
-    "scale_mlp": ["scale", "mlp"],
     "kmeans": ["kmeans"],
     "normalize": ["normalize"],
 }
 
 
+def _mlp(widths=(4, 8, 3), inp="scaled", drop=None):
+    """An MLP head of ``widths`` reading ``inp``; ``drop`` removes a model array."""
+    arrays = {"labels": np.arange(widths[-1], dtype=np.float32)}
+    for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+        arrays[f"W{i}"] = np.ones((a, b), np.float32)
+        arrays[f"b{i}"] = np.zeros(b, np.float32)
+    arrays.pop(drop, None)
+    return _spec("mlp", inputs=(inp,), outputs=("prediction", "rawPrediction"), arrays=arrays)
+
+
 def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert MEGAKERNEL_CHAINS == {
-        ("scale", "logistic"), ("logistic",), ("sparse_idf", "sparse_logistic"), ("sparse_logistic",)
+        ("scale", "logistic"), ("logistic",), ("sparse_idf", "sparse_logistic"), ("sparse_logistic",),
+        ("scale", "mlp"), ("mlp",),
     }
     assert chain_eligible([_scale(), _logistic()])
     assert chain_eligible([_logistic(inp="features")])
     assert chain_eligible([_sparse_idf(), _sparse_logistic()])
     assert chain_eligible([_sparse_logistic(inp="features")])
-    for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()]):
-        assert jax_chain_eligible(specs)  # the JAX package lowers the sparse chains too
+    assert chain_eligible([_scale(), _mlp()])
+    assert chain_eligible([_mlp(inp="features")])
+    assert chain_eligible([_mlp((4, 512, 512, 8), inp="x")])  # the published network's shape
+    limits = (4,) + (MLP_MAX_WIDTH,) * (MLP_MAX_LAYERS - 1) + (MLP_MAX_CLASSES,)
+    assert chain_eligible([_scale(), _mlp(limits)])
+    for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()],
+                  [_scale(), _mlp()], [_mlp()]):
+        assert jax_chain_eligible(specs)  # the JAX package lowers these chains too
     for name, ops in NOT_YET_PORTED.items():
         specs = [_spec(op) for op in ops]
         assert all(op in MEGAKERNEL_OPS for op in ops), name
@@ -255,6 +274,28 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert not chain_eligible([_sparse_idf(), _sparse_logistic(kind="vector")])  # a dense head
     assert not chain_eligible([_sparse_logistic(inp="features", kind="vector")])
     assert not chain_eligible([_spec("sparse_idf"), _spec("sparse_logistic")])  # no coefficient/idf
+    # MLP networks the kernel cannot hold, or heads not of the MLP's form
+    assert not chain_eligible([_scale(), _mlp((5, 8, 3))])  # the scaler's width is not W0's
+    assert not chain_eligible([_scale(out="other"), _mlp()])  # the scaler feeds another column
+    assert not chain_eligible([_spec("scale"), _spec("mlp")])  # no network
+    assert not chain_eligible([_mlp((4,) + (8,) * MLP_MAX_LAYERS + (3,))])  # one layer too many
+    assert not chain_eligible([_mlp((4, MLP_MAX_WIDTH + 1, 3))])  # a hidden layer too wide
+    assert not chain_eligible([_mlp((MLP_MAX_WIDTH + 1, 8, 3))])  # an input too wide
+    assert not chain_eligible([_mlp((4, 8, MLP_MAX_CLASSES + 1))])  # too many classes
+    assert not chain_eligible([_mlp(drop="labels")])
+    assert not chain_eligible([_mlp(drop="b1")])
+    gap = _mlp((4, 8, 3))
+    gap.model_arrays["W1"] = np.ones((7, 3), np.float32)  # widths that do not chain up
+    assert not chain_eligible([gap])
+    bias = _mlp((4, 8, 3))
+    bias.model_arrays["b0"] = np.zeros(7, np.float32)  # a bias of another width
+    assert not chain_eligible([bias])
+    labels = _mlp((4, 8, 3))
+    labels.model_arrays["labels"] = np.zeros(4, np.float32)  # a label per class, no more
+    assert not chain_eligible([labels])
+    extra = _mlp((4, 8, 3))
+    extra.model_arrays["W5"] = np.ones((3, 3), np.float32)  # a layer off the chain
+    assert not chain_eligible([extra])
     with pytest.raises(ValueError, match="no megakernel"):
         build_megakernel_fn([_spec("kmeans")])
 

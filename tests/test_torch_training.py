@@ -518,8 +518,9 @@ def test_one_class_table_resolves_servable_and_stage():
 
     assert rw.resolve_class(name) is LogisticRegressionModelServable
     assert rw.resolve_class(name, stage=True) is LogisticRegressionModel
+    # a servable's saved name has no training-side stage
     with pytest.raises(ValueError, match="no port stage"):
-        rw.resolve_class("flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel", stage=True)
+        rw.resolve_class("flink_ml_tpu.servable.lib.StandardScalerModelServable", stage=True)
 
 
 def _saved_other(tmp_path):
