@@ -5,8 +5,8 @@
 
 Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
-card — dense, sparse and MLP serving, wide-sparse and MLP training. Phases,
-one JSON line each:
+card — dense, sparse, MLP and KMeans serving, wide-sparse, MLP and KMeans
+training. Phases, one JSON line each:
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -72,9 +72,36 @@ one JSON line each:
                ``InferenceServer`` (fusion.mode=fast): 64 requests of 1–4096
                rows from 4 clients checked against float64 numpy; megakernel
                launches equal the batches of bucket ≥ 2, 0 fallbacks, 0
-               chains built after warmup, the plain version never called.
+               chains built after warmup, the plain version never called;
+12. kernels_kmeans — the scale → kmeans megakernel against its plain
+               version over rows (1 … 4096, ragged) × d (1, 7, 100, 256) × k
+               (2, 10, 64) × measure (euclidean, manhattan, cosine) × chain
+               (the four scaler flag combinations, KMeans alone), with a NaN
+               feature, a zero row and a duplicate centroid in the grid:
+               scaled bit-equal, prediction equal where the float64 top-two
+               distance gap exceeds a margin; then CUDA-event times at 4096
+               × d 100 × k 10 of kernel, plain version, the head alone and
+               ``torch.cdist`` + ``argmin`` (the head's library yardstick),
+               with the bytes bound;
+13. fit_kmeans — KMeans.fit at the published config (kmeans-benchmark.json:
+               100,000 × 100 uniform rows from seed 2, k 10, maxIter 10),
+               nothing cut: two fits bit-identical; every epoch replayed and
+               held against float64 from its own starting centroids
+               (assignments equal outside the margin, counts equal, new
+               centroids within a tolerance of the float64 means), with
+               bfloat16-rounded features as a control that must fail; ms per
+               epoch from 10 against 60 epochs on one cache; a
+               ``torch.profiler`` trace of a 10-epoch fit for the device's
+               idle share;
+14. serve_kmeans — StandardScaler → KMeans fitted on the published rows,
+               saved, loaded back through ``load_servable`` and served by
+               ``InferenceServer`` (fusion.mode=fast, max batch 4096): 64
+               requests of 1–4096 new rows from 4 clients checked against
+               float64 numpy; megakernel launches equal the batches of bucket
+               ≥ 512, 0 fallbacks, 0 chains built after warmup, the plain
+               version never called; a 4096-row batch's host breakdown.
 
-Then a ``{"kernels": [...]}`` line for every kernel, the ``nvidia-smi``
+Then a ``{"kernels": [...]}`` line for every kernel (eight), the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits nonzero without that last line; so does a machine without
 a CUDA device.
@@ -161,6 +188,35 @@ MLP_SMALL_ROWS = (2, 32, 256, 1024)  # warm times below the serving shape: one b
 FIT_FIRST_LOSS_RTOL = 1e-6
 FIT_LOSS_RTOL = 1e-2
 FIT_PROB_MEAN_ATOL = 1e-4
+# KMeans: flink_ml_tpu/benchmark/configs/kmeans-benchmark.json — k 10,
+# maxIter 10 on DenseVectorGenerator rows (seed 2, 100,000 x vectorDim 100,
+# uniform [0, 1)); nothing cut.
+KMEANS_ROWS, KMEANS_D, KMEANS_K, KMEANS_ITERS, KMEANS_DATA_SEED = 100_000, 100, 10, 10, 2
+KMEANS_SERVE_SEED = KMEANS_DATA_SEED + 1  # new rows from the same generator
+KMEANS_CHECK_ROWS = (1, 7, 203, 1024, 4096)
+KMEANS_CHECK_DIMS = (1, 7, 100, 256)
+KMEANS_CHECK_KS = (2, 10, 64)
+KMEANS_MEASURES = ("euclidean", "manhattan", "cosine")
+# (chain label, with_mean, with_std, write_scaled), as CHAINS
+KMEANS_CHAINS = (
+    ("scale_kmeans", True, True, True),
+    ("scale_kmeans", True, False, True),
+    ("scale_kmeans", False, True, True),
+    ("scale_kmeans", False, False, True),
+    ("kmeans", False, False, False),
+)
+KMEANS_EPOCH_ITERS = (10, 60)  # the two epoch counts differenced for ms/epoch
+# StandardScaler → KMeans at d 100, k 10 scores 3016 per row against the
+# default bar of 10^6: buckets from 512 rows run the megakernel
+KMEANS_HOT_FROM = 512
+# Assignments are compared where the float64 top-two distance gap exceeds
+# this margin (the MLP slice's): below it two summation orders may round the
+# two nearest distances either way. At the published rows the distances are
+# ~4.1 and their float32 rounding ~1e-6.
+KMEANS_MARGIN = 1e-4
+# |a fitted epoch's centroids - the float64 means over its own assignment|:
+# float32 sums of ~10,000 values in [0, 1) through the GEMM, ~1e-6.
+KMEANS_CENTROID_ATOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1790,6 +1846,462 @@ def phase_serve_mlp(card: str):
     return launches
 
 
+def _kmeans_distances64(measure, X, C):
+    """Float64 distances [rows, k] of ``X`` to ``C`` on their device, in the
+    measure's direct form (``torch.cdist`` for euclidean and manhattan)."""
+    import torch
+
+    X, C = X.double(), C.double()
+    if measure == "euclidean":
+        return torch.cdist(X, C)
+    if measure == "manhattan":
+        return torch.cdist(X, C, p=1)
+    return 1.0 - (X @ C.T) / X.norm(dim=1, keepdim=True) / C.norm(dim=1)[None, :]
+
+
+def _kmeans_decided(dist):
+    """Rows of float64 distances whose top-two gap exceeds KMEANS_MARGIN; a
+    row with a NaN distance is decided (the first NaN wins)."""
+    import torch
+
+    nan = torch.isnan(dist).any(dim=1)
+    if dist.shape[1] < 2:
+        return torch.ones_like(nan)
+    top = torch.topk(torch.nan_to_num(dist, nan=0.0), 2, dim=1, largest=False).values
+    return nan | (top[:, 1] - top[:, 0] > KMEANS_MARGIN)
+
+
+def _same_bits(a, b):
+    """Bit-equal, a NaN matching any NaN (its payload aside)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.masked_fill(na, 0.0).view(torch.int32), b.masked_fill(nb, 0.0).view(torch.int32)))
+
+
+def _kmeans_inputs(rng, rows, d, k, dev):
+    """Uniform [0, 1) rows (the published generator's kind), a scaler with
+    the zero-std guard, and centroids drawn as scaled rows of the same
+    population — so the distances concentrate as a fitted model's do."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    mean = (rng.random(d) * 0.5).astype(np.float32)
+    std = (rng.random(d) * 0.3 + 0.2).astype(np.float32)
+    std[0] = 0.0  # the zero-std guard: that feature scales to 0
+    inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std)).astype(np.float32)
+    C = (rng.random((k, d)).astype(np.float32) - mean) * inv_std
+    return t(rng.random((rows, d))), t(mean), t(inv_std), t(C)
+
+
+def _kmeans_grid(rng, dev):
+    """The kmeans megakernel (``scale_kmeans`` on ``dev``) against its plain
+    version over rows × d × k × measure × chain: scaled bit-equal, the
+    prediction equal on every row whose float64 top-two gap exceeds the
+    margin. A NaN feature (row 1), a row equal to the mean (row 2: zero
+    after centring, NaN under cosine) and a duplicate centroid (the last
+    equals centroid 1, so ties take the first index) are in every grid
+    cell that has room for them. Returns the totals."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import scale_kmeans, scale_kmeans_plain
+
+    checked, inside, compared, max_abs_err = 0, 0, 0, 0.0
+    for rows in KMEANS_CHECK_ROWS:
+        for d in KMEANS_CHECK_DIMS:
+            for k in KMEANS_CHECK_KS:
+                x, mean, inv_std, C = _kmeans_inputs(rng, rows, d, k, dev)
+                if rows >= 7:
+                    x[1, d // 2] = float("nan")
+                    x[2] = mean
+                distinct = k
+                if k >= 3:
+                    C[k - 1] = C[1]
+                    distinct = k - 1
+                for measure in KMEANS_MEASURES:
+                    for label, with_mean, with_std, write_scaled in KMEANS_CHAINS:
+                        kw = dict(measure=measure, with_mean=with_mean, with_std=with_std)
+                        scaled, pred = scale_kmeans(x, mean, inv_std, C, write_scaled=write_scaled, **kw)
+                        p_scaled, p_pred = scale_kmeans_plain(x, mean, inv_std, C, **kw)
+                        where = f"{label} {measure} rows={rows} d={d} k={k} " \
+                                f"with_mean={with_mean} with_std={with_std}"
+                        if write_scaled:
+                            if not _same_bits(scaled, p_scaled):
+                                raise AssertionError(f"scaled not bit-equal to the plain version: {where}")
+                            max_abs_err = max(max_abs_err, float(torch.nan_to_num(scaled - p_scaled).abs().max()))
+                        elif scaled is not None:
+                            raise AssertionError(f"scaled written though not asked for: {where}")
+                        if pred.dtype != torch.int32 or tuple(pred.shape) != (rows,):
+                            raise AssertionError(f"prediction {pred.dtype} {tuple(pred.shape)}: {where}")
+                        decided = _kmeans_decided(_kmeans_distances64(measure, p_scaled, C[:distinct]))
+                        bad = int(((pred != p_pred) & decided).sum())
+                        if bad:
+                            raise AssertionError(f"{bad} predictions differ outside the margin: {where}")
+                        if rows >= 7 and not (pred[1] == 0 and p_pred[1] == 0):
+                            raise AssertionError(f"a NaN row is not assigned index 0: {where}")
+                        diff = (pred.long() - p_pred.long()).abs()[decided]
+                        if diff.numel():
+                            max_abs_err = max(max_abs_err, float(diff.max()))
+                        inside += int((~decided).sum())
+                        compared += int(decided.sum())
+                        checked += 1
+    return {"configurations": checked, "rows_compared": compared, "rows_inside_margin": inside,
+            "max_abs_err": max_abs_err}
+
+
+def phase_kernels_kmeans(rng, card: str):
+    """The scale → kmeans megakernel against its plain version over the grid
+    (``_kmeans_grid``), then its times at the serving shape."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import SCALE_KMEANS, scale_kmeans, scale_kmeans_plain
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full float32
+    grid = _kmeans_grid(rng, dev)
+    emit("kernels_kmeans", kernel=SCALE_KMEANS.name, **grid,
+         grid={"rows": list(KMEANS_CHECK_ROWS), "d": list(KMEANS_CHECK_DIMS), "k": list(KMEANS_CHECK_KS),
+               "measures": list(KMEANS_MEASURES), "chains": [c[:3] for c in KMEANS_CHAINS]},
+         scaled="bit-equal", prediction=f"equal where the float64 top-two distance gap > {KMEANS_MARGIN}")
+
+    rows, d, k = MAX_BATCH, KMEANS_D, KMEANS_K
+    x, mean, inv_std, C = _kmeans_inputs(rng, rows, d, k, dev)
+    kw = dict(measure="euclidean", with_mean=True, with_std=True)
+    scaled = scale_kmeans_plain(x, mean, inv_std, C, **kw)[0]
+
+    def kernel():
+        scale_kmeans(x, mean, inv_std, C, write_scaled=True, **kw)
+
+    def plain():
+        scale_kmeans_plain(x, mean, inv_std, C, **kw)
+
+    def head():  # the assignment alone, on the scaled rows: the library call's work
+        scale_kmeans(scaled, None, None, C, measure="euclidean", with_mean=False, with_std=False,
+                     write_scaled=False)
+
+    def library():  # the head alone: no single call computes the chain
+        torch.argmin(torch.cdist(scaled, C), dim=1)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    for fn in (kernel, plain, head, library):  # warm-up
+        for _ in range(20):
+            fn()
+    torch.cuda.synchronize()
+    names = ("kernel", "plain", "head", "library")
+    times = {n: {"cold": [], "warm": []} for n in names}
+    for name, fn in (("plain", plain), ("library", library), ("head", head), ("kernel", kernel),
+                     ("kernel", kernel), ("head", head), ("library", library), ("plain", plain)):
+        times[name]["cold"] += _cold_times(fn, 100, flush)
+        times[name]["warm"].append(_warm_time(fn, 200))
+    by_measure = {}
+    for measure in KMEANS_MEASURES:
+        def kernel_m():
+            scale_kmeans(x, mean, inv_std, C, measure=measure, with_mean=True, with_std=True,
+                         write_scaled=True)
+        by_measure[measure] = _warm_time(kernel_m, 200)
+    bytes_moved = 4 * (rows * d + rows * d + rows + k * d + 2 * d)  # x, scaled, index, centroids, mean/inv_std
+    # sub, mul and the row's |h|^2 FMA per element; a dot FMA per element and
+    # centroid plus add, sub, mul, compare, sqrt per distance; |c|^2 once
+    ops = 4 * rows * d + rows * k * (2 * d + 5) + 2 * k * d
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    timing = {
+        "shape": {"rows": rows, "d": d, "k": k, "measure": "euclidean", "with_mean": True, "with_std": True},
+        "ms": _median(times["kernel"]["cold"]),
+        "ms_l2_warm": _median(times["kernel"]["warm"]),
+        "plain_ms": _median(times["plain"]["cold"]),
+        "plain_ms_l2_warm": _median(times["plain"]["warm"]),
+        "head_alone_ms": _median(times["head"]["cold"]),
+        "head_alone_ms_l2_warm": _median(times["head"]["warm"]),
+        "library_ms": _median(times["library"]["cold"]),
+        "library_ms_l2_warm": _median(times["library"]["warm"]),
+        "library": "torch.cdist + torch.argmin on the scaled rows: the head only (hold it against head_alone)",
+        "ms_l2_warm_by_measure": by_measure,
+        "bytes": bytes_moved,
+        "ops": ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    emit("kernels_kmeans", kernel=SCALE_KMEANS.name, card=card, **timing)
+    return {"max_abs_err": grid["max_abs_err"], **timing}
+
+
+def _kmeans_published_rows():
+    """The published rows: DenseVectorGenerator(seed 2) — uniform [0, 1),
+    100,000 × 100, float64 as the generator makes them."""
+    import numpy as np
+
+    return np.random.default_rng(KMEANS_DATA_SEED).random((KMEANS_ROWS, KMEANS_D))
+
+
+def _kmeans_epoch_check(X, init, measure, epochs, control=None):
+    """Replay ``epochs`` epochs of the port's fit (``_epoch_update``) from
+    ``init`` on ``X`` (float32, on the card) — with ``control`` applied to the
+    features first, if given — and hold each epoch against float64 from its
+    own starting centroids: assignments equal to the float64 argmin wherever
+    the gap exceeds the margin, counts equal to its assignment's, and the new
+    centroids within KMEANS_CENTROID_ATOL of the float64 means of the exact
+    features over its assignment. Returns ``(final centroids, per-epoch
+    readings, whether every epoch passed)``."""
+    import torch
+
+    from flink_ml_tpu_torch.models.clustering.kmeans import _epoch_update
+    from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+
+    m = DistanceMeasure.get_instance(measure)
+    k = int(init.shape[0])
+    X64 = X.double()
+    feats = X if control is None else control(X)
+    mask = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+    c, readings, ok = init, [], True
+    for _ in range(epochs):
+        new, counts = _epoch_update(m, k, c, feats, mask)
+        assign = m.find_closest(feats, c)
+        dist = _kmeans_distances64(measure, X64, c)
+        decided = _kmeans_decided(dist)
+        mismatched = int(((assign != torch.argmin(dist, dim=1)) & decided).sum())
+        hot = (assign[:, None] == torch.arange(k, device=X.device)).double()
+        n_assigned = hot.sum(dim=0)
+        means = torch.where(n_assigned[:, None] > 0, (hot.T @ X64) / n_assigned.clamp_min(1.0)[:, None],
+                            c.double())
+        err = float((new.double() - means).abs().max())
+        counts_equal = bool(torch.equal(counts.double(), n_assigned))
+        readings.append({"mismatched": mismatched, "inside_margin": int((~decided).sum()),
+                         "centroid_err": err, "counts_equal": counts_equal})
+        ok = ok and mismatched == 0 and err <= KMEANS_CENTROID_ATOL and counts_equal
+        c = new
+    return c, readings, ok
+
+
+def phase_fit_kmeans(card: str):
+    """KMeans.fit on the published config (module docstring, phase 13)."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.device import resolve_device
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    X = _kmeans_published_rows()
+    df = DataFrame.from_dict({"features": X})
+    data_s = time.perf_counter() - t0
+
+    def estimator(iters=KMEANS_ITERS):
+        return KMeans().set_k(KMEANS_K).set_max_iter(iters)
+
+    est = estimator()
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    again = estimator().fit(df)
+    if not (np.array_equal(again.centroids, model.centroids) and np.array_equal(again.weights, model.weights)):
+        raise AssertionError("two fits of the same rows differ")
+    if model.weights.sum() != KMEANS_ROWS or model.centroids.shape != (KMEANS_K, KMEANS_D):
+        raise AssertionError(f"fit shapes {model.centroids.shape}, weights sum {model.weights.sum()}")
+
+    # each epoch against float64 from the port's own centroids of that epoch
+    X32 = torch.from_numpy(X.astype(np.float32)).to(dev)
+    pick = np.random.default_rng(est.get_seed()).choice(KMEANS_ROWS, size=KMEANS_K, replace=False)
+    init = X32[torch.from_numpy(pick).to(dev)]
+    final, readings, ok = _kmeans_epoch_check(X32, init, est.get_distance_measure(), KMEANS_ITERS)
+    if not np.array_equal(final.cpu().numpy().astype(np.float64), model.centroids):
+        raise AssertionError("the replayed epochs do not land on the fitted centroids")
+    _, control, control_ok = _kmeans_epoch_check(
+        X32, init, est.get_distance_measure(), KMEANS_ITERS,
+        control=lambda a: a.to(torch.bfloat16).to(torch.float32))
+    fit_check = {
+        "epochs": readings, "control_bf16_features": control,
+        "margin": KMEANS_MARGIN, "centroid_atol": KMEANS_CENTROID_ATOL,
+    }
+    emit("fit_kmeans", card=card, fit_check=fit_check)  # before the gates, so a failure shows its numbers
+    if not ok:
+        raise AssertionError(f"the fit's epochs are off float64: {readings}")
+    if control_ok:
+        raise AssertionError(f"the bfloat16-feature control passes the float64 check: {control}")
+
+    # steady ms/epoch: two epoch counts on one cache, differenced
+    cache = DeviceDataCache({"x": X.astype(np.float32)})
+    deltas = []
+    for _ in range(3):
+        spans = []
+        for iters in KMEANS_EPOCH_ITERS:
+            t0 = time.perf_counter()
+            estimator(iters).fit_cache(cache)  # ends in a readback
+            spans.append(time.perf_counter() - t0)
+        deltas.append((spans[1] - spans[0]) / (KMEANS_EPOCH_ITERS[1] - KMEANS_EPOCH_ITERS[0]) * 1e3)
+    profile = _profile_steps(lambda: estimator(PROFILE_ITERS).fit_cache(cache))
+    del cache, X32
+    result = {
+        "rows": KMEANS_ROWS, "d": KMEANS_D, "k": KMEANS_K, "max_iter": KMEANS_ITERS,
+        "measure": est.get_distance_measure(), "seed": est.get_seed(),
+        "data_s": data_s, "fit_s": fit_s,
+        "ms_per_epoch": _median(deltas), "ms_per_epoch_runs": deltas, "fit_profile": profile,
+        # the trace's device time per epoch against the untraced epoch time:
+        # the profiler's own host work stretches the traced wall clock
+        "idle_share_steady": 1.0 - profile["device_busy_ms"] / PROFILE_ITERS / _median(deltas),
+        "weights": model.weights.tolist(),
+        "inside_margin_by_epoch": [r["inside_margin"] for r in readings],
+        "max_centroid_err": max(r["centroid_err"] for r in readings),
+        "control_mismatched_by_epoch": [r["mismatched"] for r in control],
+    }
+    emit("fit_kmeans", card=card, **result)
+
+
+def phase_serve_kmeans(card: str):
+    """StandardScaler → KMeans fitted, saved, loaded and served (module
+    docstring, phase 14)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable import PipelineModelServable, load_servable
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    X = _kmeans_published_rows()
+    df = DataFrame.from_dict({"features": X})
+    t0 = time.perf_counter()
+    scaler = (StandardScaler().set_input_col("features").set_output_col("scaled")
+              .set_with_mean(True).set_with_std(True).fit(df))
+    scaled_df = scaler.transform(df)
+    model = KMeans().set_features_col("scaled").set_k(KMEANS_K).set_max_iter(KMEANS_ITERS).fit(scaled_df)
+    fit_s = time.perf_counter() - t0
+    del scaled_df
+    with tempfile.TemporaryDirectory() as tmp:
+        scaler.save(f"{tmp}/scaler")
+        model.save(f"{tmp}/kmeans")
+        pipeline = PipelineModelServable([load_servable(f"{tmp}/scaler"), load_servable(f"{tmp}/kmeans")])
+    if not np.array_equal(pipeline.servables[1].centroids, model.centroids):
+        raise AssertionError("the loaded centroids differ from the fitted ones")
+    mean32 = np.asarray(scaler.mean, np.float32).astype(np.float64)
+    inv_std = pipeline.servables[0]._inv_std().astype(np.float64)
+    C64 = np.asarray(model.centroids, np.float32).astype(np.float64)
+
+    rng = np.random.default_rng(KMEANS_SERVE_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    sizes[::16] = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2,
+                   MAX_BATCH * 600 // 4096][: len(sizes[::16])]  # hot buckets on every run
+    payloads = [rng.random((n, KMEANS_D)) for n in sizes]
+    inside = [0] * n_req
+
+    def check(i, out):
+        scaled = (payloads[i].astype(np.float32).astype(np.float64) - mean32) * inv_std
+        np.testing.assert_allclose(out["scaled"], scaled, rtol=1e-6, atol=1e-6)
+        dist = np.sqrt(((scaled[:, None, :] - C64[None, :, :]) ** 2).sum(-1))
+        top = np.sort(dist, axis=1)
+        decided = top[:, 1] - top[:, 0] > KMEANS_MARGIN
+        inside[i] = int((~decided).sum())
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[decided],
+                                      np.argmin(dist, axis=1).astype(np.float64)[decided])
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(pipeline, name="chip-smoke-kmeans", serving_config=config,
+                             warmup_template=DataFrame.from_dict({"features": payloads[0][:1]}),
+                             device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = pipeline._fastpath_plan
+        kinds = chain_kinds(plan)
+        ingest = plan._ingest
+        # The main path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, ("scale_kmeans_plain", "scale_mlp_plain",
+                                                 "scale_logistic_plain", "sparse_idf_logistic_plain"))
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        latencies = [None] * n_req
+        failures = []
+
+        def client(c):
+            for i in range(c, n_req, N_CLIENTS):
+                t_req = time.perf_counter()
+                try:
+                    resp = server.predict(DataFrame.from_dict({"features": payloads[i]}))
+                    latencies[i] = (time.perf_counter() - t_req) * 1000.0
+                    check(i, resp.dataframe)
+                except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                    failures.append(f"request {i} ({sizes[i]} rows): {type(e).__name__}: {e}")
+
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("serve_kmeans clients did not finish within 600 s")
+        launches = mk.SCALE_KMEANS.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.SCALE_KMEANS}
+        batches = server.executed_batch_sizes[batches_before:]
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    breakdown = _dense_batch_breakdown(
+        plan, DataFrame.from_dict({"features": payloads[sizes.index(MAX_BATCH)]}), ingest)
+    hot = sorted(b for b, kind in kinds.items() if "megakernel" in kind)
+    if hot != [b for b in kinds if b >= KMEANS_HOT_FROM]:
+        raise AssertionError(
+            f"hot buckets {hot}: the cost model should mark every bucket from {KMEANS_HOT_FROM} rows")
+    hot_batches = sum(1 for _, bucket in batches if bucket >= KMEANS_HOT_FROM)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if not launches > 0:
+        raise AssertionError("the kmeans megakernel never launched on the main path")
+    if launches != hot_batches:
+        raise AssertionError(
+            f"kmeans megakernel launches {launches} != batches of bucket >= {KMEANS_HOT_FROM} {hot_batches}")
+    if fallback != 0:
+        raise AssertionError(f"{fallback} batches fell back to the per-stage path")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} chains were built after warmup")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during KMeans serving: {other}")
+    lat = sorted(latencies)
+    result = {
+        "fit_rows": KMEANS_ROWS, "d": KMEANS_D, "k": KMEANS_K, "fit_s": fit_s,
+        "warmup_s": warmup_s, "warmed_buckets": len(kinds),
+        "requests": n_req, "rows": sum(sizes), "rows_inside_margin": sum(inside),
+        "batches": len(batches),
+        "hot_buckets": hot,
+        "hot_batches": hot_batches,
+        "megakernel_launches": launches,
+        "fallback_batches": fallback,
+        "post_warmup_builds": compiles,
+        "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall,
+        "wall_s": wall,
+        "hot_batch_breakdown_ms": breakdown,
+    }
+    emit("serve_kmeans", card=card, **result)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1801,7 +2313,12 @@ def main() -> int:
     from flink_ml_tpu_torch.native import KERNELS
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
     import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
-    from flink_ml_tpu_torch.servable.megakernels import SCALE_LOGISTIC, SCALE_MLP, SPARSE_IDF_LOGISTIC
+    from flink_ml_tpu_torch.servable.megakernels import (
+        SCALE_KMEANS,
+        SCALE_LOGISTIC,
+        SCALE_MLP,
+        SPARSE_IDF_LOGISTIC,
+    )
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1825,6 +2342,10 @@ def main() -> int:
     del headline
     measured[SCALE_MLP.name] = phase_kernels_mlp(rng, smi)
     launches[SCALE_MLP.name] = phase_serve_mlp(smi)
+    torch.cuda.empty_cache()
+    measured[SCALE_KMEANS.name] = phase_kernels_kmeans(rng, smi)
+    phase_fit_kmeans(smi)
+    launches[SCALE_KMEANS.name] = phase_serve_kmeans(smi)
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -1843,8 +2364,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
-    if len(lines) != 7:
-        raise AssertionError(f"{len(lines)} kernels registered, expected 7")
+    if len(lines) != 8:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 8")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

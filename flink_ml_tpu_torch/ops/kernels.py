@@ -16,10 +16,13 @@ from __future__ import annotations
 
 import torch
 
+from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+
 __all__ = [
     "dot_fn",
     "gather_clamped",
     "idf_scale_fn",
+    "kmeans_assign_fn",
     "logistic_from_dots_fn",
     "mlp_predict_fn",
     "scale_fn",
@@ -39,6 +42,14 @@ def logistic_from_dots_fn(dots: torch.Tensor):
     prob = torch.sigmoid(dots)
     pred = (dots >= 0).to(dots.dtype)
     return pred, torch.stack([1.0 - prob, prob], dim=1)
+
+
+def kmeans_assign_fn(measure_name: str):
+    """Closest-centroid assignment ``(X [n, d], centroids [k, d]) -> [n]``
+    int64 indices under ``measure_name`` (``ops/distance.py``): the body of
+    the per-stage transform, the merged program and the kmeans megakernel's
+    plain version."""
+    return DistanceMeasure.get_instance(measure_name).find_closest
 
 
 def mlp_predict_fn(layers, X: torch.Tensor):

@@ -16,6 +16,7 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
+    "HasDistanceMeasure",
     "HasElasticNet",
     "HasFeaturesCol",
     "HasGlobalBatchSize",
@@ -30,6 +31,7 @@ __all__ = [
     "HasPredictionCol",
     "HasRawPredictionCol",
     "HasInputCol",
+    "HasK",
     "HasOutputCol",
 ]
 
@@ -175,6 +177,35 @@ class HasSeed(WithParams):
 
     def set_seed(self, value: int):
         return self.set(self.SEED, value)
+
+
+class HasDistanceMeasure(WithParams):
+    DISTANCE_MEASURE = StringParam(
+        "distanceMeasure",
+        "Distance measure. Supported: euclidean, manhattan, cosine.",
+        "euclidean",
+        ParamValidators.in_array(["euclidean", "manhattan", "cosine"]),
+    )
+
+    def get_distance_measure(self) -> str:
+        return self.get(self.DISTANCE_MEASURE)
+
+    def set_distance_measure(self, value: str):
+        return self.set(self.DISTANCE_MEASURE, value)
+
+
+class HasK(WithParams):
+    """The number of clusters, default 2. Lives here (not
+    ``models/clustering/kmeans.py``) so the runtime-free KMeansModelServable
+    can declare it without importing the training stack."""
+
+    K = IntParam("k", "The max number of clusters to create.", 2, ParamValidators.gt(1))
+
+    def get_k(self) -> int:
+        return self.get(self.K)
+
+    def set_k(self, value: int):
+        return self.set(self.K, value)
 
 
 class HasMultiClass(WithParams):

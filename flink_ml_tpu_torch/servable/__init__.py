@@ -4,6 +4,7 @@ from flink_ml_tpu_torch.servable.api import ModelServable, TransformerServable, 
 from flink_ml_tpu_torch.servable.builder import PipelineModelServable
 from flink_ml_tpu_torch.servable.convert import servable_from_arrays
 from flink_ml_tpu_torch.servable.lib import (
+    KMeansModelServable,
     LogisticRegressionModelServable,
     MLPClassifierModelServable,
     StandardScalerModelServable,
@@ -15,6 +16,7 @@ __all__ = [
     "load_servable",
     "servable_from_arrays",
     "PipelineModelServable",
+    "KMeansModelServable",
     "LogisticRegressionModelServable",
     "MLPClassifierModelServable",
     "StandardScalerModelServable",

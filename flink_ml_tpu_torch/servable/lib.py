@@ -1,6 +1,6 @@
 """Concrete servables — twin of ``flink_ml_tpu/servable/lib.py`` for the
-StandardScaler → LogisticRegression serving path, dense and sparse, and the
-StandardScaler → MLPClassifier path.
+StandardScaler → LogisticRegression serving path, dense and sparse, the
+StandardScaler → MLPClassifier path and the StandardScaler → KMeans path.
 
 Each servable's per-stage ``transform`` and its ``kernel_spec().kernel_fn``
 (or ``sparse_kernel_spec``) compose the same ``ops/kernels.py`` functions, so
@@ -17,6 +17,7 @@ from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.ops.kernels import (
     dot_fn,
+    kmeans_assign_fn,
     logistic_from_dots_fn,
     mlp_predict_fn,
     scale_fn,
@@ -24,8 +25,10 @@ from flink_ml_tpu_torch.ops.kernels import (
 )
 from flink_ml_tpu_torch.params.param import BoolParam
 from flink_ml_tpu_torch.params.shared import (
+    HasDistanceMeasure,
     HasFeaturesCol,
     HasInputCol,
+    HasK,
     HasOutputCol,
     HasPredictionCol,
     HasRawPredictionCol,
@@ -35,6 +38,7 @@ from flink_ml_tpu_torch.servable.kernel_spec import KernelSpec
 from flink_ml_tpu_torch.servable.sparse import pack_sparse_column, sparse_names
 
 __all__ = [
+    "KMeansModelServable",
     "LogisticRegressionModelServable",
     "MLPClassifierModelServable",
     "StandardScalerModelServable",
@@ -154,6 +158,60 @@ class LogisticRegressionModelServable(
             input_kinds={features_col: "sparse"},
             sparse_input_dims={features_col: dim},
             fusion_op="sparse_logistic",
+        )
+
+
+def kmeans_predict(X: np.ndarray, centroids, measure: str, device: torch.device) -> torch.Tensor:
+    """The closest centroid's index [n] (int64) of each row of ``X`` under
+    ``measure``, float32 on ``device``. Shared by the servable and the
+    training-side model."""
+    return kmeans_assign_fn(measure)(_to_device(X, device), _to_device(centroids, device))
+
+
+class KMeansModelServable(
+    ModelServable, HasFeaturesCol, HasPredictionCol, HasDistanceMeasure, HasK
+):
+    """prediction = the index of the closest centroid, as DOUBLE. Model
+    data: ``centroids [k, d]`` and ``weights [k]`` (the cluster sizes)."""
+
+    _MODEL_ARRAY_NAMES = ("centroids", "weights")
+
+    def __init__(self):
+        super().__init__()
+        self.centroids = None  # [k, d]
+        self.weights = None  # [k]
+
+    def transform(self, df: DataFrame, device=None) -> DataFrame:
+        if self.centroids is None:
+            raise RuntimeError("set_model_data must be called before transform")
+        pred = kmeans_predict(
+            df.vectors(self.get_features_col()), self.centroids,
+            self.get_distance_measure(), resolve_device(device),
+        )
+        out = df.clone()
+        out.add_column(self.get_prediction_col(), DataTypes.DOUBLE, _to_host(pred))
+        return out
+
+    def kernel_spec(self) -> KernelSpec:
+        """Closest-centroid assignment as a fusable spec — ``transform``'s
+        ``kmeans_assign_fn`` body, the centroids device-resident. The
+        measure rides in ``fusion_params`` for the CUDA megakernel."""
+        if self.centroids is None:
+            raise RuntimeError("set_model_data must be called before kernel_spec")
+        features_col, pred_col = self.get_features_col(), self.get_prediction_col()
+        measure = self.get_distance_measure()
+        assign = kmeans_assign_fn(measure)
+
+        def kernel_fn(model, cols):
+            return {pred_col: assign(cols[features_col], model["centroids"])}
+
+        return KernelSpec(
+            input_cols=(features_col,),
+            outputs=((pred_col, DataTypes.DOUBLE),),
+            model_arrays={"centroids": np.asarray(self.centroids, np.float32)},
+            kernel_fn=kernel_fn,
+            fusion_op="kmeans",
+            fusion_params={"distance_measure": measure},
         )
 
 

@@ -16,11 +16,15 @@ chains (:data:`MEGAKERNEL_CHAINS`):
 - ``("scale", "mlp")`` — StandardScaler → MLPClassifier, and ``("mlp",)`` —
   the MLP alone: ``csrc/megakernel_scale_mlp.cu`` through :func:`scale_mlp`,
   for networks within the kernel's limits (:data:`MLP_MAX_LAYERS`,
-  :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`).
+  :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`);
+- ``("scale", "kmeans")`` — StandardScaler → KMeans, and ``("kmeans",)`` —
+  the closest-centroid assignment alone: ``csrc/megakernel_scale_kmeans.cu``
+  through :func:`scale_kmeans`, for models within the kernel's limits
+  (:data:`KMEANS_MAX_K`, :data:`KMEANS_MAX_DIM`).
 
 Every other chain the JAX package admits (``("scale",)`` alone, the feature6
-chain, kmeans, normalize), and an MLP past those limits, stays on the merged
-program in fast mode until its kernel is written.
+chain, normalize), and an MLP or a KMeans model past those limits, stays on
+the merged program in fast mode until its kernel is written.
 
 Each wrapper chooses by the device of its input: tensors on the CPU take the
 plain version — the same chain composed from ``ops/kernels.py`` — and CUDA
@@ -38,6 +42,7 @@ import torch
 from flink_ml_tpu_torch.native import CudaKernel
 from flink_ml_tpu_torch.ops.kernels import (
     dot_fn,
+    kmeans_assign_fn,
     logistic_from_dots_fn,
     mlp_predict_fn,
     scale_fn,
@@ -47,15 +52,21 @@ from flink_ml_tpu_torch.ops.kernels import (
 from flink_ml_tpu_torch.servable.sparse import sparse_names
 
 __all__ = [
+    "KMEANS_MAX_DIM",
+    "KMEANS_MAX_K",
+    "KMEANS_MEASURES",
     "MEGAKERNEL_CHAINS",
     "MLP_MAX_CLASSES",
     "MLP_MAX_LAYERS",
     "MLP_MAX_WIDTH",
+    "SCALE_KMEANS",
     "SCALE_LOGISTIC",
     "SCALE_MLP",
     "SPARSE_IDF_LOGISTIC",
     "build_megakernel_fn",
     "chain_eligible",
+    "scale_kmeans",
+    "scale_kmeans_plain",
     "scale_logistic",
     "scale_logistic_plain",
     "scale_mlp",
@@ -72,6 +83,8 @@ MEGAKERNEL_CHAINS = frozenset({
     ("sparse_logistic",),
     ("scale", "mlp"),
     ("mlp",),
+    ("scale", "kmeans"),
+    ("kmeans",),
 })
 
 #: The MLP networks ``csrc/megakernel_scale_mlp.cu`` holds (its kMaxLayers,
@@ -79,6 +92,12 @@ MEGAKERNEL_CHAINS = frozenset({
 MLP_MAX_LAYERS = 8
 MLP_MAX_WIDTH = 512
 MLP_MAX_CLASSES = 32
+
+#: The KMeans models ``csrc/megakernel_scale_kmeans.cu`` holds (its kMaxK and
+#: kMaxDim), and its measure flags.
+KMEANS_MAX_K = 1024
+KMEANS_MAX_DIM = 1024
+KMEANS_MEASURES = {"euclidean": 0, "manhattan": 1, "cosine": 2}
 
 SCALE_LOGISTIC = CudaKernel(
     name="megakernel_scale_logistic",
@@ -103,6 +122,15 @@ SCALE_MLP = CudaKernel(
     symbol="megakernel_scale_mlp",
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    replaces="flink_ml_tpu/servable/megakernels.py:180",
+)
+
+
+SCALE_KMEANS = CudaKernel(
+    name="megakernel_scale_kmeans",
+    source="megakernel_scale_kmeans.cu",
+    symbol="megakernel_scale_kmeans",
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="flink_ml_tpu/servable/megakernels.py:180",
 )
 
@@ -150,11 +178,31 @@ def _mlp_widths(head: Any) -> Optional[List[int]]:
     return widths
 
 
+def _kmeans_width(head: Any) -> Optional[int]:
+    """The feature width of a KMeans head reading one vector column into one
+    output, holding ``centroids [k, d]`` within the kernel's limits and
+    naming a measure the kernel has, or None."""
+    if len(head.input_cols) != 1 or head.input_kind(head.input_cols[0]) != "vector":
+        return None
+    if set(head.model_arrays) != {"centroids"} or len(head.output_names) != 1:
+        return None
+    if head.fusion_params.get("distance_measure") not in KMEANS_MEASURES:
+        return None
+    centroids = np.asarray(head.model_arrays["centroids"])
+    if centroids.ndim != 2:
+        return None
+    k, d = (int(s) for s in centroids.shape)
+    if not (1 <= k <= KMEANS_MAX_K and 1 <= d <= KMEANS_MAX_DIM):
+        return None
+    return d
+
+
 def chain_eligible(specs: Sequence[Any]) -> bool:
     """Whether this spec run has a megakernel: its fusion ops form a chain
     of :data:`MEGAKERNEL_CHAINS`; the head reads one column (dense, or
     sparse for the sparse chains) and holds one coefficient vector, or, for
-    the MLP, a network the kernel can hold (:func:`_mlp_widths`); and a
+    the MLP, a network the kernel can hold (:func:`_mlp_widths`), or, for
+    KMeans, centroids the kernel can hold (:func:`_kmeans_width`); and a
     leading stage feeds the head's input column with vectors of the head's
     input width — mean / inv_std for the scaler, idf for the sparse IDF,
     whose output is the sparse column the head reads."""
@@ -166,6 +214,8 @@ def chain_eligible(specs: Sequence[Any]) -> bool:
     if ops[-1] == "mlp":
         widths = _mlp_widths(head)
         d = widths[0] if widths else None
+    elif ops[-1] == "kmeans":
+        d = _kmeans_width(head)
     else:
         d = _head_width(head, "sparse" if sparse else "vector")
     if d is None:
@@ -439,6 +489,87 @@ def scale_mlp(
 
 
 # ---------------------------------------------------------------------------
+# scale → kmeans (dense)
+# ---------------------------------------------------------------------------
+
+
+def scale_kmeans_plain(
+    x: torch.Tensor,
+    mean: Optional[torch.Tensor],
+    inv_std: Optional[torch.Tensor],
+    centroids: torch.Tensor,
+    *,
+    measure: str,
+    with_mean: bool,
+    with_std: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain in plain PyTorch: ``(scaled, prediction)`` — ``scale_fn``
+    and ``kmeans_assign_fn``, the index as int32 as the kernel writes it."""
+    scaled = scale_fn(x, mean, inv_std, with_mean=with_mean, with_std=with_std)
+    return scaled, kmeans_assign_fn(measure)(scaled, centroids).to(torch.int32)
+
+
+def scale_kmeans(
+    x: torch.Tensor,
+    mean: Optional[torch.Tensor],
+    inv_std: Optional[torch.Tensor],
+    centroids: torch.Tensor,
+    *,
+    measure: str,
+    with_mean: bool,
+    with_std: bool,
+    write_scaled: bool,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """``(scaled or None, prediction [rows] int32)`` for ``x`` [rows, d]: the
+    index of the closest of ``centroids`` [k, d] under ``measure``. CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream (no synchronisation) or raise — also for a model past the
+    kernel's limits."""
+    if measure not in KMEANS_MEASURES:
+        raise ValueError(f"{SCALE_KMEANS.name} has measures {sorted(KMEANS_MEASURES)}, got {measure!r}")
+    if x.device.type == "cpu":
+        scaled, pred = scale_kmeans_plain(
+            x, mean, inv_std, centroids, measure=measure, with_mean=with_mean, with_std=with_std
+        )
+        return (scaled if write_scaled else None), pred
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{SCALE_KMEANS.name} needs CPU or CUDA tensors, got {x.device}")
+    if x.dim() != 2 or centroids.dim() != 2:
+        raise ValueError(f"x must be [rows, d] and centroids [k, d], got shapes "
+                         f"{tuple(x.shape)} and {tuple(centroids.shape)}")
+    rows, d = (int(s) for s in x.shape)
+    k = int(centroids.shape[0])
+    if not (1 <= k <= KMEANS_MAX_K and 1 <= d <= KMEANS_MAX_DIM):
+        raise ValueError(
+            f"{SCALE_KMEANS.name} holds 1-{KMEANS_MAX_K} centroids of 1-{KMEANS_MAX_DIM} "
+            f"features; got k={k}, d={d}"
+        )
+    device = x.device
+    _check("x", x, (rows, d), device)
+    _check("centroids", centroids, (k, d), device)
+    if with_mean:
+        _check("mean", mean, (d,), device)
+    if with_std:
+        _check("inv_std", inv_std, (d,), device)
+    scaled = torch.empty((rows, d), dtype=torch.float32, device=device) if write_scaled else None
+    pred = torch.empty((rows,), dtype=torch.int32, device=device)
+    if rows:
+        with torch.cuda.device(device):
+            SCALE_KMEANS.launch(
+                x.data_ptr(),
+                mean.data_ptr() if with_mean else None,
+                inv_std.data_ptr() if with_std else None,
+                centroids.data_ptr(),
+                scaled.data_ptr() if write_scaled else None,
+                pred.data_ptr(),
+                rows, d, k, KMEANS_MEASURES[measure], int(with_mean), int(with_std),
+                int(write_scaled),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+    return scaled, pred
+
+
+# ---------------------------------------------------------------------------
 # the planner's calling convention
 # ---------------------------------------------------------------------------
 
@@ -531,6 +662,31 @@ def _build_mlp(specs: Tuple[Any, ...]):
     return mega
 
 
+def _build_kmeans(specs: Tuple[Any, ...]):
+    head = specs[-1]
+    (pred_col,) = head.output_names
+    measure = head.fusion_params["distance_measure"]
+    in_col, scaled_col, with_mean, with_std = _scale_stage(specs)
+
+    def mega(models, cols):
+        scale_model = models[0] if scaled_col is not None else {}
+        scaled, pred = scale_kmeans(
+            cols[in_col],
+            scale_model.get("mean"),
+            scale_model.get("inv_std"),
+            models[-1]["centroids"],
+            measure=measure,
+            with_mean=with_mean,
+            with_std=with_std,
+            write_scaled=scaled_col is not None,
+        )
+        out = {} if scaled_col is None else {scaled_col: scaled}
+        out[pred_col] = pred
+        return out
+
+    return mega
+
+
 def build_megakernel_fn(
     specs: Sequence[Any],
 ) -> Callable[[Sequence[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
@@ -545,4 +701,6 @@ def build_megakernel_fn(
         return _build_sparse(specs)
     if specs[-1].fusion_op == "mlp":
         return _build_mlp(specs)
+    if specs[-1].fusion_op == "kmeans":
+        return _build_kmeans(specs)
     return _build_dense(specs)

@@ -45,15 +45,18 @@ _IDF_MODEL = "flink_ml_tpu_torch.models.feature.idf.IDFModel"
 _SCALER_MODEL = "flink_ml_tpu_torch.models.feature.standard_scaler.StandardScalerModel"
 _MLP = "flink_ml_tpu_torch.servable.lib.MLPClassifierModelServable"
 _MLP_MODEL = "flink_ml_tpu_torch.models.classification.mlp_classifier.MLPClassifierModel"
+_KMEANS = "flink_ml_tpu_torch.servable.lib.KMeansModelServable"
+_KMEANS_MODEL = "flink_ml_tpu_torch.models.clustering.kmeans.KMeansModel"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, the port training-side stage that loads it
 #: with ``load(path)`` or None where that stage is not ported). Training-side
 #: Models load as their runtime-free servables, as the JAX package's
 #: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
-#: ``logistic_regression.py:30``, ``mlp_classifier.py:195``). The reverse
-#: direction needs no table: the JAX package reads a port-written directory
-#: through its servables' ``load_servable``, which ignore the class name.
+#: ``logistic_regression.py:30``, ``mlp_classifier.py:195``,
+#: ``kmeans.py:215``). The reverse direction needs no table: the JAX package
+#: reads a port-written directory through its servables' ``load_servable``,
+#: which ignore the class name.
 CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
     "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, None),
     "flink_ml_tpu.servable.builder.PipelineModelServable": (_PIPELINE, None),
@@ -64,6 +67,8 @@ CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
     "flink_ml_tpu.servable.lib.LogisticRegressionModelServable": (_LOGISTIC, None),
     "flink_ml_tpu.models.classification.mlp_classifier.MLPClassifierModel": (_MLP, _MLP_MODEL),
     "flink_ml_tpu.servable.lib.MLPClassifierModelServable": (_MLP, None),
+    "flink_ml_tpu.models.clustering.kmeans.KMeansModel": (_KMEANS, _KMEANS_MODEL),
+    "flink_ml_tpu.servable.lib.KMeansModelServable": (_KMEANS, None),
     # IDFModel is its own servable in both packages (``idf.py``).
     "flink_ml_tpu.models.feature.idf.IDFModel": (_IDF_MODEL, _IDF_MODEL),
 }

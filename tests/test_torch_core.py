@@ -23,8 +23,10 @@ import flink_ml_tpu_torch.servable.fusion as tfusion
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier, MLPClassifierModel
+from flink_ml_tpu_torch.models.clustering.kmeans import KMeansModel
 from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler, StandardScalerModel
 from flink_ml_tpu_torch.servable import (
+    KMeansModelServable,
     LogisticRegressionModelServable,
     MLPClassifierModelServable,
     PipelineModelServable,
@@ -245,8 +247,12 @@ def test_class_table_maps_jax_names_to_port_classes():
     assert rw.resolve_class("flink_ml_tpu.servable.lib.MLPClassifierModelServable") is MLPClassifierModelServable
     scaler = "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel"
     assert rw.resolve_class(scaler, stage=True) is StandardScalerModel
+    kmeans = "flink_ml_tpu.models.clustering.kmeans.KMeansModel"
+    assert rw.resolve_class(kmeans) is KMeansModelServable
+    assert rw.resolve_class(kmeans, stage=True) is KMeansModel
+    assert rw.resolve_class("flink_ml_tpu.servable.lib.KMeansModelServable") is KMeansModelServable
     with pytest.raises(ValueError, match="no port class"):
-        rw.resolve_class("flink_ml_tpu.models.clustering.kmeans.KMeansModel")
+        rw.resolve_class("flink_ml_tpu.models.clustering.agglomerative_clustering.AgglomerativeClustering")
 
 
 def test_saved_port_stage_round_trips(tmp_path):

@@ -495,3 +495,162 @@ def test_server_launches_the_mlp_kernel_from_two_rows(cuda):
     np.testing.assert_array_equal(r_big.dataframe.column("scaled"), ref.column("scaled"))
     np.testing.assert_allclose(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction"),
                                rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the scale → kmeans serving megakernel
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.servable import KMeansModelServable  # noqa: E402
+from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
+    KMEANS_MAX_DIM,
+    KMEANS_MAX_K,
+    SCALE_KMEANS,
+    scale_kmeans,
+    scale_kmeans_plain,
+)
+
+KMEANS_MEASURES = ("euclidean", "manhattan", "cosine")
+KMEANS_MARGIN = 1e-4  # predictions compared where the float64 top-two distance gap is larger
+
+
+def _kmeans_inputs(rows, d, k, device, seed=0):
+    """Uniform [0, 1) rows (the published generator's kind), a scaler with
+    the zero-std guard, and centroids drawn from the same population."""
+    rng = np.random.default_rng(seed)
+    std = (rng.random(d) * 0.3 + 0.2).astype(np.float32)
+    std[0] = 0.0
+    inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    return t(rng.random((rows, d))), t(rng.random(d) * 0.5), t(inv_std), t(rng.normal(size=(k, d)))
+
+
+def _kmeans_decided(measure, scaled, centroids):
+    """Rows whose float64 top-two distance gap exceeds the margin; rows with
+    a NaN distance are decided (the first NaN wins)."""
+    X, C = scaled.double(), centroids.double()
+    if measure == "euclidean":
+        dist = torch.sqrt(((X[:, None, :] - C[None]) ** 2).sum(-1))
+    elif measure == "manhattan":
+        dist = (X[:, None, :] - C[None]).abs().sum(-1)
+    else:
+        dist = 1.0 - (X @ C.T) / X.norm(dim=1)[:, None] / C.norm(dim=1)[None, :]
+    nan = torch.isnan(dist).any(dim=1)
+    if dist.shape[1] < 2:
+        return torch.ones_like(nan).cpu().numpy()
+    top = torch.topk(torch.nan_to_num(dist, nan=0.0), 2, dim=1, largest=False).values
+    return (nan | (top[:, 1] - top[:, 0] > KMEANS_MARGIN)).cpu().numpy()
+
+
+@pytest.mark.parametrize("rows", (1, 33, 4096))
+@pytest.mark.parametrize("d", (1, 7, 100, 256))
+@pytest.mark.parametrize("k", (2, 10, 64))
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+def test_kmeans_kernel_matches_plain_version(cuda, rows, d, k, measure):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full float32
+    x, mean, inv_std, C = _kmeans_inputs(rows, d, k, cuda, seed=rows + d + k)
+    for with_mean, with_std, write_scaled in CHAINS:
+        kw = dict(measure=measure, with_mean=with_mean, with_std=with_std)
+        before = SCALE_KMEANS.launches
+        scaled, pred = scale_kmeans(x, mean, inv_std, C, write_scaled=write_scaled, **kw)
+        p_scaled, p_pred = scale_kmeans_plain(x, mean, inv_std, C, **kw)
+        torch.cuda.synchronize()
+        assert SCALE_KMEANS.launches == before + 1
+        if write_scaled:
+            assert torch.equal(scaled, p_scaled)  # bit-equal: no contraction, same roundings
+        else:
+            assert scaled is None
+        assert pred.dtype == p_pred.dtype == torch.int32 and pred.shape == (rows,)
+        decided = _kmeans_decided(measure, p_scaled, C)
+        np.testing.assert_array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided])
+
+
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+def test_kmeans_kernel_takes_the_first_minimum_and_nan_as_the_minimum(cuda, measure):
+    """Duplicate centroids take the first index; a NaN feature (every
+    measure) and a zero row under cosine give NaN everywhere, index 0; a
+    zero centroid under cosine is a NaN column, which wins."""
+    rng = np.random.default_rng(3)
+    C = rng.random((4, 6)).astype(np.float32)
+    C[2] = C[0]
+    X = np.stack([C[0], C[0] * 0.999 + 0.0005, C[2], np.zeros(6), C[3], C[1]]).astype(np.float32)
+    X[4, 2] = np.nan
+    x, c = torch.from_numpy(X).to(cuda), torch.from_numpy(C).to(cuda)
+    kw = dict(measure=measure, with_mean=False, with_std=False)
+    _, pred = scale_kmeans(x, None, None, c, write_scaled=False, **kw)
+    _, p_pred = scale_kmeans_plain(x, None, None, c, **kw)
+    assert pred.tolist() == p_pred.tolist()
+    assert pred[0] == pred[2] == pred[4] == 0 and pred[5] == 1
+    if measure == "cosine":
+        assert pred[3] == 0
+        c[3] = 0.0
+        _, pred = scale_kmeans(x, None, None, c, write_scaled=False, **kw)
+        _, p_pred = scale_kmeans_plain(x, None, None, c, **kw)
+        assert pred.tolist() == p_pred.tolist() == [3, 3, 3, 0, 0, 3]
+
+
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+def test_kmeans_kernel_at_its_limits_and_past_one_grid(cuda, measure):
+    """k and d at the kernel's limits, and more rows than one grid of
+    blocks covers (the blocks stride over the rest)."""
+    for rows, d, k in ((5, KMEANS_MAX_DIM, KMEANS_MAX_K), (10_000, 100, 10)):
+        x, mean, inv_std, C = _kmeans_inputs(rows, d, k, cuda, seed=d)
+        kw = dict(measure=measure, with_mean=True, with_std=True)
+        scaled, pred = scale_kmeans(x, mean, inv_std, C, write_scaled=True, **kw)
+        p_scaled, p_pred = scale_kmeans_plain(x, mean, inv_std, C, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(scaled, p_scaled)
+        decided = _kmeans_decided(measure, p_scaled, C)
+        np.testing.assert_array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided])
+
+
+def test_kmeans_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, mean, inv_std, C = _kmeans_inputs(8, 16, 3, cuda)
+    before = SCALE_KMEANS.launches
+    kw = dict(measure="euclidean", with_mean=True, with_std=True, write_scaled=True)
+    with pytest.raises(TypeError, match="float32"):
+        scale_kmeans(x.double(), mean, inv_std, C, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        scale_kmeans(x, mean, inv_std, C.t().contiguous().t(), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        scale_kmeans(x, mean[:-1], inv_std, C, **kw)
+    with pytest.raises(ValueError, match="expected"):
+        scale_kmeans(x, mean, inv_std.cpu(), C, **kw)
+    with pytest.raises(ValueError, match="holds"):
+        scale_kmeans(*_kmeans_inputs(2, KMEANS_MAX_DIM + 1, 3, cuda), **kw)
+    with pytest.raises(ValueError, match="holds"):
+        scale_kmeans(*_kmeans_inputs(2, 8, KMEANS_MAX_K + 1, cuda), **kw)
+    with pytest.raises(ValueError, match="has measures"):
+        scale_kmeans(x, mean, inv_std, C, **dict(kw, measure="chebyshev"))
+    empty = scale_kmeans(x[:0], mean, inv_std, C, **kw)
+    assert [t.shape for t in empty] == [(0, 16), (0,)]
+    assert SCALE_KMEANS.launches == before
+
+
+def test_server_launches_the_kmeans_kernel_for_hot_buckets_only(cuda):
+    d, k = 100, 10
+    rng = np.random.default_rng(4)
+    sc = StandardScalerModelServable().set_input_col("features").set_output_col("scaled")
+    sc.set_with_mean(True)
+    sc.mean, sc.std = np.full(d, 0.5), np.full(d, 0.29)
+    km = KMeansModelServable().set_features_col("scaled").set_k(k)
+    km.centroids, km.weights = rng.normal(size=(k, d)), np.ones(k)
+    pipe = PipelineModelServable([sc, km])
+    cfg = ServingConfig(max_batch_size=2048, queue_capacity_rows=8192, fusion_mode="fast")
+    template = DataFrame.from_dict({"features": rng.random((1, d))})
+    with InferenceServer(pipe, name="gpu-kmeans", serving_config=cfg, warmup_template=template) as srv:
+        SCALE_KMEANS.reset_launches()
+        big = DataFrame.from_dict({"features": rng.random((1500, d))})
+        small = DataFrame.from_dict({"features": rng.random((5, d))})
+        r_big, r_small = srv.predict(big), srv.predict(small)
+        assert (r_big.bucket, r_small.bucket) == (2048, 8)
+        assert SCALE_KMEANS.launches == 1  # bucket 2048 is hot (3016 per row), bucket 8 is not
+    ref = pipe.transform(big, device="cpu")
+    np.testing.assert_array_equal(r_big.dataframe.column("scaled"), ref.column("scaled"))
+    decided = _kmeans_decided("euclidean", torch.from_numpy(ref.column("scaled")),
+                              torch.from_numpy(np.asarray(km.centroids, np.float32)))
+    np.testing.assert_array_equal(r_big.dataframe.column("prediction")[decided],
+                                  ref.column("prediction")[decided])

@@ -29,6 +29,8 @@ from flink_ml_tpu_torch.servable import (
 from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, FusionTier, ulp_diff
 from flink_ml_tpu_torch.servable.kernel_spec import KernelSpec
 from flink_ml_tpu_torch.servable.megakernels import (
+    KMEANS_MAX_DIM,
+    KMEANS_MAX_K,
     MEGAKERNEL_CHAINS,
     MLP_MAX_CLASSES,
     MLP_MAX_LAYERS,
@@ -227,7 +229,6 @@ def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
 NOT_YET_PORTED = {
     "scale": ["scale"],
     "feature6": ["scale", "normalize", "elementwise_product", "idf", "scale", "binarize"],
-    "kmeans": ["kmeans"],
     "normalize": ["normalize"],
 }
 
@@ -242,10 +243,17 @@ def _mlp(widths=(4, 8, 3), inp="scaled", drop=None):
     return _spec("mlp", inputs=(inp,), outputs=("prediction", "rawPrediction"), arrays=arrays)
 
 
+def _kmeans(k=3, d=4, inp="scaled", measure="euclidean"):
+    """A KMeans head of ``k`` centroids of width ``d`` reading ``inp``."""
+    return _spec("kmeans", inputs=(inp,), outputs=("prediction",),
+                 arrays={"centroids": np.ones((k, d), np.float32)},
+                 params={"distance_measure": measure})
+
+
 def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert MEGAKERNEL_CHAINS == {
         ("scale", "logistic"), ("logistic",), ("sparse_idf", "sparse_logistic"), ("sparse_logistic",),
-        ("scale", "mlp"), ("mlp",),
+        ("scale", "mlp"), ("mlp",), ("scale", "kmeans"), ("kmeans",),
     }
     assert chain_eligible([_scale(), _logistic()])
     assert chain_eligible([_logistic(inp="features")])
@@ -256,8 +264,13 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert chain_eligible([_mlp((4, 512, 512, 8), inp="x")])  # the published network's shape
     limits = (4,) + (MLP_MAX_WIDTH,) * (MLP_MAX_LAYERS - 1) + (MLP_MAX_CLASSES,)
     assert chain_eligible([_scale(), _mlp(limits)])
+    for measure in ("euclidean", "manhattan", "cosine"):
+        assert chain_eligible([_scale(), _kmeans(measure=measure)])
+        assert chain_eligible([_kmeans(inp="features", measure=measure)])
+    assert chain_eligible([_kmeans(10, 100, inp="x")])  # the published model's shape
+    assert chain_eligible([_kmeans(KMEANS_MAX_K, KMEANS_MAX_DIM, inp="x")])
     for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()],
-                  [_scale(), _mlp()], [_mlp()]):
+                  [_scale(), _mlp()], [_mlp()], [_scale(), _kmeans()], [_kmeans()]):
         assert jax_chain_eligible(specs)  # the JAX package lowers these chains too
     for name, ops in NOT_YET_PORTED.items():
         specs = [_spec(op) for op in ops]
@@ -296,6 +309,19 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     extra = _mlp((4, 8, 3))
     extra.model_arrays["W5"] = np.ones((3, 3), np.float32)  # a layer off the chain
     assert not chain_eligible([extra])
+    # KMeans models the kernel cannot hold, or heads not of the KMeans form
+    assert not chain_eligible([_scale(), _kmeans(d=5)])  # the scaler's width is not the centroids'
+    assert not chain_eligible([_scale(out="other"), _kmeans()])  # the scaler feeds another column
+    assert not chain_eligible([_kmeans(KMEANS_MAX_K + 1, 4)])  # too many centroids
+    assert not chain_eligible([_kmeans(3, KMEANS_MAX_DIM + 1)])  # too wide
+    assert not chain_eligible([_kmeans(measure="chebyshev")])  # a measure the kernel lacks
+    assert not chain_eligible([_spec("kmeans")])  # no centroids, no measure
+    flat = _kmeans()
+    flat.model_arrays["centroids"] = np.ones(4, np.float32)  # centroids must be [k, d]
+    assert not chain_eligible([flat])
+    two = _spec("kmeans", outputs=("prediction", "distance"),
+                arrays={"centroids": np.ones((3, 4), np.float32)}, params={"distance_measure": "cosine"})
+    assert not chain_eligible([two])  # one output: the index
     with pytest.raises(ValueError, match="no megakernel"):
         build_megakernel_fn([_spec("kmeans")])
 
