@@ -5,8 +5,8 @@
 
 Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
-card — dense, sparse, MLP and KMeans serving, wide-sparse, MLP and KMeans
-training. Phases, one JSON line each:
+card — dense, sparse, MLP, KMeans, feature-chain and Imputer serving,
+wide-sparse, MLP and KMeans training. Phases, one JSON line each:
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -99,9 +99,37 @@ training. Phases, one JSON line each:
                requests of 1–4096 new rows from 4 clients checked against
                float64 numpy; megakernel launches equal the batches of bucket
                ≥ 512, 0 fallbacks, 0 chains built after warmup, the plain
-               version never called; a 4096-row batch's host breakdown.
+               version never called; a 4096-row batch's host breakdown;
+15. kernels_rowlocal — the row-local megakernel (any chain of scale,
+               normalize, elementwise_product, idf, binarize and impute, ±
+               a logistic head) against its plain version over 15 chains
+               (scale under the four flag pairs, normalize at p 1, 2, 3, the
+               product, idf, a three-column binarize, impute with a NaN and
+               with a 0.1 placeholder, feature6, feature6 → logistic, a head
+               reading a column other than its predecessor's) × d (1 … 1024)
+               × rows (1, 33, 4096), with zero, NaN and ±inf entries: bit-equal
+               until a normalize, then within the feature6 envelope, bin equal
+               outside a margin; then CUDA-event times at 4096 × 100 of
+               feature6 → logistic, normalize alone against
+               ``F.normalize`` (the library yardstick) and a 15-column impute,
+               with the bytes bound;
+16. serve_feature6 — bench.py's feature6 chain (StandardScaler → Normalizer
+               → ElementwiseProduct → IDF → StandardScaler → Binarizer) →
+               LogisticRegression at d 100 from seeded model data, each stage
+               saved and loaded back through ``load_servable`` and served by
+               ``InferenceServer`` (fusion.mode=fast): 64 requests of 1–4096
+               rows from 4 clients checked against float64 numpy; launches
+               equal the batches of bucket ≥ 512, 0 fallbacks, 0 chains built
+               after warmup, no plain version called; a 4096-row batch's
+               host breakdown;
+17. serve_imputer — Imputer (mean, NaN) fitted on imputer-benchmark.json's
+               rows (15 DoubleGenerator columns, arity 100, seed 2, 100,000
+               rows), saved, loaded and served with
+               ``fusion.megakernel.min.score`` 1.0 to 64 requests whose
+               entries are a seeded tenth NaN: every output exact; launches
+               equal the batches.
 
-Then a ``{"kernels": [...]}`` line for every kernel (eight), the ``nvidia-smi``
+Then a ``{"kernels": [...]}`` line for every kernel (nine), the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits nonzero without that last line; so does a machine without
 a CUDA device.
@@ -218,6 +246,31 @@ KMEANS_MARGIN = 1e-4
 # float32 sums of ~10,000 values in [0, 1) through the GEMM, ~1e-6.
 KMEANS_CENTROID_ATOL = 1e-5
 
+# the row-local kernel: chains, shapes and comparison rules
+ROWLOCAL_CASES = (
+    "scale_11", "scale_10", "scale_01", "scale_00", "normalize_1", "normalize_2", "normalize_3",
+    "product", "idf", "binarize", "impute_nan", "impute_value", "feature6", "feature6_logistic",
+    "head_off_chain",
+)
+ROWLOCAL_CHECK_WIDTHS = (1, 7, 32, 100, 257, 1024)
+ROWLOCAL_CHECK_ROWS = (1, 33, 4096)
+# Where a binarize's input carries a normalize's rounding, entries within
+# this margin of the threshold may round either way: they are not compared,
+# nor anything downstream of them in their row. 1e-5 is ~100x the feature6
+# envelope (1024 ulps) at the magnitudes of the feature6 chain (~0.1).
+BIN_MARGIN = 1e-5
+# feature6 (bench.py _make_feature6_stages, n_docs 400,000) -> logistic at
+# the vectorDim of standardscaler-benchmark.json / logisticregression-benchmark.json
+FEATURE6_D, FEATURE6_SEED, FEATURE6_SERVE_SEED, FEATURE6_N_DOCS = 100, 77, 78, 400_000
+# feature6 -> logistic at d 100 scores 3556 per row against the default bar
+# of 10^6: buckets from 512 rows run the megakernel
+FEATURE6_HOT_FROM = 512
+# imputer-benchmark.json: 15 DoubleGenerator columns (arity 100, seed 2),
+# 100,000 rows; the traffic sets a seeded tenth of its entries to NaN
+IMPUTER_COLS = tuple(f"f{i}" for i in range(15))
+IMPUTER_ROWS, IMPUTER_ARITY, IMPUTER_SEED, IMPUTER_SERVE_SEED = 100_000, 100, 2, 3
+IMPUTER_MISSING_SHARE = 0.1
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -252,16 +305,20 @@ def phase_build(kernels):
     emit("build", total_seconds=time.perf_counter() - t0)
 
 
-def _cold_times(fn, iters: int, flush) -> list:
+def _cold_times(fn, iters: int, flush, hold_cycles: int = 0) -> list:
     """Per-call device milliseconds of ``fn`` with L2 cold: each call runs
     after zeroing ``flush`` (larger than L2), between its own CUDA events.
     The flush keeps the device busy while the host enqueues the call, so
-    host launch overhead does not enter the time."""
+    host launch overhead does not enter the time — for a wrapper whose host
+    work outlasts the flush, ``hold_cycles`` of ``torch.cuda._sleep`` after
+    it hold the device longer (the sleep touches no memory)."""
     import torch
 
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -1569,11 +1626,11 @@ def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device):
     return losses, [(params[i].detach(), params[i + 1].detach()) for i in range(0, len(params), 2)]
 
 
-def _dense_batch_breakdown(plan, df, ingest, reps=5):
+def _dense_batch_breakdown(plan, df, ingest, reps=5, col="features"):
     """Where one full-bucket batch's time goes on the plan's path (host
     clock, the device synchronised after each step; median of ``reps``):
-    the host gather, the gather and upload, the chain on the card, and the
-    readback."""
+    the host gather (of ``col``), the gather and upload, the chain on the
+    card, and the readback."""
     import torch
 
     from flink_ml_tpu_torch.servable.planner import PlanExecution, run_segment
@@ -1582,7 +1639,7 @@ def _dense_batch_breakdown(plan, df, ingest, reps=5):
     steps = {"gather": [], "gather_and_upload": [], "chain": [], "readback": []}
     for _ in range(reps):
         t0 = time.perf_counter()
-        segment.gather(df, "features")
+        segment.gather(df, col)
         t1 = time.perf_counter()
         inputs, key = ingest(segment, df, len(df))
         torch.cuda.synchronize()
@@ -2302,6 +2359,623 @@ def phase_serve_kmeans(card: str):
     return launches
 
 
+def _rowlocal_case(name, rows, d, dev, rng):
+    """``(inputs, ops)`` of one row-local chain on ``dev``: standard-normal
+    rows with, from 5 rows on, a zero row, a NaN, +inf and -inf; scalers with
+    the zero-std guard; scalar columns with a tenth of their entries missing
+    (NaN, or a placeholder float32 cannot hold exactly, 0.1)."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import RowLocalOp
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    if rows >= 5:
+        x[1] = 0.0
+        x[2, d // 2] = np.nan
+        x[3, 0] = np.inf
+        x[4, d - 1] = -np.inf
+
+    def inv_std():
+        std = np.abs(rng.standard_normal(d)).astype(np.float32) + np.float32(0.5)
+        std[0] = 0.0
+        return t(np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std)))
+
+    def positive(lo):
+        return t(np.abs(rng.standard_normal(d)) + lo)
+
+    def scale(src, with_mean=True, with_std=True):
+        return RowLocalOp("scale", src, t(rng.standard_normal(d)), inv_std(),
+                          {"with_mean": with_mean, "with_std": with_std})
+
+    if name.startswith("scale_"):
+        return [t(x)], [scale(0, name[-2] == "1", name[-1] == "1")]
+    if name.startswith("normalize_"):
+        return [t(x)], [RowLocalOp("normalize", 0, params={"p": float(name[-1])})]
+    if name in ("product", "idf"):
+        op = "elementwise_product" if name == "product" else "idf"
+        return [t(x)], [RowLocalOp(op, 0, positive(0.1))]
+    if name == "binarize":
+        return [t(x), t(rng.standard_normal(rows)), t(x * 0.5)], [
+            RowLocalOp("binarize", 0, params={"threshold": 0.05}),
+            RowLocalOp("binarize", 1, params={"threshold": -0.3}),
+            RowLocalOp("binarize", 2, params={"threshold": 0.0}),
+        ]
+    if name.startswith("impute_"):
+        missing_is_nan = name == "impute_nan"
+        cols = [rng.integers(0, 100, rows).astype(np.float32) for _ in range(3)]
+        for c in cols:
+            c[rng.random(rows) < IMPUTER_MISSING_SHARE] = np.float32(np.nan if missing_is_nan else 0.1)
+        surrogates = t(rng.standard_normal(3))
+        return [t(c) for c in cols], [
+            RowLocalOp("impute", k, surrogates, params={"missing_is_nan": missing_is_nan,
+                                                        "missing_value": 0.0 if missing_is_nan else 0.1,
+                                                        "column": k})
+            for k in range(3)
+        ]
+    ops = [
+        scale(0),
+        RowLocalOp("normalize", 1, params={"p": 2.0}),
+        RowLocalOp("elementwise_product", 2, positive(0.1)),
+        RowLocalOp("idf", 3, positive(0.2)),
+        scale(4, with_mean=False),
+        RowLocalOp("binarize", 5, params={"threshold": 0.05}),
+    ]
+    coef = t(rng.standard_normal(d) * (3.0 / np.sqrt(d)))
+    if name == "feature6":
+        return [t(x)], ops
+    if name == "feature6_logistic":
+        return [t(x)], ops + [RowLocalOp("logistic", 6, coef)]
+    if name == "head_off_chain":  # the head reads the scaler's output, not the binarizer's
+        return [t(x)], [scale(0), RowLocalOp("binarize", 1, params={"threshold": 0.0}),
+                        RowLocalOp("logistic", 1, coef)]
+    raise ValueError(name)
+
+
+def _check_rowlocal(inputs, ops, got, want, where):
+    """Each output of the kernel against the plain version's: bit-equal
+    until a normalize; from a normalize on within ULP_ENVELOPE["feature6"];
+    a binarize of such an input equal outside BIN_MARGIN of its threshold,
+    the rows with an entry inside left out of everything downstream; the
+    head's probability (rawPrediction[:, 1]) within
+    ULP_ENVELOPE["scale_logistic"], rawPrediction[:, 0] = 1 - it in float32
+    on both sides, and its prediction equal where the float64 margin
+    exceeds PREDICTION_MARGIN.
+    Returns ``(entries inside the margin, max |kernel - plain| compared,
+    max ulps of the outputs from a normalize on)``."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+
+    def fail(what):
+        raise AssertionError(f"{what}: {where}")
+
+    plain = list(inputs) + list(want)
+    rows = int(inputs[0].shape[0])
+    rounded = [False] * len(inputs)  # carries a normalize's rounding
+    decided = [torch.ones(rows, dtype=torch.bool, device=inputs[0].device)] * len(inputs)
+    inside, max_abs_err, max_ulps, k = 0, 0.0, 0, 0
+    for op in ops:
+        dec = decided[op.src]
+        if op.op == "logistic":
+            pred, raw = got[k], got[k + 1]
+            if pred.shape != (rows,) or raw.shape != (rows, 2):
+                fail(f"head shapes {tuple(pred.shape)} {tuple(raw.shape)}")
+            # the probability p = rawPrediction[:, 1] within the envelope; its
+            # complement [:, 0] is 1 - p in float32 on both sides (the ulp
+            # distance of 1 - p is ill-conditioned where p rounds near 1)
+            if ulp_diff(raw[dec, 1].cpu().numpy(), want[k + 1][dec, 1].cpu().numpy()) > ULP_ENVELOPE["scale_logistic"]:
+                fail("the probability outside the scale_logistic envelope")
+            if not (_same_bits(raw[:, 0], 1.0 - raw[:, 1]) and _same_bits(want[k + 1][:, 0], 1.0 - want[k + 1][:, 1])):
+                fail("rawPrediction[:, 0] is not 1 - rawPrediction[:, 1]")
+            margin = plain[op.src].double() @ op.a.double()
+            sure = dec & (margin.abs() > PREDICTION_MARGIN)
+            if not torch.equal(pred[sure], want[k][sure]):
+                fail("prediction differs outside the margin")
+            max_abs_err = max(max_abs_err, float(torch.nan_to_num(raw[dec] - want[k + 1][dec]).abs().max()
+                                                 if bool(dec.any()) else 0.0))
+            rounded += [True, True]
+            decided += [dec, dec]
+            k += 2
+            continue
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"output {k} {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        row_mask = dec if g.dim() == 1 else dec[:, None].expand_as(g)
+        if op.op == "binarize" and rounded[op.src]:
+            near = (plain[op.src] - op.params["threshold"]).abs() <= BIN_MARGIN
+            if not torch.equal(g[row_mask & ~near], w[row_mask & ~near]):
+                fail(f"binarize output {k} differs outside the margin")
+            inside += int((row_mask & near).sum())
+            dec = dec & ~(near if near.dim() == 1 else near.any(dim=1))
+            rounded.append(False)
+        elif rounded[op.src] or op.op == "normalize":
+            ulps = ulp_diff(g[row_mask].cpu().numpy(), w[row_mask].cpu().numpy())
+            if ulps > ULP_ENVELOPE["feature6"]:
+                fail(f"output {k} outside the feature6 envelope")
+            max_ulps = max(max_ulps, ulps)
+            rounded.append(True)
+        else:
+            if not _same_bits(g[row_mask], w[row_mask]):
+                fail(f"output {k} not bit-equal to the plain version")
+            rounded.append(False)
+        diff = torch.nan_to_num(g[row_mask] - w[row_mask], nan=0.0, posinf=0.0, neginf=0.0)
+        if diff.numel():
+            max_abs_err = max(max_abs_err, float(diff.abs().max()))
+        decided.append(dec)
+        k += 1
+    return inside, max_abs_err, max_ulps
+
+
+def _rowlocal_bound(inputs, ops, outputs):
+    """``(bytes, operations)`` one call must move and do: each input and
+    model vector the chain reads once, each output written once; per element
+    scale 2, normalize 3 (power, add, divide), product/idf/binarize/impute 1,
+    the head's dot 2, and per row a root for normalize and 4 for the head's
+    sigmoid and prediction."""
+    bytes_moved = sum(4 * t.numel() for t in inputs) + sum(4 * t.numel() for t in outputs)
+    ops_count = 0
+    slots = list(inputs) + list(outputs)
+    per_element = {"scale": 2, "normalize": 3, "elementwise_product": 1, "idf": 1, "binarize": 1,
+                   "impute": 1, "logistic": 2}
+    for op in ops:
+        x = slots[op.src]
+        rows = int(x.shape[0])
+        if op.op == "scale":
+            bytes_moved += 4 * x.shape[1] * (int(op.params["with_mean"]) + int(op.params["with_std"]))
+        elif op.op in ("elementwise_product", "idf", "logistic"):
+            bytes_moved += 4 * op.a.numel()
+        elif op.op == "impute":
+            bytes_moved += 4  # its column's surrogate
+        ops_count += per_element[op.op] * x.numel()
+        ops_count += rows * {"normalize": 1, "logistic": 4}.get(op.op, 0)
+    return bytes_moved, ops_count
+
+
+def phase_kernels_rowlocal(rng, card: str):
+    """The row-local megakernel against its plain version over chains ×
+    widths × rows, then its times at the serving shape (module docstring,
+    phase 15)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch.servable.megakernels import (
+        ROWLOCAL,
+        RowLocalOp,
+        rowlocal_chain,
+        rowlocal_chain_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain head's dot in full float32
+    configurations, inside, max_abs_err, max_ulps = 0, 0, 0.0, 0
+    for name in ROWLOCAL_CASES:
+        for d in ROWLOCAL_CHECK_WIDTHS:
+            for rows in ROWLOCAL_CHECK_ROWS:
+                inputs, ops = _rowlocal_case(name, rows, d, dev, rng)
+                got = rowlocal_chain(inputs, ops)
+                want = rowlocal_chain_plain(inputs, ops)
+                n_in, err, ulps = _check_rowlocal(inputs, ops, got, want, f"{name} rows={rows} d={d}")
+                inside += n_in
+                max_abs_err = max(max_abs_err, err)
+                max_ulps = max(max_ulps, ulps)
+                configurations += 1
+    emit("kernels_rowlocal", kernel=ROWLOCAL.name, configurations=configurations,
+         entries_inside_margin=inside, max_abs_err=max_abs_err, max_ulps_from_a_normalize_on=max_ulps,
+         grid={"chains": list(ROWLOCAL_CASES), "d": list(ROWLOCAL_CHECK_WIDTHS),
+               "rows": list(ROWLOCAL_CHECK_ROWS)},
+         rule=("bit-equal until a normalize; from it on within ULP_ENVELOPE['feature6']; bin equal "
+               f"outside |x - threshold| <= {BIN_MARGIN}, such rows left out downstream; the probability "
+               "rawPrediction[:, 1] within ULP_ENVELOPE['scale_logistic'] and [:, 0] = 1 - it in float32; "
+               f"prediction equal where |margin| > {PREDICTION_MARGIN}"))
+
+    rows, d = MAX_BATCH, FEATURE6_D
+    timed = {}
+    for name in ("feature6_logistic", "normalize_2"):
+        inputs, ops = _rowlocal_case(name, rows, d, dev, np.random.default_rng(FEATURE6_SEED))
+        timed[name] = (inputs, ops)
+    x = timed["normalize_2"][0][0]
+    imp_rng = np.random.default_rng(IMPUTER_SERVE_SEED)
+    cols = []
+    for _ in IMPUTER_COLS:
+        c = imp_rng.integers(0, IMPUTER_ARITY, rows).astype(np.float32)
+        c[imp_rng.random(rows) < IMPUTER_MISSING_SHARE] = np.nan
+        cols.append(torch.from_numpy(c).to(dev))
+    surrogates = torch.from_numpy(imp_rng.random(len(IMPUTER_COLS)).astype(np.float32) * IMPUTER_ARITY).to(dev)
+    timed["impute_15"] = (cols, [RowLocalOp("impute", k, surrogates, params={
+        "missing_is_nan": True, "missing_value": 0.0, "column": k}) for k in range(len(cols))])
+
+    fns = {}
+    for name, (inputs, ops) in timed.items():
+        fns[name] = (lambda i=inputs, o=ops: rowlocal_chain(i, o))
+        fns[name + "_plain"] = (lambda i=inputs, o=ops: rowlocal_chain_plain(i, o))
+    fns["library_normalize"] = lambda: F.normalize(x, p=2.0, dim=1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    for fn in fns.values():  # warm-up
+        for _ in range(20):
+            fn()
+    torch.cuda.synchronize()
+    times = {n: {"cold": [], "warm": []} for n in fns}
+    order = list(fns)
+    # the wrappers' host work (outputs, the op table, ~45 plain launches)
+    # outlasts the flush: ~0.5 ms of sleep holds the device until the call
+    # is queued, and 50 warm calls fit inside _warm_time's 50 ms sleep
+    for name in order + order[::-1]:  # each side twice, in turns
+        times[name]["cold"] += _cold_times(fns[name], 50, flush, hold_cycles=1_000_000)
+        times[name]["warm"].append(_warm_time(fns[name], 50))
+    cold = {n: _median(v["cold"]) for n, v in times.items()}
+    warm = {n: _median(v["warm"]) for n, v in times.items()}
+    host_us = {}
+    for name in ("feature6_logistic", "impute_15"):  # host enqueue time of one wrapper call
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fns[name]()
+        host_us[name] = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+    bounds = {}
+    for name, (inputs, ops) in timed.items():
+        b, o = _rowlocal_bound(inputs, ops, rowlocal_chain_plain(inputs, ops))
+        bounds[name] = {"bytes": b, "ops": o, "bytes_ms": b / HBM_BYTES_PER_S * 1e3,
+                        "ops_ms": o / F32_OPS_PER_S * 1e3}
+    main = bounds["feature6_logistic"]
+    timing = {
+        "shape": {"rows": rows, "d": d, "chain": "feature6 -> logistic"},
+        "ms": cold["feature6_logistic"],
+        "ms_l2_warm": warm["feature6_logistic"],
+        "plain_ms": cold["feature6_logistic_plain"],
+        "plain_ms_l2_warm": warm["feature6_logistic_plain"],
+        "normalize_alone_ms": cold["normalize_2"],
+        "normalize_alone_ms_l2_warm": warm["normalize_2"],
+        "normalize_alone_plain_ms": cold["normalize_2_plain"],
+        "library_ms": cold["library_normalize"],
+        "library_ms_l2_warm": warm["library_normalize"],
+        "library": "torch.nn.functional.normalize(x, p=2, dim=1): the normalize op only (hold it "
+                   "against normalize_alone); no single PyTorch call computes the chain",
+        "impute_15_ms": cold["impute_15"],
+        "impute_15_ms_l2_warm": warm["impute_15"],
+        "impute_15_plain_ms": cold["impute_15_plain"],
+        "wrapper_host_us_per_call": host_us,
+        "bounds": bounds,
+        "bytes": main["bytes"],
+        "ops": main["ops"],
+        "bound_ms": max(main["bytes_ms"], main["ops_ms"]),
+        "bound_by": "bytes" if main["bytes_ms"] >= main["ops_ms"] else "operations",
+    }
+    emit("kernels_rowlocal", kernel=ROWLOCAL.name, card=card, **timing)
+    return {"max_abs_err": max_abs_err, **timing}
+
+
+def _feature6_stages(d):
+    """bench.py ``_make_feature6_stages`` in the port's classes, its model
+    data drawn from a seeded rng in the same order, and the logistic head's
+    coefficient after it (``cold_start_feature6_logistic``)."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegressionModel
+    from flink_ml_tpu_torch.models.feature.binarizer import Binarizer
+    from flink_ml_tpu_torch.models.feature.elementwise_product import ElementwiseProduct
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScalerModel
+
+    rng = np.random.default_rng(FEATURE6_SEED)
+    scaler = StandardScalerModel().set_input_col("input").set_output_col("scaled")
+    scaler.set_with_mean(True)
+    scaler.mean = rng.standard_normal(d)
+    scaler.std = np.abs(rng.standard_normal(d)) + 0.5
+    idf = IDFModel().set_input_col("weighted").set_output_col("tfidf")
+    idf.idf = np.abs(rng.standard_normal(d)) + 0.2
+    idf.doc_freq = np.ones(d)
+    idf.num_docs = np.asarray(float(FEATURE6_N_DOCS))
+    rescale = StandardScalerModel().set_input_col("tfidf").set_output_col("rescaled")
+    rescale.set_with_mean(False)
+    rescale.mean = np.zeros(d)
+    rescale.std = np.abs(rng.standard_normal(d)) + 0.5
+    stages = [
+        scaler,
+        Normalizer().set_input_col("scaled").set_output_col("norm"),
+        ElementwiseProduct().set_scaling_vec(np.abs(rng.standard_normal(d)) + 0.1)
+        .set_input_col("norm").set_output_col("weighted"),
+        idf,
+        rescale,
+        Binarizer().set_input_cols("rescaled").set_output_cols("bin").set_thresholds(0.05),
+    ]
+    lr = LogisticRegressionModel().set_features_col("bin")
+    lr.coefficient = rng.standard_normal(d)
+    return stages + [lr]
+
+
+def _serve_and_check(server, payloads, column, check, n_clients=N_CLIENTS):
+    """Closed-loop clients, one request at a time each, every response
+    checked; returns ``(latencies ms, wall s, failures)``. A payload is
+    an array for ``column`` or a dict of columns."""
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+
+    latencies = [None] * len(payloads)
+    failures = []
+
+    def client(c):
+        for i in range(c, len(payloads), n_clients):
+            t_req = time.perf_counter()
+            try:
+                frame = payloads[i] if isinstance(payloads[i], dict) else {column: payloads[i]}
+                resp = server.predict(DataFrame.from_dict(frame))
+                latencies[i] = (time.perf_counter() - t_req) * 1000.0
+                check(i, resp.dataframe)
+            except BaseException as e:  # noqa: BLE001 — reported by the caller, fails the run
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("clients did not finish within 600 s")
+    return latencies, wall, failures
+
+
+_PLAIN_MEGAKERNELS = ("rowlocal_chain_plain", "scale_kmeans_plain", "scale_mlp_plain",
+                      "scale_logistic_plain", "sparse_idf_logistic_plain")
+
+
+def phase_serve_feature6(card: str):
+    """feature6 → LogisticRegression saved, loaded and served (module
+    docstring, phase 16)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable import PipelineModelServable, load_servable
+    from flink_ml_tpu_torch.servable.fusion import chain_score
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    d = FEATURE6_D
+    stages = _feature6_stages(d)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, stage in enumerate(stages):
+            stage.save(f"{tmp}/{i}")
+        pipeline = PipelineModelServable([load_servable(f"{tmp}/{i}") for i in range(len(stages))])
+    specs = [s.kernel_spec() for s in pipeline.servables]
+    per_row = chain_score(specs, 1, width=d)
+    if not mk.chain_eligible(specs):
+        raise AssertionError("feature6 -> logistic is not a row-local megakernel chain")
+    scaler, _norm, product, idf, rescale, _bin, lr = pipeline.servables
+    f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)  # noqa: E731
+    mean, inv_std = f32(scaler.mean), scaler._inv_std().astype(np.float64)
+    scaling, idf32, inv_std2 = f32(product._scaling_array()), f32(idf.idf), rescale._inv_std().astype(np.float64)
+    coef = f32(lr.coefficient)
+    threshold = float(np.float32(0.05))
+
+    rng = np.random.default_rng(FEATURE6_SERVE_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    sizes[::16] = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2,
+                   MAX_BATCH * 600 // 4096][: len(sizes[::16])]  # hot buckets on every run
+    payloads = [rng.standard_normal((n, d)) for n in sizes]
+    inside = [0] * n_req
+    undecided_rows = [0] * n_req
+
+    def check(i, out):
+        x = payloads[i].astype(np.float32).astype(np.float64)
+        scaled = (x - mean) * inv_std
+        norm = scaled / np.linalg.norm(scaled, axis=1, keepdims=True)
+        weighted = norm * scaling
+        tfidf = weighted * idf32
+        rescaled = tfidf * inv_std2
+        for name, want in (("scaled", scaled), ("norm", norm), ("weighted", weighted),
+                           ("tfidf", tfidf), ("rescaled", rescaled)):
+            np.testing.assert_allclose(out[name], want, rtol=1e-5, atol=1e-6, err_msg=name)
+        near = np.abs(rescaled - threshold) <= BIN_MARGIN
+        inside[i] = int(near.sum())
+        np.testing.assert_array_equal(np.asarray(out["bin"])[~near], (rescaled > threshold)[~near])
+        rows_ok = ~near.any(axis=1)
+        undecided_rows[i] = int((~rows_ok).sum())
+        margin = (rescaled > threshold).astype(np.float64) @ coef
+        p = 1.0 / (1.0 + np.exp(-margin))
+        np.testing.assert_allclose(np.asarray(out["rawPrediction"])[rows_ok],
+                                   np.stack([1.0 - p, p], axis=1)[rows_ok], rtol=0, atol=1e-5)
+        sure = rows_ok & (np.abs(margin) > PREDICTION_MARGIN)
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[sure], (margin >= 0)[sure].astype(np.float64))
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(pipeline, name="chip-smoke-feature6", serving_config=config,
+                             warmup_template=DataFrame.from_dict({"input": payloads[0][:1]}), device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = pipeline._fastpath_plan
+        kinds = chain_kinds(plan)
+        ingest = plan._ingest
+        # The main path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        try:
+            latencies, wall, failures = _serve_and_check(server, payloads, "input", check)
+        finally:
+            restore()
+        launches = mk.ROWLOCAL.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.ROWLOCAL}
+        batches = server.executed_batch_sizes[batches_before:]
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    breakdown = _dense_batch_breakdown(
+        plan, DataFrame.from_dict({"input": payloads[sizes.index(MAX_BATCH)]}), ingest, col="input")
+    hot = sorted(b for b, kind in kinds.items() if "megakernel" in kind)
+    if per_row != 3556 or hot != [b for b in kinds if b >= FEATURE6_HOT_FROM]:
+        raise AssertionError(f"the chain scores {per_row} per row, hot buckets {hot}: the cost model "
+                             f"should mark every bucket from {FEATURE6_HOT_FROM} rows (3556 per row)")
+    hot_batches = sum(1 for _, bucket in batches if bucket >= FEATURE6_HOT_FROM)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if not launches > 0:
+        raise AssertionError("the row-local megakernel never launched on the main path")
+    if launches != hot_batches:
+        raise AssertionError(f"row-local launches {launches} != batches of bucket >= "
+                             f"{FEATURE6_HOT_FROM} {hot_batches}")
+    if fallback != 0:
+        raise AssertionError(f"{fallback} batches fell back to the per-stage path")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} chains were built after warmup")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during feature6 serving: {other}")
+    lat = sorted(latencies)
+    result = {
+        "d": d, "chain_score_per_row": per_row, "warmup_s": warmup_s, "warmed_buckets": len(kinds),
+        "requests": n_req, "rows": sum(sizes), "bin_entries_inside_margin": sum(inside),
+        "rows_with_a_bin_inside_margin": sum(undecided_rows),
+        "batches": len(batches), "hot_buckets": hot, "hot_batches": hot_batches,
+        "megakernel_launches": launches, "fallback_batches": fallback, "post_warmup_builds": compiles,
+        "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall,
+        "wall_s": wall,
+        "hot_batch_breakdown_ms": breakdown,
+    }
+    emit("serve_feature6", card=card, **result)
+    return launches
+
+
+def _imputer_rows(seed, rows):
+    """DoubleGenerator (flink_ml_tpu/benchmark/datagenerator.py) at arity
+    100: per column, uniform integers below the arity, as float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {name: rng.integers(0, IMPUTER_ARITY, rows).astype(np.float64) for name in IMPUTER_COLS}
+
+
+def phase_serve_imputer(card: str):
+    """Imputer fitted on the published rows, saved, loaded and served
+    (module docstring, phase 17)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.feature.imputer import Imputer
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable import PipelineModelServable, load_servable
+    from flink_ml_tpu_torch.servable.fusion import chain_score
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    out_cols = [f"outputCol{i}" for i in range(len(IMPUTER_COLS))]
+    t0 = time.perf_counter()
+    model = (Imputer().set_input_cols(*IMPUTER_COLS).set_output_cols(*out_cols)
+             .fit(DataFrame.from_dict(_imputer_rows(IMPUTER_SEED, IMPUTER_ROWS))))
+    fit_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/imputer")
+        pipeline = PipelineModelServable([load_servable(f"{tmp}/imputer")])
+    surrogates = np.asarray(pipeline.servables[0].surrogates, np.float32).astype(np.float64)
+    if not np.array_equal(pipeline.servables[0].surrogates, model.surrogates):
+        raise AssertionError("the loaded surrogates differ from the fitted ones")
+    per_row = chain_score([pipeline.servables[0].kernel_spec()], 1)
+
+    rng = np.random.default_rng(IMPUTER_SERVE_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    sizes[::16] = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2,
+                   MAX_BATCH * 600 // 4096][: len(sizes[::16])]
+    payloads = []
+    for n in sizes:
+        cols = _imputer_rows(int(rng.integers(1 << 31)), n)
+        for c in cols.values():
+            c[rng.random(n) < IMPUTER_MISSING_SHARE] = np.nan
+        payloads.append(cols)
+    missing = sum(int(np.isnan(c).sum()) for p in payloads for c in p.values())
+
+    def check(i, out):
+        for k, (name, o) in enumerate(zip(IMPUTER_COLS, out_cols)):
+            x = payloads[i][name]
+            want = np.where(np.isnan(x), surrogates[k], x.astype(np.float32).astype(np.float64))
+            np.testing.assert_array_equal(np.asarray(out[o]), want, err_msg=o)
+
+    # ("impute",) scores about 23 per row, far below the default bar of 10^6
+    # at any bucket; the JAX package's own tests and bench lower it so
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)
+    try:
+        cfg = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+        t0 = time.perf_counter()
+        server = InferenceServer(pipeline, name="chip-smoke-imputer", serving_config=cfg,
+                                 warmup_template=DataFrame.from_dict({n: c[:1] for n, c in payloads[0].items()}),
+                                 device="cuda")
+        warmup_s = time.perf_counter() - t0
+        scope = server.scope
+        with server:
+            kinds = chain_kinds(pipeline._fastpath_plan)
+            for k in KERNELS:
+                k.reset_launches()
+            plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+            batches_before = len(server.executed_batch_sizes)
+            fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+            compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+            try:
+                latencies, wall, failures = _serve_and_check(server, payloads, None, check)
+            finally:
+                restore()
+            launches = mk.ROWLOCAL.launches
+            other = {k.name: k.launches for k in KERNELS if k is not mk.ROWLOCAL}
+            batches = server.executed_batch_sizes[batches_before:]
+    finally:
+        config.unset(Options.FUSION_MEGAKERNEL_MIN_SCORE)
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if any("megakernel" not in k for k in kinds.values()):
+        raise AssertionError(f"at min score 1.0 every bucket should run the megakernel: {kinds}")
+    if launches != len(batches) or not launches > 0:
+        raise AssertionError(f"row-local launches {launches} != batches {len(batches)}")
+    if fallback != 0 or compiles != 0:
+        raise AssertionError(f"{fallback} fallback batches, {compiles} post-warmup builds")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during imputer serving: {other}")
+    lat = sorted(latencies)
+    result = {
+        "columns": len(IMPUTER_COLS), "fit_rows": IMPUTER_ROWS, "fit_s": fit_s,
+        "surrogates": surrogates.tolist(), "chain_score_per_row": per_row,
+        "min_score": 1.0, "warmup_s": warmup_s, "warmed_buckets": len(kinds),
+        "requests": n_req, "rows": sum(sizes), "missing_entries": missing,
+        "batches": len(batches), "megakernel_launches": launches,
+        "fallback_batches": fallback, "post_warmup_builds": compiles, "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall,
+        "wall_s": wall,
+        "checked": "exact: every output equals where(isnan(x), float32 surrogate, x)",
+    }
+    emit("serve_imputer", card=card, **result)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2314,6 +2988,7 @@ def main() -> int:
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
     import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
     from flink_ml_tpu_torch.servable.megakernels import (
+        ROWLOCAL,
         SCALE_KMEANS,
         SCALE_LOGISTIC,
         SCALE_MLP,
@@ -2346,6 +3021,9 @@ def main() -> int:
     measured[SCALE_KMEANS.name] = phase_kernels_kmeans(rng, smi)
     phase_fit_kmeans(smi)
     launches[SCALE_KMEANS.name] = phase_serve_kmeans(smi)
+    measured[ROWLOCAL.name] = phase_kernels_rowlocal(rng, smi)
+    launches[ROWLOCAL.name] = phase_serve_feature6(smi)
+    phase_serve_imputer(smi)
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -2364,8 +3042,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
-    if len(lines) != 8:
-        raise AssertionError(f"{len(lines)} kernels registered, expected 8")
+    if len(lines) != 9:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 9")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

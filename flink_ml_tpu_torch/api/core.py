@@ -46,6 +46,16 @@ class AlgoOperator(Stage):
 class Transformer(AlgoOperator):
     """An AlgoOperator whose semantics is record-wise transformation."""
 
+    @classmethod
+    def load_servable(cls, path: str) -> "Transformer":
+        """A stateless Transformer is its own servable: its params describe
+        ``transform`` whole, so loading it for serving loads the stage, as
+        in the JAX package (``api/core.py``). A Model carries model data and
+        must override this with its servable."""
+        if issubclass(cls, Model):
+            raise RuntimeError(f"{cls.__name__}.load_servable(path) is not implemented.")
+        return cls.load(path)
+
 
 class Model(Transformer):
     """A Transformer with model data."""

@@ -19,12 +19,16 @@ import torch
 from flink_ml_tpu_torch.ops.distance import DistanceMeasure
 
 __all__ = [
+    "binarize_fn",
     "dot_fn",
+    "elementwise_product_fn",
     "gather_clamped",
     "idf_scale_fn",
+    "impute_fn",
     "kmeans_assign_fn",
     "logistic_from_dots_fn",
     "mlp_predict_fn",
+    "normalize_fn",
     "scale_fn",
     "segment_sum",
     "sparse_dot_fn",
@@ -85,6 +89,37 @@ def scale_fn(X: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor, *,
 def idf_scale_fn(X: torch.Tensor, idf: torch.Tensor) -> torch.Tensor:
     """Term-frequency vectors [n, d] scaled elementwise by ``idf`` [d]."""
     return X * idf[None, :]
+
+
+def normalize_fn(X: torch.Tensor, p: float) -> torch.Tensor:
+    """Each row of ``X`` [n, d] scaled to unit p-norm, ``norm = (Σ|x|^p)^(1/p)``
+    with ``p`` ≥ 1 static; a zero row stays zero and a NaN spreads over its
+    row (``Normalizer.java``). The JAX package's op order: the power, the
+    row sum, the root, then one divide."""
+    norm = torch.sum(torch.abs(X) ** p, dim=1, keepdim=True) ** (1.0 / p)
+    return X / torch.where(norm == 0.0, 1.0, norm)
+
+
+def elementwise_product_fn(X: torch.Tensor, scaling: torch.Tensor) -> torch.Tensor:
+    """Hadamard product of each row with ``scaling`` [d] (``ElementwiseProduct.java``)."""
+    return X * scaling[None, :]
+
+
+def binarize_fn(x: torch.Tensor, threshold: float) -> torch.Tensor:
+    """``x > threshold`` as 1 / 0 in ``x``'s dtype, the threshold rounded to
+    that dtype first (as JAX rounds a Python float); NaN gives 0
+    (``Binarizer.java``)."""
+    return (x > threshold).to(x.dtype)
+
+
+def impute_fn(x: torch.Tensor, surrogate: torch.Tensor, missing_is_nan: bool,
+              missing_value: float) -> torch.Tensor:
+    """Missing entries of ``x`` replaced by ``surrogate`` (``ImputerModel.java``).
+    A NaN placeholder tests ``isnan`` (the caller canonicalizes it to
+    ``(True, 0.0)``); any other compares ``x == missing_value`` with the
+    placeholder rounded to ``x``'s dtype, as the JAX package compares it."""
+    miss = torch.isnan(x) if missing_is_nan else (x == missing_value)
+    return torch.where(miss, surrogate, x)
 
 
 def gather_clamped(vec: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from flink_ml_tpu_torch.params.param import (
     FloatParam,
     IntParam,
     ParamValidators,
+    StringArrayParam,
     StringParam,
     WithParams,
 )
@@ -31,8 +32,11 @@ __all__ = [
     "HasPredictionCol",
     "HasRawPredictionCol",
     "HasInputCol",
+    "HasInputCols",
     "HasK",
     "HasOutputCol",
+    "HasOutputCols",
+    "HasRelativeError",
 ]
 
 
@@ -84,6 +88,26 @@ class HasOutputCol(WithParams):
 
     def set_output_col(self, value: str):
         return self.set(self.OUTPUT_COL, value)
+
+
+class HasInputCols(WithParams):
+    INPUT_COLS = StringArrayParam("inputCols", "Input column names.", None, ParamValidators.non_empty_array())
+
+    def get_input_cols(self):
+        return self.get(self.INPUT_COLS)
+
+    def set_input_cols(self, *value: str):
+        return self.set(self.INPUT_COLS, list(value))
+
+
+class HasOutputCols(WithParams):
+    OUTPUT_COLS = StringArrayParam("outputCols", "Output column names.", None, ParamValidators.non_empty_array())
+
+    def get_output_cols(self):
+        return self.get(self.OUTPUT_COLS)
+
+    def set_output_cols(self, *value: str):
+        return self.set(self.OUTPUT_COLS, list(value))
 
 
 class HasLabelCol(WithParams):
@@ -221,3 +245,15 @@ class HasMultiClass(WithParams):
 
     def set_multi_class(self, value: str):
         return self.set(self.MULTI_CLASS, value)
+
+
+class HasRelativeError(WithParams):
+    RELATIVE_ERROR = FloatParam(
+        "relativeError", "Relative target precision for approximate quantiles.", 0.001, ParamValidators.in_range(0.0, 1.0)
+    )
+
+    def get_relative_error(self) -> float:
+        return self.get(self.RELATIVE_ERROR)
+
+    def set_relative_error(self, value: float):
+        return self.set(self.RELATIVE_ERROR, value)

@@ -9,17 +9,21 @@ device-resident model tensors:
   ``transform`` reads it; ``input_kinds`` picks the accessor per column:
 
   * ``"vector"`` (default) — ``df.vectors(col)``: dense [n, d] float32;
+  * ``"scalar"`` — ``df.scalars(col)``: a [n] float32 scalar column;
   * ``"dense"`` — ``df.column(col)`` must already be an ndarray, kept at its
     shape (a list column falls back, as its per-stage path does host math);
   * ``"sparse"`` — the sparse calling convention (``servable/sparse.py``):
     the column enters as ``col!values`` / ``col!ids`` / ``col!nnz`` packed
     at a ladder nnz cap, and ``kernel_fn`` reads the expanded names.
 
-  The JAX package's ``"scalar"``, ``"entries"`` and ``"shape"`` kinds are
-  not ported yet (ROADMAP.md);
-- ``outputs`` — ``(column name, DataType)`` pairs in ``add_column`` order;
-  ``sparse_outputs`` maps those that leave in the sparse convention to their
-  dimension (``kernel_fn`` returns their expanded names);
+  The JAX package's ``"entries"`` and ``"shape"`` kinds are not ported yet
+  (ROADMAP.md);
+- ``outputs`` — ``(column name, DataType)`` pairs in ``add_column`` order; a
+  None DataType takes the output's shape at readback (a DOUBLE scalar
+  column for a 1-D result, a vector column for a 2-D one), for stages whose
+  output shape follows the input (Binarizer); ``sparse_outputs`` maps those
+  that leave in the sparse convention to their dimension (``kernel_fn``
+  returns their expanded names);
 - ``sparse_input_dims`` — the expected dimension of each ``"sparse"`` input
   (a packed batch of another dim falls back per-stage);
 - ``model_arrays`` — name → host ndarray in the dtype the kernel consumes,
@@ -32,8 +36,10 @@ device-resident model tensors:
 - ``fusion_op`` — the op id naming this body in the megakernel vocabulary
   (``servable/megakernels.py``), or None;
 - ``fusion_params`` — the static arguments the hand-written megakernel needs
-  to run this body (the scaler's ``with_mean``/``with_std``); a Pallas kernel
-  traces ``kernel_fn`` and needs none, a CUDA kernel cannot;
+  to run this body (the scaler's ``with_mean``/``with_std``, the KMeans
+  measure, Normalizer's ``p``, Binarizer's ``thresholds``, Imputer's
+  placeholder); a Pallas kernel traces ``kernel_fn`` and needs none, a CUDA
+  kernel cannot read a closure;
 - ``sparse_flops_per_nnz`` — the cost model's FLOPs per entry slot of a
   sparse spec (``servable/fusion.py``; default there).
 """
@@ -47,7 +53,7 @@ from flink_ml_tpu_torch.servable.sparse import sparse_names
 
 __all__ = ["KernelSpec"]
 
-_VALID_KINDS = ("vector", "dense", "sparse")
+_VALID_KINDS = ("vector", "scalar", "dense", "sparse")
 
 
 class KernelSpec:

@@ -2,29 +2,40 @@
 
 Twin of ``flink_ml_tpu/servable/megakernels.py``. There, ``build_megakernel_fn``
 traces any chain of kernel specs into one row-tiled Pallas kernel. A CUDA
-kernel cannot trace Python bodies, so here each chain the port serves has a
-kernel written for it, and :func:`chain_eligible` admits exactly those
-chains (:data:`MEGAKERNEL_CHAINS`):
+kernel cannot trace Python bodies, so here a chain runs either on a kernel
+written for it, or on the row-local kernel, which composes its chain at
+launch from a small op table. :func:`chain_eligible` admits:
 
-- ``("scale", "logistic")`` — StandardScaler → LogisticRegression, and
-  ``("logistic",)`` — LogisticRegression alone: ``csrc/megakernel_scale_logistic.cu``
-  through :func:`scale_logistic`;
-- ``("sparse_idf", "sparse_logistic")`` — IDF → LogisticRegression on a
-  SparseVector column in the sparse calling convention, and
-  ``("sparse_logistic",)`` — the sparse head alone:
-  ``csrc/megakernel_sparse_idf_logistic.cu`` through :func:`sparse_idf_logistic`;
-- ``("scale", "mlp")`` — StandardScaler → MLPClassifier, and ``("mlp",)`` —
-  the MLP alone: ``csrc/megakernel_scale_mlp.cu`` through :func:`scale_mlp`,
-  for networks within the kernel's limits (:data:`MLP_MAX_LAYERS`,
-  :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`);
-- ``("scale", "kmeans")`` — StandardScaler → KMeans, and ``("kmeans",)`` —
-  the closest-centroid assignment alone: ``csrc/megakernel_scale_kmeans.cu``
-  through :func:`scale_kmeans`, for models within the kernel's limits
-  (:data:`KMEANS_MAX_K`, :data:`KMEANS_MAX_DIM`).
+- the dedicated chains (:data:`MEGAKERNEL_CHAINS`), each on its own kernel:
 
-Every other chain the JAX package admits (``("scale",)`` alone, the feature6
-chain, normalize), and an MLP or a KMeans model past those limits, stays on
-the merged program in fast mode until its kernel is written.
+  * ``("scale", "logistic")`` — StandardScaler → LogisticRegression, and
+    ``("logistic",)`` — LogisticRegression alone:
+    ``csrc/megakernel_scale_logistic.cu`` through :func:`scale_logistic`;
+  * ``("sparse_idf", "sparse_logistic")`` — IDF → LogisticRegression on a
+    SparseVector column in the sparse calling convention, and
+    ``("sparse_logistic",)`` — the sparse head alone:
+    ``csrc/megakernel_sparse_idf_logistic.cu`` through :func:`sparse_idf_logistic`;
+  * ``("scale", "mlp")`` — StandardScaler → MLPClassifier, and ``("mlp",)`` —
+    the MLP alone: ``csrc/megakernel_scale_mlp.cu`` through :func:`scale_mlp`,
+    for networks within the kernel's limits (:data:`MLP_MAX_LAYERS`,
+    :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`);
+  * ``("scale", "kmeans")`` — StandardScaler → KMeans, and ``("kmeans",)`` —
+    the closest-centroid assignment alone: ``csrc/megakernel_scale_kmeans.cu``
+    through :func:`scale_kmeans`, for models within the kernel's limits
+    (:data:`KMEANS_MAX_K`, :data:`KMEANS_MAX_DIM`);
+
+- every other chain of the row-local ops (:data:`ROWLOCAL_OPS`: scale,
+  normalize, elementwise_product, idf, binarize, impute), optionally ending
+  in one dense ``logistic`` head: ``csrc/megakernel_rowlocal.cu`` through
+  :func:`rowlocal_chain`, for tables and widths within its limits
+  (:data:`ROWLOCAL_MAX_OPS`, :data:`ROWLOCAL_MAX_SLOTS`,
+  :data:`ROWLOCAL_MAX_DIM`; the widths of the batch's input columns are
+  checked per key by :func:`inputs_fit`).
+
+Every other chain the JAX package admits — a row-local prefix other than a
+lone scale in front of an mlp, kmeans or sparse head, ``("sparse_idf",)``
+alone — and a model past a kernel's limits stays on the merged program in
+fast mode until its kernel is written.
 
 Each wrapper chooses by the device of its input: tensors on the CPU take the
 plain version — the same chain composed from ``ops/kernels.py`` — and CUDA
@@ -34,17 +45,22 @@ or launch to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from flink_ml_tpu_torch.native import CudaKernel
 from flink_ml_tpu_torch.ops.kernels import (
+    binarize_fn,
     dot_fn,
+    elementwise_product_fn,
+    idf_scale_fn,
+    impute_fn,
     kmeans_assign_fn,
     logistic_from_dots_fn,
     mlp_predict_fn,
+    normalize_fn,
     scale_fn,
     sparse_dot_fn,
     sparse_idf_scale_fn,
@@ -59,12 +75,21 @@ __all__ = [
     "MLP_MAX_CLASSES",
     "MLP_MAX_LAYERS",
     "MLP_MAX_WIDTH",
+    "ROWLOCAL",
+    "ROWLOCAL_MAX_DIM",
+    "ROWLOCAL_MAX_OPS",
+    "ROWLOCAL_MAX_SLOTS",
+    "ROWLOCAL_OPS",
+    "RowLocalOp",
     "SCALE_KMEANS",
     "SCALE_LOGISTIC",
     "SCALE_MLP",
     "SPARSE_IDF_LOGISTIC",
     "build_megakernel_fn",
     "chain_eligible",
+    "inputs_fit",
+    "rowlocal_chain",
+    "rowlocal_chain_plain",
     "scale_kmeans",
     "scale_kmeans_plain",
     "scale_logistic",
@@ -75,7 +100,7 @@ __all__ = [
     "sparse_idf_logistic_plain",
 ]
 
-#: Fusion-op chains with a hand-written kernel.
+#: Fusion-op chains with a kernel written for each.
 MEGAKERNEL_CHAINS = frozenset({
     ("scale", "logistic"),
     ("logistic",),
@@ -98,6 +123,15 @@ MLP_MAX_CLASSES = 32
 KMEANS_MAX_K = 1024
 KMEANS_MAX_DIM = 1024
 KMEANS_MEASURES = {"euclidean": 0, "manhattan": 1, "cosine": 2}
+
+#: The ops ``csrc/megakernel_rowlocal.cu`` composes (an optional dense
+#: ``logistic`` head may close the chain), and its limits: a lane's slots of
+#: a row (kMaxDim), the op table (kMaxOps) and the slot table (kMaxSlots)
+#: in the kernel's parameters.
+ROWLOCAL_OPS = frozenset({"scale", "normalize", "elementwise_product", "idf", "binarize", "impute"})
+ROWLOCAL_MAX_DIM = 1024
+ROWLOCAL_MAX_OPS = 32
+ROWLOCAL_MAX_SLOTS = 64
 
 SCALE_LOGISTIC = CudaKernel(
     name="megakernel_scale_logistic",
@@ -131,6 +165,16 @@ SCALE_KMEANS = CudaKernel(
     source="megakernel_scale_kmeans.cu",
     symbol="megakernel_scale_kmeans",
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    replaces="flink_ml_tpu/servable/megakernels.py:180",
+)
+
+
+ROWLOCAL = CudaKernel(
+    name="megakernel_rowlocal",
+    source="megakernel_rowlocal.cu",
+    symbol="megakernel_rowlocal",
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p],
     replaces="flink_ml_tpu/servable/megakernels.py:180",
 )
 
@@ -198,17 +242,37 @@ def _kmeans_width(head: Any) -> Optional[int]:
 
 
 def chain_eligible(specs: Sequence[Any]) -> bool:
-    """Whether this spec run has a megakernel: its fusion ops form a chain
-    of :data:`MEGAKERNEL_CHAINS`; the head reads one column (dense, or
-    sparse for the sparse chains) and holds one coefficient vector, or, for
-    the MLP, a network the kernel can hold (:func:`_mlp_widths`), or, for
-    KMeans, centroids the kernel can hold (:func:`_kmeans_width`); and a
-    leading stage feeds the head's input column with vectors of the head's
-    input width — mean / inv_std for the scaler, idf for the sparse IDF,
-    whose output is the sparse column the head reads."""
+    """Whether this spec run has a megakernel. A chain of
+    :data:`MEGAKERNEL_CHAINS` runs on its own kernel (:func:`_dedicated_eligible`)
+    or on none; any other chain on the row-local kernel when every spec is
+    of its form (:func:`_rowlocal_program`)."""
     ops = tuple(getattr(s, "fusion_op", None) for s in specs)
-    if ops not in MEGAKERNEL_CHAINS:
-        return False
+    if ops in MEGAKERNEL_CHAINS:
+        return _dedicated_eligible(specs, ops)
+    return _rowlocal_program(specs) is not None
+
+
+def inputs_fit(specs: Sequence[Any], inputs: Mapping[str, torch.Tensor]) -> bool:
+    """Whether a batch's program ``inputs`` fit the kernel of an eligible
+    chain: the row-local kernel takes [rows] or [rows, width] columns of
+    width ≤ :data:`ROWLOCAL_MAX_DIM`, which only the batch shows (a
+    normalize or binarize spec carries no width); the dedicated kernels'
+    widths are fixed by their model arrays, checked by :func:`chain_eligible`."""
+    if tuple(getattr(s, "fusion_op", None) for s in specs) in MEGAKERNEL_CHAINS:
+        return True
+    return all(t.dim() == 1 or (t.dim() == 2 and 1 <= t.shape[1] <= ROWLOCAL_MAX_DIM)
+               for t in inputs.values())
+
+
+def _dedicated_eligible(specs: Sequence[Any], ops: Tuple[Any, ...]) -> bool:
+    """A chain of :data:`MEGAKERNEL_CHAINS` on its kernel: the head reads one
+    column (dense, or sparse for the sparse chains) and holds one
+    coefficient vector, or, for the MLP, a network the kernel can hold
+    (:func:`_mlp_widths`), or, for KMeans, centroids the kernel can hold
+    (:func:`_kmeans_width`); and a leading stage feeds the head's input
+    column with vectors of the head's input width — mean / inv_std for the
+    scaler, idf for the sparse IDF, whose output is the sparse column the
+    head reads."""
     head = specs[-1]
     sparse = ops[-1] == "sparse_logistic"
     if ops[-1] == "mlp":
@@ -237,6 +301,128 @@ def chain_eligible(specs: Sequence[Any]) -> bool:
         and all(_vector_width(a) == d for a in lead.model_arrays.values())
         and set(lead.fusion_params) == {"with_mean", "with_std"}
     )
+
+
+class _OpTemplate(NamedTuple):
+    """One op of a row-local chain before its model tensors are known: the
+    op, its input slot, the spec it comes from, the names of that spec's
+    model arrays it reads (``a``, ``b``) and its static parameters."""
+
+    op: str
+    src: int
+    spec: int
+    a: Optional[str]
+    b: Optional[str]
+    params: Mapping[str, Any]
+
+
+class _RowLocalProgram(NamedTuple):
+    inputs: Tuple[str, ...]  # the chain's program inputs: slots 0..m-1
+    ops: Tuple[_OpTemplate, ...]
+    outputs: Tuple[str, ...]  # the column of each output slot, m on, in order
+
+
+def _is_rowlocal_vector(spec: Any, key: str) -> bool:
+    a = np.asarray(spec.model_arrays[key])
+    return a.ndim == 1 and 1 <= a.shape[0] <= ROWLOCAL_MAX_DIM
+
+
+def _rowlocal_bindings(spec: Any) -> Optional[List[Tuple[str, str, Optional[str], Optional[str], Dict[str, Any]]]]:
+    """``(input column, output column, a, b, params)`` per table entry of a
+    row-local spec of its op's form (one binding per column for binarize
+    and impute), or None when the spec is not of that form."""
+    op, ins, outs = spec.fusion_op, spec.input_cols, spec.output_names
+    arrays, params = set(spec.model_arrays), spec.fusion_params
+    if any(spec.input_kind(c) not in ("vector", "dense", "scalar") for c in ins):
+        return None
+    if op in ("binarize", "impute"):
+        if not ins or len(ins) != len(outs):
+            return None
+        if op == "binarize":
+            t = params.get("thresholds")
+            if arrays or set(params) != {"thresholds"} or t is None or len(t) != len(ins):
+                return None
+            return [(i, o, None, None, {"threshold": float(th)}) for i, o, th in zip(ins, outs, t)]
+        if arrays != {"surrogates"} or set(params) != {"missing_is_nan", "missing_value"}:
+            return None
+        if np.asarray(spec.model_arrays["surrogates"]).shape != (len(ins),):
+            return None
+        return [(i, o, "surrogates", None, {"missing_is_nan": bool(params["missing_is_nan"]),
+                                             "missing_value": float(params["missing_value"]),
+                                             "column": k})
+                for k, (i, o) in enumerate(zip(ins, outs))]
+    if len(ins) != 1 or len(outs) != 1:
+        return None
+    (i,), (o,) = ins, outs
+    if op == "scale":
+        if arrays != {"mean", "inv_std"} or set(params) != {"with_mean", "with_std"}:
+            return None
+        if not (_is_rowlocal_vector(spec, "mean") and _is_rowlocal_vector(spec, "inv_std")):
+            return None
+        return [(i, o, "mean", "inv_std", {"with_mean": bool(params["with_mean"]),
+                                           "with_std": bool(params["with_std"])})]
+    if op == "normalize":
+        if arrays or set(params) != {"p"} or not float(params["p"]) >= 1.0:
+            return None
+        return [(i, o, None, None, {"p": float(params["p"])})]
+    if op in ("elementwise_product", "idf"):
+        key = "scaling" if op == "elementwise_product" else "idf"
+        if arrays != {key} or params or not _is_rowlocal_vector(spec, key):
+            return None
+        return [(i, o, key, None, {})]
+    return None
+
+
+def _rowlocal_program(specs: Sequence[Any]) -> Optional[_RowLocalProgram]:
+    """The row-local kernel's table for ``specs``, or None when the chain is
+    not of its form: every spec a :data:`ROWLOCAL_OPS` op over dense or
+    scalar columns, an optional last spec a dense logistic head of width ≤
+    :data:`ROWLOCAL_MAX_DIM`, and tables within the kernel's limits.
+
+    Slots: the chain's program inputs first, then each op's outputs in
+    order. A spec's ops read the columns as they stood before the spec (as
+    its ``kernel_fn`` does), and a column written twice names its last
+    slot, as the chain's ``cols.update`` leaves it."""
+    specs = tuple(specs)
+    if not specs:
+        return None
+    head = specs[-1] if getattr(specs[-1], "fusion_op", None) == "logistic" else None
+    body = specs[:-1] if head is not None else specs
+    bindings = []
+    for spec in body:
+        if getattr(spec, "fusion_op", None) not in ROWLOCAL_OPS:
+            return None
+        b = _rowlocal_bindings(spec)
+        if b is None:
+            return None
+        bindings.append(b)
+    if head is not None:
+        d = _head_width(head, "vector")
+        if d is None or not 1 <= d <= ROWLOCAL_MAX_DIM:
+            return None
+        bindings.append([(head.input_cols[0], None, "coefficient", None, {})])
+    produced: set = set()
+    inputs: List[str] = []
+    for spec, b in zip(specs, bindings):
+        for i, *_ in b:
+            if i not in produced and i not in inputs:
+                inputs.append(i)
+        produced.update(spec.output_names)
+    slot = {name: k for k, name in enumerate(inputs)}
+    ops: List[_OpTemplate] = []
+    outputs: List[str] = []
+    for si, (spec, b) in enumerate(zip(specs, bindings)):
+        srcs = [slot[i] for i, *_ in b]  # read before this spec writes
+        written = []
+        for src, (_i, o, a, bb, params) in zip(srcs, b):
+            ops.append(_OpTemplate("logistic" if o is None else spec.fusion_op, src, si, a, bb, params))
+            for name in (spec.output_names if o is None else (o,)):
+                written.append((name, len(inputs) + len(outputs)))
+                outputs.append(name)
+        slot.update(written)
+    if len(ops) > ROWLOCAL_MAX_OPS or len(inputs) + len(outputs) > ROWLOCAL_MAX_SLOTS:
+        return None
+    return _RowLocalProgram(tuple(inputs), tuple(ops), tuple(outputs))
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device,
@@ -570,6 +756,149 @@ def scale_kmeans(
 
 
 # ---------------------------------------------------------------------------
+# row-local chains (dense), composed from an op table
+# ---------------------------------------------------------------------------
+
+
+class RowLocalOp(NamedTuple):
+    """One op of a row-local chain: ``op`` (a :data:`ROWLOCAL_OPS` op or
+    ``"logistic"``) reads slot ``src``; the model tensors ``a`` (scale's
+    mean, the product's scaling, idf, impute's surrogates, the head's
+    coefficient) and ``b`` (scale's inv_std); ``params`` the static
+    arguments (``with_mean``/``with_std``; ``p``; ``threshold``;
+    ``missing_is_nan``/``missing_value`` and the surrogate's ``column``).
+    Slots: the chain's inputs, then each op's outputs in order — one, or
+    ``prediction`` and ``rawPrediction`` for the head."""
+
+    op: str
+    src: int
+    a: Optional[torch.Tensor] = None
+    b: Optional[torch.Tensor] = None
+    params: Mapping[str, Any] = {}
+
+
+_ROWLOCAL_CODES = {"scale": 0, "normalize": 1, "elementwise_product": 2, "idf": 3,
+                   "binarize": 4, "impute": 5, "logistic": 6}
+
+
+class _Op(ctypes.Structure):  # csrc/megakernel_rowlocal.cu Op
+    _fields_ = [("op", ctypes.c_int), ("src", ctypes.c_int), ("dst", ctypes.c_int),
+                ("dst2", ctypes.c_int), ("flags", ctypes.c_int), ("s0", ctypes.c_float),
+                ("s1", ctypes.c_float), ("pad", ctypes.c_int), ("a", ctypes.c_void_p),
+                ("b", ctypes.c_void_p)]
+
+
+class _Slot(ctypes.Structure):  # csrc/megakernel_rowlocal.cu Slot
+    _fields_ = [("ptr", ctypes.c_void_p), ("width", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+def rowlocal_chain_plain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
+    """The chain in plain PyTorch, op by op through ``ops/kernels.py``:
+    the output tensors in slot order."""
+    slots = list(inputs)
+    for op in ops:
+        x, p = slots[op.src], op.params
+        if op.op == "scale":
+            slots.append(scale_fn(x, op.a, op.b, with_mean=p["with_mean"], with_std=p["with_std"]))
+        elif op.op == "normalize":
+            slots.append(normalize_fn(x, p["p"]))
+        elif op.op == "elementwise_product":
+            slots.append(elementwise_product_fn(x, op.a))
+        elif op.op == "idf":
+            slots.append(idf_scale_fn(x, op.a))
+        elif op.op == "binarize":
+            slots.append(binarize_fn(x, p["threshold"]))
+        elif op.op == "impute":
+            slots.append(impute_fn(x, op.a[p["column"]], p["missing_is_nan"], p["missing_value"]))
+        elif op.op == "logistic":
+            slots.extend(logistic_from_dots_fn(dot_fn(x, op.a)))
+        else:
+            raise ValueError(f"{op.op!r} is no row-local op")
+    return slots[len(inputs):]
+
+
+def rowlocal_chain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
+    """The outputs of ``ops`` over ``inputs`` ([rows] or [rows, width]
+    float32 columns), in slot order (:class:`RowLocalOp`): each elementwise
+    op's output of its input's shape, the head's ``prediction [rows]`` and
+    ``rawPrediction [rows, 2]``. CPU tensors run the plain version; CUDA
+    tensors launch the kernel on the current stream (no synchronisation) or
+    raise — also for a table or a width past the kernel's limits."""
+    if not inputs:
+        raise ValueError(f"{ROWLOCAL.name} needs at least one input column")
+    device = inputs[0].device
+    if device.type == "cpu":
+        return rowlocal_chain_plain(inputs, ops)
+    if device.type != "cuda":
+        raise RuntimeError(f"{ROWLOCAL.name} needs CPU or CUDA tensors, got {device}")
+    rows = int(inputs[0].shape[0]) if inputs[0].dim() else -1
+    n_slots = len(inputs) + sum(2 if op.op == "logistic" else 1 for op in ops)
+    if not 1 <= len(ops) <= ROWLOCAL_MAX_OPS or n_slots > ROWLOCAL_MAX_SLOTS:
+        raise ValueError(f"{ROWLOCAL.name} holds 1-{ROWLOCAL_MAX_OPS} ops over at most "
+                         f"{ROWLOCAL_MAX_SLOTS} slots; got {len(ops)} ops, {n_slots} slots")
+    slots: List[torch.Tensor] = []
+    for k, t in enumerate(inputs):
+        if t.dim() not in (1, 2) or not 1 <= (t.shape[1] if t.dim() == 2 else 1) <= ROWLOCAL_MAX_DIM:
+            raise ValueError(f"{ROWLOCAL.name} takes [rows] or [rows, 1-{ROWLOCAL_MAX_DIM}] "
+                             f"columns; input {k} has shape {tuple(t.shape)}")
+        _check(f"input {k}", t, (rows,) + tuple(t.shape[1:]), device)
+        slots.append(t)
+    table = (_Op * len(ops))()
+    for entry, op in zip(table, ops):
+        if op.op not in _ROWLOCAL_CODES or not 0 <= op.src < len(slots):
+            raise ValueError(f"{ROWLOCAL.name}: op {op.op!r} reads slot {op.src} of {len(slots)}")
+        x, p = slots[op.src], op.params
+        width = int(x.shape[1]) if x.dim() == 2 else 1
+        needs_a = op.op in ("elementwise_product", "idf", "logistic", "impute") or (
+            op.op == "scale" and p["with_mean"])
+        if (needs_a and op.a is None) or (op.op == "scale" and p["with_std"] and op.b is None):
+            raise ValueError(f"{ROWLOCAL.name}: op {op.op!r} is missing its model tensor")
+        entry.op, entry.src = _ROWLOCAL_CODES[op.op], op.src
+        if op.op in ("scale", "elementwise_product", "idf", "logistic"):
+            if x.dim() != 2:
+                raise ValueError(f"{op.op} reads [rows, d] columns; slot {op.src} has shape {tuple(x.shape)}")
+            if op.op != "scale" or p["with_mean"]:
+                _check(f"{op.op} model vector", op.a, (width,), device)
+                entry.a = op.a.data_ptr()
+        if op.op == "scale":
+            entry.flags = int(bool(p["with_mean"])) | 2 * int(bool(p["with_std"]))
+            if p["with_std"]:
+                _check("scale inv_std", op.b, (width,), device)
+                entry.b = op.b.data_ptr()
+        elif op.op == "normalize":
+            if x.dim() != 2 or not float(p["p"]) >= 1.0:
+                raise ValueError(f"normalize reads [rows, d] columns with p >= 1; got slot shape "
+                                 f"{tuple(x.shape)}, p {p['p']}")
+            entry.s0, entry.s1 = float(p["p"]), float(np.float32(1.0 / float(p["p"])))
+        elif op.op == "binarize":
+            entry.s0 = float(p["threshold"])
+        elif op.op == "impute":
+            _check("impute surrogates", op.a, (int(op.a.shape[0]),), device)
+            if not 0 <= p["column"] < op.a.shape[0]:
+                raise ValueError(f"impute column {p['column']} of {op.a.shape[0]} surrogates")
+            entry.flags = int(bool(p["missing_is_nan"]))
+            entry.s0 = float(p["missing_value"])
+            entry.a = op.a.data_ptr() + 4 * int(p["column"])
+        if op.op == "logistic":
+            out = [torch.empty((rows,), dtype=torch.float32, device=device),
+                   torch.empty((rows, 2), dtype=torch.float32, device=device)]
+            entry.dst, entry.dst2 = len(slots), len(slots) + 1
+        else:
+            out = [torch.empty(tuple(x.shape), dtype=torch.float32, device=device)]
+            entry.dst = entry.dst2 = len(slots)
+        slots.extend(out)
+    slot_table = (_Slot * len(slots))()
+    for entry, t in zip(slot_table, slots):
+        entry.ptr = t.data_ptr()
+        entry.width = int(t.shape[1]) if t.dim() == 2 else 1
+    if rows:
+        with torch.cuda.device(device):
+            ROWLOCAL.launch(ctypes.addressof(table), len(ops), ctypes.addressof(slot_table),
+                            len(slots), rows, torch.cuda.current_stream(device).cuda_stream)
+    return slots[len(inputs):]
+
+
+# ---------------------------------------------------------------------------
 # the planner's calling convention
 # ---------------------------------------------------------------------------
 
@@ -687,6 +1016,18 @@ def _build_kmeans(specs: Tuple[Any, ...]):
     return mega
 
 
+def _build_rowlocal(specs: Tuple[Any, ...]):
+    program = _rowlocal_program(specs)
+
+    def mega(models, cols):
+        ops = [RowLocalOp(t.op, t.src, models[t.spec].get(t.a), models[t.spec].get(t.b), t.params)
+               for t in program.ops]
+        outs = rowlocal_chain([cols[name] for name in program.inputs], ops)
+        return dict(zip(program.outputs, outs))
+
+    return mega
+
+
 def build_megakernel_fn(
     specs: Sequence[Any],
 ) -> Callable[[Sequence[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
@@ -697,6 +1038,8 @@ def build_megakernel_fn(
     specs = tuple(specs)
     if not chain_eligible(specs):
         raise ValueError(f"no megakernel for chain {[s.fusion_op for s in specs]}")
+    if tuple(s.fusion_op for s in specs) not in MEGAKERNEL_CHAINS:
+        return _build_rowlocal(specs)
     if specs[-1].fusion_op == "sparse_logistic":
         return _build_sparse(specs)
     if specs[-1].fusion_op == "mlp":

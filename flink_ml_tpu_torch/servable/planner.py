@@ -39,7 +39,7 @@ import torch
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.servable.fusion import chain_score
-from flink_ml_tpu_torch.servable.megakernels import build_megakernel_fn, chain_eligible
+from flink_ml_tpu_torch.servable.megakernels import build_megakernel_fn, chain_eligible, inputs_fit
 from flink_ml_tpu_torch.servable.sparse import (
     SPARSE_MARK,
     OffLadderError,
@@ -243,7 +243,10 @@ class FusedSegment:
         if df.is_sparse(name):
             raise IneligibleBatch(f"column {name!r} is sparse", reason="sparse")
         try:
-            if self.input_kind(name) == "dense":
+            kind = self.input_kind(name)
+            if kind == "scalar":
+                return df.scalars(name, np.float32)
+            if kind == "dense":
                 col = df.column(name)
                 if not isinstance(col, np.ndarray):
                     raise IneligibleBatch(f"column {name!r} is ragged: the per-stage path owns it")
@@ -388,8 +391,9 @@ def run_segment(
     """Run the segment's chain for ``key`` on device ``inputs``. The first
     time a key is seen its chain is built: ``on_compile()`` once, and
     ``on_plan(kind, score)`` per program with the cost model's choice (a
-    megakernel candidate runs when the score at this key's rows — and nnz
-    cap, for a sparse chain — clears the tier's bar)."""
+    megakernel candidate runs when the key's input columns fit its kernel
+    and the score at this key's rows — and nnz cap, for a sparse chain —
+    clears the tier's bar)."""
     chain = segment.compiled.get(key)
     if chain is None:
         if on_compile is not None:
@@ -398,7 +402,9 @@ def run_segment(
         chain = []
         for idx, prog in enumerate(segment.programs):
             mega = segment.mega.get(idx)
-            if mega is not None and segment.fusion.megakernel_hot(prog.specs, rows, width, nnz_cap):
+            if (mega is not None
+                    and inputs_fit(prog.specs, {n: inputs[n] for n in prog.inputs if n in inputs})
+                    and segment.fusion.megakernel_hot(prog.specs, rows, width, nnz_cap)):
                 prog = mega
             if on_plan is not None:
                 on_plan(prog.kind, chain_score(prog.specs, rows, width, nnz_cap))
@@ -431,7 +437,8 @@ class PlanExecution:
         """Copy the outputs to the host (waiting for the device), float32
         widened value-exactly to float64 and ids to int64 as in the JAX
         package's readback; a sparse output's three parts are rebuilt into
-        one SparseVector column."""
+        one SparseVector column; an output declared without a DataType
+        leaves as a DOUBLE scalar column when 1-D, a vector column when 2-D."""
         if not self._pending:
             return self._df
         out = self._df.clone()
@@ -450,5 +457,7 @@ class PlanExecution:
                         rebuild_sparse_column(dim, parts["values"], parts["ids"], parts["nnz"]),
                     )
                 continue
+            if dtype is None:  # a shape-following output (Binarizer's)
+                dtype = DataTypes.vector(BasicType.DOUBLE) if host.ndim == 2 else DataTypes.DOUBLE
             out.add_column(name, dtype, host)
         return out

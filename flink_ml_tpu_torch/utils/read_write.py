@@ -47,17 +47,25 @@ _MLP = "flink_ml_tpu_torch.servable.lib.MLPClassifierModelServable"
 _MLP_MODEL = "flink_ml_tpu_torch.models.classification.mlp_classifier.MLPClassifierModel"
 _KMEANS = "flink_ml_tpu_torch.servable.lib.KMeansModelServable"
 _KMEANS_MODEL = "flink_ml_tpu_torch.models.clustering.kmeans.KMeansModel"
+_NORMALIZER = "flink_ml_tpu_torch.models.feature.normalizer.Normalizer"
+_PRODUCT = "flink_ml_tpu_torch.models.feature.elementwise_product.ElementwiseProduct"
+_BINARIZER = "flink_ml_tpu_torch.models.feature.binarizer.Binarizer"
+_IMPUTER = "flink_ml_tpu_torch.models.feature.imputer.Imputer"
+_IMPUTER_MODEL = "flink_ml_tpu_torch.models.feature.imputer.ImputerModel"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
-#: with ``load_servable(path)``, the port training-side stage that loads it
-#: with ``load(path)`` or None where that stage is not ported). Training-side
+#: with ``load_servable(path)``, or None for an Estimator, which serves
+#: nothing; the port training-side stage that loads it with ``load(path)``
+#: or None where that stage is not ported). Training-side
 #: Models load as their runtime-free servables, as the JAX package's
 #: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
 #: ``logistic_regression.py:30``, ``mlp_classifier.py:195``,
 #: ``kmeans.py:215``). The reverse direction needs no table: the JAX package
 #: reads a port-written directory through its servables' ``load_servable``,
-#: which ignore the class name.
-CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
+#: which ignore the class name, or, for a stage that is its own servable
+#: (whose ``load`` insists on its own class name), through the same metadata
+#: and model-data files.
+CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, None),
     "flink_ml_tpu.servable.builder.PipelineModelServable": (_PIPELINE, None),
     "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": (_SCALER, _SCALER_MODEL),
@@ -69,8 +77,15 @@ CLASS_TABLE: Dict[str, Tuple[str, Optional[str]]] = {
     "flink_ml_tpu.servable.lib.MLPClassifierModelServable": (_MLP, None),
     "flink_ml_tpu.models.clustering.kmeans.KMeansModel": (_KMEANS, _KMEANS_MODEL),
     "flink_ml_tpu.servable.lib.KMeansModelServable": (_KMEANS, None),
-    # IDFModel is its own servable in both packages (``idf.py``).
+    # IDFModel is its own servable in both packages (``idf.py``), and so
+    # are the stateless Transformers (``api/core.py`` ``load_servable``) and,
+    # in the port, ImputerModel.
     "flink_ml_tpu.models.feature.idf.IDFModel": (_IDF_MODEL, _IDF_MODEL),
+    "flink_ml_tpu.models.feature.normalizer.Normalizer": (_NORMALIZER, _NORMALIZER),
+    "flink_ml_tpu.models.feature.elementwise_product.ElementwiseProduct": (_PRODUCT, _PRODUCT),
+    "flink_ml_tpu.models.feature.binarizer.Binarizer": (_BINARIZER, _BINARIZER),
+    "flink_ml_tpu.models.feature.imputer.ImputerModel": (_IMPUTER_MODEL, _IMPUTER_MODEL),
+    "flink_ml_tpu.models.feature.imputer.Imputer": (None, _IMPUTER),
 }
 
 

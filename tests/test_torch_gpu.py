@@ -654,3 +654,255 @@ def test_server_launches_the_kmeans_kernel_for_hot_buckets_only(cuda):
                               torch.from_numpy(np.asarray(km.centroids, np.float32)))
     np.testing.assert_array_equal(r_big.dataframe.column("prediction")[decided],
                                   ref.column("prediction")[decided])
+
+
+# ---------------------------------------------------------------------------
+# the row-local megakernel (any chain of the row-local ops ± a logistic head)
+# ---------------------------------------------------------------------------
+
+import copy  # noqa: E402
+
+import flink_ml_tpu_torch.servable.megakernels as mk  # noqa: E402
+from flink_ml_tpu_torch import native  # noqa: E402
+from flink_ml_tpu_torch.models.feature.binarizer import Binarizer  # noqa: E402
+from flink_ml_tpu_torch.models.feature.elementwise_product import ElementwiseProduct  # noqa: E402
+from flink_ml_tpu_torch.models.feature.normalizer import Normalizer  # noqa: E402
+from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
+    ROWLOCAL,
+    ROWLOCAL_MAX_DIM,
+    RowLocalOp,
+    rowlocal_chain,
+    rowlocal_chain_plain,
+)
+
+# Where an input of a binarize carries a normalize's rounding, entries within
+# this margin of the threshold may round either way: they are not compared,
+# and nothing downstream of them in their row. 1e-5 is ~100x the feature6
+# envelope at these magnitudes.
+BIN_MARGIN = 1e-5
+ROWLOCAL_CASES = (
+    "scale_11", "scale_10", "scale_01", "scale_00", "normalize_1", "normalize_2", "normalize_3",
+    "product", "idf", "binarize", "impute_nan", "impute_value", "feature6", "feature6_logistic",
+    "head_off_chain",
+)
+
+
+def _rowlocal_case(name, rows, d, device, seed=0):
+    """``(inputs, ops)`` of one row-local chain on ``device``: standard-normal
+    rows with, from 5 rows on, a zero row, a NaN, +inf and -inf; scalers with
+    the zero-std guard; scalar columns with a tenth of their entries missing."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    if rows >= 5:
+        x[1] = 0.0
+        x[2, d // 2] = np.nan
+        x[3, 0] = np.inf
+        x[4, d - 1] = -np.inf
+
+    def inv_std():
+        std = np.abs(rng.standard_normal(d)).astype(np.float32) + np.float32(0.5)
+        std[0] = 0.0
+        return t(np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std)))
+
+    def positive(lo):
+        return t(np.abs(rng.standard_normal(d)) + lo)
+
+    def scale(src, with_mean=True, with_std=True):
+        return RowLocalOp("scale", src, t(rng.standard_normal(d)), inv_std(),
+                          {"with_mean": with_mean, "with_std": with_std})
+
+    if name.startswith("scale_"):
+        return [t(x)], [scale(0, name[-2] == "1", name[-1] == "1")]
+    if name.startswith("normalize_"):
+        return [t(x)], [RowLocalOp("normalize", 0, params={"p": float(name[-1])})]
+    if name in ("product", "idf"):
+        op = "elementwise_product" if name == "product" else "idf"
+        return [t(x)], [RowLocalOp(op, 0, positive(0.1))]
+    if name == "binarize":
+        s = rng.standard_normal(rows)
+        return [t(x), t(s), t(x * 0.5)], [
+            RowLocalOp("binarize", 0, params={"threshold": 0.05}),
+            RowLocalOp("binarize", 1, params={"threshold": -0.3}),
+            RowLocalOp("binarize", 2, params={"threshold": 0.0}),
+        ]
+    if name.startswith("impute_"):
+        missing_is_nan = name == "impute_nan"
+        placeholder = np.float32(np.nan if missing_is_nan else 0.1)
+        cols = [rng.integers(0, 100, rows).astype(np.float32) for _ in range(3)]
+        for c in cols:
+            c[rng.random(rows) < 0.1] = placeholder
+        surrogates = t(rng.standard_normal(3))
+        return [t(c) for c in cols], [
+            RowLocalOp("impute", k, surrogates, params={"missing_is_nan": missing_is_nan,
+                                                        "missing_value": 0.0 if missing_is_nan else 0.1,
+                                                        "column": k})
+            for k in range(3)
+        ]
+    ops = [
+        scale(0),
+        RowLocalOp("normalize", 1, params={"p": 2.0}),
+        RowLocalOp("elementwise_product", 2, positive(0.1)),
+        RowLocalOp("idf", 3, positive(0.2)),
+        scale(4, with_mean=False),
+        RowLocalOp("binarize", 5, params={"threshold": 0.05}),
+    ]
+    coef = t(rng.standard_normal(d) * (3.0 / np.sqrt(d)))
+    if name == "feature6":
+        return [t(x)], ops
+    if name == "feature6_logistic":
+        return [t(x)], ops + [RowLocalOp("logistic", 6, coef)]
+    assert name == "head_off_chain"  # the head reads the scaler's output, not the binarizer's
+    return [t(x)], [scale(0), RowLocalOp("binarize", 1, params={"threshold": 0.0}),
+                    RowLocalOp("logistic", 1, coef)]
+
+
+def _same_bits_or_nan(a, b):
+    """Bit-equal, a NaN matching any NaN (its payload aside)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.masked_fill(na, 0.0).view(torch.int32), b.masked_fill(nb, 0.0).view(torch.int32)))
+
+
+def _check_rowlocal(inputs, ops, got, want, where=""):
+    """Each output against the plain version's: bit-equal until a normalize;
+    from a normalize on within ``ULP_ENVELOPE["feature6"]``; a binarize of
+    such an input equal outside ``BIN_MARGIN`` of its threshold, the rows
+    with an entry inside left out of everything downstream; the head's
+    rawPrediction within ``ULP_ENVELOPE["scale_logistic"]`` and its
+    prediction equal where the float64 margin exceeds 1e-4. Returns the
+    entries inside the margin."""
+    plain = list(inputs) + list(want)
+    rows = int(inputs[0].shape[0])
+    rounded = [False] * len(inputs)  # carries a normalize's rounding
+    decided = [torch.ones(rows, dtype=torch.bool, device=inputs[0].device)] * len(inputs)
+    inside = 0
+    k = 0
+    for op in ops:
+        dec = decided[op.src]
+        if op.op == "logistic":
+            pred, raw = got[k], got[k + 1]
+            assert pred.shape == (rows,) and raw.shape == (rows, 2), where
+            assert ulp_diff(raw[dec, 1].cpu().numpy(), want[k + 1][dec, 1].cpu().numpy()) \
+                <= ULP_ENVELOPE["scale_logistic"], where
+            for r in (raw, want[k + 1]):  # 1 - p in float32: its own ulps are ill-conditioned near p = 1
+                assert _same_bits_or_nan(r[:, 0], 1.0 - r[:, 1]), where
+            margin = plain[op.src].double() @ op.a.double()
+            sure = dec & (margin.abs() > 1e-4)
+            assert torch.equal(pred[sure], want[k][sure]), where
+            rounded += [True, True]
+            decided += [dec, dec]
+            k += 2
+            continue
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32, where
+        row_mask = dec if g.dim() == 1 else dec[:, None].expand_as(g)
+        if op.op == "binarize" and rounded[op.src]:
+            near = (plain[op.src] - op.params["threshold"]).abs() <= BIN_MARGIN
+            assert torch.equal(g[row_mask & ~near], w[row_mask & ~near]), where
+            inside += int((row_mask & near).sum())
+            dec = dec & ~(near if near.dim() == 1 else near.any(dim=1))
+            rounded.append(False)
+        elif rounded[op.src] or op.op == "normalize":
+            assert ulp_diff(g[row_mask].cpu().numpy(), w[row_mask].cpu().numpy()) \
+                <= ULP_ENVELOPE["feature6"], where
+            rounded.append(True)
+        else:
+            assert _same_bits_or_nan(g[row_mask], w[row_mask]), where
+            rounded.append(False)
+        decided.append(dec)
+        k += 1
+    return inside
+
+
+@pytest.mark.parametrize("name", ROWLOCAL_CASES)
+@pytest.mark.parametrize("d", (1, 7, 32, 100, 257, ROWLOCAL_MAX_DIM))
+def test_rowlocal_kernel_matches_plain_version(cuda, name, d):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain head's dot in full float32
+    for rows in (1, 33, 4096):
+        inputs, ops = _rowlocal_case(name, rows, d, cuda, seed=rows + d)
+        before = ROWLOCAL.launches
+        got = rowlocal_chain(inputs, ops)
+        want = rowlocal_chain_plain(inputs, ops)
+        torch.cuda.synchronize()
+        assert ROWLOCAL.launches == before + 1
+        assert len(got) == len(want)
+        _check_rowlocal(inputs, ops, got, want, f"{name} rows={rows} d={d}")
+
+
+def test_rowlocal_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    inputs, ops = _rowlocal_case("feature6_logistic", 8, 16, cuda)
+    before = ROWLOCAL.launches
+    with pytest.raises(TypeError, match="float32"):
+        rowlocal_chain([inputs[0].double()], ops)
+    with pytest.raises(ValueError, match="shape"):
+        rowlocal_chain(inputs, [ops[0]._replace(a=ops[0].a[:-1])] + ops[1:])
+    with pytest.raises(ValueError, match="reads slot"):
+        rowlocal_chain(inputs, [ops[0]._replace(src=3)])
+    with pytest.raises(ValueError, match="columns"):
+        rowlocal_chain([torch.zeros((2, ROWLOCAL_MAX_DIM + 1), device=cuda)],
+                       [RowLocalOp("binarize", 0, params={"threshold": 0.0})])
+    with pytest.raises(ValueError, match="ops over"):
+        rowlocal_chain(inputs, [RowLocalOp("binarize", 0, params={"threshold": 0.0})] * 33)
+    empty = rowlocal_chain([inputs[0][:0]], ops)
+    assert [tuple(t.shape) for t in empty][-2:] == [(0,), (0, 2)]
+    assert ROWLOCAL.launches == before
+
+
+def test_rowlocal_build_failure_raises_and_counts_nothing(cuda, tmp_path, monkeypatch):
+    """A kernel whose source does not compile raises nvcc's error on its
+    first launch: nothing falls back to the plain version."""
+    (tmp_path / "csrc").mkdir()
+    broken = (native.CSRC_DIR / ROWLOCAL.source).read_text() + "\nthis is not C++;\n"
+    (tmp_path / "csrc" / ROWLOCAL.source).write_text(broken)
+    monkeypatch.setattr(native, "CSRC_DIR", tmp_path / "csrc")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    fresh = copy.copy(ROWLOCAL)
+    fresh._fn = None
+    fresh._launches = 0
+    monkeypatch.setattr(mk, "ROWLOCAL", fresh)
+    inputs, ops = _rowlocal_case("feature6", 4, 8, cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        rowlocal_chain(inputs, ops)
+    assert fresh.launches == 0
+
+
+def test_server_launches_the_rowlocal_kernel_for_hot_buckets_only(cuda):
+    """feature6 → logistic at d 100 scores 3556 per row: bucket 2048 is hot
+    under the default bar, bucket 8 is not."""
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScalerModel
+
+    d = 100
+    rng = np.random.default_rng(5)
+    scaler = StandardScalerModel().set_input_col("input").set_output_col("scaled").set_with_mean(True)
+    scaler.mean, scaler.std = rng.standard_normal(d), np.abs(rng.standard_normal(d)) + 0.5
+    idf = IDFModel().set_input_col("weighted").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = np.abs(rng.standard_normal(d)) + 0.2, np.ones(d), np.asarray(4e5)
+    rescale = StandardScalerModel().set_input_col("tfidf").set_output_col("rescaled")
+    rescale.mean, rescale.std = np.zeros(d), np.abs(rng.standard_normal(d)) + 0.5
+    lr = LogisticRegressionModelServable().set_features_col("bin")
+    lr.coefficient = rng.standard_normal(d) * (3.0 / np.sqrt(d))
+    pipe = PipelineModelServable([
+        scaler, Normalizer().set_input_col("scaled").set_output_col("norm"),
+        ElementwiseProduct().set_scaling_vec(np.abs(rng.standard_normal(d)) + 0.1)
+        .set_input_col("norm").set_output_col("weighted"),
+        idf, rescale, Binarizer().set_input_cols("rescaled").set_output_cols("bin").set_thresholds(0.05), lr,
+    ])
+    cfg = ServingConfig(max_batch_size=2048, queue_capacity_rows=8192, fusion_mode="fast")
+    template = DataFrame.from_dict({"input": rng.standard_normal((1, d))})
+    with InferenceServer(pipe, name="gpu-rowlocal", serving_config=cfg, warmup_template=template) as srv:
+        ROWLOCAL.reset_launches()
+        big = DataFrame.from_dict({"input": rng.standard_normal((1500, d))})
+        small = DataFrame.from_dict({"input": rng.standard_normal((5, d))})
+        r_big, r_small = srv.predict(big), srv.predict(small)
+        assert (r_big.bucket, r_small.bucket) == (2048, 8)
+        assert ROWLOCAL.launches == 1
+    ref = pipe.transform(big, device="cpu")
+    np.testing.assert_array_equal(r_big.dataframe.column("scaled"), ref.column("scaled"))
+    assert ulp_diff(r_big.dataframe.column("norm"), ref.column("norm")) <= ULP_ENVELOPE["feature6"]
+    near = np.abs(ref.column("rescaled") - 0.05) <= BIN_MARGIN
+    np.testing.assert_array_equal(r_big.dataframe.column("bin")[~near], ref.column("bin")[~near])

@@ -35,6 +35,9 @@ from flink_ml_tpu_torch.servable.megakernels import (
     MLP_MAX_CLASSES,
     MLP_MAX_LAYERS,
     MLP_MAX_WIDTH,
+    ROWLOCAL_MAX_DIM,
+    ROWLOCAL_MAX_OPS,
+    ROWLOCAL_OPS,
     SCALE_LOGISTIC,
     build_megakernel_fn,
     chain_eligible,
@@ -227,10 +230,34 @@ def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
 #: Chains the JAX package lowers as one Pallas megakernel that the port does
 #: not have a kernel for yet (they stay on the merged program in fast mode).
 NOT_YET_PORTED = {
-    "scale": ["scale"],
-    "feature6": ["scale", "normalize", "elementwise_product", "idf", "scale", "binarize"],
-    "normalize": ["normalize"],
+    "normalize_kmeans": ["normalize", "kmeans"],
+    "normalize_mlp": ["normalize", "mlp"],
+    "sparse_idf": ["sparse_idf"],
 }
+
+
+def _rowlocal(op, inp="x", out="y", width=4, **params):
+    """A row-local spec of ``op``'s form reading ``inp`` into ``out``."""
+    ones = np.ones(width, np.float32)
+    if op == "scale":
+        return _spec(op, (inp,), (out,), {"mean": ones, "inv_std": ones},
+                     {"with_mean": True, "with_std": True})
+    if op == "normalize":
+        return _spec(op, (inp,), (out,), {}, {"p": params.get("p", 2.0)})
+    if op in ("elementwise_product", "idf"):
+        return _spec(op, (inp,), (out,), {"scaling" if op == "elementwise_product" else "idf": ones})
+    if op == "binarize":
+        return _spec(op, (inp,), (out,), {}, {"thresholds": (0.05,)})
+    assert op == "impute"
+    return _spec(op, (inp,), (out,), {"surrogates": np.ones(1, np.float32)},
+                 {"missing_is_nan": True, "missing_value": 0.0})
+
+
+def _feature6_specs(width=4, head=False):
+    cols = ["x", "scaled", "norm", "weighted", "tfidf", "rescaled", "bin"]
+    ops = ["scale", "normalize", "elementwise_product", "idf", "scale", "binarize"]
+    specs = [_rowlocal(op, cols[i], cols[i + 1], width) for i, op in enumerate(ops)]
+    return specs + ([_logistic("bin", width)] if head else [])
 
 
 def _mlp(widths=(4, 8, 3), inp="scaled", drop=None):
@@ -277,6 +304,26 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
         assert all(op in MEGAKERNEL_OPS for op in ops), name
         assert jax_chain_eligible(specs), name  # the JAX package lowers it
         assert not chain_eligible(specs), name  # the port does not yet
+    assert not chain_eligible([_rowlocal("normalize"), _kmeans(inp="y")])  # well-formed, still refused
+    assert not chain_eligible([_rowlocal("normalize"), _mlp(inp="y")])
+    # the row-local kernel: any chain of ROWLOCAL_OPS, optionally closed by a dense logistic head
+    assert ROWLOCAL_OPS | {"logistic"} <= MEGAKERNEL_OPS
+    for specs in (_feature6_specs(), _feature6_specs(head=True), [_rowlocal("scale")],
+                  [_rowlocal("normalize")], [_rowlocal("impute")],
+                  _feature6_specs(ROWLOCAL_MAX_DIM, head=True)):
+        assert chain_eligible(specs), [s.fusion_op for s in specs]
+        assert jax_chain_eligible(specs)
+        build_megakernel_fn(specs)
+    assert not chain_eligible(_feature6_specs(ROWLOCAL_MAX_DIM + 1))  # a model vector too wide
+    assert not chain_eligible(_feature6_specs(ROWLOCAL_MAX_DIM + 1, head=True))
+    assert not chain_eligible([_rowlocal("normalize", p=0.5)])  # p < 1
+    assert not chain_eligible([_spec("scale")])  # no mean / inv_std, no flags
+    assert not chain_eligible([_spec("normalize")])  # no p
+    assert not chain_eligible([_rowlocal("binarize"), _logistic("y", width=5), _rowlocal("idf")])  # head not last
+    assert not chain_eligible([_rowlocal("binarize", width=4)] * (ROWLOCAL_MAX_OPS + 1))  # table too long
+    sparse_in = _rowlocal("binarize")
+    sparse_in.input_kinds["x"] = "sparse"
+    assert not chain_eligible([sparse_in])  # dense and scalar columns only
     # dataflow and shapes the kernels cannot take
     assert not chain_eligible([_scale(out="other"), _logistic()])
     assert not chain_eligible([_scale(), _logistic(width=5)])
