@@ -5,8 +5,9 @@
 
 Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
-card — dense, sparse, MLP, KMeans, feature-chain and Imputer serving,
-wide-sparse, MLP and KMeans training. Phases, one JSON line each:
+card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
+self-attention serving, wide-sparse, MLP and KMeans training. Phases, one
+JSON line each:
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -127,9 +128,43 @@ wide-sparse, MLP and KMeans training. Phases, one JSON line each:
                rows), saved, loaded and served with
                ``fusion.megakernel.min.score`` 1.0 to 64 requests whose
                entries are a seeded tenth NaN: every output exact; launches
-               equal the batches.
+               equal the batches;
+18. kernels_flash — the ring-attention fold (``csrc/flash_fold.cu``) against
+               the plain fold over B·H (1, 3, 8) × Tq (1, 63, 256, 1000) × Tk
+               (1, 200, 256, 2048) × D (8, 64, 128, 256) × seven cases of
+               causal, n_valid, first-fold / carried / partly -inf state and
+               block positions (the block before, after and across the
+               queries): m within 1e-6, l and acc within 1e-5 relative, rows
+               with no attendable key exact, no NaN; one Q block folded
+               against four K/V blocks in ring order (causal, n_valid) for
+               each of four shards, held against float64 dense attention;
+               then CUDA-event times at bench.py's
+               ring_attention_causal_T8192_h4_d128 (B 1, T 8192, H 4, D 128),
+               causal and not, of the kernel, the plain fold and
+               ``scaled_dot_product_attention`` (the library yardstick of
+               fold + acc / l), with the operations bound; at that shape the
+               kernel's (m, l, acc) are held against the plain fold's at the
+               grid's tolerances first;
+19. serve_attention — SelfAttentionClassifierModel at E 512, H 4, vocab
+               1024, 8 classes (bench.py's attention width) from seeded
+               weights, saved and loaded back, ``transform`` on the card of
+               8 × 8192, 8 × 8000 and 1 × 8192 tokens. Every fold the path
+               launched (B·H 32 or 4, T 8192 or 8000, D 128) is held, a
+               document at a time, against the plain fold at the grid's
+               tolerances, and its output acc / l against float64 dense
+               attention within 1e-7 absolute, which a uniform-attention
+               control (every score equal) and a bfloat16-q/k/v control
+               must both miss; probabilities within 1e-7 of the float64
+               forward, whose bfloat16 control must land outside (the
+               uniform control's probability error is a reading: at these
+               seeded weights attention is within ~0.1% of uniform, so the
+               probabilities cannot see the fold's weighting); prediction
+               equal past a 1e-4 float64 logit gap; one fold launch per
+               transform, the plain fold never called;
+               ms per document and a ``torch.profiler`` trace of one
+               8-document transform (idle share, the fold's share).
 
-Then a ``{"kernels": [...]}`` line for every kernel (nine), the ``nvidia-smi``
+Then a ``{"kernels": [...]}`` line for every kernel (ten), the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits nonzero without that last line; so does a machine without
 a CUDA device.
@@ -137,6 +172,7 @@ a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -270,6 +306,39 @@ FEATURE6_HOT_FROM = 512
 IMPUTER_COLS = tuple(f"f{i}" for i in range(15))
 IMPUTER_ROWS, IMPUTER_ARITY, IMPUTER_SEED, IMPUTER_SERVE_SEED = 100_000, 100, 2, 3
 IMPUTER_MISSING_SHARE = 0.1
+
+# the ring-attention fold: bench.py's bench_attention shape, and the grid
+FLASH_TIMED = (1, 8192, 4, 128)  # B, T, H, D: ring_attention_causal_T8192_h4_d128
+FLASH_GRID_BH = (1, 3, 8)
+FLASH_GRID_TQ = (1, 63, 256, 1000)
+FLASH_GRID_TK = (1, 200, 256, 2048)
+FLASH_GRID_D = (8, 64, 128, 256)
+# (causal, n_valid, state, positions): n_valid "inside" is half the block,
+# "before" masks every key of the block; positions place the block
+FLASH_FLAG_CASES = (
+    (False, None, "first", "aligned"),
+    (True, None, "first", "aligned"),
+    (True, "inside", "carried", "kv_before"),
+    (False, "inside", "mixed", "aligned"),
+    (False, "before", "mixed", "straddle"),
+    (True, None, "mixed", "kv_after"),
+    (True, "inside", "carried", "straddle"),
+)
+FLASH_M_RTOL = 1e-6  # of |m| + the scores' term magnitudes: the dot products sum in another order
+FLASH_RTOL = 1e-5  # l and acc; atol FLASH_RTOL times the tensor's largest magnitude
+FLASH_CHAIN = (4, 2048, 4, 128)  # shards, T per shard, B·H, D
+FLASH_CHAIN_RTOL, FLASH_CHAIN_ATOL = 2e-5, 2e-5
+# SelfAttentionClassifier at bench.py's _attention_train_step_ms width
+ATTN_E, ATTN_H, ATTN_VOCAB, ATTN_CLASSES, ATTN_PARAM_SEED = 512, 4, 1024, 8, 5
+ATTN_FRAMES = ((8, 8192), (8, 8000), (1, 8192))  # documents × tokens
+ATTN_TOKEN_SEED = 9
+ATTN_PROB_ATOL = 1e-7  # float32 path vs float64; the bf16-q/k/v control must exceed it
+# the fold's output acc / l vs float64 dense attention, per document: at these
+# weights the outputs are ~1e-3, so float32 is ~1e-9 off, and weights 0.1% off
+# uniform (scores ~1.3e-3) move them by ~1e-5: both controls must land outside
+ATTN_OUT_ATOL = 1e-7
+ATTN_MARGIN = 1e-4
+
 
 
 def emit(phase: str, **fields) -> None:
@@ -2976,6 +3045,427 @@ def phase_serve_imputer(card: str):
     return launches
 
 
+def _flash_inputs(gen, BH, Tq, Tk, d, state, dev):
+    """q, k, v, m, l, acc of one fold, drawn on the card from ``gen``:
+    ``first`` is a first fold's state, ``carried`` a finite one, ``mixed``
+    carried with every third row still at -inf."""
+    import torch
+
+    q, k, v = (torch.randn((1, BH, n, d), generator=gen, device=dev) for n in (Tq, Tk, Tk))
+    if state == "first":
+        m = torch.full((1, BH, Tq), -torch.inf, device=dev)
+        l = torch.zeros((1, BH, Tq), device=dev)
+        acc = torch.zeros((1, BH, Tq, d), device=dev)
+    else:
+        m = torch.randn((1, BH, Tq), generator=gen, device=dev)
+        l = torch.randn((1, BH, Tq), generator=gen, device=dev).abs() + 1.0
+        acc = torch.randn((1, BH, Tq, d), generator=gen, device=dev)
+        if state == "mixed":
+            m[..., ::3], l[..., ::3], acc[..., ::3, :] = -torch.inf, 0.0, 0.0
+    return [q, k, v, m, l, acc]
+
+
+def _flash_positions(name, Tq, Tk):
+    return {"aligned": (0, 0), "kv_before": (Tk + 5, 0), "kv_after": (0, Tq + 5),
+            "straddle": (37, 0)}[name]
+
+
+def _check_flash(got, want, inputs, idle, s_mag, where):
+    """The fold kernel against the plain fold: m within FLASH_M_RTOL of
+    |m| + ``s_mag`` (the row's largest scale · Σ_d |q_d k_d|: a score is a
+    dot product, and one that cancels to near 0 keeps the error of its
+    terms), l and acc within FLASH_RTOL; rows with no attendable key exact
+    (finite m in: m, l, acc unchanged bit for bit; -inf in: -inf, 0, 0);
+    m_out >= m_in; no NaN. Returns (max |kernel - plain|, exact rows kept,
+    exact rows reset)."""
+    import torch
+
+    m_in, l_in, acc_in = inputs
+    gm, gl, ga = got
+    wm, wl, wa = want
+    for g in got:
+        if torch.isnan(g).any():
+            raise AssertionError(f"NaN in the kernel's output: {where}")
+    if not torch.equal(torch.isneginf(gm), torch.isneginf(wm)):
+        raise AssertionError(f"m is -inf on other rows than the plain fold's: {where}")
+    if not torch.all(gm >= m_in):
+        raise AssertionError(f"m_out < m_in: {where}")
+    fin = torch.isfinite(wm)
+    errs = []
+    for name, g, w, rtol in (("m", gm[fin], wm[fin], FLASH_M_RTOL), ("l", gl, wl, FLASH_RTOL),
+                             ("acc", ga, wa, FLASH_RTOL)):
+        if not g.numel():
+            continue
+        scale = s_mag[fin] if name == "m" else max(1.0, float(w.abs().max()))
+        err = (g - w).abs()
+        if not torch.all(err <= rtol * w.abs() + rtol * scale):
+            raise AssertionError(f"{name}: max |kernel - plain| {float(err.max())} past rtol {rtol}: {where}")
+        errs.append(float(err.max()))
+    seen = torch.isfinite(m_in)
+    kept, fresh = seen & idle, ~seen & idle
+    if not (torch.equal(gm[kept], m_in[kept]) and torch.equal(gl[kept], l_in[kept])
+            and torch.equal(ga[kept], acc_in[kept])):
+        raise AssertionError(f"a row with nothing attendable changed its finite state: {where}")
+    if not (torch.all(torch.isneginf(gm[fresh])) and torch.all(gl[fresh] == 0) and torch.all(ga[fresh] == 0)):
+        raise AssertionError(f"a row with nothing attendable and m -inf is not (-inf, 0, 0): {where}")
+    return max(errs, default=0.0), int(kept.sum()), int(fresh.sum())
+
+
+def _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
+    import torch
+
+    q_pos = q_pos0 + torch.arange(Tq, device=dev)[:, None]
+    k_pos = k_pos0 + torch.arange(Tk, device=dev)[None, :]
+    keep = torch.ones((Tq, Tk), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= q_pos >= k_pos
+    if n_valid is not None:
+        keep &= k_pos < n_valid
+    return (~keep.any(dim=1))[None, None, :].expand(1, BH, Tq)
+
+
+def _flash_bound(BH, Tq, Tk, d, causal):
+    """Bytes (each input read once, each output written once) and the
+    operations this run's masks leave: 4·D per attendable (query, key) pair
+    (q·k and p·v, a multiply and an add each)."""
+    bytes_moved = 4 * BH * (3 * Tq * d + 2 * Tk * d + 4 * Tq)
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk  # causal at q_pos0 = k_pos0 = 0, Tq == Tk
+    ops = 4 * BH * pairs * d
+    return bytes_moved, ops
+
+
+def phase_kernels_flash(rng, card: str):
+    """The ring-attention fold kernel against the plain fold over a grid,
+    a four-fold ring chain against float64 dense attention, then its times
+    at bench.py's attention shape (module docstring, phase 18)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch.parallel import FLASH_FOLD, fused_fold, reference_fold
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain fold's einsums in full float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    configurations, kept_rows, reset_rows, max_abs_err = 0, 0, 0, 0.0
+    for BH in FLASH_GRID_BH:
+        for Tq in FLASH_GRID_TQ:
+            for Tk in FLASH_GRID_TK:
+                for d in FLASH_GRID_D:
+                    for causal, nv_case, state, pos in FLASH_FLAG_CASES:
+                        q_pos0, k_pos0 = _flash_positions(pos, Tq, Tk)
+                        n_valid = {None: None, "inside": k_pos0 + max(1, Tk // 2), "before": k_pos0}[nv_case]
+                        inputs = _flash_inputs(gen, BH, Tq, Tk, d, state, dev)
+                        scale = 1.0 / np.sqrt(d)
+                        got = fused_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+                        want = reference_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+                        where = (f"BH={BH} Tq={Tq} Tk={Tk} d={d} causal={causal} n_valid={n_valid} "
+                                 f"{state} q_pos0={q_pos0} k_pos0={k_pos0}")
+                        idle = _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev)
+                        s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", inputs[0].abs(), inputs[1].abs()).amax(-1)
+                        err, kept, reset = _check_flash(got, want, inputs[3:], idle, s_mag, where)
+                        max_abs_err = max(max_abs_err, err)
+                        kept_rows += kept
+                        reset_rows += reset
+                        configurations += 1
+    if not (kept_rows and reset_rows):
+        raise AssertionError("the grid reached no row of one of the exact edges")
+    emit("kernels_flash", kernel=FLASH_FOLD.name, configurations=configurations, max_abs_err=max_abs_err,
+         m_rtol=FLASH_M_RTOL, l_acc_rtol=FLASH_RTOL, exact_rows_kept=kept_rows, exact_rows_reset=reset_rows)
+
+    # one Q block folded against four K/V blocks in ring order, causal with
+    # n_valid, at the positions a four-shard ring gives each shard
+    shards, T, BH, d = FLASH_CHAIN
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, BH, shards * T, d)).astype(np.float32)).to(dev)
+               for _ in range(3))
+    n_valid = shards * T - T // 3 - 1  # inside the last block, off the tile grid
+    chain_err = 0.0
+    for me in range(shards):
+        q_blk = q[:, :, me * T:(me + 1) * T].contiguous()
+        m = torch.full((1, BH, T), -torch.inf, device=dev)
+        l = torch.zeros((1, BH, T), device=dev)
+        acc = torch.zeros((1, BH, T, d), device=dev)
+        for step in range(shards):
+            src = (me - step) % shards
+            blk = slice(src * T, (src + 1) * T)
+            m, l, acc = fused_fold(q_blk, k[:, :, blk].contiguous(), v[:, :, blk].contiguous(), m, l, acc,
+                                   me * T, src * T, True, n_valid, 1.0 / np.sqrt(d))
+        out = (acc / l.clamp(min=1e-30)[..., None]).double()
+        s = torch.einsum("bhqd,bhkd->bhqk", q_blk.double(), k.double()) / np.sqrt(d)
+        q_pos = me * T + torch.arange(T, device=dev)[:, None]
+        k_pos = torch.arange(shards * T, device=dev)[None, :]
+        s = torch.where((q_pos >= k_pos) & (k_pos < n_valid), s, -torch.inf)
+        want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.double())
+        err = (out - want).abs()
+        if not torch.all(err <= FLASH_CHAIN_RTOL * want.abs() + FLASH_CHAIN_ATOL):
+            raise AssertionError(f"four-fold chain, shard {me}: max error {float(err.max())} vs float64 dense")
+        chain_err = max(chain_err, float(err.max()))
+        del s, want
+    emit("kernels_flash", chain={"shards": shards, "t_per_shard": T, "bh": BH, "d": d, "causal": True,
+                                 "n_valid": n_valid, "max_abs_err_vs_float64": chain_err,
+                                 "rtol": FLASH_CHAIN_RTOL, "atol": FLASH_CHAIN_ATOL})
+    del q, k, v
+
+    # times at ring_attention_causal_T8192_h4_d128, causal and not
+    B, T, H, d = FLASH_TIMED
+    scale = 1.0 / np.sqrt(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, d)).astype(np.float32)).to(dev) for _ in range(3))
+    m0 = torch.full((B, H, T), -torch.inf, device=dev)
+    l0 = torch.zeros((B, H, T), device=dev)
+    acc0 = torch.zeros((B, H, T, d), device=dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    timings = {}
+    for causal in (False, True):
+        # the kernel against the plain fold at this shape, before timing it
+        where = f"timed shape B={B} T={T} H={H} d={d} causal={causal}"
+        got = fused_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale)
+        want = reference_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale)
+        idle = _idle_rows(B * H, T, T, 0, 0, causal, None, dev)
+        s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", q.abs(), k.abs()).amax(-1)
+        timed_err, _, _ = _check_flash(got, want, [m0, l0, acc0], idle, s_mag, where)
+        max_abs_err = max(max_abs_err, timed_err)
+        del got, want, s_mag
+        fns = {
+            "kernel": lambda: fused_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale),
+            "kernel_normalized": lambda: (lambda m, l, a: a / l.clamp(min=1e-30)[..., None])(
+                *fused_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale)),
+            "plain": lambda: reference_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+        }
+        got = fns["kernel_normalized"]()
+        lib = fns["library"]()
+        torch.cuda.synchronize()
+        lib_err = float((got - lib).abs().max())
+        times = {n: {"cold": [], "warm": []} for n in fns}
+        for fn in fns.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        for name in ("plain", "kernel", "kernel_normalized", "library", "library", "kernel_normalized",
+                     "kernel", "plain"):
+            times[name]["cold"] += _cold_times(fns[name], 5, flush)
+            times[name]["warm"].append(_warm_time(fns[name], 5))
+        bytes_moved, ops = _flash_bound(B * H, T, T, d, causal)
+        bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        timings["causal" if causal else "non_causal"] = {
+            "ms": _median(times["kernel"]["cold"]), "ms_l2_warm": _median(times["kernel"]["warm"]),
+            "ms_with_normalize": _median(times["kernel_normalized"]["cold"]),
+            "plain_ms": _median(times["plain"]["cold"]), "plain_ms_l2_warm": _median(times["plain"]["warm"]),
+            "library_ms": _median(times["library"]["cold"]),
+            "library_ms_l2_warm": _median(times["library"]["warm"]),
+            "library_max_abs_diff": lib_err, "max_abs_err_vs_plain": timed_err,
+            "bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "achieved_tflops": ops / (_median(times["kernel"]["cold"]) * 1e-3) / 1e12,
+        }
+    del q, k, v, flush
+    torch.cuda.empty_cache()
+    main = timings["non_causal"]  # the serving path's fold is non-causal
+    timing = {
+        "shape": {"B": B, "T": T, "H": H, "D": d, "name": "ring_attention_causal_T8192_h4_d128"},
+        "ms": main["ms"], "ms_l2_warm": main["ms_l2_warm"], "plain_ms": main["plain_ms"],
+        "library_ms": main["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(q, k, v): one call for "
+                   "fold + acc / l (hold it against ms_with_normalize)",
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "by_mask": timings,
+    }
+    emit("kernels_flash", kernel=FLASH_FOLD.name, card=card, **timing)
+    return {"max_abs_err": max_abs_err, **timing}
+
+
+def _attention_float64(params64, tok, n_heads, control=None):
+    """Logits of one document [T] in float64 on the card, attention dense,
+    and the attention output [H, T, D]: the reference the float32 path is
+    held against. ``control`` "bf16_qkv" rounds the projections to bfloat16
+    first; "uniform" gives every key the same weight (all scores equal),
+    what a fold that ignored q · k would compute."""
+    import torch
+
+    T = tok.shape[0]
+    E = params64["emb"].shape[1]
+    h = params64["emb"][tok]  # [T, E]
+    q, k, v = ((h @ params64[w]).reshape(T, n_heads, E // n_heads).transpose(0, 1) for w in ("wq", "wk", "wv"))
+    if control == "bf16_qkv":
+        q, k, v = (x.to(torch.bfloat16).to(torch.float64) for x in (q, k, v))
+    if control == "uniform":
+        attn = v.mean(dim=1, keepdim=True).expand(-1, T, -1)
+    else:
+        p = torch.softmax(torch.einsum("hqd,hkd->hqk", q, k) / (E // n_heads) ** 0.5, dim=-1)
+        attn = torch.einsum("hqk,hkd->hqd", p, v)
+        del p
+    pooled = (attn.transpose(0, 1).reshape(T, E) @ params64["wo"] + h).mean(dim=0)
+    return pooled @ params64["w_cls"] + params64["b_cls"], attn
+
+
+def phase_serve_attention(card: str):
+    """SelfAttentionClassifierModel at bench.py's width, saved, loaded and
+    run on the card over three frames, held against float64 dense
+    attention (module docstring, phase 19)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import flink_ml_tpu_torch.parallel.flash as flash_mod
+    import flink_ml_tpu_torch.parallel.ring as ring_mod
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.classification.attention_classifier import (
+        SelfAttentionClassifierModel,
+        _init_params,
+    )
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.parallel import FLASH_FOLD, reference_fold
+    from flink_ml_tpu_torch.utils import read_write as rw
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = SelfAttentionClassifierModel().set_embedding_dim(ATTN_E).set_num_heads(ATTN_H)
+    model.set_vocab_size(ATTN_VOCAB)
+    model.params = _init_params(np.random.default_rng(ATTN_PARAM_SEED), ATTN_VOCAB, ATTN_E, ATTN_CLASSES)
+    model.labels = np.arange(ATTN_CLASSES, dtype=np.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/attn")
+        loaded = SelfAttentionClassifierModel.load(f"{tmp}/attn")
+        staged = rw.load_stage(f"{tmp}/attn")
+    for name, a in model.params.items():
+        if not (np.array_equal(loaded.params[name], a) and np.array_equal(staged.params[name], a)):
+            raise AssertionError(f"{name} differs after save and load")
+    model = loaded
+    params64 = {n: torch.from_numpy(np.asarray(a, np.float64)).to(dev) for n, a in model.params.items()}
+    rng = np.random.default_rng(ATTN_TOKEN_SEED)
+    frames = [rng.integers(0, ATTN_VOCAB, size=shape) for shape in ATTN_FRAMES]
+    dfs = [DataFrame.from_dict({"features": tok.astype(np.float64)}) for tok in frames]
+    model.transform(dfs[2])  # warm: the library loaded, cuBLAS handles made
+    torch.cuda.synchronize()
+
+    # every fold the path runs is kept, inputs and outputs, to be held
+    # against the plain fold and float64 attention after the run
+    real_fold, captured = ring_mod.fused_fold, []
+
+    def kept_fold(*args):
+        out = real_fold(*args)
+        captured.append((args, out))
+        return out
+
+    results, folds, launches = [], 0, 0
+    for k in KERNELS:
+        k.reset_launches()
+    plain_calls, restore = _count_calls(flash_mod, ("reference_fold",))
+    ring_mod.fused_fold = kept_fold
+    try:
+        for tok, df in zip(frames, dfs):
+            before, n_captured = FLASH_FOLD.launches, len(captured)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.transform(df)
+            wall = time.perf_counter() - t0  # ends with the readback
+            folds += 1  # one fold per transform: the ring is one shard
+            if len(captured) != n_captured + 1:
+                raise AssertionError(f"{len(captured) - n_captured} folds in one transform, expected 1")
+            results.append((tok, out, wall, FLASH_FOLD.launches - before, captured[-1]))
+        launches = FLASH_FOLD.launches
+        other = {k.name: k.launches for k in KERNELS if k is not FLASH_FOLD}
+    finally:
+        ring_mod.fused_fold = real_fold
+        restore()
+    del captured
+    if launches != folds or any(r[3] != 1 for r in results):
+        raise AssertionError(f"flash_fold launches {launches} != folds run {folds}")
+    if plain_calls:
+        raise AssertionError(f"the plain fold was called on the card's path: {plain_calls}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched during attention serving: {other}")
+
+    frames_out, worst, worst_bf16, undecided = [], 0.0, 0.0, 0
+    fold_err, attn_err, attn_bf16, attn_uniform, prob_uniform = 0.0, 0.0, math.inf, math.inf, 0.0
+    for tok, out, wall, _, (fold_args, fold_out) in results:
+        probs = np.asarray(out.column("rawPrediction"))
+        pred = np.asarray(out.column("prediction"))
+        if probs.shape != (tok.shape[0], ATTN_CLASSES) or not np.all(np.isfinite(probs)):
+            raise AssertionError(f"rawPrediction has shape {probs.shape} or a non-finite value")
+        tensors, (q_pos0, k_pos0, causal, n_valid, scale) = fold_args[:6], fold_args[6:]
+        if tensors[0].shape[:2] != (tok.shape[0], ATTN_H) or tensors[0].shape[2] != tok.shape[1]:
+            raise AssertionError(f"the fold ran at {tuple(tensors[0].shape)} for a {tok.shape} frame")
+        errs, errs_bf16 = [], []
+        for i in range(tok.shape[0]):  # one document at a time: [4, T, T] float64 scores
+            where = f"serve_attention frame {tok.shape}, document {i}"
+            # the main path's own fold of this document against the plain fold
+            ins = [x[i:i + 1] for x in tensors]
+            got = [x[i:i + 1] for x in fold_out]
+            want = reference_fold(*ins, q_pos0, k_pos0, causal, n_valid, scale)
+            idle = _idle_rows(ATTN_H, tok.shape[1], tok.shape[1], q_pos0, k_pos0, causal, n_valid, dev)
+            s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", ins[0].abs(), ins[1].abs()).amax(-1)
+            fold_err = max(fold_err, _check_flash(got, want, ins[3:], idle, s_mag, where)[0])
+            del want, s_mag
+            # its output against float64 dense attention, and the two controls
+            t = torch.from_numpy(tok[i]).to(dev)
+            logits, attn64 = _attention_float64(params64, t, ATTN_H)
+            attn32 = (got[2] / got[1].clamp(min=1e-30)[..., None])[0].double()
+            err = float((attn32 - attn64).abs().max())
+            if not err <= ATTN_OUT_ATOL:
+                raise AssertionError(f"fold output {err} from float64 attention > {ATTN_OUT_ATOL}: {where}")
+            attn_err = max(attn_err, err)
+            want = torch.softmax(logits, dim=-1).cpu().numpy()
+            logits_bf16, attn_c = _attention_float64(params64, t, ATTN_H, control="bf16_qkv")
+            attn_bf16 = min(attn_bf16, float((attn_c - attn64).abs().max()))
+            control = torch.softmax(logits_bf16, dim=-1).cpu().numpy()
+            logits_uniform, attn_c = _attention_float64(params64, t, ATTN_H, control="uniform")
+            attn_uniform = min(attn_uniform, float((attn_c - attn64).abs().max()))
+            prob_uniform = max(prob_uniform,
+                               float(np.abs(torch.softmax(logits_uniform, dim=-1).cpu().numpy() - want).max()))
+            del attn64, attn_c
+            errs.append(float(np.abs(probs[i] - want).max()))
+            errs_bf16.append(float(np.abs(control - want).max()))
+            top2 = np.sort(logits.cpu().numpy())[-2:]
+            if top2[1] - top2[0] > ATTN_MARGIN:
+                if pred[i] != model.labels[int(np.argmax(logits.cpu().numpy()))]:
+                    raise AssertionError(f"prediction differs past the {ATTN_MARGIN} logit gap: doc {i}")
+            else:
+                undecided += 1
+        if max(errs) > ATTN_PROB_ATOL:
+            raise AssertionError(f"probabilities {max(errs)} from float64 > {ATTN_PROB_ATOL}: {tok.shape}")
+        worst, worst_bf16 = max(worst, max(errs)), max(worst_bf16, max(errs_bf16))
+        frames_out.append({"docs": int(tok.shape[0]), "tokens": int(tok.shape[1]), "wall_ms": wall * 1e3,
+                           "ms_per_doc": wall * 1e3 / tok.shape[0], "max_prob_err": max(errs),
+                           "bf16_control_max_prob_err": max(errs_bf16)})
+    if not worst_bf16 > ATTN_PROB_ATOL:
+        raise AssertionError(f"the bf16 q/k/v control ({worst_bf16}) is inside the tolerance {ATTN_PROB_ATOL}")
+    # each control must miss the attention check on every document
+    if not (attn_bf16 > ATTN_OUT_ATOL and attn_uniform > ATTN_OUT_ATOL):
+        raise AssertionError(f"a control is inside the attention tolerance {ATTN_OUT_ATOL}: "
+                             f"bf16 {attn_bf16}, uniform {attn_uniform}")
+    del results
+
+    # steady time of the 8-document frame, and its device trace
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transform(dfs[0])
+        walls.append(time.perf_counter() - t0)
+    profile = _profile_steps(lambda: model.transform(dfs[0]))
+    profile["iterations"] = 1
+    fold_ms = sum(e["ms"] for e in profile["top"] if "flash_fold" in e["name"])
+    result = {
+        "config": {"E": ATTN_E, "H": ATTN_H, "head_dim": ATTN_E // ATTN_H, "vocab": ATTN_VOCAB,
+                   "classes": ATTN_CLASSES, "param_seed": ATTN_PARAM_SEED, "token_seed": ATTN_TOKEN_SEED},
+        "frames": frames_out, "flash_fold_launches": launches, "folds_run": folds,
+        "plain_fold_calls": len(plain_calls), "max_prob_err": worst, "prob_atol": ATTN_PROB_ATOL,
+        "bf16_control_max_prob_err": worst_bf16, "undecided_docs": undecided, "margin": ATTN_MARGIN,
+        "fold_max_abs_err_vs_plain": fold_err, "attn_max_err_vs_float64": attn_err, "attn_atol": ATTN_OUT_ATOL,
+        "bf16_control_min_attn_err": attn_bf16, "uniform_control_min_attn_err": attn_uniform,
+        "uniform_control_max_prob_err": prob_uniform,
+        "uniform_control_inside_prob_atol": prob_uniform <= ATTN_PROB_ATOL,
+        "ms_per_doc_8x8192": _median(walls) * 1e3 / ATTN_FRAMES[0][0],
+        "transform_8x8192_ms": [w * 1e3 for w in walls],
+        "device_idle_share": profile["idle_share"],
+        "fold_share_of_device_time": fold_ms / profile["device_busy_ms"] if profile["device_busy_ms"] else None,
+        "profile": profile,
+    }
+    emit("serve_attention", card=card, **result)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2987,6 +3477,7 @@ def main() -> int:
     from flink_ml_tpu_torch.native import KERNELS
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
     import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
+    from flink_ml_tpu_torch.parallel import FLASH_FOLD  # defines the ring-attention fold
     from flink_ml_tpu_torch.servable.megakernels import (
         ROWLOCAL,
         SCALE_KMEANS,
@@ -3024,6 +3515,9 @@ def main() -> int:
     measured[ROWLOCAL.name] = phase_kernels_rowlocal(rng, smi)
     launches[ROWLOCAL.name] = phase_serve_feature6(smi)
     phase_serve_imputer(smi)
+    torch.cuda.empty_cache()
+    measured[FLASH_FOLD.name] = phase_kernels_flash(rng, smi)
+    launches[FLASH_FOLD.name] = phase_serve_attention(smi)
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -3042,8 +3536,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
-    if len(lines) != 9:
-        raise AssertionError(f"{len(lines)} kernels registered, expected 9")
+    if len(lines) != 10:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 10")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

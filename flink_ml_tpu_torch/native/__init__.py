@@ -28,7 +28,7 @@ import time
 from pathlib import Path
 from typing import List, NamedTuple, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "BuildResult", "CudaKernel", "build"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "BuildResult", "CudaKernel", "build", "check_tensor"]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -151,3 +151,20 @@ class CudaKernel:
             )
         with self._lock:
             self._launches += 1
+
+
+def check_tensor(name: str, t, shape, device, dtype=None) -> None:
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` (float32 when
+    None), the given shape and a contiguous layout: what a kernel's wrapper
+    checks before it hands ``t.data_ptr()`` to a launch."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).replace('torch.', '')}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -50,7 +50,7 @@ from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Seq
 import numpy as np
 import torch
 
-from flink_ml_tpu_torch.native import CudaKernel
+from flink_ml_tpu_torch.native import CudaKernel, check_tensor as _check
 from flink_ml_tpu_torch.ops.kernels import (
     binarize_fn,
     dot_fn,
@@ -423,18 +423,6 @@ def _rowlocal_program(specs: Sequence[Any]) -> Optional[_RowLocalProgram]:
     if len(ops) > ROWLOCAL_MAX_OPS or len(inputs) + len(outputs) > ROWLOCAL_MAX_SLOTS:
         return None
     return _RowLocalProgram(tuple(inputs), tuple(ops), tuple(outputs))
-
-
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device,
-           dtype: torch.dtype = torch.float32) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {str(dtype).replace('torch.', '')}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ _PRODUCT = "flink_ml_tpu_torch.models.feature.elementwise_product.ElementwisePro
 _BINARIZER = "flink_ml_tpu_torch.models.feature.binarizer.Binarizer"
 _IMPUTER = "flink_ml_tpu_torch.models.feature.imputer.Imputer"
 _IMPUTER_MODEL = "flink_ml_tpu_torch.models.feature.imputer.ImputerModel"
+_ATTN_MODEL = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAttentionClassifierModel"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -86,6 +87,10 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.models.feature.binarizer.Binarizer": (_BINARIZER, _BINARIZER),
     "flink_ml_tpu.models.feature.imputer.ImputerModel": (_IMPUTER_MODEL, _IMPUTER_MODEL),
     "flink_ml_tpu.models.feature.imputer.Imputer": (None, _IMPUTER),
+    # The JAX package has no servable for the attention model: it loads as
+    # the stage only.
+    "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifierModel":
+        (None, _ATTN_MODEL),
 }
 
 

@@ -906,3 +906,180 @@ def test_server_launches_the_rowlocal_kernel_for_hot_buckets_only(cuda):
     assert ulp_diff(r_big.dataframe.column("norm"), ref.column("norm")) <= ULP_ENVELOPE["feature6"]
     near = np.abs(ref.column("rescaled") - 0.05) <= BIN_MARGIN
     np.testing.assert_array_equal(r_big.dataframe.column("bin")[~near], ref.column("bin")[~near])
+
+
+# ---------------------------------------------------------------------------
+# the ring-attention fold (csrc/flash_fold.cu)
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.models.classification.attention_classifier import (  # noqa: E402
+    SelfAttentionClassifierModel,
+    _forward as attention_forward,
+    _init_params as attention_init_params,
+)
+from flink_ml_tpu_torch.parallel import (  # noqa: E402
+    FLASH_FOLD,
+    fused_fold,
+    reference_fold,
+    ring_attention,
+)
+
+# (name, causal, n_valid relative to k_pos0 or None, q_pos0, k_pos0, state)
+FOLD_CASES = [
+    ("first_unmasked", False, None, 0, 0, "first"),
+    ("first_causal", True, None, 0, 0, "first"),
+    ("carried_causal_nv_inside", True, 45, 64, 0, "carried"),
+    ("mixed_nv_inside", False, 17, 0, 0, "mixed"),
+    ("mixed_nv_before_block", False, 0, 0, 300, "mixed"),  # every key masked
+    ("mixed_causal_kv_after", True, None, 0, 300, "mixed"),  # every key masked
+    ("carried_causal_kv_before", True, None, 300, 0, "carried"),
+]
+
+
+def _fold_case(BH, Tq, Tk, d, state, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    q, k, v = (rng.standard_normal((1, BH, n, d)) for n in (Tq, Tk, Tk))
+    if state == "first":
+        m, l, acc = np.full((1, BH, Tq), -np.inf), np.zeros((1, BH, Tq)), np.zeros((1, BH, Tq, d))
+    else:
+        m = rng.standard_normal((1, BH, Tq))
+        l = np.abs(rng.standard_normal((1, BH, Tq))) + 1.0
+        acc = rng.standard_normal((1, BH, Tq, d))
+        if state == "mixed":
+            m[..., ::3], l[..., ::3], acc[..., ::3, :] = -np.inf, 0.0, 0.0
+    return [t(a) for a in (q, k, v, m, l, acc)]
+
+
+def _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
+    q_pos = q_pos0 + torch.arange(Tq, device=device)[:, None]
+    k_pos = k_pos0 + torch.arange(Tk, device=device)[None, :]
+    keep = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= q_pos >= k_pos
+    if n_valid is not None:
+        keep &= k_pos < n_valid
+    return ~keep.any(dim=1)
+
+
+def _check_fold_on_card(got, want, inputs, idle, s_mag, where):
+    """m within 1e-6 of |m| + ``s_mag`` (the row's largest scale · Σ_d
+    |q_d k_d|: a score that cancels to near 0 keeps the error of its
+    terms), l and acc within 1e-5 relative (another summation order); rows
+    with nothing attendable exact; m_out >= m_in; no NaN."""
+    m_in, l_in, acc_in = inputs
+    for g in got:
+        assert not torch.isnan(g).any(), where
+    gm, gl, ga = got
+    wm, wl, wa = want
+    assert torch.equal(torch.isneginf(gm), torch.isneginf(wm)), where
+    fin = torch.isfinite(wm)
+    assert torch.all((gm[fin] - wm[fin]).abs() <= 1e-6 * (wm[fin].abs() + s_mag[fin])), where
+    torch.testing.assert_close(gl, wl, rtol=1e-5, atol=1e-5 * max(1.0, float(wl.abs().max())), msg=where)
+    torch.testing.assert_close(ga, wa, rtol=1e-5, atol=1e-5 * max(1.0, float(wa.abs().max())), msg=where)
+    assert torch.all(gm >= m_in), where
+    seen = torch.isfinite(m_in)
+    kept, fresh = seen & idle, ~seen & idle
+    assert torch.equal(gm[kept], m_in[kept]) and torch.equal(gl[kept], l_in[kept]), where
+    assert torch.equal(ga[kept], acc_in[kept]), where
+    assert torch.all(torch.isneginf(gm[fresh])) and torch.all(gl[fresh] == 0), where
+    assert torch.all(ga[fresh] == 0), where
+
+
+@pytest.mark.parametrize("case", [c[0] for c in FOLD_CASES])
+@pytest.mark.parametrize("d", (8, 64, 100, 128, 256))
+@pytest.mark.parametrize("Tq,Tk", ((1, 1), (63, 200), (130, 64), (256, 257)))
+@pytest.mark.parametrize("BH", (1, 3))
+def test_flash_fold_kernel_matches_plain_version(cuda, case, d, Tq, Tk, BH):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in full float32
+    _, causal, nv, q_pos0, k_pos0, state = next(c for c in FOLD_CASES if c[0] == case)
+    n_valid = None if nv is None else k_pos0 + nv
+    inputs = _fold_case(BH, Tq, Tk, d, state, cuda, seed=Tq + Tk + d)
+    scale = 1.0 / np.sqrt(d)
+    before = FLASH_FOLD.launches
+    got = fused_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+    want = reference_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+    torch.cuda.synchronize()
+    assert FLASH_FOLD.launches == before + 1
+    idle = _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)
+    s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", inputs[0].abs(), inputs[1].abs()).amax(-1)
+    _check_fold_on_card(got, want, inputs[3:], idle[None, None, :].expand_as(got[0]), s_mag,
+                        f"{case} BH={BH} Tq={Tq} Tk={Tk} d={d}")
+
+
+def test_flash_fold_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    inputs = _fold_case(2, 8, 8, 16, "first", cuda, seed=1)
+    before = FLASH_FOLD.launches
+    with pytest.raises(TypeError, match="float32"):
+        fused_fold(inputs[0].double(), *inputs[1:], 0, 0, False, None, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fold(inputs[0].transpose(2, 3).contiguous().transpose(2, 3), *inputs[1:], 0, 0, False, None, 0.25)
+    with pytest.raises(ValueError, match="shape"):
+        fused_fold(*inputs[:3], inputs[3][..., :4], *inputs[4:], 0, 0, False, None, 0.25)
+    big = [torch.zeros((1, 1, 4, 257), device=cuda)] * 3
+    with pytest.raises(ValueError, match="head dims"):
+        fused_fold(*big, torch.zeros((1, 1, 4), device=cuda), torch.zeros((1, 1, 4), device=cuda),
+                   big[0], 0, 0, False, None, 0.25)
+    inputs[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue A 3"):
+        fused_fold(*inputs, 0, 0, False, None, 0.25)
+    assert FLASH_FOLD.launches == before
+
+
+def test_flash_fold_chain_in_ring_order_matches_float64_dense_attention(cuda):
+    """One Q block folded against four K/V blocks at the positions a
+    four-shard ring gives shard 2, causal and with n_valid."""
+    T, shards, me, d, BH = 96, 4, 2, 64, 3
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((1, BH, shards * T, d)) for _ in range(3))
+    n_valid = shards * T - 50
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda)  # noqa: E731
+    q_blk = t(q[:, :, me * T:(me + 1) * T])
+    m = torch.full((1, BH, T), -torch.inf, device=cuda)
+    l = torch.zeros((1, BH, T), device=cuda)
+    acc = torch.zeros((1, BH, T, d), device=cuda)
+    for step in range(shards):
+        src = (me - step) % shards
+        m, l, acc = fused_fold(q_blk, t(k[:, :, src * T:(src + 1) * T]), t(v[:, :, src * T:(src + 1) * T]),
+                               m, l, acc, me * T, src * T, True, n_valid, 1.0 / np.sqrt(d))
+    out = (acc / l.clamp(min=1e-30)[..., None]).cpu().numpy()
+    s = np.einsum("bhqd,bhkd->bhqk", q[:, :, me * T:(me + 1) * T], k) / np.sqrt(d)
+    q_pos, k_pos = me * T + np.arange(T)[:, None], np.arange(shards * T)[None, :]
+    s = np.where((q_pos >= k_pos) & (k_pos < n_valid), s, -np.inf)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(axis=-1, keepdims=True), v)
+    np.testing.assert_allclose(out, want, rtol=2e-5, atol=2e-6)
+
+
+def test_attention_transform_on_the_card_launches_one_fold(cuda):
+    E, H, vocab, C, T = 64, 4, 50, 3, 300
+    rng = np.random.default_rng(8)
+    model = SelfAttentionClassifierModel().set_embedding_dim(E).set_num_heads(H)
+    model.params = attention_init_params(rng, vocab, E, C)
+    model.labels = np.array([2.0, 5.0, 9.0])
+    tok = rng.integers(0, vocab, size=(5, T)).astype(np.float64)
+    df = DataFrame.from_dict({"features": tok})
+    FLASH_FOLD.reset_launches()
+    out = model.transform(df)
+    assert FLASH_FOLD.launches == 1
+    ref = model.transform(df, device="cpu")
+    np.testing.assert_allclose(out.column("rawPrediction"), ref.column("rawPrediction"), rtol=0, atol=1e-5)
+    p64 = {k: torch.from_numpy(np.asarray(a, np.float64)) for k, a in model.params.items()}
+    logits = attention_forward(p64, torch.from_numpy(tok.astype(np.int64)), T, H).numpy()
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 1e-4
+    np.testing.assert_array_equal(np.asarray(out.column("prediction"))[decided],
+                                  model.labels[np.argmax(logits, axis=1)][decided])
+    q = torch.from_numpy(rng.standard_normal((2, 70, 2, 16)).astype(np.float32)).to(cuda)
+    FLASH_FOLD.reset_launches()
+    got = ring_attention(q, q, q, causal=True)
+    assert FLASH_FOLD.launches == 1
+    q_t = q.transpose(1, 2).contiguous()
+    m0 = torch.full(q_t.shape[:3], -torch.inf, device=cuda)
+    _, l, acc = reference_fold(q_t, q_t, q_t, m0, torch.zeros_like(m0), torch.zeros_like(q_t), 0, 0, True, None,
+                               1.0 / np.sqrt(16))
+    plain = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-6)
