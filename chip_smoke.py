@@ -6,7 +6,8 @@
 Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
 card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
-self-attention serving, wide-sparse, MLP and KMeans training. Phases, one
+self-attention serving, wide-sparse, MLP, KMeans and self-attention
+training. Phases, one
 JSON line each:
 
 1. device    — the card, its power limit;
@@ -162,9 +163,38 @@ JSON line each:
                equal past a 1e-4 float64 logit gap; one fold launch per
                transform, the plain fold never called;
                ms per document and a ``torch.profiler`` trace of one
-               8-document transform (idle share, the fold's share).
+               8-document transform (idle share, the fold's share);
+20. kernels_flash_bwd — the fold's two backward kernels
+               (``csrc/flash_fold_bwd.cu``: dq, then dkv from dq's row
+               quantities) against the plain VJP ``reference_fold_bwd`` over
+               the forward's grid plus a ties case (every key duplicated, the
+               carried m equal to the block max on every third row), q and k
+               on a 1/8 grid so every score is exact and both find the same
+               maxima: every gradient within 2e-5 of |plain| + its largest
+               magnitude, rows with no attendable key and keys no query
+               attends exact, no NaN; then CUDA-event times at B 1, T 8192,
+               H 4, D 128, causal and not, with the cotangents of out = acc /
+               l, of each kernel, the plain VJP and the float32 backward of
+               ``scaled_dot_product_attention`` (the library yardstick of the
+               two kernels plus the divide's backward), with the operations
+               bounds (6·D and 8·D per attendable pair);
+21. fit_attention — SelfAttentionClassifier.fit on the card at bench.py's
+               attention training width (E 512, H 4, vocab 1024, 8 classes, T
+               8192, lr 1e-3; 15 seeded documents, each class planting its own
+               signal token; two a step, 8 steps, the last the zero-weighted
+               tail): the fold, dq and dkv kernels launched once a step and
+               the plain versions never called, every launch held against
+               the plain version on its inputs a document at a time; step 1's
+               gradients against float64 autograd of dense attention, and the
+               loss history against a float64 fit of the same schedule, each
+               with a bfloat16-q/k/v control that must land outside; ms per
+               step (8 against 24 steps), tokens/s and a ``torch.profiler``
+               trace of one step (idle share, each fold kernel's share); the
+               fitted model's probabilities on 8 held-out documents against
+               float64 (its bfloat16 control outside, the uniform-attention
+               control read).
 
-Then a ``{"kernels": [...]}`` line for every kernel (ten), the ``nvidia-smi``
+Then a ``{"kernels": [...]}`` line for every kernel (twelve), the ``nvidia-smi``
 name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits nonzero without that last line; so does a machine without
 a CUDA device.
@@ -338,6 +368,28 @@ ATTN_PROB_ATOL = 1e-7  # float32 path vs float64; the bf16-q/k/v control must ex
 # uniform (scores ~1.3e-3) move them by ~1e-5: both controls must land outside
 ATTN_OUT_ATOL = 1e-7
 ATTN_MARGIN = 1e-4
+# the fold's backward kernels: the forward's grid plus a ties case (every
+# key duplicated, the carried m equal to the block max on every third row)
+FLASH_BWD_TIES_CASE = ((False, "inside", "ties", "aligned"),)
+FLASH_BWD_NAMES = ("dq", "dk", "dv", "dm", "dl", "dacc")
+# of |plain| + the tensor's largest magnitude: a first chip run of the two
+# kernels over this grid's shapes read at most 2.4e-6 (products and row sums
+# in another order), so 2e-5 holds them with a margin of 8
+FLASH_BWD_RTOL = 2e-5
+# SelfAttentionClassifier.fit at bench.py's attention training width
+# (_attention_train_step_ms: E 512, H 4, vocab 1024, 8 classes, lr 1e-3; T
+# 8192 as bench_attention_train's fit_T8192_single_chip): 15 documents, two a
+# step, so step 8 is the clamped tail (one re-read document weighted 0)
+FIT_ATTN_T, FIT_ATTN_DOCS, FIT_ATTN_BATCH, FIT_ATTN_ITERS, FIT_ATTN_LR = 8192, 15, 2, 8, 1e-3
+FIT_ATTN_TOKEN_SEED, FIT_ATTN_SIGNAL, FIT_ATTN_HELD = 11, 0.05, 8
+FIT_ATTN_STEP_ITERS = (8, 24)  # the two iteration counts differenced for ms/step
+# step-1 gradients vs float64, of each gradient's largest magnitude: float32
+# through the kernels reads ~6e-6, a bf16-q/k/v control ~3e-3
+FIT_ATTN_GRAD_RTOL = 1e-4
+# every step's loss vs the float64 fit's, relative: float32 reads ~2e-7 (the
+# loss's own float32 rounding; lr 1e-3 does not blow up), the bf16 fit ~5e-6
+FIT_ATTN_LOSS_RTOL = 1e-6
+FIT_ATTN_PROB_ATOL = 1e-7  # the fitted model's probabilities vs float64: serve_attention's bound
 
 
 
@@ -3111,7 +3163,8 @@ def _check_flash(got, want, inputs, idle, s_mag, where):
     return max(errs, default=0.0), int(kept.sum()), int(fresh.sum())
 
 
-def _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
+def _attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
+    """[Tq, Tk]: whether each query attends each key of the block."""
     import torch
 
     q_pos = q_pos0 + torch.arange(Tq, device=dev)[:, None]
@@ -3121,7 +3174,12 @@ def _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
         keep &= q_pos >= k_pos
     if n_valid is not None:
         keep &= k_pos < n_valid
-    return (~keep.any(dim=1))[None, None, :].expand(1, BH, Tq)
+    return keep
+
+
+def _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
+    """[1, BH, Tq]: the queries with no attendable key in the block."""
+    return (~_attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev).any(dim=1))[None, None, :].expand(1, BH, Tq)
 
 
 def _flash_bound(BH, Tq, Tk, d, causal):
@@ -3466,6 +3524,504 @@ def phase_serve_attention(card: str):
     return launches
 
 
+def _flash_bwd_inputs(gen, BH, Tq, Tk, d, state, dev):
+    """A fold's inputs and cotangents drawn on the card, as ``_flash_inputs``
+    draws them, with q and k on a 1/8 grid in [-1, 1]: every score q · k is
+    then exact in any summation order, so the kernels and the plain version
+    find the same row maxima and ties (at a near-tie the fold's gradient
+    jumps, and two summation orders could pick two keys). ``ties``: carried
+    state, every key duplicated once (keys 2i and 2i + 1)."""
+    import torch
+
+    inputs = _flash_inputs(gen, BH, Tq, Tk, d, "carried" if state == "ties" else state, dev)
+    inputs[0] = torch.randint(-8, 9, (1, BH, Tq, d), generator=gen, device=dev).float() / 8
+    inputs[1] = torch.randint(-8, 9, (1, BH, Tk, d), generator=gen, device=dev).float() / 8
+    if state == "ties":
+        inputs[1][:, :, 1::2] = inputs[1][:, :, 0:Tk - 1:2]
+    cot = [torch.randn(s, generator=gen, device=dev) for s in ((1, BH, Tq), (1, BH, Tq), (1, BH, Tq, d))]
+    return inputs, cot
+
+
+def _unattended_keys(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev):
+    """[1, BH, Tk]: the keys that no query of the block attends."""
+    return (~_attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev).any(dim=0))[None, None, :].expand(1, BH, Tk)
+
+
+def _check_flash_bwd(got, want, m_in, idle, unattended, where):
+    """The backward kernels' (dq, dk, dv, dm_in, dl_in, dacc_in) against the
+    plain VJP's: each within FLASH_BWD_RTOL of |plain| + the tensor's
+    largest magnitude (products and row sums in another order); rows with
+    no attendable key exact (dq 0; dl_in and dacc_in, the cotangent times a
+    correction of exactly 1 or 0, bit-equal; dm_in bit-equal where m is
+    -inf, dm · 0.5); keys that no query attends exactly 0 in dk and dv; no
+    NaN. Returns ({name: max |kernel - plain|}, exact rows, exact keys)."""
+    import torch
+
+    errs = {}
+    for name, g, w in zip(FLASH_BWD_NAMES, got, want):
+        if torch.isnan(g).any():
+            raise AssertionError(f"NaN in the kernel's {name}: {where}")
+        if not g.numel():
+            continue
+        err = (g - w).abs()
+        if not torch.all(err <= FLASH_BWD_RTOL * (w.abs() + max(1.0, float(w.abs().max())))):
+            raise AssertionError(f"{name}: max |kernel - plain| {float(err.max())} past rtol {FLASH_BWD_RTOL}: "
+                                 f"{where}")
+        errs[name] = float(err.max())
+    dq, dk, dv, dm_in, dl_in, dacc_in = got
+    fresh = idle & torch.isneginf(m_in)
+    if not (torch.all(dq[idle] == 0) and torch.equal(dl_in[idle], want[4][idle])
+            and torch.equal(dacc_in[idle], want[5][idle]) and torch.equal(dm_in[fresh], want[3][fresh])):
+        raise AssertionError(f"a row with nothing attendable is not exact: {where}")
+    if not (torch.all(dk[unattended] == 0) and torch.all(dv[unattended] == 0)):
+        raise AssertionError(f"a key that no query attends has a nonzero dk or dv: {where}")
+    return errs, int(idle.sum()), int(unattended.sum())
+
+
+def _flash_bwd_bound(BH, Tq, Tk, d, causal):
+    """Bytes (each input read once, each output written once) and the
+    operations this run's masks leave, per kernel: 6·D per attendable
+    (query, key) pair for dq (q·kᵀ, dacc·vᵀ, ds·k, a multiply and an add
+    each), 8·D for dkv (q·kᵀ, dacc·vᵀ, dsᵀ·q, Pᵀ·dacc)."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk  # causal at q_pos0 = k_pos0 = 0, Tq == Tk
+    dq_bytes = 4 * BH * (5 * Tq * d + 2 * Tk * d + 9 * Tq)
+    dkv_bytes = 4 * BH * (2 * Tq * d + 4 * Tk * d + 4 * Tq)
+    return {"dq": (dq_bytes, 6 * BH * pairs * d), "dkv": (dkv_bytes, 8 * BH * pairs * d)}
+
+
+def phase_kernels_flash_bwd(rng, card: str):
+    """The fold's two backward kernels against the plain VJP over the
+    forward's grid plus a ties case, then their times at bench.py's
+    attention shape (module docstring, phase 20)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch.parallel import (
+        FLASH_FOLD_BWD_DKV,
+        FLASH_FOLD_BWD_DQ,
+        fold_bwd_dkv,
+        fold_bwd_dq,
+        fused_fold,
+        reference_fold_bwd,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    configurations, exact_rows, exact_keys, tie_rows, m_ties = 0, 0, 0, 0, 0
+    max_errs = {n: 0.0 for n in FLASH_BWD_NAMES}
+    for BH in FLASH_GRID_BH:
+        for Tq in FLASH_GRID_TQ:
+            for Tk in FLASH_GRID_TK:
+                for d in FLASH_GRID_D:
+                    for causal, nv_case, state, pos in FLASH_FLAG_CASES + FLASH_BWD_TIES_CASE:
+                        q_pos0, k_pos0 = _flash_positions(pos, Tq, Tk)
+                        n_valid = {None: None, "inside": k_pos0 + max(1, Tk // 2), "before": k_pos0}[nv_case]
+                        inputs, (dm, dl, dacc) = _flash_bwd_inputs(gen, BH, Tq, Tk, d, state, dev)
+                        scale = 1.0 / np.sqrt(d)
+                        if state == "ties":  # m equal to the block max on every third row
+                            s = torch.einsum("bhqd,bhkd->bhqk", inputs[0], inputs[1]) * scale
+                            if n_valid is not None:
+                                s[..., max(0, n_valid - k_pos0):] = -torch.inf
+                            block_max = s.amax(-1)
+                            inputs[3][..., ::3] = block_max[..., ::3]
+                            counts = (s == block_max[..., None]).sum(-1)
+                            tie_rows += int(((counts >= 2) & torch.isfinite(block_max)).sum())
+                            m_ties += int(((inputs[3] == block_max) & torch.isfinite(block_max)).sum())
+                            del s
+                        out = fold_bwd_dq(*inputs, q_pos0, k_pos0, causal, n_valid, scale, dm, dl, dacc)
+                        dk, dv = fold_bwd_dkv(*inputs[:3], q_pos0, k_pos0, causal, n_valid, scale, dl, dacc,
+                                              *out[4:])
+                        want = reference_fold_bwd(*inputs, q_pos0, k_pos0, causal, n_valid, scale, dm, dl, dacc)
+                        where = (f"BH={BH} Tq={Tq} Tk={Tk} d={d} causal={causal} n_valid={n_valid} "
+                                 f"{state} q_pos0={q_pos0} k_pos0={k_pos0}")
+                        idle = _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev)
+                        unattended = _unattended_keys(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev)
+                        errs, rows, keys = _check_flash_bwd((out[0], dk, dv, *out[1:4]), want, inputs[3], idle,
+                                                            unattended, where)
+                        for n, e in errs.items():
+                            max_errs[n] = max(max_errs[n], e)
+                        exact_rows += rows
+                        exact_keys += keys
+                        configurations += 1
+    if not (exact_rows and exact_keys and tie_rows and m_ties):
+        raise AssertionError("the grid reached no row of one of the exact edges or the ties")
+    emit("kernels_flash_bwd", kernels=[FLASH_FOLD_BWD_DQ.name, FLASH_FOLD_BWD_DKV.name],
+         configurations=configurations, max_abs_err=max_errs, rtol=FLASH_BWD_RTOL, exact_rows=exact_rows,
+         exact_keys=exact_keys, tie_rows=tie_rows, rows_with_m_equal_to_the_block_max=m_ties)
+
+    # times at ring_attention_causal_T8192_h4_d128, causal and not: the
+    # one-fold case of ring attention, the cotangents those of out = acc / l
+    B, T, H, d = FLASH_TIMED
+    scale = 1.0 / np.sqrt(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, d)).astype(np.float32)).to(dev) for _ in range(3))
+    g_out = torch.from_numpy(rng.standard_normal((B, H, T, d)).astype(np.float32)).to(dev)
+    m0 = torch.full((B, H, T), -torch.inf, device=dev)
+    l0 = torch.zeros((B, H, T), device=dev)
+    acc0 = torch.zeros((B, H, T, d), device=dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    timings = {}
+    for causal in (False, True):
+        m, l, acc = fused_fold(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale)
+        dm = torch.zeros_like(m)
+        dacc = g_out / l[..., None]
+        dl = -(g_out * acc).sum(-1) / (l * l)
+        out = fold_bwd_dq(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale, dm, dl, dacc)
+        dk, dv = fold_bwd_dkv(q, k, v, 0, 0, causal, None, scale, dl, dacc, *out[4:])
+        want = reference_fold_bwd(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale, dm, dl, dacc)
+        where = f"timed shape B={B} T={T} H={H} d={d} causal={causal}"
+        idle = _idle_rows(B * H, T, T, 0, 0, causal, None, dev)
+        unattended = _unattended_keys(B * H, T, T, 0, 0, causal, None, dev)
+        timed_errs, _, _ = _check_flash_bwd((out[0], dk, dv, *out[1:4]), want, m0, idle, unattended, where)
+        for n, e in timed_errs.items():
+            max_errs[n] = max(max_errs[n], e)
+        del want
+        # the library yardstick: float32 SDPA's backward for the same
+        # attention, held against the two kernels plus the divide's backward
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        _, l_out, acc_out = fused_fold(*leaves, m0, l0, acc0, 0, 0, causal, None, scale)
+        ours_out = acc_out / l_out.clamp(min=1e-30)[..., None]
+        lib_grads = torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True)
+        our_grads = torch.autograd.grad(ours_out, leaves, g_out, retain_graph=True)
+        lib_diff = max(float((a - b).abs().max()) for a, b in zip(our_grads, lib_grads))
+        del lib_grads, our_grads
+        fns = {
+            "dq": lambda: fold_bwd_dq(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale, dm, dl, dacc),
+            "dkv": lambda: fold_bwd_dkv(q, k, v, 0, 0, causal, None, scale, dl, dacc, *out[4:]),
+            "plain": lambda: reference_fold_bwd(q, k, v, m0, l0, acc0, 0, 0, causal, None, scale, dm, dl, dacc),
+            "kernels_with_divide": lambda: torch.autograd.grad(ours_out, leaves, g_out, retain_graph=True),
+            "library": lambda: torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True),
+        }
+        times = {n: {"cold": [], "warm": []} for n in fns}
+        for fn in fns.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        for name in ("plain", "dq", "dkv", "kernels_with_divide", "library", "library", "kernels_with_divide",
+                     "dkv", "dq", "plain"):
+            times[name]["cold"] += _cold_times(fns[name], 3, flush)
+            times[name]["warm"].append(_warm_time(fns[name], 3))
+        bounds = _flash_bwd_bound(B * H, T, T, d, causal)
+        per_kernel = {}
+        for name in ("dq", "dkv"):
+            bytes_moved, ops = bounds[name]
+            bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            ms = _median(times[name]["cold"])
+            per_kernel[name] = {
+                "ms": ms, "ms_l2_warm": _median(times[name]["warm"]), "bytes": bytes_moved, "ops": ops,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "achieved_tflops": ops / (ms * 1e-3) / 1e12,
+                "max_abs_err_vs_plain": {n: timed_errs[n] for n in (("dq", "dm", "dl", "dacc") if name == "dq"
+                                                                       else ("dk", "dv"))},
+            }
+        timings["causal" if causal else "non_causal"] = {
+            **per_kernel,
+            "plain_ms": _median(times["plain"]["cold"]), "plain_ms_l2_warm": _median(times["plain"]["warm"]),
+            "kernels_with_divide_ms": _median(times["kernels_with_divide"]["cold"]),
+            "library_ms": _median(times["library"]["cold"]),
+            "library_ms_l2_warm": _median(times["library"]["warm"]),
+            "library_max_abs_diff": lib_diff,
+        }
+        del out, dk, dv, leaves, lib_out, ours_out, l_out, acc_out, fns
+    del q, k, v, g_out, flush
+    torch.cuda.empty_cache()
+    main = timings["non_causal"]  # the training path's fold is non-causal
+    result = {}
+    for kernel, name in ((FLASH_FOLD_BWD_DQ, "dq"), (FLASH_FOLD_BWD_DKV, "dkv")):
+        errs = [max_errs[n] for n in (("dq", "dm", "dl", "dacc") if name == "dq" else ("dk", "dv"))]
+        result[kernel.name] = {
+            "max_abs_err": max(errs), "ms": main[name]["ms"], "ms_l2_warm": main[name]["ms_l2_warm"],
+            "plain_ms": main["plain_ms"], "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
+            "library_ms": main["library_ms"],
+        }
+    emit("kernels_flash_bwd", card=card,
+         shape={"B": B, "T": T, "H": H, "D": d, "name": "ring_attention_causal_T8192_h4_d128"},
+         plain="reference_fold_bwd: the plain version of both kernels",
+         library="torch.autograd.grad of scaled_dot_product_attention(q, k, v) in float32: the backward of "
+                 "fold + acc / l; hold it against kernels_with_divide_ms",
+         by_mask=timings, kernels=result)
+    return result
+
+
+def _attention_documents(n, seed):
+    """``n`` documents of FIT_ATTN_T seeded tokens over the vocabulary, the
+    label of document i class i mod 8, each class planting its own signal
+    token (ATTN_VOCAB - 1 - class) at a seeded FIT_ATTN_SIGNAL share of the
+    positions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = np.arange(n) % ATTN_CLASSES
+    tok = rng.integers(0, ATTN_VOCAB - ATTN_CLASSES, size=(n, FIT_ATTN_T))
+    planted = rng.random((n, FIT_ATTN_T)) < FIT_ATTN_SIGNAL
+    tok = np.where(planted, (ATTN_VOCAB - 1 - y)[:, None], tok)
+    return tok, y.astype(np.float64)
+
+
+def _attention_grads64(params64, tok, y_idx, w, control=None):
+    """Loss and gradients of one window in float64, a document at a time
+    (the gradient is a weighted sum over documents)."""
+    import torch
+
+    leaves = {n: p.detach().clone().requires_grad_(True) for n, p in params64.items()}
+    grads = {n: torch.zeros_like(p) for n, p in leaves.items()}
+    loss = 0.0
+    denom = torch.clamp(w.sum(), min=1e-30)
+    for i in range(tok.shape[0]):
+        if float(w[i]) == 0.0:
+            continue
+        logits, _ = _attention_float64(leaves, tok[i], ATTN_H, control=control)
+        loss_i = w[i] * (torch.logsumexp(logits, dim=-1) - logits[y_idx[i]]) / denom
+        for n, g in zip(leaves, torch.autograd.grad(loss_i, list(leaves.values()))):
+            grads[n] += g
+        loss += float(loss_i)
+    return loss, grads
+
+
+def _reference_attention_fit(init, tok, y_idx, control=None):
+    """The fit written out plainly in float64 on the card: the same initial
+    draws, window schedule (the clamped tail's re-read rows weighted 0) and
+    adam formula, dense attention, gradients by autograd a document at a
+    time. Returns the per-step losses."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    params = {n: torch.from_numpy(np.asarray(a, np.float64)).to(dev) for n, a in init.items()}
+    mu = {n: torch.zeros_like(p) for n, p in params.items()}
+    nu = {n: torch.zeros_like(p) for n, p in params.items()}
+    n, offset, losses = tok.shape[0], 0, []
+    for t in range(1, FIT_ATTN_ITERS + 1):
+        lo = min(offset, n - FIT_ATTN_BATCH)
+        w = torch.from_numpy((np.arange(FIT_ATTN_BATCH) + lo >= offset).astype(np.float64)).to(dev)
+        loss, grads = _attention_grads64(params, tok[lo:lo + FIT_ATTN_BATCH], y_idx[lo:lo + FIT_ATTN_BATCH], w,
+                                         control)
+        with torch.no_grad():
+            for name in params:
+                mu[name] = 0.1 * grads[name] + 0.9 * mu[name]
+                nu[name] = 0.001 * grads[name] * grads[name] + 0.999 * nu[name]
+                params[name] = params[name] - FIT_ATTN_LR * (mu[name] / (1 - 0.9 ** t)) / (
+                    torch.sqrt(nu[name] / (1 - 0.999 ** t)) + 1e-8)
+        losses.append(loss)
+        offset = 0 if offset + FIT_ATTN_BATCH >= n else offset + FIT_ATTN_BATCH
+    return losses
+
+
+def phase_fit_attention(card: str):
+    """SelfAttentionClassifier.fit on the card at bench.py's attention
+    training width, every launch of its fold kernels held against the plain
+    versions, then the fitted model served (module docstring, phase 21)."""
+    import numpy as np
+    import torch
+
+    import flink_ml_tpu_torch.parallel.flash as flash_mod
+    import flink_ml_tpu_torch.parallel.ring as ring_mod
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.classification import attention_classifier as attn
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.parallel import (
+        FLASH_FOLD,
+        FLASH_FOLD_BWD_DKV,
+        FLASH_FOLD_BWD_DQ,
+        reference_fold,
+        reference_fold_bwd,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok, y = _attention_documents(FIT_ATTN_DOCS, FIT_ATTN_TOKEN_SEED)
+    df = DataFrame.from_dict({"features": tok.astype(np.float64), "label": y})
+
+    def estimator(iters):
+        return (attn.SelfAttentionClassifier().set_embedding_dim(ATTN_E).set_num_heads(ATTN_H)
+                .set_vocab_size(ATTN_VOCAB).set_global_batch_size(FIT_ATTN_BATCH).set_learning_rate(FIT_ATTN_LR)
+                .set_max_iter(iters).set_seed(ATTN_PARAM_SEED))
+
+    estimator(1).fit(df)  # warm: libraries loaded, cuBLAS handles made
+    torch.cuda.synchronize()
+
+    # the main path, every fold kernel's inputs and outputs kept
+    real = {"fold": ring_mod.fused_fold, "dq": flash_mod.fold_bwd_dq, "dkv": flash_mod.fold_bwd_dkv}
+    captured = {"fold": [], "dq": [], "dkv": []}
+
+    def keep(kind):
+        def kept(*args):
+            out = real[kind](*args)
+            captured[kind].append((args, out))
+            return out
+        return kept
+
+    for k in KERNELS:
+        k.reset_launches()
+    plain_calls, restore = _count_calls(flash_mod, ("reference_fold", "reference_fold_bwd"))
+    ring_mod.fused_fold, flash_mod.fold_bwd_dq, flash_mod.fold_bwd_dkv = keep("fold"), keep("dq"), keep("dkv")
+    try:
+        est = estimator(FIT_ATTN_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        fit_wall = time.perf_counter() - t0  # ends with the parameters' readback
+        launches = {k.name: k.launches for k in KERNELS}
+    finally:
+        ring_mod.fused_fold, flash_mod.fold_bwd_dq, flash_mod.fold_bwd_dkv = real["fold"], real["dq"], real["dkv"]
+        restore()
+    want_launches = {FLASH_FOLD.name: FIT_ATTN_ITERS, FLASH_FOLD_BWD_DQ.name: FIT_ATTN_ITERS,
+                     FLASH_FOLD_BWD_DKV.name: FIT_ATTN_ITERS}
+    if {n: c for n, c in launches.items() if c} != want_launches:
+        raise AssertionError(f"kernel launches {launches}, expected one fold, dq and dkv launch a step")
+    if plain_calls:
+        raise AssertionError(f"a plain fold version was called on the card's path: {plain_calls}")
+    if any(len(v) != FIT_ATTN_ITERS for v in captured.values()):
+        raise AssertionError(f"captured {({k: len(v) for k, v in captured.items()})} calls")
+    losses = np.asarray(est.loss_history)
+    if losses.shape != (FIT_ATTN_ITERS,) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"loss history {losses}")
+
+    # every launch held against the plain version on its inputs, a
+    # document at a time (no graph: the captured tensors carry the fit's)
+    fold_err, bwd_errs = 0.0, {n: 0.0 for n in FLASH_BWD_NAMES}
+    with torch.no_grad():
+        for step in range(FIT_ATTN_ITERS):
+            (f_args, f_out), (dq_args, dq_out), (dkv_args, dkv_out) = (captured[k][step] for k in ("fold", "dq", "dkv"))
+            tensors, (q_pos0, k_pos0, causal, n_valid, scale) = f_args[:6], f_args[6:]
+            if tuple(tensors[0].shape) != (FIT_ATTN_BATCH, ATTN_H, FIT_ATTN_T, ATTN_E // ATTN_H):
+                raise AssertionError(f"the fold ran at {tuple(tensors[0].shape)}")
+            for i in range(FIT_ATTN_BATCH):
+                where = f"fit_attention step {step + 1}, document {i}"
+                ins = [x[i:i + 1] for x in tensors]
+                want = reference_fold(*ins, q_pos0, k_pos0, causal, n_valid, scale)
+                idle = _idle_rows(ATTN_H, FIT_ATTN_T, FIT_ATTN_T, q_pos0, k_pos0, causal, n_valid, dev)
+                s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", ins[0].abs(), ins[1].abs()).amax(-1)
+                fold_err = max(fold_err, _check_flash([x[i:i + 1] for x in f_out], want, ins[3:], idle, s_mag,
+                                                      where)[0])
+                del want, s_mag
+                doc_in = [x[i:i + 1] for x in dq_args[:6]]
+                doc_cot = [x[i:i + 1] for x in dq_args[11:]]
+                want = reference_fold_bwd(*doc_in, *dq_args[6:11], *doc_cot)
+                got = (dq_out[0][i:i + 1], dkv_out[0][i:i + 1], dkv_out[1][i:i + 1],
+                       *(x[i:i + 1] for x in dq_out[1:4]))
+                unattended = _unattended_keys(ATTN_H, FIT_ATTN_T, FIT_ATTN_T, q_pos0, k_pos0, causal, n_valid, dev)
+                errs, _, _ = _check_flash_bwd(got, want, doc_in[3], idle, unattended, where)
+                for n, e in errs.items():
+                    bwd_errs[n] = max(bwd_errs[n], e)
+                del want
+            if not (dkv_args[0] is dq_args[0] and dkv_args[8] is dq_args[12]):
+                raise AssertionError(f"step {step + 1}: the dkv kernel did not take the dq kernel's inputs")
+    del captured
+    torch.cuda.empty_cache()
+
+    # step 1's gradients against float64 autograd of the plain path
+    y_idx = np.searchsorted(model.labels, y)
+    init = attn._init_params(np.random.default_rng(ATTN_PARAM_SEED), ATTN_VOCAB, ATTN_E, ATTN_CLASSES)
+    params32 = {n: torch.from_numpy(a).to(dev) for n, a in init.items()}
+    params64 = {n: p.double() for n, p in params32.items()}
+    tok_w = torch.from_numpy(tok[:FIT_ATTN_BATCH]).to(dev).long()
+    y_w = torch.from_numpy(y_idx[:FIT_ATTN_BATCH]).to(dev)
+    w32 = torch.ones(FIT_ATTN_BATCH, device=dev)
+    loss32, grads32 = attn._loss_and_grads(params32, tok_w, y_w, w32, FIT_ATTN_T, ATTN_H)
+    loss64, grads64 = _attention_grads64(params64, tok_w, y_w, w32.double())
+    _, grads_bf16 = _attention_grads64(params64, tok_w, y_w, w32.double(), control="bf16_qkv")
+
+    def grad_err(grads):
+        return max(float((grads[n].double() - grads64[n]).abs().max() / grads64[n].abs().max()) for n in grads64)
+
+    step1_err, step1_bf16 = grad_err(grads32), grad_err(grads_bf16)
+    del grads32, grads64, grads_bf16, params32
+    torch.cuda.empty_cache()
+
+    # the loss history against a float64 fit of the same schedule
+    losses64 = np.asarray(_reference_attention_fit(init, torch.from_numpy(tok).to(dev).long(),
+                                                   torch.from_numpy(y_idx).to(dev)))
+    losses_bf16 = np.asarray(_reference_attention_fit(init, torch.from_numpy(tok).to(dev).long(),
+                                                      torch.from_numpy(y_idx).to(dev), control="bf16_qkv"))
+    loss_err = float(np.max(np.abs(losses - losses64) / np.abs(losses64)))
+    loss_bf16 = float(np.max(np.abs(losses_bf16 - losses64) / np.abs(losses64)))
+    torch.cuda.empty_cache()
+
+    # steady ms per step from two iteration counts, and one traced step
+    walls = {}
+    for iters in FIT_ATTN_STEP_ITERS + FIT_ATTN_STEP_ITERS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        estimator(iters).fit(df)
+        walls.setdefault(iters, []).append(time.perf_counter() - t0)
+    lo_it, hi_it = FIT_ATTN_STEP_ITERS
+    step_ms = (min(walls[hi_it]) - min(walls[lo_it])) / (hi_it - lo_it) * 1e3
+    params = {n: torch.from_numpy(a).to(dev) for n, a in init.items()}
+    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
+    profile = _profile_steps(lambda: attn._train_step(params, zeros, zeros, 1, tok_w, y_w, w32, FIT_ATTN_T,
+                                                      ATTN_H, FIT_ATTN_LR))
+    profile["iterations"] = 1
+
+    def share(tag):
+        ms = sum(e["ms"] for e in profile["top"] if tag in e["name"])
+        return ms / profile["device_busy_ms"] if profile["device_busy_ms"] else None
+
+    # the fitted model serves held-out documents, against float64
+    held, held_y = _attention_documents(FIT_ATTN_HELD, FIT_ATTN_TOKEN_SEED + 1)
+    out = model.transform(DataFrame.from_dict({"features": held.astype(np.float64)}))
+    probs = np.asarray(out.column("rawPrediction"))
+    if probs.shape != (FIT_ATTN_HELD, ATTN_CLASSES) or not np.all(np.isfinite(probs)):
+        raise AssertionError(f"rawPrediction has shape {probs.shape} or a non-finite value")
+    fitted64 = {n: torch.from_numpy(np.asarray(a, np.float64)).to(dev) for n, a in model.params.items()}
+    prob_err, prob_bf16, prob_uniform = 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for i in range(FIT_ATTN_HELD):
+            t = torch.from_numpy(held[i]).to(dev)
+            want = torch.softmax(_attention_float64(fitted64, t, ATTN_H)[0], dim=-1).cpu().numpy()
+            prob_err = max(prob_err, float(np.abs(probs[i] - want).max()))
+            for control in ("bf16_qkv", "uniform"):
+                c = torch.softmax(_attention_float64(fitted64, t, ATTN_H, control=control)[0], dim=-1).cpu().numpy()
+                if control == "bf16_qkv":
+                    prob_bf16 = max(prob_bf16, float(np.abs(c - want).max()))
+                else:
+                    prob_uniform = max(prob_uniform, float(np.abs(c - want).max()))
+    accuracy = float(np.mean(np.asarray(out.column("prediction")) == held_y))
+    result = {
+        "config": {"E": ATTN_E, "H": ATTN_H, "head_dim": ATTN_E // ATTN_H, "vocab": ATTN_VOCAB,
+                   "classes": ATTN_CLASSES, "T": FIT_ATTN_T, "docs": FIT_ATTN_DOCS, "globalBatchSize": FIT_ATTN_BATCH,
+                   "maxIter": FIT_ATTN_ITERS, "learningRate": FIT_ATTN_LR, "param_seed": ATTN_PARAM_SEED,
+                   "token_seed": FIT_ATTN_TOKEN_SEED, "signal_share": FIT_ATTN_SIGNAL},
+        "launches": launches, "plain_calls": len(plain_calls), "fit_wall_s": fit_wall,
+        "fold_max_abs_err_vs_plain": fold_err, "bwd_max_abs_err_vs_plain": bwd_errs, "bwd_rtol": FLASH_BWD_RTOL,
+        "loss_history": losses.tolist(), "loss_history_float64": losses64.tolist(),
+        "loss_max_rel_err": loss_err, "loss_rtol": FIT_ATTN_LOSS_RTOL, "bf16_control_loss_max_rel_err": loss_bf16,
+        "step1_loss": float(loss32), "step1_loss_float64": loss64, "step1_grad_max_rel_err": step1_err,
+        "grad_rtol": FIT_ATTN_GRAD_RTOL, "bf16_control_step1_grad_max_rel_err": step1_bf16,
+        "ms_per_step": step_ms, "fit_walls_s": {str(k): v for k, v in walls.items()},
+        "tokens_per_s": FIT_ATTN_BATCH * FIT_ATTN_T / (step_ms * 1e-3),
+        "device_idle_share": profile["idle_share"],
+        "fold_share_of_device_time": share("flash_fold_kernel"),
+        "dq_share_of_device_time": share("fold_bwd_dq_kernel"),
+        "dkv_share_of_device_time": share("fold_bwd_dkv_kernel"),
+        "profile": profile,
+        "served": {"docs": FIT_ATTN_HELD, "max_prob_err": prob_err, "prob_atol": FIT_ATTN_PROB_ATOL,
+                   "bf16_control_max_prob_err": prob_bf16, "uniform_control_max_prob_err": prob_uniform,
+                   "uniform_control_outside_prob_atol": prob_uniform > FIT_ATTN_PROB_ATOL,
+                   "accuracy": accuracy},
+    }
+    emit("fit_attention", card=card, **result)
+    # the checks of the readings above (emitted first, so a failing run
+    # still shows every reading)
+    if not step1_err <= FIT_ATTN_GRAD_RTOL:
+        raise AssertionError(f"step-1 gradients {step1_err} from float64 (relative to each one's largest) > "
+                             f"{FIT_ATTN_GRAD_RTOL}")
+    if not step1_bf16 > FIT_ATTN_GRAD_RTOL:
+        raise AssertionError(f"the bf16 q/k/v control's gradients ({step1_bf16}) are inside {FIT_ATTN_GRAD_RTOL}")
+    if not loss_err <= FIT_ATTN_LOSS_RTOL:
+        raise AssertionError(f"loss history {losses} vs float64 {losses64}: {loss_err} > {FIT_ATTN_LOSS_RTOL}")
+    if not loss_bf16 > FIT_ATTN_LOSS_RTOL:
+        raise AssertionError(f"the bf16 q/k/v fit's losses ({loss_bf16}) are inside {FIT_ATTN_LOSS_RTOL}")
+    if not prob_err <= FIT_ATTN_PROB_ATOL:
+        raise AssertionError(f"the fitted model's probabilities {prob_err} from float64 > {FIT_ATTN_PROB_ATOL}")
+    if not prob_bf16 > FIT_ATTN_PROB_ATOL:
+        raise AssertionError(f"the bf16 q/k/v control ({prob_bf16}) is inside {FIT_ATTN_PROB_ATOL}")
+    return {FLASH_FOLD_BWD_DQ.name: launches[FLASH_FOLD_BWD_DQ.name],
+            FLASH_FOLD_BWD_DKV.name: launches[FLASH_FOLD_BWD_DKV.name]}
+
+
 def main() -> int:
     import torch
 
@@ -3477,7 +4033,7 @@ def main() -> int:
     from flink_ml_tpu_torch.native import KERNELS
     import flink_ml_tpu_torch.linalg.onehot_sparse  # noqa: F401 — defines the crossing kernels
     import flink_ml_tpu_torch.servable.megakernels  # noqa: F401 — defines the serving megakernels
-    from flink_ml_tpu_torch.parallel import FLASH_FOLD  # defines the ring-attention fold
+    from flink_ml_tpu_torch.parallel import FLASH_FOLD  # defines the ring-attention fold and its backward
     from flink_ml_tpu_torch.servable.megakernels import (
         ROWLOCAL,
         SCALE_KMEANS,
@@ -3518,6 +4074,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     measured[FLASH_FOLD.name] = phase_kernels_flash(rng, smi)
     launches[FLASH_FOLD.name] = phase_serve_attention(smi)
+    torch.cuda.empty_cache()
+    measured.update(phase_kernels_flash_bwd(rng, smi))
+    launches.update(phase_fit_attention(smi))
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
@@ -3536,8 +4095,8 @@ def main() -> int:
         })
         if not launches[kernel.name] > 0:
             raise AssertionError(f"{kernel.name} was never launched on its path")
-    if len(lines) != 10:
-        raise AssertionError(f"{len(lines)} kernels registered, expected 10")
+    if len(lines) != 12:
+        raise AssertionError(f"{len(lines)} kernels registered, expected 12")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""Self-attention sequence classifier, the serving half — twin of
+"""Self-attention sequence classifier — twin of
 ``flink_ml_tpu/models/classification/attention_classifier.py``.
 
 Architecture, as in the JAX package: token embedding → one multi-head
@@ -11,8 +11,14 @@ CPU. Parameters keep the JAX layout (``emb [vocab, E]``, ``wq``/``wk``/
 ``wv``/``wo [E, E]``, ``w_cls [E, C]``, ``b_cls [C]``), so model data
 crosses between the packages unchanged.
 
-Not ported yet: the ``SelfAttentionClassifier`` Estimator (``fit``), whose
-training step needs the fold's backward kernels (ROADMAP.md Queue A 3).
+Training (``SelfAttentionClassifier.fit``): adam on the weighted softmax
+cross-entropy of a contiguous window of documents per step, the window
+cycling as in the JAX package with the clamped tail's re-read rows weighted
+0. The gradient is ``torch.autograd`` through ``_forward``; the fold's part
+of it is the fold's own backward (``parallel/flash.py``): the dq and dkv
+kernels of ``csrc/flash_fold_bwd.cu`` on the card, the plain VJP on the
+CPU. The ring is one shard, so no gradient is summed across shards, and
+adam is ``mlp_classifier.py``'s ``_adam_step`` (optax's order).
 """
 from __future__ import annotations
 
@@ -21,11 +27,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from flink_ml_tpu_torch.api.core import Model
+from flink_ml_tpu_torch.api.core import Estimator, Model
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
-from flink_ml_tpu_torch.params.param import IntParam, ParamValidators
+from flink_ml_tpu_torch.models.classification.mlp_classifier import _adam_step
+from flink_ml_tpu_torch.params.param import IntParam, ParamValidators, update_existing_params
 from flink_ml_tpu_torch.params.shared import (
     HasFeaturesCol,
     HasGlobalBatchSize,
@@ -36,10 +43,11 @@ from flink_ml_tpu_torch.params.shared import (
     HasRawPredictionCol,
     HasSeed,
 )
+from flink_ml_tpu_torch.parallel.flash import MAX_HEAD_DIM, flash_train_available
 from flink_ml_tpu_torch.parallel.ring import ring_attention
 from flink_ml_tpu_torch.utils import read_write as rw
 
-__all__ = ["SelfAttentionClassifierModel"]
+__all__ = ["SelfAttentionClassifier", "SelfAttentionClassifierModel"]
 
 
 class _AttnParams(
@@ -124,6 +132,50 @@ def _forward(params: Dict[str, torch.Tensor], tok: torch.Tensor, n_valid: int, n
     return pooled @ params["w_cls"] + params["b_cls"]
 
 
+def _loss_and_grads(params: Dict[str, torch.Tensor], tok: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    n_valid: int, n_heads: int):
+    """The window's weighted mean softmax cross-entropy, ``sum(losses · w) /
+    max(sum(w), 1e-30)`` (optax's ``softmax_cross_entropy_with_integer_labels``
+    per document), and its gradient in each parameter, by autograd through
+    :func:`_forward`. Returns ``(loss, {name: grad})``, detached."""
+    leaves = {name: p.detach().requires_grad_(True) for name, p in params.items()}
+    logits = _forward(leaves, tok, n_valid, n_heads)
+    losses = torch.logsumexp(logits, dim=-1) - logits.gather(1, y[:, None])[:, 0]
+    loss = torch.sum(losses * w) / torch.clamp(torch.sum(w), min=1e-30)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _train_step(params: Dict[str, torch.Tensor], mu, nu, t: int, tok, y, w, n_valid: int, n_heads: int,
+                lr: float):
+    """One adam step (step number ``t`` from 1) on one window: the twin of
+    the JAX package's ``_train_step``. ``mu``/``nu`` are the moments by
+    parameter name. Returns ``(params, mu, nu, loss)``, new dicts."""
+    loss, grads = _loss_and_grads(params, tok, y, w, n_valid, n_heads)
+    names = list(params)
+    with torch.no_grad():
+        stepped = _adam_step([params[n] for n in names], [grads[n] for n in names],
+                             [mu[n] for n in names], [nu[n] for n in names], t, lr)
+    new_params, new_mu, new_nu = ({n: s[i] for n, s in zip(names, stepped)} for i in range(3))
+    return new_params, new_mu, new_nu, loss
+
+
+def _use_flash_train(tok: np.ndarray, emb: int, n_heads: int, batch: int, device) -> bool:
+    """Whether the fold's kernels run this training step's shape on
+    ``device`` (``flash_train_available`` at the one shard's local length).
+    On the card the fold has no other route, so ``fit`` refuses a shape
+    they do not run; the CPU runs the plain fold and its VJP."""
+    return flash_train_available(tok.shape[1], emb // n_heads, batch, n_heads, device)
+
+
+def _pad_tokens(tok: np.ndarray):
+    """The JAX package pads the sequence axis to a multiple of its shard
+    count with token 0, which ``n_valid`` masks from the attention keys and
+    the pool. The port's ring is one shard, so nothing is padded. Returns
+    ``(tokens, real length)``."""
+    return tok, tok.shape[1]
+
+
 class SelfAttentionClassifierModel(Model, _AttnParams):
     """Serving side: one forward pass of the whole batch;
     prediction = ``labels[argmax]``."""
@@ -195,3 +247,63 @@ class SelfAttentionClassifierModel(Model, _AttnParams):
         self.params = {name: np.asarray(a, np.float32) for name, a in df.column("params")[0].items()}
         self.labels = np.asarray(df.column("labels")[0])
         return self
+
+
+class SelfAttentionClassifier(Estimator, _AttnParams):
+    """Adam training of the classifier on one device."""
+
+    def fit(self, *inputs, device=None) -> SelfAttentionClassifierModel:
+        """Train on ``device`` (None → the GPU) from the JAX package's
+        initial weights and window schedule. Records ``loss_history`` (each
+        step's weighted loss) on the estimator."""
+        (df,) = inputs
+        emb, n_heads = self.get_embedding_dim(), self.get_num_heads()
+        if emb % n_heads:
+            raise ValueError(f"embeddingDim {emb} must divide evenly by numHeads {n_heads}")
+        tok = np.asarray(df.vectors(self.get_features_col()), np.int32)
+        if tok.min() < 0:
+            raise ValueError("token ids must be non-negative")
+        label_col = np.asarray(df.scalars(self.get_label_col()))
+        labels = np.unique(label_col)
+        y_idx = np.searchsorted(labels, label_col)
+        vocab = self.get_vocab_size() or int(tok.max()) + 1
+        if tok.max() >= vocab:
+            raise ValueError(f"token id {tok.max()} >= vocabSize {vocab}")
+
+        dev = resolve_device(device)
+        tok, t_real = _pad_tokens(tok)
+        n = tok.shape[0]
+        batch = min(self.get_global_batch_size(), n)
+        if dev.type == "cuda" and not _use_flash_train(tok, emb, n_heads, batch, dev):
+            raise ValueError(f"the fold's kernels hold head dims up to {MAX_HEAD_DIM}, got {emb // n_heads}")
+        init = _init_params(np.random.default_rng(self.get_seed()), vocab, emb, len(labels))
+        params = {name: torch.from_numpy(a).to(dev) for name, a in init.items()}
+        mu = {name: torch.zeros_like(p) for name, p in params.items()}
+        nu = {name: torch.zeros_like(p) for name, p in params.items()}
+        tok_dev = torch.from_numpy(tok).to(dev).long()
+        y_dev = torch.from_numpy(y_idx).to(dev)
+        lr = self.get_learning_rate()
+        offset = 0
+        windows = {}  # (lo, offset) -> device tensors; the cycle is short
+        losses = []
+        for t in range(1, self.get_max_iter() + 1):
+            # contiguous example window per step, cycling like the JAX fit;
+            # at the clamped tail, rows before the logical offset are re-reads
+            # and get zero weight. Windows are built once per (lo, offset).
+            lo = min(offset, n - batch)
+            key = (lo, offset)
+            if key not in windows:
+                weight = (np.arange(batch) + lo >= offset).astype(np.float32)
+                windows[key] = (tok_dev[lo:lo + batch], y_dev[lo:lo + batch], torch.from_numpy(weight).to(dev))
+            tok_w, y_w, w_w = windows[key]
+            params, mu, nu, loss = _train_step(params, mu, nu, t, tok_w, y_w, w_w, t_real, n_heads, lr)
+            losses.append(loss)
+            offset = 0 if offset + batch >= n else offset + batch
+        self.loss_history = torch.stack(losses).cpu().tolist() if losses else []
+
+        model = SelfAttentionClassifierModel()
+        update_existing_params(model, self)
+        model.set_vocab_size(vocab)
+        model.params = {name: p.cpu().numpy() for name, p in params.items()}
+        model.labels = labels.astype(np.float64)
+        return model

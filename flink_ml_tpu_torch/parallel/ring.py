@@ -6,10 +6,12 @@ into its streaming-softmax state, then passes the block to the next shard
 (``ppermute``). The port's ring is one shard today: the whole sequence is
 the local block, and attention is one fold at ``q_pos0 = k_pos0 = 0``
 through ``parallel/flash.py``'s ``fused_fold`` — the CUDA kernel for CUDA
-tensors, the plain fold for CPU tensors. Rotating K/V over ranks
-(``torch.distributed`` send/recv) comes with the port's collectives
-(ROADMAP.md Queue A 6); the fold already takes the global positions a
-rotation would give it.
+tensors, the plain fold for CPU tensors. Gradients flow through it all: the
+transposes, the fold (an ``autograd.Function`` whose backward is the two
+backward kernels on the card, the plain VJP on the CPU) and
+``acc / clamp(l, 1e-30)``. Rotating K/V over ranks (``torch.distributed``
+send/recv) comes with the port's collectives (ROADMAP.md Queue A 6); the
+fold already takes the global positions a rotation would give it.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ def ring_attention(q, k, v, causal: bool = False, n_valid: Optional[int] = None)
     own; ``n_valid`` masks keys at positions >= it (required when the
     sequence was padded and ``causal`` is off). The fold is ``fused_fold``:
     on the card it takes float32 and head dims up to ``MAX_HEAD_DIM``, and
-    raises for anything else."""
+    raises for anything else. Differentiable in ``q``, ``k`` and ``v``."""
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     # [B, H, T, D] for the fold: one transpose in, one out

@@ -53,6 +53,7 @@ _BINARIZER = "flink_ml_tpu_torch.models.feature.binarizer.Binarizer"
 _IMPUTER = "flink_ml_tpu_torch.models.feature.imputer.Imputer"
 _IMPUTER_MODEL = "flink_ml_tpu_torch.models.feature.imputer.ImputerModel"
 _ATTN_MODEL = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAttentionClassifierModel"
+_ATTN = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAttentionClassifier"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -91,6 +92,7 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     # the stage only.
     "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifierModel":
         (None, _ATTN_MODEL),
+    "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifier": (None, _ATTN),
 }
 
 

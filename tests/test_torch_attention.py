@@ -3,7 +3,8 @@ fold against ``reference_fold`` and the Pallas fold in interpret mode, ring
 attention on one shard against ``ring_attention_sharded`` and the flash ring
 program, SelfAttentionClassifierModel.transform against the JAX transform
 and ``_predict_step`` with the Pallas fold, save/load both ways, and the
-``fused_fold`` wrapper's device and gradient rules. Tests of the CUDA kernel
+``fused_fold`` wrapper's device rules and what it refuses under grad (its
+gradients: ``test_torch_attention_train.py``). Tests of the CUDA kernel
 itself are in ``test_torch_gpu.py``.
 
 The JAX side runs on a one-device ``MeshContext(n_data=1, n_model=1)``, so
@@ -225,13 +226,32 @@ def test_fused_fold_on_cpu_runs_the_plain_version_without_counting():
 
 
 def test_fused_fold_refuses_inputs_that_require_grad():
-    inputs = [_t(a) for a in _fold_inputs(3)]
+    """Under grad the fold is an ``autograd.Function`` (its gradients are
+    held in ``test_torch_attention_train.py``); what it refuses: a second
+    derivative (its backward is ``once_differentiable``), and on the card
+    the kernels' dtype and head-dim limits, checked before any launch."""
+    import flink_ml_tpu_torch.parallel.flash as flash_mod
+
+    inputs = [_t(a) for a in _fold_inputs(3, state="carried")]
     inputs[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        fused_fold(*inputs, 0, 0, False, None, 0.25)
-    # no graph is recorded under no_grad, so nothing would be detached
+    m, l, acc = fused_fold(*inputs, 0, 0, False, None, 0.25)
+    (dq,) = torch.autograd.grad(torch.sum((acc / l[..., None]) ** 2), inputs[0], create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+    # no graph is recorded under no_grad
     with torch.no_grad():
-        fused_fold(*inputs, 0, 0, False, None, 0.25)
+        assert all(t.grad_fn is None for t in fused_fold(*inputs, 0, 0, False, None, 0.25))
+    # the checks a CUDA launch makes, forward and backward, whatever requires grad
+    before = (FLASH_FOLD.launches, flash_mod.FLASH_FOLD_BWD_DQ.launches, flash_mod.FLASH_FOLD_BWD_DKV.launches)
+    rows, mats = {"m": inputs[3], "l": inputs[4]}, {"acc": inputs[5]}
+    with pytest.raises(TypeError, match="float32"):
+        flash_mod._kernel_shapes("fold", inputs[0].double(), *inputs[1:3], rows, mats)
+    wide = [torch.zeros((1, 1, 4, MAX_HEAD_DIM + 1), requires_grad=True) for _ in range(3)]
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mod._kernel_shapes("fold", *wide)
+    flash_mod._kernel_shapes("fold", *inputs[:3], rows, mats)  # what the kernels take passes
+    assert (FLASH_FOLD.launches, flash_mod.FLASH_FOLD_BWD_DQ.launches,
+            flash_mod.FLASH_FOLD_BWD_DKV.launches) == before
 
 
 def test_fused_fold_raises_for_tensors_it_has_no_path_for():

@@ -954,7 +954,7 @@ def _fold_case(BH, Tq, Tk, d, state, device, seed):
     return [t(a) for a in (q, k, v, m, l, acc)]
 
 
-def _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
+def _attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
     q_pos = q_pos0 + torch.arange(Tq, device=device)[:, None]
     k_pos = k_pos0 + torch.arange(Tk, device=device)[None, :]
     keep = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
@@ -962,7 +962,11 @@ def _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
         keep &= q_pos >= k_pos
     if n_valid is not None:
         keep &= k_pos < n_valid
-    return ~keep.any(dim=1)
+    return keep
+
+
+def _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
+    return ~_attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device).any(dim=1)
 
 
 def _check_fold_on_card(got, want, inputs, idle, s_mag, where):
@@ -1023,10 +1027,18 @@ def test_flash_fold_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dims"):
         fused_fold(*big, torch.zeros((1, 1, 4), device=cuda), torch.zeros((1, 1, 4), device=cuda),
                    big[0], 0, 0, False, None, 0.25)
-    inputs[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        fused_fold(*inputs, 0, 0, False, None, 0.25)
+    # under grad the same limits hold, forward and backward
+    grad_in = [x.clone().requires_grad_(True) for x in inputs]
+    with pytest.raises(TypeError, match="float32"):
+        fused_fold(grad_in[0].double(), *grad_in[1:], 0, 0, False, None, 0.25)
+    with pytest.raises(ValueError, match="head dims"):
+        fused_fold(*[b.clone().requires_grad_(True) for b in big], torch.zeros((1, 1, 4), device=cuda),
+                   torch.zeros((1, 1, 4), device=cuda), big[0], 0, 0, False, None, 0.25)
     assert FLASH_FOLD.launches == before
+    m, l, acc = fused_fold(*grad_in, 0, 0, False, None, 0.25)
+    (dq,) = torch.autograd.grad(torch.sum((acc / l[..., None]) ** 2), grad_in[0], create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
 
 
 def test_flash_fold_chain_in_ring_order_matches_float64_dense_attention(cuda):
@@ -1083,3 +1095,142 @@ def test_attention_transform_on_the_card_launches_one_fold(cuda):
                                1.0 / np.sqrt(16))
     plain = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
     torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the fold's backward kernels (csrc/flash_fold_bwd.cu) and training
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.models.classification.attention_classifier import SelfAttentionClassifier  # noqa: E402
+from flink_ml_tpu_torch.parallel import (  # noqa: E402
+    FLASH_FOLD_BWD_DKV,
+    FLASH_FOLD_BWD_DQ,
+    fold_bwd_dkv,
+    fold_bwd_dq,
+    reference_fold_bwd,
+)
+
+BWD_CASES = FOLD_CASES + [("ties_carried_nv", False, 201, 0, 0, "ties")]
+BWD_RTOL = 2e-5  # of |plain| plus the tensor's largest magnitude: products and row sums in another order
+
+
+def _bwd_case(BH, Tq, Tk, d, state, device, seed):
+    """A fold's inputs and cotangents with q and k on a 1/8 grid in [-1, 1]:
+    every score is then exact in any summation order, so the kernels and
+    the plain version find the same row maxima and ties (at a near-tie the
+    fold's gradient jumps, and two summation orders could pick two keys).
+    ``ties``: every key duplicated once and the carried m equal to the
+    block max on every third row."""
+    rng = np.random.default_rng(seed)
+    state_of = "carried" if state == "ties" else state
+    q, k, v, m, l, acc = _fold_case(BH, Tq, Tk, d, state_of, device, seed)
+    q = torch.from_numpy(rng.integers(-8, 9, size=(1, BH, Tq, d)) / 8).float().to(device)
+    k_np = rng.integers(-8, 9, size=(1, BH, Tk, d)) / 8
+    if state == "ties":
+        k_np[:, :, 1::2] = k_np[:, :, 0:Tk - 1:2]
+    k = torch.from_numpy(k_np).float().to(device)
+    cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+           for s in ((1, BH, Tq), (1, BH, Tq), (1, BH, Tq, d))]
+    return [q, k, v, m, l, acc], cot
+
+
+def _check_bwd_on_card(got, want, inputs, idle, unattended_keys, where, rtol=BWD_RTOL):
+    """Each gradient within ``rtol`` of |plain| + the tensor's largest
+    magnitude; rows with no attendable key exact (dq 0, dl_in and dacc_in
+    the state times its correction, dm_in = dm / 2 where m is -inf); keys
+    no query attends exactly 0 in dk and dv; no NaN."""
+    names = ("dq", "dk", "dv", "dm", "dl", "dacc")
+    for name, g, w in zip(names, got, want):
+        assert not torch.isnan(g).any(), f"{where} {name}"
+        scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        err = (g - w).abs()
+        assert torch.all(err <= rtol * (w.abs() + scale)), f"{where} {name}: {float(err.max())}"
+    dq, dk, dv, dm_in, dl_in, dacc_in = got
+    m_in = inputs[3]
+    assert torch.all(dq[idle] == 0), where
+    assert torch.equal(dl_in[idle], want[4][idle]) and torch.equal(dacc_in[idle], want[5][idle]), where
+    fresh = idle & torch.isneginf(m_in)
+    assert torch.equal(dm_in[fresh], want[3][fresh]), where
+    assert torch.all(dk[unattended_keys] == 0) and torch.all(dv[unattended_keys] == 0), where
+
+
+def _unattended_keys(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device):
+    return ~_attends(Tq, Tk, q_pos0, k_pos0, causal, n_valid, device).any(dim=0)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in BWD_CASES])
+@pytest.mark.parametrize("d", (8, 64, 100, 128, 256))
+@pytest.mark.parametrize("Tq,Tk", ((1, 1), (63, 200), (130, 64), (256, 257)))
+@pytest.mark.parametrize("BH", (1, 3))
+def test_flash_fold_bwd_kernels_match_plain_version(cuda, case, d, Tq, Tk, BH):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, causal, nv, q_pos0, k_pos0, state = next(c for c in BWD_CASES if c[0] == case)
+    n_valid = None if nv is None else k_pos0 + nv
+    inputs, (dm, dl, dacc) = _bwd_case(BH, Tq, Tk, d, state, cuda, seed=Tq + 3 * Tk + d)
+    scale = 1.0 / np.sqrt(d)
+    if state == "ties":  # m equal to the block max on every third row
+        s = torch.einsum("bhqd,bhkd->bhqk", inputs[0], inputs[1]) * scale
+        s[..., n_valid:] = -torch.inf
+        inputs[3][..., ::3] = s.amax(-1)[..., ::3]
+    before = (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches)
+    dq, dm_in, dl_in, dacc_in, safe, bmax, dbc = fold_bwd_dq(*inputs, q_pos0, k_pos0, causal, n_valid, scale,
+                                                            dm, dl, dacc)
+    dk, dv = fold_bwd_dkv(*inputs[:3], q_pos0, k_pos0, causal, n_valid, scale, dl, dacc, safe, bmax, dbc)
+    want = reference_fold_bwd(*inputs, q_pos0, k_pos0, causal, n_valid, scale, dm, dl, dacc)
+    torch.cuda.synchronize()
+    assert (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches) == (before[0] + 1, before[1] + 1)
+    idle = _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tq)
+    unattended = _unattended_keys(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tk)
+    _check_bwd_on_card((dq, dk, dv, dm_in, dl_in, dacc_in), want, inputs, idle, unattended,
+                       f"{case} BH={BH} Tq={Tq} Tk={Tk} d={d}")
+
+
+def test_flash_fold_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    inputs, (dm, dl, dacc) = _bwd_case(2, 8, 8, 16, "first", cuda, seed=1)
+    before = (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches)
+    with pytest.raises(TypeError, match="float32"):
+        fold_bwd_dq(*inputs, 0, 0, False, None, 0.25, dm.double(), dl, dacc)
+    with pytest.raises(ValueError, match="contiguous"):
+        fold_bwd_dq(*inputs, 0, 0, False, None, 0.25, dm, dl, dacc.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="shape"):
+        fold_bwd_dkv(*inputs[:3], 0, 0, False, None, 0.25, dl, dacc, dm[..., :4], dm, dm)
+    assert (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches) == before
+
+
+def test_ring_attention_gradients_on_the_card_launch_both_backward_kernels(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 90, 2, 32)).astype(np.float32)) for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((2, 90, 2, 32)).astype(np.float32))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(ring_attention(*leaves, causal=True, n_valid=77), leaves, g)
+    for kernel in (FLASH_FOLD, FLASH_FOLD_BWD_DQ, FLASH_FOLD_BWD_DKV):
+        kernel.reset_launches()
+    leaves = [x.to(cuda).requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(ring_attention(*leaves, causal=True, n_valid=77), leaves, g.to(cuda))
+    assert (FLASH_FOLD.launches, FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches) == (1, 1, 1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_attention_fit_on_the_card_matches_the_cpu_fit(cuda):
+    rng = np.random.default_rng(13)
+    tok = rng.integers(0, 50, size=(5, 300))
+    y = np.array([0.0, 1.0, 1.0, 0.0, 1.0])
+    tok = np.where(rng.random((5, 300)) < 0.3, np.where(y[:, None] == 1.0, 7, 5), tok).astype(np.float64)
+    df = DataFrame.from_dict({"features": tok, "label": y})
+
+    def fit(device):
+        est = (SelfAttentionClassifier().set_embedding_dim(64).set_num_heads(4).set_max_iter(3)
+               .set_global_batch_size(2).set_learning_rate(1e-2).set_seed(2))
+        return est, est.fit(df, device=device)
+
+    for kernel in (FLASH_FOLD, FLASH_FOLD_BWD_DQ, FLASH_FOLD_BWD_DKV):
+        kernel.reset_launches()
+    est, model = fit(None)
+    assert (FLASH_FOLD.launches, FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches) == (3, 3, 3)
+    cpu_est, cpu_model = fit("cpu")
+    np.testing.assert_allclose(est.loss_history, cpu_est.loss_history, rtol=1e-5)
+    out = model.transform(df, device="cpu")
+    ref = cpu_model.transform(df, device="cpu")
+    np.testing.assert_allclose(out.column("rawPrediction"), ref.column("rawPrediction"), rtol=0, atol=1e-4)
