@@ -7,8 +7,9 @@ Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
 card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
 self-attention serving, wide-sparse, MLP, KMeans and self-attention
-training. Phases, one
-JSON line each:
+training, and Pipelines fitted, transformed in the batch tier and served.
+Phases, one JSON line each (the numbers give the order of description; main
+runs 25 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -54,8 +55,9 @@ JSON line each:
                checked against float64 numpy; megakernel launches equal the
                batches whose (bucket, cap) key is hot, 0 fallbacks, 0 chains
                built after warmup, the plain version never called;
-10. kernels_mlp — the scale → mlp megakernel against its plain version over
-               rows × networks (256→512→512→8, 100→64→2, 8→16→3 and one at
+10. kernels_mlp — the MLP megakernel on ("scale", "mlp") (a one-op table
+               prologue) and ("mlp",) (an empty one) against its plain
+               version over rows × networks (256→512→512→8, 100→64→2, 8→16→3 and one at
                the kernel's layer, width and class limits) × chain (the four
                scaler flag combinations, the MLP alone): scaled bit-equal,
                probabilities within the fast tier's envelope, prediction
@@ -192,10 +194,58 @@ JSON line each:
                trace of one step (idle share, each fold kernel's share); the
                fitted model's probabilities on 8 held-out documents against
                float64 (its bfloat16 control outside, the uniform-attention
-               control read).
+               control read);
+22. kernels_chains — the chains of the Pipeline slice against their plain
+               versions: ("normalize", "kmeans") and ("scale", "normalize",
+               "kmeans") on the row-local kernel's kmeans op over rows
+               (CHECK_ROWS) × d (8, 100, 256, 1000) × k (1, 10, 1024) × the
+               three measures, with a zero row, a NaN feature and a duplicate
+               centroid (scaled bit-equal, normalized within the feature6
+               envelope, the index equal past a 1e-4 float64 top-two gap);
+               ("normalize", "mlp") and ("elementwise_product", "scale",
+               "mlp") on the MLP kernel's table prologue over the MLP grid's
+               rows × networks (the published one, 100→64→2, 8→16→3 and the
+               kernel's limits); ("sparse_idf",) on the sparse kernel's
+               head-less mode over rows × nnz caps 1…64 × d (bit-equal to
+               float32 values * idf[ids]); every chain of the named residue
+               asserted refused; then cold and warm CUDA-event times of
+               normalize → kmeans at 4096 × 100, k 10, normalize → mlp at
+               4096 × 256→512→512→8 and sparse_idf at serve_sparse's hot key
+               (4096 rows, cap 64, d = 2^22), each beside its plain version
+               and its bound (no single PyTorch call computes any of them);
+23. pipeline_kmeans — Pipeline([StandardScaler, Normalizer(p 2), KMeans(k 10,
+               maxIter 10)]) fitted by ``Pipeline.fit`` on kmeans-benchmark.json's
+               100,000 × 100 rows; ``PipelineModel.transform`` under
+               fusion.mode=fast in the batch tier at 65,536-row chunks (two,
+               the second ragged): the chain ("scale", "normalize") on the
+               row-local kernel once a chunk, one build per chunk signature
+               (none on a second call), held against the per-stage path and
+               float64 numpy (clusters past a 1e-4 gap); then saved,
+               ``PipelineModel.load_servable``d and served by
+               ``InferenceServer`` to 64 requests of 1–4096 rows from 4
+               clients: the chain ("scale", "normalize", "kmeans") on the
+               row-local kernel once per batch of bucket ≥ 512, no plain
+               version called, 0 fallbacks, 0 post-warmup builds;
+24. pipeline_mlp — Pipeline([Normalizer(p 2), MLPClassifier]) fitted by
+               ``Pipeline.fit`` at mlpclassifier-benchmark.json (256 → [512,
+               512] → 8, 100,000 rows, maxIter 10, batch 4096), saved, loaded
+               and served the same way: ("normalize", "mlp") on the MLP
+               kernel's prologue once per batch of bucket ≥ 2, probabilities
+               within 1e-5 of a float64 forward on the same weights;
+25. pipeline_sparse — PipelineModel([IDF, LogisticRegression]) (serve_sparse's
+               fitted models) transformed over the 250,000 headline rows in
+               the batch tier: ("sparse_idf", "sparse_logistic") on the sparse
+               kernel once a 65,536-row chunk, tf-idf bit-equal to the
+               per-stage path and to float32 values * idf[ids], the
+               probabilities against float64; and a one-stage
+               PipelineModel([IDFModel]) saved, loaded and served as a TF-IDF
+               featurization service: ("sparse_idf",) on the head-less
+               kernel once per batch of a hot (bucket, cap) key, every value
+               bit-equal to float32 values * idf[ids].
 
-Then a ``{"kernels": [...]}`` line for every kernel (twelve), the ``nvidia-smi``
-name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``.
+Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
+launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
+and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits nonzero without that last line; so does a machine without
 a CUDA device.
 """
@@ -336,6 +386,21 @@ FEATURE6_HOT_FROM = 512
 IMPUTER_COLS = tuple(f"f{i}" for i in range(15))
 IMPUTER_ROWS, IMPUTER_ARITY, IMPUTER_SEED, IMPUTER_SERVE_SEED = 100_000, 100, 2, 3
 IMPUTER_MISSING_SHARE = 0.1
+
+# the Pipeline slice: a row-local prefix before kmeans and mlp, sparse_idf
+# alone. The kmeans chains' grid (rows CHECK_ROWS):
+CHAIN_KMEANS_NAMES = ("normalize_kmeans", "scale_normalize_kmeans")
+CHAIN_KMEANS_DIMS = (8, 100, 256, 1000)
+CHAIN_KMEANS_KS = (1, 10, 1024)
+CHAIN_MLP_NAMES = ("normalize_mlp", "product_scale_mlp")
+# StandardScaler → Normalizer → KMeans at d 100, k 10 scores 208 + 8 + 2008
+# + 3 · 400 = 3424 per row against the default bar of 10^6: buckets from
+# 512 rows run the megakernel; Normalizer → MLP 256→512→512→8 scores
+# ~797,000 per row: buckets from 2 rows
+PIPELINE_KMEANS_HOT_FROM = 512
+PIPELINE_MLP_HOT_FROM = 2
+PIPELINE_MLP_PROB_ATOL = 1e-5  # serve_mlp's bound: probabilities vs the float64 forward
+PIPELINE_CHUNK_ROWS = 65_536  # batch.chunk.rows' default: the published 100,000 rows are two chunks
 
 # the ring-attention fold: bench.py's bench_attention shape, and the grid
 FLASH_TIMED = (1, 8192, 4, 128)  # B, T, H, D: ring_attention_causal_T8192_h4_d128
@@ -1532,7 +1597,7 @@ def phase_serve_sparse(card: str, headline):
         "hot_batch_breakdown_ms": breakdown,
     }
     emit("serve_sparse", card=card, **result)
-    return launches
+    return launches, idf_model, lr_model
 
 
 def _mlp_inputs(rng, rows, widths, dev):
@@ -1569,8 +1634,9 @@ def _top_two_gap(layers, h):
 
 
 def phase_kernels_mlp(rng, card: str):
-    """The scale → mlp megakernel against its plain version over rows ×
-    networks × chains, then its times at the serving shape."""
+    """The MLP megakernel on ("scale", "mlp") and ("mlp",) against its plain
+    version over rows × networks × chains, then its times at the serving
+    shape."""
     import numpy as np
     import torch
 
@@ -1579,10 +1645,22 @@ def phase_kernels_mlp(rng, card: str):
         MLP_MAX_CLASSES,
         MLP_MAX_LAYERS,
         MLP_MAX_WIDTH,
-        SCALE_MLP,
-        scale_mlp,
-        scale_mlp_plain,
+        ROWLOCAL_MLP,
+        RowLocalOp,
+        rowlocal_mlp,
+        rowlocal_mlp_plain,
     )
+
+    def scale_mlp(fn, x, mean, inv_std, layers, labels, *, with_mean, with_std, write_scaled):
+        """(scaled or None, prediction, probabilities) of the chain through
+        ``fn``: a one-op scale table, or the MLP alone on ``x``."""
+        if not write_scaled:
+            assert not (with_mean or with_std), "the MLP alone reads its input unscaled"
+            _, pred, probs = fn([x], [], 0, layers, labels)
+            return None, pred, probs
+        ops = [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": with_mean, "with_std": with_std})]
+        (scaled,), pred, probs = fn([x], ops, 1, layers, labels)
+        return scaled, pred, probs
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full float32
@@ -1594,9 +1672,12 @@ def phase_kernels_mlp(rng, card: str):
             x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
             for label, with_mean, with_std, write_scaled in MLP_CHAINS:
                 kw = dict(with_mean=with_mean, with_std=with_std)
-                scaled, pred, probs = scale_mlp(x, mean, inv_std, layers, labels,
+                scaled, pred, probs = scale_mlp(rowlocal_mlp, x, mean, inv_std, layers, labels,
                                                 write_scaled=write_scaled, **kw)
-                p_scaled, p_pred, p_probs = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
+                p_scaled, p_pred, p_probs = scale_mlp(rowlocal_mlp_plain, x, mean, inv_std, layers,
+                                                      labels, write_scaled=write_scaled, **kw)
+                if p_scaled is None:
+                    p_scaled = x
                 torch.cuda.synchronize()
                 where = f"{label} rows={rows} net={net} with_mean={with_mean} with_std={with_std}"
                 if write_scaled:
@@ -1617,21 +1698,21 @@ def phase_kernels_mlp(rng, card: str):
                 max_abs_err = max(max_abs_err, max(float(e) for e in errs))
                 max_ulps = max(max_ulps, ulps)
                 checked += 1
-    emit("kernels_mlp", kernel=SCALE_MLP.name, configurations=checked, networks=
+    emit("kernels_mlp", kernel=ROWLOCAL_MLP.name, configurations=checked, networks=
          {k: list(v) for k, v in networks.items()}, max_abs_err=max_abs_err,
          max_probability_ulps=max_ulps, probability_ulp_envelope=envelope, scaled="bit-equal",
          prediction=f"equal where the plain top-two logit gap > {PREDICTION_MARGIN}")
 
     rows, widths = MAX_BATCH, MLP_WIDTHS
     x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
-    kw = dict(with_mean=True, with_std=True)
-    scaled = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)[0]
+    kw = dict(with_mean=True, with_std=True, write_scaled=True)
+    scaled = scale_mlp(rowlocal_mlp_plain, x, mean, inv_std, layers, labels, **kw)[0]
 
     def kernel():
-        scale_mlp(x, mean, inv_std, layers, labels, write_scaled=True, **kw)
+        scale_mlp(rowlocal_mlp, x, mean, inv_std, layers, labels, **kw)
 
     def plain():
-        scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
+        scale_mlp(rowlocal_mlp_plain, x, mean, inv_std, layers, labels, **kw)
 
     def library():  # the chain's three products only: no single call computes the chain
         h = scaled
@@ -1653,7 +1734,7 @@ def phase_kernels_mlp(rng, card: str):
         xr, sr = x[:r].contiguous(), scaled[:r].contiguous()
 
         def kernel_r():
-            scale_mlp(xr, mean, inv_std, layers, labels, write_scaled=True, **kw)
+            scale_mlp(rowlocal_mlp, xr, mean, inv_std, layers, labels, **kw)
 
         def library_r():
             h = sr
@@ -1684,7 +1765,7 @@ def phase_kernels_mlp(rng, card: str):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
-    emit("kernels_mlp", kernel=SCALE_MLP.name, card=card, **timing)
+    emit("kernels_mlp", kernel=ROWLOCAL_MLP.name, card=card, **timing)
     return {"max_abs_err": max_abs_err, **timing}
 
 
@@ -1944,7 +2025,7 @@ def phase_serve_mlp(card: str):
         # The main path's run starts here: counts to 0, then traffic.
         for k in KERNELS:
             k.reset_launches()
-        plain_calls, restore = _count_calls(mk, ("scale_mlp_plain", "scale_logistic_plain",
+        plain_calls, restore = _count_calls(mk, ("rowlocal_mlp_plain", "scale_logistic_plain",
                                                  "sparse_idf_logistic_plain"))
         batches_before = len(server.executed_batch_sizes)
         fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
@@ -1974,8 +2055,8 @@ def phase_serve_mlp(card: str):
             restore()
         if any(th.is_alive() for th in threads):
             raise AssertionError("serve_mlp clients did not finish within 600 s")
-        launches = mk.SCALE_MLP.launches
-        other = {k.name: k.launches for k in KERNELS if k is not mk.SCALE_MLP}
+        launches = mk.ROWLOCAL_MLP.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.ROWLOCAL_MLP}
         batches = server.executed_batch_sizes[batches_before:]
     if failures:
         raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
@@ -2401,7 +2482,7 @@ def phase_serve_kmeans(card: str):
         # The main path's run starts here: counts to 0, then traffic.
         for k in KERNELS:
             k.reset_launches()
-        plain_calls, restore = _count_calls(mk, ("scale_kmeans_plain", "scale_mlp_plain",
+        plain_calls, restore = _count_calls(mk, ("scale_kmeans_plain", "rowlocal_mlp_plain",
                                                  "scale_logistic_plain", "sparse_idf_logistic_plain"))
         batches_before = len(server.executed_batch_sizes)
         fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
@@ -2844,8 +2925,8 @@ def _serve_and_check(server, payloads, column, check, n_clients=N_CLIENTS):
     return latencies, wall, failures
 
 
-_PLAIN_MEGAKERNELS = ("rowlocal_chain_plain", "scale_kmeans_plain", "scale_mlp_plain",
-                      "scale_logistic_plain", "sparse_idf_logistic_plain")
+_PLAIN_MEGAKERNELS = ("rowlocal_chain_plain", "rowlocal_mlp_plain", "scale_kmeans_plain",
+                      "scale_logistic_plain", "sparse_idf_logistic_plain", "sparse_idf_plain")
 
 
 def phase_serve_feature6(card: str):
@@ -4022,6 +4103,774 @@ def phase_fit_attention(card: str):
             FLASH_FOLD_BWD_DKV.name: launches[FLASH_FOLD_BWD_DKV.name]}
 
 
+def _chain_kmeans_case(name, rows, d, k, measure, dev, rng):
+    """``(inputs, ops)`` of ("normalize", "kmeans") or ("scale", "normalize",
+    "kmeans") on the kmeans grid's inputs: from 5 rows on a zero row and a
+    NaN feature, from k 2 on a duplicate centroid; the centroids normalized
+    rows, as a fitted model's are after a Normalizer."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import RowLocalOp
+
+    x, mean, inv_std, C = _kmeans_inputs(rng, rows, d, k, dev)
+    if rows >= 5:
+        x[1] = 0.0
+        x[2, d // 2] = float("nan")
+    C = C / C.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    if k >= 2:
+        C[-1] = C[0]
+    norm = RowLocalOp("normalize", 0, params={"p": 2.0})
+    head = RowLocalOp("kmeans", 1, C.contiguous(), params={"measure": measure})
+    if name == "normalize_kmeans":
+        return [x], [norm, head]
+    scale = RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})
+    return [x], [scale, norm._replace(src=1), head._replace(src=2)]
+
+
+def _check_chain_kmeans(inputs, ops, got, want, measure, where):
+    """The table's outputs before the head as ``_check_rowlocal`` holds them;
+    the index equal to the plain version's where the float64 top-two
+    distance gap (of the plain version's head input) exceeds KMEANS_MARGIN.
+    Returns ``(rows inside the margin, max |kernel - plain| of the float
+    outputs)``."""
+    import torch
+
+    head = ops[-1]
+    _in, err, _ulps = _check_rowlocal(inputs, ops[:-1], got[:-1], want[:-1], where)
+    x = (list(inputs) + list(want))[head.src]
+    decided = _kmeans_decided(_kmeans_distances64(measure, x, head.a))
+    g, w = got[-1], want[-1]
+    if g.dtype != torch.int32 or not torch.equal(g[decided], w[decided]):
+        raise AssertionError(f"kmeans index differs outside the margin: {where}")
+    return int((~decided).sum()), err
+
+
+def _chain_mlp_case(name, rows, widths, dev, rng):
+    """``(inputs, ops, head slot, layers, labels)`` of ("normalize", "mlp")
+    or ("elementwise_product", "scale", "mlp") on the MLP grid's inputs."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import RowLocalOp
+
+    x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
+    if name == "normalize_mlp":
+        return [x], [RowLocalOp("normalize", 0, params={"p": 2.0})], 1, layers, labels
+    scaling = torch.from_numpy((np.abs(rng.normal(size=widths[0])) + 0.1).astype(np.float32)).to(dev)
+    ops = [RowLocalOp("elementwise_product", 0, scaling),
+           RowLocalOp("scale", 1, mean, inv_std, {"with_mean": True, "with_std": True})]
+    return [x], ops, 2, layers, labels
+
+
+def _refused_specs():
+    """One well-formed chain of each class the port refuses (megakernels
+    REFUSED), from the port's own servables at d 4."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.models.feature.binarizer import Binarizer
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.servable import (
+        KMeansModelServable,
+        LogisticRegressionModelServable,
+        MLPClassifierModelServable,
+        StandardScalerModelServable,
+    )
+
+    d, rng = 4, np.random.default_rng(0)
+    mlp = MLPClassifierModelServable().set_features_col("x")
+    mlp._apply_model_arrays({"W0": rng.normal(size=(d, 3)).astype(np.float32),
+                             "b0": np.zeros(3, np.float32), "labels": np.arange(3.0)})
+    scale = StandardScalerModelServable().set_input_col("x").set_output_col("x")
+    scale.mean, scale.std = np.zeros(d), np.ones(d)
+
+    def idf(col_in, col_out):
+        s = IDFModel().set_input_col(col_in).set_output_col(col_out)
+        s.idf, s.doc_freq, s.num_docs = np.ones(d), np.ones(d), np.asarray(2.0)
+        return s.sparse_kernel_spec({col_in: d})
+
+    lr = LogisticRegressionModelServable().set_features_col("f")
+    lr.coefficient = np.ones(d)
+    km = KMeansModelServable().set_features_col("x").set_k(2)
+    km.centroids, km.weights = np.ones((2, d), np.float32), np.ones(2)
+    return {
+        "mlp_not_last": [mlp.kernel_spec(), scale.kernel_spec()],
+        "sparse_with_dense": [idf("f", "f"), lr.sparse_kernel_spec({"f": d}), scale.kernel_spec()],
+        "other_sparse_run": [idf("f", "g"), idf("g", "h")],
+        "reads_kmeans_index": [km.kernel_spec(), Binarizer().set_input_cols("prediction")
+                               .set_output_cols("pb").set_thresholds(0.5).kernel_spec()],
+    }
+
+
+def _chain_bound(x_bytes, out_bytes, model_bytes, ops):
+    """``{bytes, ops, bytes_ms, ops_ms, bound_ms, bound_by}`` of one call:
+    each input, output and model byte once; ``ops`` as counted by the caller."""
+    b = x_bytes + out_bytes + model_bytes
+    bytes_ms, ops_ms = b / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"bytes": b, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernels_chains(rng, card: str):
+    """The chains of the Pipeline slice on the card against their plain
+    versions, the refused chains, then cold and warm times (module
+    docstring, phase 22)."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.servable.megakernels import (
+        REFUSED,
+        ROWLOCAL,
+        ROWLOCAL_MLP,
+        SPARSE_IDF_LOGISTIC,
+        RowLocalOp,
+        chain_eligible,
+        rowlocal_chain,
+        rowlocal_chain_plain,
+        rowlocal_mlp,
+        rowlocal_mlp_plain,
+        sparse_idf,
+        sparse_idf_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full float32
+
+    # 1. a row-local prefix before kmeans: the row-local kernel's kmeans op
+    km = {"configurations": 0, "rows_inside_margin": 0, "max_abs_err": 0.0}
+    for name in CHAIN_KMEANS_NAMES:
+        for measure in KMEANS_MEASURES:
+            for d in CHAIN_KMEANS_DIMS:
+                for k in CHAIN_KMEANS_KS:
+                    for rows in CHECK_ROWS:
+                        inputs, ops = _chain_kmeans_case(name, rows, d, k, measure, dev, rng)
+                        before = ROWLOCAL.launches
+                        got = rowlocal_chain(inputs, ops)
+                        want = rowlocal_chain_plain(inputs, ops)
+                        torch.cuda.synchronize()
+                        if ROWLOCAL.launches != before + 1:
+                            raise AssertionError("the row-local kernel did not launch once")
+                        n_in, err = _check_chain_kmeans(inputs, ops, got, want, measure,
+                                                        f"{name} {measure} d={d} k={k} rows={rows}")
+                        km["configurations"] += 1
+                        km["rows_inside_margin"] += n_in
+                        km["max_abs_err"] = max(km["max_abs_err"], err)
+    emit("kernels_chains", kernel=ROWLOCAL.name, chains=list(CHAIN_KMEANS_NAMES), **km,
+         grid={"measures": list(KMEANS_MEASURES), "d": list(CHAIN_KMEANS_DIMS), "k": list(CHAIN_KMEANS_KS),
+               "rows": list(CHECK_ROWS)},
+         rule=("scaled bit-equal; normalized within ULP_ENVELOPE['feature6']; the index equal where the "
+               f"float64 top-two distance gap exceeds {KMEANS_MARGIN}"))
+
+    # 2. a row-local prefix before mlp: the MLP kernel's table prologue
+    networks = dict(MLP_CHECK_NETWORKS)
+    networks["limits"] = (512,) * 8 + (32,)
+    mlp = {"configurations": 0, "rows_inside_margin": 0, "max_abs_err": 0.0, "max_prob_ulps": 0}
+    for name in CHAIN_MLP_NAMES:
+        for net, widths in networks.items():
+            for rows in MLP_CHECK_ROWS:
+                inputs, ops, head_src, layers, labels = _chain_mlp_case(name, rows, list(widths), dev, rng)
+                before = ROWLOCAL_MLP.launches
+                outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
+                p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+                torch.cuda.synchronize()
+                where = f"{name} {net} rows={rows}"
+                if ROWLOCAL_MLP.launches != before + 1:
+                    raise AssertionError(f"the MLP prologue kernel did not launch once: {where}")
+                _n, err, _u = _check_rowlocal(inputs, ops, outs, p_outs, where)
+                ulps = ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy())
+                if ulps > ULP_ENVELOPE["scale_mlp"]:
+                    raise AssertionError(f"probabilities {ulps} ulps from the plain version: {where}")
+                sure = _top_two_gap(layers, (list(inputs) + p_outs)[head_src]) > PREDICTION_MARGIN
+                if not torch.equal(pred[sure], p_pred[sure]):
+                    raise AssertionError(f"prediction differs outside the margin: {where}")
+                mlp["configurations"] += 1
+                mlp["rows_inside_margin"] += int((~sure).sum())
+                mlp["max_abs_err"] = max(mlp["max_abs_err"], err, float((probs - p_probs).abs().max()))
+                mlp["max_prob_ulps"] = max(mlp["max_prob_ulps"], ulps)
+    emit("kernels_chains", kernel=ROWLOCAL_MLP.name, chains=list(CHAIN_MLP_NAMES), **mlp,
+         grid={"networks": {k: list(v) for k, v in networks.items()}, "rows": list(MLP_CHECK_ROWS)},
+         rule=("the table's outputs bit-equal until a normalize, then within ULP_ENVELOPE['feature6']; "
+               "probabilities within ULP_ENVELOPE['scale_mlp']; prediction equal where the plain "
+               f"top-two logit gap exceeds {PREDICTION_MARGIN}"))
+
+    # 3. sparse_idf alone: the sparse kernel's head-less mode
+    sp = {"configurations": 0}
+    for d in SPARSE_DIMS:
+        idf = torch.from_numpy(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1)).to(dev)
+        for rows in SPARSE_ROWS:
+            for cap in SPARSE_CAPS:
+                nnz = rng.integers(0, cap + 1, rows)
+                ids = np.sort(rng.integers(0, d, (rows, cap)), axis=1).astype(np.int32)
+                vals = rng.normal(size=(rows, cap)).astype(np.float32)
+                dead = np.arange(cap)[None, :] >= nnz[:, None]
+                ids[dead], vals[dead] = 0, 0.0
+                v_t, i_t = torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev)
+                before = SPARSE_IDF_LOGISTIC.launches
+                got = sparse_idf(v_t, i_t, idf)
+                torch.cuda.synchronize()
+                where = f"rows={rows} cap={cap} d={d}"
+                if SPARSE_IDF_LOGISTIC.launches != before + 1:
+                    raise AssertionError(f"the sparse kernel did not launch once: {where}")
+                for want in (sparse_idf_plain(v_t, i_t, idf), v_t * idf[i_t.long()]):
+                    if not _same_bits(got, want):
+                        raise AssertionError(f"tfidf not bit-equal to float32 values * idf[ids]: {where}")
+                sp["configurations"] += 1
+    emit("kernels_chains", kernel=SPARSE_IDF_LOGISTIC.name, chains=["sparse_idf"], **sp,
+         grid={"d": list(SPARSE_DIMS), "rows": list(SPARSE_ROWS), "caps": list(SPARSE_CAPS)},
+         rule="tfidf bit-equal to the plain version and to float32 values * idf[ids]")
+
+    # 4. the chains the port refuses, named
+    refused = {}
+    for name, specs in _refused_specs().items():
+        ops = tuple(s.fusion_op for s in specs)
+        if ops != REFUSED[name] or chain_eligible(specs):
+            raise AssertionError(f"{name}: {ops} should be refused")
+        refused[name] = list(ops)
+    emit("kernels_chains", refused=refused)
+
+    # 5. cold and warm times at the slice's shapes
+    timed_rng = np.random.default_rng(KMEANS_SERVE_SEED)
+    x, _mean, _inv, C = _kmeans_inputs(timed_rng, MAX_BATCH, KMEANS_D, KMEANS_K, dev)
+    km_in = [x]
+    km_ops = [RowLocalOp("normalize", 0, params={"p": 2.0}),
+              RowLocalOp("kmeans", 1, (C / C.norm(dim=1, keepdim=True)).contiguous(),
+                         params={"measure": "euclidean"})]
+    mlp_in, mlp_ops, mlp_src, layers, labels = _chain_mlp_case(
+        "normalize_mlp", MAX_BATCH, list(MLP_WIDTHS), dev, np.random.default_rng(MLP_SERVE_SEED))
+    cap = 64  # serve_sparse's hot key (4096, 64): 39 features a row
+    sp_ids = torch.from_numpy(np.pad(_hashed_rows(np.random.default_rng(SPARSE_SERVE_SEED), MAX_BATCH,
+                                                  TRAIN_NNZ), ((0, 0), (0, cap - TRAIN_NNZ)))
+                              .astype(np.int32)).to(dev)
+    sp_vals = torch.zeros((MAX_BATCH, cap), dtype=torch.float32, device=dev)
+    sp_vals[:, :TRAIN_NNZ] = 1.0
+    sp_idf = torch.from_numpy(np.abs(np.random.default_rng(5).normal(size=TRAIN_DIM)).astype(np.float32)
+                              + np.float32(0.1)).to(dev)
+    # the timed shapes held against the plain versions first
+    _check_chain_kmeans(km_in, km_ops, rowlocal_chain(km_in, km_ops), rowlocal_chain_plain(km_in, km_ops),
+                        "euclidean", "timed normalize -> kmeans")
+    outs, pred, probs = rowlocal_mlp(mlp_in, mlp_ops, mlp_src, layers, labels)
+    p_outs, p_pred, p_probs = rowlocal_mlp_plain(mlp_in, mlp_ops, mlp_src, layers, labels)
+    if ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) > ULP_ENVELOPE["scale_mlp"]:
+        raise AssertionError("timed normalize -> mlp outside the envelope")
+    if not _same_bits(sparse_idf(sp_vals, sp_ids, sp_idf), sparse_idf_plain(sp_vals, sp_ids, sp_idf)):
+        raise AssertionError("timed sparse_idf not bit-equal")
+    fns = {
+        "normalize_kmeans": lambda: rowlocal_chain(km_in, km_ops),
+        "normalize_kmeans_plain": lambda: rowlocal_chain_plain(km_in, km_ops),
+        "normalize_mlp": lambda: rowlocal_mlp(mlp_in, mlp_ops, mlp_src, layers, labels),
+        "normalize_mlp_plain": lambda: rowlocal_mlp_plain(mlp_in, mlp_ops, mlp_src, layers, labels),
+        "sparse_idf": lambda: sparse_idf(sp_vals, sp_ids, sp_idf),
+        "sparse_idf_plain": lambda: sparse_idf_plain(sp_vals, sp_ids, sp_idf),
+    }
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    for fn in fns.values():  # warm-up
+        for _ in range(10):
+            fn()
+    torch.cuda.synchronize()
+    times = {n: {"cold": [], "warm": []} for n in fns}
+    order = list(fns)
+    for name in order + order[::-1]:  # each side twice, in turns
+        times[name]["cold"] += _cold_times(fns[name], 25, flush, hold_cycles=1_000_000)
+        times[name]["warm"].append(_warm_time(fns[name], 25))
+    cold = {n: _median(v["cold"]) for n, v in times.items()}
+    warm = {n: _median(v["warm"]) for n, v in times.items()}
+    rows = MAX_BATCH
+    widths = list(MLP_WIDTHS)
+    mlp_products = 2 * rows * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    bounds = {
+        # x in, normalized out, index out, centroids; normalize 3 an element + a root a row,
+        # the head 2·k·d (the dots) + 4·k (distance and search) a row
+        "normalize_kmeans": _chain_bound(4 * rows * KMEANS_D, 4 * rows * KMEANS_D + 4 * rows,
+                                         4 * KMEANS_K * KMEANS_D,
+                                         rows * (3 * KMEANS_D + 1 + 2 * KMEANS_K * KMEANS_D + 4 * KMEANS_K)),
+        # x in, normalized, prediction and probabilities out, the weights; the products dominate
+        "normalize_mlp": _chain_bound(4 * rows * widths[0], 4 * rows * (widths[0] + 1 + widths[-1]),
+                                      4 * sum(a * b + b for a, b in zip(widths[:-1], widths[1:])) + 4 * widths[-1],
+                                      mlp_products + rows * (3 * widths[0] + 1)),
+        # values and ids in, tfidf out, one idf value gathered a slot; one multiply a slot
+        "sparse_idf": _chain_bound(8 * rows * cap, 4 * rows * cap, 4 * rows * cap, rows * cap),
+    }
+    timing = {}
+    for name in ("normalize_kmeans", "normalize_mlp", "sparse_idf"):
+        timing[name] = {
+            "ms": cold[name], "ms_l2_warm": warm[name],
+            "plain_ms": cold[name + "_plain"], "plain_ms_l2_warm": warm[name + "_plain"],
+            "library_ms": None, **bounds[name],
+        }
+    timing["normalize_kmeans"]["shape"] = {"rows": rows, "d": KMEANS_D, "k": KMEANS_K, "measure": "euclidean"}
+    timing["normalize_mlp"]["shape"] = {"rows": rows, "widths": widths}
+    timing["sparse_idf"]["shape"] = {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM}
+    emit("kernels_chains", card=card, timing=timing,
+         library="none: no single PyTorch call computes normalize -> kmeans, normalize -> mlp, "
+                 "or values * idf[ids]")
+    return ({"max_abs_err": mlp["max_abs_err"], **timing["normalize_mlp"], "chains": timing},
+            km["max_abs_err"])
+
+
+def _published_kmeans_pipeline():
+    """Pipeline([StandardScaler, Normalizer(p 2), KMeans(k 10, maxIter 10)])
+    at kmeans-benchmark.json's paramMap."""
+    from flink_ml_tpu_torch.builder import Pipeline
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+    from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler
+
+    return Pipeline([
+        StandardScaler().set_input_col("features").set_output_col("scaled").set_with_mean(True).set_with_std(True),
+        Normalizer().set_input_col("scaled").set_output_col("norm").set_p(2.0),
+        KMeans().set_features_col("norm").set_k(KMEANS_K).set_max_iter(KMEANS_ITERS),
+    ])
+
+
+def _kmeans_pipeline_float64(model, x):
+    """Float64 numpy of the fitted pipeline on rows ``x`` (read as float32, as
+    the path reads them): scaled, normalized, distances to the centroids."""
+    import numpy as np
+
+    scaler, _norm, km = model.stages
+    mean = np.asarray(scaler.mean, np.float32).astype(np.float64)
+    std = np.asarray(scaler.std, np.float32).astype(np.float64)
+    inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std))
+    inv_std = inv_std.astype(np.float32).astype(np.float64)
+    scaled = (np.asarray(x, np.float32).astype(np.float64) - mean) * inv_std
+    n = np.linalg.norm(scaled, axis=1, keepdims=True)
+    norm = scaled / np.where(n == 0.0, 1.0, n)
+    C = np.asarray(km.centroids, np.float32).astype(np.float64)
+    dist = np.sqrt(np.maximum((norm ** 2).sum(1)[:, None] + (C ** 2).sum(1)[None, :] - 2.0 * norm @ C.T, 0.0))
+    return scaled, norm, dist
+
+
+def _decided_rows(dist):
+    import numpy as np
+
+    top = np.sort(dist, axis=1)
+    return top[:, 1] - top[:, 0] > KMEANS_MARGIN
+
+
+def _serve_pipeline(pipeline, name, payloads, column, check, hot_from, kernel, template):
+    """Serve ``pipeline`` with ``InferenceServer`` (fusion.mode=fast) to the
+    payloads from N_CLIENTS clients, every response checked; counts every
+    kernel's launches over the traffic alone and the plain versions' calls.
+    Returns the readings; fails unless ``kernel`` launched once per batch of
+    bucket ≥ ``hot_from``, the plain versions were never called, no batch
+    fell back and no chain was built after warmup."""
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(pipeline, name=name, serving_config=config,
+                             warmup_template=DataFrame.from_dict({column: template}), device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = pipeline._fastpath_plan
+        kinds = chain_kinds(plan)
+        ingest = plan._ingest
+        # The path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        try:
+            latencies, wall, failures = _serve_and_check(server, payloads, column, check)
+        finally:
+            restore()
+        launches = kernel.launches
+        other = {k.name: k.launches for k in KERNELS if k is not kernel}
+        batches = server.executed_batch_sizes[batches_before:]
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    sizes = [len(p) for p in payloads]
+    breakdown = _dense_batch_breakdown(
+        plan, DataFrame.from_dict({column: payloads[sizes.index(MAX_BATCH)]}), ingest, col=column)
+    hot = sorted(b for b, kind in kinds.items() if "megakernel" in kind)
+    if hot != [b for b in kinds if b >= hot_from]:
+        raise AssertionError(f"hot buckets {hot}: the cost model should mark every bucket from {hot_from}")
+    hot_batches = sum(1 for _, bucket in batches if bucket >= hot_from)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if not launches > 0 or launches != hot_batches:
+        raise AssertionError(f"{kernel.name} launches {launches} != batches of bucket >= {hot_from} {hot_batches}")
+    if fallback != 0:
+        raise AssertionError(f"{fallback} batches fell back to the per-stage path")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} chains were built after warmup")
+    if plain_calls:
+        raise AssertionError(f"plain megakernel versions were called: {sorted(set(plain_calls))}")
+    if any(other.values()):
+        raise AssertionError(f"other kernels launched while serving: {other}")
+    lat = sorted(latencies)
+    return {
+        "warmup_s": warmup_s, "warmed_buckets": len(kinds), "chain": [list(v) for v in set(kinds.values())],
+        "requests": len(payloads), "rows": sum(sizes), "batches": len(batches),
+        "hot_buckets": hot, "hot_batches": hot_batches, "megakernel_launches": launches,
+        "fallback_batches": fallback, "post_warmup_builds": compiles, "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall, "wall_s": wall, "hot_batch_breakdown_ms": breakdown,
+    }
+
+
+def _traffic_sizes(rng):
+    """64 request sizes of 1–4096 rows, every 16th on a large bucket."""
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    sizes[::16] = [MAX_BATCH, MAX_BATCH * 1500 // 4096, MAX_BATCH // 2,
+                   MAX_BATCH * 600 // 4096][: len(sizes[::16])]  # hot buckets on every run
+    return sizes
+
+
+def _batch_transform(model, df, scope="ml.batch[plan]"):
+    """``model.transform(df)`` through the batch plan on the card with the
+    path's counters read around it: ``(output, seconds, {kernel: launches},
+    chains built, chunks)``."""
+    import torch
+
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+
+    for k in KERNELS:
+        k.reset_launches()
+    builds = metrics.get(scope, MLMetrics.BATCH_COMPILES, 0)
+    chunks = metrics.get(scope, MLMetrics.BATCH_FUSED_CHUNKS, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(df)
+    seconds = time.perf_counter() - t0
+    return (out, seconds, {k.name: k.launches for k in KERNELS if k.launches},
+            metrics.get(scope, MLMetrics.BATCH_COMPILES, 0) - builds,
+            metrics.get(scope, MLMetrics.BATCH_FUSED_CHUNKS, 0) - chunks)
+
+
+def _batch_expectations(plan, rows):
+    """What the batch plan's one fused segment must show for ``rows`` input
+    rows at PIPELINE_CHUNK_ROWS: ``(chunks, distinct chunk signatures,
+    chunks whose chain the cost model ran as the megakernel)``."""
+    (segment,) = [s for s in plan.segments if hasattr(s, "plan_kinds")]
+    sizes = [PIPELINE_CHUNK_ROWS] * (rows // PIPELINE_CHUNK_ROWS) + (
+        [rows % PIPELINE_CHUNK_ROWS] if rows % PIPELINE_CHUNK_ROWS else [])
+    hot_rows = {next(iter(key))[1][0] for key, kinds in segment.plan_kinds.items() if "megakernel" in kinds}
+    return len(sizes), len(set(sizes)), sum(1 for n in sizes if n in hot_rows)
+
+
+def phase_pipeline_kmeans(card: str):
+    """StandardScaler → Normalizer → KMeans fitted through Pipeline.fit,
+    transformed in the batch tier, saved, loaded and served (module
+    docstring, phase 23)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+
+    X = _kmeans_published_rows()
+    df = DataFrame.from_dict({"features": X})
+    t0 = time.perf_counter()
+    model = _published_kmeans_pipeline().fit(df)
+    fit_s = time.perf_counter() - t0
+    if [type(s).__name__ for s in model.stages] != ["StandardScalerModel", "Normalizer", "KMeansModel"]:
+        raise AssertionError(f"Pipeline.fit gave {model.stages}")
+
+    config.set(Options.FUSION_MODE, "fast")
+    config.set(Options.BATCH_CHUNK_ROWS, PIPELINE_CHUNK_ROWS)  # two chunks, the second ragged
+    try:
+        out, batch_s, batch_launches, builds, chunks = _batch_transform(model, df)
+        again, batch_s2, launches2, builds2, _ = _batch_transform(model, df)
+        plan = model._plan_cache[1]
+        config.set(Options.BATCH_FASTPATH, False)
+        t0 = time.perf_counter()
+        per_stage = model.transform(df)
+        per_stage_s = time.perf_counter() - t0
+    finally:
+        for option in (Options.FUSION_MODE, Options.BATCH_CHUNK_ROWS, Options.BATCH_FASTPATH):
+            config.unset(option)
+    segment = plan.segments[0]
+    labels = sorted({segment.plan_label(key) for key in segment.compiled})
+    want_chunks, want_builds, hot_chunks = _batch_expectations(plan, len(X))
+    if (builds, builds2, chunks) != (want_builds, 0, want_chunks) or not hot_chunks:
+        raise AssertionError(f"batch plan: {builds} then {builds2} builds, {chunks} chunks "
+                             f"({hot_chunks} hot), tiers {labels}")
+    if batch_launches != {mk.ROWLOCAL.name: hot_chunks} or launches2 != batch_launches:
+        raise AssertionError(f"batch launches {batch_launches}, then {launches2}: expected {hot_chunks} "
+                             "of the row-local kernel")
+    scaled64, norm64, dist = _kmeans_pipeline_float64(model, X)
+    decided = _decided_rows(dist)
+    for name in ("scaled", "norm", "prediction"):
+        if not np.array_equal(out.column(name), again.column(name)):
+            raise AssertionError(f"two batch transforms differ in {name}")
+    np.testing.assert_array_equal(out.column("scaled"), per_stage.column("scaled"))
+    norm_ulps = ulp_diff(out.column("norm"), per_stage.column("norm"))
+    if norm_ulps > ULP_ENVELOPE["feature6"]:
+        raise AssertionError(f"batch norm {norm_ulps} ulps from the per-stage path")
+    np.testing.assert_array_equal(out.column("prediction")[decided], per_stage.column("prediction")[decided])
+    np.testing.assert_allclose(out.column("scaled"), scaled64, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out.column("norm"), norm64, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(out.column("prediction")[decided], np.argmin(dist, axis=1)[decided])
+    batch = {"rows": len(X), "chunks": chunks, "hot_chunks": hot_chunks, "builds": builds,
+             "builds_second_call": builds2, "tiers": labels, "launches": batch_launches, "seconds": batch_s, "seconds_second_call": batch_s2,
+             "per_stage_seconds": per_stage_s, "rows_inside_margin": int((~decided).sum()),
+             "norm_ulps_from_per_stage": norm_ulps}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/pipeline")
+        loaded = PipelineModel.load(f"{tmp}/pipeline")
+        pipeline = PipelineModel.load_servable(f"{tmp}/pipeline")
+    if not np.array_equal(loaded.stages[2].centroids, model.stages[2].centroids):
+        raise AssertionError("the loaded centroids differ from the fitted ones")
+    specs = [s.kernel_spec() for s in pipeline.servables]
+    if [s.fusion_op for s in specs] != ["scale", "normalize", "kmeans"] or not mk.chain_eligible(specs):
+        raise AssertionError("the served chain is not (scale, normalize, kmeans) on a kernel")
+
+    rng = np.random.default_rng(KMEANS_SERVE_SEED)
+    payloads = [rng.random((n, KMEANS_D)) for n in _traffic_sizes(rng)]
+    inside = [0] * len(payloads)
+
+    def check(i, resp):
+        scaled, norm, d64 = _kmeans_pipeline_float64(model, payloads[i])
+        np.testing.assert_allclose(resp["scaled"], scaled, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(resp["norm"], norm, rtol=1e-5, atol=1e-6)
+        dec = _decided_rows(d64)
+        inside[i] = int((~dec).sum())
+        np.testing.assert_array_equal(np.asarray(resp["prediction"])[dec], np.argmin(d64, axis=1)[dec])
+
+    served = _serve_pipeline(pipeline, "chip-smoke-pipeline-kmeans", payloads, "features", check,
+                             PIPELINE_KMEANS_HOT_FROM, mk.ROWLOCAL, payloads[0][:1])
+    emit("pipeline_kmeans", card=card, fit_rows=len(X), d=KMEANS_D, k=KMEANS_K, fit_s=fit_s, batch=batch,
+         serve={**served, "rows_inside_margin": sum(inside)})
+    return {"pipeline_kmeans.batch": batch_launches[mk.ROWLOCAL.name],
+            "pipeline_kmeans.serve": served["megakernel_launches"]}
+
+
+def phase_pipeline_mlp(card: str):
+    """Normalizer → MLPClassifier fitted through Pipeline.fit at the
+    published network, saved, loaded and served (module docstring,
+    phase 24)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import Pipeline, PipelineModel
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+    from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
+
+    population = _mlp_population()
+    X, y = _mlp_rows(np.random.default_rng(MLP_SEED), population, MLP_ROWS)
+    est = Pipeline([
+        Normalizer().set_input_col("features").set_output_col("norm").set_p(2.0),
+        MLPClassifier().set_features_col("norm").set_hidden_layers(*MLP_WIDTHS[1:-1])
+        .set_max_iter(MLP_ITERS).set_global_batch_size(MLP_BATCH),
+    ])
+    t0 = time.perf_counter()
+    model = est.fit(DataFrame.from_dict({"features": X, "label": y}))
+    fit_s = time.perf_counter() - t0
+    mlp = model.stages[1]
+    layers64 = [(np.asarray(W, np.float32).astype(np.float64), np.asarray(b, np.float32).astype(np.float64))
+                for W, b in mlp.params]
+    if [W.shape for W, _ in layers64] != [(a, b) for a, b in zip(MLP_WIDTHS[:-1], MLP_WIDTHS[1:])]:
+        raise AssertionError(f"the fitted network is {[W.shape for W, _ in layers64]}")
+    labels = np.asarray(mlp.labels, np.float64)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/pipeline")
+        pipeline = PipelineModel.load_servable(f"{tmp}/pipeline")
+    specs = [s.kernel_spec() for s in pipeline.servables]
+    if [s.fusion_op for s in specs] != ["normalize", "mlp"] or not mk.chain_eligible(specs):
+        raise AssertionError("the served chain is not (normalize, mlp) on a kernel")
+
+    def forward64(x):
+        x = np.asarray(x, np.float32).astype(np.float64)
+        n = np.linalg.norm(x, axis=1, keepdims=True)
+        h = x / np.where(n == 0.0, 1.0, n)
+        norm = h
+        for W, b in layers64[:-1]:
+            h = np.maximum(h @ W + b, 0.0)
+        logits = h @ layers64[-1][0] + layers64[-1][1]
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        return norm, logits, e / e.sum(axis=1, keepdims=True)
+
+    rng = np.random.default_rng(MLP_SERVE_SEED)
+    payloads = [_mlp_rows(rng, population, n)[0] for n in _traffic_sizes(rng)]
+    inside = [0] * len(payloads)
+    max_prob_err = [0.0] * len(payloads)
+
+    def check(i, resp):
+        norm, logits, probs = forward64(payloads[i])
+        np.testing.assert_allclose(resp["norm"], norm, rtol=1e-5, atol=1e-7)
+        got = np.asarray(resp["rawPrediction"])
+        max_prob_err[i] = float(np.abs(got - probs).max())
+        np.testing.assert_allclose(got, probs, rtol=0, atol=PIPELINE_MLP_PROB_ATOL)
+        top = np.sort(logits, axis=1)
+        dec = top[:, -1] - top[:, -2] > PREDICTION_MARGIN
+        inside[i] = int((~dec).sum())
+        np.testing.assert_array_equal(np.asarray(resp["prediction"])[dec], labels[np.argmax(logits, axis=1)][dec])
+
+    served = _serve_pipeline(pipeline, "chip-smoke-pipeline-mlp", payloads, "features", check,
+                             PIPELINE_MLP_HOT_FROM, mk.ROWLOCAL_MLP, payloads[0][:1])
+    emit("pipeline_mlp", card=card, fit_rows=MLP_ROWS, widths=list(MLP_WIDTHS), fit_s=fit_s,
+         serve={**served, "rows_inside_margin": sum(inside), "max_prob_err_vs_float64": max(max_prob_err)})
+    return {"pipeline_mlp.serve": served["megakernel_launches"]}
+
+
+def phase_pipeline_sparse(card: str, headline, idf_model, lr_model):
+    """PipelineModel([IDF, LogisticRegression]) in the batch tier over the
+    headline rows, and a one-stage PipelineModel([IDFModel]) served as a
+    TF-IDF featurization service (module docstring, phase 25)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    idx, _y = headline
+    df = _sparse_frame(idx)
+    model = PipelineModel([idf_model, lr_model])
+    idf32 = np.asarray(idf_model.idf, np.float32)
+    coef32 = np.asarray(lr_model.coefficient, np.float32).astype(np.float64)
+    config.set(Options.FUSION_MODE, "fast")
+    config.set(Options.BATCH_CHUNK_ROWS, PIPELINE_CHUNK_ROWS)  # 4 chunks, the last ragged
+    try:
+        out, batch_s, batch_launches, builds, chunks = _batch_transform(model, df)
+        plan = model._plan_cache[1]
+        config.set(Options.BATCH_FASTPATH, False)
+        t0 = time.perf_counter()
+        per_stage = model.transform(df)
+        per_stage_s = time.perf_counter() - t0
+    finally:
+        for option in (Options.FUSION_MODE, Options.BATCH_CHUNK_ROWS, Options.BATCH_FASTPATH):
+            config.unset(option)
+    (segment,) = plan.segments
+    if [s.fusion_op for s in segment.specs] != ["sparse_idf", "sparse_logistic"]:
+        raise AssertionError(f"the batch chain is {[s.fusion_op for s in segment.specs]}")
+    labels = sorted({segment.plan_label(key) for key in segment.compiled})
+    want_chunks, want_builds, hot_chunks = _batch_expectations(plan, len(idx))
+    if (builds, chunks) != (want_builds, want_chunks) or not hot_chunks \
+            or batch_launches != {mk.SPARSE_IDF_LOGISTIC.name: hot_chunks}:
+        raise AssertionError(f"batch plan: {builds} builds, {chunks} chunks ({hot_chunks} hot), tiers {labels}, "
+                             f"launches {batch_launches}")
+    for r in range(0, len(idx), 997):
+        got, ref = out.column("tfidf")[r], per_stage.column("tfidf")[r]
+        if not (np.array_equal(got.indices, idx[r]) and np.array_equal(got.values, ref.values)
+                and np.array_equal(got.values, idf32[idx[r]].astype(np.float64))):
+            raise AssertionError(f"batch tfidf row {r} is not the f32 product")
+    np.testing.assert_array_equal(out.column("prediction"), per_stage.column("prediction"))
+    raw_ulps = ulp_diff(out.column("rawPrediction"), per_stage.column("rawPrediction"))
+    if raw_ulps > ULP_ENVELOPE["sparse_idf_logistic"]:
+        raise AssertionError(f"batch rawPrediction {raw_ulps} ulps from the per-stage path")
+    margin = (idf32[idx].astype(np.float64) * coef32[idx]).sum(axis=1)
+    p = 1.0 / (1.0 + np.exp(-margin))
+    np.testing.assert_allclose(out.column("rawPrediction"), np.stack([1.0 - p, p], axis=1), rtol=0, atol=1e-5)
+    batch = {"rows": len(idx), "chunks": chunks, "hot_chunks": hot_chunks, "builds": builds, "tiers": labels,
+             "launches": batch_launches,
+             "seconds": batch_s, "per_stage_seconds": per_stage_s, "raw_ulps_from_per_stage": raw_ulps}
+
+    # the TF-IDF featurization service: ("sparse_idf",) on the head-less kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        PipelineModel([idf_model]).save(f"{tmp}/idf-service")
+        service = PipelineModel.load_servable(f"{tmp}/idf-service")
+    rng = np.random.default_rng(SPARSE_SERVE_SEED + 1)
+    sizes = _traffic_sizes(rng)
+    payload_ids = [_hashed_rows(rng, n, TRAIN_NNZ if i % 4 else (1, 5, 17, 38)[i // 4 % 4])
+                   for i, n in enumerate(sizes)]
+    payloads = [_sparse_frame(ids) for ids in payload_ids]
+    config_ = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(service, name="chip-smoke-idf-service", serving_config=config_,
+                             warmup_template=payloads[0].take([0]), device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    failures, latencies = [], [None] * len(payloads)
+    with server:
+        plan = service._fastpath_plan
+        kinds = chain_kinds(plan)
+        keys = []
+        ingest = plan._ingest
+
+        def recording_ingest(seg, frame, bucket, cap=None, warm=False):
+            got = ingest(seg, frame, bucket, cap=cap, warm=warm)
+            keys.append(got[1])
+            return got
+
+        plan._ingest = recording_ingest
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+
+        def client(c):
+            for i in range(c, len(payloads), N_CLIENTS):
+                t_req = time.perf_counter()
+                try:
+                    resp = server.predict(payloads[i]).dataframe
+                    latencies[i] = (time.perf_counter() - t_req) * 1000.0
+                    ids = payload_ids[i]
+                    got = resp["tfidf"]
+                    for r in range(len(ids)):
+                        if not (np.array_equal(got[r].indices, ids[r])
+                                and np.array_equal(got[r].values, idf32[ids[r]].astype(np.float64))):
+                            raise AssertionError(f"row {r}: tfidf is not float32 values * idf[ids]")
+                except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                    failures.append(f"request {i}: {type(e).__name__}: {e}")
+
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+            plan._ingest = ingest
+        launches = mk.SPARSE_IDF_LOGISTIC.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.SPARSE_IDF_LOGISTIC}
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    chains = {tuple(s.fusion_op for s in seg.specs) for seg in plan.segments}
+    hot = sorted(k for k, kind in kinds.items() if "megakernel" in kind)
+    hot_batches = sum(1 for k in keys if k in hot)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if chains != {("sparse_idf",)}:
+        raise AssertionError(f"the service's chains are {chains}")
+    if not launches > 0 or launches != hot_batches:
+        raise AssertionError(f"head-less sparse launches {launches} != batches with hot keys {hot_batches}")
+    if fallback or compiles or plain_calls or any(other.values()):
+        raise AssertionError(f"fallbacks {fallback}, post-warmup builds {compiles}, plain calls "
+                             f"{sorted(set(plain_calls))}, other kernels {other}")
+    lat = sorted(latencies)
+    service_readings = {
+        "warmup_s": warmup_s, "warmed_keys": len(kinds), "requests": len(payloads), "rows": sum(sizes),
+        "batches": len(keys), "hot_keys": hot, "hot_batches": hot_batches, "megakernel_launches": launches,
+        "fallback_batches": fallback, "post_warmup_builds": compiles, "plain_calls": len(plain_calls),
+        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall, "wall_s": wall,
+    }
+    emit("pipeline_sparse", card=card, batch=batch, idf_service=service_readings)
+    return {"pipeline_sparse.batch": batch_launches[mk.SPARSE_IDF_LOGISTIC.name],
+            "pipeline_sparse.idf_service": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4036,9 +4885,9 @@ def main() -> int:
     from flink_ml_tpu_torch.parallel import FLASH_FOLD  # defines the ring-attention fold and its backward
     from flink_ml_tpu_torch.servable.megakernels import (
         ROWLOCAL,
+        ROWLOCAL_MLP,
         SCALE_KMEANS,
         SCALE_LOGISTIC,
-        SCALE_MLP,
         SPARSE_IDF_LOGISTIC,
     )
 
@@ -4050,42 +4899,64 @@ def main() -> int:
     kernels = list(KERNELS)
     phase_build(kernels)
     rng = np.random.default_rng(SEED)
+    # paths[kernel][phase]: the kernel's launches on each path that runs it
+    paths = {k.name: {} for k in kernels}
+
+    def record(phase, got):
+        for kernel_name, n in got.items():
+            paths[kernel_name][phase] = n
+
     measured = {SCALE_LOGISTIC.name: phase_kernels(rng, smi)}
-    launches = {SCALE_LOGISTIC.name: phase_serve(rng, smi)}
+    record("serve", {SCALE_LOGISTIC.name: phase_serve(rng, smi)})
     grid_errs = phase_crossings_grid(rng, smi)
     headline = _headline_data()
     cache, train_launches = phase_train(smi, headline)
-    launches.update(train_launches)
+    record("train", train_launches)
     measured.update(phase_crossings_headline(cache, smi))
     del cache
     torch.cuda.empty_cache()
     measured[SPARSE_IDF_LOGISTIC.name] = phase_kernels_sparse(rng, smi, headline[0])
-    launches[SPARSE_IDF_LOGISTIC.name] = phase_serve_sparse(smi, headline)
-    del headline
-    measured[SCALE_MLP.name] = phase_kernels_mlp(rng, smi)
-    launches[SCALE_MLP.name] = phase_serve_mlp(smi)
+    sparse_launches, idf_model, lr_model = phase_serve_sparse(smi, headline)
+    record("serve_sparse", {SPARSE_IDF_LOGISTIC.name: sparse_launches})
+    for phase, n in phase_pipeline_sparse(smi, headline, idf_model, lr_model).items():
+        record(phase, {SPARSE_IDF_LOGISTIC.name: n})
+    del headline, idf_model, lr_model
+    mlp_alone = phase_kernels_mlp(rng, smi)
+    record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
     torch.cuda.empty_cache()
     measured[SCALE_KMEANS.name] = phase_kernels_kmeans(rng, smi)
     phase_fit_kmeans(smi)
-    launches[SCALE_KMEANS.name] = phase_serve_kmeans(smi)
+    record("serve_kmeans", {SCALE_KMEANS.name: phase_serve_kmeans(smi)})
     measured[ROWLOCAL.name] = phase_kernels_rowlocal(rng, smi)
-    launches[ROWLOCAL.name] = phase_serve_feature6(smi)
-    phase_serve_imputer(smi)
+    record("serve_feature6", {ROWLOCAL.name: phase_serve_feature6(smi)})
+    record("serve_imputer", {ROWLOCAL.name: phase_serve_imputer(smi)})
+    # The MLP kernel's line times its prologue on normalize -> mlp; its error
+    # is the largest over both phases that hold it against the plain version.
+    chains, kmeans_chain_err = phase_kernels_chains(rng, smi)
+    measured[ROWLOCAL_MLP.name] = dict(chains, max_abs_err=max(chains["max_abs_err"],
+                                                               mlp_alone["max_abs_err"]))
+    measured[ROWLOCAL.name]["max_abs_err"] = max(measured[ROWLOCAL.name]["max_abs_err"], kmeans_chain_err)
+    for phase, n in phase_pipeline_kmeans(smi).items():
+        record(phase, {ROWLOCAL.name: n})
+    for phase, n in phase_pipeline_mlp(smi).items():
+        record(phase, {ROWLOCAL_MLP.name: n})
     torch.cuda.empty_cache()
     measured[FLASH_FOLD.name] = phase_kernels_flash(rng, smi)
-    launches[FLASH_FOLD.name] = phase_serve_attention(smi)
+    record("serve_attention", {FLASH_FOLD.name: phase_serve_attention(smi)})
     torch.cuda.empty_cache()
     measured.update(phase_kernels_flash_bwd(rng, smi))
-    launches.update(phase_fit_attention(smi))
+    record("fit_attention", phase_fit_attention(smi))
     lines = []
     for kernel in kernels:
         m = measured[kernel.name]
+        launches = sum(paths[kernel.name].values())
         lines.append({
             "name": kernel.name,
             "route": "cuda",
             "source": kernel.source_path,
             "replaces": kernel.replaces,
-            "launches": launches[kernel.name],
+            "launches": launches,
+            "paths": paths[kernel.name],
             "max_abs_err": max(m["max_abs_err"], grid_errs.get(kernel.name, 0.0)),
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],
@@ -4093,8 +4964,8 @@ def main() -> int:
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
-        if not launches[kernel.name] > 0:
-            raise AssertionError(f"{kernel.name} was never launched on its path")
+        if not launches > 0 or not all(n > 0 for n in paths[kernel.name].values()):
+            raise AssertionError(f"{kernel.name} was never launched on a path of it: {paths[kernel.name]}")
     if len(lines) != 12:
         raise AssertionError(f"{len(lines)} kernels registered, expected 12")
     emit("done", seconds=time.perf_counter() - t_start, power_limit_line=smi)

@@ -4,20 +4,56 @@ Columns stay on the host as numpy arrays ([n] scalars, [n, d] dense vectors)
 or Python lists for ragged data (sparse vectors, strings), exactly as in the
 JAX package, so DataFrames from the two packages compare column by column.
 The serving plan moves a column to the device as one tensor at ingest and
-reads outputs back into numpy at finalize.
+reads outputs back into numpy at finalize. The row-oriented API (``Row``,
+``from_rows``, ``collect``) is kept at the boundary, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
 from flink_ml_tpu_torch.api.types import BasicType, DataType, DataTypes
 from flink_ml_tpu_torch.linalg.vectors import DenseVector, SparseVector, Vector
 
-__all__ = ["DataFrame"]
+__all__ = ["DataFrame", "Row"]
 
 Column = Union[np.ndarray, list]
+
+
+class Row:
+    """A row of values (servable/api/Row.java)."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values: Sequence[Any]):
+        self.values = list(values)
+
+    def get(self, index: int) -> Any:
+        return self.values[index]
+
+    def size(self) -> int:
+        return len(self.values)
+
+    def __getitem__(self, index: int) -> Any:
+        return self.values[index]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, Row) or len(other) != len(self):
+            return False
+        for a, b in zip(self.values, other.values):
+            if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+                if not np.array_equal(a, b):
+                    return False
+            elif a != b:
+                return False
+        return True
+
+    def __repr__(self) -> str:
+        return f"Row({self.values!r})"
 
 
 def _column_length(col: Column) -> int:
@@ -109,6 +145,20 @@ class DataFrame:
 
     # --- construction --------------------------------------------------------
     @staticmethod
+    def from_rows(
+        column_names: Sequence[str],
+        rows: Iterable[Union[Row, Sequence[Any]]],
+        data_types: Optional[Sequence[DataType]] = None,
+    ) -> "DataFrame":
+        rows = [r.values if isinstance(r, Row) else list(r) for r in rows]
+        cols = (
+            [_normalize_column([r[i] for r in rows]) for i in range(len(column_names))]
+            if rows
+            else [[] for _ in column_names]
+        )
+        return DataFrame(column_names, data_types, cols)
+
+    @staticmethod
     def from_dict(data: Dict[str, Any]) -> "DataFrame":
         names = list(data.keys())
         return DataFrame(names, None, [data[n] for n in names])
@@ -144,11 +194,18 @@ class DataFrame:
     def get_column_names(self) -> List[str]:
         return list(self._names)
 
+    @property
+    def column_names(self) -> List[str]:
+        return list(self._names)
+
     def get_data_types(self) -> List[DataType]:
         return list(self._types)
 
     def get_index(self, name: str) -> int:
         return self._names.index(name)
+
+    def get_data_type(self, name: str) -> DataType:
+        return self._types[self.get_index(name)]
 
     @property
     def num_rows(self) -> int:
@@ -210,6 +267,27 @@ class DataFrame:
             self._columns.append(values)
         return self
 
+    def with_column(self, name: str, values: Column, data_type: Optional[DataType] = None) -> "DataFrame":
+        """A new DataFrame with the column added or replaced (type inferred
+        when not given); this one is left as it is."""
+        values = _normalize_column(values)
+        if data_type is None:
+            data_type = _infer_type(values)
+        out = self.clone()
+        out.add_column(name, data_type, values)
+        return out
+
+    def select(self, names: Sequence[str]) -> "DataFrame":
+        idxs = [self.get_index(n) for n in names]
+        return DataFrame(
+            [self._names[i] for i in idxs],
+            [self._types[i] for i in idxs],
+            [self._columns[i] for i in idxs],
+        )
+
+    def drop(self, *names: str) -> "DataFrame":
+        return self.select([n for n in self._names if n not in names])
+
     def take(self, indices) -> "DataFrame":
         """Row subset / reorder by integer indices or a boolean mask."""
         indices = np.asarray(indices)
@@ -229,6 +307,26 @@ class DataFrame:
 
     def clone(self) -> "DataFrame":
         return DataFrame(list(self._names), list(self._types), list(self._columns))
+
+    # --- row boundary --------------------------------------------------------
+    @staticmethod
+    def _cell(col: Column, i: int) -> Any:
+        if isinstance(col, np.ndarray):
+            if col.ndim == 2:
+                return DenseVector(col[i])
+            v = col[i]
+            if isinstance(v, np.integer):
+                return int(v)
+            if isinstance(v, np.floating):
+                return float(v)
+            if isinstance(v, np.bool_):
+                return bool(v)
+            return v
+        return col[i]
+
+    def collect(self) -> List[Row]:
+        """The rows, each cell as a Python value or a vector (DataFrame.collect)."""
+        return [Row([self._cell(c, i) for c in self._columns]) for i in range(self.num_rows)]
 
     def __repr__(self) -> str:
         return f"DataFrame(columns={self._names}, num_rows={self.num_rows})"

@@ -141,6 +141,47 @@ class Options:
         "full power-of-two ladder up to sparse.nnz.cap.max.",
     )
 
+    BATCH_FASTPATH = ConfigOption(
+        "batch.fastpath",
+        _parse_bool,
+        True,
+        "Run PipelineModel.transform through CompiledBatchPlan when stages "
+        "expose kernel specs: chains of device programs with columns "
+        "device-resident between stages, streamed in chunks. Off = always the "
+        "per-stage transform path.",
+    )
+    BATCH_CHUNK_ROWS = ConfigOption(
+        "batch.chunk.rows",
+        int,
+        65_536,
+        "Rows per device chunk of the batch transform fast path: inputs larger "
+        "than one chunk stream through the plan chunk by chunk (one upload and "
+        "one readback each).",
+    )
+    BATCH_PREFETCH_DEPTH = ConfigOption(
+        "batch.prefetch.depth",
+        int,
+        2,
+        "Chunks that may be dispatched to the device before the oldest is read "
+        "back. 2 overlaps the host gather and upload of chunk j+1 with the "
+        "device work of chunk j; 1 = strictly one chunk at a time.",
+    )
+    BATCH_MESH = ConfigOption(
+        "batch.mesh",
+        int,
+        1,
+        "Data-parallel mesh width of the batch transform fast path. The port "
+        "runs the plan on one device: any value but 1 raises (the sharded tier "
+        "is still to be ported, ROADMAP.md).",
+    )
+    BATCH_MESH_MODEL = ConfigOption(
+        "batch.mesh.model",
+        int,
+        1,
+        "Tensor-parallel axis of the batch transform mesh. The port takes only "
+        "1 and raises on anything else, as for batch.mesh.",
+    )
+
     TRAIN_MESH = ConfigOption(
         "train.mesh",
         int,

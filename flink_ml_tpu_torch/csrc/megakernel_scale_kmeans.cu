@@ -29,7 +29,10 @@
 // IEEE addition commutes, so every lane ends with the same bits and tracks
 // the same (best value, best index) with no divergence. A block first
 // computes |c|^2 (euclidean) or |c| (cosine) of every centroid once into
-// shared memory. No intermediate goes through device memory.
+// shared memory. No intermediate goes through device memory. The norms and
+// the per-row search are rowlocal_ops.cuh's centroid_norms and
+// kmeans_assign, which the row-local kernel's kmeans op runs too, so a row
+// gets the same cluster whichever kernel serves its chain.
 //
 // Numerics: scaled uses __fsub_rn / __fmul_rn, which the compiler never
 // contracts into an FMA, so it is bit-identical to the plain version. The
@@ -45,32 +48,20 @@
 // Limits, mirrored by servable/megakernels.py chain_eligible: 1 <= k <=
 // kMaxK centroids (their norms fit the block's shared memory) and 1 <= d <=
 // kMaxDim features (a lane's slots fit its registers).
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "rowlocal_ops.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using rowlocal::kCosine;
+using rowlocal::kEuclidean;
+using rowlocal::kManhattan;
+using rowlocal::kWarp;
+
 constexpr int kRowsPerBlock = 8;
 constexpr int kThreads = kWarp * kRowsPerBlock;
-constexpr int kMaxK = 1024;
-constexpr int kMaxDim = 1024;
+constexpr int kMaxK = rowlocal::kMaxK;
+constexpr int kMaxDim = rowlocal::kMaxDim;
 constexpr int kMaxBlocks = 132 * 8;  // a few waves of the H100's 132 SMs; blocks stride beyond
-static_assert(kMaxDim == 32 * kWarp, "the widest slot count, 32, covers kMaxDim");
-
-enum Measure { kEuclidean = 0, kManhattan = 1, kCosine = 2 };
-
-__device__ __forceinline__ bool is_nan(float v) { return v != v; }
-
-// The warp's total of v, the same bits in every lane.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  }
-  return v;
-}
 
 template <int kSlots, int kMeasure>
 __global__ void __launch_bounds__(kThreads)
@@ -83,16 +74,7 @@ scale_kmeans_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   const int warp = threadIdx.x / kWarp;
 
   if (kMeasure != kManhattan) {
-    for (int c = warp; c < k; c += kRowsPerBlock) {
-      const float* cr = centroids + static_cast<size_t>(c) * d;
-      float acc = 0.0f;
-      for (int j = lane; j < d; j += kWarp) {
-        const float v = __ldg(cr + j);
-        acc = __fmaf_rn(v, v, acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) c_norm[c] = kMeasure == kCosine ? __fsqrt_rn(acc) : acc;
-    }
+    rowlocal::centroid_norms(centroids, k, d, kMeasure, c_norm, warp, kRowsPerBlock, lane);
     __syncthreads();
   }
 
@@ -100,7 +82,6 @@ scale_kmeans_kernel(const float* __restrict__ x, const float* __restrict__ mean,
        row += gridDim.x * kRowsPerBlock) {  // row is uniform across the warp
     const float* xr = x + static_cast<size_t>(row) * d;
     float h[kSlots];
-    float p2 = 0.0f;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const int j = s * kWarp + lane;
@@ -112,42 +93,8 @@ scale_kmeans_kernel(const float* __restrict__ x, const float* __restrict__ mean,
         if (write_scaled) scaled[static_cast<size_t>(row) * d + j] = v;
       }
       h[s] = v;
-      p2 = __fmaf_rn(v, v, p2);
     }
-    if (kMeasure != kManhattan) p2 = warp_sum(p2);
-    const float pn = __fsqrt_rn(p2);  // cosine's |h|
-
-    float best = 0.0f;
-    int best_idx = 0;
-    for (int c = 0; c < k; ++c) {
-      const float* cr = centroids + static_cast<size_t>(c) * d;
-      float acc = 0.0f;
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const int j = s * kWarp + lane;
-        const float cv = j < d ? __ldg(cr + j) : 0.0f;  // past d: 0 against h's 0
-        if (kMeasure == kManhattan) {
-          acc = __fadd_rn(acc, fabsf(__fsub_rn(h[s], cv)));
-        } else {
-          acc = __fmaf_rn(h[s], cv, acc);
-        }
-      }
-      acc = warp_sum(acc);
-      float dist;
-      if (kMeasure == kEuclidean) {
-        const float sq = __fsub_rn(__fadd_rn(p2, c_norm[c]), __fmul_rn(2.0f, acc));
-        dist = __fsqrt_rn(sq < 0.0f ? 0.0f : sq);  // NaN < 0 is false: NaN stays
-      } else if (kMeasure == kCosine) {
-        dist = __fsub_rn(1.0f, __fdiv_rn(__fdiv_rn(acc, pn), c_norm[c]));
-      } else {
-        dist = acc;
-      }
-      // the first minimum; once best is NaN nothing replaces it
-      if (c == 0 || (!is_nan(best) && (is_nan(dist) || dist < best))) {
-        best = dist;
-        best_idx = c;
-      }
-    }
+    const int best_idx = rowlocal::kmeans_assign<kSlots>(h, centroids, c_norm, k, d, kMeasure, lane);
     if (lane == 0) prediction[row] = best_idx;
   }
 }

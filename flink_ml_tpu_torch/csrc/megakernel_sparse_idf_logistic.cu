@@ -1,8 +1,9 @@
 // The serving megakernel for the sparse IDF -> LogisticRegression chain.
 //
 // Replaces: flink_ml_tpu/servable/megakernels.py, build_megakernel_fn (the
-// pallas_call at line 180), for the chains ("sparse_idf", "sparse_logistic")
-// and ("sparse_logistic",). Inputs are one sparse column in the padded layout
+// pallas_call at line 180), for the chains ("sparse_idf", "sparse_logistic"),
+// ("sparse_logistic",) and, in its head-less mode (with_head 0: tfidf only,
+// no coef read and no margin), ("sparse_idf",). Inputs are one sparse column in the padded layout
 // of servable/sparse.py: values [rows, K] f32 and ids [rows, K] i32, padding
 // slots id 0 / value 0. Per row r it computes
 //   tfidf[r,k] = values[r,k] * idf[ids[r,k]]          (with the IDF stage)
@@ -11,7 +12,8 @@
 //                IDF stage, values
 //   prediction = margin >= 0 ? 1 : 0
 //   raw        = [1 - sigmoid(margin), sigmoid(margin)]
-// and writes tfidf (when asked), margin, prediction and raw. The ids and the
+// and writes tfidf (when asked), margin, prediction and raw (with the head).
+// The ids and the
 // row counts pass through untouched: the wrapper hands on its input tensors.
 //
 // Bound: memory. Per row it reads K values and K ids, writes K tfidf values
@@ -61,7 +63,8 @@ sparse_idf_logistic_kernel(const float* __restrict__ values, const int* __restri
                            const float* __restrict__ idf, const float* __restrict__ coef,
                            float* __restrict__ tfidf, float* __restrict__ margin,
                            float* __restrict__ prediction, float* __restrict__ raw,
-                           int rows, int K, int d, int with_idf, int write_tfidf) {
+                           int rows, int K, int d, int with_idf, int write_tfidf,
+                           int with_head) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   if (row >= rows) return;  // row is uniform across the warp: all 32 lanes leave
@@ -77,14 +80,15 @@ sparse_idf_logistic_kernel(const float* __restrict__ values, const int* __restri
         v = __fmul_rn(v, __ldg(idf + id));
         if (write_tfidf) tfidf[off + k] = v;
       }
-      term = __fmul_rn(v, __ldg(coef + id));
+      if (with_head) term = __fmul_rn(v, __ldg(coef + id));
     }
+    if (!with_head) continue;  // uniform: the head-less mode writes tfidf only
     const int n = min(kWarp, K - base);  // uniform: the slots this chunk holds
     for (int j = 0; j < n; ++j) {
       acc = __fadd_rn(acc, __shfl_sync(kFullMask, term, j));
     }
   }
-  if (lane == 0) {
+  if (with_head && lane == 0) {
     const float p = 1.0f / (1.0f + expf(-acc));
     margin[row] = acc;
     prediction[row] = acc >= 0.0f ? 1.0f : 0.0f;
@@ -97,13 +101,16 @@ sparse_idf_logistic_kernel(const float* __restrict__ values, const int* __restri
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError(). idf may be
-// null when with_idf is 0; tfidf may be null when write_tfidf is 0. rows == 0
-// launches nothing.
+// Launches the kernel on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head-less launch that would write nothing.
+// idf may be null when with_idf is 0; tfidf may be null when write_tfidf is
+// 0; coef, margin, prediction and raw may be null when with_head is 0.
+// rows == 0 launches nothing.
 int megakernel_sparse_idf_logistic(const void* values, const void* ids, const void* idf,
                                    const void* coef, void* tfidf, void* margin,
                                    void* prediction, void* raw, int rows, int K, int d,
-                                   int with_idf, int write_tfidf, void* stream) {
+                                   int with_idf, int write_tfidf, int with_head, void* stream) {
+  if (!with_head && !(with_idf && write_tfidf)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
     const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
     const dim3 block(kWarp * kRowsPerBlock);
@@ -112,7 +119,7 @@ int megakernel_sparse_idf_logistic(const void* values, const void* ids, const vo
         static_cast<const float*>(idf), static_cast<const float*>(coef),
         static_cast<float*>(tfidf), static_cast<float*>(margin),
         static_cast<float*>(prediction), static_cast<float*>(raw), rows, K, d, with_idf,
-        write_tfidf);
+        write_tfidf, with_head);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 """Serving metrics — the counters and gauges the plan, batcher and server bump.
 
-Twin of ``flink_ml_tpu/metrics.py``, cut to the names the serving path
-publishes; each name is identical to the JAX package's, so dashboards and
+Twin of ``flink_ml_tpu/metrics.py``, cut to the names the serving path and
+the batch plan publish; each name is identical to the JAX package's, so dashboards and
 tests read both packages the same way. A process-local registry of named
 gauges, counters and histograms grouped per scope (``ml.serving[<name>]``).
 """
@@ -47,6 +47,16 @@ class MLMetrics:
     FUSION_PLAN_CHOICE = "ml.fusion.plan.choice"  # 0 exact / 1 fused / 2 megakernel, gauge
     FUSION_PLAN_SCORE = "ml.fusion.plan.score"  # cost-model score of the last built chain, gauge
 
+    # Batch transform fast path (builder/batch_plan.py — scope "ml.batch[plan]").
+    BATCH_FUSED_STAGES = "ml.batch.fastpath.fused.stages"  # stages fused, gauge
+    BATCH_FALLBACK_STAGES = "ml.batch.fastpath.fallback.stages"  # per-stage, gauge
+    BATCH_FUSED_CHUNKS = "ml.batch.fastpath.fused.chunks"  # chunk executions, counter
+    BATCH_FUSED_ROWS = "ml.batch.fastpath.fused.rows"  # rows through fused chains, counter
+    BATCH_FALLBACK_SEGMENTS = "ml.batch.fastpath.fallback.segments"  # ineligible segment runs, counter
+    BATCH_COMPILES = "ml.batch.fastpath.compiles"  # chains built (one per new chunk signature), counter
+    BATCH_PLAN_BUILD_MS = "ml.batch.fastpath.plan.build.ms"  # build + model upload wall time, gauge
+    BATCH_CHUNK_MS = "ml.batch.fastpath.chunk.ms"  # dispatch→readback per chunk, histogram
+
     #: Reason labels of the per-reason fast-path fallback counters: a sparse
     #: column where the segment expects a dense kind, a column that is not a
     #: dense numeric array, a batch whose nnz exceeds ``sparse.nnz.cap.max``,
@@ -55,7 +65,8 @@ class MLMetrics:
 
     @staticmethod
     def fallback_reason(tier: str, reason: str) -> str:
-        """``ml.serving.fastpath.fallback.<reason>`` — why a batch left the plan."""
+        """``ml.<tier>.fastpath.fallback.<reason>`` — why a batch left the
+        plan; ``tier`` is ``serving`` or ``batch``."""
         return f"ml.{tier}.fastpath.fallback.{reason}"
 
 
@@ -67,11 +78,19 @@ class Histogram:
         self._window = int(window)
         self._values: List[float] = []
         self._pos = 0
+        self._count = 0
         self._lock = threading.Lock()
+
+    @property
+    def count(self) -> int:
+        """Observations made since creation (the window keeps the last ones)."""
+        with self._lock:
+            return self._count
 
     def observe(self, value: float) -> None:
         value = float(value)
         with self._lock:
+            self._count += 1
             if len(self._values) < self._window:
                 self._values.append(value)
             else:  # ring overwrite: oldest observation drops out

@@ -50,6 +50,23 @@ class LogisticRegressionModel(LinearModelBase, HasRawPredictionCol, HasMultiClas
         return out
 
 
+    def sparse_kernel_spec(self, known):
+        """The sparse-convention head for the batch plan (JAX
+        ``logistic_regression.py:83``): the servable's spec — ``transform``'s
+        sparse path runs the same ``sparse_dot_fn`` body, so the fused chain
+        and the per-stage ``transform`` agree bit for bit at every nnz cap —
+        when the features column is known sparse at the coefficient's width,
+        else None. The model has no dense spec, as in the JAX package."""
+        if self.coefficient is None:
+            raise RuntimeError("set_model_data must be called before kernel_spec")
+        servable = (LogisticRegressionModelServable()
+                    .set_features_col(self.get_features_col())
+                    .set_prediction_col(self.get_prediction_col())
+                    .set_raw_prediction_col(self.get_raw_prediction_col()))
+        servable.coefficient = self.coefficient
+        return servable.sparse_kernel_spec(known)
+
+
 class LogisticRegression(LinearEstimatorBase, HasRawPredictionCol, HasMultiClass):
     """LogisticRegression.java:106-115."""
 

@@ -8,8 +8,8 @@ so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so <source>.cu
 
 The library lands in :data:`BUILD_DIR` under a name carrying the hash of
-the source and flags, so an edited source rebuilds and an unchanged one is
-loaded as is. Every C entry point takes ``c_void_p`` pointers and stream and
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is loaded as is. Every C entry point takes ``c_void_p`` pointers and stream and
 returns ``cudaGetLastError()`` after its launch; :meth:`CudaKernel.launch`
 raises on a nonzero code and counts the launch.
 
@@ -65,10 +65,11 @@ def _nvcc() -> str:
 
 def build(source: str) -> BuildResult:
     """Compile ``csrc/<source>`` into a shared library, or reuse the one
-    built from the same source bytes and flags. Raises ``RuntimeError`` with
-    nvcc's output when the compile fails."""
+    built from the same source and header bytes and flags. Raises
+    ``RuntimeError`` with nvcc's output when the compile fails."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     log = lib.with_suffix(".log")
     if lib.is_file():

@@ -30,8 +30,10 @@ class PipelineModelServable(TransformerServable):
 
     @staticmethod
     def load(path: str) -> "PipelineModelServable":
-        """Load from a directory written by ``PipelineModel.save`` (numbered
-        stage subdirectories, each loaded through :func:`load_servable`)."""
+        """Load from a directory written by either package's
+        ``PipelineModel.save`` (``numStages`` in the metadata, stage
+        subdirectories ``stages/%08d``, each loaded through
+        :func:`load_servable`)."""
         metadata = rw.load_metadata(path)
         num_stages = metadata["numStages"]
         stages_dir = os.path.join(path, "stages")

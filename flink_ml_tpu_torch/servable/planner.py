@@ -25,7 +25,10 @@ rebuilt into SparseVectors at readback. Which stages take the convention is
 decided statically when the segments are built (:func:`build_segments`).
 
 "Compiling" a key here means choosing each program's kind and recording the
-key's input signature; PyTorch runs eagerly, so nothing is traced. A
+key's input signature; PyTorch runs eagerly, so nothing is traced. A key is
+whatever the caller ingests by: the serving bucket (and nnz cap), or the
+batch plan's chunk signature (rows × column shapes and dtypes), each built
+lazily the first time it is seen. A
 megakernel that fails to build or launch raises: no merged program stands in
 for it.
 """
@@ -294,6 +297,17 @@ class FusedSegment:
         for spec in self.specs:
             out.extend(spec.outputs)
         return out
+
+    def plan_label(self, key: Hashable) -> str:
+        """The fusion tier the chain built for ``key`` runs at: ``"exact"``,
+        ``"fast"`` (merged programs) or ``"fast+mega"`` (at least one program
+        on a hand-written megakernel)."""
+        kinds = self.plan_kinds.get(key, ())
+        if PLAN_MEGAKERNEL in kinds:
+            return "fast+mega"
+        if PLAN_FUSED in kinds:
+            return "fast"
+        return PLAN_EXACT
 
     def pending(self, outputs: Dict[str, torch.Tensor]) -> List[Tuple[str, Any, torch.Tensor, Any]]:
         """Readback-ready ``(name, DataType, device tensor, numpy dtype)`` for

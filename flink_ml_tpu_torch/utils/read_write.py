@@ -38,6 +38,8 @@ _ARRAYS_FILE = "model_data.npz"
 _PORT_PACKAGE = "flink_ml_tpu_torch."
 
 _PIPELINE = "flink_ml_tpu_torch.servable.builder.PipelineModelServable"
+_PIPELINE_MODEL = "flink_ml_tpu_torch.builder.pipeline.PipelineModel"
+_PIPELINE_ESTIMATOR = "flink_ml_tpu_torch.builder.pipeline.Pipeline"
 _SCALER = "flink_ml_tpu_torch.servable.lib.StandardScalerModelServable"
 _LOGISTIC = "flink_ml_tpu_torch.servable.lib.LogisticRegressionModelServable"
 _LOGISTIC_MODEL = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegressionModel"
@@ -54,6 +56,11 @@ _IMPUTER = "flink_ml_tpu_torch.models.feature.imputer.Imputer"
 _IMPUTER_MODEL = "flink_ml_tpu_torch.models.feature.imputer.ImputerModel"
 _ATTN_MODEL = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAttentionClassifierModel"
 _ATTN = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAttentionClassifier"
+_SCALER_EST = "flink_ml_tpu_torch.models.feature.standard_scaler.StandardScaler"
+_KMEANS_EST = "flink_ml_tpu_torch.models.clustering.kmeans.KMeans"
+_MLP_EST = "flink_ml_tpu_torch.models.classification.mlp_classifier.MLPClassifier"
+_LOGISTIC_EST = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegression"
+_IDF_EST = "flink_ml_tpu_torch.models.feature.idf.IDF"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -62,13 +69,15 @@ _ATTN = "flink_ml_tpu_torch.models.classification.attention_classifier.SelfAtten
 #: Models load as their runtime-free servables, as the JAX package's
 #: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
 #: ``logistic_regression.py:30``, ``mlp_classifier.py:195``,
-#: ``kmeans.py:215``). The reverse direction needs no table: the JAX package
+#: ``kmeans.py:215``), a PipelineModel as the chain of its stages'
+#: servables. The reverse direction needs no table: the JAX package
 #: reads a port-written directory through its servables' ``load_servable``,
 #: which ignore the class name, or, for a stage that is its own servable
 #: (whose ``load`` insists on its own class name), through the same metadata
 #: and model-data files.
 CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
-    "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, None),
+    "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, _PIPELINE_MODEL),
+    "flink_ml_tpu.builder.pipeline.Pipeline": (None, _PIPELINE_ESTIMATOR),
     "flink_ml_tpu.servable.builder.PipelineModelServable": (_PIPELINE, None),
     "flink_ml_tpu.models.feature.standard_scaler.StandardScalerModel": (_SCALER, _SCALER_MODEL),
     "flink_ml_tpu.servable.lib.StandardScalerModelServable": (_SCALER, None),
@@ -88,6 +97,12 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.models.feature.binarizer.Binarizer": (_BINARIZER, _BINARIZER),
     "flink_ml_tpu.models.feature.imputer.ImputerModel": (_IMPUTER_MODEL, _IMPUTER_MODEL),
     "flink_ml_tpu.models.feature.imputer.Imputer": (None, _IMPUTER),
+    # The Estimators a saved Pipeline holds load as the port's Estimators.
+    "flink_ml_tpu.models.feature.standard_scaler.StandardScaler": (None, _SCALER_EST),
+    "flink_ml_tpu.models.clustering.kmeans.KMeans": (None, _KMEANS_EST),
+    "flink_ml_tpu.models.classification.mlp_classifier.MLPClassifier": (None, _MLP_EST),
+    "flink_ml_tpu.models.classification.logistic_regression.LogisticRegression": (None, _LOGISTIC_EST),
+    "flink_ml_tpu.models.feature.idf.IDF": (None, _IDF_EST),
     # The JAX package has no servable for the attention model: it loads as
     # the stage only.
     "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifierModel":

@@ -194,6 +194,7 @@ def test_config_options_share_keys_defaults_and_env_names():
         "serving.default.timeout.ms", "serving.fastpath", "serving.pipeline.depth",
         "fusion.mode", "fusion.megakernel", "fusion.megakernel.min.score",
         "sparse.fastpath", "sparse.nnz.cap.max", "sparse.warmup.caps",
+        "batch.fastpath", "batch.chunk.rows", "batch.prefetch.depth", "batch.mesh", "batch.mesh.model",
         "train.mesh",
     }
     for key, opt in port.items():

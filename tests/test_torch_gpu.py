@@ -354,17 +354,19 @@ def test_server_launches_the_sparse_kernel_for_hot_keys_only(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the scale → mlp serving megakernel
+# the MLP serving megakernel: scale → mlp and the MLP alone
 # ---------------------------------------------------------------------------
 
+from flink_ml_tpu_torch.ops.kernels import scale_fn  # noqa: E402
 from flink_ml_tpu_torch.servable import MLPClassifierModelServable  # noqa: E402
 from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
     MLP_MAX_CLASSES,
     MLP_MAX_LAYERS,
     MLP_MAX_WIDTH,
-    SCALE_MLP,
-    scale_mlp,
-    scale_mlp_plain,
+    ROWLOCAL_MLP,
+    RowLocalOp,
+    rowlocal_mlp,
+    rowlocal_mlp_plain,
 )
 
 #: The published network, two small ones, and one at every limit of the kernel.
@@ -410,18 +412,24 @@ def _top_two_gap(layers, scaled):
 @pytest.mark.parametrize("net", sorted(MLP_NETWORKS))
 @pytest.mark.parametrize("with_mean,with_std,write_scaled", CHAINS)
 def test_mlp_kernel_matches_plain_version(cuda, rows, net, with_mean, with_std, write_scaled):
+    """("scale", "mlp") as a one-op table, or, without the scaled column,
+    the MLP alone (an empty table) on the scaled rows."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full float32
     x, mean, inv_std, layers, labels = _mlp_inputs(rows, MLP_NETWORKS[net], cuda, seed=rows)
-    before = SCALE_MLP.launches
+    before = ROWLOCAL_MLP.launches
     kw = dict(with_mean=with_mean, with_std=with_std)
-    scaled, pred, probs = scale_mlp(x, mean, inv_std, layers, labels, write_scaled=write_scaled, **kw)
-    p_scaled, p_pred, p_probs = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
-    torch.cuda.synchronize()
-    assert SCALE_MLP.launches == before + 1
     if write_scaled:
-        assert torch.equal(scaled, p_scaled)  # bit-equal: no contraction, same roundings
+        inputs, ops, head_src = [x], [RowLocalOp("scale", 0, mean, inv_std, kw)], 1
     else:
-        assert scaled is None
+        inputs, ops, head_src = [scale_fn(x, mean, inv_std, **kw)], [], 0
+    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
+    p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+    torch.cuda.synchronize()
+    assert ROWLOCAL_MLP.launches == before + 1
+    assert len(outs) == len(p_outs) == len(ops)
+    if write_scaled:
+        assert torch.equal(outs[0], p_outs[0])  # bit-equal: no contraction, same roundings
+    p_scaled = (inputs + p_outs)[head_src]
     assert probs.shape == p_probs.shape
     assert ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"]
     decided = (_top_two_gap(layers, p_scaled) > MLP_PREDICTION_MARGIN).cpu().numpy()
@@ -434,38 +442,36 @@ def test_mlp_kernel_takes_the_first_maximal_logit_and_nan_as_the_maximum(cuda):
     labels = torch.tensor([10.0, 20.0, 30.0, 40.0], device=cuda)
     x = torch.tensor([[1.0, 3.0, 3.0, 0.0], [float("nan"), 5.0, float("nan"), 1.0],
                       [-1.0, -1.0, -1.0, -1.0]], device=cuda)
-    kw = dict(with_mean=False, with_std=False)
-    _, pred, probs = scale_mlp(x, None, None, layers, labels, write_scaled=False, **kw)
-    _, p_pred, p_probs = scale_mlp_plain(x, None, None, layers, labels, **kw)
+    _, pred, probs = rowlocal_mlp([x], [], 0, layers, labels)
+    _, p_pred, p_probs = rowlocal_mlp_plain([x], [], 0, layers, labels)
     assert pred.tolist() == p_pred.tolist() == [20.0, 10.0, 10.0]
     assert torch.isnan(probs[1]).all() and torch.isnan(p_probs[1]).all()
 
 
 def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, mean, inv_std, layers, labels = _mlp_inputs(8, [16, 32, 3], cuda)
-    before = SCALE_MLP.launches
-    kw = dict(with_mean=True, with_std=True, write_scaled=True)
+    before = ROWLOCAL_MLP.launches
+
+    def scale(mean, inv_std):
+        return [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})]
+
     with pytest.raises(TypeError, match="float32"):
-        scale_mlp(x.double(), mean, inv_std, layers, labels, **kw)
+        rowlocal_mlp([x.double()], scale(mean, inv_std), 1, layers, labels)
     with pytest.raises(ValueError, match="contiguous"):
-        scale_mlp(x, mean, inv_std, [(layers[0][0].t().contiguous().t(), layers[0][1]), layers[1]],
-                  labels, **kw)
+        rowlocal_mlp([x], scale(mean, inv_std), 1,
+                     [(layers[0][0].t().contiguous().t(), layers[0][1]), layers[1]], labels)
     with pytest.raises(ValueError, match="shape"):
-        scale_mlp(x, mean, inv_std, layers, labels[:-1], **kw)
+        rowlocal_mlp([x], scale(mean, inv_std), 1, layers, labels[:-1])
     with pytest.raises(ValueError, match="expected"):
-        scale_mlp(x, mean.cpu(), inv_std, layers, labels, **kw)
-    wide = _mlp_inputs(2, [MLP_MAX_WIDTH + 1, 4, 3], cuda)
-    with pytest.raises(ValueError, match="holds"):
-        scale_mlp(*wide[:3], wide[3], wide[4], **kw)
-    many = _mlp_inputs(2, [8] + [8] * MLP_MAX_LAYERS + [3], cuda)
-    with pytest.raises(ValueError, match="holds"):
-        scale_mlp(*many[:3], many[3], many[4], **kw)
-    classes = _mlp_inputs(2, [8, 16, MLP_MAX_CLASSES + 1], cuda)
-    with pytest.raises(ValueError, match="holds"):
-        scale_mlp(*classes[:3], classes[3], classes[4], **kw)
-    empty = scale_mlp(x[:0], mean, inv_std, layers, labels, **kw)
-    assert [t.shape for t in empty] == [(0, 16), (0,), (0, 3)]
-    assert SCALE_MLP.launches == before
+        rowlocal_mlp([x], scale(mean.cpu(), inv_std), 1, layers, labels)
+    for widths in ([MLP_MAX_WIDTH + 1, 4, 3], [8] + [8] * MLP_MAX_LAYERS + [3],
+                   [8, 16, MLP_MAX_CLASSES + 1]):  # too wide, too deep, too many classes
+        big = _mlp_inputs(2, widths, cuda)
+        with pytest.raises(ValueError, match="holds"):
+            rowlocal_mlp([big[0]], scale(big[1], big[2]), 1, big[3], big[4])
+    outs, pred, probs = rowlocal_mlp([x[:0]], scale(mean, inv_std), 1, layers, labels)
+    assert [t.shape for t in outs + [pred, probs]] == [(0, 16), (0,), (0, 3)]
+    assert ROWLOCAL_MLP.launches == before
 
 
 def test_server_launches_the_mlp_kernel_from_two_rows(cuda):
@@ -485,12 +491,12 @@ def test_server_launches_the_mlp_kernel_from_two_rows(cuda):
     cfg = ServingConfig(max_batch_size=2048, queue_capacity_rows=8192, fusion_mode="fast")
     template = DataFrame.from_dict({"features": rng.normal(size=(1, d))})
     with InferenceServer(pipe, name="gpu-mlp", serving_config=cfg, warmup_template=template) as srv:
-        SCALE_MLP.reset_launches()
+        ROWLOCAL_MLP.reset_launches()
         big = DataFrame.from_dict({"features": rng.normal(size=(1500, d))})
         one = DataFrame.from_dict({"features": rng.normal(size=(1, d))})
         r_big, r_one = srv.predict(big), srv.predict(one)
         assert (r_big.bucket, r_one.bucket) == (2048, 1)
-        assert SCALE_MLP.launches == 1  # bucket 2048 is hot, bucket 1 is not
+        assert ROWLOCAL_MLP.launches == 1  # bucket 2048 is hot, bucket 1 is not
     ref = pipe.transform(big, device="cpu")
     np.testing.assert_array_equal(r_big.dataframe.column("scaled"), ref.column("scaled"))
     np.testing.assert_allclose(r_big.dataframe.column("rawPrediction"), ref.column("rawPrediction"),
@@ -1234,3 +1240,313 @@ def test_attention_fit_on_the_card_matches_the_cpu_fit(cuda):
     out = model.transform(df, device="cpu")
     ref = cpu_model.transform(df, device="cpu")
     np.testing.assert_allclose(out.column("rawPrediction"), ref.column("rawPrediction"), rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the table's kmeans head, the MLP kernel's table prologue, the sparse
+# kernel's head-less mode
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
+    ROWLOCAL_MLP,
+    rowlocal_mlp,
+    rowlocal_mlp_plain,
+    sparse_idf,
+    sparse_idf_plain,
+)
+
+TABLE_KMEANS_CHAINS = ("normalize_kmeans", "scale_normalize_kmeans", "kmeans_then_ops", "two_kmeans")
+
+
+def _table_kmeans_case(name, rows, d, k, measure, device, seed=0):
+    """``(inputs, ops)`` of a table chain with kmeans heads: uniform rows (the
+    published generator's kind) with, from 5 rows on, a zero row and a NaN;
+    centroids drawn from the rows the head reads."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    x = rng.random((rows, d)).astype(np.float32)
+    if rows >= 5:
+        x[1] = 0.0
+        x[2, d // 2] = np.nan
+    std = (rng.random(d) * 0.3 + 0.2).astype(np.float32)
+    std[0] = 0.0
+    inv_std = t(np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std)))
+    scale = RowLocalOp("scale", 0, t(rng.random(d) * 0.5), inv_std, {"with_mean": True, "with_std": True})
+    norm = RowLocalOp("normalize", 0, params={"p": 2.0})
+    raw_c = rng.random((k, d))
+    unit_c = raw_c / np.linalg.norm(raw_c, axis=1, keepdims=True)
+
+    def kmeans(src, c):
+        return RowLocalOp("kmeans", src, t(c), params={"measure": measure})
+
+    if name == "normalize_kmeans":
+        return [t(x)], [norm, kmeans(1, unit_c)]
+    if name == "scale_normalize_kmeans":
+        return [t(x)], [scale, norm._replace(src=1), kmeans(2, unit_c)]
+    if name == "kmeans_then_ops":  # the head mid-chain, then ops on its input
+        return [t(x)], [kmeans(0, raw_c), RowLocalOp("binarize", 0, params={"threshold": 0.5})]
+    assert name == "two_kmeans"  # two heads, their norms side by side in shared memory
+    return [t(x)], [kmeans(0, raw_c), norm, kmeans(2, unit_c[::-1].copy())]
+
+
+@pytest.mark.parametrize("name", TABLE_KMEANS_CHAINS)
+@pytest.mark.parametrize("d", (1, 8, 100, 1000))
+@pytest.mark.parametrize("k", (1, 10, 64))
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+def test_table_kmeans_head_matches_plain_version(cuda, name, d, k, measure):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for rows in (1, 33, 4096):
+        where = f"{name} rows={rows} d={d} k={k} {measure}"
+        inputs, ops = _table_kmeans_case(name, rows, d, k, measure, cuda, seed=rows + d + k)
+        before = ROWLOCAL.launches
+        got = rowlocal_chain(inputs, ops)
+        want = rowlocal_chain_plain(inputs, ops)
+        torch.cuda.synchronize()
+        assert ROWLOCAL.launches == before + 1, where
+        slots_plain = list(inputs) + list(want)
+        for i, op in enumerate(ops):
+            g, w = got[i], want[i]
+            assert g.shape == w.shape and g.dtype == w.dtype, where
+            if op.op == "kmeans":
+                dec = torch.from_numpy(_kmeans_decided(measure, slots_plain[op.src], op.a)).to(cuda)
+                assert torch.equal(g[dec], w[dec]), where
+                assert bool(((g >= 0) & (g < op.a.shape[0])).all()), where
+            elif op.op == "normalize":
+                assert ulp_diff(g.cpu().numpy(), w.cpu().numpy()) <= ULP_ENVELOPE["feature6"], where
+            else:
+                assert _same_bits_or_nan(g, w), where
+
+
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+@pytest.mark.parametrize("d,k", ((7, 10), (100, 10), (256, 1024)))
+def test_table_kmeans_head_gives_the_dedicated_kernels_cluster(cuda, measure, d, k):
+    """("scale", "kmeans") on the table and on its own kernel: the same
+    norms and distances, so the same index in every row, ties included."""
+    from flink_ml_tpu_torch.servable.megakernels import SCALE_KMEANS, scale_kmeans
+
+    x, mean, inv_std, C = _kmeans_inputs(4096, d, k, cuda, seed=d + k)
+    C[3] = C[1]  # a duplicate centroid: the first index wins in both
+    ops = [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True}),
+           RowLocalOp("kmeans", 1, C, params={"measure": measure})]
+    scaled, idx = rowlocal_chain([x], ops)
+    d_scaled, d_idx = scale_kmeans(x, mean, inv_std, C, measure=measure, with_mean=True,
+                                   with_std=True, write_scaled=True)
+    torch.cuda.synchronize()
+    assert _same_bits_or_nan(scaled, d_scaled)
+    assert torch.equal(idx, d_idx)
+
+
+def test_table_kmeans_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.rand((8, 4), device=cuda)
+    C = torch.rand((3, 4), device=cuda)
+    before = ROWLOCAL.launches
+    with pytest.raises(ValueError, match="shape"):
+        rowlocal_chain([x], [RowLocalOp("kmeans", 0, C[:, :3].contiguous(), params={"measure": "cosine"})])
+    with pytest.raises(ValueError, match="measure"):
+        rowlocal_chain([x], [RowLocalOp("kmeans", 0, C, params={"measure": "chebyshev"})])
+    with pytest.raises(ValueError, match="centroids"):
+        rowlocal_chain([x], [RowLocalOp("kmeans", 0, torch.rand((1025, 4), device=cuda),
+                                        params={"measure": "euclidean"})])
+    idx_then_binarize = [RowLocalOp("kmeans", 0, C, params={"measure": "euclidean"}),
+                         RowLocalOp("binarize", 1, params={"threshold": 0.5})]
+    with pytest.raises(ValueError, match="int32"):  # an index column is no float input
+        rowlocal_chain([x], idx_then_binarize)
+    assert ROWLOCAL.launches == before
+
+
+ROWLOCAL_MLP_CHAINS = ("normalize", "product_scale", "scale", "logistic_then_normalize")
+
+
+def _rowlocal_mlp_case(name, rows, widths, device, seed=0):
+    """``(inputs, ops, head_src, layers, labels)``: a table chain ending in
+    the MLP, on the MLP test's inputs."""
+    x, mean, inv_std, layers, labels = _mlp_inputs(rows, widths, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    d = widths[0]
+    scaling = torch.from_numpy(np.abs(rng.normal(size=d)).astype(np.float32) + 0.1).to(device)
+    scale = RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})
+    norm = RowLocalOp("normalize", 0, params={"p": 2.0})
+    if name == "normalize":
+        return [x], [norm], 1, layers, labels
+    if name == "product_scale":
+        return [x], [RowLocalOp("elementwise_product", 0, scaling), scale._replace(src=1)], 2, layers, labels
+    if name == "scale":
+        return [x], [scale], 1, layers, labels
+    assert name == "logistic_then_normalize"  # a logistic head, then the MLP on the normalized row
+    coef = torch.from_numpy((rng.normal(size=d) * 0.1).astype(np.float32)).to(device)
+    return [x], [RowLocalOp("logistic", 0, coef), norm], 3, layers, labels
+
+
+@pytest.mark.parametrize("rows", (1, 2, 33, 4096))
+@pytest.mark.parametrize("net", ("256-512-512-8", "100-64-2", "8-16-3", "limits"))
+@pytest.mark.parametrize("name", ROWLOCAL_MLP_CHAINS)
+def test_rowlocal_mlp_kernel_matches_plain_version(cuda, rows, net, name):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    where = f"{name} rows={rows} net={net}"
+    inputs, ops, head_src, layers, labels = _rowlocal_mlp_case(name, rows, MLP_NETWORKS[net], cuda,
+                                                               seed=rows)
+    before = ROWLOCAL_MLP.launches
+    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
+    p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+    torch.cuda.synchronize()
+    assert ROWLOCAL_MLP.launches == before + 1, where
+    _check_rowlocal(inputs, ops, outs, p_outs, where)
+    assert probs.shape == p_probs.shape and pred.shape == p_pred.shape, where
+    assert ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"], where
+    sure = _top_two_gap(layers, (list(inputs) + p_outs)[head_src]) > MLP_PREDICTION_MARGIN
+    assert torch.equal(pred[sure], p_pred[sure]), where
+
+
+@pytest.mark.parametrize("rows", (1, 33, 4096))
+def test_rowlocal_mlp_empty_table_gives_the_scale_prologues_bits(cuda, rows):
+    """("scale", "mlp") through a one-op table, and the MLP alone through an
+    empty table on the scaled rows it wrote: the same head input, the same
+    layer code, so the same bits."""
+    inputs, ops, head_src, layers, labels = _rowlocal_mlp_case("scale", rows, [256, 512, 512, 8], cuda)
+    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
+    none, d_pred, d_probs = rowlocal_mlp([outs[0]], [], 0, layers, labels)
+    torch.cuda.synchronize()
+    assert none == []
+    assert _same_bits(probs, d_probs)
+    assert torch.equal(pred, d_pred)
+
+
+def test_rowlocal_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    inputs, ops, head_src, layers, labels = _rowlocal_mlp_case("normalize", 8, [8, 16, 3], cuda)
+    before = ROWLOCAL_MLP.launches
+    with pytest.raises(ValueError, match="reads slot"):
+        rowlocal_mlp(inputs, ops, 5, layers, labels)
+    with pytest.raises(ValueError, match="shape"):
+        rowlocal_mlp(inputs, ops, head_src, [(layers[0][0][:-1], layers[0][1])] + layers[1:], labels)
+    with pytest.raises(ValueError, match="holds"):
+        rowlocal_mlp(inputs, ops, head_src, layers * 5, labels)
+    assert ROWLOCAL_MLP.launches == before
+
+
+@pytest.mark.parametrize("d", (8, 1000, 1 << 22))
+def test_sparse_idf_alone_is_bit_equal_to_float32_values_times_idf(cuda, d):
+    for rows in (1, 33, 4096):
+        for K in (1, 8, 64):
+            where = f"rows={rows} K={K}"
+            vals, ids, idf, _coef = _sparse_inputs(rows, K, d, cuda, seed=rows + K)
+            before = SPARSE_IDF_LOGISTIC.launches
+            tfidf = sparse_idf(vals, ids, idf)
+            torch.cuda.synchronize()
+            assert SPARSE_IDF_LOGISTIC.launches == before + 1, where
+            assert _same_bits(tfidf, sparse_idf_plain(vals, ids, idf)), where
+            assert _same_bits(tfidf, vals * idf[ids.long()]), where
+    assert tuple(sparse_idf(vals[:0], ids[:0], idf).shape) == (0, 64)
+
+
+# ---------------------------------------------------------------------------
+# the Pipeline path on the card: the batch plan against the CPU
+# ---------------------------------------------------------------------------
+
+from flink_ml_tpu_torch.builder import Pipeline, PipelineModel  # noqa: E402
+from flink_ml_tpu_torch.config import Options, config  # noqa: E402
+from flink_ml_tpu_torch.models.clustering.kmeans import KMeans  # noqa: E402
+from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler  # noqa: E402
+
+
+@pytest.fixture
+def batch_options():
+    yield
+    for option in (Options.BATCH_CHUNK_ROWS, Options.BATCH_PREFETCH_DEPTH, Options.FUSION_MODE,
+                   Options.FUSION_MEGAKERNEL_MIN_SCORE):
+        config.unset(option)
+
+
+@pytest.mark.parametrize("depth", (1, 2))
+def test_pipeline_batch_transform_on_the_card_matches_the_cpu(cuda, batch_options, depth):
+    """StandardScaler → Normalizer → KMeans fitted on the card, transformed
+    in the fast tier over chunks with the prefetch window: the batch tier's
+    chain ("scale", "normalize") on the row-local kernel, KMeans per stage;
+    held against the same model's CPU transform."""
+    rng = np.random.default_rng(31)
+    X = rng.random((3000, 100))
+    est = Pipeline([
+        StandardScaler().set_input_col("features").set_output_col("scaled").set_with_mean(True),
+        Normalizer().set_input_col("scaled").set_output_col("norm"),
+        KMeans().set_features_col("norm").set_k(10).set_max_iter(5).set_seed(3),
+    ])
+    model = est.fit(DataFrame.from_dict({"features": X}))
+    config.set(Options.FUSION_MODE, "fast")
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)  # every chunk hot, the ragged one too
+    config.set(Options.BATCH_CHUNK_ROWS, 1024)  # 2 chunks and a ragged tail
+    config.set(Options.BATCH_PREFETCH_DEPTH, depth)
+    ROWLOCAL.reset_launches()
+    out = model.transform(DataFrame.from_dict({"features": X}))
+    assert ROWLOCAL.launches == 3
+    ref = model.transform(DataFrame.from_dict({"features": X}), device="cpu")
+    np.testing.assert_array_equal(out.column("scaled"), ref.column("scaled"))
+    assert ulp_diff(out.column("norm"), ref.column("norm")) <= ULP_ENVELOPE["feature6"]
+    C = model.stages[2].centroids
+    dist = np.sqrt(((ref.column("norm")[:, None, :] - C[None]) ** 2).sum(-1))
+    top = np.sort(dist, axis=1)
+    decided = top[:, 1] - top[:, 0] > KMEANS_MARGIN
+    np.testing.assert_array_equal(out.column("prediction")[decided], ref.column("prediction")[decided])
+
+
+def test_sparse_idf_lr_batch_on_the_card_is_bit_equal_to_the_cpu(cuda, batch_options):
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegressionModel
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+
+    d = 1 << 22
+    rng = np.random.default_rng(32)
+    rows = [SparseVector(d, np.sort(rng.choice(d, size=int(k), replace=False)), rng.random(int(k)) + 0.5)
+            for k in rng.integers(1, 40, size=2000)]
+    idf = IDFModel().set_input_col("features").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = np.abs(rng.normal(size=d)) + 0.1, np.ones(d), np.asarray(9.0)
+    lr = LogisticRegressionModel().set_features_col("tfidf")
+    lr.coefficient = rng.normal(size=d) * 0.3
+    model = PipelineModel([idf, lr])
+    config.set(Options.FUSION_MODE, "fast")
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)
+    config.set(Options.BATCH_CHUNK_ROWS, 512)
+    df = DataFrame(["features"], None, [rows])
+    SPARSE_IDF_LOGISTIC.reset_launches()
+    out = model.transform(df)
+    assert SPARSE_IDF_LOGISTIC.launches == 4
+    ref = model.transform(df, device="cpu")
+    for r, w in zip(out.column("tfidf"), ref.column("tfidf")):
+        np.testing.assert_array_equal(r.values, w.values)
+    np.testing.assert_array_equal(out.column("prediction"), ref.column("prediction"))
+    assert ulp_diff(out.column("rawPrediction"), ref.column("rawPrediction")) \
+        <= ULP_ENVELOPE["sparse_idf_logistic"]
+
+
+def test_server_runs_idf_alone_on_the_headless_sparse_kernel(cuda):
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+
+    d = 1000
+    rng = np.random.default_rng(33)
+    idf = IDFModel().set_input_col("features").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = np.abs(rng.normal(size=d)) + 0.1, np.ones(d), np.asarray(9.0)
+    pipe = PipelineModelServable([idf])
+
+    def frame(n):
+        return DataFrame(["features"], None, [[
+            SparseVector(d, np.sort(rng.choice(d, size=int(k), replace=False)), rng.random(int(k)))
+            for k in rng.integers(1, 9, size=n)]])
+
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)
+    try:
+        cfg = ServingConfig(max_batch_size=256, queue_capacity_rows=1024, fusion_mode="fast")
+        with InferenceServer(pipe, name="gpu-idf-alone", serving_config=cfg,
+                             warmup_template=frame(1)) as srv:
+            SPARSE_IDF_LOGISTIC.reset_launches()
+            req = frame(200)
+            resp = srv.predict(req)
+            assert SPARSE_IDF_LOGISTIC.launches == 1
+    finally:
+        config.unset(Options.FUSION_MEGAKERNEL_MIN_SCORE)
+    idf32 = idf.idf.astype(np.float32)
+    for v, out in zip(req.column("features"), resp.dataframe.column("tfidf")):
+        np.testing.assert_array_equal(out.indices, v.indices)
+        want = (v.values.astype(np.float32) * idf32[v.indices]).astype(np.float64)
+        np.testing.assert_array_equal(out.values, want)

@@ -34,11 +34,15 @@ from flink_ml_tpu_torch.servable.megakernels import (
     MEGAKERNEL_CHAINS,
     MLP_MAX_CLASSES,
     MLP_MAX_LAYERS,
+    MLP_MAX_NORM_FLOATS,
     MLP_MAX_WIDTH,
     ROWLOCAL_MAX_DIM,
+    ROWLOCAL_MAX_NORM_FLOATS,
     ROWLOCAL_MAX_OPS,
     ROWLOCAL_OPS,
+    REFUSED,
     SCALE_LOGISTIC,
+    TABLE_OPS,
     build_megakernel_fn,
     chain_eligible,
     scale_logistic,
@@ -210,12 +214,12 @@ def _logistic(inp="scaled", width=4):
                  arrays={"coefficient": np.ones(width, np.float32)})
 
 
-def _sparse_idf(out="tfidf", width=4):
+def _sparse_idf(out="tfidf", width=4, inp="features"):
     return KernelSpec(
-        input_cols=("features",), outputs=[(out, None)],
+        input_cols=(inp,), outputs=[(out, None)],
         model_arrays={"idf": np.ones(width, np.float32)}, kernel_fn=lambda m, c: {},
-        input_kinds={"features": "sparse"}, sparse_outputs={out: width},
-        sparse_input_dims={"features": width}, elementwise=True, fusion_op="sparse_idf",
+        input_kinds={inp: "sparse"}, sparse_outputs={out: width},
+        sparse_input_dims={inp: width}, elementwise=True, fusion_op="sparse_idf",
     )
 
 
@@ -228,11 +232,13 @@ def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
 
 
 #: Chains the JAX package lowers as one Pallas megakernel that the port does
-#: not have a kernel for yet (they stay on the merged program in fast mode).
+#: not have a kernel for (they stay on the merged program in fast mode): the
+#: named residue of ``megakernels.REFUSED``, one well-formed chain of each.
 NOT_YET_PORTED = {
-    "normalize_kmeans": ["normalize", "kmeans"],
-    "normalize_mlp": ["normalize", "mlp"],
-    "sparse_idf": ["sparse_idf"],
+    "mlp_not_last": lambda: [_mlp(inp="x"), _rowlocal("scale", "x", "z")],
+    "sparse_with_dense": lambda: [_sparse_idf(), _sparse_logistic(), _rowlocal("scale", "x", "z")],
+    "other_sparse_run": lambda: [_sparse_idf(out="t1"), _sparse_idf(out="t2", inp="t1")],
+    "reads_kmeans_index": lambda: [_kmeans(inp="x"), _rowlocal("binarize", "prediction", "bin")],
 }
 
 
@@ -280,8 +286,8 @@ def _kmeans(k=3, d=4, inp="scaled", measure="euclidean"):
 def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert MEGAKERNEL_CHAINS == {
         ("scale", "logistic"), ("logistic",), ("sparse_idf", "sparse_logistic"), ("sparse_logistic",),
-        ("scale", "mlp"), ("mlp",), ("scale", "kmeans"), ("kmeans",),
-    }
+        ("scale", "kmeans"), ("kmeans",),
+    }  # ("scale", "mlp") and ("mlp",) run on the MLP kernel's table prologue
     assert chain_eligible([_scale(), _logistic()])
     assert chain_eligible([_logistic(inp="features")])
     assert chain_eligible([_sparse_idf(), _sparse_logistic()])
@@ -299,15 +305,29 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()],
                   [_scale(), _mlp()], [_mlp()], [_scale(), _kmeans()], [_kmeans()]):
         assert jax_chain_eligible(specs)  # the JAX package lowers these chains too
-    for name, ops in NOT_YET_PORTED.items():
-        specs = [_spec(op) for op in ops]
-        assert all(op in MEGAKERNEL_OPS for op in ops), name
+    assert set(NOT_YET_PORTED) == set(REFUSED)
+    for name, make in NOT_YET_PORTED.items():
+        specs = make()
+        assert tuple(s.fusion_op for s in specs) == REFUSED[name], name
+        assert all(s.fusion_op in MEGAKERNEL_OPS for s in specs), name
         assert jax_chain_eligible(specs), name  # the JAX package lowers it
-        assert not chain_eligible(specs), name  # the port does not yet
-    assert not chain_eligible([_rowlocal("normalize"), _kmeans(inp="y")])  # well-formed, still refused
-    assert not chain_eligible([_rowlocal("normalize"), _mlp(inp="y")])
-    # the row-local kernel: any chain of ROWLOCAL_OPS, optionally closed by a dense logistic head
-    assert ROWLOCAL_OPS | {"logistic"} <= MEGAKERNEL_OPS
+        assert not chain_eligible(specs), name  # the port does not
+    # a row-local prefix before kmeans or mlp, and the sparse IDF alone: ported
+    for specs in ([_rowlocal("normalize"), _kmeans(inp="y")],
+                  [_rowlocal("scale", "x", "s"), _rowlocal("normalize", "s", "n"), _kmeans(inp="n")],
+                  [_rowlocal("normalize"), _mlp(inp="y")],
+                  [_rowlocal("elementwise_product", "x", "p"), _rowlocal("scale", "p", "s"),
+                   _mlp(inp="s")],
+                  [_sparse_idf()]):
+        assert chain_eligible(specs), [s.fusion_op for s in specs]
+        assert jax_chain_eligible(specs)
+        build_megakernel_fn(specs)
+    wrong_out = _sparse_idf()
+    wrong_out.sparse_outputs = {}  # IDF alone must keep its output sparse
+    assert not chain_eligible([wrong_out])
+    # the table kernels: any chain of TABLE_OPS (the logistic and kmeans heads anywhere),
+    # optionally closed by an MLP head
+    assert TABLE_OPS == ROWLOCAL_OPS | {"logistic", "kmeans"} and TABLE_OPS <= MEGAKERNEL_OPS
     for specs in (_feature6_specs(), _feature6_specs(head=True), [_rowlocal("scale")],
                   [_rowlocal("normalize")], [_rowlocal("impute")],
                   _feature6_specs(ROWLOCAL_MAX_DIM, head=True)):
@@ -319,15 +339,22 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert not chain_eligible([_rowlocal("normalize", p=0.5)])  # p < 1
     assert not chain_eligible([_spec("scale")])  # no mean / inv_std, no flags
     assert not chain_eligible([_spec("normalize")])  # no p
-    assert not chain_eligible([_rowlocal("binarize"), _logistic("y", width=5), _rowlocal("idf")])  # head not last
+    assert chain_eligible([_rowlocal("binarize"), _logistic("y", width=5), _rowlocal("idf")])  # a head need not be last
     assert not chain_eligible([_rowlocal("binarize", width=4)] * (ROWLOCAL_MAX_OPS + 1))  # table too long
+    # the centroids a table's kmeans ops hold in all: their norms share the block's shared memory,
+    # with the activations in the MLP kernel (the row-local kernel's table is full first)
+    assert ROWLOCAL_MAX_OPS * KMEANS_MAX_K <= ROWLOCAL_MAX_NORM_FLOATS
+    assert chain_eligible([_kmeans(KMEANS_MAX_K, inp="x")] * ROWLOCAL_MAX_OPS)
+    mlp_k = MLP_MAX_NORM_FLOATS // KMEANS_MAX_K
+    assert chain_eligible([_kmeans(KMEANS_MAX_K, inp="x")] * mlp_k + [_mlp(inp="x")])
+    assert not chain_eligible([_kmeans(KMEANS_MAX_K, inp="x")] * (mlp_k + 1) + [_mlp(inp="x")])
     sparse_in = _rowlocal("binarize")
     sparse_in.input_kinds["x"] = "sparse"
     assert not chain_eligible([sparse_in])  # dense and scalar columns only
     # dataflow and shapes the kernels cannot take
-    assert not chain_eligible([_scale(out="other"), _logistic()])
-    assert not chain_eligible([_scale(), _logistic(width=5)])
-    assert not chain_eligible([_logistic(inp="scaled")] * 2)
+    assert chain_eligible([_scale(out="other"), _logistic()])  # the head reads an input: the table
+    assert not chain_eligible([_scale(), _logistic(width=5)])  # widths the model arrays fix disagree
+    assert chain_eligible([_logistic(inp="scaled")] * 2)  # two heads: the table
     assert not chain_eligible([])
     assert not chain_eligible([_sparse_idf(out="other"), _sparse_logistic()])  # idf feeds another column
     assert not chain_eligible([_sparse_idf(width=5), _sparse_logistic()])  # idf of another width
@@ -336,7 +363,7 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert not chain_eligible([_spec("sparse_idf"), _spec("sparse_logistic")])  # no coefficient/idf
     # MLP networks the kernel cannot hold, or heads not of the MLP's form
     assert not chain_eligible([_scale(), _mlp((5, 8, 3))])  # the scaler's width is not W0's
-    assert not chain_eligible([_scale(out="other"), _mlp()])  # the scaler feeds another column
+    assert chain_eligible([_scale(out="other"), _mlp()])  # the scaler feeds another column: the prologue
     assert not chain_eligible([_spec("scale"), _spec("mlp")])  # no network
     assert not chain_eligible([_mlp((4,) + (8,) * MLP_MAX_LAYERS + (3,))])  # one layer too many
     assert not chain_eligible([_mlp((4, MLP_MAX_WIDTH + 1, 3))])  # a hidden layer too wide
@@ -358,7 +385,7 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert not chain_eligible([extra])
     # KMeans models the kernel cannot hold, or heads not of the KMeans form
     assert not chain_eligible([_scale(), _kmeans(d=5)])  # the scaler's width is not the centroids'
-    assert not chain_eligible([_scale(out="other"), _kmeans()])  # the scaler feeds another column
+    assert chain_eligible([_scale(out="other"), _kmeans()])  # the scaler feeds another column: the table
     assert not chain_eligible([_kmeans(KMEANS_MAX_K + 1, 4)])  # too many centroids
     assert not chain_eligible([_kmeans(3, KMEANS_MAX_DIM + 1)])  # too wide
     assert not chain_eligible([_kmeans(measure="chebyshev")])  # a measure the kernel lacks
@@ -422,3 +449,127 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert SCALE_LOGISTIC.source_path == "flink_ml_tpu_torch/csrc/megakernel_scale_logistic.cu"
     assert (native.CSRC_DIR / SCALE_LOGISTIC.source).is_file()
     assert SCALE_LOGISTIC in native.KERNELS
+
+
+# ---------------------------------------------------------------------------
+# the port's chain_eligible against the JAX one, on every chain the planner
+# forms from the ported stages
+# ---------------------------------------------------------------------------
+
+import itertools  # noqa: E402
+
+from flink_ml_tpu.models.feature.binarizer import Binarizer as JBinarizer  # noqa: E402
+from flink_ml_tpu.models.feature.elementwise_product import ElementwiseProduct as JElementwiseProduct  # noqa: E402
+from flink_ml_tpu.models.feature.idf import IDFModel as JIDFModel  # noqa: E402
+from flink_ml_tpu.models.feature.imputer import ImputerModel as JImputerModel  # noqa: E402
+from flink_ml_tpu.models.feature.normalizer import Normalizer as JNormalizer  # noqa: E402
+from flink_ml_tpu.servable.planner import FusedSegment as JFusedSegment  # noqa: E402
+from flink_ml_tpu.servable.planner import build_segments as jax_build_segments  # noqa: E402
+
+from flink_ml_tpu_torch.models.feature.binarizer import Binarizer  # noqa: E402
+from flink_ml_tpu_torch.models.feature.elementwise_product import ElementwiseProduct  # noqa: E402
+from flink_ml_tpu_torch.models.feature.idf import IDFModel  # noqa: E402
+from flink_ml_tpu_torch.models.feature.imputer import ImputerModel  # noqa: E402
+from flink_ml_tpu_torch.models.feature.normalizer import Normalizer  # noqa: E402
+from flink_ml_tpu_torch.servable import KMeansModelServable, MLPClassifierModelServable  # noqa: E402
+from flink_ml_tpu_torch.servable.planner import FusedSegment, build_segments  # noqa: E402
+
+_POOL_D = 4
+_POOL = ("scale", "normalize", "product", "idf", "binarize", "binarize_pred", "impute", "logistic",
+         "kmeans", "mlp", "sparse_idf", "sparse_logistic")
+
+
+def _pool_stage(name, jax):
+    """One ported stage of each spec form, in the port or the JAX package,
+    each reading and writing the column ``x`` (scalar ``s``, sparse ``f``)
+    so that any sequence of them is a chain."""
+    d, rng = _POOL_D, np.random.default_rng(_POOL.index(name))
+    lib = jlib if jax else __import__("flink_ml_tpu_torch.servable", fromlist=["x"])
+    if name == "scale":
+        s = lib.StandardScalerModelServable().set_input_col("x").set_output_col("x").set_with_mean(True)
+        s.mean, s.std = rng.normal(size=d), np.abs(rng.normal(size=d)) + 0.5
+        return s
+    if name == "normalize":
+        return (JNormalizer if jax else Normalizer)().set_input_col("x").set_output_col("x")
+    if name == "product":
+        return (JElementwiseProduct if jax else ElementwiseProduct)().set_scaling_vec(
+            rng.normal(size=d)).set_input_col("x").set_output_col("x")
+    if name in ("idf", "sparse_idf"):
+        col = "x" if name == "idf" else "f"
+        s = (JIDFModel if jax else IDFModel)().set_input_col(col).set_output_col(col)
+        s.idf, s.doc_freq, s.num_docs = np.abs(rng.normal(size=d)), np.ones(d), np.asarray(9.0)
+        return s
+    if name in ("binarize", "binarize_pred"):
+        col, out = ("x", "x") if name == "binarize" else ("prediction", "pb")
+        return (JBinarizer if jax else Binarizer)().set_input_cols(col).set_output_cols(out).set_thresholds(0.1)
+    if name == "impute":
+        s = (JImputerModel if jax else ImputerModel)().set_input_cols("s").set_output_cols("s")
+        s.surrogates = rng.normal(size=1)
+        return s
+    if name in ("logistic", "sparse_logistic"):
+        s = lib.LogisticRegressionModelServable().set_features_col("x" if name == "logistic" else "f")
+        s.coefficient = rng.normal(size=d)
+        return s
+    if name == "kmeans":
+        s = (jlib.KMeansModelServable if jax else KMeansModelServable)().set_features_col("x").set_k(3)
+        s.centroids, s.weights = rng.normal(size=(3, d)).astype(np.float32), np.ones(3)
+        return s
+    assert name == "mlp"
+    s = (jlib.MLPClassifierModelServable if jax else MLPClassifierModelServable)().set_features_col("x")
+    s._apply_model_arrays({"W0": rng.normal(size=(d, 8)).astype(np.float32), "b0": np.zeros(8, np.float32),
+                           "W1": rng.normal(size=(8, 3)).astype(np.float32), "b1": np.zeros(3, np.float32),
+                           "labels": np.arange(3.0)})
+    return s
+
+
+def _residue(specs):
+    """The REFUSED class a run of specs falls in, or None."""
+    ops = tuple(s.fusion_op for s in specs)
+    sparse = {"sparse_idf", "sparse_logistic"}
+    if "mlp" in ops[:-1]:
+        return "mlp_not_last"
+    if set(ops) & sparse and set(ops) - sparse:
+        return "sparse_with_dense"
+    if set(ops) <= sparse and ops not in (("sparse_idf",), ("sparse_logistic",),
+                                          ("sparse_idf", "sparse_logistic")):
+        return "other_sparse_run"
+    index_cols = set()
+    for s in specs:
+        if index_cols & set(s.input_cols):
+            return "reads_kmeans_index"
+        index_cols -= set(s.output_names)
+        if s.fusion_op == "kmeans":
+            index_cols |= set(s.output_names)
+    return None
+
+
+def test_port_chain_eligible_equals_jax_on_every_chain_the_planner_forms():
+    """Every sequence of one to three ported stages, planned in the fast tier
+    by both packages with ``f`` known sparse: the same runs, and each run
+    admitted by the port exactly when the JAX package admits it — except
+    the named residue (REFUSED), which the JAX package admits and the port
+    refuses."""
+    fast, jfast, hints = FusionTier("fast"), JFusionTier("fast"), {"f": _POOL_D}
+    port = {name: _pool_stage(name, jax=False) for name in _POOL}
+    jax = {name: _pool_stage(name, jax=True) for name in _POOL}
+    seen = {"admitted": 0, "refused": {k: 0 for k in REFUSED}}
+    for n in (1, 2, 3):
+        for names in itertools.product(_POOL, repeat=n):
+            segs = [s for s in build_segments([port[k] for k in names], torch.device("cpu"), fast, hints)
+                    if isinstance(s, FusedSegment)]
+            jsegs = [s for s in jax_build_segments([jax[k] for k in names], None, jfast, hints)
+                     if isinstance(s, JFusedSegment)]
+            runs = [p.specs for s in segs for p in s.programs]
+            jruns = [p.specs for s in jsegs for p in s.programs]
+            assert [[s.fusion_op for s in r] for r in runs] == [[s.fusion_op for s in r] for r in jruns], names
+            for specs, jspecs in zip(runs, jruns):
+                residue = _residue(specs)
+                assert jax_chain_eligible(jspecs), names
+                assert chain_eligible(specs) == (residue is None), (names, residue)
+                if residue is None:
+                    seen["admitted"] += 1
+                    build_megakernel_fn(specs)
+                else:
+                    seen["refused"][residue] += 1
+    assert seen["admitted"] > 500
+    assert all(count > 0 for count in seen["refused"].values()), seen

@@ -3,8 +3,8 @@ StandardScaler fit and transform, MLPClassifierModel.transform (float32 and
 bfloat16), MLPClassifier.fit on a one-device mesh, the servable, the serving
 plan in both fusion tiers (the JAX megakernel in Pallas interpret mode, as
 ``tests/test_fusion.py`` runs it), the server, StandardScaler → MLPClassifier
-saved in one package and loaded in the other, and the ``scale_mlp`` wrapper's
-device rule. Tests of the CUDA kernel itself are in ``test_torch_gpu.py``.
+saved in one package and loaded in the other, and the ``rowlocal_mlp``
+wrapper's device rule. Tests of the CUDA kernel itself are in ``test_torch_gpu.py``.
 
 Tolerances, each with its reason:
 - ``scale_fn`` output and the scaler's transform: bit-equal (two correctly
@@ -82,10 +82,10 @@ from flink_ml_tpu_torch.servable import (
 )
 from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, FusionTier, ulp_diff
 from flink_ml_tpu_torch.servable.megakernels import (
-    SCALE_MLP,
+    ROWLOCAL_MLP,
+    RowLocalOp,
     chain_eligible,
-    scale_mlp,
-    scale_mlp_plain,
+    rowlocal_mlp,
 )
 from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
 from flink_ml_tpu_torch.serving.plan import CompiledServingPlan, chain_kinds
@@ -615,22 +615,22 @@ def test_wrapper_runs_the_plain_version_for_cpu_tensors_without_counting():
     labels = _t(np.arange(CLASSES) * 2.0 + 1.0)
     rng = np.random.default_rng(21)
     x, mean, inv_std = _t(rng.normal(size=(40, D))), _t(rng.normal(size=D)), _t(np.abs(rng.normal(size=D)))
-    before = SCALE_MLP.launches
+    before = ROWLOCAL_MLP.launches
     for with_mean, with_std in FLAGS:
         kw = dict(with_mean=with_mean, with_std=with_std)
-        got = scale_mlp(x, mean, inv_std, layers, labels, write_scaled=True, **kw)
-        want = scale_mlp_plain(x, mean, inv_std, layers, labels, **kw)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    none, pred, probs = scale_mlp(x, None, None, layers, labels, with_mean=False, with_std=False,
-                                  write_scaled=False)
-    assert none is None and pred.shape == (40,) and probs.shape == (40, CLASSES)
+        (scaled,), pred, probs = rowlocal_mlp([x], [RowLocalOp("scale", 0, mean, inv_std, kw)], 1,
+                                              layers, labels)
+        want = tk.scale_fn(x, mean, inv_std, **kw)
+        want_idx, want_probs = tk.mlp_predict_fn(layers, want)
+        assert torch.equal(scaled, want) and torch.equal(probs, want_probs)
+        assert torch.equal(pred, labels[want_idx.long()])
+    none, pred, probs = rowlocal_mlp([x], [], 0, layers, labels)  # the MLP alone: an empty table
+    assert none == [] and pred.shape == (40,) and probs.shape == (40, CLASSES)
     assert set(pred.tolist()) <= set(labels.tolist())
-    assert SCALE_MLP.launches == before  # the count is of kernel launches only
+    assert ROWLOCAL_MLP.launches == before  # the count is of kernel launches only
 
 
 def test_wrapper_raises_for_tensors_it_has_no_path_for():
     layers = [(torch.empty((8, 3), device="meta"), torch.empty(3, device="meta"))]
     with pytest.raises(RuntimeError, match="needs CPU or CUDA tensors"):
-        scale_mlp(torch.empty((4, 8), device="meta"), None, None, layers,
-                  torch.empty(3, device="meta"), with_mean=False, with_std=False, write_scaled=False)
+        rowlocal_mlp([torch.empty((4, 8), device="meta")], [], 0, layers, torch.empty(3, device="meta"))
