@@ -9,7 +9,7 @@ card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
 self-attention serving, wide-sparse, MLP, KMeans and self-attention
 training, and Pipelines fitted, transformed in the batch tier and served.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25 after 9, and 22–24 after 17):
+runs 25 and 26 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -207,12 +207,30 @@ runs 25 after 9, and 22–24 after 17):
                rows × networks (the published one, 100→64→2, 8→16→3 and the
                kernel's limits); ("sparse_idf",) on the sparse kernel's
                head-less mode over rows × nnz caps 1…64 × d (bit-equal to
-               float32 values * idf[ids]); every chain of the named residue
-               asserted refused; then cold and warm CUDA-event times of
+               float32 values * idf[ids]); the table's last four classes
+               against the plain table — sparse with dense (IDF → LR →
+               scale, scale → IDF → LR, IDF beside a normalize), other
+               sparse runs (IDF → IDF, IDF → IDF → LR, two sparse heads) on
+               the row-local kernel over rows (1, 33, 4096) × dense widths
+               (1 … 1024) × nnz caps (1 … 64) × d (1000, 2^22), with zero,
+               NaN and ±inf entries, short rows and padding; ops after an
+               MLP head (mlp → scale, normalize → mlp → binarize on
+               rawPrediction, mlp → kmeans, two heads) on the MLP kernel
+               over rows × the MLP grid's networks; ops reading a kmeans
+               index (kmeans → binarize, kmeans → impute, scale → kmeans →
+               binarize) over rows × widths × measures — elementwise ops
+               before a normalize or a head bit-equal, tf-idf bit-equal,
+               the sparse heads' prediction equal, the others' outputs as
+               the chains above, binarize and impute of the index exact
+               and int32 / float32; then cold and warm CUDA-event times of
                normalize → kmeans at 4096 × 100, k 10, normalize → mlp at
-               4096 × 256→512→512→8 and sparse_idf at serve_sparse's hot key
-               (4096 rows, cap 64, d = 2^22), each beside its plain version
-               and its bound (no single PyTorch call computes any of them);
+               4096 × 256→512→512→8, sparse_idf at serve_sparse's hot key
+               (4096 rows, cap 64, d = 2^22), IDF → LR → scale there beside
+               a dense 100-wide column, normalize → mlp → binarize at the
+               published network and kmeans → binarize at 4096 × 100, k
+               10, each beside its plain version, the merged program of
+               the new chains and its bound (no single PyTorch call
+               computes any of them);
 23. pipeline_kmeans — Pipeline([StandardScaler, Normalizer(p 2), KMeans(k 10,
                maxIter 10)]) fitted by ``Pipeline.fit`` on kmeans-benchmark.json's
                100,000 × 100 rows; ``PipelineModel.transform`` under
@@ -241,7 +259,26 @@ runs 25 after 9, and 22–24 after 17):
                PipelineModel([IDFModel]) saved, loaded and served as a TF-IDF
                featurization service: ("sparse_idf",) on the head-less
                kernel once per batch of a hot (bucket, cap) key, every value
-               bit-equal to float32 values * idf[ids].
+               bit-equal to float32 values * idf[ids];
+26. pipeline_mixed — the slice's path, after 25: PipelineModel([IDF,
+               LogisticRegression, StandardScaler]) — serve_sparse's IDF and
+               LR on the headline tf column (d = 2^22, cap ≤ 64) and a
+               StandardScaler fitted on a seeded dense 100-wide column of
+               the same rows — saved, loaded through ``load_servable`` and
+               served by ``InferenceServer`` (fusion.mode=fast) to 64
+               requests of 1–4096 rows, each with both columns, from 4
+               clients: every response against float64 numpy; the run
+               ("sparse_idf", "sparse_logistic", "scale") on the row-local
+               kernel once per batch of a hot (bucket, cap) key, 0
+               fallbacks, 0 chains built after warmup, the plain table
+               never called; a 4096-row batch's host breakdown. Then the
+               batch tier, one launch per 65,536-row chunk, each held
+               against the per-stage path on the card: the same model over
+               the 250,000 headline rows; Normalizer → the published MLP
+               (256 → 512 → 512 → 8) → Binarizer on rawPrediction on the
+               MLP kernel; the published KMeans pipeline (StandardScaler →
+               Normalizer → KMeans, k 10, d 100) → Binarizer on prediction
+               and IDF → IDF on the headline rows on the row-local kernel.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -401,6 +438,21 @@ PIPELINE_KMEANS_HOT_FROM = 512
 PIPELINE_MLP_HOT_FROM = 2
 PIPELINE_MLP_PROB_ATOL = 1e-5  # serve_mlp's bound: probabilities vs the float64 forward
 PIPELINE_CHUNK_ROWS = 65_536  # batch.chunk.rows' default: the published 100,000 rows are two chunks
+# the table's last four classes (servable/megakernels.py): chains, the grid
+# they are held on, and the pipeline_mixed phase's dense column
+RESIDUE_CHAINS = {
+    "sparse_with_dense": ("idf_lr_scale", "scale_idf_lr", "idf_normalize"),
+    "other_sparse_run": ("idf_idf", "idf_idf_lr", "two_sparse_heads"),
+    "mlp_not_last": ("mlp_scale", "normalize_mlp_binarize", "mlp_kmeans", "mlp_mlp"),
+    "reads_kmeans_index": ("kmeans_binarize", "kmeans_impute", "scale_kmeans_binarize"),
+}
+RESIDUE_ROWS = (1, 33, 4096)
+RESIDUE_WIDTHS = (1, 7, 100, 1024)  # the dense column's width (MLP chains: MLP_CHECK_NETWORKS)
+RESIDUE_CAPS = (1, 2, 8, 64)
+RESIDUE_DIMS = (1000, TRAIN_DIM)  # the sparse column's dimension
+RESIDUE_K = 10
+RESIDUE_MLP_THRESHOLD = 0.125  # the binarize of 8 classes' probabilities
+MIXED_DENSE_D, MIXED_DENSE_SEED = 100, 12  # the mixed pipeline's dense column (bench.py's d)
 
 # the ring-attention fold: bench.py's bench_attention shape, and the grid
 FLASH_TIMED = (1, 8192, 4, 128)  # B, T, H, D: ring_attention_causal_T8192_h4_d128
@@ -1619,6 +1671,16 @@ def _mlp_inputs(rng, rows, widths, dev):
     return t(rng.normal(size=(rows, d))), t(rng.normal(size=d)), t(inv_std), layers, labels
 
 
+def _mlp_head(fn, inputs, ops, head_src, layers, labels):
+    """The table ``ops`` then one MLP head on slot ``head_src`` through
+    ``fn`` (``rowlocal_mlp`` or its plain version): ``(the table's outputs,
+    prediction, probabilities)``."""
+    from flink_ml_tpu_torch.servable.megakernels import RowLocalOp
+
+    outs = fn(inputs, list(ops) + [RowLocalOp("mlp", head_src, labels, layers=layers)])
+    return outs[:-2], outs[-2], outs[-1]
+
+
 def _top_two_gap(layers, h):
     """The gap between the two largest float32 logits of each row (the
     plain version's products); infinite with one class."""
@@ -1656,10 +1718,10 @@ def phase_kernels_mlp(rng, card: str):
         ``fn``: a one-op scale table, or the MLP alone on ``x``."""
         if not write_scaled:
             assert not (with_mean or with_std), "the MLP alone reads its input unscaled"
-            _, pred, probs = fn([x], [], 0, layers, labels)
+            _, pred, probs = _mlp_head(fn, [x], [], 0, layers, labels)
             return None, pred, probs
         ops = [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": with_mean, "with_std": with_std})]
-        (scaled,), pred, probs = fn([x], ops, 1, layers, labels)
+        (scaled,), pred, probs = _mlp_head(fn, [x], ops, 1, layers, labels)
         return scaled, pred, probs
 
     dev = torch.device("cuda", 0)
@@ -4162,42 +4224,242 @@ def _chain_mlp_case(name, rows, widths, dev, rng):
     return [x], ops, 2, layers, labels
 
 
-def _refused_specs():
-    """One well-formed chain of each class the port refuses (megakernels
-    REFUSED), from the port's own servables at d 4."""
+def _residue_case(name, rows, width, cap, d, dev, rng, sparse_models):
+    """``(inputs, ops, kernel)`` of a chain of the table's last four classes
+    (RESIDUE_CHAINS): a dense column ``x`` [rows, width] (from 5 rows on a
+    zero row and a NaN, and, outside the kmeans chains, ±inf), and, for the
+    sparse chains, a sparse column of dimension ``d`` packed at ``cap``
+    (rows of 0 … cap sorted ids, padding id 0 / value 0, a NaN and ±inf
+    among the values) with ``sparse_models[d]`` = (idf, idf2, coef)."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.servable.megakernels import ROWLOCAL, ROWLOCAL_MLP, RowLocalOp
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    if name.startswith("mlp") or "_mlp" in name:
+        x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, list(width), dev)
+        if rows >= 5:
+            x[1] = 0.0
+        scale = RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})
+
+        def mlp(src):
+            return RowLocalOp("mlp", src, labels, layers=layers)
+
+        if name == "mlp_scale":
+            ops = [mlp(0), scale]
+        elif name == "normalize_mlp_binarize":
+            ops = [RowLocalOp("normalize", 0, params={"p": 2.0}), mlp(1),
+                   RowLocalOp("binarize", 3, params={"threshold": RESIDUE_MLP_THRESHOLD})]
+        elif name == "mlp_kmeans":
+            C = t(rng.normal(size=(RESIDUE_K, width[0])))
+            ops = [mlp(0), RowLocalOp("kmeans", 0, C, params={"measure": "euclidean"})]
+        else:
+            ops = [mlp(0), mlp(0)]
+        return [x], ops, ROWLOCAL_MLP
+    x = rng.normal(size=(rows, width)).astype(np.float32)
+    kmeans = "kmeans" in name
+    if rows >= 5:
+        x[1] = 0.0
+        x[2, width // 2] = np.nan
+        if not kmeans:
+            x[3, 0], x[4, -1] = np.inf, -np.inf
+    mean, inv_std = t(rng.normal(size=width)), t(np.abs(rng.normal(size=width)))
+    scale = RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})
+    if kmeans:
+        C = t(rng.normal(size=(RESIDUE_K, width)))
+        measure = ("euclidean", "manhattan", "cosine")[int(rng.integers(3))]
+        head = RowLocalOp("kmeans", 0, C, params={"measure": measure})
+        ops = {
+            "kmeans_binarize": [head, RowLocalOp("binarize", 1, params={"threshold": 0.5})],
+            "kmeans_impute": [head, RowLocalOp("impute", 1, t([7.5]), params={
+                "missing_is_nan": False, "missing_value": 1.0, "column": 0})],
+            "scale_kmeans_binarize": [scale, head._replace(src=1), RowLocalOp("binarize", 2, params={
+                "threshold": 4.5})],
+        }[name]
+        return [t(x)], ops, ROWLOCAL
+    nnz = rng.integers(0, cap + 1, rows)
+    ids = np.zeros((rows, cap), np.int32)
+    vals = np.zeros((rows, cap), np.float32)
+    for r in range(rows):
+        ids[r, :nnz[r]] = np.sort(rng.choice(d, size=int(nnz[r]), replace=False))
+        vals[r, :nnz[r]] = rng.random(int(nnz[r])) + 0.5
+    for r, v in ((1, np.nan), (2, np.inf), (3, -np.inf)):
+        if r < rows and nnz[r]:
+            vals[r, 0] = v
+    idf, idf2, coef = sparse_models[d]
+    inputs = [t(vals), t(ids, np.int32), t(nnz, np.int32), t(x)]
+    scale = scale._replace(src=3)
+
+    def sidf(src, a):
+        return RowLocalOp("sparse_idf", src, a, params={"ids": 1})
+
+    def slr(src):
+        return RowLocalOp("sparse_logistic", src, coef, params={"ids": 1})
+
+    ops = {
+        "idf_lr_scale": [sidf(0, idf), slr(4), scale],
+        "scale_idf_lr": [scale, sidf(0, idf), slr(5)],
+        "idf_normalize": [sidf(0, idf), RowLocalOp("normalize", 3, params={"p": 2.0})],
+        "idf_idf": [sidf(0, idf), sidf(4, idf2)],
+        "idf_idf_lr": [sidf(0, idf), sidf(4, idf2), slr(5)],
+        "two_sparse_heads": [slr(0), sidf(0, idf), slr(6)],
+    }[name]
+    return inputs, ops, ROWLOCAL
+
+
+def _check_table(inputs, ops, got, want, where):
+    """Each output of a table kernel against the plain table's, by the rules
+    of ``_check_rowlocal`` extended to every op: elementwise ops bit-equal
+    until a normalize or a head's rounding, then within
+    ULP_ENVELOPE["feature6"]; a sparse IDF bit-equal; a sparse head's
+    prediction equal (its margin is the plain version's sequential fold) and
+    its probability within ULP_ENVELOPE["sparse_idf_logistic"]; an MLP
+    head's probabilities within ULP_ENVELOPE["scale_mlp"] and its prediction
+    equal past a PREDICTION_MARGIN logit gap; a kmeans index equal past a
+    KMEANS_MARGIN distance gap; a binarize of a rounded column equal outside
+    BIN_MARGIN; binarize and impute of an index exactly equal on the rows
+    whose index is. Later ops are compared on the rows whose inputs are.
+    Returns ``(entries or rows inside a margin, max |kernel - plain|)``."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+
+    def fail(what):
+        raise AssertionError(f"{what}: {where}")
+
+    plain = list(inputs) + list(want)
+    rows = int(inputs[0].shape[0])
+    rounded = [False] * len(inputs)
+    decided = [torch.ones(rows, dtype=torch.bool, device=inputs[0].device)] * len(inputs)
+    inside, max_abs_err, k = 0, 0.0, 0
+
+    def err(g, w):
+        diff = torch.nan_to_num(g.float() - w.float(), nan=0.0, posinf=0.0, neginf=0.0)
+        return float(diff.abs().max()) if diff.numel() else 0.0
+
+    for op in ops:
+        dec = decided[op.src]
+        if op.op in ("logistic", "sparse_logistic", "mlp"):
+            pred, second = got[k], got[k + 1]
+            if (pred.shape, second.shape, pred.dtype) != (want[k].shape, want[k + 1].shape, want[k].dtype):
+                fail(f"head {op.op} outputs {tuple(pred.shape)} {tuple(second.shape)} {pred.dtype}")
+            if op.op == "mlp":
+                if ulp_diff(second[dec].cpu().numpy(), want[k + 1][dec].cpu().numpy()) > ULP_ENVELOPE["scale_mlp"]:
+                    fail("MLP probabilities outside the scale_mlp envelope")
+                sure = dec & (_top_two_gap(op.layers, plain[op.src]) > PREDICTION_MARGIN)
+            else:
+                envelope = ULP_ENVELOPE["scale_logistic" if op.op == "logistic" else "sparse_idf_logistic"]
+                if ulp_diff(second[dec, 1].cpu().numpy(), want[k + 1][dec, 1].cpu().numpy()) > envelope:
+                    fail(f"{op.op} probability outside its envelope")
+                if not (_same_bits(second[:, 0], 1.0 - second[:, 1])
+                        and _same_bits(want[k + 1][:, 0], 1.0 - want[k + 1][:, 1])):
+                    fail("rawPrediction[:, 0] is not 1 - rawPrediction[:, 1]")
+                if op.op == "logistic":
+                    margin = plain[op.src].double() @ op.a.double()
+                    sure = dec & (margin.abs() > PREDICTION_MARGIN)
+                else:
+                    sure = dec
+            if not torch.equal(pred[sure], want[k][sure]):
+                fail(f"{op.op} prediction differs")
+            inside += int((dec & ~sure).sum())
+            max_abs_err = max(max_abs_err, err(second[dec], want[k + 1][dec]))
+            rounded += [False, True]
+            decided += [sure, dec]
+            k += 2
+            continue
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"output {k} {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        row_mask = dec if g.dim() == 1 else dec[:, None].expand_as(g)
+        if op.op == "kmeans":
+            sure = dec & _kmeans_decided(_kmeans_distances64(op.params["measure"], plain[op.src], op.a))
+            if g.dtype != torch.int32 or not torch.equal(g[sure], w[sure]):
+                fail("kmeans index differs outside the margin")
+            inside += int((dec & ~sure).sum())
+            rounded.append(False)
+            decided.append(sure)
+            k += 1
+            continue
+        if op.op == "binarize" and rounded[op.src]:
+            near = (plain[op.src] - op.params["threshold"]).abs() <= BIN_MARGIN
+            if not torch.equal(g[row_mask & ~near], w[row_mask & ~near]):
+                fail(f"binarize output {k} differs outside the margin")
+            inside += int((row_mask & near).sum())
+            dec = dec & ~(near if near.dim() == 1 else near.any(dim=1))
+            rounded.append(False)
+        elif plain[op.src].dtype == torch.int32:  # binarize or impute of an index
+            if not torch.equal(g[row_mask], w[row_mask]):
+                fail(f"output {k} of the index differs")
+            rounded.append(False)
+        elif rounded[op.src] or op.op == "normalize":
+            if ulp_diff(g[row_mask].cpu().numpy(), w[row_mask].cpu().numpy()) > ULP_ENVELOPE["feature6"]:
+                fail(f"output {k} outside the feature6 envelope")
+            rounded.append(True)
+        else:
+            if not _same_bits(g[row_mask], w[row_mask]):
+                fail(f"output {k} not bit-equal to the plain version")
+            rounded.append(False)
+        max_abs_err = max(max_abs_err, err(g[row_mask], w[row_mask]))
+        decided.append(dec)
+        k += 1
+    return inside, max_abs_err
+
+
+def _seeded_mlp(widths, features_col, rng):
+    """An MLPClassifier servable of ``widths`` reading ``features_col``:
+    He-initialised weights, small biases, class values 1 … classes."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.servable import MLPClassifierModelServable
+
+    arrays = {"labels": np.arange(widths[-1], dtype=np.float64) + 1.0}
+    for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+        arrays[f"W{i}"] = (rng.normal(size=(a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
+        arrays[f"b{i}"] = (rng.normal(size=b) * 0.1).astype(np.float32)
+    return MLPClassifierModelServable().set_features_col(features_col)._apply_model_arrays(arrays)
+
+
+def _residue_specs(d_sparse, d_dense, mlp_widths, kmeans_d, rng):
+    """The three timed chains of the table's last classes as the port's
+    servables' kernel specs, from seeded model data: IDF → LR on a sparse
+    column of dimension ``d_sparse`` beside a StandardScaler on a dense
+    column of ``d_dense``; Normalizer → MLP (``mlp_widths``) → Binarizer on
+    rawPrediction; KMeans (k RESIDUE_K, ``kmeans_d``) → Binarizer on
+    prediction."""
     import numpy as np
 
     from flink_ml_tpu_torch.models.feature.binarizer import Binarizer
     from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
     from flink_ml_tpu_torch.servable import (
         KMeansModelServable,
         LogisticRegressionModelServable,
-        MLPClassifierModelServable,
         StandardScalerModelServable,
     )
 
-    d, rng = 4, np.random.default_rng(0)
-    mlp = MLPClassifierModelServable().set_features_col("x")
-    mlp._apply_model_arrays({"W0": rng.normal(size=(d, 3)).astype(np.float32),
-                             "b0": np.zeros(3, np.float32), "labels": np.arange(3.0)})
-    scale = StandardScalerModelServable().set_input_col("x").set_output_col("x")
-    scale.mean, scale.std = np.zeros(d), np.ones(d)
-
-    def idf(col_in, col_out):
-        s = IDFModel().set_input_col(col_in).set_output_col(col_out)
-        s.idf, s.doc_freq, s.num_docs = np.ones(d), np.ones(d), np.asarray(2.0)
-        return s.sparse_kernel_spec({col_in: d})
-
-    lr = LogisticRegressionModelServable().set_features_col("f")
-    lr.coefficient = np.ones(d)
-    km = KMeansModelServable().set_features_col("x").set_k(2)
-    km.centroids, km.weights = np.ones((2, d), np.float32), np.ones(2)
+    idf = IDFModel().set_input_col("tf").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = (np.abs(rng.normal(size=d_sparse)) + 0.1, np.ones(d_sparse),
+                                           np.asarray(9.0))
+    lr = LogisticRegressionModelServable().set_features_col("tfidf")
+    lr.coefficient = rng.normal(size=d_sparse) * 0.3
+    sc = StandardScalerModelServable().set_input_col("dense").set_output_col("scaled").set_with_mean(True)
+    sc.mean, sc.std = rng.normal(size=d_dense), np.abs(rng.normal(size=d_dense)) + 0.5
+    mlp = _seeded_mlp(mlp_widths, "norm", rng)
+    km = KMeansModelServable().set_features_col("features").set_k(RESIDUE_K)
+    km.centroids, km.weights = rng.random((RESIDUE_K, kmeans_d)).astype(np.float32), np.ones(RESIDUE_K)
     return {
-        "mlp_not_last": [mlp.kernel_spec(), scale.kernel_spec()],
-        "sparse_with_dense": [idf("f", "f"), lr.sparse_kernel_spec({"f": d}), scale.kernel_spec()],
-        "other_sparse_run": [idf("f", "g"), idf("g", "h")],
-        "reads_kmeans_index": [km.kernel_spec(), Binarizer().set_input_cols("prediction")
-                               .set_output_cols("pb").set_thresholds(0.5).kernel_spec()],
+        "idf_lr_scale": [idf.sparse_kernel_spec({"tf": d_sparse}), lr.sparse_kernel_spec({"tfidf": d_sparse}),
+                         sc.kernel_spec()],
+        "normalize_mlp_binarize": [
+            Normalizer().set_input_col("features").set_output_col("norm").set_p(2.0).kernel_spec(),
+            mlp.kernel_spec(),
+            Binarizer().set_input_cols("rawPrediction").set_output_cols("rb")
+            .set_thresholds(RESIDUE_MLP_THRESHOLD).kernel_spec()],
+        "kmeans_binarize": [km.kernel_spec(), Binarizer().set_input_cols("prediction").set_output_cols("pb")
+                            .set_thresholds(4.5).kernel_spec()],
     }
 
 
@@ -4211,20 +4473,18 @@ def _chain_bound(x_bytes, out_bytes, model_bytes, ops):
 
 
 def phase_kernels_chains(rng, card: str):
-    """The chains of the Pipeline slice on the card against their plain
-    versions, the refused chains, then cold and warm times (module
-    docstring, phase 22)."""
+    """The chains of the Pipeline slice and the table's last four classes on
+    the card against their plain versions, then cold and warm times (module
+    docstring, phase 22). Returns the MLP kernel's readings, the row-local
+    kernel's largest error and its timed chains."""
     import numpy as np
     import torch
 
     from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
     from flink_ml_tpu_torch.servable.megakernels import (
-        REFUSED,
         ROWLOCAL,
         ROWLOCAL_MLP,
         SPARSE_IDF_LOGISTIC,
-        RowLocalOp,
-        chain_eligible,
         rowlocal_chain,
         rowlocal_chain_plain,
         rowlocal_mlp,
@@ -4270,8 +4530,8 @@ def phase_kernels_chains(rng, card: str):
             for rows in MLP_CHECK_ROWS:
                 inputs, ops, head_src, layers, labels = _chain_mlp_case(name, rows, list(widths), dev, rng)
                 before = ROWLOCAL_MLP.launches
-                outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
-                p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+                outs, pred, probs = _mlp_head(rowlocal_mlp, inputs, ops, head_src, layers, labels)
+                p_outs, p_pred, p_probs = _mlp_head(rowlocal_mlp_plain, inputs, ops, head_src, layers, labels)
                 torch.cuda.synchronize()
                 where = f"{name} {net} rows={rows}"
                 if ROWLOCAL_MLP.launches != before + 1:
@@ -4319,16 +4579,136 @@ def phase_kernels_chains(rng, card: str):
          grid={"d": list(SPARSE_DIMS), "rows": list(SPARSE_ROWS), "caps": list(SPARSE_CAPS)},
          rule="tfidf bit-equal to the plain version and to float32 values * idf[ids]")
 
-    # 4. the chains the port refuses, named
-    refused = {}
-    for name, specs in _refused_specs().items():
-        ops = tuple(s.fusion_op for s in specs)
-        if ops != REFUSED[name] or chain_eligible(specs):
-            raise AssertionError(f"{name}: {ops} should be refused")
-        refused[name] = list(ops)
-    emit("kernels_chains", refused=refused)
+    # 4. the table's last four classes against the plain table
+    sparse_models = {}
+    for d in RESIDUE_DIMS:
+        idf = torch.from_numpy(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1)).to(dev)
+        sparse_models[d] = (idf, (idf * 0.5 + 0.25).contiguous(),
+                            torch.from_numpy((rng.normal(size=d) * 0.3).astype(np.float32)).to(dev))
+    residue = {}
+    for cls, names in RESIDUE_CHAINS.items():
+        seen = {"configurations": 0, "inside_margin": 0, "max_abs_err": 0.0, "launches": 0}
+        sparse = cls in ("sparse_with_dense", "other_sparse_run")
+        widths = list(MLP_CHECK_NETWORKS.values()) if cls == "mlp_not_last" else RESIDUE_WIDTHS
+        grid = [(w, cap, d) for w in widths for cap in (RESIDUE_CAPS if sparse else (0,))
+                for d in (RESIDUE_DIMS if sparse else (0,))]
+        for name in names:
+            for rows in RESIDUE_ROWS:
+                for width, cap, d in grid:
+                    inputs, ops, kernel = _residue_case(name, rows, width, cap, d, dev, rng, sparse_models)
+                    run, run_plain = ((rowlocal_mlp, rowlocal_mlp_plain) if kernel is ROWLOCAL_MLP
+                                      else (rowlocal_chain, rowlocal_chain_plain))
+                    before = kernel.launches
+                    got = run(inputs, ops)
+                    want = run_plain(inputs, ops)
+                    torch.cuda.synchronize()
+                    where = f"{cls} {name} rows={rows} width={width} cap={cap} d={d}"
+                    if kernel.launches != before + 1:
+                        raise AssertionError(f"{kernel.name} did not launch once: {where}")
+                    n_in, err = _check_table(inputs, ops, got, want, where)
+                    seen["configurations"] += 1
+                    seen["launches"] += 1
+                    seen["inside_margin"] += n_in
+                    seen["max_abs_err"] = max(seen["max_abs_err"], err)
+        residue[cls] = {"chains": list(names), **seen}
+    emit("kernels_chains", classes=residue,
+         grid={"rows": list(RESIDUE_ROWS), "widths": list(RESIDUE_WIDTHS), "caps": list(RESIDUE_CAPS),
+               "d": list(RESIDUE_DIMS), "networks": {k: list(v) for k, v in MLP_CHECK_NETWORKS.items()}},
+         rule=("elementwise ops and tf-idf bit-equal until a normalize or a head, then within "
+               "ULP_ENVELOPE['feature6']; sparse heads' prediction equal, probability within "
+               "ULP_ENVELOPE['sparse_idf_logistic']; MLP probabilities within ULP_ENVELOPE['scale_mlp'], "
+               f"prediction equal past a {PREDICTION_MARGIN} logit gap; kmeans index equal past a "
+               f"{KMEANS_MARGIN} distance gap; binarize of a rounded column equal outside {BIN_MARGIN}; "
+               "binarize (int32) and impute (float32) of the index exact"))
 
     # 5. cold and warm times at the slice's shapes
+    timing, merged_first = _time_chains(dev)
+    emit("kernels_chains", card=card, timing=timing, merged_program_first=merged_first,
+         library="none: no single PyTorch call computes normalize -> kmeans, normalize -> mlp, "
+                 "values * idf[ids], IDF -> LR -> scale, normalize -> mlp -> binarize or "
+                 "kmeans -> binarize")
+    table = ("idf_lr_scale", "kmeans_binarize")
+    return ({"max_abs_err": max(mlp["max_abs_err"], residue["mlp_not_last"]["max_abs_err"]),
+             **timing["normalize_mlp"], "chains": {k: v for k, v in timing.items() if k not in table}},
+            max(km["max_abs_err"], *(residue[c]["max_abs_err"] for c in residue if c != "mlp_not_last")),
+            {k: timing[k] for k in table})
+
+
+def _time_chains(dev):
+    """Cold and warm CUDA-event times of the table chains at the slice's
+    shapes, each held against its plain version first, beside the plain
+    version, the merged program of the chains the table's last classes
+    added (the fast tier's program without a megakernel: the specs'
+    ``kernel_fn`` bodies) and the bound. The merged program of IDF → LR →
+    scale is timed first, before any kernel of this phase's timing ran.
+    Returns ``(timing, the merged program's first reading)``."""
+    import numpy as np
+    import torch
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.servable.megakernels import (
+        RowLocalOp,
+        rowlocal_chain,
+        rowlocal_chain_plain,
+        rowlocal_mlp,
+        rowlocal_mlp_plain,
+        sparse_idf,
+        sparse_idf_plain,
+    )
+    from flink_ml_tpu_torch.servable.planner import PLAN_FUSED, _Program
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    rows, cap = MAX_BATCH, 64  # serve_sparse's hot key (4096, 64): 39 features a row
+    hashed = _hashed_rows(np.random.default_rng(SPARSE_SERVE_SEED), rows, TRAIN_NNZ)
+    sp_ids = torch.from_numpy(np.pad(hashed, ((0, 0), (0, cap - TRAIN_NNZ))).astype(np.int32)).to(dev)
+    sp_vals = torch.zeros((rows, cap), dtype=torch.float32, device=dev)
+    sp_vals[:, :TRAIN_NNZ] = 1.0
+    sp_nnz = torch.full((rows,), TRAIN_NNZ, dtype=torch.int32, device=dev)
+
+    # the new chains through the planner's calling convention: the kernel as
+    # the main path launches it, the plain table and the merged program
+    spec_rng = np.random.default_rng(MIXED_DENSE_SEED)
+    chains = _residue_specs(TRAIN_DIM, MIXED_DENSE_D, list(MLP_WIDTHS), KMEANS_D, spec_rng)
+    x_dense = torch.from_numpy(spec_rng.normal(size=(rows, MIXED_DENSE_D)).astype(np.float32)).to(dev)
+    x_mlp = torch.from_numpy(spec_rng.normal(size=(rows, MLP_WIDTHS[0])).astype(np.float32)).to(dev)
+    x_km = torch.from_numpy(spec_rng.random((rows, KMEANS_D)).astype(np.float32)).to(dev)
+    cols = {
+        "idf_lr_scale": {"tf!values": sp_vals, "tf!ids": sp_ids, "tf!nnz": sp_nnz, "dense": x_dense},
+        "normalize_mlp_binarize": {"features": x_mlp},
+        "kmeans_binarize": {"features": x_km},
+    }
+    new = {}
+    for name, specs in chains.items():
+        models = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in spec.model_arrays.items()}
+                  for spec in specs]
+        merged = _Program(specs, models, PLAN_FUSED)
+        program = mk._rowlocal_program(specs)
+        if program is None or not mk.chain_eligible(specs):
+            raise AssertionError(f"{name}: not a table chain")
+        inputs, ops = program.bind(models, cols[name])
+        run_plain = rowlocal_mlp_plain if program.mlp_heads else rowlocal_chain_plain
+        new[name] = (mk.build_megakernel_fn(specs), models, merged, inputs, ops, run_plain)
+
+    # the yardstick first: the merged program of IDF -> LR -> scale, before any kernel of it ran
+    mega, models, merged, inputs, ops, run_plain = new["idf_lr_scale"]
+    for _ in range(10):
+        merged(cols["idf_lr_scale"])
+    torch.cuda.synchronize()
+    merged_first = {"cold_ms": _median(_cold_times(lambda: merged(cols["idf_lr_scale"]), 25, flush,
+                                                   hold_cycles=4_000_000)),
+                    "warm_ms": _warm_time(lambda: merged(cols["idf_lr_scale"]), 25)}
+
+    # the timed shapes held against the plain versions first, and the main
+    # path's call against the merged program on the outputs no near tie moves
+    for name, (mega, models, merged, inputs, ops, run_plain) in new.items():
+        run = rowlocal_mlp if run_plain is rowlocal_mlp_plain else rowlocal_chain
+        _check_table(inputs, ops, run(inputs, ops), run_plain(inputs, ops), f"timed {name}")
+        got, ref = mega(models, cols[name]), merged(cols[name])
+        for n in ("tfidf!values", "scaled", "rawPrediction"):
+            if n in ref and ulp_diff(got[n].cpu().numpy(), ref[n].cpu().numpy()) > ULP_ENVELOPE["scale_mlp"]:
+                raise AssertionError(f"timed {name}: {n} outside the envelope of the merged program")
+
     timed_rng = np.random.default_rng(KMEANS_SERVE_SEED)
     x, _mean, _inv, C = _kmeans_inputs(timed_rng, MAX_BATCH, KMEANS_D, KMEANS_K, dev)
     km_in = [x]
@@ -4337,19 +4717,12 @@ def phase_kernels_chains(rng, card: str):
                          params={"measure": "euclidean"})]
     mlp_in, mlp_ops, mlp_src, layers, labels = _chain_mlp_case(
         "normalize_mlp", MAX_BATCH, list(MLP_WIDTHS), dev, np.random.default_rng(MLP_SERVE_SEED))
-    cap = 64  # serve_sparse's hot key (4096, 64): 39 features a row
-    sp_ids = torch.from_numpy(np.pad(_hashed_rows(np.random.default_rng(SPARSE_SERVE_SEED), MAX_BATCH,
-                                                  TRAIN_NNZ), ((0, 0), (0, cap - TRAIN_NNZ)))
-                              .astype(np.int32)).to(dev)
-    sp_vals = torch.zeros((MAX_BATCH, cap), dtype=torch.float32, device=dev)
-    sp_vals[:, :TRAIN_NNZ] = 1.0
     sp_idf = torch.from_numpy(np.abs(np.random.default_rng(5).normal(size=TRAIN_DIM)).astype(np.float32)
                               + np.float32(0.1)).to(dev)
-    # the timed shapes held against the plain versions first
     _check_chain_kmeans(km_in, km_ops, rowlocal_chain(km_in, km_ops), rowlocal_chain_plain(km_in, km_ops),
                         "euclidean", "timed normalize -> kmeans")
-    outs, pred, probs = rowlocal_mlp(mlp_in, mlp_ops, mlp_src, layers, labels)
-    p_outs, p_pred, p_probs = rowlocal_mlp_plain(mlp_in, mlp_ops, mlp_src, layers, labels)
+    outs, pred, probs = _mlp_head(rowlocal_mlp, mlp_in, mlp_ops, mlp_src, layers, labels)
+    p_outs, p_pred, p_probs = _mlp_head(rowlocal_mlp_plain, mlp_in, mlp_ops, mlp_src, layers, labels)
     if ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) > ULP_ENVELOPE["scale_mlp"]:
         raise AssertionError("timed normalize -> mlp outside the envelope")
     if not _same_bits(sparse_idf(sp_vals, sp_ids, sp_idf), sparse_idf_plain(sp_vals, sp_ids, sp_idf)):
@@ -4357,12 +4730,15 @@ def phase_kernels_chains(rng, card: str):
     fns = {
         "normalize_kmeans": lambda: rowlocal_chain(km_in, km_ops),
         "normalize_kmeans_plain": lambda: rowlocal_chain_plain(km_in, km_ops),
-        "normalize_mlp": lambda: rowlocal_mlp(mlp_in, mlp_ops, mlp_src, layers, labels),
-        "normalize_mlp_plain": lambda: rowlocal_mlp_plain(mlp_in, mlp_ops, mlp_src, layers, labels),
+        "normalize_mlp": lambda: _mlp_head(rowlocal_mlp, mlp_in, mlp_ops, mlp_src, layers, labels),
+        "normalize_mlp_plain": lambda: _mlp_head(rowlocal_mlp_plain, mlp_in, mlp_ops, mlp_src, layers, labels),
         "sparse_idf": lambda: sparse_idf(sp_vals, sp_ids, sp_idf),
         "sparse_idf_plain": lambda: sparse_idf_plain(sp_vals, sp_ids, sp_idf),
     }
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    for name, (mega, models, merged, inputs, ops, run_plain) in new.items():
+        fns[name] = lambda m=mega, mo=models, c=cols[name]: m(mo, c)
+        fns[name + "_plain"] = lambda r=run_plain, i=inputs, o=ops: r(i, o)
+        fns[name + "_merged"] = lambda p=merged, c=cols[name]: p(c)
     for fn in fns.values():  # warm-up
         for _ in range(10):
             fn()
@@ -4370,13 +4746,14 @@ def phase_kernels_chains(rng, card: str):
     times = {n: {"cold": [], "warm": []} for n in fns}
     order = list(fns)
     for name in order + order[::-1]:  # each side twice, in turns
-        times[name]["cold"] += _cold_times(fns[name], 25, flush, hold_cycles=1_000_000)
+        times[name]["cold"] += _cold_times(fns[name], 25, flush, hold_cycles=4_000_000)
         times[name]["warm"].append(_warm_time(fns[name], 25))
     cold = {n: _median(v["cold"]) for n, v in times.items()}
     warm = {n: _median(v["warm"]) for n, v in times.items()}
-    rows = MAX_BATCH
     widths = list(MLP_WIDTHS)
     mlp_products = 2 * rows * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    mlp_weights = 4 * sum(a * b + b for a, b in zip(widths[:-1], widths[1:])) + 4 * widths[-1]
+    touched = int(torch.unique(sp_ids[:, :TRAIN_NNZ]).numel())  # distinct ids this batch gathers
     bounds = {
         # x in, normalized out, index out, centroids; normalize 3 an element + a root a row,
         # the head 2·k·d (the dots) + 4·k (distance and search) a row
@@ -4385,26 +4762,45 @@ def phase_kernels_chains(rng, card: str):
                                          rows * (3 * KMEANS_D + 1 + 2 * KMEANS_K * KMEANS_D + 4 * KMEANS_K)),
         # x in, normalized, prediction and probabilities out, the weights; the products dominate
         "normalize_mlp": _chain_bound(4 * rows * widths[0], 4 * rows * (widths[0] + 1 + widths[-1]),
-                                      4 * sum(a * b + b for a, b in zip(widths[:-1], widths[1:])) + 4 * widths[-1],
-                                      mlp_products + rows * (3 * widths[0] + 1)),
+                                      mlp_weights, mlp_products + rows * (3 * widths[0] + 1)),
         # values and ids in, tfidf out, one idf value gathered a slot; one multiply a slot
         "sparse_idf": _chain_bound(8 * rows * cap, 4 * rows * cap, 4 * rows * cap, rows * cap),
+        # values and ids of every slot, the dense column in; tf-idf of every slot, prediction,
+        # rawPrediction and the scaled column out; idf and coef at each distinct id, mean and
+        # inv_std; per entry a multiply for tf-idf, a multiply and an add for the margin, the
+        # sigmoid's 4 a row, 2 an element of the scale
+        "idf_lr_scale": _chain_bound(8 * rows * cap + 4 * rows * MIXED_DENSE_D,
+                                     4 * rows * cap + 12 * rows + 4 * rows * MIXED_DENSE_D,
+                                     2 * 4 * touched + 2 * 4 * MIXED_DENSE_D,
+                                     rows * (3 * TRAIN_NNZ + 4 + 2 * MIXED_DENSE_D)),
+        # normalize_mlp's, and the binarized probabilities out (one compare an element)
+        "normalize_mlp_binarize": _chain_bound(4 * rows * widths[0],
+                                               4 * rows * (widths[0] + 1 + 2 * widths[-1]), mlp_weights,
+                                               mlp_products + rows * (3 * widths[0] + 1 + widths[-1])),
+        # x in, the index and its binarize out, the centroids; the head's 3·k·d (|h|^2 aside, the
+        # dots and norms) + 4·k a row, one compare
+        "kmeans_binarize": _chain_bound(4 * rows * KMEANS_D, 8 * rows, 4 * KMEANS_K * KMEANS_D,
+                                        rows * (2 * KMEANS_D + 2 * KMEANS_K * KMEANS_D + 4 * KMEANS_K + 1)),
+    }
+    shapes = {
+        "normalize_kmeans": {"rows": rows, "d": KMEANS_D, "k": KMEANS_K, "measure": "euclidean"},
+        "normalize_mlp": {"rows": rows, "widths": widths},
+        "sparse_idf": {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM},
+        "idf_lr_scale": {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM, "dense": MIXED_DENSE_D,
+                         "distinct_ids": touched},
+        "normalize_mlp_binarize": {"rows": rows, "widths": widths},
+        "kmeans_binarize": {"rows": rows, "d": KMEANS_D, "k": RESIDUE_K, "measure": "euclidean"},
     }
     timing = {}
-    for name in ("normalize_kmeans", "normalize_mlp", "sparse_idf"):
+    for name in shapes:
         timing[name] = {
             "ms": cold[name], "ms_l2_warm": warm[name],
             "plain_ms": cold[name + "_plain"], "plain_ms_l2_warm": warm[name + "_plain"],
-            "library_ms": None, **bounds[name],
+            "library_ms": None, **bounds[name], "shape": shapes[name],
         }
-    timing["normalize_kmeans"]["shape"] = {"rows": rows, "d": KMEANS_D, "k": KMEANS_K, "measure": "euclidean"}
-    timing["normalize_mlp"]["shape"] = {"rows": rows, "widths": widths}
-    timing["sparse_idf"]["shape"] = {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM}
-    emit("kernels_chains", card=card, timing=timing,
-         library="none: no single PyTorch call computes normalize -> kmeans, normalize -> mlp, "
-                 "or values * idf[ids]")
-    return ({"max_abs_err": mlp["max_abs_err"], **timing["normalize_mlp"], "chains": timing},
-            km["max_abs_err"])
+        if name in new:
+            timing[name].update(merged_ms=cold[name + "_merged"], merged_ms_l2_warm=warm[name + "_merged"])
+    return timing, merged_first
 
 
 def _published_kmeans_pipeline():
@@ -4871,6 +5267,276 @@ def phase_pipeline_sparse(card: str, headline, idf_model, lr_model):
             "pipeline_sparse.idf_service": launches}
 
 
+def _mixed_batch_breakdown(plan, df, ingest, reps=5):
+    """Where one full-bucket batch of the mixed pipeline goes on the plan's
+    path (host clock, the device synchronised after each step; median of
+    ``reps``): packing the SparseVectors and gathering the dense column on
+    the host, their upload, the chain on the card, and the readback with
+    the tf-idf SparseVectors rebuilt."""
+    import torch
+
+    from flink_ml_tpu_torch.servable.planner import PlanExecution, run_segment, to_device
+    from flink_ml_tpu_torch.servable.sparse import resolve_nnz_cap_max
+
+    (segment,) = plan.segments
+    _inputs, key = ingest(segment, df, len(df))
+    steps = {"pack_and_gather": [], "upload": [], "chain": [], "readback": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        arrays, _cap = segment.gather_sparse(df, "features", cap_max=resolve_nnz_cap_max())
+        arrays["dense"] = segment.gather(df, "dense")
+        t1 = time.perf_counter()
+        inputs = {name: to_device(arr, plan.device) for name, arr in arrays.items()}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outputs = run_segment(segment, key, inputs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        PlanExecution(df, segment.pending(outputs)).finalize()
+        t4 = time.perf_counter()
+        for name, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[name].append(dt * 1e3)
+    medians = {name: _median(v) for name, v in steps.items()}
+    return {"rows": len(df), "key": list(key), "kinds": list(segment.plan_kinds[key]), **medians,
+            "chain_share": medians["chain"] / sum(medians.values())}
+
+
+def _batch_against_per_stage(model, df, kernel, where):
+    """``model.transform(df)`` through the batch plan (fusion.mode=fast,
+    65,536-row chunks) and through the per-stage path on the card: the
+    plan's readings, both frames; fails unless ``kernel`` launched once a
+    chunk and nothing else did."""
+    from flink_ml_tpu_torch.config import Options, config
+
+    config.set(Options.FUSION_MODE, "fast")
+    config.set(Options.BATCH_CHUNK_ROWS, PIPELINE_CHUNK_ROWS)
+    try:
+        out, seconds, launches, builds, chunks = _batch_transform(model, df)
+        plan = model._plan_cache[1]
+        config.set(Options.BATCH_FASTPATH, False)
+        t0 = time.perf_counter()
+        per_stage = model.transform(df)
+        per_stage_s = time.perf_counter() - t0
+    finally:
+        for option in (Options.FUSION_MODE, Options.BATCH_CHUNK_ROWS, Options.BATCH_FASTPATH):
+            config.unset(option)
+    want_chunks, want_builds, hot_chunks = _batch_expectations(plan, len(df))
+    chains = sorted({tuple(s.fusion_op for s in seg.specs) for seg in plan.segments if hasattr(seg, "specs")})
+    if (builds, chunks) != (want_builds, want_chunks) or hot_chunks != chunks \
+            or launches != {kernel.name: chunks}:
+        raise AssertionError(f"{where}: {builds} builds, {chunks} chunks ({hot_chunks} hot), chains {chains}, "
+                             f"launches {launches}")
+    readings = {"rows": len(df), "chunks": chunks, "builds": builds, "chains": [list(c) for c in chains],
+                "launches": launches, "seconds": seconds, "per_stage_seconds": per_stage_s}
+    return readings, out, per_stage
+
+
+def phase_pipeline_mixed(card: str, headline, idf_model, lr_model):
+    """The slice's path: IDF → LR beside a StandardScaler served and in the
+    batch tier, and the other three classes in the batch tier (module
+    docstring, phase 26)."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.feature.binarizer import Binarizer
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
+    from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler, StandardScalerModel
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.servable import KMeansModelServable
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    idx, _y = headline
+    rng = np.random.default_rng(MIXED_DENSE_SEED)
+    dense = rng.normal(loc=0.5, scale=2.0, size=(len(idx), MIXED_DENSE_D))
+    df = _sparse_frame(idx, dense=dense)
+    scaler = (StandardScaler().set_input_col("dense").set_output_col("scaled").set_with_mean(True)
+              .set_with_std(True).fit(DataFrame.from_dict({"dense": dense})))
+    model = PipelineModel([idf_model, lr_model, scaler])
+    idf32 = np.asarray(idf_model.idf, np.float32)
+    coef64 = np.asarray(lr_model.coefficient, np.float32).astype(np.float64)
+    mean32 = np.asarray(scaler.mean, np.float32)
+    std32 = np.asarray(scaler.std, np.float32)
+    inv_std64 = np.where(std32 == 0.0, 0.0, 1.0 / np.where(std32 == 0.0, 1.0, std32)).astype(np.float32) \
+        .astype(np.float64)
+
+    def expected(ids, x):
+        """float64 numpy of the chain on rows of ids (value 1.0) and dense rows ``x``."""
+        margin = (idf32[ids].astype(np.float64) * coef64[ids]).sum(axis=1)
+        p = 1.0 / (1.0 + np.exp(-margin))
+        scaled = (np.asarray(x, np.float32).astype(np.float64) - mean32.astype(np.float64)) * inv_std64
+        return margin, np.stack([1.0 - p, p], axis=1), scaled
+
+    # 1. served: save, load_servable, InferenceServer
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/mixed")
+        servable = PipelineModel.load_servable(f"{tmp}/mixed")
+    sizes = _traffic_sizes(np.random.default_rng(SPARSE_SERVE_SEED + 2))
+    payload_ids = [_hashed_rows(rng, n, TRAIN_NNZ if i % 4 else (1, 5, 17, 38)[i // 4 % 4])
+                   for i, n in enumerate(sizes)]
+    payload_dense = [rng.normal(loc=0.5, scale=2.0, size=(n, MIXED_DENSE_D)) for n in sizes]
+    payloads = [{"features": _sparse_frame(ids).column("features"), "dense": x}
+                for ids, x in zip(payload_ids, payload_dense)]
+    max_err = [0.0] * len(payloads)
+
+    def check(i, resp):
+        ids, x = payload_ids[i], payload_dense[i]
+        margin, raw, scaled = expected(ids, x)
+        for r, v in enumerate(resp["tfidf"]):
+            if not (np.array_equal(v.indices, ids[r]) and np.array_equal(v.values, idf32[ids[r]].astype(np.float64))):
+                raise AssertionError(f"row {r}: tfidf is not float32 values * idf[ids]")
+        got_raw = np.asarray(resp["rawPrediction"])
+        np.testing.assert_allclose(got_raw, raw, rtol=0, atol=1e-5)
+        sure = np.abs(margin) > PREDICTION_MARGIN
+        np.testing.assert_array_equal(np.asarray(resp["prediction"])[sure], (margin >= 0)[sure].astype(np.float64))
+        np.testing.assert_allclose(resp["scaled"], scaled, rtol=1e-6, atol=1e-6)
+        max_err[i] = max(float(np.abs(got_raw - raw).max()), float(np.abs(resp["scaled"] - scaled).max()))
+
+    config_ = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    template = DataFrame.from_dict({"features": payloads[0]["features"][:1], "dense": payload_dense[0][:1]})
+    t0 = time.perf_counter()
+    server = InferenceServer(servable, name="chip-smoke-pipeline-mixed", serving_config=config_,
+                             warmup_template=template, device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = servable._fastpath_plan
+        kinds = chain_kinds(plan)
+        chains = {tuple(s.fusion_op for s in seg.specs) for seg in plan.segments}
+        keys = []
+        ingest = plan._ingest
+
+        def recording_ingest(seg, frame, bucket, cap=None, warm=False):
+            got = ingest(seg, frame, bucket, cap=cap, warm=warm)
+            keys.append(got[1])
+            return got
+
+        plan._ingest = recording_ingest
+        # The path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        try:
+            latencies, wall, failures = _serve_and_check(server, payloads, None, check)
+        finally:
+            restore()
+            plan._ingest = ingest
+        launches = mk.ROWLOCAL.launches
+        other = {k.name: k.launches for k in KERNELS if k is not mk.ROWLOCAL}
+        hot_ids = _hashed_rows(rng, MAX_BATCH, TRAIN_NNZ)  # the headline key: (4096, cap 64)
+        breakdown = _mixed_batch_breakdown(plan, DataFrame.from_dict({
+            "features": _sparse_frame(hot_ids).column("features"),
+            "dense": rng.normal(loc=0.5, scale=2.0, size=(MAX_BATCH, MIXED_DENSE_D))}), ingest)
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    hot = sorted(k for k, kind in kinds.items() if "megakernel" in kind)
+    hot_batches = sum(1 for k in keys if k in hot)
+    fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+    compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    if chains != {("sparse_idf", "sparse_logistic", "scale")}:
+        raise AssertionError(f"the served chains are {chains}")
+    if not launches > 0 or launches != hot_batches:
+        raise AssertionError(f"table launches {launches} != batches with hot keys {hot_batches}")
+    if fallback or compiles or plain_calls or any(other.values()):
+        raise AssertionError(f"fallbacks {fallback}, post-warmup builds {compiles}, plain calls "
+                             f"{sorted(set(plain_calls))}, other kernels {other}")
+    lat = sorted(latencies)
+    served = {
+        "warmup_s": warmup_s, "warmed_keys": len(kinds), "requests": len(payloads), "rows": sum(sizes),
+        "batches": len(keys), "hot_keys": [list(k) for k in hot], "hot_batches": hot_batches,
+        "megakernel_launches": launches, "fallback_batches": fallback, "post_warmup_builds": compiles,
+        "plain_calls": len(plain_calls), "max_err_vs_float64": max(max_err),
+        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(sizes) / wall, "wall_s": wall, "hot_batch_breakdown_ms": breakdown,
+    }
+
+    # 2. the batch tier over the headline rows
+    mixed, out, ref = _batch_against_per_stage(model, df, mk.ROWLOCAL, "mixed pipeline")
+    for r in range(0, len(idx), 997):
+        got, want = out.column("tfidf")[r], ref.column("tfidf")[r]
+        if not (np.array_equal(got.indices, idx[r]) and np.array_equal(got.values, want.values)):
+            raise AssertionError(f"batch tfidf row {r} differs from the per-stage path")
+    np.testing.assert_array_equal(out.column("prediction"), ref.column("prediction"))
+    np.testing.assert_array_equal(out.column("scaled"), ref.column("scaled"))
+    mixed["raw_ulps_from_per_stage"] = ulp_diff(out.column("rawPrediction"), ref.column("rawPrediction"))
+    if mixed["raw_ulps_from_per_stage"] > ULP_ENVELOPE["sparse_idf_logistic"]:
+        raise AssertionError(f"batch rawPrediction {mixed['raw_ulps_from_per_stage']} ulps from the per-stage path")
+    del df, out, ref
+
+    # 3. the other classes at their published widths, in the batch tier
+    mlp_model = PipelineModel([
+        Normalizer().set_input_col("features").set_output_col("norm").set_p(2.0),
+        _seeded_mlp(list(MLP_WIDTHS), "norm", np.random.default_rng(13)),
+        Binarizer().set_input_cols("rawPrediction").set_output_cols("rb").set_thresholds(RESIDUE_MLP_THRESHOLD)])
+    X = np.random.default_rng(MLP_SERVE_SEED).normal(size=(MLP_ROWS, MLP_WIDTHS[0]))
+    mlp_run, out, ref = _batch_against_per_stage(mlp_model, DataFrame.from_dict({"features": X}),
+                                                 mk.ROWLOCAL_MLP, "normalize -> mlp -> binarize")
+    mlp_run["prob_ulps_from_per_stage"] = ulp_diff(out.column("rawPrediction"), ref.column("rawPrediction"))
+    if mlp_run["prob_ulps_from_per_stage"] > ULP_ENVELOPE["scale_mlp"]:
+        raise AssertionError("batch MLP probabilities outside the envelope of the per-stage path")
+    probs = np.asarray(ref.column("rawPrediction"))
+    top = np.sort(probs, axis=1)
+    far = np.abs(probs - RESIDUE_MLP_THRESHOLD) > BIN_MARGIN
+    np.testing.assert_array_equal(np.asarray(out.column("rb"))[far], np.asarray(ref.column("rb"))[far])
+    sure = top[:, -1] - top[:, -2] > PREDICTION_MARGIN
+    np.testing.assert_array_equal(out.column("prediction")[sure], ref.column("prediction")[sure])
+    mlp_run["rows_inside_margin"] = int((~sure).sum())
+    del X, out, ref
+
+    sc = StandardScalerModel().set_input_col("features").set_output_col("scaled").set_with_mean(True)
+    km_rng = np.random.default_rng(KMEANS_SERVE_SEED + 1)
+    sc.mean, sc.std = km_rng.random(KMEANS_D) * 0.5, km_rng.random(KMEANS_D) * 0.3 + 0.2
+    C = km_rng.random((KMEANS_K, KMEANS_D))
+    km = KMeansModelServable().set_features_col("norm").set_k(KMEANS_K)
+    km.centroids, km.weights = (C / np.linalg.norm(C, axis=1, keepdims=True)).astype(np.float32), np.ones(KMEANS_K)
+    km_model = PipelineModel([sc, Normalizer().set_input_col("scaled").set_output_col("norm").set_p(2.0), km,
+                              Binarizer().set_input_cols("prediction").set_output_cols("pb").set_thresholds(4.5)])
+    X = _kmeans_published_rows()
+    km_run, out, ref = _batch_against_per_stage(km_model, DataFrame.from_dict({"features": X}), mk.ROWLOCAL,
+                                                "kmeans pipeline -> binarize")
+    np.testing.assert_array_equal(out.column("scaled"), ref.column("scaled"))
+    if ulp_diff(out.column("norm"), ref.column("norm")) > ULP_ENVELOPE["feature6"]:
+        raise AssertionError("batch normalized rows outside the feature6 envelope")
+    norm = np.asarray(ref.column("norm"))
+    dist = np.sqrt(np.maximum((norm ** 2).sum(1)[:, None] + (km.centroids.astype(np.float64) ** 2).sum(1)[None, :]
+                              - 2.0 * norm @ km.centroids.astype(np.float64).T, 0.0))
+    decided = _decided_rows(dist)
+    for col in ("prediction", "pb"):
+        np.testing.assert_array_equal(np.asarray(out.column(col))[decided], np.asarray(ref.column(col))[decided])
+    km_run["rows_inside_margin"] = int((~decided).sum())
+    del X, out, ref
+
+    idf2 = IDFModel().set_input_col("tfidf").set_output_col("tfidf2")
+    idf2.idf = np.abs(np.random.default_rng(14).normal(size=TRAIN_DIM)) + 0.1
+    idf2.doc_freq, idf2.num_docs = np.ones(TRAIN_DIM), np.asarray(9.0)
+    idf_idf = PipelineModel([idf_model, idf2])
+    df = _sparse_frame(idx)
+    idf_run, out, ref = _batch_against_per_stage(idf_idf, df, mk.ROWLOCAL, "idf -> idf")
+    idf2_32 = np.asarray(idf2.idf, np.float32)
+    for r in range(0, len(idx), 997):
+        got = out.column("tfidf2")[r]
+        want = (idf32[idx[r]] * idf2_32[idx[r]]).astype(np.float64)  # float32 products, rounded twice
+        if not (np.array_equal(got.indices, idx[r]) and np.array_equal(got.values, want)
+                and np.array_equal(got.values, ref.column("tfidf2")[r].values)):
+            raise AssertionError(f"batch tfidf2 row {r} is not the float32 products")
+    emit("pipeline_mixed", card=card, serve=served, batch=mixed, mlp_binarize=mlp_run, kmeans_binarize=km_run,
+         idf_idf=idf_run)
+    return {"pipeline_mixed.serve": {mk.ROWLOCAL.name: launches},
+            "pipeline_mixed.batch": mixed["launches"],
+            "pipeline_mixed.mlp_binarize": mlp_run["launches"],
+            "pipeline_mixed.kmeans_binarize": km_run["launches"],
+            "pipeline_mixed.idf_idf": idf_run["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -4920,6 +5586,8 @@ def main() -> int:
     record("serve_sparse", {SPARSE_IDF_LOGISTIC.name: sparse_launches})
     for phase, n in phase_pipeline_sparse(smi, headline, idf_model, lr_model).items():
         record(phase, {SPARSE_IDF_LOGISTIC.name: n})
+    for phase, got in phase_pipeline_mixed(smi, headline, idf_model, lr_model).items():
+        record(phase, got)
     del headline, idf_model, lr_model
     mlp_alone = phase_kernels_mlp(rng, smi)
     record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
@@ -4932,10 +5600,11 @@ def main() -> int:
     record("serve_imputer", {ROWLOCAL.name: phase_serve_imputer(smi)})
     # The MLP kernel's line times its prologue on normalize -> mlp; its error
     # is the largest over both phases that hold it against the plain version.
-    chains, kmeans_chain_err = phase_kernels_chains(rng, smi)
+    chains, rowlocal_chain_err, rowlocal_chains = phase_kernels_chains(rng, smi)
     measured[ROWLOCAL_MLP.name] = dict(chains, max_abs_err=max(chains["max_abs_err"],
                                                                mlp_alone["max_abs_err"]))
-    measured[ROWLOCAL.name]["max_abs_err"] = max(measured[ROWLOCAL.name]["max_abs_err"], kmeans_chain_err)
+    measured[ROWLOCAL.name]["max_abs_err"] = max(measured[ROWLOCAL.name]["max_abs_err"], rowlocal_chain_err)
+    measured[ROWLOCAL.name]["chains"] = rowlocal_chains
     for phase, n in phase_pipeline_kmeans(smi).items():
         record(phase, {ROWLOCAL.name: n})
     for phase, n in phase_pipeline_mlp(smi).items():

@@ -1,21 +1,26 @@
-// The serving megakernel for every chain that ends in an MLP head: the MLP
-// alone, StandardScaler -> MLPClassifier, and any other chain of row-local
-// table ops before it.
+// The serving megakernel for every chain with an MLP head in it: the MLP
+// alone, StandardScaler -> MLPClassifier, any chain of table ops before it,
+// table ops after it, and more than one MLP head.
 //
 // Replaces: flink_ml_tpu/servable/megakernels.py, build_megakernel_fn (the
 // pallas_call at line 180), for the chains ("mlp",), ("scale", "mlp"),
-// ("normalize", "mlp"), ("elementwise_product", "scale", "mlp"), ... : every
-// chain whose last op is the MLP and whose earlier ops are row-local table
-// ops (rowlocal_ops.cuh). The kernel runs the table on each row of its tile
-// as its prologue, writes every output the table declares, and puts the
-// head's input row into buffer 0; an empty table stages the input column
-// itself. Per row it then computes
+// ("normalize", "mlp"), ("mlp", "scale"), ("normalize", "mlp", "binarize") on
+// rawPrediction, ("mlp", "kmeans"), ("mlp", "mlp"), ... : every chain of table
+// ops (rowlocal_ops.cuh, sparse ones included) with one or more MLP heads
+// anywhere in it. The chain is one op table; an mlp entry marks a head. The
+// kernel works through the table in phases: the ops before a head run on each
+// row of the block's tile (its prologue), writing every output they declare,
+// and the head's input row goes into buffer 0; an empty prologue stages the
+// head's input slot itself. Per row the head computes
 //   h{l+1}      = relu(h{l} @ W{l} + b{l})   for every hidden layer, h0 the head's input
 //   logits      = h{L-1} @ W{L-1} + b{L-1}
 //   probability = softmax(logits)
 //   prediction  = labels[argmax(logits)]     (the first maximal index; NaN
 //                                             counts as the maximum)
-// and writes prediction and the probabilities. All float32.
+// and writes prediction and the probabilities into its two slots, float32.
+// Then the next phase: the ops up to the next head, or after the last head
+// (the epilogue), one warp per row of the tile as in the prologue; they may
+// read the head's outputs or any other slot.
 //
 // Bound: operations. At the serving shape (4096 rows, 256 -> 512 -> 512 -> 8)
 // the three products are 3.25 GFLOP, 48.6 us at the H100's 67 TFLOP/s of
@@ -26,10 +31,12 @@
 //
 // Design: one block of kThreads threads per tile of kRows rows; the grid
 // covers all rows, and a ragged last tile computes zero rows that are never
-// stored. The prologue is a warp per row, the row in lane registers, as in
-// megakernel_rowlocal.cu. The tile's activations live in dynamic shared
-// memory as two ping-pong buffers of kRows x kMaxWidth floats: layer l reads
-// one and writes the other, so no intermediate goes through device memory. A
+// stored. A table phase is a warp per row, the row in lane registers, as in
+// megakernel_rowlocal.cu; a __syncthreads() closes each phase, so the next
+// sees every output of the one before in device memory. The tile's
+// activations live in dynamic shared memory as two ping-pong buffers of kRows
+// x kMaxWidth floats: layer l reads one and writes the other, so no
+// intermediate goes through device memory. A
 // layer's product runs in chunks of kN output columns; for each chunk the
 // block stages W in K-slices of kK x kN through shared memory (the next slice
 // is loaded into registers while the current one is used; the weights of the
@@ -44,21 +51,22 @@
 // logits: shuffle reductions for the max, the sum of expf(x - max) and the
 // argmax.
 //
-// Numerics: the prologue's ops are as rowlocal_ops.cuh states (a scale is
+// Numerics: the table's ops are as rowlocal_ops.cuh states (a scale is
 // bit-identical to the plain version). The products sum in another order
 // than cuBLAS or the CPU, and the softmax sums in another order than
 // torch.softmax: both stay inside the fast tier's ulp envelope. No fast-math
 // flags.
 //
 // Limits, mirrored by servable/megakernels.py chain_eligible: at most
-// kMaxLayers layers, every width at most kMaxWidth, at most kMaxClasses
-// classes; the prologue's table within rowlocal_ops.cuh's limits, with at
-// most kMaxNormFloats centroids over its kmeans ops. The table (2.6 KB) and
-// the layers (168 B) share the 4 KB of kernel parameters.
+// kMaxHeads MLP heads, each of at most kMaxLayers layers, every width at most
+// kMaxWidth, at most kMaxClasses classes; the table within rowlocal_ops.cuh's
+// limits, with at most kMaxNormFloats centroids over its kmeans ops. The table
+// (2.6 KB) and the networks (4 x 168 B) share the 4 KB of kernel parameters.
 #include "rowlocal_ops.cuh"
 
 namespace {
 
+constexpr int kMaxHeads = 4;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxWidth = 512;
 constexpr int kMaxClasses = 32;
@@ -83,6 +91,13 @@ struct MlpLayers {
   int width[kMaxLayers + 1];
   int n_layers;
 };
+
+// The networks of the table's mlp heads, in the order of their Op.k.
+struct MlpNets {
+  MlpLayers net[kMaxHeads];
+};
+static_assert(sizeof(rowlocal::Table) + sizeof(MlpNets) + 16 <= 4096,
+              "the table, the networks and the scalars fit the 4 KB of kernel parameters");
 
 __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -110,8 +125,11 @@ __device__ __forceinline__ bool ranks_first(float a, int ia, float b, int ib) {
 }
 
 // Steps 2 and 3 of a tile whose buffer 0 holds its rows' inputs: the layers
-// and the head, writing prediction and probabilities of rows row0 ... .
-__device__ __forceinline__ void layers_and_head(float* smem, const MlpLayers& net,
+// and the head, writing prediction and probabilities of rows row0 ... . Not
+// inlined: inlined into the loop over the table's phases, the layers ran 6%
+// slower than the single-prologue kernel's (PERF.md); out of line they run
+// as fast.
+__device__ __noinline__ void layers_and_head(float* smem, const MlpLayers& net,
                                                 const float* __restrict__ labels,
                                                 float* __restrict__ prediction,
                                                 float* __restrict__ probabilities, int rows,
@@ -217,20 +235,22 @@ __device__ __forceinline__ void layers_and_head(float* smem, const MlpLayers& ne
   }
 }
 
-// The prologue for one row (uniform across the warp): the table's ops, then
-// the head's input slot into dst[0, d0), zeros to d0_pad; a row past `rows`
-// is all zeros. Not inlined: inlined, ptxas held the kernel to 128 registers
-// and spilled at kSlots 8 and 16, and the layers ran slower than without a
-// prologue (PERF.md); out of line, no instance spills.
+// One phase for one row (uniform across the warp): the table's ops [begin,
+// end), then, with dst, the head's input slot into dst[0, d0), zeros to d0_pad;
+// a row past `rows` runs no op, and stages zeros. Not inlined: inlined, ptxas
+// held the kernel to 128 registers and spilled at kSlots 8 and 16, and the
+// layers ran slower than without a prologue (PERF.md); out of line, no
+// instance spills.
 template <int kSlots>
-__device__ __noinline__ void prologue_row(const rowlocal::Table& table, int head_src, int row,
-                                          int rows, int lane, const float* norms, float* dst,
-                                          int d0, int d0_pad) {
+__device__ __noinline__ void phase_row(const rowlocal::Table& table, int begin, int end,
+                                       int head_src, int row, int rows, int lane,
+                                       const float* norms, float* dst, int d0, int d0_pad) {
   float v[kSlots];
   if (row < rows) {
-    const int cur = rowlocal::run_row<kSlots>(table, row, lane, v, norms);
-    if (cur != head_src) rowlocal::load_row<kSlots>(table.slots[head_src], row, lane, v);
+    const int cur = rowlocal::run_row<kSlots>(table, begin, end, row, lane, v, norms);
+    if (dst != nullptr && cur != head_src) rowlocal::load_row<kSlots>(table.slots[head_src], row, lane, v);
   }
+  if (dst == nullptr) return;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = s * kWarp + lane;
@@ -238,15 +258,13 @@ __device__ __noinline__ void prologue_row(const rowlocal::Table& table, int head
   }
 }
 
-// 1. the table's ops on each row of the tile (a warp per row), every declared
-// output written, then the head's input slot staged into buffer 0; then
-// steps 2 and 3.
+// The table in phases (file comment): for each mlp head, the ops before it on
+// each row of the tile (a warp per row), the head's input staged into buffer
+// 0, then its layers and head; after the last head, the epilogue's ops.
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
-rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table, int head_src,
-                    const __grid_constant__ MlpLayers net, const float* __restrict__ labels,
-                    float* __restrict__ prediction, float* __restrict__ probabilities, int rows,
-                    int with_norms) {
+rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table,
+                    const __grid_constant__ MlpNets nets, int rows, int with_norms) {
   extern __shared__ __align__(16) float smem[];
   float* const norms = smem + kSmemBytes / sizeof(float);
   const int tid = threadIdx.x;
@@ -256,31 +274,48 @@ rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table, int head_src,
     rowlocal::table_norms(table, norms, warp, kThreads / kWarp, lane);
     __syncthreads();
   }
-
-  // 1. the prologue: buffer 0 row r holds the head's input, zero-padded to a
-  // whole K-slice (d0_pad <= kSlots * 32, so the lanes' slots cover it).
-  const int d0 = net.width[0];
-  const int d0_pad = round_up(d0, kK);
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    const int row = row0 + r;
-    prologue_row<kSlots>(table, head_src, row, rows, lane, norms, smem + r * kMaxWidth, d0, d0_pad);
+  int begin = 0;
+  while (begin <= table.n_ops) {  // uniform: the table decides every branch
+    int end = begin;
+    while (end < table.n_ops && table.ops[end].op != rowlocal::kMlp) ++end;
+    if (end == table.n_ops) {  // the epilogue
+      if (begin < end) {
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          phase_row<kSlots>(table, begin, end, -1, row0 + warp * kRowsPerWarp + i, rows, lane, norms,
+                            nullptr, 0, 0);
+        }
+      }
+      break;
+    }
+    // the prologue of the head at `end`: buffer 0 row r holds the head's
+    // input, zero-padded to a whole K-slice (d0_pad <= kSlots * 32, so the
+    // lanes' slots cover it)
+    const rowlocal::Op& head = table.ops[end];
+    const MlpLayers& net = nets.net[head.k];
+    const int d0 = net.width[0];
+    const int d0_pad = round_up(d0, kK);
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp * kRowsPerWarp + i;
+      phase_row<kSlots>(table, begin, end, head.src, row0 + r, rows, lane, norms, smem + r * kMaxWidth,
+                        d0, d0_pad);
+    }
+    __syncthreads();
+    layers_and_head(smem, net, head.a, table.slots[head.dst].ptr, table.slots[head.dst2].ptr, rows,
+                    row0);
+    __syncthreads();  // the head's outputs are in device memory for the next phase
+    begin = end + 1;
   }
-  __syncthreads();
-  layers_and_head(smem, net, labels, prediction, probabilities, rows, row0);
 }
 
 template <int kSlots>
-cudaError_t launch_rowlocal_mlp(const rowlocal::Table& table, int head_src, const MlpLayers& net,
-                                const float* labels, float* prediction, float* probabilities,
-                                int rows, int norm_floats, cudaStream_t stream) {
+cudaError_t launch_rowlocal_mlp(const rowlocal::Table& table, const MlpNets& nets, int rows,
+                                int norm_floats, cudaStream_t stream) {
   const size_t smem = kSmemBytes + sizeof(float) * static_cast<size_t>(norm_floats);
   const cudaError_t attr = cudaFuncSetAttribute(
       rowlocal_mlp_kernel<kSlots>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((rows + kRows - 1) / kRows);
-  rowlocal_mlp_kernel<kSlots><<<grid, kThreads, smem, stream>>>(
-      table, head_src, net, labels, prediction, probabilities, rows, norm_floats > 0);
+  rowlocal_mlp_kernel<kSlots><<<grid, kThreads, smem, stream>>>(table, nets, rows, norm_floats > 0);
   return cudaSuccess;
 }
 
@@ -307,41 +342,59 @@ bool load_net(MlpLayers& net, const void* const* weights, const void* const* bia
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a table or a network past the limits, or a head
-// input slot whose width is not the network's input width. ops and slots are
-// the row-local table (rowlocal_ops.cuh; n_ops may be 0), head_src the slot
-// the MLP reads. weights, biases and widths are host arrays of n_layers,
-// n_layers and n_layers + 1 entries (device pointers, and the widths
-// [d_in, hidden..., classes]). rows == 0 launches nothing.
+// cudaErrorInvalidValue for a table or a network past the limits, a table
+// load_table refuses, or an mlp head whose slots do not fit its network (its
+// input slot of another width than the network's input, its prediction slot
+// not [rows], its probabilities slot not [rows, classes], float32). ops and
+// slots are the table (rowlocal_ops.cuh) with n_heads >= 1 mlp entries, the
+// i-th of them with Op.k == i. The networks come as host arrays: n_layers
+// [n_heads] layer counts, and weights, biases (device pointers) and widths
+// ([d_in, hidden..., classes]) of every head one after the other. rows == 0
+// launches nothing.
 int megakernel_rowlocal_mlp(const void* ops, int n_ops, const void* slots, int n_slots,
-                            int head_src, const void* const* weights, const void* const* biases,
-                            const int* widths, int n_layers, const void* labels,
-                            void* prediction, void* probabilities, int rows, void* stream) {
+                            const void* const* weights, const void* const* biases,
+                            const int* widths, const int* n_layers, int n_heads, int rows,
+                            void* stream) {
+  if (n_heads < 1 || n_heads > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   rowlocal::Table table;
   int widest = 1, norm_floats = 0;
-  cudaError_t rc = rowlocal::load_table(table, ops, n_ops, slots, n_slots, &widest, &norm_floats);
-  MlpLayers net;
-  if (rc != cudaSuccess || norm_floats > kMaxNormFloats || head_src < 0 || head_src >= n_slots ||
-      !load_net(net, weights, biases, widths, n_layers) || table.slots[head_src].width != widths[0]) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = rowlocal::load_table(table, ops, n_ops, slots, n_slots, n_heads, &widest,
+                                        &norm_floats);
+  if (rc != cudaSuccess || norm_floats > kMaxNormFloats) return static_cast<int>(cudaErrorInvalidValue);
+  MlpNets nets = {};
+  for (int h = 0, layer = 0, width = 0; h < n_heads; ++h) {
+    if (!load_net(nets.net[h], weights + layer, biases + layer, widths + width, n_layers[h])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    layer += n_layers[h];
+    width += n_layers[h] + 1;
   }
+  int seen = 0;
+  for (int i = 0; i < n_ops; ++i) {
+    const rowlocal::Op& op = table.ops[i];
+    if (op.op != rowlocal::kMlp) continue;
+    const MlpLayers& net = nets.net[op.k];
+    const rowlocal::Slot& probs = table.slots[op.dst2];
+    if (op.k != seen++ || op.a == nullptr || table.slots[op.src].width != net.width[0] ||
+        probs.width != net.width[net.n_layers]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (seen != n_heads) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* lab = static_cast<const float*>(labels);
-    float* pred = static_cast<float*>(prediction);
-    float* probs = static_cast<float*>(probabilities);
     if (widest <= kWarp) {
-      rc = launch_rowlocal_mlp<1>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<1>(table, nets, rows, norm_floats, s);
     } else if (widest <= 2 * kWarp) {
-      rc = launch_rowlocal_mlp<2>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<2>(table, nets, rows, norm_floats, s);
     } else if (widest <= 4 * kWarp) {
-      rc = launch_rowlocal_mlp<4>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<4>(table, nets, rows, norm_floats, s);
     } else if (widest <= 8 * kWarp) {
-      rc = launch_rowlocal_mlp<8>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<8>(table, nets, rows, norm_floats, s);
     } else if (widest <= 16 * kWarp) {
-      rc = launch_rowlocal_mlp<16>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<16>(table, nets, rows, norm_floats, s);
     } else {
-      rc = launch_rowlocal_mlp<32>(table, head_src, net, lab, pred, probs, rows, norm_floats, s);
+      rc = launch_rowlocal_mlp<32>(table, nets, rows, norm_floats, s);
     }
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }

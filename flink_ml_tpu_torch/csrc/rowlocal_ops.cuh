@@ -2,46 +2,70 @@
 // serving megakernels.
 //
 // Three kernels include this header:
-//   megakernel_rowlocal.cu     any chain of table ops, one warp per row;
-//   megakernel_scale_mlp.cu    the same table (perhaps empty) as the prologue
-//                              of an MLP head;
+//   megakernel_rowlocal.cu     any chain of table ops without an MLP head, one
+//                              warp per row;
+//   megakernel_scale_mlp.cu    the same table with one or more MLP heads in it:
+//                              the ops before a head are its prologue, the
+//                              ops after the last head its epilogue;
 //   megakernel_scale_kmeans.cu the dedicated scale -> kmeans kernel, which
 //                              uses the centroid norms and the per-row
 //                              assignment below, so a row gets the same
 //                              cluster whichever kernel serves its chain.
 //
 // A chain is an op table: each Op reads one slot and writes one (two for the
-// logistic head). Slots are the chain's input columns, then each op's
-// outputs, each [rows] (width 1) or [rows, width] float32, contiguous; a
-// kmeans op's output slot holds int32 indices. Per row, entry by entry, an op
-// computes on the row of its input slot
+// heads). Slots are the chain's input columns, then each op's outputs, each
+// [rows] (width 1) or [rows, width], contiguous, typed (Slot.dtype): float32,
+// or int32 for a kmeans index, a binarize of one, and a sparse column's ids
+// and nnz. A SparseVector column rides the sparse calling convention
+// (servable/sparse.py) as three slots: values [rows, cap] f32, ids [rows, cap]
+// i32 and nnz [rows] i32, padding slots id 0 / value 0. No op reads nnz: a
+// sparse op's output shares its input's ids and nnz slots. Per row, entry by
+// entry, an op computes on the row of its input slot
 //   scale                (x - mean) * inv_std   (each step only if its flag is set)
 //   normalize            x / (n == 0 ? 1 : n),  n = (sum |x|^p)^(1/p)
 //   elementwise_product  x * scaling
 //   idf                  x * idf
-//   binarize             x > threshold ? 1 : 0  (NaN gives 0)
+//   binarize             x > threshold ? 1 : 0  (NaN gives 0), in x's dtype
 //   impute               missing(x) ? surrogate : x, missing = isnan(x) or x == placeholder
 //   logistic             margin = x . coef, prediction = margin >= 0,
 //                        raw = [1 - sigmoid(margin), sigmoid(margin)]
 //   kmeans               the index of the closest of k centroids under the
-//                        op's measure (below)
+//                        op's measure (below), int32
+//   sparse_idf           values * idf[ids], each slot, padding included
+//                        (0 * idf[0]); ids and nnz pass through
+//   sparse_logistic      margin = (((0 + t0) + t1) + ...) over all cap slots,
+//                        t = values * coef[ids]; then the logistic head
+//   mlp                  megakernel_scale_mlp.cu's block-wide head (only there)
+// An int32 input is read as float32 (exact for indices below 2^24), so binarize
+// and impute compare as the JAX package does after its promotion; binarize
+// writes its input's dtype, every other op float32 (kmeans: int32). An id
+// outside [0, d) is clamped as the JAX package's gather does: a negative id
+// counts from the end, then it is clipped into range.
 // Lane l of the row's warp holds elements l, l + 32, ... of the current row in
-// registers (kSlots of them). While an op reads the slot the previous op
-// wrote, the row stays in registers; an op that reads any other slot loads
-// that slot's row (an input, or an output this same warp wrote earlier).
-// Slots use plain loads, not __ldg: the kernels write some of them. The
-// heads write from lane 0 and then __syncwarp(), so a later op that reads
-// their outputs from other lanes sees them.
+// registers (kSlots of them), a sparse row's entries as a dense row's; so a
+// cap, like a width, is at most kMaxDim. While an op reads the slot the
+// previous op wrote, the row stays in registers; an op that reads any other
+// slot loads that slot's row (an input, or an output this same warp wrote
+// earlier). A sparse op reads its ids from memory. Slots use plain loads, not
+// __ldg: the kernels write some of them. The heads write from lane 0 and then
+// __syncwarp(), so a later op that reads their outputs from other lanes sees
+// them.
 //
 // Numerics: every elementwise op uses the _rn intrinsics, which the compiler
 // never contracts into an FMA, so each output of a chain without normalize
-// and before a head is bit-identical to the plain PyTorch version. Normalize
+// and before a head is bit-identical to the plain PyTorch version, sparse_idf
+// included. The sparse head keeps the sparse kernel's order
+// (megakernel_sparse_idf_logistic.cu): each chunk of 32 slot products is
+// broadcast lane by lane with __shfl_sync and every lane adds it in slot order,
+// the strictly sequential fold of ops/kernels.segment_sum, so its margin and
+// prediction are bit-equal to the plain version's at every cap. Normalize
 // mirrors torch.pow on CUDA, which special-cases the exponent: p = 1 is |x|
 // itself, p = 2 is |x| * |x|, p = 3 is (|x| * |x|) * |x|, other p are powf;
 // the root is the sum itself for p = 1, sqrtf for p = 2 (torch takes ** 0.5 as
 // sqrt), powf(sum, 1/p) otherwise; then one correctly rounded divide. The row
 // sum runs in another order than torch.sum's, so outputs from a normalize on
-// are held to the fast tier's envelope. The sigmoid is torch.sigmoid's formula
+// are held to the fast tier's envelope, as the dense logistic head's margin
+// (a warp butterfly) is. The sigmoid is torch.sigmoid's formula
 // 1 / (1 + expf(-m)). No fast-math flags.
 //
 // The closest centroid, in the JAX package's op order
@@ -58,6 +82,10 @@
 // only where its two nearest distances lie within rounding of each other. The
 // clamp at 0 keeps a NaN (fmaxf would drop it). A block computes |c|^2
 // (euclidean) or |c| (cosine) of every centroid once into shared memory.
+//
+// Limits: every slot 1 <= width <= kMaxDim, at most kMaxOps ops and kMaxSlots
+// slots (the table is a kernel parameter), k <= kMaxK centroids a kmeans op;
+// a sparse op's model vector (idf, coef) is a pointer of any length d < 2^31.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +111,9 @@ enum OpCode {
   kImpute = 5,
   kLogistic = 6,
   kKmeans = 7,
+  kSparseIdf = 8,
+  kSparseLogistic = 9,
+  kMlp = 10,  // megakernel_scale_mlp.cu only
 };
 
 enum Flags {
@@ -93,27 +124,31 @@ enum Flags {
 
 enum Measure { kEuclidean = 0, kManhattan = 1, kCosine = 2 };
 
+enum SlotType { kF32 = 0, kI32 = 1 };
+
 // One op of the chain. Mirrors servable/megakernels.py _Op (ctypes).
 struct Op {
   int op;       // OpCode
-  int src;      // the slot read
-  int dst;      // the slot written (logistic: prediction)
-  int dst2;     // logistic: rawPrediction; else unused
-  int flags;    // Flags; kmeans: the Measure
-  int k;        // kmeans: the number of centroids
+  int src;      // the slot read (a sparse op: the values slot)
+  int dst;      // the slot written (the heads: prediction)
+  int dst2;     // logistic, sparse_logistic: rawPrediction; mlp: the probabilities
+  int flags;    // Flags; kmeans: the Measure; sparse ops: d, the length of a
+  int k;        // kmeans: the number of centroids; sparse ops: the ids slot;
+                // mlp: the network's index (megakernel_scale_mlp.cu)
   float s0;     // normalize p; binarize threshold; impute placeholder
   float s1;     // normalize 1/p
   const float* a;  // scale mean; the product's scaling; idf; impute's surrogate (one value);
-                   // logistic coef; kmeans centroids [k, width]
+                   // logistic coef; kmeans centroids [k, width]; sparse_idf idf [d];
+                   // sparse_logistic coef [d]; mlp labels [classes]
   const float* b;  // scale inv_std
 };
 
-// One column of the chain: [rows] (width 1) or [rows, width], contiguous.
-// Mirrors servable/megakernels.py _Slot (ctypes).
+// One column of the chain: [rows] (width 1) or [rows, width], contiguous, of
+// dtype SlotType. Mirrors servable/megakernels.py _Slot (ctypes).
 struct Slot {
-  float* ptr;
+  float* ptr;  // an int32 slot's data through reinterpret_cast<int*>
   int width;
-  int pad;
+  int dtype;   // SlotType
 };
 
 struct Table {
@@ -125,6 +160,15 @@ struct Table {
 static_assert(sizeof(Table) <= 3072, "the table leaves room in the 4 KB of kernel parameters");
 
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
+
+// An id into a vector of d values, clamped as the JAX package's gather does.
+__device__ __forceinline__ long long clamp_id(int id, int d) {
+  long long i = id;
+  if (i < 0) i += d;
+  if (i < 0) i = 0;
+  if (i > d - 1) i = d - 1;
+  return i;
+}
 
 // The warp's total of v, the same bits in every lane.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -221,9 +265,20 @@ __device__ __forceinline__ int kmeans_assign(const float (&h)[kSlots],
   return best_idx;
 }
 
+// A row of a slot into the lanes' registers, an int32 slot's values as float32.
 template <int kSlots>
 __device__ __forceinline__ void load_row(const Slot& slot, int row, int lane, float (&v)[kSlots]) {
-  const float* p = slot.ptr + static_cast<size_t>(row) * slot.width;
+  const size_t base = static_cast<size_t>(row) * slot.width;
+  if (slot.dtype == kI32) {
+    const int* p = reinterpret_cast<const int*>(slot.ptr) + base;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = s * kWarp + lane;
+      v[s] = j < slot.width ? __int2float_rn(p[j]) : 0.0f;
+    }
+    return;
+  }
+  const float* p = slot.ptr + base;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = s * kWarp + lane;
@@ -231,14 +286,38 @@ __device__ __forceinline__ void load_row(const Slot& slot, int row, int lane, fl
   }
 }
 
+// The lanes' row into a slot; an int32 slot takes binarize's 0 / 1 exactly.
 template <int kSlots>
 __device__ __forceinline__ void store_row(const Slot& slot, int row, int lane, const float (&v)[kSlots]) {
-  float* p = slot.ptr + static_cast<size_t>(row) * slot.width;
+  const size_t base = static_cast<size_t>(row) * slot.width;
+  if (slot.dtype == kI32) {
+    int* p = reinterpret_cast<int*>(slot.ptr) + base;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = s * kWarp + lane;
+      if (j < slot.width) p[j] = __float2int_rz(v[s]);
+    }
+    return;
+  }
+  float* p = slot.ptr + base;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = s * kWarp + lane;
     if (j < slot.width) p[j] = v[s];
   }
+}
+
+// The logistic head's outputs for one row, from lane 0 (margin uniform across
+// the warp), then __syncwarp().
+__device__ __forceinline__ void logistic_head(const Table& table, const Op& op, int row, int lane,
+                                              float margin) {
+  if (lane == 0) {
+    const float p = 1.0f / (1.0f + expf(-margin));
+    table.slots[op.dst].ptr[row] = margin >= 0.0f ? 1.0f : 0.0f;
+    table.slots[op.dst2].ptr[2 * static_cast<size_t>(row)] = 1.0f - p;
+    table.slots[op.dst2].ptr[2 * static_cast<size_t>(row) + 1] = p;
+  }
+  __syncwarp();
 }
 
 // The centroid norms of every kmeans op of the table, op after op, into
@@ -256,14 +335,24 @@ __device__ __forceinline__ void table_norms(const Table& table, float* norms, in
   }
 }
 
-// Runs the table's ops on one row (uniform across the warp), writing every
-// op's output slot. Returns the slot whose row v holds afterwards.
+// Where the norms of the kmeans ops from `begin` on start in table_norms' layout.
+__device__ __forceinline__ int norm_offset(const Table& table, int begin) {
+  int off = 0;
+  for (int i = 0; i < begin; ++i) {
+    if (table.ops[i].op == kKmeans) off += table.ops[i].k;
+  }
+  return off;
+}
+
+// Runs the table's ops [begin, end) on one row (uniform across the warp),
+// writing every op's output slot; no op there may be an mlp head. Returns the
+// slot whose row v holds afterwards (-1: none).
 template <int kSlots>
-__device__ __forceinline__ int run_row(const Table& table, int row, int lane, float (&v)[kSlots],
-                                       const float* norms) {
+__device__ __forceinline__ int run_row(const Table& table, int begin, int end, int row, int lane,
+                                       float (&v)[kSlots], const float* norms) {
   int cur = -1;  // the slot whose row v holds
-  int norm_off = 0;
-  for (int i = 0; i < table.n_ops; ++i) {
+  int norm_off = norm_offset(table, begin);
+  for (int i = begin; i < end; ++i) {
     const Op& op = table.ops[i];
     const int w = table.slots[op.src].width;
     if (op.src != cur) load_row<kSlots>(table.slots[op.src], row, lane, v);
@@ -279,14 +368,25 @@ __device__ __forceinline__ int run_row(const Table& table, int row, int lane, fl
       for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
         acc += __shfl_xor_sync(0xffffffffu, acc, offset);
       }
-      if (lane == 0) {
-        const float p = 1.0f / (1.0f + expf(-acc));
-        table.slots[op.dst].ptr[row] = acc >= 0.0f ? 1.0f : 0.0f;
-        table.slots[op.dst2].ptr[2 * static_cast<size_t>(row)] = 1.0f - p;
-        table.slots[op.dst2].ptr[2 * static_cast<size_t>(row) + 1] = p;
-      }
-      __syncwarp();
+      logistic_head(table, op, row, lane, acc);
       continue;  // v still holds the head's input row
+    }
+    if (op.op == kSparseLogistic) {
+      const int* ids = reinterpret_cast<const int*>(table.slots[op.k].ptr) + static_cast<size_t>(row) * w;
+      float term[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int j = s * kWarp + lane;
+        term[s] = j < w ? __fmul_rn(v[s], __ldg(op.a + clamp_id(ids[j], op.flags))) : 0.0f;
+      }
+      float acc = 0.0f;  // the sequential fold over slots 0, 1, ..., w - 1, in every lane
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int n = min(kWarp, w - s * kWarp);  // uniform: the slots this chunk holds
+        for (int t = 0; t < n; ++t) acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, term[s], t));
+      }
+      logistic_head(table, op, row, lane, acc);
+      continue;  // v still holds the values row
     }
     if (op.op == kKmeans) {
       const int idx = kmeans_assign<kSlots>(v, op.a, norms + norm_off, op.k, w, op.flags, lane);
@@ -306,6 +406,13 @@ __device__ __forceinline__ int run_row(const Table& table, int row, int lane, fl
       const float denom = norm == 0.0f ? 1.0f : norm;  // NaN == 0 is false: NaN stays
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) v[s] = s * kWarp + lane < w ? __fdiv_rn(v[s], denom) : 0.0f;
+    } else if (op.op == kSparseIdf) {
+      const int* ids = reinterpret_cast<const int*>(table.slots[op.k].ptr) + static_cast<size_t>(row) * w;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int j = s * kWarp + lane;
+        if (j < w) v[s] = __fmul_rn(v[s], __ldg(op.a + clamp_id(ids[j], op.flags)));
+      }
     } else {
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
@@ -340,13 +447,14 @@ __device__ __forceinline__ int run_row(const Table& table, int row, int lane, fl
 }
 
 // Host side: copies n_ops (0 or more) ops and n_slots slots into table and
-// checks them:
-// every width in 1..kMaxDim, every slot index in range, a kmeans op's k in
-// 1..kMaxK and its measure known. Sets *widest to the widest slot and
-// *norm_floats to the shared-memory floats of the kmeans ops' norms. Returns
-// cudaSuccess or cudaErrorInvalidValue.
+// checks them: every width in 1..kMaxDim and dtype known, every slot index in
+// range, each op's slots of the widths and dtypes it reads and writes (below),
+// a kmeans op's k in 1..kMaxK and its measure known, a sparse op's d >= 1, and
+// an mlp head only where `mlp_heads` allows (its network index below it). Sets
+// *widest to the widest slot and *norm_floats to the shared-memory floats of
+// the kmeans ops' norms. Returns cudaSuccess or cudaErrorInvalidValue.
 inline cudaError_t load_table(Table& table, const void* ops, int n_ops, const void* slots,
-                              int n_slots, int* widest, int* norm_floats) {
+                              int n_slots, int mlp_heads, int* widest, int* norm_floats) {
   if (n_ops < 0 || n_ops > kMaxOps || n_slots < 1 || n_slots > kMaxSlots) {
     return cudaErrorInvalidValue;
   }
@@ -358,15 +466,41 @@ inline cudaError_t load_table(Table& table, const void* ops, int n_ops, const vo
   *widest = 1;
   *norm_floats = 0;
   for (int i = 0; i < n_slots; ++i) {
-    if (table.slots[i].width < 1 || table.slots[i].width > kMaxDim) return cudaErrorInvalidValue;
-    if (table.slots[i].width > *widest) *widest = table.slots[i].width;
-  }
-  for (int i = 0; i < n_ops; ++i) {
-    const Op& op = table.ops[i];
-    if (op.op < kScale || op.op > kKmeans || op.src < 0 || op.src >= n_slots || op.dst < 0 ||
-        op.dst >= n_slots || (op.op == kLogistic && (op.dst2 < 0 || op.dst2 >= n_slots))) {
+    const Slot& slot = table.slots[i];
+    if (slot.width < 1 || slot.width > kMaxDim || (slot.dtype != kF32 && slot.dtype != kI32)) {
       return cudaErrorInvalidValue;
     }
+    if (slot.width > *widest) *widest = slot.width;
+  }
+  auto in_range = [n_slots](int s) { return s >= 0 && s < n_slots; };
+  for (int i = 0; i < n_ops; ++i) {
+    const Op& op = table.ops[i];
+    if (op.op < kScale || op.op > kMlp || !in_range(op.src) || !in_range(op.dst)) {
+      return cudaErrorInvalidValue;
+    }
+    const Slot& in = table.slots[op.src];
+    const Slot& out = table.slots[op.dst];
+    const bool head = op.op == kLogistic || op.op == kSparseLogistic || op.op == kMlp;
+    if (head && !in_range(op.dst2)) return cudaErrorInvalidValue;
+    // what each op reads: binarize and impute any dtype; the rest float32
+    if (in.dtype != kF32 && op.op != kBinarize && op.op != kImpute) return cudaErrorInvalidValue;
+    // what each op writes: kmeans int32; binarize its input's dtype; the rest float32
+    const int out_dtype = op.op == kKmeans ? kI32 : op.op == kBinarize ? in.dtype : kF32;
+    if (out.dtype != out_dtype || (head && table.slots[op.dst2].dtype != kF32)) {
+      return cudaErrorInvalidValue;
+    }
+    if (!head && op.op != kKmeans && out.width != in.width) return cudaErrorInvalidValue;
+    if ((head || op.op == kKmeans) && out.width != 1) return cudaErrorInvalidValue;
+    if ((op.op == kLogistic || op.op == kSparseLogistic) && table.slots[op.dst2].width != 2) {
+      return cudaErrorInvalidValue;
+    }
+    if (op.op == kSparseIdf || op.op == kSparseLogistic) {
+      if (!in_range(op.k) || table.slots[op.k].dtype != kI32 || table.slots[op.k].width != in.width ||
+          op.flags < 1 || op.a == nullptr) {
+        return cudaErrorInvalidValue;
+      }
+    }
+    if (op.op == kMlp && (op.k < 0 || op.k >= mlp_heads)) return cudaErrorInvalidValue;
     if (op.op == kKmeans) {
       if (op.k < 1 || op.k > kMaxK || op.flags < kEuclidean || op.flags > kCosine) {
         return cudaErrorInvalidValue;

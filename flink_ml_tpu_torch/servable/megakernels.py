@@ -1,10 +1,12 @@
 """The megakernel tier: a whole hot chain as ONE hand-written CUDA kernel.
 
 Twin of ``flink_ml_tpu/servable/megakernels.py``. There, ``build_megakernel_fn``
-traces any chain of kernel specs into one row-tiled Pallas kernel. A CUDA
-kernel cannot trace Python bodies, so here a chain runs either on a kernel
-written for it, or on the row-local kernel, which composes its chain at
-launch from a small op table. :func:`chain_eligible` admits:
+traces any chain of kernel specs over its eleven fusion ops into one
+row-tiled Pallas kernel. A CUDA kernel cannot trace Python bodies, so here a
+chain runs either on a kernel written for it, or on a table kernel, which
+composes its chain at launch from a small op table. :func:`chain_eligible`
+admits every chain of those eleven ops (:data:`TABLE_OPS`) whose specs are
+of their op's form, on these routes:
 
 - the dedicated chains (:data:`MEGAKERNEL_CHAINS`), each on its own kernel:
 
@@ -23,30 +25,38 @@ launch from a small op table. :func:`chain_eligible` admits:
 - ``("sparse_idf",)`` — IDF alone on a SparseVector column, the sparse
   kernel in its head-less mode (tf-idf values only) through :func:`sparse_idf`;
 
-- every other chain of the table ops (:data:`TABLE_OPS`: the row-local ops
-  scale, normalize, elementwise_product, idf, binarize and impute, and the
-  dense ``logistic`` and ``kmeans`` heads, anywhere in the chain):
-  ``csrc/megakernel_rowlocal.cu`` through :func:`rowlocal_chain`, which
-  composes the chain from an op table (``csrc/rowlocal_ops.cuh``) — for
-  example ``("normalize", "kmeans")`` or ``("scale", "normalize", "kmeans")``;
-- every chain closed by an ``mlp`` head whose earlier ops (none or more)
-  are table ops: ``csrc/megakernel_scale_mlp.cu`` through
-  :func:`rowlocal_mlp`, the MLP kernel with the table as its prologue — for
-  example ``("mlp",)``, ``("scale", "mlp")`` or ``("normalize", "mlp")`` —
-  for networks within the kernel's limits (:data:`MLP_MAX_LAYERS`,
-  :data:`MLP_MAX_WIDTH`, :data:`MLP_MAX_CLASSES`).
+- every other chain without an MLP head: ``csrc/megakernel_rowlocal.cu``
+  through :func:`rowlocal_chain`, which composes the chain from an op table
+  (``csrc/rowlocal_ops.cuh``) — the row-local ops scale, normalize,
+  elementwise_product, idf, binarize and impute, the dense ``logistic`` and
+  ``kmeans`` heads, and the sparse ``sparse_idf`` and ``sparse_logistic``
+  ops, in any order: for example ``("normalize", "kmeans")``, ``("sparse_idf",
+  "sparse_logistic", "scale")`` (both calling conventions in one table: a
+  sparse column is three slots, values f32, ids and nnz int32),
+  ``("sparse_idf", "sparse_idf")`` or ``("kmeans", "binarize")`` on the
+  kmeans index (an int32 slot; binarize keeps its dtype);
+- every chain with one or more MLP heads: ``csrc/megakernel_scale_mlp.cu``
+  through :func:`rowlocal_mlp`, the MLP kernel running the same table in
+  phases — the ops before a head are its prologue, the ops after the last
+  head its epilogue — for example ``("mlp",)``, ``("normalize", "mlp")``,
+  ``("mlp", "scale")``, ``("normalize", "mlp", "binarize")`` on
+  rawPrediction or ``("mlp", "mlp")``.
 
-The tables and widths must be within the kernels' limits
-(:data:`ROWLOCAL_MAX_OPS`, :data:`ROWLOCAL_MAX_SLOTS`, :data:`ROWLOCAL_MAX_DIM`,
-the centroids a table's kmeans ops may hold in all,
-:data:`ROWLOCAL_MAX_NORM_FLOATS` and :data:`MLP_MAX_NORM_FLOATS`; the widths
-of the batch's input columns are checked per key by :func:`inputs_fit`).
-
-The chains the JAX package admits and the port does not (they stay on the
-merged program in fast mode) are :data:`REFUSED` — an MLP head followed by
-further ops, a sparse op in the same run as a dense one, sparse runs other
-than the three above, an op reading a kmeans index — and any model past a
-kernel's limits.
+No chain the JAX package lowers as one megakernel stays on the merged
+program, except those past a kernel's limits, which the merged program runs
+in fast mode: a model vector of a dense op wider than
+:data:`ROWLOCAL_MAX_DIM` (1024), a batch column of more (a sparse column's nnz
+cap of more, checked per key by :func:`inputs_fit`), more than
+:data:`ROWLOCAL_MAX_OPS` ops or :data:`ROWLOCAL_MAX_SLOTS` slots, a KMeans
+model past :data:`KMEANS_MAX_K` centroids of :data:`KMEANS_MAX_DIM` features
+or more centroids in all than :data:`ROWLOCAL_MAX_NORM_FLOATS` (with an MLP
+head, :data:`MLP_MAX_NORM_FLOATS`), a network past :data:`MLP_MAX_LAYERS`,
+:data:`MLP_MAX_WIDTH` or :data:`MLP_MAX_CLASSES`, more than
+:data:`MLP_MAX_HEADS` MLP heads. The JAX package also admits chains its own
+kernel cannot run — an op other than binarize or impute reading a head's
+prediction or a kmeans index, which are [rows], where the op needs [rows,
+width] (``("kmeans", "scale")`` on the index broadcasts to [1, rows] and the
+Pallas kernel fails); the port refuses those.
 
 Each wrapper chooses by the device of its input: tensors on the CPU take the
 plain version — the same chain composed from ``ops/kernels.py`` — and CUDA
@@ -84,10 +94,10 @@ __all__ = [
     "KMEANS_MEASURES",
     "MEGAKERNEL_CHAINS",
     "MLP_MAX_CLASSES",
+    "MLP_MAX_HEADS",
     "MLP_MAX_LAYERS",
     "MLP_MAX_NORM_FLOATS",
     "MLP_MAX_WIDTH",
-    "REFUSED",
     "ROWLOCAL",
     "ROWLOCAL_MAX_DIM",
     "ROWLOCAL_MAX_NORM_FLOATS",
@@ -99,6 +109,7 @@ __all__ = [
     "SCALE_KMEANS",
     "SCALE_LOGISTIC",
     "SPARSE_IDF_LOGISTIC",
+    "SPARSE_OPS",
     "TABLE_OPS",
     "build_megakernel_fn",
     "chain_eligible",
@@ -127,10 +138,11 @@ MEGAKERNEL_CHAINS = frozenset({
     ("kmeans",),
 })
 
-#: The MLP networks ``csrc/megakernel_scale_mlp.cu`` holds (its kMaxLayers,
-#: kMaxWidth and kMaxClasses), and the centroids its prologue's kmeans ops
-#: may hold in all (kMaxNormFloats: their norms share the block's shared
-#: memory with the activations).
+#: The MLP networks ``csrc/megakernel_scale_mlp.cu`` holds (its kMaxHeads
+#: heads in a table, each of kMaxLayers layers, kMaxWidth and kMaxClasses),
+#: and the centroids its table's kmeans ops may hold in all (kMaxNormFloats:
+#: their norms share the block's shared memory with the activations).
+MLP_MAX_HEADS = 4
 MLP_MAX_LAYERS = 8
 MLP_MAX_WIDTH = 512
 MLP_MAX_CLASSES = 32
@@ -142,29 +154,22 @@ KMEANS_MAX_K = 1024
 KMEANS_MAX_DIM = 1024
 KMEANS_MEASURES = {"euclidean": 0, "manhattan": 1, "cosine": 2}
 
-#: The row-local ops of ``csrc/rowlocal_ops.cuh``'s table; with the dense
-#: ``logistic`` and ``kmeans`` heads they are :data:`TABLE_OPS`, the ops a
-#: table may hold in any order. The table's limits: a lane's slots of a row
-#: (kMaxDim), the op table (kMaxOps) and the slot table (kMaxSlots) in the
-#: kernel's parameters, and the centroids the table's kmeans ops may hold in
-#: all (``csrc/megakernel_rowlocal.cu`` kMaxNormFloats, their norms in the
+#: The ops of ``csrc/rowlocal_ops.cuh``'s table: the row-local ops, the dense
+#: ``logistic`` and ``kmeans`` heads, the sparse ops (:data:`SPARSE_OPS`) and
+#: the ``mlp`` head (the MLP kernel's) — every op of the JAX package's
+#: ``MEGAKERNEL_OPS``, in any order. The table's limits: a lane's slots of a
+#: row (kMaxDim: a width, a sparse column's nnz cap), the op table (kMaxOps)
+#: and the slot table (kMaxSlots) in the kernel's parameters, and the
+#: centroids the table's kmeans ops may hold in all
+#: (``csrc/megakernel_rowlocal.cu`` kMaxNormFloats, their norms in the
 #: block's shared memory).
 ROWLOCAL_OPS = frozenset({"scale", "normalize", "elementwise_product", "idf", "binarize", "impute"})
-TABLE_OPS = ROWLOCAL_OPS | {"logistic", "kmeans"}
+SPARSE_OPS = frozenset({"sparse_idf", "sparse_logistic"})
+TABLE_OPS = ROWLOCAL_OPS | SPARSE_OPS | {"logistic", "kmeans", "mlp"}
 ROWLOCAL_MAX_DIM = 1024
 ROWLOCAL_MAX_OPS = 32
 ROWLOCAL_MAX_SLOTS = 64
 ROWLOCAL_MAX_NORM_FLOATS = 48 * 1024
-
-#: What the JAX package lowers as one megakernel and the port refuses: each
-#: entry names a class of chains and a chain of it (fusion ops). Past these,
-#: the port refuses only models past its kernels' limits.
-REFUSED = {
-    "mlp_not_last": ("mlp", "scale"),  # an MLP head followed by further ops
-    "sparse_with_dense": ("sparse_idf", "sparse_logistic", "scale"),  # one run, both conventions
-    "other_sparse_run": ("sparse_idf", "sparse_idf"),  # a sparse run past the three kernels have
-    "reads_kmeans_index": ("kmeans", "binarize"),  # an op reading a kmeans index column
-}
 
 SCALE_LOGISTIC = CudaKernel(
     name="megakernel_scale_logistic",
@@ -206,8 +211,8 @@ ROWLOCAL_MLP = CudaKernel(
     name="megakernel_rowlocal_mlp",
     source="megakernel_scale_mlp.cu",
     symbol="megakernel_rowlocal_mlp",
-    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="flink_ml_tpu/servable/megakernels.py:180",
 )
 
@@ -279,34 +284,38 @@ def chain_eligible(specs: Sequence[Any]) -> bool:
     :data:`MEGAKERNEL_CHAINS` runs on its own kernel when it is of that
     kernel's form (:func:`_dedicated_eligible`); ``("sparse_idf",)`` on the
     sparse kernel's head-less mode (:func:`_sparse_idf_width`); any other
-    chain of :data:`TABLE_OPS`, or an MLP head after none or more of them,
-    on the row-local kernel or the MLP kernel's table prologue when every
-    spec is of its form (:func:`_rowlocal_program`)."""
+    chain of :data:`TABLE_OPS` on the row-local kernel, or with an MLP head
+    on the MLP kernel, when every spec is of its form and the table within
+    the kernels' limits (:func:`_rowlocal_program`)."""
     return _route(specs) is not None
 
 
 def _route(specs: Sequence[Any]) -> Optional[str]:
     """Which kernel runs ``specs``: ``"dedicated"``, ``"sparse_idf"``,
-    ``"table"`` (the row-local kernel or the MLP prologue), or None."""
+    ``"table"`` (the row-local kernel or the MLP kernel), or None."""
     specs = tuple(specs)
     ops = tuple(getattr(s, "fusion_op", None) for s in specs)
     if ops in MEGAKERNEL_CHAINS and _dedicated_eligible(specs, ops):
         return "dedicated"
-    if ops == ("sparse_idf",):
-        return "sparse_idf" if _sparse_idf_width(specs[0]) is not None else None
+    if ops == ("sparse_idf",) and _sparse_idf_width(specs[0]) is not None:
+        return "sparse_idf"
     return "table" if _rowlocal_program(specs) is not None else None
 
 
 def inputs_fit(specs: Sequence[Any], inputs: Mapping[str, torch.Tensor]) -> bool:
     """Whether a batch's program ``inputs`` fit the kernel of an eligible
     chain: the table kernels take [rows] or [rows, width] columns of width
-    ≤ :data:`ROWLOCAL_MAX_DIM`, which only the batch shows (a normalize or
-    binarize spec carries no width); the dedicated kernels' widths are fixed
-    by their model arrays, checked by :func:`chain_eligible`."""
+    ≤ :data:`ROWLOCAL_MAX_DIM` — a sparse column's values and ids of that
+    nnz cap — and [rows, width] ones where an op needs them, which only the
+    batch shows (a normalize or binarize spec carries no width, a sparse
+    column no cap); the dedicated kernels' widths are fixed by their model
+    arrays, checked by :func:`chain_eligible`."""
     if _route(specs) != "table":
         return True
-    return all(t.dim() == 1 or (t.dim() == 2 and 1 <= t.shape[1] <= ROWLOCAL_MAX_DIM)
-               for t in inputs.values())
+    matrices = _rowlocal_program(specs).matrices
+    return all((t.dim() == 1 and name not in matrices)
+               or (t.dim() == 2 and 1 <= t.shape[1] <= ROWLOCAL_MAX_DIM)
+               for name, t in inputs.items())
 
 
 def _dedicated_eligible(specs: Sequence[Any], ops: Tuple[Any, ...]) -> bool:
@@ -357,10 +366,31 @@ def _sparse_idf_width(spec: Any) -> Optional[int]:
     return d
 
 
+class _Binding(NamedTuple):
+    """One table entry of a spec before its model tensors are known: the op,
+    the program name it reads (``src``; a sparse op's values) and, for a
+    sparse op, its ids; the names of its new output slots (``out``: one, or
+    a head's prediction and rawPrediction); the outputs that are the inputs
+    themselves (``aliases``: a sparse IDF's ids and nnz, ``(output, input)``);
+    the names of the spec's model arrays it reads (``a``, ``b``); its static
+    parameters; and the input width the entry needs (None: any)."""
+
+    op: str
+    src: str
+    ids: Optional[str]
+    out: Tuple[str, ...]
+    aliases: Tuple[Tuple[str, str], ...]
+    a: Optional[str]
+    b: Optional[str]
+    params: Mapping[str, Any]
+    width: Optional[int]
+
+
 class _OpTemplate(NamedTuple):
-    """One op of a table chain before its model tensors are known: the op,
-    its input slot, the spec it comes from, the names of that spec's model
-    arrays it reads (``a``, ``b``) and its static parameters."""
+    """One op of a table chain: the op, its input slot, the spec it comes
+    from, the names of that spec's model arrays it reads (``a``, ``b``) and
+    its static parameters (a sparse op's ``ids`` slot; an MLP head's
+    ``n_layers``)."""
 
     op: str
     src: int
@@ -370,18 +400,23 @@ class _OpTemplate(NamedTuple):
     params: Mapping[str, Any]
 
 
-class _MlpHead(NamedTuple):
-    """The MLP head closing a table chain: the slot it reads and its layers."""
-
-    src: int
-    n_layers: int
-
-
 class _RowLocalProgram(NamedTuple):
     inputs: Tuple[str, ...]  # the chain's program inputs: slots 0..m-1
     ops: Tuple[_OpTemplate, ...]
-    outputs: Tuple[str, ...]  # the column of each output slot, m on, in order; then the MLP's
-    mlp: Optional[_MlpHead]
+    outputs: Tuple[Tuple[str, int], ...]  # every program output and its slot, the last writer's
+    matrices: frozenset  # the program inputs that must be [rows, width]
+    mlp_heads: int
+
+    def bind(self, models: Sequence[Mapping[str, torch.Tensor]],
+             cols: Mapping[str, torch.Tensor]) -> Tuple[List[torch.Tensor], List["RowLocalOp"]]:
+        """The table kernels' arguments for one call: the program inputs from
+        ``cols`` in slot order, and the ops on ``models``' tensors."""
+        ops = []
+        for t in self.ops:
+            m = models[t.spec]
+            layers = [(m[f"W{i}"], m[f"b{i}"]) for i in range(t.params["n_layers"])] if t.op == "mlp" else ()
+            ops.append(RowLocalOp(t.op, t.src, m.get(t.a), m.get(t.b), t.params, layers))
+        return [cols[name] for name in self.inputs], ops
 
 
 def _is_rowlocal_vector(spec: Any, key: str) -> bool:
@@ -389,26 +424,44 @@ def _is_rowlocal_vector(spec: Any, key: str) -> bool:
     return a.ndim == 1 and 1 <= a.shape[0] <= ROWLOCAL_MAX_DIM
 
 
-def _rowlocal_bindings(spec: Any) -> Optional[List[Tuple[str, Optional[str], Optional[str], Optional[str], Dict[str, Any], Optional[int]]]]:
-    """``(input column, output column, a, b, params, width)`` per table entry
-    of a :data:`TABLE_OPS` spec of its op's form (one binding per column for
-    binarize and impute; the output None for a head, whose outputs are the
-    spec's), ``width`` the input width the entry needs (None: any), or None
-    when the spec is not of that form."""
+def _rowlocal_bindings(spec: Any) -> Optional[List[_Binding]]:
+    """The table entries of a :data:`TABLE_OPS` spec of its op's form (one
+    per column for binarize and impute), or None when the spec is not of
+    that form."""
     op, ins, outs = spec.fusion_op, spec.input_cols, spec.output_names
     arrays, params = set(spec.model_arrays), spec.fusion_params
+    if op in SPARSE_OPS:
+        if op == "sparse_idf":
+            d = _sparse_idf_width(spec)
+            if d is None:
+                return None
+            (i,), (o,) = ins, outs
+            (iv, ii, iz), (ov, oi, oz) = sparse_names(i), sparse_names(o)
+            return [_Binding(op, iv, ii, (ov,), ((oi, ii), (oz, iz)), "idf", None, {}, None)]
+        d = _head_width(spec, "sparse")
+        if d is None or not 0 < d < 2**31:
+            return None
+        iv, ii, _iz = sparse_names(ins[0])
+        return [_Binding(op, iv, ii, tuple(outs), (), "coefficient", None, {}, None)]
     if any(spec.input_kind(c) not in ("vector", "dense", "scalar") for c in ins):
         return None
+    if op == "mlp":
+        widths = _mlp_widths(spec)
+        if widths is None:
+            return None
+        return [_Binding(op, ins[0], None, tuple(outs), (), "labels", None,
+                         {"n_layers": len(widths) - 1, "classes": widths[-1]}, widths[0])]
     if op == "logistic":
         d = _head_width(spec, "vector")
         if d is None or not 1 <= d <= ROWLOCAL_MAX_DIM:
             return None
-        return [(ins[0], None, "coefficient", None, {}, d)]
+        return [_Binding(op, ins[0], None, tuple(outs), (), "coefficient", None, {}, d)]
     if op == "kmeans":
         d = _kmeans_width(spec)
         if d is None:
             return None
-        return [(ins[0], None, "centroids", None, {"measure": params["distance_measure"]}, d)]
+        return [_Binding(op, ins[0], None, tuple(outs), (), "centroids", None,
+                         {"measure": params["distance_measure"]}, d)]
     if op in ("binarize", "impute"):
         if not ins or len(ins) != len(outs):
             return None
@@ -416,15 +469,15 @@ def _rowlocal_bindings(spec: Any) -> Optional[List[Tuple[str, Optional[str], Opt
             t = params.get("thresholds")
             if arrays or set(params) != {"thresholds"} or t is None or len(t) != len(ins):
                 return None
-            return [(i, o, None, None, {"threshold": float(th)}, None)
+            return [_Binding(op, i, None, (o,), (), None, None, {"threshold": float(th)}, None)
                     for i, o, th in zip(ins, outs, t)]
         if arrays != {"surrogates"} or set(params) != {"missing_is_nan", "missing_value"}:
             return None
         if np.asarray(spec.model_arrays["surrogates"]).shape != (len(ins),):
             return None
-        return [(i, o, "surrogates", None, {"missing_is_nan": bool(params["missing_is_nan"]),
-                                            "missing_value": float(params["missing_value"]),
-                                            "column": k}, None)
+        return [_Binding(op, i, None, (o,), (), "surrogates", None,
+                         {"missing_is_nan": bool(params["missing_is_nan"]),
+                          "missing_value": float(params["missing_value"]), "column": k}, None)
                 for k, (i, o) in enumerate(zip(ins, outs))]
     if len(ins) != 1 or len(outs) != 1:
         return None
@@ -437,41 +490,40 @@ def _rowlocal_bindings(spec: Any) -> Optional[List[Tuple[str, Optional[str], Opt
         d = _vector_width(spec.model_arrays["mean"])
         if _vector_width(spec.model_arrays["inv_std"]) != d:
             return None
-        return [(i, o, "mean", "inv_std", {"with_mean": bool(params["with_mean"]),
-                                           "with_std": bool(params["with_std"])}, d)]
+        return [_Binding(op, i, None, (o,), (), "mean", "inv_std",
+                         {"with_mean": bool(params["with_mean"]), "with_std": bool(params["with_std"])}, d)]
     if op == "normalize":
         if arrays or set(params) != {"p"} or not float(params["p"]) >= 1.0:
             return None
-        return [(i, o, None, None, {"p": float(params["p"])}, None)]
+        return [_Binding(op, i, None, (o,), (), None, None, {"p": float(params["p"])}, None)]
     if op in ("elementwise_product", "idf"):
         key = "scaling" if op == "elementwise_product" else "idf"
         if arrays != {key} or params or not _is_rowlocal_vector(spec, key):
             return None
-        return [(i, o, key, None, {}, _vector_width(spec.model_arrays[key]))]
+        return [_Binding(op, i, None, (o,), (), key, None, {}, _vector_width(spec.model_arrays[key]))]
     return None
 
 
 def _rowlocal_program(specs: Sequence[Any]) -> Optional[_RowLocalProgram]:
     """The table for ``specs``, or None when the chain is not of its form:
-    every spec a :data:`TABLE_OPS` op over dense or scalar columns, an
-    optional last spec an MLP head the kernel can hold (:func:`_mlp_widths`;
-    only with it may the table be empty), no op reading a kmeans index, the
-    widths the model arrays fix agreeing, and tables within the kernel's
-    limits.
+    every spec a :data:`TABLE_OPS` op of its form (:func:`_rowlocal_bindings`)
+    over dense, scalar or sparse columns; every op but binarize and impute
+    reading a [rows, width] column (not a head's prediction or a kmeans
+    index, which are [rows]); the widths the model arrays fix agreeing; and
+    the table within the kernels' limits (:data:`ROWLOCAL_MAX_OPS`,
+    :data:`ROWLOCAL_MAX_SLOTS`, :data:`MLP_MAX_HEADS`, and the centroids its
+    kmeans ops hold in all).
 
     Slots: the chain's program inputs first, then each op's outputs in
     order. A spec's ops read the columns as they stood before the spec (as
     its ``kernel_fn`` does), and a column written twice names its last
-    slot, as the chain's ``cols.update`` leaves it."""
+    slot, as the chain's ``cols.update`` leaves it. A sparse IDF's ids and
+    nnz outputs name its input's slots."""
     specs = tuple(specs)
     if not specs:
         return None
-    mlp_widths = _mlp_widths(specs[-1]) if getattr(specs[-1], "fusion_op", None) == "mlp" else None
-    body = specs[:-1] if mlp_widths is not None else specs
-    if not body and mlp_widths is None:
-        return None
     bindings = []
-    for spec in body:
+    for spec in specs:
         if getattr(spec, "fusion_op", None) not in TABLE_OPS:
             return None
         b = _rowlocal_bindings(spec)
@@ -480,62 +532,72 @@ def _rowlocal_program(specs: Sequence[Any]) -> Optional[_RowLocalProgram]:
         bindings.append(b)
     produced: set = set()
     inputs: List[str] = []
-    for spec, b in zip(body, bindings):
-        for i, *_ in b:
-            if i not in produced and i not in inputs:
-                inputs.append(i)
-        produced.update(spec.output_names)
-    if mlp_widths is not None:
-        (head_in,) = specs[-1].input_cols
-        if head_in not in produced and head_in not in inputs:
-            inputs.append(head_in)
+    for spec, b in zip(specs, bindings):
+        for e in b:
+            for name in (e.src, e.ids, *(i for _o, i in e.aliases)):
+                if name is not None and name not in produced and name not in inputs:
+                    inputs.append(name)
+        produced.update(spec.program_outputs)
     slot = {name: k for k, name in enumerate(inputs)}
+    n_slots = len(inputs)
     width: Dict[str, int] = {}  # a column's width where a model array fixes it
-    index_cols: set = set()  # columns holding kmeans indices
+    flat = {n for s in specs for n in s.input_cols if s.input_kind(n) == "scalar"}  # [rows] columns
+    matrices: set = set()
     ops: List[_OpTemplate] = []
-    outputs: List[str] = []
+    outputs: Dict[str, int] = {}
 
-    def reads(col: str, need: Optional[int]) -> bool:
-        if col in index_cols:
-            return False
-        if need is not None:
-            if width.setdefault(col, need) != need:
+    def reads(col: str, need: Optional[int], matrix: bool) -> bool:
+        if matrix:
+            if col in flat:
                 return False
+            if col in inputs:
+                matrices.add(col)
+        if need is not None and width.setdefault(col, need) != need:
+            return False
         return True
 
-    for si, (spec, b) in enumerate(zip(body, bindings)):
-        srcs = [slot[i] for i, *_ in b]  # read before this spec writes
-        if not all(reads(i, need) for i, _o, _a, _b, _p, need in b):
-            return None
-        in_width = [width.get(i) for i, *_ in b]
-        written = []
-        for src, w_in, (i, o, a, bb, params, need) in zip(srcs, in_width, b):
-            ops.append(_OpTemplate(spec.fusion_op, src, si, a, bb, params))
-            names = spec.output_names if o is None else (o,)
-            for name in names:
-                written.append((name, len(inputs) + len(outputs)))
-                outputs.append(name)
+    for si, (spec, b) in enumerate(zip(specs, bindings)):
+        srcs = [(slot[e.src], None if e.ids is None else slot[e.ids]) for e in b]  # read before this spec writes
+        for e in b:
+            if not reads(e.src, e.width, e.op not in ("binarize", "impute")):
+                return None
+            if e.ids is not None:
+                matrices.update(n for n in (e.src, e.ids) if n in inputs)
+        state = [(width.get(e.src), e.src in flat) for e in b]
+        aliased = {o: slot[i] for e in b for o, i in e.aliases}
+        for (src, ids), (w_in, flat_in), e in zip(srcs, state, b):
+            params = dict(e.params)
+            if ids is not None:
+                params["ids"] = ids
+            ops.append(_OpTemplate(e.op, src, si, e.a, e.b, params))
+            for name in e.out:
+                slot[name] = outputs[name] = n_slots
+                n_slots += 1
                 width.pop(name, None)
-                index_cols.discard(name)
-            if o is not None and w_in is not None:  # an elementwise op keeps its input's width
-                width[o] = w_in
-            if spec.fusion_op == "kmeans":  # its prediction holds indices
-                index_cols.update(names)
-        slot.update(written)
-    n_slots = len(inputs) + len(outputs)
-    centroids = sum(int(np.asarray(spec.model_arrays["centroids"]).shape[0])
-                    for spec in body if spec.fusion_op == "kmeans")
-    norm_budget = ROWLOCAL_MAX_NORM_FLOATS if mlp_widths is None else MLP_MAX_NORM_FLOATS
-    if len(ops) > ROWLOCAL_MAX_OPS or n_slots > ROWLOCAL_MAX_SLOTS or centroids > norm_budget:
+                flat.discard(name)
+            if e.op in ("logistic", "sparse_logistic", "kmeans", "mlp"):  # heads: prediction is [rows]
+                flat.add(e.out[0])
+                if e.op != "kmeans":
+                    width[e.out[1]] = e.params.get("classes", 2)
+            elif e.op != "sparse_idf":  # an elementwise op keeps its input's shape
+                (o,) = e.out
+                if w_in is not None:
+                    width[o] = w_in
+                if flat_in:
+                    flat.add(o)
+        for name, k in aliased.items():  # no dense op reads a sparse column's parts
+            slot[name] = outputs[name] = k
+    if set(outputs) != {name for spec in specs for name in spec.program_outputs}:
         return None
-    mlp = None
-    if mlp_widths is not None:
-        (head_in,) = specs[-1].input_cols
-        if not reads(head_in, mlp_widths[0]):
-            return None
-        mlp = _MlpHead(slot[head_in], len(mlp_widths) - 1)
-        outputs.extend(specs[-1].output_names)
-    return _RowLocalProgram(tuple(inputs), tuple(ops), tuple(outputs), mlp)
+    mlp_heads = sum(1 for t in ops if t.op == "mlp")
+    centroids = sum(int(np.asarray(spec.model_arrays["centroids"]).shape[0])
+                    for spec in specs if spec.fusion_op == "kmeans")
+    norm_budget = MLP_MAX_NORM_FLOATS if mlp_heads else ROWLOCAL_MAX_NORM_FLOATS
+    if (len(ops) > ROWLOCAL_MAX_OPS or n_slots > ROWLOCAL_MAX_SLOTS or mlp_heads > MLP_MAX_HEADS
+            or centroids > norm_budget):
+        return None
+    return _RowLocalProgram(tuple(inputs), tuple(ops), tuple(outputs.items()), frozenset(matrices),
+                            mlp_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -804,30 +866,38 @@ def scale_kmeans(
 
 
 # ---------------------------------------------------------------------------
-# row-local chains (dense), composed from an op table
+# table chains, composed from an op table
 # ---------------------------------------------------------------------------
 
 
 class RowLocalOp(NamedTuple):
     """One op of a table chain: ``op`` (a :data:`TABLE_OPS` op) reads slot
-    ``src``; the model tensors ``a`` (scale's mean, the product's scaling,
-    idf, impute's surrogates, the logistic head's coefficient, the kmeans
-    head's centroids [k, width]) and ``b`` (scale's inv_std); ``params`` the
-    static arguments (``with_mean``/``with_std``; ``p``; ``threshold``;
-    ``missing_is_nan``/``missing_value`` and the surrogate's ``column``;
-    the kmeans ``measure``). Slots: the chain's inputs, then each op's
-    outputs in order — one (int32 indices for kmeans), or ``prediction``
-    and ``rawPrediction`` for the logistic head."""
+    ``src`` (a sparse op: the values slot); the model tensors ``a`` (scale's
+    mean, the product's scaling, idf, impute's surrogates, the logistic
+    head's coefficient, the kmeans head's centroids [k, width], the sparse
+    ops' idf or coefficient [d], the MLP head's labels [classes]) and ``b``
+    (scale's inv_std); ``params`` the static arguments (``with_mean``/
+    ``with_std``; ``p``; ``threshold``; ``missing_is_nan``/``missing_value``
+    and the surrogate's ``column``; the kmeans ``measure``; a sparse op's
+    ``ids`` slot); ``layers`` the MLP head's ``(W [d_in, d_out], b
+    [d_out])`` pairs. Slots: the chain's inputs, then each op's outputs in
+    order — one (int32 indices for kmeans; binarize keeps its input's
+    dtype), or ``prediction`` and ``rawPrediction`` for the heads (the MLP's
+    probabilities [rows, classes])."""
 
     op: str
     src: int
     a: Optional[torch.Tensor] = None
     b: Optional[torch.Tensor] = None
     params: Mapping[str, Any] = {}
+    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]] = ()
 
 
 _ROWLOCAL_CODES = {"scale": 0, "normalize": 1, "elementwise_product": 2, "idf": 3,
-                   "binarize": 4, "impute": 5, "logistic": 6, "kmeans": 7}
+                   "binarize": 4, "impute": 5, "logistic": 6, "kmeans": 7,
+                   "sparse_idf": 8, "sparse_logistic": 9, "mlp": 10}
+_HEADS = ("logistic", "sparse_logistic", "mlp")
+_SLOT_DTYPES = {torch.float32: 0, torch.int32: 1}  # csrc/rowlocal_ops.cuh SlotType
 
 
 class _Op(ctypes.Structure):  # csrc/rowlocal_ops.cuh Op
@@ -838,12 +908,13 @@ class _Op(ctypes.Structure):  # csrc/rowlocal_ops.cuh Op
 
 
 class _Slot(ctypes.Structure):  # csrc/rowlocal_ops.cuh Slot
-    _fields_ = [("ptr", ctypes.c_void_p), ("width", ctypes.c_int), ("pad", ctypes.c_int)]
+    _fields_ = [("ptr", ctypes.c_void_p), ("width", ctypes.c_int), ("dtype", ctypes.c_int)]
 
 
 def rowlocal_chain_plain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
     """The chain in plain PyTorch, op by op through ``ops/kernels.py``:
-    the output tensors in slot order."""
+    the output tensors in slot order. The plain version of both table
+    kernels."""
     slots = list(inputs)
     for op in ops:
         x, p = slots[op.src], op.params
@@ -863,47 +934,80 @@ def rowlocal_chain_plain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalO
             slots.extend(logistic_from_dots_fn(dot_fn(x, op.a)))
         elif op.op == "kmeans":
             slots.append(kmeans_assign_fn(p["measure"])(x, op.a).to(torch.int32))
+        elif op.op == "sparse_idf":
+            slots.append(sparse_idf_scale_fn(x, slots[p["ids"]], op.a))
+        elif op.op == "sparse_logistic":
+            slots.extend(logistic_from_dots_fn(sparse_dot_fn(x, slots[p["ids"]], op.a)))
+        elif op.op == "mlp":
+            pred_idx, probs = mlp_predict_fn(op.layers, x)
+            slots.extend([op.a[pred_idx.long()], probs])
         else:
             raise ValueError(f"{op.op!r} is no table op")
     return slots[len(inputs):]
 
 
-def _table(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp], kernel: CudaKernel):
-    """The ctypes op and slot tables of a chain on CUDA tensors, with the
-    output tensors allocated: ``(ops table, slot table, slots, rows)``.
-    Raises for a table or a width past the kernel's limits (the MLP
-    kernel's table may be empty, the row-local kernel's may not)."""
+def rowlocal_mlp_plain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
+    """The plain version of the MLP kernel: the same interpreter as
+    :func:`rowlocal_chain_plain`, on a table with one or more MLP heads."""
+    return rowlocal_chain_plain(inputs, ops)
+
+
+class _Launch(NamedTuple):
+    """A table on CUDA tensors: the ctypes op and slot tables, every slot's
+    tensor (the outputs allocated), the rows, and the MLP heads' networks
+    (``weights``, ``biases``, ``widths``, ``n_layers`` as ctypes arrays)."""
+
+    ops: Any
+    slots: Any
+    tensors: List[torch.Tensor]
+    rows: int
+    nets: Optional[Tuple[Any, Any, Any, Any]]
+
+
+def _table(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp], kernel: CudaKernel) -> _Launch:
+    """The ctypes tables of a chain on CUDA tensors, with the output tensors
+    allocated. Raises for a table, a slot or a network past the kernel's
+    limits or of the wrong form: the row-local kernel takes no MLP head, the
+    MLP kernel 1 to :data:`MLP_MAX_HEADS`."""
     device = inputs[0].device
     rows = int(inputs[0].shape[0]) if inputs[0].dim() else -1
-    n_slots = len(inputs) + sum(2 if op.op == "logistic" else 1 for op in ops)
-    min_ops = 0 if kernel is ROWLOCAL_MLP else 1
-    if not min_ops <= len(ops) <= ROWLOCAL_MAX_OPS or n_slots > ROWLOCAL_MAX_SLOTS:
-        raise ValueError(f"{kernel.name} holds {min_ops}-{ROWLOCAL_MAX_OPS} ops over at most "
-                         f"{ROWLOCAL_MAX_SLOTS} slots; got {len(ops)} ops, {n_slots} slots")
+    n_slots = len(inputs) + sum(2 if op.op in _HEADS else 1 for op in ops)
+    heads = sum(1 for op in ops if op.op == "mlp")
+    min_heads, max_heads = (1, MLP_MAX_HEADS) if kernel is ROWLOCAL_MLP else (0, 0)
+    if not 1 <= len(ops) <= ROWLOCAL_MAX_OPS or n_slots > ROWLOCAL_MAX_SLOTS \
+            or not min_heads <= heads <= max_heads:
+        raise ValueError(f"{kernel.name} holds 1-{ROWLOCAL_MAX_OPS} ops over at most "
+                         f"{ROWLOCAL_MAX_SLOTS} slots with {min_heads}-{max_heads} MLP heads; got "
+                         f"{len(ops)} ops, {n_slots} slots, {heads} MLP heads")
     slots: List[torch.Tensor] = []
     for k, t in enumerate(inputs):
         if t.dim() not in (1, 2) or not 1 <= (t.shape[1] if t.dim() == 2 else 1) <= ROWLOCAL_MAX_DIM:
             raise ValueError(f"{kernel.name} takes [rows] or [rows, 1-{ROWLOCAL_MAX_DIM}] "
                              f"columns; input {k} has shape {tuple(t.shape)}")
-        _check(f"input {k}", t, (rows,) + tuple(t.shape[1:]), device)
+        if t.dtype not in _SLOT_DTYPES:
+            raise TypeError(f"{kernel.name} takes float32 or int32 columns; input {k} is {t.dtype}")
+        _check(f"input {k}", t, (rows,) + tuple(t.shape[1:]), device, t.dtype)
         slots.append(t)
     table = (_Op * len(ops))()
+    weights: List[int] = []
+    biases: List[int] = []
+    widths: List[int] = []
+    n_layers: List[int] = []
     for entry, op in zip(table, ops):
         if op.op not in _ROWLOCAL_CODES or not 0 <= op.src < len(slots):
             raise ValueError(f"{kernel.name}: op {op.op!r} reads slot {op.src} of {len(slots)}")
         x, p = slots[op.src], op.params
-        if x.dtype != torch.float32:
+        if x.dtype != torch.float32 and op.op not in ("binarize", "impute"):
             raise ValueError(f"{kernel.name}: op {op.op!r} reads slot {op.src} of {x.dtype}")
         width = int(x.shape[1]) if x.dim() == 2 else 1
-        needs_a = op.op in ("elementwise_product", "idf", "logistic", "impute", "kmeans") or (
-            op.op == "scale" and p["with_mean"])
+        needs_a = op.op not in ("normalize", "binarize") and not (op.op == "scale" and not p["with_mean"])
         if (needs_a and op.a is None) or (op.op == "scale" and p["with_std"] and op.b is None):
             raise ValueError(f"{kernel.name}: op {op.op!r} is missing its model tensor")
         entry.op, entry.src = _ROWLOCAL_CODES[op.op], op.src
-        if op.op in ("scale", "elementwise_product", "idf", "logistic", "kmeans"):
-            if x.dim() != 2:
-                raise ValueError(f"{op.op} reads [rows, d] columns; slot {op.src} has shape {tuple(x.shape)}")
-            if op.op in ("elementwise_product", "idf", "logistic") or (op.op == "scale" and p["with_mean"]):
+        if op.op not in ("binarize", "impute") and x.dim() != 2:
+            raise ValueError(f"{op.op} reads [rows, d] columns; slot {op.src} has shape {tuple(x.shape)}")
+        if op.op in ("scale", "elementwise_product", "idf", "logistic"):
+            if op.op != "scale" or p["with_mean"]:
                 _check(f"{op.op} model vector", op.a, (width,), device)
                 entry.a = op.a.data_ptr()
         if op.op == "scale":
@@ -912,9 +1016,8 @@ def _table(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp], kernel: Cu
                 _check("scale inv_std", op.b, (width,), device)
                 entry.b = op.b.data_ptr()
         elif op.op == "normalize":
-            if x.dim() != 2 or not float(p["p"]) >= 1.0:
-                raise ValueError(f"normalize reads [rows, d] columns with p >= 1; got slot shape "
-                                 f"{tuple(x.shape)}, p {p['p']}")
+            if not float(p["p"]) >= 1.0:
+                raise ValueError(f"normalize takes p >= 1; got p {p['p']}")
             entry.s0, entry.s1 = float(p["p"]), float(np.float32(1.0 / float(p["p"])))
         elif op.op == "binarize":
             entry.s0 = float(p["threshold"])
@@ -933,30 +1036,66 @@ def _table(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp], kernel: Cu
                                  f"measure {p.get('measure')!r}")
             _check("kmeans centroids", op.a, (k, width), device)
             entry.a, entry.k, entry.flags = op.a.data_ptr(), k, KMEANS_MEASURES[p["measure"]]
-        if op.op == "logistic":
+        elif op.op in ("sparse_idf", "sparse_logistic"):
+            ids = p.get("ids", -1)
+            if not 0 <= ids < len(slots):
+                raise ValueError(f"{kernel.name}: op {op.op!r} reads ids slot {ids} of {len(slots)}")
+            _check(f"{op.op} ids", slots[ids], tuple(x.shape), device, torch.int32)
+            d = int(op.a.shape[0]) if op.a.dim() == 1 else -1
+            if not 0 < d < 2**31:
+                raise ValueError(f"{op.op} takes a model vector of 1 to 2^31 - 1 values; got shape "
+                                 f"{tuple(op.a.shape)}")
+            _check(f"{op.op} model vector", op.a, (d,), device)
+            entry.a, entry.k, entry.flags = op.a.data_ptr(), ids, d
+        elif op.op == "mlp":
+            net = [width] + [int(W.shape[-1]) for W, _ in op.layers]
+            if not 1 <= len(op.layers) <= MLP_MAX_LAYERS or not all(1 <= w <= MLP_MAX_WIDTH for w in net) \
+                    or net[-1] > MLP_MAX_CLASSES:
+                raise ValueError(
+                    f"{kernel.name} holds 1-{MLP_MAX_LAYERS} layers of widths 1-{MLP_MAX_WIDTH} and "
+                    f"at most {MLP_MAX_CLASSES} classes; got widths {net}"
+                )
+            for i, (W, b) in enumerate(op.layers):
+                _check(f"W{i}", W, (net[i], net[i + 1]), device)
+                _check(f"b{i}", b, (net[i + 1],), device)
+                weights.append(W.data_ptr())
+                biases.append(b.data_ptr())
+            _check("labels", op.a, (net[-1],), device)
+            entry.a, entry.k = op.a.data_ptr(), len(n_layers)
+            widths.extend(net)
+            n_layers.append(len(op.layers))
+        if op.op in _HEADS:
+            second = 2 if op.op != "mlp" else int(op.layers[-1][0].shape[-1])
             out = [torch.empty((rows,), dtype=torch.float32, device=device),
-                   torch.empty((rows, 2), dtype=torch.float32, device=device)]
+                   torch.empty((rows, second), dtype=torch.float32, device=device)]
             entry.dst, entry.dst2 = len(slots), len(slots) + 1
-        elif op.op == "kmeans":
-            out = [torch.empty((rows,), dtype=torch.int32, device=device)]
-            entry.dst = entry.dst2 = len(slots)
         else:
-            out = [torch.empty(tuple(x.shape), dtype=torch.float32, device=device)]
+            if op.op == "kmeans":
+                out = [torch.empty((rows,), dtype=torch.int32, device=device)]
+            else:  # an elementwise op: its input's shape; binarize keeps its dtype
+                dtype = x.dtype if op.op == "binarize" else torch.float32
+                out = [torch.empty(tuple(x.shape), dtype=dtype, device=device)]
             entry.dst = entry.dst2 = len(slots)
         slots.extend(out)
     slot_table = (_Slot * len(slots))()
     for entry, t in zip(slot_table, slots):
         entry.ptr = t.data_ptr()
         entry.width = int(t.shape[1]) if t.dim() == 2 else 1
-    return table, slot_table, slots, rows
+        entry.dtype = _SLOT_DTYPES[t.dtype]
+    nets = None
+    if n_layers:
+        nets = ((ctypes.c_void_p * len(weights))(*weights), (ctypes.c_void_p * len(biases))(*biases),
+                (ctypes.c_int * len(widths))(*widths), (ctypes.c_int * len(n_layers))(*n_layers))
+    return _Launch(table, slot_table, slots, rows, nets)
 
 
 def rowlocal_chain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
-    """The outputs of ``ops`` over ``inputs`` ([rows] or [rows, width]
-    float32 columns), in slot order (:class:`RowLocalOp`): each elementwise
-    op's output of its input's shape, the logistic head's ``prediction
-    [rows]`` and ``rawPrediction [rows, 2]``, the kmeans head's int32 index
-    [rows]. CPU tensors run the plain version; CUDA tensors launch the kernel
+    """The outputs of ``ops`` (no MLP head) over ``inputs`` ([rows] or [rows,
+    width] float32 or int32 columns), in slot order (:class:`RowLocalOp`):
+    each elementwise op's output of its input's shape, the logistic heads'
+    ``prediction [rows]`` and ``rawPrediction [rows, 2]``, the kmeans head's
+    int32 index [rows], a sparse IDF's values of its input's shape. CPU
+    tensors run the plain version; CUDA tensors launch the row-local kernel
     on the current stream (no synchronisation) or raise — also for a table
     or a width past the kernel's limits."""
     if not inputs:
@@ -966,80 +1105,40 @@ def rowlocal_chain(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) ->
         return rowlocal_chain_plain(inputs, ops)
     if device.type != "cuda":
         raise RuntimeError(f"{ROWLOCAL.name} needs CPU or CUDA tensors, got {device}")
-    table, slot_table, slots, rows = _table(inputs, ops, ROWLOCAL)
-    if rows:
+    t = _table(inputs, ops, ROWLOCAL)
+    if t.rows:
         with torch.cuda.device(device):
-            ROWLOCAL.launch(ctypes.addressof(table), len(ops), ctypes.addressof(slot_table),
-                            len(slots), rows, torch.cuda.current_stream(device).cuda_stream)
-    return slots[len(inputs):]
+            ROWLOCAL.launch(ctypes.addressof(t.ops), len(ops), ctypes.addressof(t.slots),
+                            len(t.tensors), t.rows, torch.cuda.current_stream(device).cuda_stream)
+    return t.tensors[len(inputs):]
 
 
-def rowlocal_mlp_plain(
-    inputs: Sequence[torch.Tensor],
-    ops: Sequence[RowLocalOp],
-    head_src: int,
-    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-    labels: torch.Tensor,
-) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    """The chain in plain PyTorch: ``(the table's outputs, prediction,
-    probabilities)`` — :func:`rowlocal_chain_plain`, then ``mlp_predict_fn``
-    on slot ``head_src`` and the label gather."""
-    outs = rowlocal_chain_plain(inputs, ops)
-    pred_idx, probs = mlp_predict_fn(layers, (list(inputs) + outs)[head_src])
-    return outs, labels[pred_idx.long()], probs
-
-
-def rowlocal_mlp(
-    inputs: Sequence[torch.Tensor],
-    ops: Sequence[RowLocalOp],
-    head_src: int,
-    layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-    labels: torch.Tensor,
-) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    """The table ``ops`` (none or more) over ``inputs`` (as
-    :func:`rowlocal_chain`), then the MLP ``layers`` (``(W [d_in, d_out],
-    b [d_out])`` pairs) on slot ``head_src``: ``(the table's outputs in slot order, prediction [rows],
-    probabilities [rows, classes])``. CPU tensors run the plain version;
-    CUDA tensors launch the MLP kernel with the table as its prologue on the
+def rowlocal_mlp(inputs: Sequence[torch.Tensor], ops: Sequence[RowLocalOp]) -> List[torch.Tensor]:
+    """The outputs of ``ops`` over ``inputs`` (as :func:`rowlocal_chain`)
+    for a table with 1 to :data:`MLP_MAX_HEADS` MLP heads, each writing
+    ``prediction [rows]`` and its probabilities ``[rows, classes]``; ops
+    before a head are its prologue, ops after the last its epilogue. CPU
+    tensors run the plain version; CUDA tensors launch the MLP kernel on the
     current stream (no synchronisation) or raise — also for a table or a
     network past the kernel's limits."""
     if not inputs:
         raise ValueError(f"{ROWLOCAL_MLP.name} needs at least one input column")
     device = inputs[0].device
     if device.type == "cpu":
-        return rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+        return rowlocal_mlp_plain(inputs, ops)
     if device.type != "cuda":
         raise RuntimeError(f"{ROWLOCAL_MLP.name} needs CPU or CUDA tensors, got {device}")
-    table, slot_table, slots, rows = _table(inputs, ops, ROWLOCAL_MLP)
-    if not 0 <= head_src < len(slots) or slots[head_src].dim() != 2:
-        raise ValueError(f"{ROWLOCAL_MLP.name}: the head reads slot {head_src} of {len(slots)}, "
-                         f"which must be [rows, d]")
-    widths = [int(slots[head_src].shape[1])] + [int(W.shape[-1]) for W, _ in layers]
-    if not 1 <= len(layers) <= MLP_MAX_LAYERS or not all(1 <= w <= MLP_MAX_WIDTH for w in widths) \
-            or widths[-1] > MLP_MAX_CLASSES:
-        raise ValueError(
-            f"{ROWLOCAL_MLP.name} holds 1-{MLP_MAX_LAYERS} layers of widths 1-{MLP_MAX_WIDTH} and "
-            f"at most {MLP_MAX_CLASSES} classes; got widths {widths}"
-        )
-    for i, (W, b) in enumerate(layers):
-        _check(f"W{i}", W, (widths[i], widths[i + 1]), device)
-        _check(f"b{i}", b, (widths[i + 1],), device)
-    _check("labels", labels, (widths[-1],), device)
-    pred = torch.empty((rows,), dtype=torch.float32, device=device)
-    probs = torch.empty((rows, widths[-1]), dtype=torch.float32, device=device)
-    n = len(layers)
-    weights = (ctypes.c_void_p * n)(*[W.data_ptr() for W, _ in layers])
-    biases = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
-    c_widths = (ctypes.c_int * (n + 1))(*widths)
-    if rows:
+    t = _table(inputs, ops, ROWLOCAL_MLP)
+    weights, biases, widths, n_layers = t.nets
+    if t.rows:
         with torch.cuda.device(device):
             ROWLOCAL_MLP.launch(
-                ctypes.addressof(table), len(ops), ctypes.addressof(slot_table), len(slots),
-                head_src, ctypes.addressof(weights), ctypes.addressof(biases),
-                ctypes.addressof(c_widths), n, labels.data_ptr(), pred.data_ptr(),
-                probs.data_ptr(), rows, torch.cuda.current_stream(device).cuda_stream,
+                ctypes.addressof(t.ops), len(ops), ctypes.addressof(t.slots), len(t.tensors),
+                ctypes.addressof(weights), ctypes.addressof(biases), ctypes.addressof(widths),
+                ctypes.addressof(n_layers), len(n_layers), t.rows,
+                torch.cuda.current_stream(device).cuda_stream,
             )
-    return slots[len(inputs):], pred, probs
+    return t.tensors[len(inputs):]
 
 
 # ---------------------------------------------------------------------------
@@ -1148,20 +1247,12 @@ def _build_sparse_idf(specs: Tuple[Any, ...]):
 
 def _build_rowlocal(specs: Tuple[Any, ...]):
     program = _rowlocal_program(specs)
-    mlp = program.mlp
+    run = rowlocal_mlp if program.mlp_heads else rowlocal_chain
 
     def mega(models, cols):
-        ops = [RowLocalOp(t.op, t.src, models[t.spec].get(t.a), models[t.spec].get(t.b), t.params)
-               for t in program.ops]
-        inputs = [cols[name] for name in program.inputs]
-        if mlp is None:
-            outs = rowlocal_chain(inputs, ops)
-        else:
-            head = models[-1]
-            layers = [(head[f"W{i}"], head[f"b{i}"]) for i in range(mlp.n_layers)]
-            outs, pred, probs = rowlocal_mlp(inputs, ops, mlp.src, layers, head["labels"])
-            outs = list(outs) + [pred, probs]
-        return dict(zip(program.outputs, outs))
+        inputs, ops = program.bind(models, cols)
+        slots = inputs + run(inputs, ops)
+        return {name: slots[k] for name, k in program.outputs}
 
     return mega
 

@@ -29,6 +29,7 @@ __all__ = [
     "load_stage",
     "resolve_class",
     "stage_class_name",
+    "jax_class_name",
     "model_data_path",
 ]
 
@@ -36,6 +37,7 @@ _METADATA_FILE = "metadata"
 _DATA_DIR = "data"
 _ARRAYS_FILE = "model_data.npz"
 _PORT_PACKAGE = "flink_ml_tpu_torch."
+_JAX_PACKAGE = "flink_ml_tpu."
 
 _PIPELINE = "flink_ml_tpu_torch.servable.builder.PipelineModelServable"
 _PIPELINE_MODEL = "flink_ml_tpu_torch.builder.pipeline.PipelineModel"
@@ -70,11 +72,9 @@ _IDF_EST = "flink_ml_tpu_torch.models.feature.idf.IDF"
 #: ``load_servable`` hooks do (``pipeline.py:194``, ``standard_scaler.py:154``,
 #: ``logistic_regression.py:30``, ``mlp_classifier.py:195``,
 #: ``kmeans.py:215``), a PipelineModel as the chain of its stages'
-#: servables. The reverse direction needs no table: the JAX package
-#: reads a port-written directory through its servables' ``load_servable``,
-#: which ignore the class name, or, for a stage that is its own servable
-#: (whose ``load`` insists on its own class name), through the same metadata
-#: and model-data files.
+#: servables. The reverse direction needs no table: the port writes the
+#: JAX twin's name (:func:`jax_class_name`, a key of this table), which the
+#: JAX package's ``load`` and ``load_stage`` resolve themselves.
 CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.builder.pipeline.PipelineModel": (_PIPELINE, _PIPELINE_MODEL),
     "flink_ml_tpu.builder.pipeline.Pipeline": (None, _PIPELINE_ESTIMATOR),
@@ -116,14 +116,28 @@ def stage_class_name(stage: Any) -> str:
     return f"{cls.__module__}.{cls.__qualname__}"
 
 
+def jax_class_name(stage: Any) -> str:
+    """The saved ``className`` of a port stage: its JAX twin's, the port
+    class's path with ``flink_ml_tpu_torch.`` read as ``flink_ml_tpu.``.
+    Raises ``ValueError`` naming the class when that name is not a key of
+    :data:`CLASS_TABLE` (the JAX package has no such stage, or the port
+    could not read the directory back)."""
+    name = stage_class_name(stage)
+    twin = _JAX_PACKAGE + name[len(_PORT_PACKAGE):] if name.startswith(_PORT_PACKAGE) else name
+    if twin not in CLASS_TABLE:
+        raise ValueError(f"{name} has no JAX twin in CLASS_TABLE: it cannot be saved")
+    return twin
+
+
 def save_metadata(stage, path: str, extra: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``<path>/metadata``. Fails if the path already has metadata."""
+    """Write ``<path>/metadata`` under the JAX twin's class name
+    (:func:`jax_class_name`). Fails if the path already has metadata."""
     os.makedirs(path, exist_ok=True)
     meta_path = os.path.join(path, _METADATA_FILE)
     if os.path.exists(meta_path):
         raise IOError(f"File {meta_path} already exists")
     metadata = dict(extra or {})
-    metadata["className"] = stage_class_name(stage)
+    metadata["className"] = jax_class_name(stage)
     metadata["timestamp"] = int(time.time() * 1000)
     metadata["paramMap"] = stage.param_map_to_json()
     with open(meta_path, "w") as f:
@@ -132,8 +146,9 @@ def save_metadata(stage, path: str, extra: Optional[Dict[str, Any]] = None) -> N
 
 def load_metadata(path: str, expected_class_name: str = "") -> Dict[str, Any]:
     """Read ``<path>/metadata``; with ``expected_class_name`` (a port
-    stage's), raise ``ValueError`` unless the saved class name is it or a
-    JAX name whose :data:`CLASS_TABLE` stage is it."""
+    stage's), raise ``ValueError`` unless the saved class name is a JAX
+    name whose :data:`CLASS_TABLE` stage is it, or is it itself (a
+    directory that holds the port's name)."""
     with open(os.path.join(path, _METADATA_FILE)) as f:
         metadata = json.load(f)
     name = metadata["className"]

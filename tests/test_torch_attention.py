@@ -513,19 +513,15 @@ def test_jax_saved_model_loads_in_the_port(one_device_mesh, jax_model, tmp_path)
 
 
 def test_port_saved_model_loads_in_the_jax_package(one_device_mesh, jax_model, tmp_path):
-    """The JAX ``load`` insists on its own class name, so it refuses a
-    port-written directory; the params and arrays load through
-    ``load_metadata`` and ``load_model_arrays``."""
+    """The port writes the JAX twin's class name: the JAX ``load`` and
+    ``load_stage`` read a port-written directory."""
     model = _port_from_model_data(jax_model)
     path = str(tmp_path / "attn")
     model.save(path)
-    with pytest.raises(ValueError, match="does not match"):
-        JSelfAttentionClassifierModel.load(path)
-    jmodel = JSelfAttentionClassifierModel()
-    jmodel.load_param_map_from_json(jrw.load_metadata(path)["paramMap"])
-    arrays = jrw.load_model_arrays(path)
-    jmodel.labels = arrays.pop("labels")
-    jmodel.params = arrays
+    jmodel = JSelfAttentionClassifierModel.load(path)
+    assert type(jrw.load_stage(path)) is JSelfAttentionClassifierModel
+    for name, a in model.params.items():
+        np.testing.assert_array_equal(np.asarray(jmodel.params[name]), a)
     assert json.dumps(jmodel.param_map_to_json(), sort_keys=True) == json.dumps(
         model.param_map_to_json(), sort_keys=True)
     tok, _ = _documents(6, seed=9)

@@ -450,16 +450,13 @@ def test_fit_matches_the_jax_flash_train_step_in_interpret_mode(one_device_mesh,
 
 
 def test_fitted_port_model_loads_in_the_jax_package(one_device_mesh, fitted, tmp_path):
-    """The JAX ``load`` insists on its own class name, so the params and
-    arrays load through ``load_metadata`` and ``load_model_arrays``."""
+    """The port writes the JAX twin's class name: the JAX ``load`` reads
+    the fitted model's directory."""
     tok, y, _, model, _ = fitted
     path = str(tmp_path / "attn")
     model.save(path)
-    jmodel = JSelfAttentionClassifierModel()
-    jmodel.load_param_map_from_json(jrw.load_metadata(path)["paramMap"])
-    arrays = jrw.load_model_arrays(path)
-    jmodel.labels = arrays.pop("labels")
-    jmodel.params = arrays
+    jmodel = JSelfAttentionClassifierModel.load(path)
+    assert type(jrw.load_stage(path)) is JSelfAttentionClassifierModel
     held = _documents(3, seed=2)[0]
     out = model.transform(DataFrame.from_dict({"features": held}), device="cpu")
     ref = jmodel.transform(JDataFrame.from_dict({"features": held}))
@@ -491,8 +488,7 @@ def test_jax_fitted_model_and_estimator_load_in_the_port(one_device_mesh, fitted
         port.param_map_to_json(), sort_keys=True)
     back = str(tmp_path / "est_back")
     est.save(back)
-    jest = JSelfAttentionClassifier()
-    jest.load_param_map_from_json(jrw.load_metadata(back)["paramMap"])
+    jest = JSelfAttentionClassifier.load(back)
     assert (jest.get_embedding_dim(), jest.get_num_heads(), jest.get_max_iter()) == (EMB, HEADS, ITERS)
 
 

@@ -361,6 +361,7 @@ from flink_ml_tpu_torch.ops.kernels import scale_fn  # noqa: E402
 from flink_ml_tpu_torch.servable import MLPClassifierModelServable  # noqa: E402
 from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
     MLP_MAX_CLASSES,
+    MLP_MAX_HEADS,
     MLP_MAX_LAYERS,
     MLP_MAX_WIDTH,
     ROWLOCAL_MLP,
@@ -368,6 +369,18 @@ from flink_ml_tpu_torch.servable.megakernels import (  # noqa: E402
     rowlocal_mlp,
     rowlocal_mlp_plain,
 )
+
+def _mlp_head(inputs, ops, head_src, layers, labels, run=None):
+    """The table ``ops`` then one MLP head on slot ``head_src``, through
+    ``rowlocal_mlp``: ``(the table's outputs, prediction, probabilities)``."""
+    head = RowLocalOp("mlp", head_src, labels, layers=layers)
+    outs = (run or rowlocal_mlp)(inputs, list(ops) + [head])
+    return outs[:-2], outs[-2], outs[-1]
+
+
+def _mlp_head_plain(inputs, ops, head_src, layers, labels):
+    return _mlp_head(inputs, ops, head_src, layers, labels, run=rowlocal_mlp_plain)
+
 
 #: The published network, two small ones, and one at every limit of the kernel.
 MLP_NETWORKS = {
@@ -422,8 +435,8 @@ def test_mlp_kernel_matches_plain_version(cuda, rows, net, with_mean, with_std, 
         inputs, ops, head_src = [x], [RowLocalOp("scale", 0, mean, inv_std, kw)], 1
     else:
         inputs, ops, head_src = [scale_fn(x, mean, inv_std, **kw)], [], 0
-    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
-    p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+    outs, pred, probs = _mlp_head(inputs, ops, head_src, layers, labels)
+    p_outs, p_pred, p_probs = _mlp_head_plain(inputs, ops, head_src, layers, labels)
     torch.cuda.synchronize()
     assert ROWLOCAL_MLP.launches == before + 1
     assert len(outs) == len(p_outs) == len(ops)
@@ -442,8 +455,8 @@ def test_mlp_kernel_takes_the_first_maximal_logit_and_nan_as_the_maximum(cuda):
     labels = torch.tensor([10.0, 20.0, 30.0, 40.0], device=cuda)
     x = torch.tensor([[1.0, 3.0, 3.0, 0.0], [float("nan"), 5.0, float("nan"), 1.0],
                       [-1.0, -1.0, -1.0, -1.0]], device=cuda)
-    _, pred, probs = rowlocal_mlp([x], [], 0, layers, labels)
-    _, p_pred, p_probs = rowlocal_mlp_plain([x], [], 0, layers, labels)
+    _, pred, probs = _mlp_head([x], [], 0, layers, labels)
+    _, p_pred, p_probs = _mlp_head_plain([x], [], 0, layers, labels)
     assert pred.tolist() == p_pred.tolist() == [20.0, 10.0, 10.0]
     assert torch.isnan(probs[1]).all() and torch.isnan(p_probs[1]).all()
 
@@ -456,20 +469,20 @@ def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         return [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})]
 
     with pytest.raises(TypeError, match="float32"):
-        rowlocal_mlp([x.double()], scale(mean, inv_std), 1, layers, labels)
+        _mlp_head([x.double()], scale(mean, inv_std), 1, layers, labels)
     with pytest.raises(ValueError, match="contiguous"):
-        rowlocal_mlp([x], scale(mean, inv_std), 1,
+        _mlp_head([x], scale(mean, inv_std), 1,
                      [(layers[0][0].t().contiguous().t(), layers[0][1]), layers[1]], labels)
     with pytest.raises(ValueError, match="shape"):
-        rowlocal_mlp([x], scale(mean, inv_std), 1, layers, labels[:-1])
+        _mlp_head([x], scale(mean, inv_std), 1, layers, labels[:-1])
     with pytest.raises(ValueError, match="expected"):
-        rowlocal_mlp([x], scale(mean.cpu(), inv_std), 1, layers, labels)
+        _mlp_head([x], scale(mean.cpu(), inv_std), 1, layers, labels)
     for widths in ([MLP_MAX_WIDTH + 1, 4, 3], [8] + [8] * MLP_MAX_LAYERS + [3],
                    [8, 16, MLP_MAX_CLASSES + 1]):  # too wide, too deep, too many classes
         big = _mlp_inputs(2, widths, cuda)
         with pytest.raises(ValueError, match="holds"):
-            rowlocal_mlp([big[0]], scale(big[1], big[2]), 1, big[3], big[4])
-    outs, pred, probs = rowlocal_mlp([x[:0]], scale(mean, inv_std), 1, layers, labels)
+            _mlp_head([big[0]], scale(big[1], big[2]), 1, big[3], big[4])
+    outs, pred, probs = _mlp_head([x[:0]], scale(mean, inv_std), 1, layers, labels)
     assert [t.shape for t in outs + [pred, probs]] == [(0, 16), (0,), (0, 3)]
     assert ROWLOCAL_MLP.launches == before
 
@@ -1350,10 +1363,10 @@ def test_table_kmeans_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="centroids"):
         rowlocal_chain([x], [RowLocalOp("kmeans", 0, torch.rand((1025, 4), device=cuda),
                                         params={"measure": "euclidean"})])
-    idx_then_binarize = [RowLocalOp("kmeans", 0, C, params={"measure": "euclidean"}),
-                         RowLocalOp("binarize", 1, params={"threshold": 0.5})]
-    with pytest.raises(ValueError, match="int32"):  # an index column is no float input
-        rowlocal_chain([x], idx_then_binarize)
+    idx_then_scale = [RowLocalOp("kmeans", 0, C, params={"measure": "euclidean"}),
+                      RowLocalOp("scale", 1, params={"with_mean": False, "with_std": False})]
+    with pytest.raises(ValueError, match="int32"):  # only binarize and impute read an index column
+        rowlocal_chain([x], idx_then_scale)
     assert ROWLOCAL.launches == before
 
 
@@ -1389,8 +1402,8 @@ def test_rowlocal_mlp_kernel_matches_plain_version(cuda, rows, net, name):
     inputs, ops, head_src, layers, labels = _rowlocal_mlp_case(name, rows, MLP_NETWORKS[net], cuda,
                                                                seed=rows)
     before = ROWLOCAL_MLP.launches
-    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
-    p_outs, p_pred, p_probs = rowlocal_mlp_plain(inputs, ops, head_src, layers, labels)
+    outs, pred, probs = _mlp_head(inputs, ops, head_src, layers, labels)
+    p_outs, p_pred, p_probs = _mlp_head_plain(inputs, ops, head_src, layers, labels)
     torch.cuda.synchronize()
     assert ROWLOCAL_MLP.launches == before + 1, where
     _check_rowlocal(inputs, ops, outs, p_outs, where)
@@ -1406,8 +1419,8 @@ def test_rowlocal_mlp_empty_table_gives_the_scale_prologues_bits(cuda, rows):
     empty table on the scaled rows it wrote: the same head input, the same
     layer code, so the same bits."""
     inputs, ops, head_src, layers, labels = _rowlocal_mlp_case("scale", rows, [256, 512, 512, 8], cuda)
-    outs, pred, probs = rowlocal_mlp(inputs, ops, head_src, layers, labels)
-    none, d_pred, d_probs = rowlocal_mlp([outs[0]], [], 0, layers, labels)
+    outs, pred, probs = _mlp_head(inputs, ops, head_src, layers, labels)
+    none, d_pred, d_probs = _mlp_head([outs[0]], [], 0, layers, labels)
     torch.cuda.synchronize()
     assert none == []
     assert _same_bits(probs, d_probs)
@@ -1418,11 +1431,11 @@ def test_rowlocal_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     inputs, ops, head_src, layers, labels = _rowlocal_mlp_case("normalize", 8, [8, 16, 3], cuda)
     before = ROWLOCAL_MLP.launches
     with pytest.raises(ValueError, match="reads slot"):
-        rowlocal_mlp(inputs, ops, 5, layers, labels)
+        _mlp_head(inputs, ops, 5, layers, labels)
     with pytest.raises(ValueError, match="shape"):
-        rowlocal_mlp(inputs, ops, head_src, [(layers[0][0][:-1], layers[0][1])] + layers[1:], labels)
+        _mlp_head(inputs, ops, head_src, [(layers[0][0][:-1], layers[0][1])] + layers[1:], labels)
     with pytest.raises(ValueError, match="holds"):
-        rowlocal_mlp(inputs, ops, head_src, layers * 5, labels)
+        _mlp_head(inputs, ops, head_src, layers * 5, labels)
     assert ROWLOCAL_MLP.launches == before
 
 
@@ -1550,3 +1563,226 @@ def test_server_runs_idf_alone_on_the_headless_sparse_kernel(cuda):
         np.testing.assert_array_equal(out.indices, v.indices)
         want = (v.values.astype(np.float32) * idf32[v.indices]).astype(np.float64)
         np.testing.assert_array_equal(out.values, want)
+
+
+# ---------------------------------------------------------------------------
+# the table's last classes: sparse ops beside dense ones, sparse runs, ops
+# after an MLP head, ops reading a kmeans index
+# ---------------------------------------------------------------------------
+
+TABLE_SPARSE_CHAINS = ("idf_lr_scale", "scale_idf_lr", "idf_idf", "idf_idf_lr", "two_sparse_heads")
+
+
+def _table_sparse_case(name, rows, cap, d, device, seed=0):
+    """``(inputs, ops)``: a sparse column (values, ids, nnz; rows shorter
+    than the cap, zero, NaN and ±inf values) beside a dense one of width 100."""
+    vals, ids, idf, coef = _sparse_inputs(rows, cap, d, device, seed)
+    if rows >= 4 and cap >= 2:
+        vals[1, 0], vals[2, 0], vals[3, 0] = float("nan"), float("inf"), float("-inf")
+    nnz = (ids != 0).sum(dim=1).to(torch.int32)
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.normal(size=(rows, 100)).astype(np.float32)).to(device)
+    mean = torch.from_numpy(rng.normal(size=100).astype(np.float32)).to(device)
+    inv_std = torch.from_numpy(np.abs(rng.normal(size=100)).astype(np.float32)).to(device)
+    scale = RowLocalOp("scale", 3, mean, inv_std, {"with_mean": True, "with_std": True})
+    idf2 = (idf * 0.5 + 0.25).contiguous()
+    inputs = [vals, ids, nnz, x]
+
+    def sidf(src, a):
+        return RowLocalOp("sparse_idf", src, a, params={"ids": 1})
+
+    def slr(src):
+        return RowLocalOp("sparse_logistic", src, coef, params={"ids": 1})
+
+    return inputs, {
+        "idf_lr_scale": [sidf(0, idf), slr(4), scale],
+        "scale_idf_lr": [scale, sidf(0, idf), slr(5)],
+        "idf_idf": [sidf(0, idf), sidf(4, idf2)],
+        "idf_idf_lr": [sidf(0, idf), sidf(4, idf2), slr(5)],
+        "two_sparse_heads": [slr(0), sidf(0, idf), slr(6)],
+    }[name]
+
+
+@pytest.mark.parametrize("name", TABLE_SPARSE_CHAINS)
+@pytest.mark.parametrize("d", (8, 1000, 1 << 22))
+def test_table_sparse_ops_match_plain_version(cuda, name, d):
+    """tf-idf values and the scaled column bit-equal (NaN for NaN), the sparse
+    heads' prediction equal (their margin is the plain version's sequential
+    fold) and rawPrediction within the sparse chain's envelope."""
+    for rows in (1, 33, 4096):
+        for cap in (1, 8, 64, 1024):
+            where = f"{name} d={d} rows={rows} cap={cap}"
+            inputs, ops = _table_sparse_case(name, rows, cap, d, cuda, seed=rows + cap)
+            before = ROWLOCAL.launches
+            got = rowlocal_chain(inputs, ops)
+            want = rowlocal_chain_plain(inputs, ops)
+            torch.cuda.synchronize()
+            assert ROWLOCAL.launches == before + 1, where
+            k = 0
+            for op in ops:
+                if op.op == "sparse_logistic":
+                    assert torch.equal(got[k], want[k]), where
+                    assert ulp_diff(got[k + 1].cpu().numpy(), want[k + 1].cpu().numpy()) \
+                        <= ULP_ENVELOPE["sparse_idf_logistic"], where
+                    k += 2
+                    continue
+                assert got[k].dtype == want[k].dtype == torch.float32, where
+                assert _same_bits_or_nan(got[k], want[k]), where
+                k += 1
+
+
+MLP_AFTER_CHAINS = ("mlp_scale", "normalize_mlp_binarize", "mlp_kmeans", "mlp_mlp", "mlp_scale_mlp",
+                    "sparse_idf_mlp")
+
+
+def _mlp_after_case(name, rows, widths, device, seed=0):
+    """``(inputs, ops)``: a table with MLP heads and ops after them."""
+    x, mean, inv_std, layers, labels = _mlp_inputs(rows, widths, device, seed)
+    d = widths[0]
+    scale = RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})
+    norm = RowLocalOp("normalize", 0, params={"p": 2.0})
+
+    def mlp(src):
+        return RowLocalOp("mlp", src, labels, layers=layers)
+
+    if name == "mlp_scale":
+        return [x], [mlp(0), scale]
+    if name == "normalize_mlp_binarize":  # binarize of the probabilities
+        return [x], [norm, mlp(1), RowLocalOp("binarize", 3, params={"threshold": 0.3})]
+    if name == "mlp_kmeans":
+        C = torch.from_numpy(np.random.default_rng(seed).normal(size=(10, d)).astype(np.float32)).to(device)
+        return [x], [mlp(0), RowLocalOp("kmeans", 0, C, params={"measure": "euclidean"})]
+    if name == "mlp_mlp":
+        return [x], [mlp(0), mlp(0)]
+    if name == "mlp_scale_mlp":  # the second head reads the scaled column the epilogue of the first wrote
+        return [x], [mlp(0), scale, mlp(3)]
+    assert name == "sparse_idf_mlp"
+    vals, ids, idf, _coef = _sparse_inputs(rows, 8, 1000, device, seed)
+    return [x, vals, ids], [mlp(0), RowLocalOp("sparse_idf", 1, idf, params={"ids": 2})]
+
+
+@pytest.mark.parametrize("rows", (1, 33, 4096))
+@pytest.mark.parametrize("net", ("256-512-512-8", "8-16-3"))
+@pytest.mark.parametrize("name", MLP_AFTER_CHAINS)
+def test_mlp_kernel_runs_ops_after_its_heads(cuda, rows, net, name):
+    """Each head's probabilities within ULP_ENVELOPE["scale_mlp"] and its
+    prediction equal past a logit gap; the ops after it as the plain
+    version's: a scale or sparse IDF bit-equal, a binarize of the
+    probabilities equal outside BIN_MARGIN, a kmeans index equal past a
+    distance gap."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    where = f"{name} rows={rows} net={net}"
+    inputs, ops = _mlp_after_case(name, rows, MLP_NETWORKS[net], cuda, seed=rows)
+    before = ROWLOCAL_MLP.launches
+    got = rowlocal_mlp(inputs, ops)
+    want = rowlocal_mlp_plain(inputs, ops)
+    torch.cuda.synchronize()
+    assert ROWLOCAL_MLP.launches == before + 1, where
+    plain = list(inputs) + list(want)
+    k = 0
+    for op in ops:
+        if op.op == "mlp":
+            assert ulp_diff(got[k + 1].cpu().numpy(), want[k + 1].cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"], where
+            sure = _top_two_gap(op.layers, plain[op.src]) > MLP_PREDICTION_MARGIN
+            assert torch.equal(got[k][sure], want[k][sure]), where
+            k += 2
+            continue
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, where
+        if op.op == "binarize":
+            far = (plain[op.src] - op.params["threshold"]).abs() > BIN_MARGIN
+            assert torch.equal(g[far], w[far]), where
+        elif op.op == "kmeans":
+            dec = torch.from_numpy(_kmeans_decided("euclidean", plain[op.src], op.a)).to(cuda)
+            assert torch.equal(g[dec], w[dec]), where
+        elif op.op == "normalize":
+            assert ulp_diff(g.cpu().numpy(), w.cpu().numpy()) <= ULP_ENVELOPE["feature6"], where
+        else:
+            assert _same_bits_or_nan(g, w), where
+        k += 1
+
+
+def test_mlp_kernel_holds_four_heads_and_refuses_a_fifth(cuda):
+    x, _mean, _inv, layers, labels = _mlp_inputs(64, [8, 16, 3], cuda)
+    head = RowLocalOp("mlp", 0, labels, layers=layers)
+    got = rowlocal_mlp([x], [head] * MLP_MAX_HEADS)
+    want = rowlocal_mlp_plain([x], [head] * MLP_MAX_HEADS)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1::2], want[1::2]):
+        assert ulp_diff(g.cpu().numpy(), w.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"]
+    before = ROWLOCAL_MLP.launches
+    with pytest.raises(ValueError, match="MLP heads"):
+        rowlocal_mlp([x], [head] * (MLP_MAX_HEADS + 1))
+    with pytest.raises(ValueError, match="MLP heads"):
+        rowlocal_chain([x], [head])  # the row-local kernel has none
+    assert ROWLOCAL_MLP.launches == before
+
+
+@pytest.mark.parametrize("measure", KMEANS_MEASURES)
+@pytest.mark.parametrize("d,k", ((7, 2), (100, 10), (256, 64)))
+def test_table_ops_read_the_kmeans_index(cuda, measure, d, k):
+    """binarize on the int32 index is int32, impute on it float32: both
+    equal to the plain version's wherever the index is (past a distance
+    gap), and exactly equal to it where the kernel's index is fed in."""
+    x, _mean, _inv, C = _kmeans_inputs(4096, d, k, cuda, seed=d + k)
+    for rows in (1, 33, 4096):
+        ops = [RowLocalOp("kmeans", 0, C, params={"measure": measure}),
+               RowLocalOp("binarize", 1, params={"threshold": 0.5}),
+               RowLocalOp("impute", 1, torch.tensor([7.5], device=cuda),
+                          params={"missing_is_nan": False, "missing_value": 1.0, "column": 0}),
+               RowLocalOp("binarize", 2, params={"threshold": 0.5})]
+        got = rowlocal_chain([x[:rows]], ops)
+        want = rowlocal_chain_plain([x[:rows]], ops)
+        torch.cuda.synchronize()
+        assert [t.dtype for t in got] == [t.dtype for t in want] == [torch.int32, torch.int32, torch.float32,
+                                                                      torch.int32]
+        dec = torch.from_numpy(_kmeans_decided(measure, x[:rows], C)).to(cuda)
+        for g, w in zip(got, want):
+            assert torch.equal(g[dec], w[dec])
+        idx = got[0]
+        assert torch.equal(got[1], (idx > 0).to(torch.int32))
+        assert torch.equal(got[2], torch.where(idx == 1, 7.5, idx.float()))
+
+
+def test_server_runs_the_mixed_pipeline_on_the_table_kernel(cuda):
+    """IDF → LR on a sparse column and a StandardScaler on a dense one,
+    served: one run ("sparse_idf", "sparse_logistic", "scale"), one table
+    launch a hot batch, every output against the CPU per-stage path."""
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+
+    d = 1 << 20
+    rng = np.random.default_rng(34)
+    idf = IDFModel().set_input_col("tf").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = np.abs(rng.normal(size=d)) + 0.1, np.ones(d), np.asarray(9.0)
+    lr = LogisticRegressionModelServable().set_features_col("tfidf")
+    lr.coefficient = rng.normal(size=d) * 0.3
+    sc = StandardScalerModelServable().set_input_col("dense").set_output_col("scaled").set_with_mean(True)
+    sc.mean, sc.std = rng.normal(size=100), np.abs(rng.normal(size=100)) + 0.5
+    pipe = PipelineModelServable([idf, lr, sc])
+
+    def frame(n):
+        tf = [SparseVector(d, np.sort(rng.choice(d, size=int(k), replace=False)), rng.random(int(k)) + 0.5)
+              for k in rng.integers(1, 40, size=n)]
+        return DataFrame(["tf", "dense"], None, [tf, rng.normal(size=(n, 100))])
+
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)
+    try:
+        cfg = ServingConfig(max_batch_size=256, queue_capacity_rows=1024, fusion_mode="fast")
+        with InferenceServer(pipe, name="gpu-mixed", serving_config=cfg, warmup_template=frame(1)) as srv:
+            plan = pipe._fastpath_plan
+            (segment,) = plan.segments
+            assert [s.fusion_op for s in segment.specs] == ["sparse_idf", "sparse_logistic", "scale"]
+            ROWLOCAL.reset_launches()
+            req = frame(200)
+            resp = srv.predict(req).dataframe
+            assert ROWLOCAL.launches == 1
+    finally:
+        config.unset(Options.FUSION_MEGAKERNEL_MIN_SCORE)
+    ref = pipe.transform(req, device="cpu")
+    np.testing.assert_array_equal(resp.column("scaled"), ref.column("scaled"))
+    np.testing.assert_array_equal(resp.column("prediction"), ref.column("prediction"))
+    assert ulp_diff(resp.column("rawPrediction"), ref.column("rawPrediction")) <= ULP_ENVELOPE["sparse_idf_logistic"]
+    for r, w in zip(resp.column("tfidf"), ref.column("tfidf")):
+        np.testing.assert_array_equal(r.indices, w.indices)
+        np.testing.assert_array_equal(r.values, w.values)

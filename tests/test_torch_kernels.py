@@ -33,6 +33,7 @@ from flink_ml_tpu_torch.servable.megakernels import (
     KMEANS_MAX_K,
     MEGAKERNEL_CHAINS,
     MLP_MAX_CLASSES,
+    MLP_MAX_HEADS,
     MLP_MAX_LAYERS,
     MLP_MAX_NORM_FLOATS,
     MLP_MAX_WIDTH,
@@ -40,8 +41,8 @@ from flink_ml_tpu_torch.servable.megakernels import (
     ROWLOCAL_MAX_NORM_FLOATS,
     ROWLOCAL_MAX_OPS,
     ROWLOCAL_OPS,
-    REFUSED,
     SCALE_LOGISTIC,
+    SPARSE_OPS,
     TABLE_OPS,
     build_megakernel_fn,
     chain_eligible,
@@ -231,9 +232,11 @@ def _sparse_logistic(inp="tfidf", width=4, kind="sparse"):
     )
 
 
-#: Chains the JAX package lowers as one Pallas megakernel that the port does
-#: not have a kernel for (they stay on the merged program in fast mode): the
-#: named residue of ``megakernels.REFUSED``, one well-formed chain of each.
+#: The four classes of chains that only the table kernels' sparse ops,
+#: typed slots and MLP phases admit — an MLP head followed by further ops,
+#: sparse and dense ops in one run, sparse runs past the three with kernels
+#: of their own, an op reading a kmeans index — one well-formed chain of
+#: each, all of which the JAX package lowers as one Pallas megakernel too.
 NOT_YET_PORTED = {
     "mlp_not_last": lambda: [_mlp(inp="x"), _rowlocal("scale", "x", "z")],
     "sparse_with_dense": lambda: [_sparse_idf(), _sparse_logistic(), _rowlocal("scale", "x", "z")],
@@ -305,13 +308,15 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     for specs in ([_sparse_idf(), _sparse_logistic()], [_sparse_logistic()],
                   [_scale(), _mlp()], [_mlp()], [_scale(), _kmeans()], [_kmeans()]):
         assert jax_chain_eligible(specs)  # the JAX package lowers these chains too
-    assert set(NOT_YET_PORTED) == set(REFUSED)
+    assert set(NOT_YET_PORTED) == {"mlp_not_last", "sparse_with_dense", "other_sparse_run",
+                                   "reads_kmeans_index"}
     for name, make in NOT_YET_PORTED.items():
         specs = make()
-        assert tuple(s.fusion_op for s in specs) == REFUSED[name], name
+        assert _residue(specs) == name, name
         assert all(s.fusion_op in MEGAKERNEL_OPS for s in specs), name
         assert jax_chain_eligible(specs), name  # the JAX package lowers it
-        assert not chain_eligible(specs), name  # the port does not
+        assert chain_eligible(specs), name  # and so does the port: the table kernels
+        build_megakernel_fn(specs)
     # a row-local prefix before kmeans or mlp, and the sparse IDF alone: ported
     for specs in ([_rowlocal("normalize"), _kmeans(inp="y")],
                   [_rowlocal("scale", "x", "s"), _rowlocal("normalize", "s", "n"), _kmeans(inp="n")],
@@ -325,9 +330,9 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     wrong_out = _sparse_idf()
     wrong_out.sparse_outputs = {}  # IDF alone must keep its output sparse
     assert not chain_eligible([wrong_out])
-    # the table kernels: any chain of TABLE_OPS (the logistic and kmeans heads anywhere),
-    # optionally closed by an MLP head
-    assert TABLE_OPS == ROWLOCAL_OPS | {"logistic", "kmeans"} and TABLE_OPS <= MEGAKERNEL_OPS
+    # the table kernels: any chain of TABLE_OPS (the heads anywhere), which are every op the
+    # JAX package lowers
+    assert TABLE_OPS == ROWLOCAL_OPS | SPARSE_OPS | {"logistic", "kmeans", "mlp"} == MEGAKERNEL_OPS
     for specs in (_feature6_specs(), _feature6_specs(head=True), [_rowlocal("scale")],
                   [_rowlocal("normalize")], [_rowlocal("impute")],
                   _feature6_specs(ROWLOCAL_MAX_DIM, head=True)):
@@ -350,15 +355,20 @@ def test_port_admits_exactly_the_chains_it_has_kernels_for():
     assert not chain_eligible([_kmeans(KMEANS_MAX_K, inp="x")] * (mlp_k + 1) + [_mlp(inp="x")])
     sparse_in = _rowlocal("binarize")
     sparse_in.input_kinds["x"] = "sparse"
-    assert not chain_eligible([sparse_in])  # dense and scalar columns only
+    assert not chain_eligible([sparse_in])  # a dense op reads dense and scalar columns only
+    assert not chain_eligible([_mlp(inp="x")] * (MLP_MAX_HEADS + 1))  # MLP heads past the kernel's
+    assert chain_eligible([_mlp(inp="x")] * MLP_MAX_HEADS)
+    # an op that needs [rows, width] reading a head's [rows] prediction or a kmeans index
+    assert not chain_eligible([_kmeans(inp="x"), _rowlocal("scale", "prediction", "z", width=1)])
+    assert not chain_eligible([_logistic(inp="x"), _rowlocal("normalize", "prediction", "z")])
     # dataflow and shapes the kernels cannot take
     assert chain_eligible([_scale(out="other"), _logistic()])  # the head reads an input: the table
     assert not chain_eligible([_scale(), _logistic(width=5)])  # widths the model arrays fix disagree
     assert chain_eligible([_logistic(inp="scaled")] * 2)  # two heads: the table
     assert not chain_eligible([])
-    assert not chain_eligible([_sparse_idf(out="other"), _sparse_logistic()])  # idf feeds another column
-    assert not chain_eligible([_sparse_idf(width=5), _sparse_logistic()])  # idf of another width
-    assert not chain_eligible([_sparse_idf(), _sparse_logistic(kind="vector")])  # a dense head
+    assert chain_eligible([_sparse_idf(out="other"), _sparse_logistic()])  # idf feeds another column: the table
+    assert chain_eligible([_sparse_idf(width=5), _sparse_logistic()])  # idf of another width: the table, ids clamped
+    assert not chain_eligible([_sparse_idf(), _sparse_logistic(kind="vector")])  # a sparse head on a dense column
     assert not chain_eligible([_sparse_logistic(inp="features", kind="vector")])
     assert not chain_eligible([_spec("sparse_idf"), _spec("sparse_logistic")])  # no coefficient/idf
     # MLP networks the kernel cannot hold, or heads not of the MLP's form
@@ -523,7 +533,7 @@ def _pool_stage(name, jax):
 
 
 def _residue(specs):
-    """The REFUSED class a run of specs falls in, or None."""
+    """The class of ``NOT_YET_PORTED`` a run of specs falls in, or None."""
     ops = tuple(s.fusion_op for s in specs)
     sparse = {"sparse_idf", "sparse_logistic"}
     if "mlp" in ops[:-1]:
@@ -546,13 +556,12 @@ def _residue(specs):
 def test_port_chain_eligible_equals_jax_on_every_chain_the_planner_forms():
     """Every sequence of one to three ported stages, planned in the fast tier
     by both packages with ``f`` known sparse: the same runs, and each run
-    admitted by the port exactly when the JAX package admits it — except
-    the named residue (REFUSED), which the JAX package admits and the port
-    refuses."""
+    admitted and built by the port exactly as the JAX package admits it —
+    the four classes of ``NOT_YET_PORTED`` among them, each counted."""
     fast, jfast, hints = FusionTier("fast"), JFusionTier("fast"), {"f": _POOL_D}
     port = {name: _pool_stage(name, jax=False) for name in _POOL}
     jax = {name: _pool_stage(name, jax=True) for name in _POOL}
-    seen = {"admitted": 0, "refused": {k: 0 for k in REFUSED}}
+    seen = {"runs": 0, "admitted": 0, "classes": {k: 0 for k in NOT_YET_PORTED}}
     for n in (1, 2, 3):
         for names in itertools.product(_POOL, repeat=n):
             segs = [s for s in build_segments([port[k] for k in names], torch.device("cpu"), fast, hints)
@@ -563,13 +572,13 @@ def test_port_chain_eligible_equals_jax_on_every_chain_the_planner_forms():
             jruns = [p.specs for s in jsegs for p in s.programs]
             assert [[s.fusion_op for s in r] for r in runs] == [[s.fusion_op for s in r] for r in jruns], names
             for specs, jspecs in zip(runs, jruns):
-                residue = _residue(specs)
-                assert jax_chain_eligible(jspecs), names
-                assert chain_eligible(specs) == (residue is None), (names, residue)
-                if residue is None:
+                seen["runs"] += 1
+                assert chain_eligible(specs) == jax_chain_eligible(jspecs), names
+                if chain_eligible(specs):
                     seen["admitted"] += 1
                     build_megakernel_fn(specs)
-                else:
-                    seen["refused"][residue] += 1
-    assert seen["admitted"] > 500
-    assert all(count > 0 for count in seen["refused"].values()), seen
+                    residue = _residue(specs)
+                    if residue is not None:
+                        seen["classes"][residue] += 1
+    assert seen["admitted"] == seen["runs"] == 1884, seen
+    assert all(count > 0 for count in seen["classes"].values()), seen

@@ -618,14 +618,14 @@ def test_wrapper_runs_the_plain_version_for_cpu_tensors_without_counting():
     before = ROWLOCAL_MLP.launches
     for with_mean, with_std in FLAGS:
         kw = dict(with_mean=with_mean, with_std=with_std)
-        (scaled,), pred, probs = rowlocal_mlp([x], [RowLocalOp("scale", 0, mean, inv_std, kw)], 1,
-                                              layers, labels)
+        scaled, pred, probs = rowlocal_mlp([x], [RowLocalOp("scale", 0, mean, inv_std, kw),
+                                                 RowLocalOp("mlp", 1, labels, layers=layers)])
         want = tk.scale_fn(x, mean, inv_std, **kw)
         want_idx, want_probs = tk.mlp_predict_fn(layers, want)
         assert torch.equal(scaled, want) and torch.equal(probs, want_probs)
         assert torch.equal(pred, labels[want_idx.long()])
-    none, pred, probs = rowlocal_mlp([x], [], 0, layers, labels)  # the MLP alone: an empty table
-    assert none == [] and pred.shape == (40,) and probs.shape == (40, CLASSES)
+    pred, probs = rowlocal_mlp([x], [RowLocalOp("mlp", 0, labels, layers=layers)])  # the MLP alone
+    assert pred.shape == (40,) and probs.shape == (40, CLASSES)
     assert set(pred.tolist()) <= set(labels.tolist())
     assert ROWLOCAL_MLP.launches == before  # the count is of kernel launches only
 
@@ -633,4 +633,5 @@ def test_wrapper_runs_the_plain_version_for_cpu_tensors_without_counting():
 def test_wrapper_raises_for_tensors_it_has_no_path_for():
     layers = [(torch.empty((8, 3), device="meta"), torch.empty(3, device="meta"))]
     with pytest.raises(RuntimeError, match="needs CPU or CUDA tensors"):
-        rowlocal_mlp([torch.empty((4, 8), device="meta")], [], 0, layers, torch.empty(3, device="meta"))
+        rowlocal_mlp([torch.empty((4, 8), device="meta")],
+                     [RowLocalOp("mlp", 0, torch.empty(3, device="meta"), layers=layers)])

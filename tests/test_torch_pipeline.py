@@ -866,7 +866,7 @@ def _fitted_kmeans_pair():
     return X, model, jmodel
 
 
-def test_pipeline_save_load_both_ways(tmp_path):
+def test_pipeline_save_load_both_ways(tmp_path, one_device_mesh):
     est = Pipeline(_kmeans_stages(StandardScaler, Normalizer, KMeans, k=4))
     jest = JPipeline(_kmeans_stages(JStandardScaler, JNormalizer, JKMeans, k=4))
     est.save(str(tmp_path / "port"))
@@ -877,18 +877,38 @@ def test_pipeline_save_load_both_ways(tmp_path):
         loaded = Pipeline.load(str(tmp_path / path))
         assert [type(s).__name__ for s in loaded.stages] == ["StandardScaler", "Normalizer", "KMeans"]
         assert [s.param_map_to_json() for s in loaded.stages] == [s.param_map_to_json() for s in est.stages]
-    # the JAX package refuses a port-written directory by class name; its
-    # metadata and stage directories read as the JAX package writes them
+    # the port writes the JAX twin's class names: its directories read as
+    # the JAX package writes them, and the JAX package loads them
     meta = jrw.load_metadata(str(tmp_path / "port"))
     jmeta = jrw.load_metadata(str(tmp_path / "jax"))
     assert meta["numStages"] == jmeta["numStages"] == 3
-    assert meta["className"] == "flink_ml_tpu_torch.builder.pipeline.Pipeline"
+    assert meta["className"] == jmeta["className"] == "flink_ml_tpu.builder.pipeline.Pipeline"
     for i in range(3):
         sub = f"stages/{i:08d}"
         assert jrw.load_metadata(str(tmp_path / "port" / sub))["paramMap"] == \
             jrw.load_metadata(str(tmp_path / "jax" / sub))["paramMap"]
-    with pytest.raises(ValueError):
-        JPipeline.load(str(tmp_path / "port"))
+    jloaded = JPipeline.load(str(tmp_path / "port"))
+    assert [type(s) for s in jloaded.stages] == [JStandardScaler, JNormalizer, JKMeans]
+    assert [s.param_map_to_json() for s in jloaded.stages] == [s.param_map_to_json() for s in jest.stages]
+    # a port-saved PipelineModel (StandardScaler -> LogisticRegression) loads through
+    # the JAX PipelineModel.load, and transforms as the port's does
+    rng = np.random.default_rng(31)
+    X = rng.normal(size=(N, 6))
+    scaler = StandardScalerModel().set_input_col("features").set_output_col("scaled").set_with_mean(True)
+    scaler.mean, scaler.std = rng.normal(size=6), np.abs(rng.normal(size=6)) + 0.5
+    lr = LogisticRegressionModel().set_features_col("scaled")
+    lr.coefficient = rng.normal(size=6)
+    model = PipelineModel([scaler, lr])
+    model.save(str(tmp_path / "port-model"))
+    jmodel = JPipelineModel.load(str(tmp_path / "port-model"))
+    assert [type(s) for s in jmodel.stages] == [JStandardScalerModel, JLogisticRegressionModel]
+    assert type(jrw.load_stage(str(tmp_path / "port-model"))) is JPipelineModel
+    want = model.transform(DataFrame.from_dict({"features": X}), device="cpu")
+    got = jmodel.transform(JDataFrame.from_dict({"features": X}))
+    np.testing.assert_allclose(np.asarray(got.column("scaled")), want.column("scaled"), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got.column("rawPrediction")), want.column("rawPrediction"),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(got.column("prediction")), want.column("prediction"))
 
 
 def test_pipeline_model_save_load_both_ways(tmp_path, one_device_mesh):
