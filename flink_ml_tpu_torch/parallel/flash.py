@@ -109,19 +109,20 @@ def fold_smem_bytes(D: int) -> int:
 
 def fold_bwd_smem_bytes(D: int) -> Tuple[int, int]:
     """Shared memory of one block of the (dq, dkv) kernels at head dim
-    ``D``. Their tiles are 64 query rows × 64 keys up to a padded D of 128
-    and 32 × 32 at 256, where each thread's accumulators (two rows' or two
-    keys' worth of D_pad / 16 columns, twice) would otherwise pass the
-    register file. Each stages four [tile, D_pad + 4] float32 tiles (dq:
-    Q, dacc, K, V; dkv: K, V, Q, dacc; the 4 extra columns keep their
-    float4 reads free of bank conflicts) and two [rows, keys] tiles (dq: dP·P and the
-    row-max mask; dkv: P and ds); the dq kernel also one int per row (does
-    the row's max lie in this key tile). 168,192 and 167,936 bytes at D 128
-    (one block an SM), 141,440 and 141,312 at D 256."""
-    bm = bn = 64 if _pad(D) <= 128 else 32
-    ld = _pad(D) + 4
-    tiles = 4 * (2 * bm * ld + 2 * bn * ld + 2 * bm * bn)
-    return tiles + 4 * bm, tiles
+    ``D``. Each block owns 64 rows (dq: queries, dkv: keys), held as a
+    [64, D_pad + 4] float32 tile of each of its two owned matrices (dq: Q
+    and dacc; dkv: K and V; the 4 extra columns keep every fragment load
+    free of bank conflicts), and streams the other side in tiles of 16 rows
+    through two stages of two such tiles (dq: K and V; dkv: Q and dacc),
+    copied asynchronously while the previous stage computes. The dq kernel
+    also keeps 32 max-key indices a row, the dkv kernel the streamed rows'
+    safe, block max, dB / cnt and dl. 109,568 and 101,888 bytes at D 128
+    (two blocks an SM), 207,872 and 200,192 at D 256 (where two warps share
+    each 16 rows, each accumulating half of the columns: eight warps, one
+    block an SM)."""
+    own, stream, max_keys = 64, 16, 32
+    tiles = 4 * (_pad(D) + 4) * (2 * own + 2 * 2 * stream)
+    return tiles + 4 * own * max_keys, tiles + 4 * 2 * 4 * stream
 
 
 def flash_available(T: int, D: int, device: Union[str, torch.device]) -> bool:

@@ -283,16 +283,19 @@ def test_backward_kernel_wrappers_take_only_cuda_tensors():
 
 
 def test_backward_shared_memory_is_budgeted_for_hopper():
-    # four [tile, D_pad + 4] float32 tiles and two [rows, keys] tiles (+ an
-    # int per row in the dq kernel), under a Hopper block's 232,448 bytes
-    assert fold_bwd_smem_bytes(128) == (168_192, 167_936)  # 64 × 64 tiles
-    assert fold_bwd_smem_bytes(200) == fold_bwd_smem_bytes(256)  # 32 × 32 tiles
-    assert fold_bwd_smem_bytes(256) == (141_440, 141_312)
-    assert fold_bwd_smem_bytes(64) == (102_656, 102_400)  # two blocks an SM
+    # 64 owned rows of two [rows, D_pad + 4] float32 tiles, two stages of two
+    # streamed 16-row tiles, + 32 max-key slots a row (dq) or four floats a
+    # streamed row (dkv), under a Hopper block's 232,448 bytes
+    assert fold_bwd_smem_bytes(128) == (109_568, 101_888)
+    assert max(fold_bwd_smem_bytes(128)) <= 113 * 1024  # two blocks an SM at D 128
+    assert fold_bwd_smem_bytes(200) == fold_bwd_smem_bytes(256)
+    assert fold_bwd_smem_bytes(256) == (207_872, 200_192)
+    assert fold_bwd_smem_bytes(64) == (60_416, 52_736)
     assert fold_bwd_smem_bytes(8) == fold_bwd_smem_bytes(16)
     assert max(max(fold_bwd_smem_bytes(d)) for d in range(1, MAX_HEAD_DIM + 1)) <= 232_448
     source = (native.CSRC_DIR / "flash_fold_bwd.cu").read_text()
-    assert "kD <= 128 ? 64 : 32" in source  # the tiles the Python budget mirrors
+    for tiles in ("kOwn = 64;", "kStream = 16;", "kLd = kD + 4;", "kMaxKeys = 32;", "2 * 4 * kStream"):
+        assert tiles in source  # the tiles the Python budget mirrors
 
 
 def test_flash_train_available_is_rederived_for_the_card():

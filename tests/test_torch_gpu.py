@@ -1204,6 +1204,107 @@ def test_flash_fold_bwd_kernels_match_plain_version(cuda, case, d, Tq, Tk, BH):
                        f"{case} BH={BH} Tq={Tq} Tk={Tk} d={d}")
 
 
+@pytest.mark.parametrize("case", ("first_causal", "mixed_nv_inside", "carried_causal_kv_before", "ties_carried_nv"))
+@pytest.mark.parametrize("d", (1, 7, 30, 129))
+@pytest.mark.parametrize("unaligned", (False, True))
+def test_flash_fold_bwd_kernels_take_any_head_dim_and_unaligned_rows(cuda, case, d, unaligned):
+    """Head dims that are not a multiple of 4, and inputs whose storage
+    starts 4 bytes past a 16-byte boundary, take the kernels' 4-byte copies
+    and scalar stores: the same contract as the grid above."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk = 3, 63, 200
+    _, causal, nv, q_pos0, k_pos0, state = next(c for c in BWD_CASES if c[0] == case)
+    n_valid = None if nv is None else k_pos0 + nv
+    inputs, cot = _bwd_case(BH, Tq, Tk, d, state, cuda, seed=d + 11)
+    scale = 1.0 / np.sqrt(d)
+    if state == "ties":  # m equal to the block max on every third row
+        s = torch.einsum("bhqd,bhkd->bhqk", inputs[0], inputs[1]) * scale
+        s[..., n_valid:] = -torch.inf
+        inputs[3][..., ::3] = s.amax(-1)[..., ::3]
+    if unaligned:
+        def shifted(x):
+            y = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x)
+            y.copy_(x)
+            assert y.is_contiguous() and y.data_ptr() % 16 == 4
+            return y
+        inputs, cot = [shifted(x) for x in inputs], [shifted(c) for c in cot]
+    dm, dl, dacc = cot
+    dq, dm_in, dl_in, dacc_in, safe, bmax, dbc = fold_bwd_dq(*inputs, q_pos0, k_pos0, causal, n_valid, scale,
+                                                            dm, dl, dacc)
+    dk, dv = fold_bwd_dkv(*inputs[:3], q_pos0, k_pos0, causal, n_valid, scale, dl, dacc, safe, bmax, dbc)
+    want = reference_fold_bwd(*inputs, q_pos0, k_pos0, causal, n_valid, scale, dm, dl, dacc)
+    torch.cuda.synchronize()
+    idle = _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tq)
+    unattended = _unattended_keys(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tk)
+    _check_bwd_on_card((dq, dk, dv, dm_in, dl_in, dacc_in), want, inputs, idle, unattended,
+                       f"{case} d={d} unaligned={unaligned}")
+
+
+@pytest.mark.parametrize("state", ("first", "carried"))
+@pytest.mark.parametrize("d", (8, 128, 256))
+@pytest.mark.parametrize("every", (12, 2))
+def test_flash_fold_bwd_kernels_spread_db_over_many_equal_max_keys(cuda, state, d, every):
+    """Every ``every``-th key is the all-ones vector and every query
+    positive, so those keys tie for each row's block max wherever they are
+    attended: 12 or 13 of them (within the dq kernel's 32 max-key slots) or,
+    every second key, up to 73 (past them: the dq kernel's second walk
+    recomputes those rows); the other keys, entries at most 7/8, score
+    lower. dB / cnt must reach each tied key in both kernels, as the plain
+    VJP spreads it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk = 2, 140, 150
+    inputs, (dm, dl, dacc) = _bwd_case(BH, Tq, Tk, d, state, cuda, seed=d)
+    rng = np.random.default_rng(d)
+    inputs[0] = torch.from_numpy(rng.integers(1, 9, size=(1, BH, Tq, d)) / 8).float().to(cuda)
+    k = rng.integers(-8, 8, size=(1, BH, Tk, d)) / 8
+    k[:, :, 5::every] = 1.0
+    inputs[1] = torch.from_numpy(k).float().to(cuda)
+    scale = 1.0 / np.sqrt(d)
+    for causal, n_valid in ((False, None), (True, 100)):
+        dq, dm_in, dl_in, dacc_in, safe, bmax, dbc = fold_bwd_dq(*inputs, 0, 0, causal, n_valid, scale,
+                                                                dm, dl, dacc)
+        dk, dv = fold_bwd_dkv(*inputs[:3], 0, 0, causal, n_valid, scale, dl, dacc, safe, bmax, dbc)
+        want = reference_fold_bwd(*inputs, 0, 0, causal, n_valid, scale, dm, dl, dacc)
+        torch.cuda.synchronize()
+        s = torch.einsum("bhqd,bhkd->bhqk", inputs[0], inputs[1]) * scale
+        s = torch.where(_attends(Tq, Tk, 0, 0, causal, n_valid, cuda), s, -torch.inf)
+        ties = (s == s.amax(-1, keepdim=True)).sum(-1)
+        if every == 2:
+            assert int((ties > 32).sum()) >= BH * 10  # rows past the slots
+        else:
+            assert int((ties > 4).sum()) >= BH * 10 and int((ties > 32).sum()) == 0
+        idle = _idle_rows(Tq, Tk, 0, 0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tq)
+        unattended = _unattended_keys(Tq, Tk, 0, 0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tk)
+        _check_bwd_on_card((dq, dk, dv, dm_in, dl_in, dacc_in), want, inputs, idle, unattended,
+                           f"{state} d={d} every={every} causal={causal}")
+
+
+@pytest.mark.parametrize("state", ("first", "carried"))
+@pytest.mark.parametrize("d", (8, 128, 256))
+def test_flash_fold_bwd_kernels_hold_when_every_key_is_equal(cuda, state, d):
+    """Every key the same vector, as a run of one repeated token gives (the
+    classifier has no position embedding): every attendable score of a row
+    ties, and on a first fold dq = scale · dm · k is the difference of two
+    sums about Tk times larger. The grid's contract against the plain VJP;
+    under causal a row r has r + 1 tied keys, so rows within the dq kernel's
+    32 slots and rows of its second walk both run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk = 2, 70, 150
+    inputs, (dm, dl, dacc) = _bwd_case(BH, Tq, Tk, d, state, cuda, seed=d + 3)
+    inputs[1] = inputs[1][:, :, :1].expand(1, BH, Tk, d).contiguous()
+    scale = 1.0 / np.sqrt(d)
+    for causal, n_valid in ((False, None), (True, 100)):
+        dq, dm_in, dl_in, dacc_in, safe, bmax, dbc = fold_bwd_dq(*inputs, 0, 0, causal, n_valid, scale,
+                                                                dm, dl, dacc)
+        dk, dv = fold_bwd_dkv(*inputs[:3], 0, 0, causal, n_valid, scale, dl, dacc, safe, bmax, dbc)
+        want = reference_fold_bwd(*inputs, 0, 0, causal, n_valid, scale, dm, dl, dacc)
+        torch.cuda.synchronize()
+        idle = _idle_rows(Tq, Tk, 0, 0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tq)
+        unattended = _unattended_keys(Tq, Tk, 0, 0, causal, n_valid, cuda)[None, None, :].expand(1, BH, Tk)
+        _check_bwd_on_card((dq, dk, dv, dm_in, dl_in, dacc_in), want, inputs, idle, unattended,
+                           f"{state} d={d} causal={causal}")
+
+
 def test_flash_fold_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
     inputs, (dm, dl, dacc) = _bwd_case(2, 8, 8, 16, "first", cuda, seed=1)
     before = (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches)
@@ -1214,6 +1315,52 @@ def test_flash_fold_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         fold_bwd_dkv(*inputs[:3], 0, 0, False, None, 0.25, dl, dacc, dm[..., :4], dm, dm)
     assert (FLASH_FOLD_BWD_DQ.launches, FLASH_FOLD_BWD_DKV.launches) == before
+
+
+CENSUS_GAP = 1e-4  # a row's float64 top-two score gap past which both kernels must pick the float64 argmax
+
+
+@pytest.mark.parametrize("state", ("first", "carried"))
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_fold_bwd_kernels_agree_on_each_rows_max_keys(cuda, state, d):
+    """The max-key census, off the 1/8 grid: q and k standard normal, so the
+    scores round in both kernels and only bit-equal scores let the dkv
+    kernel's ``s == bmax`` find the keys the dq kernel counted. dkv run with
+    ``dbc`` (kept on the rows whose float64 top-two gap is clear) and with
+    ``dbc`` zeroed: the dk difference must be ``dbc · q · scale`` scattered
+    to each such row's float64 argmax, within 2e-5 of |difference| + dk's
+    largest magnitude (the two runs round ds · q apart). dq's block max
+    lies within 1e-5 of float64's, and on the clear rows dq and everywhere
+    dv hold against the float64 plain VJP."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk = 3, 300, 1000
+    inputs = _fold_case(BH, Tq, Tk, d, state, cuda, seed=d + (state == "first"))
+    rng = np.random.default_rng(d)
+    cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+           for s in ((1, BH, Tq), (1, BH, Tq), (1, BH, Tq, d))]
+    q, k = inputs[0], inputs[1]
+    scale = 1.0 / np.sqrt(d)
+    dq, dm_in, dl_in, dacc_in, safe, bmax, dbc = fold_bwd_dq(*inputs, 0, 0, False, None, scale, *cot)
+    s64 = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+    top2 = s64.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > CENSUS_GAP) & (dbc != 0)
+    assert int(clear.sum()) > 0.9 * BH * Tq
+    assert torch.all((bmax.double() - top2[..., 0]).abs() <= 1e-5 * (1 + top2[..., 0].abs()))
+    dbc_clear = torch.where(clear, dbc, torch.zeros_like(dbc))
+    dk_with, _ = fold_bwd_dkv(q, k, inputs[2], 0, 0, False, None, scale, cot[1], cot[2], safe, bmax, dbc_clear)
+    dk_zero, dv = fold_bwd_dkv(q, k, inputs[2], 0, 0, False, None, scale, cot[1], cot[2], safe, bmax,
+                               torch.zeros_like(dbc))
+    diff = dk_with.double() - dk_zero.double()
+    want = torch.zeros_like(diff)
+    argmax = s64.argmax(dim=-1)  # [1, BH, Tq]
+    contrib = dbc_clear.double()[..., None] * q.double() * scale
+    want.scatter_add_(2, argmax[..., None].expand(1, BH, Tq, d), contrib)
+    err = (diff - want).abs()
+    assert torch.all(err <= 2e-5 * (want.abs() + float(dk_zero.abs().max()))), float(err.max())
+    want64 = reference_fold_bwd(*(x.double() for x in inputs), 0, 0, False, None, scale, *(c.double() for c in cot))
+    for name, g, w in (("dq", dq.double()[clear], want64[0][clear]), ("dv", dv.double(), want64[2])):
+        e = (g - w).abs()
+        assert torch.all(e <= 2e-5 * (w.abs() + max(1.0, float(w.abs().max())))), f"{name}: {float(e.max())}"
 
 
 def test_ring_attention_gradients_on_the_card_launch_both_backward_kernels(cuda):
