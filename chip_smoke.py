@@ -138,16 +138,23 @@ runs 25 and 26 after 9, and 22–24 after 17):
                causal, n_valid, first-fold / carried / partly -inf state and
                block positions (the block before, after and across the
                queries): m within 1e-6, l and acc within 1e-5 relative, rows
-               with no attendable key exact, no NaN; one Q block folded
-               against four K/V blocks in ring order (causal, n_valid) for
-               each of four shards, held against float64 dense attention;
-               then CUDA-event times at bench.py's
-               ring_attention_causal_T8192_h4_d128 (B 1, T 8192, H 4, D 128),
-               causal and not, of the kernel, the plain fold and
-               ``scaled_dot_product_attention`` (the library yardstick of
-               fold + acc / l), with the operations bound; at that shape the
-               kernel's (m, l, acc) are held against the plain fold's at the
-               grid's tolerances first;
+               with no attendable key exact, no NaN; the same contract with
+               every key equal (one repeated token) at D 8, 64, 100, 128 and
+               256, and at D 100 on inputs 4 bytes past a 16-byte boundary
+               (the kernel's 4-byte loads); one Q block folded against four
+               K/V blocks in ring order (causal, n_valid) for each of four
+               shards, held against float64 dense attention; the fold
+               kernel's registers and spills at each template width (ptxas
+               -v) and its SASS's HGMMA and HMMA count (cuobjdump; HGMMA,
+               the wgmma instructions, required); then CUDA-event times at
+               bench.py's ring_attention_causal_T8192_h4_d128 (B 1, T 8192,
+               H 4, D 128), causal and not, of the kernel, the plain fold
+               and ``scaled_dot_product_attention`` (the library yardstick
+               of fold + acc / l), with the bound as 3×TF32 operations at
+               the TF32 peak (the float32 bound beside it) and the share of
+               the TF32 peak reached; at that shape the kernel's (m, l, acc)
+               are held against the plain fold's at the grid's tolerances
+               first;
 19. serve_attention — SelfAttentionClassifierModel at E 512, H 4, vocab
                1024, 8 classes (bench.py's attention width) from seeded
                weights, saved and loaded back, ``transform`` on the card of
@@ -490,6 +497,11 @@ FLASH_FLAG_CASES = (
 )
 FLASH_M_RTOL = 1e-6  # of |m| + the scores' term magnitudes: the dot products sum in another order
 FLASH_RTOL = 1e-5  # l and acc; atol FLASH_RTOL times the tensor's largest magnitude
+# the grid's added cases: every key equal at these head dims, and D 100 on
+# inputs that start 4 bytes past a 16-byte boundary (BH, Tq, Tk)
+FLASH_EQUAL_KEYS_D = (8, 64, 100, 128, 256)
+FLASH_UNALIGNED_D = 100
+FLASH_EXTRA_SHAPE = (3, 1000, 2048)
 FLASH_CHAIN = (4, 2048, 4, 128)  # shards, T per shard, B·H, D
 FLASH_CHAIN_RTOL, FLASH_CHAIN_ATOL = 2e-5, 2e-5
 # SelfAttentionClassifier at bench.py's _attention_train_step_ms width
@@ -3375,6 +3387,91 @@ def _flash_bound(BH, Tq, Tk, d, causal):
     return bytes_moved, ops
 
 
+def _flash_extra_cases(gen, dev):
+    """The grid's contract on two more kinds of input, over the seven flag
+    cases at FLASH_EXTRA_SHAPE: every key the same vector (a run of one
+    token; every attendable score of a row ties) at FLASH_EQUAL_KEYS_D, and
+    D FLASH_UNALIGNED_D with every tensor starting 4 bytes past a 16-byte
+    boundary. Returns {kind: {"configurations", "max_abs_err"}}."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.parallel import fused_fold, reference_fold
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
+        y.copy_(x)
+        if y.data_ptr() % 16 != 4:
+            raise AssertionError("the shifted copy is not 4 bytes past a 16-byte boundary")
+        return y
+
+    BH, Tq, Tk = FLASH_EXTRA_SHAPE
+    out = {}
+    for kind, dims in (("every_key_equal", FLASH_EQUAL_KEYS_D), ("unaligned", (FLASH_UNALIGNED_D,))):
+        configurations, max_abs_err = 0, 0.0
+        for d in dims:
+            for causal, nv_case, state, pos in FLASH_FLAG_CASES:
+                q_pos0, k_pos0 = _flash_positions(pos, Tq, Tk)
+                n_valid = {None: None, "inside": k_pos0 + max(1, Tk // 2), "before": k_pos0}[nv_case]
+                inputs = _flash_inputs(gen, BH, Tq, Tk, d, state, dev)
+                if kind == "every_key_equal":
+                    inputs[1] = inputs[1][:, :, :1].expand(1, BH, Tk, d).contiguous()
+                else:
+                    inputs = [shifted(x) for x in inputs]
+                scale = 1.0 / np.sqrt(d)
+                got = fused_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+                want = reference_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+                where = f"{kind} d={d} causal={causal} n_valid={n_valid} {state} q_pos0={q_pos0} k_pos0={k_pos0}"
+                idle = _idle_rows(BH, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev)
+                s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", inputs[0].abs(), inputs[1].abs()).amax(-1)
+                err, _, _ = _check_flash(got, want, inputs[3:], idle, s_mag, where)
+                max_abs_err = max(max_abs_err, err)
+                configurations += 1
+        out[kind] = {"configurations": configurations, "max_abs_err": max_abs_err}
+    return out
+
+
+def _fold_compiled(kernel):
+    """What the compiler made of ``kernel``'s source: for each template
+    width, the registers a thread and the spill stores and loads (ptxas -v),
+    and the tensor-core instructions in its SASS (cuobjdump): HGMMA is
+    wgmma, HMMA mma.sync. Raises unless every fold kernel holds HGMMA."""
+    import re
+    from pathlib import Path
+
+    from flink_ml_tpu_torch.native import _nvcc, build
+
+    res = build(kernel.source)
+    widths, current = {}, None
+    for line in res.log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']*)'", line)
+        if hit:
+            width = re.search(r"kernelILi(\d+)E", hit.group(1))
+            current = widths.setdefault(int(width.group(1)) if width else hit.group(1), {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill_store_bytes"], current["spill_load_bytes"] = int(spill.group(1)), int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(res.library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        width = re.search(r"kernelILi(\d+)E", block.split("\n", 1)[0])
+        if width and int(width.group(1)) in widths:
+            entry = widths[int(width.group(1))]
+            entry["hgmma"] = len(re.findall(r"\bHGMMA\.", block))
+            entry["hmma"] = len(re.findall(r"\bHMMA\.", block))
+    for width, entry in widths.items():
+        if not entry.get("hgmma"):
+            raise AssertionError(f"{kernel.name} at width {width}: no HGMMA in its SASS: {entry}")
+    return {"source": kernel.source_path, "by_width": widths}
+
+
 def phase_kernels_flash(rng, card: str):
     """The ring-attention fold kernel against the plain fold over a grid,
     a four-fold ring chain against float64 dense attention, then its times
@@ -3412,8 +3509,12 @@ def phase_kernels_flash(rng, card: str):
                         configurations += 1
     if not (kept_rows and reset_rows):
         raise AssertionError("the grid reached no row of one of the exact edges")
+    extra = _flash_extra_cases(gen, dev)
+    max_abs_err = max(max_abs_err, *(e["max_abs_err"] for e in extra.values()))
     emit("kernels_flash", kernel=FLASH_FOLD.name, configurations=configurations, max_abs_err=max_abs_err,
-         m_rtol=FLASH_M_RTOL, l_acc_rtol=FLASH_RTOL, exact_rows_kept=kept_rows, exact_rows_reset=reset_rows)
+         m_rtol=FLASH_M_RTOL, l_acc_rtol=FLASH_RTOL, exact_rows_kept=kept_rows, exact_rows_reset=reset_rows,
+         **extra)
+    emit("kernels_flash", kernel=FLASH_FOLD.name, compiled=_fold_compiled(FLASH_FOLD))
 
     # one Q block folded against four K/V blocks in ring order, causal with
     # n_valid, at the positions a four-shard ring gives each shard
@@ -3487,7 +3588,10 @@ def phase_kernels_flash(rng, card: str):
             times[name]["cold"] += _cold_times(fns[name], 5, flush)
             times[name]["warm"].append(_warm_time(fns[name], 5))
         bytes_moved, ops = _flash_bound(B * H, T, T, d, causal)
-        bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        # the products are 3xTF32: three TF32 operations each at the TF32 peak; the
+        # float32 CUDA-core bound of the same work stays beside it, comparable with float32-FMA kernels
+        bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, 3 * ops / TF32_OPS_PER_S * 1e3
+        ms = _median(times["kernel"]["cold"])
         timings["causal" if causal else "non_causal"] = {
             "ms": _median(times["kernel"]["cold"]), "ms_l2_warm": _median(times["kernel"]["warm"]),
             "ms_with_normalize": _median(times["kernel_normalized"]["cold"]),
@@ -3495,9 +3599,12 @@ def phase_kernels_flash(rng, card: str):
             "library_ms": _median(times["library"]["cold"]),
             "library_ms_l2_warm": _median(times["library"]["warm"]),
             "library_max_abs_diff": lib_err, "max_abs_err_vs_plain": timed_err,
-            "bytes": bytes_moved, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bytes": bytes_moved, "ops": ops, "tf32_ops": 3 * ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "achieved_tflops": ops / (_median(times["kernel"]["cold"]) * 1e-3) / 1e12,
+            "bound_ms_f32": max(bytes_ms, ops / F32_OPS_PER_S * 1e3),
+            "achieved_tflops": ops / (ms * 1e-3) / 1e12,
+            "achieved_tf32_tflops": 3 * ops / (ms * 1e-3) / 1e12,
+            "tf32_peak_share": 3 * ops / (ms * 1e-3) / TF32_OPS_PER_S,
         }
     del q, k, v, flush
     torch.cuda.empty_cache()
@@ -3508,7 +3615,8 @@ def phase_kernels_flash(rng, card: str):
         "library_ms": main["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention(q, k, v): one call for "
                    "fold + acc / l (hold it against ms_with_normalize)",
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "by_mask": timings,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "bound_ms_f32": main["bound_ms_f32"],
+        "tf32_peak_share": main["tf32_peak_share"], "by_mask": timings,
     }
     emit("kernels_flash", kernel=FLASH_FOLD.name, card=card, **timing)
     return {"max_abs_err": max_abs_err, **timing}

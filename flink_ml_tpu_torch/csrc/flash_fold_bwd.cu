@@ -109,6 +109,8 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "tf32_mma.cuh"  // split, as_split, cp.async, mma, mma3, ldsm4
+
 namespace {
 
 template <int kD>
@@ -132,25 +134,6 @@ static_assert(Tiles<128>::kDqBytes <= 113 * 1024 && Tiles<128>::kDkvBytes <= 113
               "two blocks an SM at kD 128");
 static_assert(Tiles<256>::kDqBytes <= 232448 && Tiles<256>::kDkvBytes <= 232448,
               "the kD 256 tiles fit one block's shared memory");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // rows [0, kRows) of a [*, D] matrix from `src` into a staged [kRows][kD + 4]
 // tile, zero past n_rows and past D, by cp.async (not waited for here).
@@ -178,52 +161,6 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
       cp_async4(dst + r * kLd + c, in ? src + static_cast<size_t>(r) * D + c : src, in ? 4 : 0);
     }
   }
-}
-
-// x = hi + lo to about float32's precision, each a TF32 operand: hi is x
-// with its low 13 mantissa bits cleared (a TF32 value), lo = x - hi exactly;
-// the tensor cores read lo's top 11 significant bits. Two instructions,
-// where cvt.rna for both halves takes more: the split is most of the ALU
-// work of these kernels (PERF.md).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// x as the tensor cores read it after split(): hi plus lo without its low
-// 13 bits (exact in float32: 22 significant bits at most).
-__device__ __forceinline__ float as_split(float x) {
-  uint32_t hi, lo;
-  split(x, hi, lo);
-  return __uint_as_float(hi) + __uint_as_float(lo & 0xffffe000u);
-}
-
-// c += a · b on the tensor cores: a 16 x 8 A fragment, an 8 x 8 B fragment.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a · b in 3×TF32 (lo·hi, hi·lo, hi·hi).
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma(c, al, bh0, bh1);
-  mma(c, ah, bl0, bl1);
-  mma(c, ah, bh0, bh1);
-}
-
-// Four 8 x 8 matrices of 16-bit elements from shared memory, each lane
-// giving the address of one row (lane i: row i % 8 of matrix i / 8): for
-// 32-bit data, register m of lane (g, t) holds float t of row g of matrix m,
-// an MMA fragment's layout.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
 }
 
 // acc[p][j] = the 16 x 8 tile a[p][0..16) · b[p][8j..8j+8)ᵀ over kD columns

@@ -29,11 +29,26 @@ gates reject a local length that is not a multiple of their Q tile or whose
 block passes a VMEM budget. The CUDA kernels stream K/V (the dkv kernel: Q)
 through shared memory a tile at a time and mask their own ragged edges, so
 any Tq and Tk run; their one limit is the head dim their templates are built
-for (:data:`MAX_HEAD_DIM`). The forward's block takes
-``4 · (3 · 64 · D_pad + 64 · 64)`` bytes with the head dim padded to 16, 32,
-64, 128 or 256 (:func:`fold_smem_bytes`): 114,688 at D 128 (two blocks an
-SM), 212,992 at D 256, under the 232,448 bytes a Hopper block may use. The
-backward kernels' budgets are :func:`fold_bwd_smem_bytes`.
+for (:data:`MAX_HEAD_DIM`).
+
+The forward kernel (``csrc/flash_fold.cu``) replaces the JAX package's
+``_fold_pallas`` (``flink_ml_tpu/parallel/flash.py:127``). It is bound by
+operations: 4·D a (query, key) pair, both products on the tensor cores in
+3×TF32 (``csrc/tf32_mma.cuh``: each float32 operand split into a TF32 hi
+and lo, three TF32 products a product), so 12·D TF32 operations a pair —
+at B 1, T 8192, H 4, D 128, 412.3 G, 0.833 ms at the H100's 495 TFLOP/s of
+dense TF32. To come near that bound it runs both products as ``wgmma``
+(Hopper's warpgroup MMA) on operands that are split once, where they are
+written to shared memory: a loader warpgroup streams K and V in tiles of
+:data:`TILE_K` keys (8 at head dims past 128), split into hi and lo tiles,
+K as it lies and V transposed, through a ring of two stages handed over by
+mbarriers, to a consumer warpgroup that owns :data:`TILE_Q` query rows, whose
+Q it split into shared memory once, and keeps P in registers between the two
+products. The next tile's raw K and V rows arrive by bulk copy (TMA) in a
+staging buffer while the loader splits the current one. Its shared memory
+is :func:`fold_smem_bytes`: 229,448 bytes at D 128 (one block an SM), under
+the 232,448 a Hopper block may use. The backward kernels' budgets are
+:func:`fold_bwd_smem_bytes`.
 """
 from __future__ import annotations
 
@@ -64,10 +79,12 @@ __all__ = [
     "reference_fold_bwd",
 ]
 
-#: Query rows per block and keys per K/V tile of ``csrc/flash_fold.cu``
-#: (its kBM and kBN).
+#: Query rows per block and keys per K/V stage of ``csrc/flash_fold.cu``
+#: (its kBM and kBN; kBN is 8 at head dims past 128).
 TILE_Q = 64
-TILE_K = 64
+TILE_K = 32
+_TILE_K_WIDE = 8
+_FOLD_STAGES = 2
 #: The largest head dim the kernels' templates hold.
 MAX_HEAD_DIM = 256
 _HEAD_DIM_PADS = (16, 32, 64, 128, 256)
@@ -100,11 +117,17 @@ def _pad(D: int) -> int:
 
 
 def fold_smem_bytes(D: int) -> int:
-    """Shared memory of one block of the kernel at head dim ``D``: the Q
-    tile and the K tile (transposed), the V tile and the probability tile,
-    float32, with D padded to the next template width."""
-    d_pad = _pad(D)
-    return 4 * (TILE_Q * d_pad + TILE_K * d_pad + TILE_K * d_pad + TILE_Q * TILE_K)
+    """Shared memory of one block of the forward kernel at head dim ``D``,
+    padded to the next of its template widths (32, 64, 128, 256): the Q
+    tile's hi and lo, two stages of the K and Vᵀ tiles' hi and lo
+    (:data:`TILE_K` keys, 8 past a padded width of 128), the staging buffer
+    of the next tile's raw K and V rows, all float32, and nine mbarriers
+    (each stage's full and empty for K and for Vᵀ, the staging buffer's):
+    229,448 bytes at D 128, 213,064 at D 256."""
+    d_pad = max(32, _pad(D))
+    keys = TILE_K if d_pad <= 128 else _TILE_K_WIDE
+    floats = 2 * TILE_Q * d_pad + _FOLD_STAGES * 4 * keys * d_pad + 2 * keys * d_pad
+    return 4 * floats + 8 * (4 * _FOLD_STAGES + 1)
 
 
 def fold_bwd_smem_bytes(D: int) -> Tuple[int, int]:

@@ -290,9 +290,11 @@ def test_flash_available_is_rederived_for_shared_memory():
             assert flash_available(T, d, cuda)
         assert not flash_available(T, MAX_HEAD_DIM + 1, cuda)
         assert not flash_available(T, 128, "cpu")
-    # 4 · (3 · 64 · D_pad + 64 · 64) bytes, under a Hopper block's 232,448
-    assert fold_smem_bytes(128) == 114_688 and fold_smem_bytes(256) == 212_992
-    assert fold_smem_bytes(8) == fold_smem_bytes(16) == 4 * (3 * 64 * 16 + 64 * 64)
+    # Q hi/lo, two stages of K and Vᵀ hi/lo and the staging buffer of a
+    # key tile (32 keys, 8 past a padded head dim of 128), float32, and nine
+    # mbarriers, under a Hopper block's 232,448 bytes; head dims pad to 32 at least
+    assert fold_smem_bytes(128) == 229_448 and fold_smem_bytes(256) == 213_064
+    assert fold_smem_bytes(8) == fold_smem_bytes(32) == 4 * (2 * 64 * 32 + 2 * 4 * 32 * 32 + 2 * 32 * 32) + 8 * 9
     assert fold_smem_bytes(100) == fold_smem_bytes(128)
     assert max(fold_smem_bytes(d) for d in range(1, MAX_HEAD_DIM + 1)) <= 232_448
     # the JAX gate's TPU limits do not carry over: a ragged length runs

@@ -1033,6 +1033,43 @@ def test_flash_fold_kernel_matches_plain_version(cuda, case, d, Tq, Tk, BH):
                         f"{case} BH={BH} Tq={Tq} Tk={Tk} d={d}")
 
 
+@pytest.mark.parametrize("case", [c[0] for c in FOLD_CASES])
+@pytest.mark.parametrize("d", (1, 100, 129, 256))
+@pytest.mark.parametrize("unaligned", (False, True))
+@pytest.mark.parametrize("equal_keys", (False, True))
+def test_flash_fold_kernel_takes_any_head_dim_unaligned_rows_and_equal_keys(cuda, case, d, unaligned, equal_keys):
+    """Head dims off the templates' widths (1, 100, 129) and at the largest
+    (256, an 8-key tile); inputs whose storage starts 4 bytes past a 16-byte
+    boundary, which the kernel reads with 4-byte loads instead of bulk
+    copies; every key the same vector (one repeated token). The grid's
+    contract: m, l and acc against the plain fold, the rows with nothing
+    attendable exact."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk = 3, 130, 200
+    _, causal, nv, q_pos0, k_pos0, state = next(c for c in FOLD_CASES if c[0] == case)
+    n_valid = None if nv is None else k_pos0 + nv
+    inputs = _fold_case(BH, Tq, Tk, d, state, cuda, seed=d + 17)
+    if equal_keys:
+        inputs[1] = inputs[1][:, :, :1].expand(1, BH, Tk, d).contiguous()
+    if unaligned:
+        def shifted(x):
+            y = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x)
+            y.copy_(x)
+            assert y.is_contiguous() and y.data_ptr() % 16 == 4
+            return y
+        inputs = [shifted(x) for x in inputs]
+    scale = 1.0 / np.sqrt(d)
+    before = FLASH_FOLD.launches
+    got = fused_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+    want = reference_fold(*inputs, q_pos0, k_pos0, causal, n_valid, scale)
+    torch.cuda.synchronize()
+    assert FLASH_FOLD.launches == before + 1
+    idle = _idle_rows(Tq, Tk, q_pos0, k_pos0, causal, n_valid, cuda)
+    s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", inputs[0].abs(), inputs[1].abs()).amax(-1)
+    _check_fold_on_card(got, want, inputs[3:], idle[None, None, :].expand_as(got[0]), s_mag,
+                        f"{case} d={d} unaligned={unaligned} equal_keys={equal_keys}")
+
+
 def test_flash_fold_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     inputs = _fold_case(2, 8, 8, 16, "first", cuda, seed=1)
     before = FLASH_FOLD.launches
