@@ -62,9 +62,18 @@ runs 25 and 26 after 9, and 22–24 after 17):
                scaler flag combinations, the MLP alone): scaled bit-equal,
                probabilities within the fast tier's envelope, prediction
                equal where the plain top-two logits differ by more than a
-               margin; then CUDA-event times at 4096 × 256→512→512→8 of
-               kernel, plain version and the chain's three products as
-               ``torch.addmm`` (float32, TF32 off), with the operations bound;
+               margin; the rows of small batches (every grid row count,
+               at three offsets) bit-equal to the same rows inside a
+               4096-row batch, every network; the kernel's registers and
+               spills (ptxas -v) and its SASS's HGMMA and FFMA counts
+               (cuobjdump; HGMMA required and no wgmma serialized by ptxas:
+               the layers' products are wgmma in 3×TF32); then CUDA-event times at 4096 ×
+               256→512→512→8 of kernel, plain version and the chain's three
+               products as ``torch.addmm`` (float32, TF32 off), cold and
+               warm, and at the small batch sizes beside the same
+               ``addmm``, with the bound as 3×TF32 operations at the TF32
+               peak (the float32 bound beside it) and the share of the TF32
+               peak reached;
 11. serve_mlp — the MLP classifier trained and served: 100,000 rows × 256 of
                8 classes from a random teacher, StandardScaler fitted and
                applied on the card, MLPClassifier fitted at the published
@@ -378,7 +387,8 @@ MLP_ROWS, MLP_ITERS, MLP_BATCH, MLP_SEED = 100_000, 10, 4096, 3
 MLP_SERVE_SEED = MLP_SEED + 1  # new rows of the same population
 MLP_EPOCH_ITERS = (10, 60)  # the two iteration counts differenced for ms/epoch
 MLP_HOLDOUT_ROWS = 4096
-MLP_SMALL_ROWS = (2, 32, 256, 1024)  # warm times below the serving shape: one block per 32 rows
+MLP_SMALL_ROWS = (2, 32, 256, 1024)  # times below the serving shape: one 64-row tile on a cluster of 8 up to 64 rows
+MLP_EQUAL_OFFSETS = (0, 37, None)  # where a small batch's rows sit in the 4096-row one (None: its end)
 # The fit against its float64 twin. The first epoch's loss is the forward
 # pass at the shared initial weights: float32 rounding of 512-term sums
 # (~1e-7 relative) against bfloat16's 2^-9 per operand (the CPU read 9e-10
@@ -1747,6 +1757,49 @@ def _top_two_gap(layers, h):
     return top[:, 0] - top[:, 1]
 
 
+def _mlp_bound(rows, widths, ms):
+    """The bound of ``scale → mlp`` on ``rows`` rows of ``widths``: the three
+    products' operations (the scale, bias, relu and softmax add under 0.3%)
+    as 3×TF32 at the TF32 peak (``bound_ms``) and as float32 outside the
+    tensor cores (``bound_ms_f32``), against each input, output and weight
+    byte once; and the share of the TF32 peak that ``ms`` reaches."""
+    weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    ops = 2 * rows * weights
+    bytes_moved = 4 * (2 * rows * widths[0] + weights + sum(widths[1:]) + 2 * widths[0]
+                       + widths[-1] + rows * widths[-1] + rows)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * ops / TF32_OPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms_f32": max(bytes_ms, ops / F32_OPS_PER_S * 1e3),
+            "tf32_peak_share": 3 * ops / (ms * 1e-3) / TF32_OPS_PER_S}
+
+
+def _mlp_compiled(kernel):
+    """What the compiler made of the MLP kernel's source: the registers a
+    thread and the spill bytes of its entries and of every function they
+    call (ptxas -v), whether ptxas serialized any wgmma, and its SASS's
+    HGMMA (wgmma) and FFMA counts (cuobjdump; the FFMAs are the table's row
+    ops and the softmax, no product loop). Raises without HGMMA or if ptxas
+    serialized the wgmma; the spills are a reading."""
+    import re
+
+    res, sass = _built_sass(kernel)
+    spills = [(int(a), int(b)) for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", res.log)]
+    out = {
+        "source": kernel.source_path,
+        "registers": max((int(r) for r in re.findall(r"Used (\d+) registers", res.log)), default=None),
+        "spill_store_bytes": sum(a for a, _ in spills),
+        "spill_load_bytes": sum(b for _, b in spills),
+        "wgmma_serialized": "wgmma.mma_async instructions are serialized" in res.log,
+    }
+    out["hgmma"] = len(re.findall(r"\bHGMMA\.", sass))
+    out["ffma"] = len(re.findall(r"\bFFMA\b", sass))
+    if not out["hgmma"] or out["wgmma_serialized"]:
+        raise AssertionError(f"{kernel.name}: no HGMMA in its SASS, or its wgmma serialized: {out}")
+    return out
+
+
 def phase_kernels_mlp(rng, card: str):
     """The MLP megakernel on ("scale", "mlp") and ("mlp",) against its plain
     version over rows × networks × chains, then its times at the serving
@@ -1812,10 +1865,26 @@ def phase_kernels_mlp(rng, card: str):
                 max_abs_err = max(max_abs_err, max(float(e) for e in errs))
                 max_ulps = max(max_ulps, ulps)
                 checked += 1
+    # a row's outputs do not depend on the batch it came in (nor on the cluster size it got)
+    equal_checked = 0
+    for net, widths in networks.items():
+        x, mean, inv_std, layers, labels = _mlp_inputs(rng, MAX_BATCH, widths, dev)
+        kw = dict(with_mean=True, with_std=True, write_scaled=True)
+        _, big_pred, big_probs = scale_mlp(rowlocal_mlp, x, mean, inv_std, layers, labels, **kw)
+        for rows in MLP_CHECK_ROWS[:-1]:
+            for off in MLP_EQUAL_OFFSETS:
+                o = MAX_BATCH - rows if off is None else off
+                _, pred, probs = scale_mlp(rowlocal_mlp, x[o:o + rows].contiguous(), mean, inv_std, layers,
+                                           labels, **kw)
+                if not (torch.equal(pred, big_pred[o:o + rows]) and torch.equal(probs, big_probs[o:o + rows])):
+                    raise AssertionError(f"rows {o}..{o + rows} of net={net} differ from the same rows "
+                                         f"inside a {MAX_BATCH}-row batch")
+                equal_checked += 1
     emit("kernels_mlp", kernel=ROWLOCAL_MLP.name, configurations=checked, networks=
          {k: list(v) for k, v in networks.items()}, max_abs_err=max_abs_err,
          max_probability_ulps=max_ulps, probability_ulp_envelope=envelope, scaled="bit-equal",
-         prediction=f"equal where the plain top-two logit gap > {PREDICTION_MARGIN}")
+         prediction=f"equal where the plain top-two logit gap > {PREDICTION_MARGIN}",
+         rows_bit_equal_across_batches=equal_checked, compiled=_mlp_compiled(ROWLOCAL_MLP))
 
     rows, widths = MAX_BATCH, MLP_WIDTHS
     x, mean, inv_std, layers, labels = _mlp_inputs(rng, rows, widths, dev)
@@ -1855,18 +1924,18 @@ def phase_kernels_mlp(rng, card: str):
             for W, b in layers:
                 h = torch.addmm(b, h, W)
 
-        by_rows[r] = {"ms_l2_warm": _warm_time(kernel_r, 100),
-                      "library_ms_l2_warm": _warm_time(library_r, 100)}
-    weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    # the three products; the scale, bias, relu and softmax add under 0.3%
-    ops = 2 * rows * weights
-    bytes_moved = 4 * (2 * rows * widths[0] + weights + sum(widths[1:]) + 2 * widths[0]
-                       + widths[-1] + rows * widths[-1] + rows)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+        for fn in (kernel_r, library_r):
+            for _ in range(5):
+                fn()
+        # the wrapper's host work outlasts the flush at these sizes: the sleep holds the device
+        ms = _median(_cold_times(kernel_r, 25, flush, hold_cycles=4_000_000))
+        by_rows[r] = {"ms": ms, "ms_l2_warm": _warm_time(kernel_r, 100),
+                      "library_ms": _median(_cold_times(library_r, 25, flush, hold_cycles=4_000_000)),
+                      "library_ms_l2_warm": _warm_time(library_r, 100), **_mlp_bound(r, widths, ms)}
+    ms = _median(times["kernel"]["cold"])
     timing = {
         "shape": [rows, *widths],
-        "ms": _median(times["kernel"]["cold"]),
+        "ms": ms,
         "ms_l2_warm": _median(times["kernel"]["warm"]),
         "plain_ms": _median(times["plain"]["cold"]),
         "plain_ms_l2_warm": _median(times["plain"]["warm"]),
@@ -1874,10 +1943,7 @@ def phase_kernels_mlp(rng, card: str):
         "library_ms_l2_warm": _median(times["library"]["warm"]),
         "library": "three torch.addmm, float32, TF32 off: the chain's products only",
         "small_batches": by_rows,
-        "bytes": bytes_moved,
-        "ops": ops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **_mlp_bound(rows, widths, ms),
     }
     emit("kernels_mlp", kernel=ROWLOCAL_MLP.name, card=card, **timing)
     return {"max_abs_err": max_abs_err, **timing}
@@ -3431,17 +3497,28 @@ def _flash_extra_cases(gen, dev):
     return out
 
 
+def _built_sass(kernel):
+    """``kernel``'s build (its library and nvcc's log, with the ptxas -v
+    lines) and the SASS of its library (cuobjdump --dump-sass)."""
+    from pathlib import Path
+
+    from flink_ml_tpu_torch.native import _nvcc, build
+
+    res = build(kernel.source)
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(res.library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return res, sass
+
+
 def _fold_compiled(kernel):
     """What the compiler made of ``kernel``'s source: for each template
     width, the registers a thread and the spill stores and loads (ptxas -v),
     and the tensor-core instructions in its SASS (cuobjdump): HGMMA is
     wgmma, HMMA mma.sync. Raises unless every fold kernel holds HGMMA."""
     import re
-    from pathlib import Path
 
-    from flink_ml_tpu_torch.native import _nvcc, build
-
-    res = build(kernel.source)
+    res, sass = _built_sass(kernel)
     widths, current = {}, None
     for line in res.log.splitlines():
         hit = re.search(r"Compiling entry function '([^']*)'", line)
@@ -3457,9 +3534,6 @@ def _fold_compiled(kernel):
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             current["registers"] = int(regs.group(1))
-    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(res.library)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
         width = re.search(r"kernelILi(\d+)E", block.split("\n", 1)[0])
         if width and int(width.group(1)) in widths:
@@ -4716,13 +4790,21 @@ def _residue_specs(d_sparse, d_dense, mlp_widths, kmeans_d, rng):
     }
 
 
-def _chain_bound(x_bytes, out_bytes, model_bytes, ops):
+def _chain_bound(x_bytes, out_bytes, model_bytes, ops, tf32_products=0):
     """``{bytes, ops, bytes_ms, ops_ms, bound_ms, bound_by}`` of one call:
-    each input, output and model byte once; ``ops`` as counted by the caller."""
+    each input, output and model byte once; ``ops`` as counted by the
+    caller, of which ``tf32_products`` run on the tensor cores as 3×TF32
+    (three TF32 operations each at the TF32 peak; ``bound_ms_f32`` counts
+    them as float32 too)."""
     b = x_bytes + out_bytes + model_bytes
-    bytes_ms, ops_ms = b / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return {"bytes": b, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    f32_ops = ops - tf32_products
+    bytes_ms = b / HBM_BYTES_PER_S * 1e3
+    ops_ms = f32_ops / F32_OPS_PER_S * 1e3 + 3 * tf32_products / TF32_OPS_PER_S * 1e3
+    out = {"bytes": b, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if tf32_products:
+        out["bound_ms_f32"] = max(bytes_ms, ops / F32_OPS_PER_S * 1e3)
+    return out
 
 
 def phase_kernels_chains(rng, card: str):
@@ -5015,7 +5097,7 @@ def _time_chains(dev):
                                          rows * (3 * KMEANS_D + 1 + 2 * KMEANS_K * KMEANS_D + 4 * KMEANS_K)),
         # x in, normalized, prediction and probabilities out, the weights; the products dominate
         "normalize_mlp": _chain_bound(4 * rows * widths[0], 4 * rows * (widths[0] + 1 + widths[-1]),
-                                      mlp_weights, mlp_products + rows * (3 * widths[0] + 1)),
+                                      mlp_weights, mlp_products + rows * (3 * widths[0] + 1), mlp_products),
         # values and ids in, tfidf out, one idf value gathered a slot; one multiply a slot
         "sparse_idf": _chain_bound(8 * rows * cap, 4 * rows * cap, 4 * rows * cap, rows * cap),
         # values and ids of every slot, the dense column in; tf-idf of every slot, prediction,
@@ -5029,7 +5111,8 @@ def _time_chains(dev):
         # normalize_mlp's, and the binarized probabilities out (one compare an element)
         "normalize_mlp_binarize": _chain_bound(4 * rows * widths[0],
                                                4 * rows * (widths[0] + 1 + 2 * widths[-1]), mlp_weights,
-                                               mlp_products + rows * (3 * widths[0] + 1 + widths[-1])),
+                                               mlp_products + rows * (3 * widths[0] + 1 + widths[-1]),
+                                               mlp_products),
         # x in, the index and its binarize out, the centroids; the head's 3·k·d (|h|^2 aside, the
         # dots and norms) + 4·k a row, one compare
         "kmeans_binarize": _chain_bound(4 * rows * KMEANS_D, 8 * rows, 4 * KMEANS_K * KMEANS_D,

@@ -421,7 +421,8 @@ def _top_two_gap(layers, scaled):
     return top[:, 0] - top[:, 1]
 
 
-@pytest.mark.parametrize("rows", (1, 2, 33, 4096))
+# row counts across the 64-row tile and the cluster sizes the kernel picks
+@pytest.mark.parametrize("rows", (1, 2, 33, 63, 64, 65, 4096, 4097))
 @pytest.mark.parametrize("net", sorted(MLP_NETWORKS))
 @pytest.mark.parametrize("with_mean,with_std,write_scaled", CHAINS)
 def test_mlp_kernel_matches_plain_version(cuda, rows, net, with_mean, with_std, write_scaled):
@@ -459,6 +460,113 @@ def test_mlp_kernel_takes_the_first_maximal_logit_and_nan_as_the_maximum(cuda):
     _, p_pred, p_probs = _mlp_head_plain([x], [], 0, layers, labels)
     assert pred.tolist() == p_pred.tolist() == [20.0, 10.0, 10.0]
     assert torch.isnan(probs[1]).all() and torch.isnan(p_probs[1]).all()
+
+
+@pytest.mark.parametrize("net", sorted(MLP_NETWORKS))
+def test_mlp_kernel_rows_do_not_depend_on_the_batch(cuda, net):
+    """A row's outputs are the same bits in a batch of one, of a few, or
+    inside 4096 rows: every column is summed by the same products in the
+    same order whichever cluster size the batch gets."""
+    x, mean, inv_std, layers, labels = _mlp_inputs(4096, MLP_NETWORKS[net], cuda, seed=5)
+    ops = [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True})]
+    (big_scaled,), big_pred, big_probs = _mlp_head([x], ops, 1, layers, labels)
+    for rows in (1, 7, 64, 65, 1000):
+        for off in (0, 37, 4096 - rows):
+            (scaled,), pred, probs = _mlp_head([x[off:off + rows].contiguous()], ops, 1, layers, labels)
+            torch.cuda.synchronize()
+            assert torch.equal(scaled, big_scaled[off:off + rows])
+            assert torch.equal(pred, big_pred[off:off + rows]), (net, rows, off)
+            assert torch.equal(probs, big_probs[off:off + rows]), (net, rows, off)
+
+
+def _nearest_two_apart(x, centroids, margin=1e-4):
+    """Rows whose two nearest centroids (float64, euclidean) are more than
+    ``margin`` apart."""
+    d = torch.cdist(x.double(), centroids.double())
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0] > margin).cpu().numpy()
+
+
+def test_mlp_kernel_takes_a_kmeans_prologue_at_the_norm_limit(cuda):
+    """Kmeans ops before the head holding MLP_MAX_NORM_FLOATS centroids in
+    all: their norms take 64 KB of shared memory, and the kernel runs with
+    the fewest weight stages beside them."""
+    from flink_ml_tpu_torch.servable.megakernels import KMEANS_MAX_K, MLP_MAX_NORM_FLOATS
+
+    rows, d = 203, 8
+    widths = [d, 512, 512, 8]
+    x, mean, inv_std, layers, labels = _mlp_inputs(rows, widths, cuda, seed=8)
+    rng = np.random.default_rng(8)
+    n_ops = MLP_MAX_NORM_FLOATS // KMEANS_MAX_K
+    centroids = [torch.from_numpy(rng.normal(size=(KMEANS_MAX_K, d)).astype(np.float32)).to(cuda)
+                 for _ in range(n_ops)]
+    ops = [RowLocalOp("kmeans", 0, c, params={"measure": "euclidean"}) for c in centroids]
+    outs, pred, probs = _mlp_head([x], ops, 0, layers, labels)
+    p_outs, p_pred, p_probs = _mlp_head_plain([x], ops, 0, layers, labels)
+    torch.cuda.synchronize()
+    assert sum(int(c.shape[0]) for c in centroids) == MLP_MAX_NORM_FLOATS
+    for c, got, want in zip(centroids, outs, p_outs):
+        decided = _nearest_two_apart(x, c)
+        np.testing.assert_array_equal(got.cpu().numpy()[decided], want.cpu().numpy()[decided])
+    assert ulp_diff(probs.cpu().numpy(), p_probs.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"]
+    decided = (_top_two_gap(layers, x) > MLP_PREDICTION_MARGIN).cpu().numpy()
+    np.testing.assert_array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided])
+
+
+def test_mlp_kernel_runs_four_heads_with_ops_between_them(cuda):
+    """scale → mlp → normalize → mlp → binarize (of the second head's
+    probabilities) → mlp → product → mlp: four networks of other widths in
+    one table, each head's outputs against the plain table."""
+    d = 16
+    x, mean, inv_std, _, _ = _mlp_inputs(300, [d, 4], cuda, seed=9)
+    nets = [[d, 512, 512, 8], [d, 100, 3], [d, 64, 64, 32], [d] + [128] * 7 + [5]]
+    heads = [_mlp_inputs(1, w, cuda, seed=10 + i)[3:] for i, w in enumerate(nets)]
+    scaling = torch.from_numpy(np.random.default_rng(11).normal(size=d).astype(np.float32)).to(cuda)
+    threshold = 0.3
+    ops = [RowLocalOp("scale", 0, mean, inv_std, {"with_mean": True, "with_std": True}),  # slot 1
+           RowLocalOp("mlp", 1, heads[0][1], layers=heads[0][0]),  # slots 2, 3
+           RowLocalOp("normalize", 0, params={"p": 2.0}),  # slot 4
+           RowLocalOp("mlp", 4, heads[1][1], layers=heads[1][0]),  # slots 5, 6
+           RowLocalOp("binarize", 6, params={"threshold": threshold}),  # slot 7
+           RowLocalOp("mlp", 1, heads[2][1], layers=heads[2][0]),  # slots 8, 9
+           RowLocalOp("elementwise_product", 0, scaling),  # slot 10
+           RowLocalOp("mlp", 10, heads[3][1], layers=heads[3][0])]  # slots 11, 12
+    assert sum(op.op == "mlp" for op in ops) == MLP_MAX_HEADS
+    before = ROWLOCAL_MLP.launches
+    got = rowlocal_mlp([x], ops)
+    want = rowlocal_mlp_plain([x], ops)
+    torch.cuda.synchronize()
+    assert ROWLOCAL_MLP.launches == before + 1
+    slots = [x] + want
+    assert torch.equal(got[0], want[0])  # the scale
+    assert ulp_diff(got[3].cpu().numpy(), want[3].cpu().numpy()) <= ULP_ENVELOPE["feature6"]  # normalize
+    for (layers, _), src, pred_slot in zip(heads, (1, 4, 1, 10), (2, 5, 8, 11)):
+        g_pred, g_probs = got[pred_slot - 1], got[pred_slot]
+        w_pred, w_probs = want[pred_slot - 1], want[pred_slot]
+        assert ulp_diff(g_probs.cpu().numpy(), w_probs.cpu().numpy()) <= ULP_ENVELOPE["scale_mlp"], pred_slot
+        decided = (_top_two_gap(layers, slots[src]) > MLP_PREDICTION_MARGIN).cpu().numpy()
+        np.testing.assert_array_equal(g_pred.cpu().numpy()[decided], w_pred.cpu().numpy()[decided])
+    far = (want[5] - threshold).abs().cpu().numpy() > 1e-5
+    np.testing.assert_array_equal(got[6].cpu().numpy()[far], want[6].cpu().numpy()[far])
+
+
+def test_mlp_kernel_refused_launch_raises_and_counts_nothing(cuda):
+    """The C entry refuses a table whose head count does not match its
+    networks (here none): the wrapper's launch raises with the CUDA error
+    and the count stays."""
+    import ctypes
+
+    from flink_ml_tpu_torch.servable.megakernels import _table
+
+    x, mean, inv_std, layers, labels = _mlp_inputs(8, [16, 32, 3], cuda)
+    t = _table([x], [RowLocalOp("mlp", 0, labels, layers=layers)], ROWLOCAL_MLP)
+    weights, biases, widths, n_layers = t.nets
+    before = ROWLOCAL_MLP.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ROWLOCAL_MLP.launch(ctypes.addressof(t.ops), 1, ctypes.addressof(t.slots), len(t.tensors),
+                            ctypes.addressof(weights), ctypes.addressof(biases), ctypes.addressof(widths),
+                            ctypes.addressof(n_layers), 0, t.rows, torch.cuda.current_stream(cuda).cuda_stream)
+    assert ROWLOCAL_MLP.launches == before
 
 
 def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -1,7 +1,9 @@
-"""Two trees of the port, in turns on one card: the ring-attention fold and
-its backward kernels, and the attention paths that run them —
-``chip_smoke.py``'s ``kernels_flash``, ``serve_attention``,
-``kernels_flash_bwd`` and ``fit_attention`` of each.
+"""Two trees of the port, in turns on one card: phases of ``chip_smoke.py``
+of each tree — by default the ring-attention fold and its backward kernels
+and the attention paths that run them (``kernels_flash``,
+``serve_attention``, ``kernels_flash_bwd``, ``fit_attention``), or the
+phases named with ``--phases``, for example the MLP megakernel and its paths
+(``kernels_mlp``, ``serve_mlp``, ``pipeline_mlp``, ``kernels_chains``).
 
 Each run is a fresh process started in the tree's own root, so it builds and
 imports that tree's ``flink_ml_tpu_torch`` and calls that tree's
@@ -12,13 +14,21 @@ into a directory that ``.gitignore`` lists, for example::
     git archive <parent> | tar -x -C build/parent
     python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
         --out build/flash_turns.jsonl
+    python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
+        --phases kernels_mlp,serve_mlp,pipeline_mlp,kernels_chains --out build/mlp_turns.jsonl
 
 Every JSON line the phases print is kept in ``--out``, tagged with the tree
-and the run; the last line of standard output is a summary per run: the
-fold's time, SDPA's float32 forward and the fold's share of the TF32 peak;
-dq, dkv, their sum with the divide's backward and SDPA's float32 backward
-(cold medians, causal and not); the served documents' ms each; the fit's
-ms per step and device idle share. Needs one card.
+and the run; the last line of standard output is a summary per run. For the
+attention phases: the fold's time, SDPA's float32 forward and the fold's
+share of the TF32 peak; dq, dkv, their sum with the divide's backward and
+SDPA's float32 backward (cold medians, causal and not); the served
+documents' ms each; the fit's ms per step and device idle share. For the
+MLP phases: the MLP kernel's registers, spills and SASS counts (HGMMA,
+FFMA) as each tree's build gives them; its cold and warm times at the
+serving shape and at the small batch sizes beside three ``torch.addmm``,
+its bound and TF32 peak share; serve_mlp's and pipeline_mlp's p50 and p99;
+kernels_chains' normalize → mlp and normalize → mlp → binarize. Needs one
+card.
 """
 import argparse
 import json
@@ -27,41 +37,88 @@ import sys
 import time
 from pathlib import Path
 
-RUN = r"""
-import sys
+ATTENTION = ("kernels_flash", "serve_attention", "kernels_flash_bwd", "fit_attention")
+#: each phase's call; the kernels phases take the seeded generator first
+CALLS = {
+    "kernels_flash": "c.phase_kernels_flash(np.random.default_rng(c.SEED), card)",
+    "serve_attention": "c.phase_serve_attention(card)",
+    "kernels_flash_bwd": "c.phase_kernels_flash_bwd(np.random.default_rng(c.SEED), card)",
+    "fit_attention": "c.phase_fit_attention(card)",
+    "kernels_mlp": "c.phase_kernels_mlp(np.random.default_rng(c.SEED), card)",
+    "serve_mlp": "c.phase_serve_mlp(card)",
+    "pipeline_mlp": "c.phase_pipeline_mlp(card)",
+    "kernels_chains": "c.phase_kernels_chains(np.random.default_rng(c.SEED), card)",
+}
+
+HEAD = r"""
+import json, re, subprocess, sys
+from pathlib import Path
 sys.path.insert(0, ".")
 import numpy as np
 import chip_smoke as c
 from flink_ml_tpu_torch.parallel import FLASH_FOLD  # noqa: F401 (registers the fold's kernels)
+import flink_ml_tpu_torch.servable.megakernels as mk  # registers the serving megakernels
 card = c.nvidia_smi_line()
-c.phase_kernels_flash(np.random.default_rng(c.SEED), card)
-c.phase_serve_attention(card)
-c.phase_kernels_flash_bwd(np.random.default_rng(c.SEED), card)
-c.phase_fit_attention(card)
 """
+
+# What the tree's compiler makes of its MLP kernel source (either tree: only
+# the package's build module and cuobjdump), before the phases run.
+MLP_SASS = r"""
+from flink_ml_tpu_torch.native import _nvcc, build
+res = build(mk.ROWLOCAL_MLP.source)
+sass = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "--dump-sass", str(res.library)],
+                      capture_output=True, text=True, timeout=300, check=True).stdout
+spills = [(int(a), int(b)) for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", res.log)]
+print(json.dumps({"phase": "mlp_sass", "registers": [int(r) for r in re.findall(r"Used (\d+) registers", res.log)],
+                  "spill_store_bytes": sum(a for a, _ in spills), "spill_load_bytes": sum(b for _, b in spills),
+                  "hgmma": len(re.findall(r"\bHGMMA\.", sass)), "ffma": len(re.findall(r"\bFFMA\b", sass)),
+                  "wgmma_serialized": "wgmma.mma_async instructions are serialized" in res.log}), flush=True)
+"""
+
+
+def _run_script(phases):
+    body = HEAD + (MLP_SASS if "kernels_mlp" in phases else "")
+    return body + "".join(CALLS[p] + "\n" for p in phases)
+
+
+def _pick(d, keys):
+    return {k: d.get(k) for k in keys}
 
 
 def _summary(lines):
     out = {}
     for line in lines:
-        if line.get("phase") == "kernels_flash" and "by_mask" in line:
+        phase = line.get("phase")
+        if phase == "kernels_flash" and "by_mask" in line:
             for mask, t in line["by_mask"].items():
                 # a parent tree's line may lack what a later tree adds
-                out[f"fold_{mask}"] = {k: t.get(k) for k in ("ms", "ms_l2_warm", "ms_with_normalize", "library_ms",
-                                                             "plain_ms", "bound_ms", "tf32_peak_share")}
-        if line.get("phase") == "serve_attention" and "ms_per_doc_8x8192" in line:
+                out[f"fold_{mask}"] = _pick(t, ("ms", "ms_l2_warm", "ms_with_normalize", "library_ms",
+                                                "plain_ms", "bound_ms", "tf32_peak_share"))
+        if phase == "serve_attention" and "ms_per_doc_8x8192" in line:
             out["serve_ms_per_doc"] = line["ms_per_doc_8x8192"]
             out["serve_fold_share"] = line["fold_share_of_device_time"]
             out["serve_idle_share"] = line["device_idle_share"]
-        if line.get("phase") == "kernels_flash_bwd" and "by_mask" in line:
+        if phase == "kernels_flash_bwd" and "by_mask" in line:
             for mask, t in line["by_mask"].items():
                 out[mask] = {"dq_ms": t["dq"]["ms"], "dkv_ms": t["dkv"]["ms"],
                              "kernels_with_divide_ms": t["kernels_with_divide_ms"],
                              "library_ms": t["library_ms"], "plain_ms": t["plain_ms"]}
-        if line.get("phase") == "fit_attention" and "ms_per_step" in line:
+        if phase == "fit_attention" and "ms_per_step" in line:
             out["fit_ms_per_step"] = line["ms_per_step"]
             out["fit_idle_share"] = line["device_idle_share"]
             out["fit_shares"] = {k: line[f"{k}_share_of_device_time"] for k in ("fold", "dq", "dkv")}
+        if phase == "mlp_sass":
+            out["mlp_compiled"] = {k: v for k, v in line.items() if k != "phase"}
+        if phase == "kernels_mlp" and "ms" in line:
+            out["mlp"] = _pick(line, ("ms", "ms_l2_warm", "plain_ms", "library_ms", "library_ms_l2_warm",
+                                      "bound_ms", "bound_ms_f32", "tf32_peak_share", "small_batches"))
+        if phase in ("serve_mlp", "pipeline_mlp"):
+            served = line.get("serve", line)
+            if "p50_ms" in served:
+                out[phase] = _pick(served, ("p50_ms", "p99_ms", "rows_per_s", "hot_batch_breakdown_ms"))
+        if phase == "kernels_chains" and "timing" in line:
+            for name in ("normalize_mlp", "normalize_mlp_binarize"):
+                out[name] = _pick(line["timing"][name], ("ms", "ms_l2_warm", "plain_ms", "bound_ms"))
     return out
 
 
@@ -70,18 +127,25 @@ def main() -> int:
     ap.add_argument("--tree", action="append", required=True, metavar="NAME=PATH",
                     help="a tree to run (twice: A and B)")
     ap.add_argument("--out", type=Path, required=True, help="JSON lines of every phase, tagged")
+    ap.add_argument("--phases", default=",".join(ATTENTION),
+                    help=f"chip_smoke phases to run, comma-separated, of {sorted(CALLS)}")
     args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(CALLS))
+    if unknown or not phases:
+        ap.error(f"unknown phases {unknown}; choose from {sorted(CALLS)}")
     trees = [tuple(t.split("=", 1)) for t in args.tree]
     if len(trees) != 2:
         ap.error("give exactly two trees")
     (a, a_path), (b, b_path) = trees
     order = [(a, a_path), (b, b_path), (b, b_path), (a, a_path)]
+    script = _run_script(phases)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     summary = []
     with args.out.open("w") as sink:
         for i, (name, path) in enumerate(order):
             t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", RUN], cwd=path, capture_output=True, text=True)
+            proc = subprocess.run([sys.executable, "-c", script], cwd=path, capture_output=True, text=True)
             if proc.returncode:
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
                 raise SystemExit(f"run {i} ({name}) failed with exit code {proc.returncode}")
