@@ -1102,10 +1102,40 @@ def phase_train(card: str, headline):
     }
 
 
+def _premat_compiled():
+    """Registers a thread and spill bytes of the premat crossings' kernels
+    (ptxas -v of their source's build): the dot's gather-and-accumulate
+    kernel and the mult's kernel on 16-byte rows (row_hi a multiple of 8, at
+    most 128) and on 2-byte rows."""
+    import re
+
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.native import build
+
+    log = build(O.DOT_CROSSING_PREMAT.source).log
+    names = {"dot_premat_partial_kernel": "dot", "mult_premat_kernelILb1E": "mult_16_byte_rows",
+             "mult_premat_kernelILb0E": "mult_2_byte_rows"}
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        fn = chunk.split("'", 1)[0]
+        for frag, label in names.items():
+            if frag in fn:
+                regs = re.search(r"Used (\d+) registers", chunk)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+                out[label] = {"registers": int(regs.group(1)) if regs else None,
+                              "spill_store_bytes": int(spill.group(1)) if spill else None,
+                              "spill_load_bytes": int(spill.group(2)) if spill else None}
+    if sorted(out) != sorted(names.values()):
+        raise AssertionError(f"ptxas lines of the premat kernels not found: {sorted(out)}")
+    return out
+
+
 def phase_crossings_headline(cache, card: str):
     """The crossings at the headline unit shape (window 0 of the real
     layout): checks, then L2-cold and warm times of kernel, plain version
-    and one library call, and the bound."""
+    and one library call, the bound, the bytes a second each kernel's time
+    gives and their share of HBM's 3.35 TB/s, the premat kernels' ptxas
+    registers and spills, and the dot's route."""
     import numpy as np
     import torch
 
@@ -1204,8 +1234,18 @@ def phase_crossings_headline(cache, card: str):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
+        # the bytes the bound counts, over the kernel's cold and warm times
+        for key, ms in (("", out[name]["ms"]), ("_l2_warm", out[name]["ms_l2_warm"])):
+            out[name][f"bytes_per_s{key}"] = nbytes / (ms / 1e3)
+            out[name][f"hbm_peak_share{key}"] = nbytes / (ms / 1e3) / HBM_BYTES_PER_S
     emit("crossings", card=card, shape={"n_sub": n_sub, "n": n, "n_pad": n_pad, "row_hi": row_hi,
-                                        "live_entries": live}, timing=out)
+                                        "live_entries": live}, timing=out,
+         premat_compiled=_premat_compiled(),
+         # the premat dot reads the rows of live entries only (q != 0): live
+         # (row_hi + 128) * 2 bytes of the n_pad slots' one-hot rows
+         premat_dot_route={"route": "live-only gather", "dot_chunk": O.DOT_CHUNK,
+                           "row_bytes_read": 2 * live * (row_hi + 128),
+                           "row_bytes_all_slots": 2 * n_sub * n_pad * (row_hi + 128)})
     return out
 
 

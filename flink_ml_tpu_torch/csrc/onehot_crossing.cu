@@ -15,16 +15,17 @@
 // These kernels compute the same functions. Values are f32, one-hots bf16
 // (read as raw 16-bit words: bf16 -> f32 is a 16-bit shift).
 //
-// Determinism (no atomics anywhere) and the identity of the two forms:
-// both dot kernels sum each output's terms in ascending entry order within
-// fixed chunks of `chunk` entries, one f32 accumulator per half, the halves
-// added at the chunk's end (as the Pallas kernel adds its two matmuls per
-// tile), and the chunk sums in ascending chunk order from 0. The build form
-// walks a row-sorted entry list (row_ptr / entry_of, built once per layout);
-// the premat form walks the one-hots and skips zero terms, which would add
-// only +-0 to a sum that is never -0. So the two give the same bits. Every
-// add and multiply is an explicit __fadd_rn / __fmul_rn: nothing is
-// contracted into an FMA, and products of two bf16 values are exact in f32.
+// Determinism (no atomics on a float anywhere) and the identity of the two
+// forms: both dot kernels sum each output's terms in ascending entry order
+// within fixed chunks of `chunk` entries, one f32 accumulator per half, the
+// halves added at the chunk's end (as the Pallas kernel adds its two
+// matmuls per tile), and the chunk sums in ascending chunk order from 0. The
+// build form walks a row-sorted entry list (row_ptr / entry_of, built once
+// per layout); the premat form walks the one-hots and skips zero terms,
+// which would add only +-0 to a sum that is never -0. So the two give the
+// same bits. Every add and multiply is an explicit __fadd_rn / __fmul_rn:
+// nothing is contracted into an FMA, and products of two bf16 values are
+// exact in f32.
 //
 // Bounds on the H100 at the headline unit shape (n_sub 4, row_hi 128,
 // ~1.1 M entries per sub-batch):
@@ -35,42 +36,68 @@
 //   (256 KB) from L2: ~26 MB. One thread per entry.
 // - premat dot: bytes. q at every slot and the one-hot rows of live entries,
 //   (row_hi + 128) * 2 B each (padding slots carry q = 0 and add nothing):
-//   ~1.3 GB, ~0.40 ms. This kernel streams every slot's rows, ~2.2 GB, and
-//   skips only the padding's arithmetic. One block per (sub-batch, chunk)
-//   keeps the chunk's 2 x row_hi x 128 f32 accumulators in shared memory
-//   (128 KB at row_hi
-//   128); 256 threads own one (half, l) column each, so every output is
-//   updated by one thread in entry order. Tiles of kTile entries are staged
-//   in shared memory with 16-byte loads (the next tile's loads in flight
-//   while the current one is summed). As the words are stored, each oh_lo
-//   column gets the bit mask of its nonzero entries, so a thread visits
-//   only its own entries, in order, and a one-hot entry costs one update;
-//   entries with q = 0 (the layout's padding slots, which all sit on row 0)
-//   cost nothing. A second small kernel adds the chunk partials in order.
-//   The one-hots are read once.
-// - premat mult: bytes, the same ~2.2 GB. One warp per entry reads the
-//   entry's two one-hot rows with coalesced loads; for each nonzero oh_lo
-//   column the warp sums oh_hi against mult3's column (from L2) and reduces
-//   with shuffles. With one-hot rows every sum has one nonzero term, so u is
-//   float(bf16(m)) + float(bf16(m - bf16(m))) exactly, as in the build form.
+//   ~1.3 GB, ~0.40 ms. The kernel reads just that. A persistent block per
+//   SM walks its work units (sub-batch, chunk, h-group) as tasks of 32
+//   slots. Each of kGatherWarps gather warps takes a task, ballots its q
+//   (loaded a task ahead) for the live entries and loads their two rows
+//   as 16-byte words, kBatch entries in flight at a time: lanes 0-15 hold
+//   the oh_hi row's words, lanes 16-31 the oh_lo row's, so one branch-free
+//   scan and two ballots give each row's count of nonzeros (0, 1, several)
+//   and its nonzero's column and value. A lane per live entry then writes
+//   the task's records, in slot order, to a ring in shared memory handed
+//   over by mbarriers: a simple entry (one nonzero in each row) becomes
+//   (row, a * bf16(v * q_hi), a * bf16(v * q_lo)); any other is general.
+//   One accumulator warp applies the tasks in order to the unit's
+//   2 x hw x 128 f32 accumulators in shared memory (128 KB at row_hi 128):
+//   one read-modify-write pair a simple entry, __match_any_sync ordering
+//   the entries of a task that share a row, a general entry's every
+//   nonzero pair (its rows read again) at its own place in that order. At
+//   a unit's end it writes the halves' sum to the unit's chunk partial and
+//   clears the accumulators; a second small kernel adds the chunk partials
+//   in order. (A loader warp that staged the live rows into a cp.async or
+//   bulk-copy ring for decoder warps was slower: that one warp's chain of
+//   dependent steps an entry, not the copies, bounded it.)
+// - premat mult: bytes. Every slot's two rows are read (a padding slot's
+//   output is defined by its rows), u written, mult3 once: ~2.3 GB,
+//   ~0.68 ms. Each block holds its sub-batch's mult3 in shared memory,
+//   split once into packed bf16 (hi, lo); each warp takes kMultUnroll
+//   consecutive entries at a time, loads all their rows as 16-byte words
+//   (lanes 0-15 oh_hi, 16-31 oh_lo, none waiting on another load) while
+//   the previous group is decoded, and finds (h, l) as the dot does. A
+//   simple entry's output is (a * m_hi + a * m_lo) * v, rounded as the
+//   plain version rounds it; a general one sums its terms in a stated order.
 // The premat kernels take the whole [n_win, n_sub, n_pad, w] stacks and the
-// window index wi and offset their pointers: no window is copied.
+// window index wi and offset their pointers: no window is copied. An oh_hi
+// row whose width is not a multiple of 8 (no 16-byte words) is read with
+// 2-byte loads instead; so is any row of the mult past 128 columns.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "tf32_mma.cuh"  // the mbarrier hand-over
+
 namespace {
 
 constexpr int kRowLo = 128;
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-constexpr int kTile = 64;     // entries staged in shared memory at a time (premat dot)
-constexpr int kHGroup = 128;  // row_hi rows per premat-dot block (accumulators <= 128 KB)
-// 16-byte one-hot words each thread stages per tile: kTile rows of 128
-// oh_lo columns (and at most kHGroup oh_hi columns) over kThreads threads.
-constexpr int kWordsPerThread = kTile * (kRowLo / 8) / kThreads;
+constexpr int kHGroup = 128;  // row_hi rows per premat-dot unit (accumulators <= 128 KB)
+constexpr unsigned kFull = 0xffffffffu;
+
+// Premat dot: the block's warps and its record ring.
+constexpr int kGatherWarps = 16;  // each gathers and decodes 32-slot groups of entries
+constexpr int kDotThreads = (kGatherWarps + 1) * kWarp;  // and the accumulator warp, the last
+constexpr int kBatch = 8;   // live entries whose rows a gather warp has in flight (4 KB)
+constexpr int kTasks = 32;  // record ring: decoded groups between the gatherers and the accumulator
+// A record's key: the row (h - h0) * 128 + l of a simple entry, or one of
+constexpr int kSkip = -1;     // the entry adds nothing (a row without a nonzero)
+constexpr int kGeneral = -2;  // several nonzeros: every pair, in the slow path
+
+// Premat mult.
+constexpr int kMultThreads = 256;
+constexpr int kMultUnroll = 4;  // entries a warp has in flight (2 KB), beside the next group's
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -137,176 +164,324 @@ mult_crossing_kernel(const float* __restrict__ mult3, const int16_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// Premat dot, pass 1: chunk partials. Block (chunk c, sub s, h-group g).
+// Decoding a one-hot row a warp at a time
 // ---------------------------------------------------------------------------
 
-// What a staged tile holds, found while its words are stored: for each
-// oh_lo column the bit mask of the entries with a nonzero there (its thread
-// walks them in ascending entry order), and per entry the count of nonzero
-// oh_hi columns and the first one, so a one-hot entry costs one update.
-struct TileIndex {
-  unsigned long long col_mask[kRowLo];
-  int hi_cnt[kTile];
-  int hi_first[kTile];
-};
+// Bit 15 (31) set where the low (high) bf16 of x is nonzero: each 15-bit
+// magnitude plus 0x7fff carries into its half's top bit unless it is 0, and
+// never past it. A -0 counts as zero, as the plain version's products with
+// it add nothing.
+__device__ __forceinline__ uint32_t nonzero_halves(uint32_t x) {
+  return ((x & 0x7fff7fffu) + 0x7fff7fffu) & 0x80008000u;
+}
 
-// Records the nonzeros among the 8 bf16 values of `w` (columns col0 ..
-// col0 + 7 of entry j's row). Shared-memory integer atomics: the masks and
-// counts do not depend on their order.
-__device__ __forceinline__ void note_nonzeros(const uint4& w, int j, int col0, int width,
-                                              bool is_lo, TileIndex* ix) {
-  if ((w.x | w.y | w.z | w.w) == 0u) return;
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-  int cnt = 0, first = width;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint16_t bits = static_cast<uint16_t>(words[k / 2] >> (16 * (k % 2)));
-    if (col0 + k < width && bf16_word(bits) != 0.0f) {
-      if (is_lo) atomicOr(&ix->col_mask[col0 + k], 1ull << j);
-      first = min(first, col0 + k);
-      ++cnt;
-    }
-  }
-  if (cnt && !is_lo) {
-    atomicAdd(&ix->hi_cnt[j], cnt);
-    atomicMin(&ix->hi_first[j], first);
+// The nonzeros among the 8 bf16 values of w (columns pos0 .. pos0 + 7): how
+// many, and one of them as (column << 16 | bits), ~0u when there is none
+// (the only one when there is one). Branch-free, so a warp whose lanes hold
+// words of two rows scans them all in one pass.
+__device__ __forceinline__ void scan_word(const uint4& w, int pos0, int& cnt, unsigned& key) {
+  // one bit a nonzero value: word i's low half at bit 2i, its high half at 2i + 16
+  const uint32_t p = (nonzero_halves(w.x) >> 15) | (nonzero_halves(w.y) >> 13) |
+                     (nonzero_halves(w.z) >> 11) | (nonzero_halves(w.w) >> 9);
+  cnt += __popc(p);
+  const int b = p ? __ffs(p) - 1 : 0;
+  const int wi = (b & 15) >> 1, half = b >> 4;
+  const uint32_t x = wi & 2 ? (wi & 1 ? w.w : w.z) : (wi & 1 ? w.y : w.x);
+  const unsigned found = (static_cast<unsigned>(pos0 + 2 * wi + half) << 16) | ((x >> (16 * half)) & 0xffffu);
+  key = min(key, p ? found : ~0u);
+}
+
+// The same for one value at column pos.
+__device__ __forceinline__ void scan_value(uint16_t bits, int pos, int& cnt, unsigned& key) {
+  if (bits & 0x7fffu) {
+    ++cnt;
+    key = min(key, (static_cast<unsigned>(pos) << 16) | bits);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A warp's view of one entry, from every lane's share: for each row, none,
+// one or several nonzeros (0, 1, 2), and the key of the lowest lane holding
+// a nonzero, which is the row's only nonzero when it has one. Ballots and
+// shuffles, no reduction instructions.
+struct Decoded {
+  int hi_cnt, lo_cnt;
+  unsigned hi_key, lo_key;
+};
+
+__device__ __forceinline__ int nonzeros(unsigned any, unsigned several) {
+  return any == 0u ? 0 : (several == 0u && (any & (any - 1u)) == 0u) ? 1 : 2;
+}
+
+// Each lane's share of both rows (any lanes: the 2-byte path).
+__device__ __forceinline__ Decoded warp_decode(int hc, unsigned hk, int lc, unsigned lk) {
+  const unsigned hn = __ballot_sync(kFull, hc > 0), hm = __ballot_sync(kFull, hc > 1);
+  const unsigned ln = __ballot_sync(kFull, lc > 0), lm = __ballot_sync(kFull, lc > 1);
+  return {nonzeros(hn, hm), nonzeros(ln, lm), __shfl_sync(kFull, hk, hn ? __ffs(hn) - 1 : 0),
+          __shfl_sync(kFull, lk, ln ? __ffs(ln) - 1 : 0)};
+}
+
+// Lanes 0-15 hold the oh_hi row's words, lanes 16-31 the oh_lo row's (the
+// 16-byte path): two ballots cover both rows.
+__device__ __forceinline__ Decoded warp_decode_words(int cnt, unsigned key) {
+  const unsigned any = __ballot_sync(kFull, cnt > 0), several = __ballot_sync(kFull, cnt > 1);
+  const unsigned hn = any & 0xffffu, ln = any >> 16;
+  return {nonzeros(hn, several & 0xffffu), nonzeros(ln, several >> 16),
+          __shfl_sync(kFull, key, hn ? __ffs(hn) - 1 : 0), __shfl_sync(kFull, key, ln ? __ffs(ln) + 15 : 16)};
+}
+
+__device__ __forceinline__ int key_col(unsigned key) { return static_cast<int>(key >> 16); }
+__device__ __forceinline__ float key_val(unsigned key) { return bf16_word(static_cast<uint16_t>(key)); }
+
+// ---------------------------------------------------------------------------
+// Premat dot, pass 1: chunk partials. Persistent blocks, each over its work
+// units (sub-batch s, chunk c, h-group g) u = blockIdx.x + i * gridDim.x.
+// ---------------------------------------------------------------------------
+
+struct Record {  // one decoded entry
+  int key;       // (h - h0) * 128 + l, kSkip or kGeneral
+  float th, tl;  // a * bf16(v * q_hi), a * bf16(v * q_lo); a general entry: q_hi, q_lo
+  int entry;     // its slot in the sub-batch (the general path reads its rows again)
+};
+
+struct GroupRecords {  // the live entries of one 32-slot group, in slot order
+  int count, pad[3];
+  Record rec[kWarp];
+};
+
+struct DotUnit {
+  int s, c, h0, hw;
+};
+
+struct DotShape {
+  int n, n_pad, row_hi, chunk, n_chunks, n_units;
+};
+
+__device__ __forceinline__ DotUnit dot_unit(int u, const DotShape& sh) {
+  const int n_groups = (sh.row_hi + kHGroup - 1) / kHGroup;
+  const int g = u % n_groups, t = u / n_groups;
+  return {t / sh.n_chunks, t % sh.n_chunks, g * kHGroup, min(kHGroup, sh.row_hi - g * kHGroup)};
+}
+
+// The block's tasks: the 32-slot groups of its units in order, numbered
+// across units (a unit whose chunk lies past q's n has one empty group). A
+// cursor holds the unit of one task; tasks are visited in increasing order.
+struct TaskCursor {
+  int u, t0, groups;  // unit, its first task, its groups
+  DotUnit du;
+  int e_begin, q_end;  // its slots with q: [e_begin, q_end)
+
+  __device__ void open(int unit, int first, const DotShape& sh) {
+    u = unit;
+    t0 = first;
+    du = dot_unit(unit, sh);
+    e_begin = du.c * sh.chunk;
+    q_end = min(min(e_begin + sh.chunk, sh.n_pad), sh.n);
+    groups = max(1, (q_end - e_begin + kWarp - 1) / kWarp);
+  }
+  // Moves to the unit of task t; false past the block's last unit.
+  __device__ bool seek(int t, const DotShape& sh) {
+    while (t >= t0 + groups) {
+      if (u + static_cast<int>(gridDim.x) >= sh.n_units) return false;
+      open(u + gridDim.x, t0 + groups, sh);
+    }
+    return true;
+  }
+  __device__ int first_slot(int t) const { return e_begin + kWarp * (t - t0); }
+};
+
+// Every nonzero pair of a general entry, a lane per oh_lo column (distinct
+// outputs, so in any order within the entry).
+__device__ void general_dot(float* acc_h, float* acc_l, const uint16_t* hi, const uint16_t* lo,
+                            int hw, float qh, float ql, int lane) {
+  float v[4], th[4], tl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = bf16_word(lo[lane + kWarp * i]);
+    th[i] = bf16_round(__fmul_rn(v[i], qh));
+    tl[i] = bf16_round(__fmul_rn(v[i], ql));
+  }
+  for (int h = 0; h < hw; ++h) {
+    const float a = bf16_word(hi[h]);
+    if (a == 0.0f) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (v[i] == 0.0f) continue;
+      const int idx = h * kRowLo + lane + kWarp * i;
+      acc_h[idx] = __fadd_rn(acc_h[idx], __fmul_rn(a, th[i]));
+      acc_l[idx] = __fadd_rn(acc_l[idx], __fmul_rn(a, tl[i]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDotThreads, 1)
 dot_premat_partial_kernel(const float* __restrict__ q, const uint16_t* __restrict__ oh_hi,
-                          const uint16_t* __restrict__ oh_lo, float* __restrict__ partial,
-                          int wi, int n_sub, int n, int n_pad, int row_hi, int chunk,
-                          int n_chunks) {
+                          const uint16_t* __restrict__ oh_lo, float* __restrict__ partial, int wi,
+                          int n_sub, DotShape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int c = blockIdx.x, s = blockIdx.y;
-  const int h0 = blockIdx.z * kHGroup;
-  const int hw = min(kHGroup, row_hi - h0);
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [2][hw][128]
-  float* qh = acc + 2 * hw * kRowLo;                 // [2][kTile]: the q halves
-  uint32_t* live = reinterpret_cast<uint32_t*>(qh + 2 * kTile);  // [4]: entries with q != 0
-  TileIndex* index = reinterpret_cast<TileIndex*>(live + 4);     // [2]: this tile's, the next's
-  uint16_t* lo_t = reinterpret_cast<uint16_t*>(index + 2);       // [kTile][128]
-  uint16_t* hi_t = lo_t + kTile * kRowLo;                        // [kTile][hw]
+  const int row_hi = sh.row_hi, hw_max = min(row_hi, kHGroup);
+  float* acc_h = reinterpret_cast<float*>(smem_raw);  // [hw][128]: the q_hi half
+  float* acc_l = acc_h + hw_max * kRowLo;              // [hw][128]: the q_lo half
+  GroupRecords* ring = reinterpret_cast<GroupRecords*>(acc_l + hw_max * kRowLo);  // [kTasks]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTasks);  // a group's records written
+  uint64_t* empty = full + kTasks;                              // a group's records applied
 
-  const int tid = threadIdx.x;
-  const int half = tid / kRowLo;  // 0: q_hi, 1: q_lo
-  const int l = tid % kRowLo;
-  for (int i = tid; i < 2 * hw * kRowLo; i += kThreads) acc[i] = 0.0f;
-  auto reset = [&](TileIndex* ix) {
-    if (tid < kRowLo) ix->col_mask[tid] = 0ull;
-    if (tid < kTile) {
-      ix->hi_cnt[tid] = 0;
-      ix->hi_first[tid] = hw;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const bool vec_hi = row_hi % 8 == 0;  // the oh_hi rows are 16-byte words
+  const size_t unit0 = static_cast<size_t>(wi) * n_sub;  // the window's first sub-batch of rows
+  for (int i = tid; i < 2 * hw_max * kRowLo; i += kDotThreads) acc_h[i] = 0.0f;
+  if (tid == 0) {
+    for (int k = 0; k < kTasks; ++k) {
+      mbar_init(&full[k], 1);  // lane 0 of a warp, after __syncwarp orders its lanes' stores
+      mbar_init(&empty[k], 1);
     }
-  };
-  reset(&index[0]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  TaskCursor cur;
+  cur.open(blockIdx.x, 0, sh);
 
-  const size_t unit = static_cast<size_t>(wi) * n_sub + s;
-  const uint16_t* hi_base = oh_hi + unit * n_pad * row_hi;
-  const uint16_t* lo_base = oh_lo + unit * n_pad * kRowLo;
-  const float* qs = q + static_cast<size_t>(s) * n;
-  const bool vec_hi = (hw % 8 == 0) && (row_hi % 8 == 0);
-  float* my_acc = acc + half * hw * kRowLo;
-
-  const int e_begin = c * chunk;
-  const int e_end = min(e_begin + chunk, n_pad);
-  // The next tile's words and q values wait in registers while this tile
-  // is summed, so their loads overlap the work.
-  const int hi_words = hw / 8;  // per entry, on the 16-byte path
-  uint4 lo_r[kWordsPerThread], hi_r[kWordsPerThread];
-  float q_r = 0.0f;
-  auto fetch = [&](int t0) {
-    const int tn = min(kTile, e_end - t0);
-    const uint4* ls = reinterpret_cast<const uint4*>(lo_base + static_cast<size_t>(t0) * kRowLo);
+  if (warp < kGatherWarps) {
+    // Gather warp: tasks warp, warp + kGatherWarps, ... Lane < 16 loads
+    // word `lane` of a live entry's oh_hi row (when it has one), lane >= 16
+    // word lane - 16 of its oh_lo row; a group's q is loaded a task ahead.
+    auto group_q = [&](const TaskCursor& c, int t) {
+      const int e = c.first_slot(t) + lane;
+      return e < c.q_end ? __ldg(q + static_cast<size_t>(c.du.s) * sh.n + e) : 0.0f;
+    };
+    TaskCursor ahead = cur;
+    float q_next = ahead.seek(warp, sh) ? group_q(ahead, warp) : 0.0f;
+    for (int t = warp; cur.seek(t, sh); t += kGatherWarps) {
+      const float qv = q_next;
+      q_next = ahead.seek(t + kGatherWarps, sh) ? group_q(ahead, t + kGatherWarps) : 0.0f;
+      const DotUnit& du = cur.du;
+      const int g0 = cur.first_slot(t);
+      const size_t row0 = (unit0 + du.s) * sh.n_pad;
+      const bool loads = lane >= 16 || (vec_hi && lane < du.hw / 8);
+      const uint16_t* src = lane >= 16 ? oh_lo + row0 * kRowLo + (lane - 16) * 8
+                                       : oh_hi + row0 * row_hi + du.h0 + lane * 8;
+      const size_t stride = lane >= 16 ? kRowLo : row_hi;
+      unsigned live = __ballot_sync(kFull, qv != 0.0f);
+      const int n_live = __popc(live);
+      // lane j ends up holding live entry j's slot and decoded rows
+      int my_src = 0, my_hc = 0, my_lc = 0;
+      unsigned my_hk = ~0u, my_lk = ~0u;
+      for (int j0 = 0; j0 < n_live; j0 += kBatch) {
+        uint4 w[kBatch];
+        int srcs[kBatch];
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      const int i = tid + k * kThreads;
-      if (i < tn * (kRowLo / 8)) lo_r[k] = ls[i];
-    }
-    if (vec_hi) {
-      const uint16_t* hs = hi_base + static_cast<size_t>(t0) * row_hi + h0;
-#pragma unroll
-      for (int k = 0; k < kWordsPerThread; ++k) {
-        const int i = tid + k * kThreads;
-        if (i < tn * hi_words) {
-          hi_r[k] = reinterpret_cast<const uint4*>(hs + static_cast<size_t>(i / hi_words) * row_hi)[i % hi_words];
+        for (int b = 0; b < kBatch; ++b) {
+          w[b] = make_uint4(0u, 0u, 0u, 0u);
+          srcs[b] = 0;
+          if (j0 + b < n_live) {  // uniform across the warp
+            srcs[b] = __ffs(live) - 1;
+            live &= live - 1;
+            if (loads) w[b] = __ldcs(reinterpret_cast<const uint4*>(src + (g0 + srcs[b]) * stride));
+          }
         }
-      }
-    }
-    if (tid < tn) q_r = t0 + tid < n ? qs[t0 + tid] : 0.0f;  // q is zero on padded entries
-  };
-  if (e_begin < e_end) fetch(e_begin);
-  int parity = 0;
-  for (int e0 = e_begin; e0 < e_end; e0 += kTile, parity ^= 1) {
-    const int te = min(kTile, e_end - e0);
-    TileIndex* ix = &index[parity];
-    __syncthreads();  // the previous tile is consumed; ix was reset before this point
-    reset(&index[parity ^ 1]);  // for the next tile: its last reader has passed the barrier
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      const int i = tid + k * kThreads;
-      if (i < te * (kRowLo / 8)) {
-        reinterpret_cast<uint4*>(lo_t)[i] = lo_r[k];
-        note_nonzeros(lo_r[k], i / (kRowLo / 8), (i % (kRowLo / 8)) * 8, kRowLo, true, ix);
-      }
-      if (vec_hi && i < te * hi_words) {
-        reinterpret_cast<uint4*>(hi_t)[i] = hi_r[k];
-        note_nonzeros(hi_r[k], i / hi_words, (i % hi_words) * 8, hw, false, ix);
-      }
-    }
-    if (!vec_hi) {
-      const uint16_t* hsrc = hi_base + static_cast<size_t>(e0) * row_hi + h0;
-      for (int i = tid; i < te * hw; i += kThreads) {
-        const int j = i / hw, h = i % hw;
-        const uint16_t bits = hsrc[static_cast<size_t>(j) * row_hi + h];
-        hi_t[i] = bits;
-        if (bf16_word(bits) != 0.0f) {
-          atomicAdd(&ix->hi_cnt[j], 1);
-          atomicMin(&ix->hi_first[j], h);
-        }
-      }
-    }
-    if (tid < kTile) {  // warps 0 and 1, whole
-      const float x = tid < te ? q_r : 0.0f;
-      const float xh = bf16_round(x);
-      qh[tid] = xh;
-      qh[kTile + tid] = bf16_round(__fsub_rn(x, xh));
-      const uint32_t ballot = __ballot_sync(0xffffffffu, x != 0.0f);
-      if (tid % kWarp == 0) live[tid / kWarp] = ballot;
-    }
-    __syncthreads();
-    if (e0 + kTile < e_end) fetch(e0 + kTile);
-    const float* qhalf = qh + half * kTile;
-    // q = 0 entries (the layout's padding slots, all on row 0) are skipped:
-    // a zero term leaves every sum unchanged.
-    const unsigned long long live_mask =
-        (static_cast<unsigned long long>(live[1]) << 32) | live[0];
-    for (unsigned long long m = ix->col_mask[l] & live_mask; m; m &= m - 1) {
-      const int j = __ffsll(static_cast<long long>(m)) - 1;  // ascending entry order
-      const float qv = qhalf[j];
-      if (qv == 0.0f) continue;
-      const float t = bf16_round(__fmul_rn(bf16_word(lo_t[j * kRowLo + l]), qv));
-      const uint16_t* hr = hi_t + j * hw;
-      const int nh = ix->hi_cnt[j];
-      if (nh == 1) {
-        const int h = ix->hi_first[j];
-        float* p = my_acc + h * kRowLo + l;
-        *p = __fadd_rn(*p, __fmul_rn(bf16_word(hr[h]), t));
-      } else if (nh > 1) {
-        for (int h = 0; h < hw; ++h) {
-          const float a = bf16_word(hr[h]);
-          if (a != 0.0f) {
-            float* p = my_acc + h * kRowLo + l;
-            *p = __fadd_rn(*p, __fmul_rn(a, t));
+        for (int b = 0; b < kBatch; ++b) {
+          if (j0 + b >= n_live) break;  // uniform across the warp
+          int cnt = 0;
+          unsigned key = ~0u;
+          scan_word(w[b], 8 * (lane % 16), cnt, key);
+          Decoded d;
+          if (vec_hi) {
+            d = warp_decode_words(cnt, key);
+          } else {
+            int hc = 0;
+            unsigned hk = ~0u;
+            const uint16_t* hr = oh_hi + (row0 + g0 + srcs[b]) * row_hi + du.h0;
+            for (int h = lane; h < du.hw; h += kWarp) scan_value(hr[h], h, hc, hk);
+            d = warp_decode(hc, hk, lane >= 16 ? cnt : 0, lane >= 16 ? key : ~0u);
+          }
+          if (lane == j0 + b) {
+            my_src = srcs[b];
+            my_hc = d.hi_cnt;
+            my_lc = d.lo_cnt;
+            my_hk = d.hi_key;
+            my_lk = d.lo_key;
           }
         }
       }
+      // the group's records, a lane per live entry
+      const float x = __shfl_sync(kFull, qv, my_src);
+      const int slot = t % kTasks;
+      mbar_wait(&empty[slot], ((t / kTasks) & 1) ^ 1);
+      if (lane < n_live) {
+        const float qh = bf16_round(x), ql = bf16_round(__fsub_rn(x, qh));
+        Record r{kSkip, 0.0f, 0.0f, g0 + my_src};
+        if (my_hc == 1 && my_lc == 1) {
+          const float a = key_val(my_hk), v = key_val(my_lk);
+          r.key = key_col(my_hk) * kRowLo + key_col(my_lk);
+          r.th = __fmul_rn(a, bf16_round(__fmul_rn(v, qh)));
+          r.tl = __fmul_rn(a, bf16_round(__fmul_rn(v, ql)));
+        } else if (my_hc > 0 && my_lc > 0) {
+          r = Record{kGeneral, qh, ql, g0 + my_src};
+        }
+        ring[slot].rec[lane] = r;
+      }
+      if (lane == 0) ring[slot].count = n_live;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[slot]);
+    }
+  } else {
+    // Accumulator warp: every task in order.
+    const unsigned lanes_below = (1u << lane) - 1u;
+    for (int t = 0; cur.seek(t, sh); ++t) {
+      const int slot = t % kTasks;
+      mbar_wait(&full[slot], (t / kTasks) & 1);
+      const int count = ring[slot].count;
+      const Record r = lane < count ? ring[slot].rec[lane] : Record{kSkip, 0.0f, 0.0f, 0};
+      const DotUnit& du = cur.du;
+      if (!__any_sync(kFull, r.key == kGeneral)) {
+        // Simple entries: one read-modify-write pair each. Entries of the
+        // group on the same row go in ascending lane (= entry) order.
+        const bool act = r.key >= 0;
+        const unsigned peers = __match_any_sync(kFull, act ? r.key : (0x40000000 | lane));
+        const int rank = __popc(peers & lanes_below);
+        for (int rr = 0; __any_sync(kFull, act && rank >= rr); ++rr) {
+          if (act && rank == rr) {
+            acc_h[r.key] = __fadd_rn(acc_h[r.key], r.th);
+            acc_l[r.key] = __fadd_rn(acc_l[r.key], r.tl);
+          }
+          __syncwarp();
+        }
+      } else {
+        // A general entry in the group: every entry in turn.
+        const size_t row0 = (unit0 + du.s) * sh.n_pad;
+        for (int j = 0; j < count; ++j) {
+          const int key = __shfl_sync(kFull, r.key, j);
+          const float th = __shfl_sync(kFull, r.th, j), tl = __shfl_sync(kFull, r.tl, j);
+          if (key >= 0 && lane == 0) {
+            acc_h[key] = __fadd_rn(acc_h[key], th);
+            acc_l[key] = __fadd_rn(acc_l[key], tl);
+          } else if (key == kGeneral) {
+            const size_t e = row0 + __shfl_sync(kFull, r.entry, j);
+            general_dot(acc_h, acc_l, oh_hi + e * row_hi + du.h0, oh_lo + e * kRowLo, du.hw, th, tl, lane);
+          }
+          __syncwarp();
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);  // the group's records are applied
+      if (t == cur.t0 + cur.groups - 1) {
+        // the unit's last group: its chunk partial, and clear accumulators
+        float4* h4 = reinterpret_cast<float4*>(acc_h);
+        float4* l4 = reinterpret_cast<float4*>(acc_l);
+        float4* dst = reinterpret_cast<float4*>(
+            partial + ((static_cast<size_t>(du.s) * sh.n_chunks + du.c) * row_hi + du.h0) * kRowLo);
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int i = lane; i < du.hw * kRowLo / 4; i += kWarp) {
+          const float4 a = h4[i], b = l4[i];
+          dst[i] = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                               __fadd_rn(a.w, b.w));
+          h4[i] = zero;
+          l4[i] = zero;
+        }
+        __syncwarp();
+      }
     }
   }
-  __syncthreads();
-  float* dst = partial + ((static_cast<size_t>(s) * n_chunks + c) * row_hi + h0) * kRowLo;
-  for (int i = tid; i < hw * kRowLo; i += kThreads) dst[i] = __fadd_rn(acc[i], acc[hw * kRowLo + i]);
 }
 
 // Premat dot, pass 2: out[s, r] = sum of the chunk partials in chunk order.
@@ -324,53 +499,157 @@ dot_premat_reduce_kernel(const float* __restrict__ partial, float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Premat mult: one warp per (s, e).
+// Premat mult: a block per (slice of entries, sub-batch s), a warp per
+// kMultUnroll consecutive entries at a time.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+
+// mult3[s, h, l] split once: bf16(m) in the high half, bf16(m - bf16(m)) in
+// the low half.
+__device__ __forceinline__ uint32_t split_pack(float m) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(m);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(__fsub_rn(m, __bfloat162float(hi)));
+  return (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16) | __bfloat16_as_ushort(lo);
+}
+
+// mult3[s] split: from shared memory (ms), or split here from device
+// memory (mg) when the row space does not fit in shared memory.
+__device__ __forceinline__ uint32_t m_at(const uint32_t* ms, const float* mg, int i) {
+  return ms ? ms[i] : split_pack(mg[i]);
+}
+
+// A general entry: for each nonzero oh_lo column l in ascending order,
+// ph = sum_h a * m_hi[h, l] and pl = sum_h a * m_lo[h, l] over the nonzero
+// oh_hi columns h in ascending order, then u += (ph + pl) * v. A lane per
+// column; the columns' terms are added in order through shuffles.
+__device__ float general_mult(const uint32_t* ms, const float* mg, const uint16_t* hi,
+                              const uint16_t* lo, int row_hi, int lane) {
+  float c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = lane + kWarp * i;
+    const float v = bf16_word(lo[l]);
+    float ph = 0.0f, pl = 0.0f;
+    if (v != 0.0f) {
+      for (int h = 0; h < row_hi; ++h) {
+        const float a = bf16_word(hi[h]);
+        if (a == 0.0f) continue;
+        const uint32_t mv = m_at(ms, mg, h * kRowLo + l);
+        ph = __fadd_rn(ph, __fmul_rn(a, bf16_word(static_cast<uint16_t>(mv >> 16))));
+        pl = __fadd_rn(pl, __fmul_rn(a, bf16_word(static_cast<uint16_t>(mv))));
+      }
+    }
+    c[i] = v != 0.0f ? __fmul_rn(__fadd_rn(ph, pl), v) : 0.0f;
+  }
+  float u = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    for (int src = 0; src < kWarp; ++src) u = __fadd_rn(u, __shfl_sync(kFull, c[i], src));
+  }
+  return u;
+}
+
+// kVec: the oh_hi rows are 16-byte words of at most 128 columns (row_hi a
+// multiple of 8, <= 128); else each lane reads its oh_hi columns as 2-byte
+// values.
+template <bool kVec>
+__global__ void __launch_bounds__(kMultThreads)
 mult_premat_kernel(const float* __restrict__ mult3, const uint16_t* __restrict__ oh_hi,
                    const uint16_t* __restrict__ oh_lo, float* __restrict__ out, int wi,
-                   int n_sub, int n_pad, int row_hi) {
-  const size_t warp = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+                   int n_sub, int n_pad, int row_hi, int m_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int s = blockIdx.y;
   const int lane = threadIdx.x % kWarp;
-  if (warp >= static_cast<size_t>(n_sub) * n_pad) return;  // uniform across the warp
-  const int s = static_cast<int>(warp / n_pad);
-  const size_t row = static_cast<size_t>(wi) * n_sub * n_pad + warp;
-  const uint16_t* hr = oh_hi + row * row_hi;
-  const uint16_t* lr = oh_lo + row * kRowLo;
-  const float* m = mult3 + static_cast<size_t>(s) * row_hi * kRowLo;
-  float u = 0.0f;
-  for (int p0 = 0; p0 < kRowLo; p0 += kWarp) {
-    const float v = bf16_word(lr[p0 + lane]);
-    unsigned live = __ballot_sync(0xffffffffu, v != 0.0f);
-    while (live) {
-      const int src = __ffs(live) - 1;
-      live &= live - 1;
-      const int p = p0 + src;
-      const float vl = __shfl_sync(0xffffffffu, v, src);
-      float ph = 0.0f, pl = 0.0f;
-      for (int h = lane; h < row_hi; h += kWarp) {
-        const float a = bf16_word(hr[h]);
-        if (a != 0.0f) {
-          const float mv = m[static_cast<size_t>(h) * kRowLo + p];
-          const float mh = bf16_round(mv);
-          const float ml = bf16_round(__fsub_rn(mv, mh));
-          ph = __fadd_rn(ph, __fmul_rn(a, mh));
-          pl = __fadd_rn(pl, __fmul_rn(a, ml));
-        }
-      }
-#pragma unroll
-      for (int off = kWarp / 2; off > 0; off >>= 1) {
-        ph = __fadd_rn(ph, __shfl_xor_sync(0xffffffffu, ph, off));
-        pl = __fadd_rn(pl, __shfl_xor_sync(0xffffffffu, pl, off));
-      }
-      u = __fadd_rn(u, __fmul_rn(__fadd_rn(ph, pl), vl));
-    }
+  const int rows = row_hi * kRowLo;
+  // mult3[s] split once into shared memory, when it fits
+  const float* mg = mult3 + static_cast<size_t>(s) * rows;
+  uint32_t* ms = m_in_smem ? reinterpret_cast<uint32_t*>(smem_raw) : nullptr;
+  if (ms) {
+    for (int i = threadIdx.x; i < rows; i += kMultThreads) ms[i] = split_pack(mg[i]);
+    __syncthreads();
   }
-  if (lane == 0) out[warp] = u;
+  const size_t row0 = (static_cast<size_t>(wi) * n_sub + s) * n_pad;  // the unit's first row
+  const uint16_t* hi_rows = oh_hi + row0 * row_hi;
+  const uint16_t* lo_rows = oh_lo + row0 * kRowLo;
+  float* out_s = out + static_cast<size_t>(s) * n_pad;
+  const int hi_words = row_hi / 8;
+  const int groups = (n_pad + kMultUnroll - 1) / kMultUnroll;
+  const int warps = kMultThreads / kWarp;
+  const int stride = gridDim.x * warps;
+
+  // Lane < 16: word `lane` of the entry's oh_hi row (kVec); lane >= 16:
+  // word lane - 16 of its oh_lo row. Loads of a group's entries are all
+  // issued before any is used.
+  auto load = [&](int g, uint4 (&w)[kMultUnroll]) {
+#pragma unroll
+    for (int i = 0; i < kMultUnroll; ++i) {
+      const int e = g * kMultUnroll + i;
+      w[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (e >= n_pad) continue;
+      if (lane >= 16) {
+        w[i] = __ldcs(reinterpret_cast<const uint4*>(lo_rows + static_cast<size_t>(e) * kRowLo) + lane - 16);
+      } else if (kVec && lane < hi_words) {
+        w[i] = __ldcs(reinterpret_cast<const uint4*>(hi_rows + static_cast<size_t>(e) * row_hi) + lane);
+      }
+    }
+  };
+  int g = blockIdx.x * warps + threadIdx.x / kWarp;
+  uint4 cur[kMultUnroll], nxt[kMultUnroll];
+  if (g < groups) load(g, cur);
+  for (; g < groups; g += stride) {
+    if (g + stride < groups) load(g + stride, nxt);
+    float u_mine = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMultUnroll; ++i) {
+      const int e = g * kMultUnroll + i;
+      if (e >= n_pad) break;  // uniform across the warp
+      const uint16_t* hr = hi_rows + static_cast<size_t>(e) * row_hi;
+      int cnt = 0;
+      unsigned key = ~0u;
+      scan_word(cur[i], 8 * (lane % 16), cnt, key);  // lanes 0-15 past the words loaded 0
+      Decoded d;
+      if (kVec) {
+        d = warp_decode_words(cnt, key);
+      } else {
+        int hc = 0;
+        unsigned hk = ~0u;
+        for (int h = lane; h < row_hi; h += kWarp) scan_value(hr[h], h, hc, hk);
+        d = warp_decode(hc, hk, lane >= 16 ? cnt : 0, lane >= 16 ? key : ~0u);
+      }
+      float u = 0.0f;  // a row without a nonzero: every term is 0
+      if (d.hi_cnt == 1 && d.lo_cnt == 1) {
+        const float a = key_val(d.hi_key), v = key_val(d.lo_key);
+        const uint32_t mv = m_at(ms, mg, key_col(d.hi_key) * kRowLo + key_col(d.lo_key));
+        const float ph = __fmul_rn(a, bf16_word(static_cast<uint16_t>(mv >> 16)));
+        const float pl = __fmul_rn(a, bf16_word(static_cast<uint16_t>(mv)));
+        u = __fadd_rn(0.0f, __fmul_rn(__fadd_rn(ph, pl), v));
+      } else if (d.hi_cnt > 0 && d.lo_cnt > 0) {
+        u = general_mult(ms, mg, hr, lo_rows + static_cast<size_t>(e) * kRowLo, row_hi, lane);
+      }
+      if (lane == i) u_mine = u;
+    }
+    const int e = g * kMultUnroll + lane;
+    if (lane < kMultUnroll && e < n_pad) out_s[e] = u_mine;
+#pragma unroll
+    for (int i = 0; i < kMultUnroll; ++i) cur[i] = nxt[i];
+  }
 }
 
 inline unsigned blocks_for(size_t items, size_t per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+inline size_t max_dynamic_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<size_t>(bytes);
 }
 
 }  // namespace
@@ -410,19 +689,19 @@ int onehot_dot_crossing_premat(const void* q, const void* oh_hi, const void* oh_
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = row_hi * kRowLo;
   if (n_sub > 0 && n_chunks > 0 && row_hi > 0) {
+    const DotShape sh{n, n_pad, row_hi, chunk, n_chunks,
+                      n_sub * n_chunks * ((row_hi + kHGroup - 1) / kHGroup)};
     const int hw = row_hi < kHGroup ? row_hi : kHGroup;
-    const size_t smem = (2 * static_cast<size_t>(hw) * kRowLo + 2 * kTile) * sizeof(float) +
-                        4 * sizeof(uint32_t) + 2 * sizeof(TileIndex) +
-                        static_cast<size_t>(kTile) * (kRowLo + hw) * sizeof(uint16_t);
+    const size_t smem = 2 * static_cast<size_t>(hw) * kRowLo * sizeof(float) +
+                        kTasks * (sizeof(GroupRecords) + 2 * sizeof(uint64_t));
     cudaError_t err = cudaFuncSetAttribute(dot_premat_partial_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(n_chunks, n_sub, (row_hi + kHGroup - 1) / kHGroup);
-    dot_premat_partial_kernel<<<grid, kThreads, smem, st>>>(
+    const int grid = sh.n_units < sm_count() ? sh.n_units : sm_count();
+    dot_premat_partial_kernel<<<grid, kDotThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const uint16_t*>(oh_hi),
-        static_cast<const uint16_t*>(oh_lo), static_cast<float*>(partial), wi, n_sub, n, n_pad,
-        row_hi, chunk, n_chunks);
+        static_cast<const uint16_t*>(oh_lo), static_cast<float*>(partial), wi, n_sub, sh);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -437,14 +716,29 @@ int onehot_dot_crossing_premat(const void* q, const void* oh_hi, const void* oh_
 int onehot_mult_crossing_premat(const void* mult3, const void* oh_hi, const void* oh_lo,
                                 void* out, int wi, int n_sub, int n_pad, int row_hi,
                                 void* stream) {
-  const size_t items = static_cast<size_t>(n_sub) * n_pad;
-  if (items > 0) {
-    mult_premat_kernel<<<blocks_for(items, kThreads / kWarp), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(mult3), static_cast<const uint16_t*>(oh_hi),
-        static_cast<const uint16_t*>(oh_lo), static_cast<float*>(out), wi, n_sub, n_pad,
-        row_hi);
-  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_sub <= 0 || n_pad <= 0 || row_hi <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t rows = static_cast<size_t>(row_hi) * kRowLo;
+  const int m_in_smem = rows * sizeof(uint32_t) <= max_dynamic_smem();
+  const size_t smem = m_in_smem ? rows * sizeof(uint32_t) : 0;
+  const bool vec = row_hi % 8 == 0 && row_hi <= kHGroup;
+  auto kernel = vec ? mult_premat_kernel<true> : mult_premat_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMultThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one wave of blocks over the sub-batches, no more than the entries need
+  const size_t groups = (static_cast<size_t>(n_pad) + kMultUnroll - 1) / kMultUnroll;
+  size_t bx = static_cast<size_t>(sm_count()) * (per_sm > 0 ? per_sm : 1) / n_sub;
+  const size_t need = blocks_for(groups, kMultThreads / kWarp);
+  bx = bx < 1 ? 1 : (bx > need ? need : bx);
+  const dim3 grid(static_cast<unsigned>(bx), n_sub);
+  kernel<<<grid, kMultThreads, smem, st>>>(
+      static_cast<const float*>(mult3), static_cast<const uint16_t*>(oh_hi),
+      static_cast<const uint16_t*>(oh_lo), static_cast<float*>(out), wi, n_sub, n_pad, row_hi,
+      m_in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -87,8 +87,11 @@ SUB_ROWS = 16384  # sub-batch rows per crossing (gradient accumulation grain)
 _ROW_LO = 128  # row-id split minor width
 #: Entries per partial sum of both dot kernels. One constant for both keeps
 #: the build and premat forms bit-identical; it also sets the premat kernel's
-#: grid (one block per chunk and sub-batch).
-DOT_CHUNK = 8192
+#: work units (one per chunk, sub-batch and group of 128 ``h`` rows, walked by
+#: a persistent block per SM). At the headline shape 4096 leaves 8.24 units
+#: a block (8192: 4.12, whose last round ran on 16 of 132 SMs) for a 71 MB
+#: partial buffer.
+DOT_CHUNK = 4096
 # Elements of the largest one-hot product scatter_round materialises at once.
 _SCATTER_CHUNK_ELEMS = 1 << 26
 _TILE = 8192  # the JAX premat storage pad (its Pallas tile), kept for equal shapes

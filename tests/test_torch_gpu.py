@@ -135,14 +135,27 @@ from flink_ml_tpu_torch.linalg import onehot_sparse as O  # noqa: E402
 CROSSINGS = (O.DOT_CROSSING, O.MULT_CROSSING, O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
 
 
-def _crossing_inputs(n_sub, row_hi, n, device, seed=0, live=None):
+def _crossing_inputs(n_sub, row_hi, n, device, seed=0, live=None, layout=False):
+    """With ``live``, that share of the slots is live and the rest padding
+    with q = 0; with ``layout`` too, padding slots sit on row 0, as the
+    one-hot layout places them."""
     rng = np.random.default_rng(seed)
     rowid = rng.integers(0, row_hi * 128, (n_sub, n)).astype(np.int16)
     q = rng.normal(size=(n_sub, n)).astype(np.float32)
     if live is not None:
-        q[rng.random((n_sub, n)) >= live] = 0.0  # padding slots: value 0
+        dead = rng.random((n_sub, n)) >= live
+        q[dead] = 0.0  # padding slots: value 0
+        if layout:
+            rowid[dead] = 0
     m3 = rng.normal(size=(n_sub, row_hi, 128)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (rowid, q, m3)]
+
+
+def _dot_tol(q, rowid, row_hi):
+    n_sub = q.shape[0]
+    absum = torch.zeros(n_sub, row_hi * 128, dtype=torch.float64, device=q.device)
+    absum.scatter_add_(1, rowid.long(), q.abs().double())
+    return 1e-5 * absum.reshape(n_sub, row_hi, 128) + 1e-6  # another summation order
 
 
 @pytest.mark.parametrize("n_sub", (1, 4))
@@ -167,6 +180,76 @@ def test_crossing_kernels_match_plain_versions(cuda, n_sub, row_hi, n):
     assert torch.equal(mult, O.mult_crossing_plain(m3, rowid))  # one nonzero term: exact
     assert torch.equal(mult_p, O.mult_crossing_premat_plain(m3, *oh))
     assert torch.equal(mult_p[:, :n], mult)
+    # the layout's own shape: 57.5% live, padding slots on row 0 with q = 0
+    rowid, q, m3 = _crossing_inputs(n_sub, row_hi, n, cuda, seed=n + 2 * row_hi, live=0.575, layout=True)
+    oh = O.premat_row_onehots(rowid, row_hi)
+    dot = O.dot_crossing(q, rowid, row_hi, O.row_order(rowid, row_hi, live=q != 0))
+    dot_p = O.dot_crossing_premat(q, *oh)
+    mult_p = O.mult_crossing_premat(m3, *oh)
+    torch.cuda.synchronize()
+    assert torch.equal(dot, dot_p)
+    assert torch.equal(dot_p, O.dot_crossing(q, rowid, row_hi))  # the padding adds nothing
+    assert bool(((dot_p.double() - O.dot_crossing_plain(q, rowid, row_hi).double()).abs()
+                 <= _dot_tol(q, rowid, row_hi)).all())
+    assert torch.equal(mult_p, O.mult_crossing_premat_plain(m3, *oh))
+    assert torch.equal(mult_p[:, :n], O.mult_crossing(m3, rowid))
+
+
+def test_premat_dot_with_every_q_zero_is_zero(cuda):
+    # the first SGD step from a zero coefficient: q is +-0 at every slot
+    for row_hi in (4, 128, 130):
+        rowid, q, _ = _crossing_inputs(2, row_hi, 20000, cuda, seed=row_hi)
+        oh = O.premat_row_onehots(rowid, row_hi)
+        for zero in (q * 0.0, -(q * 0.0)):
+            dot_p = O.dot_crossing_premat(zero, *oh)
+            torch.cuda.synchronize()
+            assert torch.equal(dot_p, torch.zeros_like(dot_p))
+            assert not bool(torch.signbit(dot_p).any())
+            assert torch.equal(dot_p, O.dot_crossing(zero, rowid, row_hi))
+
+
+def _general_rows(oh, seed):
+    """A second nonzero of a value other than 1 in about a tenth of the
+    rows, and values other than 1 in place of some ones."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = oh.float().cpu()
+    lead = a.shape[:-1]
+    col = torch.randint(0, a.shape[-1], lead, generator=g)
+    pick = torch.rand(lead, generator=g) < 0.1
+    val = torch.tensor([-2.5, 0.75, 3.0, -1.0])[torch.randint(0, 4, lead, generator=g)]
+    cur = a.gather(-1, col[..., None])[..., 0]
+    a.scatter_(-1, col[..., None], torch.where(pick, val, cur)[..., None])
+    a[torch.rand(lead, generator=g) < 0.05] *= -1.5
+    return a.to(torch.bfloat16).to(oh.device)
+
+
+@pytest.mark.parametrize("row_hi", (4, 128, 130))
+def test_premat_crossings_on_general_rows(cuda, row_hi):
+    n_sub, n = 2, 20000
+    rowid, q, m3 = _crossing_inputs(n_sub, row_hi, n, cuda, seed=row_hi + 40, live=0.575, layout=True)
+    oh_hi, oh_lo = O.premat_row_onehots(rowid, row_hi)
+    oh_hi, oh_lo = _general_rows(oh_hi, row_hi), _general_rows(oh_lo, row_hi + 1)
+    before = [k.launches for k in CROSSINGS]
+    dot_p = O.dot_crossing_premat(q, oh_hi, oh_lo)
+    mult_p = O.mult_crossing_premat(m3, oh_hi, oh_lo)
+    torch.cuda.synchronize()
+    assert [k.launches for k in CROSSINGS] == [before[0], before[1], before[2] + 1, before[3] + 1]
+    hi, lo = oh_hi.double(), oh_lo.double()
+    n_pad = hi.shape[1]
+    qa = torch.nn.functional.pad(q.abs().double(), (0, n_pad - n))
+    # Σ of the terms' magnitudes bounds both summation orders' rounding
+    dot_mag = torch.bmm(hi.abs().transpose(1, 2), lo.abs() * qa[..., None])
+    assert bool(((dot_p.double() - O.dot_crossing_premat_plain(q, oh_hi, oh_lo).double()).abs()
+                 <= 1e-5 * dot_mag + 1e-6).all())
+    m_hi = m3.to(torch.bfloat16).double()
+    m_lo = (m3 - m_hi.float()).to(torch.bfloat16).double()
+    mult_mag = (torch.bmm(hi.abs(), m_hi.abs() + m_lo.abs()) * lo.abs()).sum(2)
+    plain = O.mult_crossing_premat_plain(m3, oh_hi, oh_lo)
+    assert bool(((mult_p.double() - plain.double()).abs() <= 1e-6 * mult_mag).all())
+    nz = lambda t: ((t.view(torch.int16) & 0x7FFF) != 0).sum(-1)  # noqa: E731
+    simple = (nz(oh_hi) <= 1) & (nz(oh_lo) <= 1)
+    assert int((~simple).sum()) > 100  # the slow paths ran
+    assert torch.equal(mult_p[simple], plain[simple])  # one term: exact
 
 
 def test_crossing_kernels_select_the_window_and_skip_dead_entries(cuda):
@@ -183,6 +266,22 @@ def test_crossing_kernels_select_the_window_and_skip_dead_entries(cuda):
         assert torch.equal(dot, O.dot_crossing_premat(q, oh_hi, oh_lo, wi))
         assert torch.equal(O.mult_crossing_premat(m3, oh_hi, oh_lo, wi)[:, :n],
                            O.mult_crossing(m3, rowid[wi]))
+    # several chunks, two h-groups and the layout's padding, in every window
+    n_win, n_sub, row_hi, n = 3, 2, 130, 20000
+    rowid = torch.from_numpy(rng.integers(0, row_hi * 128, (n_win, n_sub, n)).astype(np.int16))
+    live = torch.from_numpy(rng.random((n_win, n_sub, n)) < 0.575)
+    rowid = torch.where(live, rowid, torch.zeros_like(rowid)).to(cuda)
+    live = live.to(cuda)
+    oh_hi, oh_lo = O.premat_row_onehots(rowid, row_hi)
+    row_ptr, entry_of = O.row_order(rowid, row_hi, live=live)
+    for wi in range(n_win):
+        q = live[wi] * torch.randn(n_sub, n, device=cuda)
+        m3 = torch.randn(n_sub, row_hi, 128, device=cuda)
+        dot = O.dot_crossing(q, rowid[wi], row_hi, (row_ptr[wi], entry_of[wi]))
+        assert torch.equal(dot, O.dot_crossing_premat(q, oh_hi, oh_lo, wi))
+        mult_p = O.mult_crossing_premat(m3, oh_hi, oh_lo, wi)
+        assert torch.equal(mult_p, O.mult_crossing_premat_plain(m3, oh_hi, oh_lo, wi))
+        assert torch.equal(mult_p[:, :n], O.mult_crossing(m3, rowid[wi]))
 
 
 def test_crossing_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -3,7 +3,9 @@ of each tree — by default the ring-attention fold and its backward kernels
 and the attention paths that run them (``kernels_flash``,
 ``serve_attention``, ``kernels_flash_bwd``, ``fit_attention``), or the
 phases named with ``--phases``, for example the MLP megakernel and its paths
-(``kernels_mlp``, ``serve_mlp``, ``pipeline_mlp``, ``kernels_chains``).
+(``kernels_mlp``, ``serve_mlp``, ``pipeline_mlp``, ``kernels_chains``) or
+the one-hot crossings (``crossings``: ``phase_train`` on the headline
+sparse rows, then ``phase_crossings_headline`` on the cache it returns).
 
 Each run is a fresh process started in the tree's own root, so it builds and
 imports that tree's ``flink_ml_tpu_torch`` and calls that tree's
@@ -16,6 +18,8 @@ into a directory that ``.gitignore`` lists, for example::
         --out build/flash_turns.jsonl
     python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
         --phases kernels_mlp,serve_mlp,pipeline_mlp,kernels_chains --out build/mlp_turns.jsonl
+    python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
+        --phases crossings --out build/crossing_turns.jsonl
 
 Every JSON line the phases print is kept in ``--out``, tagged with the tree
 and the run; the last line of standard output is a summary per run. For the
@@ -27,8 +31,11 @@ MLP phases: the MLP kernel's registers, spills and SASS counts (HGMMA,
 FFMA) as each tree's build gives them; its cold and warm times at the
 serving shape and at the small batch sizes beside three ``torch.addmm``,
 its bound and TF32 peak share; serve_mlp's and pipeline_mlp's p50 and p99;
-kernels_chains' normalize → mlp and normalize → mlp → binarize. Needs one
-card.
+kernels_chains' normalize → mlp and normalize → mlp → binarize. For the
+crossings: the premat dot's and mult's cold and warm times, the bf16 ``bmm``
+beside each, the bound and the share of HBM's 3.35 TB/s that the bound's
+bytes over the cold time reach, and the train phase's premat and build-form
+ms/step. Needs one card.
 """
 import argparse
 import json
@@ -48,7 +55,10 @@ CALLS = {
     "serve_mlp": "c.phase_serve_mlp(card)",
     "pipeline_mlp": "c.phase_pipeline_mlp(card)",
     "kernels_chains": "c.phase_kernels_chains(np.random.default_rng(c.SEED), card)",
+    "crossings": "c.phase_crossings_headline(c.phase_train(card, c._headline_data())[0], card)",
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PREMAT = {"dot": "onehot_dot_crossing_premat", "mult": "onehot_mult_crossing_premat"}
 
 HEAD = r"""
 import json, re, subprocess, sys
@@ -116,6 +126,17 @@ def _summary(lines):
             served = line.get("serve", line)
             if "p50_ms" in served:
                 out[phase] = _pick(served, ("p50_ms", "p99_ms", "rows_per_s", "hot_batch_breakdown_ms"))
+        if phase == "train" and "ms_per_step" in line:
+            out["ms_per_step"] = {"premat": line["ms_per_step"]["on"], "build": line["ms_per_step"]["off"]}
+            out["ms_per_step_runs"] = line["ms_per_step_runs"]
+        if phase == "crossings" and "timing" in line:
+            for short, name in PREMAT.items():
+                t = line["timing"][name]
+                out[f"premat_{short}"] = dict(
+                    _pick(t, ("ms", "ms_l2_warm", "library_ms", "library_ms_l2_warm", "bound_ms")),
+                    hbm_peak_share=t["bytes"] / (t["ms"] / 1e3) / HBM_BYTES_PER_S)
+            if "premat_compiled" in line:
+                out["premat_compiled"] = line["premat_compiled"]
         if phase == "kernels_chains" and "timing" in line:
             for name in ("normalize_mlp", "normalize_mlp_binarize"):
                 out[name] = _pick(line["timing"][name], ("ms", "ms_l2_warm", "plain_ms", "bound_ms"))
