@@ -39,12 +39,15 @@ runs 25 and 26 after 9, and 22–24 after 17):
                real layout: checks as in 5, and CUDA-event times of kernel,
                plain version and one PyTorch library call, with the bound;
 8. kernels_sparse — the sparse IDF → logistic megakernel against its plain
-               version over rows × nnz caps × d × chain (IDF kept, IDF
-               dropped, no IDF), rows shorter than the cap included: tfidf
-               and margin bit-equal, prediction equal; then CUDA-event times
-               at 4096 rows × cap 64 × d = 2^22 on the headline rows' ids, of
-               kernel, plain version and ``F.embedding_bag`` (the head's
-               margin), with the bytes bound;
+               version over rows × nnz caps (1 … 64, caps off 16-byte rows,
+               one past a tile) × d × chain (IDF kept, IDF dropped, no IDF),
+               rows shorter than the cap included: tfidf and margin
+               bit-equal, prediction equal; then cold and warm CUDA-event
+               times at 4096 × 64, 1024 × 16 and 203 × 8 (rows × cap) at
+               d = 2^22 on the headline rows' ids, of the kernel, its head
+               alone, ``F.embedding_bag`` (the head's margin), ``coef[ids]``
+               (one vector's gather) and, at 4096 × 64, the plain version,
+               with the bytes bound; the kernel's registers and spills;
 9. serve_sparse — the wide-sparse model served: IDF fitted on the headline
                rows, IDFModel.transform on the card, LogisticRegression.fit on
                the tf-idf column (the train phase's schedule), both models
@@ -243,7 +246,7 @@ runs 25 and 26 after 9, and 22–24 after 17):
                scale, scale → IDF → LR, IDF beside a normalize), other
                sparse runs (IDF → IDF, IDF → IDF → LR, two sparse heads) on
                the row-local kernel over rows (1, 33, 4096) × dense widths
-               (1 … 1024) × nnz caps (1 … 64) × d (1000, 2^22), with zero,
+               (1 … 1024) × nnz caps (1, 2, 8, 33, 64) × d (1000, 2^22), with zero,
                NaN and ±inf entries, short rows and padding; ops after an
                MLP head (mlp → scale, normalize → mlp → binarize on
                rawPrediction, mlp → kmeans, two heads) on the MLP kernel
@@ -251,8 +254,9 @@ runs 25 and 26 after 9, and 22–24 after 17):
                index (kmeans → binarize, kmeans → impute, scale → kmeans →
                binarize) over rows × widths × measures — elementwise ops
                before a normalize or a head bit-equal, tf-idf bit-equal,
-               the sparse heads' prediction equal, the others' outputs as
-               the chains above, binarize and impute of the index exact
+               the sparse heads' prediction and rawPrediction bit-equal,
+               the others' outputs as the chains above, binarize and
+               impute of the index exact
                and int32 / float32; then cold and warm CUDA-event times of
                normalize → kmeans at 4096 × 100, k 10, normalize → mlp at
                4096 × 256→512→512→8, sparse_idf at serve_sparse's hot key
@@ -260,8 +264,9 @@ runs 25 and 26 after 9, and 22–24 after 17):
                a dense 100-wide column, normalize → mlp → binarize at the
                published network and kmeans → binarize at 4096 × 100, k
                10, each beside its plain version, the merged program of
-               the new chains and its bound (no single PyTorch call
-               computes any of them);
+               the new chains and its bound (a sparse chain's gathers as
+               each distinct 32-byte sector once, as in kernels_sparse; no
+               single PyTorch call computes any of them);
 23. pipeline_kmeans — Pipeline([StandardScaler, Normalizer(p 2), KMeans(k 10,
                maxIter 10)]) fitted by ``Pipeline.fit`` on kmeans-benchmark.json's
                100,000 × 100 rows; ``PipelineModel.transform`` under
@@ -364,7 +369,8 @@ DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another su
 COEF_TOL = 1e-5
 # the sparse megakernel's check grid (rows shorter than the cap included)
 SPARSE_ROWS = (1, 7, 203, 1024, 2048, 4096)
-SPARSE_CAPS = (1, 2, 8, 16, 32, 64)
+SPARSE_CAPS = (1, 2, 3, 8, 13, 16, 32, 64, 65, 1500)  # 3, 13, 65: off 16-byte rows; 1500: past a tile
+SPARSE_TIMED = ((MAX_BATCH, 64), (1024, 16), (203, 8))  # rows × cap: the serving shape, two small buckets
 SPARSE_DIMS = (8, 1000, TRAIN_DIM)
 SPARSE_CHAINS = (("idf_kept", True, True), ("idf_dropped", True, False), ("no_idf", False, False))
 SPARSE_SERVE_SEED = TRAIN_SEED + 1  # new rows from the headline generator
@@ -482,7 +488,7 @@ RESIDUE_CHAINS = {
 }
 RESIDUE_ROWS = (1, 33, 4096)
 RESIDUE_WIDTHS = (1, 7, 100, 1024)  # the dense column's width (MLP chains: MLP_CHECK_NETWORKS)
-RESIDUE_CAPS = (1, 2, 8, 64)
+RESIDUE_CAPS = (1, 2, 8, 33, 64)  # 33: the table's sparse fold past one warp chunk
 RESIDUE_DIMS = (1000, TRAIN_DIM)  # the sparse column's dimension
 RESIDUE_K = 10
 RESIDUE_MLP_THRESHOLD = 0.125  # the binarize of 8 classes' probabilities
@@ -1387,10 +1393,10 @@ def _packed_headline(idx_rows, cap):
 
 def phase_kernels_sparse(rng, card: str, headline_idx):
     """The sparse IDF → logistic megakernel against its plain version over
-    the check grid, then its times at the serving shape."""
+    the check grid, then its times at SPARSE_TIMED (``_time_sparse``) and
+    its registers and spills."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
     from flink_ml_tpu_torch.servable.megakernels import (
@@ -1443,70 +1449,114 @@ def phase_kernels_sparse(rng, card: str, headline_idx):
          tfidf="bit-equal", margin="bit-equal", prediction="equal",
          max_raw_ulps=max_ulps, max_abs_err=max_abs_err)
 
-    # Times at the serving shape: 4096 headline rows at cap 64, d = 2^22.
-    rows, cap, d = MAX_BATCH, 64, TRAIN_DIM
-    vals_np, ids_np, live = _packed_headline(headline_idx[:rows], cap)
-    values, ids = t(vals_np), t(ids_np)
-    idf = t(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1))
-    coef = t((rng.normal(size=d) * 0.3).astype(np.float32))
-    coef_col, ids_long = coef[:, None], ids.long()  # the library call's operands, prepared outside
-
-    def kernel():
-        sparse_idf_logistic(values, ids, idf, coef, write_tfidf=True)
-
-    def kernel_head():
-        sparse_idf_logistic(values, ids, None, coef, write_tfidf=False)
-
-    def plain():
-        sparse_idf_logistic_plain(values, ids, idf, coef)
-
-    def library():  # the sparse_logistic chain's margin, one PyTorch call
-        F.embedding_bag(ids_long, coef_col, per_sample_weights=values, mode="sum")
-
-    lib_margin = F.embedding_bag(ids_long, coef_col, per_sample_weights=values, mode="sum")[:, 0]
-    _, head_margin, _, _ = sparse_idf_logistic(values, ids, None, coef, write_tfidf=False)
-    lib_err = float((lib_margin - head_margin).abs().max())
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    fns = {"kernel": kernel, "kernel_head": kernel_head, "plain": plain, "library": library}
-    for fn in fns.values():
-        for _ in range(10):
-            fn()
-    torch.cuda.synchronize()
-    times = {k: {"cold": [], "warm": []} for k in fns}
-    for name in ("plain", "kernel", "kernel_head", "library", "library", "kernel_head", "kernel", "plain"):
-        reps = 20 if name == "plain" else 100
-        times[name]["cold"] += _cold_times(fns[name], reps, flush)
-        times[name]["warm"].append(_warm_time(fns[name], reps))
-    # Bytes the chain must move: values and ids read once, tfidf and the
-    # three heads written once, and for each gathered model vector (idf,
-    # coef) each distinct 32-byte sector that this run's ids touch, once (a
-    # repeat hits L2). nnz is not read: the kernel folds all K slots.
-    sectors = np.unique(ids_np // 8).size
-    nbytes = 4 * rows * cap * 2 + 4 * rows * cap + 4 * rows * 4 + 2 * 32 * sectors
-    ops = 3 * rows * cap + 8 * rows  # two multiplies and an add per slot; the head per row
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    timing = {
-        "shape": {"rows": rows, "cap": cap, "d": d, "live_slots": live, "distinct_sectors": sectors},
-        "ms": _median(times["kernel"]["cold"]),
-        "ms_l2_warm": _median(times["kernel"]["warm"]),
-        "ms_head_only": _median(times["kernel_head"]["cold"]),
-        "ms_head_only_l2_warm": _median(times["kernel_head"]["warm"]),
-        "plain_ms": _median(times["plain"]["cold"]),
-        "plain_ms_l2_warm": _median(times["plain"]["warm"]),
-        "library_ms": _median(times["library"]["cold"]),
-        "library_ms_l2_warm": _median(times["library"]["warm"]),
-        "library": "F.embedding_bag(ids, coef[:, None], per_sample_weights=values, mode='sum'): "
-                   "the head's margin, to hold against ms_head_only",
-        "library_margin_max_abs_err": lib_err,
-        "bytes": nbytes,
-        "ops": ops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    }
-    emit("kernels_sparse", kernel=SPARSE_IDF_LOGISTIC.name, card=card, **timing)
-    del flush
+    timing = _time_sparse(headline_idx, rng)
+    emit("kernels_sparse", kernel=SPARSE_IDF_LOGISTIC.name, card=card, compiled=_sparse_compiled(), **timing)
     return {"max_abs_err": max_abs_err, **timing}
+
+
+def _sparse_compiled():
+    """The sparse kernel's registers and spills, as ptxas reported them in
+    its build (cached: the build phase made it)."""
+    import re
+
+    from flink_ml_tpu_torch.native import build
+    from flink_ml_tpu_torch.servable.megakernels import SPARSE_IDF_LOGISTIC
+
+    log = build(SPARSE_IDF_LOGISTIC.source).log
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
+            "spill_store_bytes": sum(int(a) for a, _ in spills),
+            "spill_load_bytes": sum(int(b) for _, b in spills)}
+
+
+def _time_sparse(headline_idx, rng):
+    """Cold (L2 flushed) and warm CUDA-event times of the sparse kernel —
+    IDF → LR with tf-idf kept, and the head alone — beside
+    ``F.embedding_bag`` (the head's margin in one call), ``coef[ids]`` (one
+    model vector's gather alone) and, at the serving shape, the plain
+    version, at each shape of SPARSE_TIMED on the headline rows' ids (value
+    1.0, padding id 0) at d = 2^22, with the bytes bound. It uses nothing of
+    the package but the sparse kernel's wrappers, whose interface has not
+    changed since the kernel was ported, so ``tools/flash_turns.py`` runs it
+    against other trees. Returns the serving shape's numbers, and the other
+    shapes' under ``smaller_shapes``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch.servable.megakernels import sparse_idf_logistic, sparse_idf_logistic_plain
+
+    dev = torch.device("cuda", 0)
+    d = TRAIN_DIM
+    idf = torch.from_numpy(np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.1)).to(dev)
+    coef = torch.from_numpy((rng.normal(size=d) * 0.3).astype(np.float32)).to(dev)
+    coef_col = coef[:, None]  # the library call's operands, prepared outside
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = []
+    for rows, cap in SPARSE_TIMED:
+        vals_np, ids_np, live = _packed_headline(headline_idx[:rows], cap)
+        values, ids = (torch.from_numpy(a).to(dev) for a in (vals_np, ids_np))
+        ids_long = ids.long()
+        fns = {
+            "kernel": lambda v=values, i=ids: sparse_idf_logistic(v, i, idf, coef, write_tfidf=True),
+            "kernel_head": lambda v=values, i=ids: sparse_idf_logistic(v, i, None, coef, write_tfidf=False),
+            "library": lambda v=values, i=ids_long: F.embedding_bag(i, coef_col, per_sample_weights=v,
+                                                                    mode="sum"),
+            "gather": lambda i=ids_long: coef[i],
+        }
+        if rows == MAX_BATCH:
+            fns["plain"] = lambda v=values, i=ids: sparse_idf_logistic_plain(v, i, idf, coef)
+        lib_margin = fns["library"]()[:, 0]
+        head_margin = fns["kernel_head"]()[1]
+        lib_err = float((lib_margin - head_margin).abs().max())
+        for fn in fns.values():
+            for _ in range(10):
+                fn()
+        torch.cuda.synchronize()
+        times = {k: {"cold": [], "warm": []} for k in fns}
+        for name in list(fns) + list(fns)[::-1]:  # each in turns, twice
+            reps = 20 if name == "plain" else 100
+            # the sleep keeps the host's launch work (and any pause of the
+            # process) out of the time: without it, cold readings taken
+            # after the check grid came out up to 6× the others
+            times[name]["cold"] += _cold_times(fns[name], reps, flush, hold_cycles=2_000_000)
+            times[name]["warm"].append(_warm_time(fns[name], reps))
+        # Bytes the chain must move: values and ids read once, tfidf and the
+        # three heads written once, and for each gathered model vector (idf,
+        # coef) each distinct 32-byte sector that this run's ids touch, once (a
+        # repeat hits L2). nnz is not read: the kernel folds all K slots.
+        sectors = np.unique(ids_np // 8).size
+        nbytes = 4 * rows * cap * 2 + 4 * rows * cap + 4 * rows * 4 + 2 * 32 * sectors
+        ops = 3 * rows * cap + 8 * rows  # two multiplies and an add per slot; the head per row
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        t = {
+            "shape": {"rows": rows, "cap": cap, "d": d, "live_slots": live, "distinct_sectors": sectors},
+            "ms": _median(times["kernel"]["cold"]),
+            "ms_l2_warm": _median(times["kernel"]["warm"]),
+            "ms_head_only": _median(times["kernel_head"]["cold"]),
+            "ms_head_only_l2_warm": _median(times["kernel_head"]["warm"]),
+            "library_ms": _median(times["library"]["cold"]),
+            "library_ms_l2_warm": _median(times["library"]["warm"]),
+            "library_margin_max_abs_err": lib_err,
+            "gather_ms": _median(times["gather"]["cold"]),
+            "gather_ms_l2_warm": _median(times["gather"]["warm"]),
+            "bytes": nbytes,
+            "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        if "plain" in fns:
+            t.update(plain_ms=_median(times["plain"]["cold"]), plain_ms_l2_warm=_median(times["plain"]["warm"]))
+        out.append(t)
+    del flush
+    return {
+        **out[0],
+        "library": "F.embedding_bag(ids, coef[:, None], per_sample_weights=values, mode='sum'): "
+                   "the head's margin, to hold against ms_head_only; gather: coef[ids], one model "
+                   "vector's gather alone",
+        "smaller_shapes": out[1:],
+    }
 
 
 def _sparse_batch_breakdown(plan, df, ingest, reps=5):
@@ -4682,8 +4732,8 @@ def _check_table(inputs, ops, got, want, where):
     of ``_check_rowlocal`` extended to every op: elementwise ops bit-equal
     until a normalize or a head's rounding, then within
     ULP_ENVELOPE["feature6"]; a sparse IDF bit-equal; a sparse head's
-    prediction equal (its margin is the plain version's sequential fold) and
-    its probability within ULP_ENVELOPE["sparse_idf_logistic"]; an MLP
+    prediction equal and its rawPrediction bit-equal (its margin is the
+    plain version's sequential fold, its sigmoid torch's formula); an MLP
     head's probabilities within ULP_ENVELOPE["scale_mlp"] and its prediction
     equal past a PREDICTION_MARGIN logit gap; a kmeans index equal past a
     KMEANS_MARGIN distance gap; a binarize of a rounded column equal outside
@@ -4718,8 +4768,11 @@ def _check_table(inputs, ops, got, want, where):
                     fail("MLP probabilities outside the scale_mlp envelope")
                 sure = dec & (_top_two_gap(op.layers, plain[op.src]) > PREDICTION_MARGIN)
             else:
-                envelope = ULP_ENVELOPE["scale_logistic" if op.op == "logistic" else "sparse_idf_logistic"]
-                if ulp_diff(second[dec, 1].cpu().numpy(), want[k + 1][dec, 1].cpu().numpy()) > envelope:
+                if op.op == "sparse_logistic":
+                    if not _same_bits(second[dec], want[k + 1][dec]):
+                        fail("sparse_logistic rawPrediction not bit-equal")
+                elif ulp_diff(second[dec, 1].cpu().numpy(), want[k + 1][dec, 1].cpu().numpy()) > \
+                        ULP_ENVELOPE["scale_logistic"]:
                     fail(f"{op.op} probability outside its envelope")
                 if not (_same_bits(second[:, 0], 1.0 - second[:, 1])
                         and _same_bits(want[k + 1][:, 0], 1.0 - want[k + 1][:, 1])):
@@ -4990,8 +5043,8 @@ def phase_kernels_chains(rng, card: str):
          grid={"rows": list(RESIDUE_ROWS), "widths": list(RESIDUE_WIDTHS), "caps": list(RESIDUE_CAPS),
                "d": list(RESIDUE_DIMS), "networks": {k: list(v) for k, v in MLP_CHECK_NETWORKS.items()}},
          rule=("elementwise ops and tf-idf bit-equal until a normalize or a head, then within "
-               "ULP_ENVELOPE['feature6']; sparse heads' prediction equal, probability within "
-               "ULP_ENVELOPE['sparse_idf_logistic']; MLP probabilities within ULP_ENVELOPE['scale_mlp'], "
+               "ULP_ENVELOPE['feature6']; sparse heads' prediction and rawPrediction bit-equal; "
+               "MLP probabilities within ULP_ENVELOPE['scale_mlp'], "
                f"prediction equal past a {PREDICTION_MARGIN} logit gap; kmeans index equal past a "
                f"{KMEANS_MARGIN} distance gap; binarize of a rounded column equal outside {BIN_MARGIN}; "
                "binarize (int32) and impute (float32) of the index exact"))
@@ -5128,7 +5181,9 @@ def _time_chains(dev):
     widths = list(MLP_WIDTHS)
     mlp_products = 2 * rows * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     mlp_weights = 4 * sum(a * b + b for a, b in zip(widths[:-1], widths[1:])) + 4 * widths[-1]
-    touched = int(torch.unique(sp_ids[:, :TRAIN_NNZ]).numel())  # distinct ids this batch gathers
+    # each distinct 32-byte sector of a gathered model vector once (a repeat
+    # hits L2), as kernels_sparse counts them: padding slots gather id 0
+    sectors = int(torch.unique(sp_ids // 8).numel())
     bounds = {
         # x in, normalized out, index out, centroids; normalize 3 an element + a root a row,
         # the head 2·k·d (the dots) + 4·k (distance and search) a row
@@ -5138,15 +5193,15 @@ def _time_chains(dev):
         # x in, normalized, prediction and probabilities out, the weights; the products dominate
         "normalize_mlp": _chain_bound(4 * rows * widths[0], 4 * rows * (widths[0] + 1 + widths[-1]),
                                       mlp_weights, mlp_products + rows * (3 * widths[0] + 1), mlp_products),
-        # values and ids in, tfidf out, one idf value gathered a slot; one multiply a slot
-        "sparse_idf": _chain_bound(8 * rows * cap, 4 * rows * cap, 4 * rows * cap, rows * cap),
+        # values and ids in, tfidf out, idf's sectors at the batch's ids; one multiply a slot
+        "sparse_idf": _chain_bound(8 * rows * cap, 4 * rows * cap, 32 * sectors, rows * cap),
         # values and ids of every slot, the dense column in; tf-idf of every slot, prediction,
-        # rawPrediction and the scaled column out; idf and coef at each distinct id, mean and
-        # inv_std; per entry a multiply for tf-idf, a multiply and an add for the margin, the
-        # sigmoid's 4 a row, 2 an element of the scale
+        # rawPrediction and the scaled column out; idf's and coef's sectors at the batch's ids,
+        # mean and inv_std; per entry a multiply for tf-idf, a multiply and an add for the
+        # margin, the sigmoid's 4 a row, 2 an element of the scale
         "idf_lr_scale": _chain_bound(8 * rows * cap + 4 * rows * MIXED_DENSE_D,
                                      4 * rows * cap + 12 * rows + 4 * rows * MIXED_DENSE_D,
-                                     2 * 4 * touched + 2 * 4 * MIXED_DENSE_D,
+                                     2 * 32 * sectors + 2 * 4 * MIXED_DENSE_D,
                                      rows * (3 * TRAIN_NNZ + 4 + 2 * MIXED_DENSE_D)),
         # normalize_mlp's, and the binarized probabilities out (one compare an element)
         "normalize_mlp_binarize": _chain_bound(4 * rows * widths[0],
@@ -5161,9 +5216,9 @@ def _time_chains(dev):
     shapes = {
         "normalize_kmeans": {"rows": rows, "d": KMEANS_D, "k": KMEANS_K, "measure": "euclidean"},
         "normalize_mlp": {"rows": rows, "widths": widths},
-        "sparse_idf": {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM},
+        "sparse_idf": {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM, "distinct_sectors": sectors},
         "idf_lr_scale": {"rows": rows, "cap": cap, "nnz": TRAIN_NNZ, "d": TRAIN_DIM, "dense": MIXED_DENSE_D,
-                         "distinct_ids": touched},
+                         "distinct_sectors": sectors},
         "normalize_mlp_binarize": {"rows": rows, "widths": widths},
         "kmeans_binarize": {"rows": rows, "d": KMEANS_D, "k": RESIDUE_K, "measure": "euclidean"},
     }

@@ -18,7 +18,7 @@
 // rowlocal_ops.cuh; a kmeans op computes its centroid norms and distances
 // with the dedicated scale -> kmeans kernel's code, so a row gets the same
 // cluster from either, and a sparse op keeps the sparse kernel's products and
-// sequential margin, bit-equal to it.
+// sequential margin (the fold of sparse_fold.cuh), bit-equal to it.
 //
 // Bound: memory. Per row it reads its input columns once and writes every
 // output once; the model vectors and centroids are read by every row but
@@ -35,7 +35,8 @@
 // included). Normalize's norm is one xor butterfly of __shfl_xor_sync; the
 // logistic head is the warp dot and head of megakernel_scale_logistic.cu. A
 // block with kmeans ops first computes their centroid norms into dynamic
-// shared memory.
+// shared memory; a sparse head folds in its warp's strip of static shared
+// memory (sparse_fold.cuh).
 //
 // Limits, mirrored by servable/megakernels.py: every slot 1 <= width <=
 // kMaxDim (a lane's registers; a sparse column's cap too), at most kMaxOps ops
@@ -57,6 +58,7 @@ template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
 rowlocal_kernel(const __grid_constant__ Table table, int rows, int with_norms) {
   extern __shared__ float norms[];
+  __shared__ __align__(16) float strips[kRowsPerBlock][kWarp];  // each warp's sparse fold (run_row)
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   if (with_norms) {
@@ -66,7 +68,7 @@ rowlocal_kernel(const __grid_constant__ Table table, int rows, int with_norms) {
   for (int row = blockIdx.x * kRowsPerBlock + warp; row < rows;
        row += gridDim.x * kRowsPerBlock) {  // row is uniform across the warp
     float v[kSlots];
-    run_row<kSlots>(table, 0, table.n_ops, row, lane, v, norms);
+    run_row<kSlots>(table, 0, table.n_ops, row, lane, v, norms, strips[warp]);
   }
 }
 

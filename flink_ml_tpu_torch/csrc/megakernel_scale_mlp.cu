@@ -132,7 +132,8 @@ constexpr int kPrefetch = 2;              // the loader's stages of W in flight 
 constexpr int kMaxNormFloats = 16 * 1024;
 constexpr int kBlockFloats = kRows * kChunk;  // one 64-column block of the activations (16 KB)
 constexpr size_t kActBytes = sizeof(float) * kRows * kMaxWidth;
-constexpr size_t kSmemLimit = 232448;     // a block's dynamic shared memory on the H100
+constexpr size_t kStripBytes = sizeof(float) * kWarps * kWarp;  // the row phases' sparse folds (static)
+constexpr size_t kSmemLimit = 232448 - kStripBytes;  // a block's shared memory on the H100, less the strips
 
 static_assert(kMaxClasses <= kWarp && kMaxClasses <= kChunk, "the head holds one logit per lane, in block 0");
 static_assert(kMaxWidth <= 4 * kMaxChunks * kChunk, "four ranks cover the widest layer");
@@ -760,14 +761,16 @@ __device__ __forceinline__ void head_row(const float* act, int r, int classes, c
 // One phase for one row (uniform across the warp): the table's ops [begin,
 // end), then, with `act`, the head's input slot into the tile's row r of
 // this block's activation buffer: [0, d0), zeros to the end of its last
-// 64-column block. A row past `rows` runs no op and stages zeros. Not
+// 64-column block. A row past `rows` runs no op and stages zeros. `strip`
+// is the warp's shared memory for a sparse head's fold. Not
 // inlined: inlined, the kernel spilled at wide slots (PERF.md).
 template <int kSlots>
 __device__ __noinline__ void phase_row(const rowlocal::Table& table, int begin, int end, int head_src, int row,
-                                       int rows, int lane, const float* norms, float* act, int r, int d0) {
+                                       int rows, int lane, const float* norms, float* strip, float* act, int r,
+                                       int d0) {
   float v[kSlots];
   if (row < rows) {
-    const int cur = rowlocal::run_row<kSlots>(table, begin, end, row, lane, v, norms);
+    const int cur = rowlocal::run_row<kSlots>(table, begin, end, row, lane, v, norms, strip);
     if (act != nullptr && cur != head_src) rowlocal::load_row<kSlots>(table.slots[head_src], row, lane, v);
   }
   if (act == nullptr) return;
@@ -789,6 +792,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table,
                     const __grid_constant__ MlpNets nets, int rows, int n_stages, int raw_stages, int with_norms) {
   extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(16) float strips[kWarps][kWarp];  // kStripBytes
   float* const act = smem;  // kMaxWidth / kChunk blocks of [kRows][kChunk] (act_offset)
   Ring ring;
   ring.n = n_stages;
@@ -826,7 +830,7 @@ rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table,
     if (end == table.n_ops) {  // the epilogue
       if (begin < end) {
         for (int r = r_begin + warp; r < r_end; r += kWarps) {
-          phase_row<kSlots>(table, begin, end, -1, row0 + r, rows, lane, norms, nullptr, r, 0);
+          phase_row<kSlots>(table, begin, end, -1, row0 + r, rows, lane, norms, strips[warp], nullptr, r, 0);
         }
       }
       break;
@@ -837,7 +841,7 @@ rowlocal_mlp_kernel(const __grid_constant__ rowlocal::Table table,
     if (!loader) copies_read();  // the last exchange's copies have read this block's buffer
     __syncthreads();
     for (int r = r_begin + warp; r < r_end; r += kWarps) {
-      phase_row<kSlots>(table, begin, end, head.src, row0 + r, rows, lane, norms, act, r, d0);
+      phase_row<kSlots>(table, begin, end, head.src, row0 + r, rows, lane, norms, strips[warp], act, r, d0);
     }
     fence_proxy_async();  // the staged rows, before the copies read them
     __syncthreads();

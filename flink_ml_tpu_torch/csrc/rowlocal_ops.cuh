@@ -54,11 +54,12 @@
 // Numerics: every elementwise op uses the _rn intrinsics, which the compiler
 // never contracts into an FMA, so each output of a chain without normalize
 // and before a head is bit-identical to the plain PyTorch version, sparse_idf
-// included. The sparse head keeps the sparse kernel's order
-// (megakernel_sparse_idf_logistic.cu): each chunk of 32 slot products is
-// broadcast lane by lane with __shfl_sync and every lane adds it in slot order,
-// the strictly sequential fold of ops/kernels.segment_sum, so its margin and
-// prediction are bit-equal to the plain version's at every cap. Normalize
+// included. The sparse head folds as the sparse kernel does
+// (megakernel_sparse_idf_logistic.cu), with the fold of sparse_fold.cuh: the
+// warp writes a chunk of 32 slot products to its strip of shared memory and
+// lane 0 adds them in slot order, chunk after chunk, the strictly sequential
+// fold of ops/kernels.segment_sum, so its margin and prediction are
+// bit-equal to the plain version's at every cap. Normalize
 // mirrors torch.pow on CUDA, which special-cases the exponent: p = 1 is |x|
 // itself, p = 2 is |x| * |x|, p = 3 is (|x| * |x|) * |x|, other p are powf;
 // the root is the sum itself for p = 1, sqrtf for p = 2 (torch takes ** 0.5 as
@@ -92,6 +93,8 @@
 
 #include <cstddef>
 #include <cstring>
+
+#include "sparse_fold.cuh"
 
 namespace rowlocal {
 
@@ -161,14 +164,7 @@ static_assert(sizeof(Table) <= 3072, "the table leaves room in the 4 KB of kerne
 
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
 
-// An id into a vector of d values, clamped as the JAX package's gather does.
-__device__ __forceinline__ long long clamp_id(int id, int d) {
-  long long i = id;
-  if (i < 0) i += d;
-  if (i < 0) i = 0;
-  if (i > d - 1) i = d - 1;
-  return i;
-}
+using sparse_fold::clamp_id;  // an id into a vector of d values, clamped as the JAX package's gather does
 
 // The warp's total of v, the same bits in every lane.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -307,8 +303,8 @@ __device__ __forceinline__ void store_row(const Slot& slot, int row, int lane, c
   }
 }
 
-// The logistic head's outputs for one row, from lane 0 (margin uniform across
-// the warp), then __syncwarp().
+// The logistic head's outputs for one row, from lane 0 (whose margin is the
+// row's), then __syncwarp().
 __device__ __forceinline__ void logistic_head(const Table& table, const Op& op, int row, int lane,
                                               float margin) {
   if (lane == 0) {
@@ -345,11 +341,12 @@ __device__ __forceinline__ int norm_offset(const Table& table, int begin) {
 }
 
 // Runs the table's ops [begin, end) on one row (uniform across the warp),
-// writing every op's output slot; no op there may be an mlp head. Returns the
-// slot whose row v holds afterwards (-1: none).
+// writing every op's output slot; no op there may be an mlp head. `strip` is
+// the warp's kWarp floats of shared memory (16-byte aligned), where a sparse
+// head folds. Returns the slot whose row v holds afterwards (-1: none).
 template <int kSlots>
 __device__ __forceinline__ int run_row(const Table& table, int begin, int end, int row, int lane,
-                                       float (&v)[kSlots], const float* norms) {
+                                       float (&v)[kSlots], const float* norms, float* strip) {
   int cur = -1;  // the slot whose row v holds
   int norm_off = norm_offset(table, begin);
   for (int i = begin; i < end; ++i) {
@@ -379,13 +376,17 @@ __device__ __forceinline__ int run_row(const Table& table, int begin, int end, i
         const int j = s * kWarp + lane;
         term[s] = j < w ? __fmul_rn(v[s], __ldg(op.a + clamp_id(ids[j], op.flags))) : 0.0f;
       }
-      float acc = 0.0f;  // the sequential fold over slots 0, 1, ..., w - 1, in every lane
+      float acc = 0.0f;  // lane 0: the sequential fold over slots 0, 1, ..., w - 1
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
         const int n = min(kWarp, w - s * kWarp);  // uniform: the slots this chunk holds
-        for (int t = 0; t < n; ++t) acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, term[s], t));
+        if (n <= 0) break;
+        strip[lane] = term[s];
+        __syncwarp();
+        if (lane == 0) acc = sparse_fold::fold(strip, n, acc);
+        __syncwarp();  // the next chunk rewrites the strip
       }
-      logistic_head(table, op, row, lane, acc);
+      logistic_head(table, op, row, lane, acc);  // from lane 0
       continue;  // v still holds the values row
     }
     if (op.op == kKmeans) {

@@ -397,6 +397,34 @@ def test_sparse_kernel_folds_padding_and_clamps_ids_as_the_plain_version(cuda):
     assert _same_bits(raw, p_raw)
 
 
+@pytest.mark.parametrize("with_idf,write_tfidf", SPARSE_CHAINS)
+@pytest.mark.parametrize("K", (3, 13, 65, 1500))  # 1500: past one tile's 253 slots, walked in chunks
+def test_sparse_kernel_tiles_are_bit_equal_at_any_cap(cuda, K, with_idf, write_tfidf):
+    """Caps that are no multiple of 4 (tiles starting off a 16-byte
+    boundary), past a warp and past one tile, at row counts that are no
+    multiple of a tile's rows, in both modes: the head's tfidf and margin
+    bit-equal, prediction equal; the head-less mode's tfidf bit-equal."""
+    for rows in (1, 7, 4099):
+        vals, ids, idf, coef = _sparse_inputs(rows + 1, K, 1 << 22, cuda, seed=rows + K)
+        # rows 1.. of the arrays: contiguous, 4·K bytes past an allocation's start
+        cases = [(vals[:rows], ids[:rows], "aligned"), (vals[1:], ids[1:], "offset")]
+        for v, i, at in cases:
+            where = f"rows={rows} K={K} {at}"
+            m_idf = idf if with_idf else None
+            before = SPARSE_IDF_LOGISTIC.launches
+            tfidf, margin, pred, raw = sparse_idf_logistic(v, i, m_idf, coef, write_tfidf=write_tfidf)
+            p_tfidf, p_margin, p_pred, p_raw = sparse_idf_logistic_plain(v, i, m_idf, coef)
+            headless = sparse_idf(v, i, idf)
+            torch.cuda.synchronize()
+            assert SPARSE_IDF_LOGISTIC.launches == before + 2, where
+            if write_tfidf:
+                assert _same_bits(tfidf, p_tfidf), where
+            assert _same_bits(margin, p_margin), where
+            assert torch.equal(pred, p_pred), where
+            assert _same_bits(raw, p_raw), where
+            assert _same_bits(headless, sparse_idf_plain(v, i, idf)), where
+
+
 def test_sparse_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     vals, ids, idf, coef = _sparse_inputs(8, 4, 16, cuda)
     before = SPARSE_IDF_LOGISTIC.launches
@@ -2020,6 +2048,30 @@ def test_table_sparse_ops_match_plain_version(cuda, name, d):
                 assert got[k].dtype == want[k].dtype == torch.float32, where
                 assert _same_bits_or_nan(got[k], want[k]), where
                 k += 1
+
+
+@pytest.mark.parametrize("cap", (1, 33, 64))
+def test_table_sparse_head_is_bit_equal_to_its_plain_version(cuda, cap):
+    """The table's sparse heads (a chunk of 32 products a fold on one lane):
+    prediction and rawPrediction bit-equal to the plain version, whose
+    margin is the sequential fold, on IDF -> IDF -> LR and two heads."""
+    for name in ("idf_idf_lr", "two_sparse_heads"):
+        for rows in (1, 33, 4096):
+            where = f"{name} rows={rows} cap={cap}"
+            inputs, ops = _table_sparse_case(name, rows, cap, 1 << 22, cuda, seed=rows + cap)
+            before = ROWLOCAL.launches
+            got = rowlocal_chain(inputs, ops)
+            want = rowlocal_chain_plain(inputs, ops)
+            torch.cuda.synchronize()
+            assert ROWLOCAL.launches == before + 1, where
+            k = 0
+            for op in ops:
+                if op.op == "sparse_logistic":
+                    assert torch.equal(got[k], want[k]), where
+                    assert _same_bits_or_nan(got[k + 1], want[k + 1]), where
+                    k += 2
+                else:
+                    k += 1
 
 
 MLP_AFTER_CHAINS = ("mlp_scale", "normalize_mlp_binarize", "mlp_kmeans", "mlp_mlp", "mlp_scale_mlp",

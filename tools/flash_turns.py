@@ -3,9 +3,12 @@ of each tree — by default the ring-attention fold and its backward kernels
 and the attention paths that run them (``kernels_flash``,
 ``serve_attention``, ``kernels_flash_bwd``, ``fit_attention``), or the
 phases named with ``--phases``, for example the MLP megakernel and its paths
-(``kernels_mlp``, ``serve_mlp``, ``pipeline_mlp``, ``kernels_chains``) or
-the one-hot crossings (``crossings``: ``phase_train`` on the headline
-sparse rows, then ``phase_crossings_headline`` on the cache it returns).
+(``kernels_mlp``, ``serve_mlp``, ``pipeline_mlp``, ``kernels_chains``), the
+one-hot crossings (``crossings``: ``phase_train`` on the headline sparse
+rows, then ``phase_crossings_headline`` on the cache it returns) or the
+sparse serving kernel and its paths (``kernels_sparse``, ``sparse_times``,
+``serve_sparse``, ``pipeline_sparse``, ``pipeline_mixed``; the pipelines
+take the models ``serve_sparse`` fits, so it runs before them).
 
 Each run is a fresh process started in the tree's own root, so it builds and
 imports that tree's ``flink_ml_tpu_torch`` and calls that tree's
@@ -20,6 +23,15 @@ into a directory that ``.gitignore`` lists, for example::
         --phases kernels_mlp,serve_mlp,pipeline_mlp,kernels_chains --out build/mlp_turns.jsonl
     python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
         --phases crossings --out build/crossing_turns.jsonl
+    python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
+        --phases kernels_sparse,sparse_times,serve_sparse,pipeline_sparse,pipeline_mixed,kernels_chains \\
+        --out build/sparse_turns.jsonl
+
+``sparse_times`` is this tool's own tree's ``chip_smoke._time_sparse`` run
+against each tree's package: the sparse kernel's cold and warm times at
+every shape of this tree's ``SPARSE_TIMED`` beside ``F.embedding_bag``,
+``coef[ids]`` and the bound, and the kernel's registers and spills, the
+same measurement for both trees whatever their own ``kernels_sparse`` times.
 
 Every JSON line the phases print is kept in ``--out``, tagged with the tree
 and the run; the last line of standard output is a summary per run. For the
@@ -35,7 +47,9 @@ kernels_chains' normalize → mlp and normalize → mlp → binarize. For the
 crossings: the premat dot's and mult's cold and warm times, the bf16 ``bmm``
 beside each, the bound and the share of HBM's 3.35 TB/s that the bound's
 bytes over the cold time reach, and the train phase's premat and build-form
-ms/step. Needs one card.
+ms/step. For the sparse phases: ``sparse_times`` by shape, the served p50
+and p99 of serve_sparse, the IDF service and pipeline_mixed, and
+kernels_chains' ``sparse_idf`` and IDF → LR → scale. Needs one card.
 """
 import argparse
 import json
@@ -56,7 +70,15 @@ CALLS = {
     "pipeline_mlp": "c.phase_pipeline_mlp(card)",
     "kernels_chains": "c.phase_kernels_chains(np.random.default_rng(c.SEED), card)",
     "crossings": "c.phase_crossings_headline(c.phase_train(card, c._headline_data())[0], card)",
+    "kernels_sparse": "c.phase_kernels_sparse(np.random.default_rng(c.SEED), card, headline[0])",
+    "sparse_times": ("print(json.dumps({'phase': 'sparse_times', 'card': card, 'compiled': tool._sparse_compiled(), "
+                     "**tool._time_sparse(headline[0], np.random.default_rng(c.SEED))}), flush=True)"),
+    "serve_sparse": "_, idf_model, lr_model = c.phase_serve_sparse(card, headline)",
+    "pipeline_sparse": "c.phase_pipeline_sparse(card, headline, idf_model, lr_model)",
+    "pipeline_mixed": "c.phase_pipeline_mixed(card, headline, idf_model, lr_model)",
 }
+SPARSE = ("kernels_sparse", "sparse_times", "serve_sparse", "pipeline_sparse", "pipeline_mixed")
+TOOL_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PREMAT = {"dot": "onehot_dot_crossing_premat", "mult": "onehot_mult_crossing_premat"}
 
@@ -86,8 +108,21 @@ print(json.dumps({"phase": "mlp_sass", "registers": [int(r) for r in re.findall(
 """
 
 
+# The headline rows the sparse phases share, and this tool's own
+# chip_smoke (for sparse_times), which imports the tree's package.
+SPARSE_HEAD = r"""
+import importlib.util
+headline = c._headline_data()
+spec = importlib.util.spec_from_file_location("tool_chip_smoke", TOOL_SMOKE)
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+"""
+
+
 def _run_script(phases):
     body = HEAD + (MLP_SASS if "kernels_mlp" in phases else "")
+    if set(phases) & set(SPARSE):
+        body += f"TOOL_SMOKE = {str(TOOL_SMOKE)!r}\n" + SPARSE_HEAD
     return body + "".join(CALLS[p] + "\n" for p in phases)
 
 
@@ -138,8 +173,20 @@ def _summary(lines):
             if "premat_compiled" in line:
                 out["premat_compiled"] = line["premat_compiled"]
         if phase == "kernels_chains" and "timing" in line:
-            for name in ("normalize_mlp", "normalize_mlp_binarize"):
+            for name in ("normalize_mlp", "normalize_mlp_binarize", "sparse_idf", "idf_lr_scale"):
                 out[name] = _pick(line["timing"][name], ("ms", "ms_l2_warm", "plain_ms", "bound_ms"))
+        if phase == "sparse_times":
+            out["sparse_compiled"] = line["compiled"]
+            for t in [line, *line["smaller_shapes"]]:
+                out[f"sparse_{t['shape']['rows']}x{t['shape']['cap']}"] = _pick(t, (
+                    "ms", "ms_l2_warm", "ms_head_only", "ms_head_only_l2_warm", "library_ms",
+                    "library_ms_l2_warm", "gather_ms", "gather_ms_l2_warm", "plain_ms", "bound_ms"))
+        if phase == "serve_sparse" and "p50_ms" in line:
+            out["serve_sparse"] = _pick(line, ("p50_ms", "p99_ms", "rows_per_s", "hot_batch_breakdown_ms"))
+        if phase == "pipeline_sparse" and "idf_service" in line:
+            out["idf_service"] = _pick(line["idf_service"], ("p50_ms", "p99_ms", "rows_per_s"))
+        if phase == "pipeline_mixed" and "serve" in line:
+            out["pipeline_mixed"] = _pick(line["serve"], ("p50_ms", "p99_ms", "rows_per_s"))
     return out
 
 
@@ -155,6 +202,9 @@ def main() -> int:
     unknown = sorted(set(phases) - set(CALLS))
     if unknown or not phases:
         ap.error(f"unknown phases {unknown}; choose from {sorted(CALLS)}")
+    fitted = phases.index("serve_sparse") if "serve_sparse" in phases else len(phases)
+    if any(phases.index(p) < fitted for p in ("pipeline_sparse", "pipeline_mixed") if p in phases):
+        ap.error("pipeline_sparse and pipeline_mixed take serve_sparse's models: name serve_sparse before them")
     trees = [tuple(t.split("=", 1)) for t in args.tree]
     if len(trees) != 2:
         ap.error("give exactly two trees")
