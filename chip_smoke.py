@@ -89,8 +89,10 @@ runs 25 and 26 after 9, and 22–24 after 17):
                rows from 4 clients checked against float64 numpy; megakernel
                launches equal the batches of bucket ≥ 2, 0 fallbacks, 0
                chains built after warmup, the plain version never called;
-12. kernels_kmeans — the scale → kmeans megakernel against its plain
-               version over rows (1 … 4096, ragged) × d (1, 7, 100, 256) × k
+12. kernels_kmeans — the kernel's registers and spills (ptxas -v), then the
+               scale → kmeans megakernel against its plain version over rows
+               (1 … 4096, ragged, and 67,585: past one pass of its
+               persistent grid) × d (1, 7, 100, 256) × k
                (2, 10, 64) × measure (euclidean, manhattan, cosine) × chain
                (the four scaler flag combinations, KMeans alone), with a NaN
                feature, a zero row and a duplicate centroid in the grid:
@@ -116,14 +118,17 @@ runs 25 and 26 after 9, and 22–24 after 17):
                float64 numpy; megakernel launches equal the batches of bucket
                ≥ 512, 0 fallbacks, 0 chains built after warmup, the plain
                version never called; a 4096-row batch's host breakdown;
-15. kernels_rowlocal — the row-local megakernel (any chain of scale,
+15. kernels_rowlocal — the kernel's registers and spills (ptxas -v), then
+               the row-local megakernel (any chain of scale,
                normalize, elementwise_product, idf, binarize and impute, ±
                a logistic head) against its plain version over 15 chains
                (scale under the four flag pairs, normalize at p 1, 2, 3, the
                product, idf, a three-column binarize, impute with a NaN and
                with a 0.1 placeholder, feature6, feature6 → logistic, a head
-               reading a column other than its predecessor's) × d (1 … 1024)
-               × rows (1, 33, 4096), with zero, NaN and ±inf entries: bit-equal
+               reading a column other than its predecessor's) × d (1, 2, 7,
+               16, 17, 32, 33, 100, 257, 1024: each lanes-a-row case) × rows
+               (1, 33, 4096 and past one pass of its persistent grid), with
+               zero, NaN and ±inf entries: bit-equal
                until a normalize, then within the feature6 envelope, bin equal
                outside a margin; then CUDA-event times at 4096 × 100 of
                feature6 → logistic, normalize alone against
@@ -414,7 +419,11 @@ FIT_PROB_MEAN_ATOL = 1e-4
 # uniform [0, 1)); nothing cut.
 KMEANS_ROWS, KMEANS_D, KMEANS_K, KMEANS_ITERS, KMEANS_DATA_SEED = 100_000, 100, 10, 10, 2
 KMEANS_SERVE_SEED = KMEANS_DATA_SEED + 1  # new rows from the same generator
-KMEANS_CHECK_ROWS = (1, 7, 203, 1024, 4096)
+# More rows than one pass of a persistent grid holds: an H100's 132 SMs x 64
+# resident warps x the rows a warp takes at once (the kmeans kernel: at most
+# 8; the row-local kernel: 32 / its lanes a row).
+SMS_WARPS = 132 * 64
+KMEANS_CHECK_ROWS = (1, 7, 203, 1024, 4096, SMS_WARPS * 8 + 1)
 KMEANS_CHECK_DIMS = (1, 7, 100, 256)
 KMEANS_CHECK_KS = (2, 10, 64)
 KMEANS_MEASURES = ("euclidean", "manhattan", "cosine")
@@ -445,8 +454,8 @@ ROWLOCAL_CASES = (
     "product", "idf", "binarize", "impute_nan", "impute_value", "feature6", "feature6_logistic",
     "head_off_chain",
 )
-ROWLOCAL_CHECK_WIDTHS = (1, 7, 32, 100, 257, 1024)
-ROWLOCAL_CHECK_ROWS = (1, 33, 4096)
+ROWLOCAL_CHECK_WIDTHS = (1, 2, 7, 16, 17, 32, 33, 100, 257, 1024)
+ROWLOCAL_CHECK_ROWS = (1, 33, 4096)  # and rows past one grid pass (_rowlocal_past_one_pass)
 # Where a binarize's input carries a normalize's rounding, entries within
 # this margin of the threshold may round either way: they are not compared,
 # nor anything downstream of them in their row. 1e-5 is ~100x the feature6
@@ -1457,16 +1466,11 @@ def phase_kernels_sparse(rng, card: str, headline_idx):
 def _sparse_compiled():
     """The sparse kernel's registers and spills, as ptxas reported them in
     its build (cached: the build phase made it)."""
-    import re
-
-    from flink_ml_tpu_torch.native import build
     from flink_ml_tpu_torch.servable.megakernels import SPARSE_IDF_LOGISTIC
 
-    log = build(SPARSE_IDF_LOGISTIC.source).log
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    return {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
-            "spill_store_bytes": sum(int(a) for a, _ in spills),
-            "spill_load_bytes": sum(int(b) for _, b in spills)}
+    out = _ptxas(SPARSE_IDF_LOGISTIC)
+    del out["source"]
+    return out
 
 
 def _time_sparse(headline_idx, rng):
@@ -2492,6 +2496,7 @@ def phase_kernels_kmeans(rng, card: str):
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full float32
+    emit("kernels_kmeans", kernel=SCALE_KMEANS.name, compiled=_ptxas(SCALE_KMEANS))
     grid = _kmeans_grid(rng, dev)
     emit("kernels_kmeans", kernel=SCALE_KMEANS.name, **grid,
          grid={"rows": list(KMEANS_CHECK_ROWS), "d": list(KMEANS_CHECK_DIMS), "k": list(KMEANS_CHECK_KS),
@@ -2831,6 +2836,32 @@ def phase_serve_kmeans(card: str):
     return launches
 
 
+def _rowlocal_past_one_pass(inputs, ops):
+    """Rows past one pass of the row-local kernel's persistent grid for a
+    table without MLP heads: its lanes a row follow the widest slot (the
+    inputs', 2 for a logistic head's rawPrediction)."""
+    widest = max([t.shape[1] if t.dim() == 2 else 1 for t in inputs]
+                 + [2 for op in ops if op.op == "logistic"])
+    lanes = 1 << (widest - 1).bit_length() if widest <= 16 else 32
+    return SMS_WARPS * (32 // lanes) + 1
+
+
+def _ptxas(kernel):
+    """A kernel source's registers a thread (each instance, as ptxas -v
+    reported them in its build; cached, the build phase made it) and its
+    spill stores and loads in bytes, summed over the instances."""
+    import re
+
+    from flink_ml_tpu_torch.native import build
+
+    log = build(kernel.source).log
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return {"source": kernel.source_path,
+            "registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
+            "spill_store_bytes": sum(int(a) for a, _ in spills),
+            "spill_load_bytes": sum(int(b) for _, b in spills)}
+
+
 def _rowlocal_case(name, rows, d, dev, rng):
     """``(inputs, ops)`` of one row-local chain on ``dev``: standard-normal
     rows with, from 5 rows on, a zero row, a NaN, +inf and -inf; scalers with
@@ -3024,10 +3055,12 @@ def phase_kernels_rowlocal(rng, card: str):
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain head's dot in full float32
+    emit("kernels_rowlocal", kernel=ROWLOCAL.name, compiled=_ptxas(ROWLOCAL))
     configurations, inside, max_abs_err, max_ulps = 0, 0, 0.0, 0
     for name in ROWLOCAL_CASES:
         for d in ROWLOCAL_CHECK_WIDTHS:
-            for rows in ROWLOCAL_CHECK_ROWS:
+            past = _rowlocal_past_one_pass(*_rowlocal_case(name, 1, d, dev, np.random.default_rng(0)))
+            for rows in ROWLOCAL_CHECK_ROWS + (past,):
                 inputs, ops = _rowlocal_case(name, rows, d, dev, rng)
                 got = rowlocal_chain(inputs, ops)
                 want = rowlocal_chain_plain(inputs, ops)
@@ -3039,7 +3072,7 @@ def phase_kernels_rowlocal(rng, card: str):
     emit("kernels_rowlocal", kernel=ROWLOCAL.name, configurations=configurations,
          entries_inside_margin=inside, max_abs_err=max_abs_err, max_ulps_from_a_normalize_on=max_ulps,
          grid={"chains": list(ROWLOCAL_CASES), "d": list(ROWLOCAL_CHECK_WIDTHS),
-               "rows": list(ROWLOCAL_CHECK_ROWS)},
+               "rows": list(ROWLOCAL_CHECK_ROWS) + ["past one grid pass"]},
          rule=("bit-equal until a normalize; from it on within ULP_ENVELOPE['feature6']; bin equal "
                f"outside |x - threshold| <= {BIN_MARGIN}, such rows left out downstream; the probability "
                "rawPrediction[:, 1] within ULP_ENVELOPE['scale_logistic'] and [:, 0] = 1 - it in float32; "

@@ -784,8 +784,15 @@ def _kmeans_inputs(rows, d, k, device, seed=0):
 
 def _kmeans_decided(measure, scaled, centroids):
     """Rows whose float64 top-two distance gap exceeds the margin; rows with
-    a NaN distance are decided (the first NaN wins)."""
-    X, C = scaled.double(), centroids.double()
+    a NaN distance are decided (the first NaN wins). In chunks of rows, so
+    that a chunk's [rows, k, d] differences stay near 2^27 values."""
+    C = centroids.double()
+    chunk = max(1, (1 << 27) // (C.shape[0] * C.shape[1]))
+    return np.concatenate([_kmeans_decided_rows(measure, scaled[r:r + chunk].double(), C)
+                           for r in range(0, max(1, scaled.shape[0]), chunk)])
+
+
+def _kmeans_decided_rows(measure, X, C):
     if measure == "euclidean":
         dist = torch.sqrt(((X[:, None, :] - C[None]) ** 2).sum(-1))
     elif measure == "manhattan":
@@ -799,9 +806,21 @@ def _kmeans_decided(measure, scaled, centroids):
     return (nan | (top[:, 1] - top[:, 0] > KMEANS_MARGIN)).cpu().numpy()
 
 
-@pytest.mark.parametrize("rows", (1, 33, 4096))
+# More rows than one pass of a persistent grid holds: an H100's 132 SMs x 64
+# resident warps x the rows a warp takes at once (the kmeans kernel: at most
+# 8; the row-local kernel: 32 / its lanes a row).
+SMS_WARPS = 132 * 64
+KMEANS_PAST_ONE_PASS = SMS_WARPS * 8 + 1
+
+
+def _rowlocal_past_one_pass(widest):
+    lanes = 1 << (widest - 1).bit_length() if widest <= 16 else 32
+    return SMS_WARPS * (32 // lanes) + 1
+
+
+@pytest.mark.parametrize("rows", (1, 33, 4096, KMEANS_PAST_ONE_PASS))
 @pytest.mark.parametrize("d", (1, 7, 100, 256))
-@pytest.mark.parametrize("k", (2, 10, 64))
+@pytest.mark.parametrize("k", (2, 10, 33, 64))
 @pytest.mark.parametrize("measure", KMEANS_MEASURES)
 def test_kmeans_kernel_matches_plain_version(cuda, rows, d, k, measure):
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in full float32
@@ -850,7 +869,7 @@ def test_kmeans_kernel_takes_the_first_minimum_and_nan_as_the_minimum(cuda, meas
 def test_kmeans_kernel_at_its_limits_and_past_one_grid(cuda, measure):
     """k and d at the kernel's limits, and more rows than one grid of
     blocks covers (the blocks stride over the rest)."""
-    for rows, d, k in ((5, KMEANS_MAX_DIM, KMEANS_MAX_K), (10_000, 100, 10)):
+    for rows, d, k in ((5, KMEANS_MAX_DIM, KMEANS_MAX_K), (10_000, 100, 10), (KMEANS_PAST_ONE_PASS, 100, 10)):
         x, mean, inv_std, C = _kmeans_inputs(rows, d, k, cuda, seed=d)
         kw = dict(measure=measure, with_mean=True, with_std=True)
         scaled, pred = scale_kmeans(x, mean, inv_std, C, write_scaled=True, **kw)
@@ -1073,10 +1092,11 @@ def _check_rowlocal(inputs, ops, got, want, where=""):
 
 
 @pytest.mark.parametrize("name", ROWLOCAL_CASES)
-@pytest.mark.parametrize("d", (1, 7, 32, 100, 257, ROWLOCAL_MAX_DIM))
+@pytest.mark.parametrize("d", (1, 2, 7, 16, 17, 32, 33, 100, 257, ROWLOCAL_MAX_DIM))
 def test_rowlocal_kernel_matches_plain_version(cuda, name, d):
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain head's dot in full float32
-    for rows in (1, 33, 4096):
+    past = _rowlocal_past_one_pass(_table_widest(*_rowlocal_case(name, 1, d, cuda)))
+    for rows in (1, 33, 4096, past):
         inputs, ops = _rowlocal_case(name, rows, d, cuda, seed=rows + d)
         before = ROWLOCAL.launches
         got = rowlocal_chain(inputs, ops)
@@ -1085,6 +1105,38 @@ def test_rowlocal_kernel_matches_plain_version(cuda, name, d):
         assert ROWLOCAL.launches == before + 1
         assert len(got) == len(want)
         _check_rowlocal(inputs, ops, got, want, f"{name} rows={rows} d={d}")
+
+
+def _table_widest(inputs, ops):
+    """The widest slot of a table without MLP heads: its inputs', 2 for a
+    logistic head's rawPrediction (every other output is as wide as its
+    input, or 1)."""
+    widths = [t.shape[1] if t.dim() == 2 else 1 for t in inputs]
+    return max(widths + [2 for op in ops if op.op == "logistic"])
+
+
+@pytest.mark.parametrize("rows", (1, 31, 33, 65_537))
+def test_rowlocal_kernel_runs_fifteen_scalar_columns_a_lane_a_row(cuda, rows):
+    """The published Imputer's table: 15 width-1 impute ops, one lane a row
+    and 32 rows a warp, bit-equal to the plain version."""
+    rng = np.random.default_rng(rows)
+    cols = []
+    for _ in range(15):
+        c = rng.integers(0, 100, rows).astype(np.float32)
+        c[rng.random(rows) < 0.1] = np.nan
+        cols.append(torch.from_numpy(c).to(cuda))
+    surrogates = torch.from_numpy(rng.random(15).astype(np.float32) * 100).to(cuda)
+    ops = [RowLocalOp("impute", k, surrogates, params={"missing_is_nan": True, "missing_value": 0.0,
+                                                       "column": k}) for k in range(15)]
+    before = ROWLOCAL.launches
+    got = rowlocal_chain(cols, ops)
+    want = rowlocal_chain_plain(cols, ops)
+    torch.cuda.synchronize()
+    assert ROWLOCAL.launches == before + 1
+    assert len(got) == len(want) == 15
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (rows,) and g.dtype == w.dtype == torch.float32
+        assert _same_bits_or_nan(g, w)
 
 
 def test_rowlocal_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -1726,11 +1778,11 @@ def _table_kmeans_case(name, rows, d, k, measure, device, seed=0):
 
 @pytest.mark.parametrize("name", TABLE_KMEANS_CHAINS)
 @pytest.mark.parametrize("d", (1, 8, 100, 1000))
-@pytest.mark.parametrize("k", (1, 10, 64))
+@pytest.mark.parametrize("k", (1, 10, 33, 64))
 @pytest.mark.parametrize("measure", KMEANS_MEASURES)
 def test_table_kmeans_head_matches_plain_version(cuda, name, d, k, measure):
     torch.backends.cuda.matmul.allow_tf32 = False
-    for rows in (1, 33, 4096):
+    for rows in (1, 33, 4096, _rowlocal_past_one_pass(d)):
         where = f"{name} rows={rows} d={d} k={k} {measure}"
         inputs, ops = _table_kmeans_case(name, rows, d, k, measure, cuda, seed=rows + d + k)
         before = ROWLOCAL.launches
@@ -1753,10 +1805,12 @@ def test_table_kmeans_head_matches_plain_version(cuda, name, d, k, measure):
 
 
 @pytest.mark.parametrize("measure", KMEANS_MEASURES)
-@pytest.mark.parametrize("d,k", ((7, 10), (100, 10), (256, 1024)))
+@pytest.mark.parametrize("d,k", ((7, 10), (16, 10), (100, 10), (256, 1024)))
 def test_table_kmeans_head_gives_the_dedicated_kernels_cluster(cuda, measure, d, k):
     """("scale", "kmeans") on the table and on its own kernel: the same
-    norms and distances, so the same index in every row, ties included."""
+    norms and distances, so the same index in every row, ties included;
+    and normalize -> kmeans on the table (a row's lanes fewer than 32 at d
+    7 and 16) against the dedicated kernel fed the normalized rows."""
     from flink_ml_tpu_torch.servable.megakernels import SCALE_KMEANS, scale_kmeans
 
     x, mean, inv_std, C = _kmeans_inputs(4096, d, k, cuda, seed=d + k)
@@ -1769,6 +1823,12 @@ def test_table_kmeans_head_gives_the_dedicated_kernels_cluster(cuda, measure, d,
     torch.cuda.synchronize()
     assert _same_bits_or_nan(scaled, d_scaled)
     assert torch.equal(idx, d_idx)
+    normalized, n_idx = rowlocal_chain([x], [RowLocalOp("normalize", 0, params={"p": 2.0}),
+                                             RowLocalOp("kmeans", 1, C, params={"measure": measure})])
+    _, d_n_idx = scale_kmeans(normalized, None, None, C, measure=measure, with_mean=False,
+                              with_std=False, write_scaled=False)
+    torch.cuda.synchronize()
+    assert torch.equal(n_idx, d_n_idx)
 
 
 def test_table_kmeans_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -8,7 +8,12 @@ one-hot crossings (``crossings``: ``phase_train`` on the headline sparse
 rows, then ``phase_crossings_headline`` on the cache it returns) or the
 sparse serving kernel and its paths (``kernels_sparse``, ``sparse_times``,
 ``serve_sparse``, ``pipeline_sparse``, ``pipeline_mixed``; the pipelines
-take the models ``serve_sparse`` fits, so it runs before them).
+take the models ``serve_sparse`` fits, so it runs before them), or the
+scale → kmeans and row-local table kernels and their paths
+(``kernels_kmeans``, ``kernels_rowlocal``, ``kernels_chains``,
+``serve_kmeans``, ``serve_feature6``, ``serve_imputer``,
+``pipeline_kmeans``, with ``kernels_mlp`` for the MLP kernel, which
+includes the same ``csrc/rowlocal_ops.cuh``).
 
 Each run is a fresh process started in the tree's own root, so it builds and
 imports that tree's ``flink_ml_tpu_torch`` and calls that tree's
@@ -26,6 +31,9 @@ into a directory that ``.gitignore`` lists, for example::
     python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
         --phases kernels_sparse,sparse_times,serve_sparse,pipeline_sparse,pipeline_mixed,kernels_chains \\
         --out build/sparse_turns.jsonl
+    python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
+        --phases kernels_kmeans,kernels_rowlocal,kernels_chains,kernels_mlp,serve_kmeans,serve_feature6,serve_imputer,pipeline_kmeans \\
+        --out build/table_turns.jsonl
 
 ``sparse_times`` is this tool's own tree's ``chip_smoke._time_sparse`` run
 against each tree's package: the sparse kernel's cold and warm times at
@@ -76,6 +84,12 @@ CALLS = {
     "serve_sparse": "_, idf_model, lr_model = c.phase_serve_sparse(card, headline)",
     "pipeline_sparse": "c.phase_pipeline_sparse(card, headline, idf_model, lr_model)",
     "pipeline_mixed": "c.phase_pipeline_mixed(card, headline, idf_model, lr_model)",
+    "kernels_kmeans": "c.phase_kernels_kmeans(np.random.default_rng(c.SEED), card)",
+    "kernels_rowlocal": "c.phase_kernels_rowlocal(np.random.default_rng(c.SEED), card)",
+    "serve_kmeans": "c.phase_serve_kmeans(card)",
+    "serve_feature6": "c.phase_serve_feature6(card)",
+    "serve_imputer": "c.phase_serve_imputer(card)",
+    "pipeline_kmeans": "c.phase_pipeline_kmeans(card)",
 }
 SPARSE = ("kernels_sparse", "sparse_times", "serve_sparse", "pipeline_sparse", "pipeline_mixed")
 TOOL_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -173,8 +187,24 @@ def _summary(lines):
             if "premat_compiled" in line:
                 out["premat_compiled"] = line["premat_compiled"]
         if phase == "kernels_chains" and "timing" in line:
-            for name in ("normalize_mlp", "normalize_mlp_binarize", "sparse_idf", "idf_lr_scale"):
+            for name in ("normalize_mlp", "normalize_mlp_binarize", "sparse_idf", "idf_lr_scale",
+                         "normalize_kmeans", "kmeans_binarize"):
                 out[name] = _pick(line["timing"][name], ("ms", "ms_l2_warm", "plain_ms", "bound_ms"))
+        if phase in ("kernels_kmeans", "kernels_rowlocal") and "compiled" in line:
+            out[phase + "_compiled"] = line["compiled"]
+        if phase == "kernels_kmeans" and "ms" in line:
+            out["scale_kmeans"] = _pick(line, ("ms", "ms_l2_warm", "plain_ms", "head_alone_ms",
+                                               "head_alone_ms_l2_warm", "library_ms", "library_ms_l2_warm",
+                                               "ms_l2_warm_by_measure", "bound_ms"))
+        if phase == "kernels_rowlocal" and "ms" in line:
+            out["rowlocal"] = _pick(line, ("ms", "ms_l2_warm", "plain_ms", "normalize_alone_ms",
+                                           "normalize_alone_ms_l2_warm", "library_ms", "library_ms_l2_warm",
+                                           "impute_15_ms", "impute_15_ms_l2_warm", "wrapper_host_us_per_call",
+                                           "bound_ms"))
+        if phase in ("serve_kmeans", "serve_feature6", "serve_imputer", "pipeline_kmeans"):
+            served = line.get("serve", line)
+            if "p50_ms" in served:
+                out[phase] = _pick(served, ("p50_ms", "p99_ms", "rows_per_s", "hot_batch_breakdown_ms"))
         if phase == "sparse_times":
             out["sparse_compiled"] = line["compiled"]
             for t in [line, *line["smaller_shapes"]]:
