@@ -368,6 +368,12 @@ STEP_ITERS = (20, 120)  # the two iteration counts differenced for ms/step
 PROFILE_ITERS = 10  # iterations of each form traced with torch.profiler
 PROFILE_LEAD_LAUNCHES, PROFILE_LEAD_S = 64, 0.2  # a trace's lead-in (_profile_steps)
 CROSS_GRID = [(s, h, n) for s in (1, 4) for h in (1, 4, 128) for n in (1, 1000, 8192 + 7)]
+# (n_sub, row_hi, n, case) beside the grid: "one_row" puts every entry on one
+# row (a build-form dot tile whose range is many stages long); "dead" adds
+# q = 0, ids past the row space and negative ids at an odd n, and runs the
+# build-form kernels on views of entry_of and rowid off 16-byte boundaries.
+CROSS_EDGES = [(4, 4, 20000, "one_row"), (4, 128, 8192 + 7, "one_row"), (4, 4, 8192 + 7, "dead"),
+               (4, 256, 8192 + 7, "dead"), (1, 128, 7, "dead")]
 DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another summation order
 # max |f32 fit - float64 SGD| / max |coef|: between the split-bf16 fit and
 # the float64 SGD whose crossings keep only the bf16 hi half (asserted apart)
@@ -800,8 +806,9 @@ def _check_crossings(q, rowid, m3, row_hi, order, oh, where):
     mult_p_plain = O.mult_crossing_premat_plain(m3, *oh)
     torch.cuda.synchronize()
     rows = row_hi * 128
-    flat = (torch.arange(n_sub, device=q.device)[:, None] * rows + rowid.long()).reshape(-1)
-    live = (rowid >= 0) & (rowid < rows)
+    rid = rowid.long()  # rows may be 32,768, past int16
+    flat = (torch.arange(n_sub, device=q.device)[:, None] * rows + rid).reshape(-1)
+    live = (rid >= 0) & (rid < rows)
     absum = torch.zeros(n_sub * rows, dtype=torch.float64, device=q.device).index_add_(
         0, flat[live.reshape(-1)], q.abs().double().reshape(-1)[live.reshape(-1)])
     tol = DOT_RTOL * absum.reshape(n_sub, row_hi, 128) + 1e-6
@@ -831,16 +838,38 @@ def phase_crossings_grid(rng, card: str):
 
     dev = torch.device("cuda", 0)
     errs = {}
-    for n_sub, row_hi, n in CROSS_GRID:
-        rowid = torch.from_numpy(rng.integers(0, row_hi * 128, (n_sub, n)).astype(np.int16)).to(dev)
-        q = torch.from_numpy(rng.normal(size=(n_sub, n)).astype(np.float32)).to(dev)
+
+    def off_word(t, words):  # t's values ``words`` elements past a 16-byte boundary
+        buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=dev)
+        view = buf[words:words + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for n_sub, row_hi, n, case in [c + ("uniform",) for c in CROSS_GRID] + CROSS_EDGES:
+        rows = row_hi * 128
+        ids = rng.integers(0, rows, (n_sub, n)).astype(np.int16)
+        qn = rng.normal(size=(n_sub, n)).astype(np.float32)
+        if case == "one_row":
+            ids[:] = 37 % rows
+        elif case == "dead":
+            pick = rng.random((n_sub, n))
+            qn[pick < 0.1] = 0.0
+            ids[(pick >= 0.1) & (pick < 0.15)] = -1
+            ids[(pick >= 0.15) & (pick < 0.18)] = -32768
+            if rows < 32768:
+                ids[(pick >= 0.18) & (pick < 0.22)] = rng.integers(rows, 32768)
+        rowid, q = torch.from_numpy(ids).to(dev), torch.from_numpy(qn).to(dev)
         m3 = torch.from_numpy(rng.normal(size=(n_sub, row_hi, 128)).astype(np.float32)).to(dev)
-        got = _check_crossings(q, rowid, m3, row_hi, O.row_order(rowid, row_hi),
-                               O.premat_row_onehots(rowid, row_hi), f"n_sub={n_sub} row_hi={row_hi} n={n}")
+        where = f"n_sub={n_sub} row_hi={row_hi} n={n} {case}"
+        row_ptr, entry_of = O.row_order(rowid, row_hi)
+        if case == "dead":  # the build-form kernels on views off a 16-byte boundary
+            entry_of, rowid = off_word(entry_of, 3), off_word(rowid, 5)
+        got = _check_crossings(q, rowid, m3, row_hi, (row_ptr, entry_of),
+                               O.premat_row_onehots(rowid, row_hi), where)
         for k, v in got.items():
             errs[k] = max(errs.get(k, 0.0), v)
-    emit("crossings", card=card, configurations=len(CROSS_GRID), max_abs_err=errs,
-         mult="bit-equal", dot=f"within {DOT_RTOL} * sum_row |q| + 1e-6",
+    emit("crossings", card=card, configurations=len(CROSS_GRID) + len(CROSS_EDGES), edges=CROSS_EDGES,
+         max_abs_err=errs, mult="bit-equal", dot=f"within {DOT_RTOL} * sum_row |q| + 1e-6",
          build_vs_premat_dot="bit-equal")
     return errs
 
@@ -1117,18 +1146,20 @@ def phase_train(card: str, headline):
     }
 
 
-def _premat_compiled():
-    """Registers a thread and spill bytes of the premat crossings' kernels
-    (ptxas -v of their source's build): the dot's gather-and-accumulate
-    kernel and the mult's kernel on 16-byte rows (row_hi a multiple of 8, at
-    most 128) and on 2-byte rows."""
+def _crossings_compiled():
+    """Registers a thread and spill bytes of the crossings' kernels (ptxas
+    -v of their source's build): the build-form dot and mult, the premat dot's
+    gather-and-accumulate kernel and the premat mult on 16-byte rows
+    (row_hi a multiple of 8, at most 128) and on 2-byte rows. Raises if a
+    build-form kernel spills."""
     import re
 
     from flink_ml_tpu_torch.linalg import onehot_sparse as O
     from flink_ml_tpu_torch.native import build
 
     log = build(O.DOT_CROSSING_PREMAT.source).log
-    names = {"dot_premat_partial_kernel": "dot", "mult_premat_kernelILb1E": "mult_16_byte_rows",
+    names = {"dot_crossing_kernel": "build_dot", "mult_crossing_kernel": "build_mult",
+             "dot_premat_partial_kernel": "dot", "mult_premat_kernelILb1E": "mult_16_byte_rows",
              "mult_premat_kernelILb0E": "mult_2_byte_rows"}
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
@@ -1141,7 +1172,10 @@ def _premat_compiled():
                               "spill_store_bytes": int(spill.group(1)) if spill else None,
                               "spill_load_bytes": int(spill.group(2)) if spill else None}
     if sorted(out) != sorted(names.values()):
-        raise AssertionError(f"ptxas lines of the premat kernels not found: {sorted(out)}")
+        raise AssertionError(f"ptxas lines of the crossing kernels not found: {sorted(out)}")
+    for label in ("build_dot", "build_mult"):
+        if out[label]["spill_store_bytes"] or out[label]["spill_load_bytes"]:
+            raise AssertionError(f"the {label} kernel spills: {out[label]}")
     return out
 
 
@@ -1149,8 +1183,11 @@ def phase_crossings_headline(cache, card: str):
     """The crossings at the headline unit shape (window 0 of the real
     layout): checks, then L2-cold and warm times of kernel, plain version
     and one library call, the bound, the bytes a second each kernel's time
-    gives and their share of HBM's 3.35 TB/s, the premat kernels' ptxas
-    registers and spills, and the dot's route."""
+    gives and their share of HBM's 3.35 TB/s; beside the build-form dot its
+    q gathered in walk order by one ``torch.take`` (the gathers alone); the
+    four kernels' ptxas registers and spills, and each route's facts (the
+    build-form dot's tiles, stage and pieces, the mult's groups, the premat
+    dot's reads)."""
     import numpy as np
     import torch
 
@@ -1184,6 +1221,8 @@ def phase_crossings_headline(cache, card: str):
     m_hi = m3.to(torch.bfloat16)
     m_cat = torch.cat([m_hi, (m3 - m_hi.float()).to(torch.bfloat16)], dim=2)
     del q_pad
+    # the build-form dot's q in its walk order: the gathers alone, one call
+    walk = torch.cat([order[1][s, :int(order[0][s, -1])].long() + s * n for s in range(n_sub)])
     cases = {
         O.DOT_CROSSING.name: (
             lambda: O.dot_crossing(q, rid, row_hi, order),
@@ -1192,6 +1231,7 @@ def phase_crossings_headline(cache, card: str):
             4 * live * 2 + 4 * n_sub * (rows + 1) + 4 * n_sub * rows,  # q + entry_of (live), row_ptr, out
             5 * 2 * live,  # split and add per live entry and half (f32)
             F32_OPS_PER_S,
+            {"gather": lambda: torch.take(q, walk)},
         ),
         O.MULT_CROSSING.name: (
             lambda: O.mult_crossing(m3, rid),
@@ -1200,6 +1240,7 @@ def phase_crossings_headline(cache, card: str):
             2 * n_sub * n + 4 * n_sub * n + 4 * n_sub * rows,  # rowid in, u out, mult3
             4 * n_sub * n,
             F32_OPS_PER_S,
+            {},
         ),
         O.DOT_CROSSING_PREMAT.name: (
             lambda: O.dot_crossing_premat(q, *prem),
@@ -1210,6 +1251,7 @@ def phase_crossings_headline(cache, card: str):
             4 * n_sub * n + 2 * live * (row_hi + 128) + 4 * n_sub * rows,
             2 * 2 * live * row_hi * 128,  # two halves of the dense contraction, live entries
             BF16_OPS_PER_S,
+            {},
         ),
         O.MULT_CROSSING_PREMAT.name: (
             lambda: O.mult_crossing_premat(m3, *prem),
@@ -1219,20 +1261,21 @@ def phase_crossings_headline(cache, card: str):
             2 * n_sub * n_pad * (row_hi + 128) + 4 * n_sub * rows + 4 * n_sub * n_pad,
             2 * 2 * n_sub * n_pad * row_hi * 128,
             BF16_OPS_PER_S,
+            {},
         ),
     }
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {}
-    for name, (kernel, plain, library, nbytes, ops, peak) in cases.items():
+    for name, (kernel, plain, library, nbytes, ops, peak, extra) in cases.items():
         reps = 10 if "premat" in name else 50
-        for fn in (kernel, plain, library):
+        fns = {"kernel": kernel, "plain": plain, "library": library, **extra}
+        for fn in fns.values():
             for _ in range(3):
                 fn()
         torch.cuda.synchronize()
-        t = {"kernel": {"cold": [], "warm": []}, "plain": {"cold": [], "warm": []},
-             "library": {"cold": [], "warm": []}}
-        for which, fn in (("plain", plain), ("kernel", kernel), ("library", library),
-                          ("library", library), ("kernel", kernel), ("plain", plain)):
+        t = {which: {"cold": [], "warm": []} for which in fns}
+        turns = list(fns.items())
+        for which, fn in turns + turns[::-1]:  # A B C ... C B A
             t[which]["cold"] += _cold_times(fn, reps, flush)
             t[which]["warm"].append(_warm_time(fn, reps))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1249,13 +1292,36 @@ def phase_crossings_headline(cache, card: str):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
+        for which in extra:
+            out[name][f"{which}_ms"] = _median(t[which]["cold"])
+            out[name][f"{which}_ms_l2_warm"] = _median(t[which]["warm"])
         # the bytes the bound counts, over the kernel's cold and warm times
         for key, ms in (("", out[name]["ms"]), ("_l2_warm", out[name]["ms_l2_warm"])):
             out[name][f"bytes_per_s{key}"] = nbytes / (ms / 1e3)
             out[name][f"hbm_peak_share{key}"] = nbytes / (ms / 1e3) / HBM_BYTES_PER_S
+    # the build-form dot's tiles: a range is walked in pieces of DOT_STAGE
+    # entries from the 16-byte word of entry_of that holds its first entry
+    b, e = order[0][:, :-1:O.DOT_ROWS].long(), order[0][:, O.DOT_ROWS::O.DOT_ROWS].long()
+    mis = (order[1].data_ptr() // 4 + torch.arange(n_sub, device=dev)[:, None] * n) % 4
+    first = (b + mis) // 4 * 4 - mis
+    pieces = torch.where(e > first, (e - first + O.DOT_STAGE - 1) // O.DOT_STAGE, 0)
+    tile_ranges = (e - b).reshape(-1)
     emit("crossings", card=card, shape={"n_sub": n_sub, "n": n, "n_pad": n_pad, "row_hi": row_hi,
                                         "live_entries": live}, timing=out,
-         premat_compiled=_premat_compiled(),
+         compiled=_crossings_compiled(),
+         build_routes={
+             "dot": {"rows_a_warp": O.DOT_ROWS, "warps_a_block": O.DOT_WARPS,
+                     "blocks": -(-rows // (O.DOT_ROWS * O.DOT_WARPS)) * n_sub,
+                     "stage_entries_a_warp": O.DOT_STAGE, "stage_bytes_a_warp": 4 * O.DOT_STAGE,
+                     "stage_bytes_a_block": 4 * O.DOT_STAGE * O.DOT_WARPS,
+                     "q_in_flight_a_lane": O.DOT_BATCH,
+                     "entries_a_tile_mean": float(tile_ranges.double().mean()),
+                     "entries_a_tile_max": int(tile_ranges.max()),
+                     "tiles": int(tile_ranges.numel()), "pieces": int(pieces.sum()),
+                     "tiles_past_one_piece": int((pieces > 1).sum())},
+             "mult": {"mult3": "read through L1", "mult3_bytes_a_sub_batch": 4 * rows,
+                      "slots_a_thread": O.MULT_GROUP},
+         },
          # the premat dot reads the rows of live entries only (q != 0): live
          # (row_hi + 128) * 2 bytes of the n_pad slots' one-hot rows
          premat_dot_route={"route": "live-only gather", "dot_chunk": O.DOT_CHUNK,

@@ -30,10 +30,30 @@
 // Bounds on the H100 at the headline unit shape (n_sub 4, row_hi 128,
 // ~1.1 M entries per sub-batch):
 // - build-form dot: bytes. q (4 B) + entry_of (4 B) per live entry and the
-//   1 MB row_ptr / 256 KB output: ~26 MB, ~8 us at 3.35 TB/s. One thread per
-//   output row walks its ~39 entries, so no entry is read twice.
+//   row_ptr / output: ~21 MB, ~6.3 us at 3.35 TB/s. But each q is a gather
+//   at a random place in its sub-batch: 2.56 M live entries touch a 32-byte
+//   sector each (~82 MB from L2 to the SMs), and the rate of those random
+//   sector reads, not HBM, is the floor (one torch.take of the same q alone
+//   runs about as long). A warp takes a tile of kDotRows consecutive rows of
+//   one sub-batch (the sub-batch from the grid); the tile's entries are one
+//   contiguous range of entry_of, whose ids it stages in shared memory with
+//   16-byte cp.async copies (4-byte ones at the ends), kDotStage at a time.
+//   Lane i then walks row r0 + i from the stage, kDotBatch entries at a
+//   time: their q gathered together (kDotBatch in flight a lane, 256 a
+//   warp), then folded in today's order, so the bits are the thread-per-row
+//   walk's and the premat dot's. A range past the stage is walked in pieces,
+//   each lane carrying (total, acc_hi, acc_lo, chunk). (Staging every q of a
+//   piece in shared memory first, then folding, ran level with the old
+//   thread-per-row kernel or slower on the H100.)
 // - build-form mult: bytes. rowid (2 B) in, u (4 B) out per entry, mult3
-//   (256 KB) from L2: ~26 MB. One thread per entry.
+//   (256 KB) once: ~27 MB, ~8 us. A thread takes 8-slot groups (one 16-byte
+//   load of ids, two 16-byte stores), kMultInFlight of them in flight, from
+//   a grid that persists over each sub-batch (blockIdx.y); a scalar head and
+//   tail where the sub-batch's ids start or end off a 16-byte word. It
+//   reads mult3 through L1, which keeps a sub-batch's 64 KB after the first
+//   misses, and crosses it at each slot. (Staging the crossed row table once
+//   a block in shared memory instead cost a 64 KB read and a barrier before
+//   any slot and ran slower.)
 // - premat dot: bytes. q at every slot and the one-hot rows of live entries,
 //   (row_hi + 128) * 2 B each (padding slots carry q = 0 and add nothing):
 //   ~1.3 GB, ~0.40 ms. The kernel reads just that. A persistent block per
@@ -86,6 +106,19 @@ constexpr int kThreads = 256;
 constexpr int kHGroup = 128;  // row_hi rows per premat-dot unit (accumulators <= 128 KB)
 constexpr unsigned kFull = 0xffffffffu;
 
+// Build-form dot: a warp's tile of rows (a lane a row), the entry ids it
+// stages at a time (12 KB a warp), and the entries whose q a lane has in
+// flight at a time.
+constexpr int kDotRows = kWarp;
+constexpr int kDotWarps = 8;
+constexpr int kDotStage = 3072;
+constexpr int kDotBatch = 8;
+
+// Build-form mult: a block's threads (eight slots each) and the 8-slot
+// groups a thread has in flight.
+constexpr int kMultBuildThreads = 1024;
+constexpr int kMultInFlight = 2;
+
 // Premat dot: the block's warps and its record ring.
 constexpr int kGatherWarps = 16;  // each gathers and decodes 32-slot groups of entries
 constexpr int kDotThreads = (kGatherWarps + 1) * kWarp;  // and the accumulator warp, the last
@@ -108,59 +141,167 @@ __device__ __forceinline__ float bf16_word(uint16_t w) {
 }
 
 // ---------------------------------------------------------------------------
-// Build-form dot: one thread per (s, row).
+// Build-form dot: a warp a tile of kDotRows consecutive rows of one
+// sub-batch, whose entries are one contiguous range of entry_of.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+
+// The range [g0 + lo, g0 + hi) of entry_of into stage positions [lo, hi):
+// 16-byte copies where a whole word lies inside, 4-byte ones at the ends.
+// g0 sits 16-byte aligned in eo, and the stage is 16-byte aligned.
+__device__ __forceinline__ void stage_ids(int* ids, const int* eo, int g0, int lo, int hi, int lane) {
+  for (int p = (lo & ~3) + 4 * lane; p < hi; p += 4 * kWarp) {
+    if (p >= lo && p + 4 <= hi) {
+      cp_async16(reinterpret_cast<float*>(ids + p), reinterpret_cast<const float*>(eo + g0 + p), 16);
+    } else {
+      for (int j = max(p, lo); j < min(p + 4, hi); ++j)
+        cp_async4(reinterpret_cast<float*>(ids + j), reinterpret_cast<const float*>(eo + g0 + j), 4);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDotWarps * kWarp)
 dot_crossing_kernel(const float* __restrict__ q, const int* __restrict__ row_ptr,
                     const int* __restrict__ entry_of, float* __restrict__ out,
-                    int n_sub, int n, int rows, int chunk) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<size_t>(n_sub) * rows) return;
-  const int s = static_cast<int>(t / rows);
-  const int r = static_cast<int>(t % rows);
-  const int* rp = row_ptr + static_cast<size_t>(s) * (rows + 1);
+                    int n, int rows, int chunk_shift) {
+  extern __shared__ __align__(16) int dot_stage[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int s = blockIdx.y;
+  const int r0 = (blockIdx.x * kDotWarps + warp) * kDotRows;
+  if (r0 >= rows) return;  // rows is a multiple of 128: a tile is whole or absent
+  int* ids = dot_stage + warp * kDotStage;
   const int* eo = entry_of + static_cast<size_t>(s) * n;
   const float* qs = q + static_cast<size_t>(s) * n;
+  const int* rp = row_ptr + static_cast<size_t>(s) * (rows + 1) + r0;
+  const int rs = rp[lane], re = rp[lane + 1];  // lane's row: entries [rs, re)
+  const int b = __shfl_sync(kFull, rs, 0), e = __shfl_sync(kFull, re, kWarp - 1);
+  // Pieces of kDotStage entries from the 16-byte word holding b, so that
+  // words of entry_of land on words of the stage (eo may sit off a word:
+  // n not a multiple of 4, or a window's view).
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(eo) >> 2) & 3);
   float total = 0.0f, acc_hi = 0.0f, acc_lo = 0.0f;
   int cur = -1;
-  const int end = rp[r + 1];
-  for (int k = rp[r]; k < end; ++k) {
-    const int e = eo[k];
-    const int c = e / chunk;
-    if (c != cur) {
-      if (cur >= 0) total = __fadd_rn(total, __fadd_rn(acc_hi, acc_lo));
-      acc_hi = 0.0f;
-      acc_lo = 0.0f;
-      cur = c;
+  for (int g0 = ((b + mis) & ~3) - mis; g0 < e; g0 += kDotStage) {
+    const int lo = max(b - g0, 0), hi = min(e - g0, kDotStage);
+    stage_ids(ids, eo, g0, lo, hi, lane);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    // lane's row in this piece, kDotBatch entries at a time: their q all in
+    // flight, then today's fold over them in entry order
+    const int z = min(re - g0, hi);
+    for (int p0 = max(rs - g0, lo); p0 < z; p0 += kDotBatch) {
+      float x[kDotBatch];
+      int c[kDotBatch];
+#pragma unroll
+      for (int j = 0; j < kDotBatch; ++j) {
+        const bool in = p0 + j < z;
+        const int id = in ? ids[p0 + j] : 0;
+        c[j] = id >> chunk_shift;
+        x[j] = in ? __ldg(qs + id) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kDotBatch; ++j) {
+        if (p0 + j < z) {
+          if (c[j] != cur) {
+            if (cur >= 0) total = __fadd_rn(total, __fadd_rn(acc_hi, acc_lo));
+            acc_hi = 0.0f;
+            acc_lo = 0.0f;
+            cur = c[j];
+          }
+          const float xh = bf16_round(x[j]);
+          const float xl = bf16_round(__fsub_rn(x[j], xh));
+          acc_hi = __fadd_rn(acc_hi, xh);
+          acc_lo = __fadd_rn(acc_lo, xl);
+        }
+      }
     }
-    const float x = qs[e];
-    const float xh = bf16_round(x);
-    const float xl = bf16_round(__fsub_rn(x, xh));
-    acc_hi = __fadd_rn(acc_hi, xh);
-    acc_lo = __fadd_rn(acc_lo, xl);
+    __syncwarp();  // the stage is read before the next piece lands on it
   }
   if (cur >= 0) total = __fadd_rn(total, __fadd_rn(acc_hi, acc_lo));
-  out[t] = total;
+  out[static_cast<size_t>(s) * rows + r0 + lane] = total;
 }
 
 // ---------------------------------------------------------------------------
-// Build-form mult: one thread per entry.
+// Build-form mult: a block over one sub-batch's slots, eight a thread.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-mult_crossing_kernel(const float* __restrict__ mult3, const int16_t* __restrict__ rowid,
-                     float* __restrict__ out, int n_sub, int n, int row_hi) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(n_sub) * n) return;
-  const int s = static_cast<int>(i / n);
-  const int r = rowid[i];
-  float u = 0.0f;  // a row id outside the row space has an all-zero one-hot
-  if (r >= 0 && r / kRowLo < row_hi) {
-    const float m = mult3[static_cast<size_t>(s) * row_hi * kRowLo + r];
-    const float hi = bf16_round(m);
-    const float lo = bf16_round(__fsub_rn(m, hi));
-    u = __fadd_rn(hi, lo);
+
+__device__ __forceinline__ float crossed(float m) {  // bf16(m) + bf16(m - bf16(m))
+  const float hi = bf16_round(m);
+  return __fadd_rn(hi, bf16_round(__fsub_rn(m, hi)));
+}
+
+// 16 bytes of the id stream; not kept in L1, which holds the sub-batch's mult3.
+__device__ __forceinline__ int4 ld_stream16(const int16_t* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float mult_at(const float* m, int r, int rows) {
+  if (static_cast<unsigned>(r) >= static_cast<unsigned>(rows)) return 0.0f;  // an all-zero one-hot
+  return crossed(__ldg(m + r));
+}
+
+__device__ __forceinline__ void mult_group(const int4& w, const float* m, int rows, float* o, bool vec_out) {
+  const int ws[4] = {w.x, w.y, w.z, w.w};
+  float u[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // little-endian: the even slot in the low half
+    u[2 * j] = mult_at(m, static_cast<int16_t>(ws[j] & 0xffff), rows);
+    u[2 * j + 1] = mult_at(m, ws[j] >> 16, rows);
   }
-  out[i] = u;
+  if (vec_out) {
+    reinterpret_cast<float4*>(o)[0] = make_float4(u[0], u[1], u[2], u[3]);
+    reinterpret_cast<float4*>(o)[1] = make_float4(u[4], u[5], u[6], u[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = u[j];
+  }
+}
+
+__global__ void __launch_bounds__(kMultBuildThreads, 1)
+mult_crossing_kernel(const float* __restrict__ mult3, const int16_t* __restrict__ rowid,
+                     float* __restrict__ out, int n, int rows) {
+  const int s = blockIdx.y;
+  const int16_t* rid = rowid + static_cast<size_t>(s) * n;
+  float* o = out + static_cast<size_t>(s) * n;
+  const float* m = mult3 + static_cast<size_t>(s) * rows;
+  // slots [0, head) and [tail, n) one at a time; between them 8-slot groups
+  // read as 16-byte words of rowid (head: up to the first word boundary)
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(rid) >> 1) & 7);
+  const int head = min(n, (8 - mis) & 7);
+  const int groups = (n - head) / 8;
+  const int tail = head + 8 * groups;
+  const bool vec_out = (reinterpret_cast<uintptr_t>(o + head) & 15) == 0;
+  const int16_t* grid_ids = rid + head;
+  const int stride = gridDim.x * blockDim.x;
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  // groups g, g + stride, ...: kMultInFlight of them loaded at a time
+  int4 w[kMultInFlight];
+#pragma unroll
+  for (int k = 0; k < kMultInFlight; ++k) {
+    const int gk = g + k * stride;
+    w[k] = gk < groups ? ld_stream16(grid_ids + 8 * gk) : make_int4(0, 0, 0, 0);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 16) {  // threads 0-7 the head, 8-15 the tail
+    const int i = threadIdx.x < 8 ? threadIdx.x : tail + threadIdx.x - 8;
+    if (i < (threadIdx.x < 8 ? head : n)) o[i] = mult_at(m, rid[i], rows);
+  }
+  while (g < groups) {
+#pragma unroll
+    for (int k = 0; k < kMultInFlight; ++k) {
+      const int gk = g + k * stride;
+      if (gk < groups) mult_group(w[k], m, rows, o + head + 8 * gk, vec_out);
+    }
+    g += kMultInFlight * stride;
+#pragma unroll
+    for (int k = 0; k < kMultInFlight; ++k) {
+      const int gk = g + k * stride;
+      w[k] = gk < groups ? ld_stream16(grid_ids + 8 * gk) : make_int4(0, 0, 0, 0);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -660,26 +801,35 @@ extern "C" {
 
 int onehot_dot_crossing(const void* q, const void* row_ptr, const void* entry_of, void* out,
                         int n_sub, int n, int row_hi, int chunk, void* stream) {
+  if (chunk <= 0 || (chunk & (chunk - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_sub <= 0 || row_hi <= 0) return static_cast<int>(cudaGetLastError());
   const int rows = row_hi * kRowLo;
-  const size_t items = static_cast<size_t>(n_sub) * rows;
-  if (items > 0) {
-    dot_crossing_kernel<<<blocks_for(items, kThreads), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const int*>(row_ptr),
-        static_cast<const int*>(entry_of), static_cast<float*>(out), n_sub, n, rows, chunk);
-  }
+  const size_t smem = static_cast<size_t>(kDotWarps) * kDotStage * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(dot_crossing_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(blocks_for(rows / kDotRows, kDotWarps), n_sub);  // the sub-batch from the grid
+  dot_crossing_kernel<<<grid, kDotWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const int*>(row_ptr), static_cast<const int*>(entry_of),
+      static_cast<float*>(out), n, rows, __builtin_ctz(static_cast<unsigned>(chunk)));
   return static_cast<int>(cudaGetLastError());
 }
 
 int onehot_mult_crossing(const void* mult3, const void* rowid, void* out, int n_sub, int n,
                          int row_hi, void* stream) {
-  const size_t items = static_cast<size_t>(n_sub) * n;
-  if (items > 0) {
-    mult_crossing_kernel<<<blocks_for(items, kThreads), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(mult3), static_cast<const int16_t*>(rowid),
-        static_cast<float*>(out), n_sub, n, row_hi);
-  }
+  if (n_sub <= 0 || n <= 0 || row_hi <= 0) return static_cast<int>(cudaGetLastError());
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mult_crossing_kernel,
+                                                                  kMultBuildThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one wave of blocks over the sub-batches, no more than the groups need
+  size_t bx = static_cast<size_t>(sm_count()) * (per_sm > 0 ? per_sm : 1) / n_sub;
+  const size_t need = blocks_for(static_cast<size_t>(n) / 8 + 1, kMultBuildThreads);
+  bx = bx < 1 ? 1 : (bx > need ? need : bx);
+  mult_crossing_kernel<<<dim3(static_cast<unsigned>(bx), n_sub), kMultBuildThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mult3), static_cast<const int16_t*>(rowid), static_cast<float*>(out), n,
+      row_hi * kRowLo);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -96,6 +96,15 @@ DOT_CHUNK = 4096
 _SCATTER_CHUNK_ELEMS = 1 << 26
 _TILE = 8192  # the JAX premat storage pad (its Pallas tile), kept for equal shapes
 
+#: The build-form dot kernel's tiles, as ``csrc/onehot_crossing.cu`` sets
+#: them: a warp takes ``DOT_ROWS`` consecutive rows of one sub-batch (a lane a
+#: row), a block ``DOT_WARPS`` warps; a warp stages at most ``DOT_STAGE``
+#: entry ids of its rows' contiguous range at a time (12 KB), a longer range
+#: is walked in pieces; a lane has the q of ``DOT_BATCH`` of its row's
+#: entries in flight at a time.
+DOT_ROWS, DOT_WARPS, DOT_STAGE, DOT_BATCH = 32, 8, 3072, 8
+MULT_GROUP = 8  # slots a thread of the mult kernel reads as one 16-byte word of row ids
+
 _SOURCE = "onehot_crossing.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DOT_CROSSING = CudaKernel(

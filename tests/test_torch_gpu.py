@@ -332,6 +332,93 @@ def test_sparse_sgd_premat_and_build_forms_are_bit_identical_on_the_card(cuda):
     np.testing.assert_allclose(coefs[0], cpu, rtol=1e-4, atol=1e-7)  # plain versions, other orders
 
 
+def _edge_inputs(n_sub, row_hi, n, seed):
+    """Ids over the row space with dead entries (q = 0, ids past the row
+    space where int16 has them, negative ids) and runs of entries across the
+    first two DOT_CHUNK boundaries on one row (numpy, as the CPU emulation's)."""
+    rng = np.random.default_rng(seed)
+    rows = row_hi * 128
+    rowid = rng.integers(0, rows, (n_sub, n)).astype(np.int16)
+    q = rng.normal(size=(n_sub, n)).astype(np.float32)
+    dead = rng.random((n_sub, n))
+    q[dead < 0.1] = 0.0
+    rowid[(dead >= 0.1) & (dead < 0.15)] = -1
+    rowid[(dead >= 0.15) & (dead < 0.18)] = -32768
+    if rows < 32768:
+        rowid[(dead >= 0.18) & (dead < 0.22)] = rng.integers(rows, 32768)
+    for c in (O.DOT_CHUNK, 2 * O.DOT_CHUNK):
+        rowid[:, max(c - 3, 0):c + 3] = 5 % rows
+    m3 = rng.normal(size=(n_sub, row_hi, 128)).astype(np.float32)
+    return rowid, q, m3
+
+
+def _offset_view(t, words):
+    """``t``'s values in a buffer ``words`` elements past its start: a
+    window's view, off the 16-byte boundary its allocation has."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[words:words + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("row_hi", (1, 4, 128, 256))
+@pytest.mark.parametrize("n_sub", (1, 4))
+@pytest.mark.parametrize("n", (1, 7, 8, 8199))
+def test_build_crossings_on_the_edges(cuda, n, n_sub, row_hi):
+    rowid, q, m3 = (torch.from_numpy(a).to(cuda) for a in _edge_inputs(n_sub, row_hi, n, n + row_hi))
+    rows = row_hi * 128
+    oh = O.premat_row_onehots(rowid, row_hi)
+    want_dot = O.dot_crossing_premat(q, *oh)
+    want_mult = O.mult_crossing_plain(m3, rowid)
+    rid = rowid.long()  # rows may be 32,768, past int16
+    live = (rid >= 0) & (rid < rows) & (q != 0)
+    before = [k.launches for k in CROSSINGS]
+    for order in (O.row_order(rowid, row_hi), O.row_order(rowid, row_hi, live=live)):
+        for words in (0, 1, 3):  # entry_of 0, 4 and 12 bytes past a 16-byte boundary
+            dot = O.dot_crossing(q, rowid, row_hi, (order[0], _offset_view(order[1], words)))
+            torch.cuda.synchronize()
+            assert torch.equal(dot, want_dot), words
+    assert not bool(torch.signbit(want_dot[want_dot == 0]).any())
+    for words in (0, 1, 3, 4, 7):  # row ids 2·words bytes past a 16-byte boundary
+        mult = O.mult_crossing(m3, _offset_view(rowid, words))
+        torch.cuda.synchronize()
+        assert torch.equal(mult, want_mult), words
+    assert [k.launches for k in CROSSINGS] == [before[0] + 6, before[1] + 5, before[2], before[3]]
+    mult_p = O.mult_crossing_premat(m3, *oh)
+    torch.cuda.synchronize()
+    assert torch.equal(mult_p[:, :n], want_mult)
+
+
+@pytest.mark.parametrize("n_sub,row_hi", ((1, 1), (4, 4), (4, 128)))
+def test_build_dot_walks_a_row_past_the_stage(cuda, n_sub, row_hi):
+    # one row holding every entry: its tile's range is many pieces long
+    n = 20000
+    rng = np.random.default_rng(n_sub + row_hi)
+    rowid = torch.full((n_sub, n), 37 % (row_hi * 128), dtype=torch.int16, device=cuda)
+    q = torch.from_numpy(rng.normal(size=(n_sub, n)).astype(np.float32)).to(cuda)
+    want = O.dot_crossing_premat(q, *O.premat_row_onehots(rowid, row_hi))
+    order = O.row_order(rowid, row_hi)
+    for words in (0, 2):
+        got = O.dot_crossing(q, rowid, row_hi, (order[0], _offset_view(order[1], words)))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert bool(((got.double() - O.dot_crossing_plain(q, rowid, row_hi).double()).abs()
+                 <= _dot_tol(q, rowid, row_hi)).all())
+    assert int((got != 0).sum()) == n_sub
+    # tiles whose ranges end around the stage's size, at each alignment
+    for size in (O.DOT_STAGE - 1, O.DOT_STAGE, O.DOT_STAGE + 1, 2 * O.DOT_STAGE + 3):
+        ids = np.concatenate([rng.integers(0, 32, 3), rng.integers(32, 64, size),
+                              rng.integers(64, row_hi * 128, 500) if row_hi > 1 else rng.integers(64, 128, 500)])
+        rowid = torch.from_numpy(np.tile(ids.astype(np.int16), (n_sub, 1))).to(cuda)
+        q = torch.from_numpy(rng.normal(size=rowid.shape).astype(np.float32)).to(cuda)
+        want = O.dot_crossing_premat(q, *O.premat_row_onehots(rowid, row_hi))
+        order = O.row_order(rowid, row_hi)
+        for words in range(4):
+            got = O.dot_crossing(q, rowid, row_hi, (order[0], _offset_view(order[1], words)))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (size, words)
+
+
 # ---------------------------------------------------------------------------
 # the sparse IDF → logistic megakernel
 # ---------------------------------------------------------------------------

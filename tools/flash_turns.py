@@ -52,11 +52,15 @@ FFMA) as each tree's build gives them; its cold and warm times at the
 serving shape and at the small batch sizes beside three ``torch.addmm``,
 its bound and TF32 peak share; serve_mlp's and pipeline_mlp's p50 and p99;
 kernels_chains' normalize → mlp and normalize → mlp → binarize. For the
-crossings: the premat dot's and mult's cold and warm times, the bf16 ``bmm``
-beside each, the bound and the share of HBM's 3.35 TB/s that the bound's
-bytes over the cold time reach, and the train phase's premat and build-form
-ms/step. For the sparse phases: ``sparse_times`` by shape, the served p50
-and p99 of serve_sparse, the IDF service and pipeline_mixed, and
+crossings: each form's dot and mult, cold and warm, with the plain
+version and the library call beside each (the premat ones' bf16 ``bmm``,
+the build form's ``index_add_`` and ``gather``; where the tree times them,
+the build-form dot's gathers alone), the bound and the share of HBM's
+3.35 TB/s that the bound's bytes over the cold time reach, the kernels'
+registers and spills, the build-form routes' facts, and the train phase's
+premat and build-form ms/step. For the sparse phases: ``sparse_times`` by
+shape, the served p50 and p99 of serve_sparse, the IDF service and
+pipeline_mixed, and
 kernels_chains' ``sparse_idf`` and IDF → LR → scale. Needs one card.
 """
 import argparse
@@ -95,6 +99,7 @@ SPARSE = ("kernels_sparse", "sparse_times", "serve_sparse", "pipeline_sparse", "
 TOOL_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PREMAT = {"dot": "onehot_dot_crossing_premat", "mult": "onehot_mult_crossing_premat"}
+BUILD = {"dot": "onehot_dot_crossing", "mult": "onehot_mult_crossing"}
 
 HEAD = r"""
 import json, re, subprocess, sys
@@ -179,13 +184,20 @@ def _summary(lines):
             out["ms_per_step"] = {"premat": line["ms_per_step"]["on"], "build": line["ms_per_step"]["off"]}
             out["ms_per_step_runs"] = line["ms_per_step_runs"]
         if phase == "crossings" and "timing" in line:
-            for short, name in PREMAT.items():
-                t = line["timing"][name]
-                out[f"premat_{short}"] = dict(
-                    _pick(t, ("ms", "ms_l2_warm", "library_ms", "library_ms_l2_warm", "bound_ms")),
-                    hbm_peak_share=t["bytes"] / (t["ms"] / 1e3) / HBM_BYTES_PER_S)
-            if "premat_compiled" in line:
-                out["premat_compiled"] = line["premat_compiled"]
+            for form, names in (("premat", PREMAT), ("build", BUILD)):
+                for short, name in names.items():
+                    t = line["timing"][name]
+                    # the build-form dot's gathers alone, where the tree times them
+                    extra = tuple(k for k in t if k.startswith("gather_ms"))
+                    out[f"{form}_{short}"] = dict(
+                        _pick(t, ("ms", "ms_l2_warm", "plain_ms", "library_ms", "library_ms_l2_warm",
+                                  "bound_ms") + extra),
+                        hbm_peak_share=t["bytes"] / (t["ms"] / 1e3) / HBM_BYTES_PER_S)
+            compiled = line.get("compiled", line.get("premat_compiled"))  # an older tree: premat only
+            if compiled:
+                out["compiled"] = compiled
+            if "build_routes" in line:
+                out["build_routes"] = line["build_routes"]
         if phase == "kernels_chains" and "timing" in line:
             for name in ("normalize_mlp", "normalize_mlp_binarize", "sparse_idf", "idf_lr_scale",
                          "normalize_kmeans", "kmeans_binarize"):
