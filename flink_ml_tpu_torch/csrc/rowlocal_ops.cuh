@@ -1,7 +1,7 @@
 // The row-local op interpreter and the closest-centroid search, shared by the
 // serving megakernels.
 //
-// Three kernels include this header:
+// Four kernels include this header:
 //   megakernel_rowlocal.cu     any chain of table ops without an MLP head:
 //                              the dense interpreter, or the warp-per-row
 //                              one for a table with sparse ops;
@@ -11,7 +11,11 @@
 //   megakernel_scale_kmeans.cu the dedicated scale -> kmeans kernel, which
 //                              uses the centroid norms and the per-row
 //                              assignment below, so a row gets the same
-//                              cluster whichever kernel serves its chain.
+//                              cluster whichever kernel serves its chain;
+//   megakernel_scale_logistic.cu the dedicated scale -> logistic kernel,
+//                              which closes a row's margin with group_sum
+//                              and sizes its persistent grid with
+//                              resident_blocks.
 //
 // A chain is an op table: each Op reads one slot and writes one (two for the
 // heads). Slots are the chain's input columns, then each op's outputs, each

@@ -121,6 +121,7 @@ __all__ = [
     "scale_kmeans",
     "scale_kmeans_plain",
     "scale_logistic",
+    "scale_logistic_path",
     "scale_logistic_plain",
     "sparse_idf",
     "sparse_idf_logistic",
@@ -620,6 +621,16 @@ def scale_logistic_plain(
     return scaled, pred, raw
 
 
+def scale_logistic_path(x: torch.Tensor, *others: Optional[torch.Tensor]) -> str:
+    """The path the kernel's entry point takes for ``x`` [rows, d] and the
+    other tensors it reads or writes (None: not in use), for reports:
+    ``"16-byte"`` when d is a multiple of 4 and every tensor starts on a
+    16-byte boundary, so rows load and store as float4; ``"scalar"``
+    otherwise (any d, any offset of a contiguous view)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others) if t is not None)
+    return "16-byte" if aligned and x.shape[-1] % 4 == 0 else "scalar"
+
+
 def scale_logistic(
     x: torch.Tensor,
     mean: Optional[torch.Tensor],
@@ -632,7 +643,8 @@ def scale_logistic(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """``(scaled or None, prediction [rows], rawPrediction [rows, 2])`` for
     ``x`` [rows, d]. CPU tensors run the plain version; CUDA tensors launch
-    the kernel on the current stream (no synchronisation) or raise."""
+    the kernel on the current stream (no synchronisation) or raise; the
+    kernel picks the path that :func:`scale_logistic_path` reports."""
     if x.device.type == "cpu":
         scaled, pred, raw = scale_logistic_plain(
             x, mean, inv_std, coef, with_mean=with_mean, with_std=with_std

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _logistic_check_widths, _logistic_past_one_pass
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.servable import (
     LogisticRegressionModelServable,
@@ -20,6 +21,7 @@ from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
 from flink_ml_tpu_torch.servable.megakernels import (
     SCALE_LOGISTIC,
     scale_logistic,
+    scale_logistic_path,
     scale_logistic_plain,
 )
 from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
@@ -46,25 +48,36 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(rows, d, device, seed=0):
+def _inputs(rows, d, device, seed=0, offset=0):
+    """x [rows, d] as a contiguous view ``offset`` floats into its buffer,
+    mean, inv_std (feature 0's std 0) and coef."""
     rng = np.random.default_rng(seed)
     std = np.abs(rng.normal(size=d)).astype(np.float32) + np.float32(0.5)
     std[0] = 0.0
     inv_std = np.where(std == 0.0, 0.0, 1.0 / np.where(std == 0.0, 1.0, std))
     arrays = (
-        rng.normal(size=(rows, d)),
+        rng.normal(size=rows * d + offset),
         rng.normal(size=d),
         inv_std,
         rng.normal(size=d) * (3.0 / np.sqrt(d)),
     )
-    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in arrays]
+    x, *model = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in arrays]
+    return [x[offset:].view(rows, d), *model]
 
 
-@pytest.mark.parametrize("rows", (1, 33, 4096))
-@pytest.mark.parametrize("d", (8, 100, 1000))
+# d: the two paths' edges and the widest d of every instance of the kernel's
+# dispatch on either path (chip_smoke._logistic_instances; a d % 4 == 0
+# takes the scalar one from the view one float in)
+@pytest.mark.parametrize("rows", (1, 33, 4096, "past"))
+@pytest.mark.parametrize("d", _logistic_check_widths())
 @pytest.mark.parametrize("with_mean,with_std,write_scaled", CHAINS)
-def test_kernel_matches_plain_version(cuda, rows, d, with_mean, with_std, write_scaled):
-    x, mean, inv_std, coef = _inputs(rows, d, cuda)
+@pytest.mark.parametrize("offset", (0, 1), ids=("aligned", "view_one_float_in"))
+def test_kernel_matches_plain_version(cuda, rows, d, with_mean, with_std, write_scaled, offset):
+    past = rows == "past"
+    rows = _logistic_past_one_pass(d, offset) if past else rows
+    x, mean, inv_std, coef = _inputs(rows, d, cuda, offset=offset)
+    path = scale_logistic_path(x, mean if with_mean else None, inv_std if with_std else None, coef)
+    assert path == ("16-byte" if d % 4 == 0 and not offset else "scalar")
     before = SCALE_LOGISTIC.launches
     scaled, pred, raw = scale_logistic(
         x, mean, inv_std, coef, with_mean=with_mean, with_std=with_std, write_scaled=write_scaled
@@ -78,7 +91,11 @@ def test_kernel_matches_plain_version(cuda, rows, d, with_mean, with_std, write_
         assert torch.equal(scaled, p_scaled)  # bit-equal: no contraction, same roundings
     else:
         assert scaled is None
-    assert ulp_diff(raw.cpu().numpy(), p_raw.cpu().numpy()) <= ULP_ENVELOPE["scale_logistic"]
+    if past:  # the table's rule: 1 - p is ill-conditioned where p rounds near 1, so p is held, 1 - p exact
+        assert ulp_diff(raw[:, 1].cpu().numpy(), p_raw[:, 1].cpu().numpy()) <= ULP_ENVELOPE["scale_logistic"]
+        assert torch.equal(raw[:, 0], 1.0 - raw[:, 1]) and torch.equal(p_raw[:, 0], 1.0 - p_raw[:, 1])
+    else:
+        assert ulp_diff(raw.cpu().numpy(), p_raw.cpu().numpy()) <= ULP_ENVELOPE["scale_logistic"]
     margin = (p_scaled @ coef).cpu().numpy()
     decided = np.abs(margin) > 1e-4
     np.testing.assert_array_equal(pred.cpu().numpy()[decided], p_pred.cpu().numpy()[decided])

@@ -13,7 +13,8 @@ scale → kmeans and row-local table kernels and their paths
 (``kernels_kmeans``, ``kernels_rowlocal``, ``kernels_chains``,
 ``serve_kmeans``, ``serve_feature6``, ``serve_imputer``,
 ``pipeline_kmeans``, with ``kernels_mlp`` for the MLP kernel, which
-includes the same ``csrc/rowlocal_ops.cuh``).
+includes the same ``csrc/rowlocal_ops.cuh``), or the scale → logistic
+kernel and its service (``kernels``, ``logistic_times``, ``serve``).
 
 Each run is a fresh process started in the tree's own root, so it builds and
 imports that tree's ``flink_ml_tpu_torch`` and calls that tree's
@@ -34,6 +35,18 @@ into a directory that ``.gitignore`` lists, for example::
     python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
         --phases kernels_kmeans,kernels_rowlocal,kernels_chains,kernels_mlp,serve_kmeans,serve_feature6,serve_imputer,pipeline_kmeans \\
         --out build/table_turns.jsonl
+    python3 tools/flash_turns.py --tree parent=build/parent --tree change=. \\
+        --phases kernels,logistic_times,serve --out build/logistic_turns.jsonl
+
+``kernels`` and ``serve`` draw from one generator seeded with ``SEED``, in
+``chip_smoke.py``'s order: ``serve``'s traffic comes from the generator that
+``kernels`` advanced, so two trees whose ``kernels`` draw differently serve
+different request sizes. ``logistic_times`` is this tool's own tree's
+``chip_smoke._time_logistic`` run against each tree's package, with the
+tree's build of the kernel read by ``_logistic_compiled`` (registers, spills,
+the SASS's loads before the first FFMA): the kernel's cold and warm times at
+every shape of this tree's ``LOGISTIC_TIMED``, ``torch.mv(x, coef)`` and the
+plain version beside them, and each shape's bound.
 
 ``sparse_times`` is this tool's own tree's ``chip_smoke._time_sparse`` run
 against each tree's package: the sparse kernel's cold and warm times at
@@ -94,8 +107,14 @@ CALLS = {
     "serve_feature6": "c.phase_serve_feature6(card)",
     "serve_imputer": "c.phase_serve_imputer(card)",
     "pipeline_kmeans": "c.phase_pipeline_kmeans(card)",
+    "kernels": "c.phase_kernels(rng, card)",
+    "logistic_times": ("print(json.dumps({'phase': 'logistic_times', 'card': card, "
+                       "'compiled': tool._logistic_compiled(), "
+                       "**tool._time_logistic(np.random.default_rng(c.SEED))}), flush=True)"),
+    "serve": "c.phase_serve(rng, card)",
 }
 SPARSE = ("kernels_sparse", "sparse_times", "serve_sparse", "pipeline_sparse", "pipeline_mixed")
+TOOL = ("sparse_times", "logistic_times")  # phases that load this tool's own chip_smoke
 TOOL_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PREMAT = {"dot": "onehot_dot_crossing_premat", "mult": "onehot_mult_crossing_premat"}
@@ -110,6 +129,7 @@ import chip_smoke as c
 from flink_ml_tpu_torch.parallel import FLASH_FOLD  # noqa: F401 (registers the fold's kernels)
 import flink_ml_tpu_torch.servable.megakernels as mk  # registers the serving megakernels
 card = c.nvidia_smi_line()
+rng = np.random.default_rng(c.SEED)  # kernels, then serve: chip_smoke's order
 """
 
 # What the tree's compiler makes of its MLP kernel source (either tree: only
@@ -127,21 +147,23 @@ print(json.dumps({"phase": "mlp_sass", "registers": [int(r) for r in re.findall(
 """
 
 
-# The headline rows the sparse phases share, and this tool's own
-# chip_smoke (for sparse_times), which imports the tree's package.
-SPARSE_HEAD = r"""
+# This tool's own chip_smoke (for sparse_times and logistic_times), which
+# imports the tree's package, and the headline rows the sparse phases share.
+TOOL_HEAD = r"""
 import importlib.util
-headline = c._headline_data()
 spec = importlib.util.spec_from_file_location("tool_chip_smoke", TOOL_SMOKE)
 tool = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(tool)
 """
+SPARSE_HEAD = "headline = c._headline_data()\n"
 
 
 def _run_script(phases):
     body = HEAD + (MLP_SASS if "kernels_mlp" in phases else "")
+    if set(phases) & set(TOOL):
+        body += f"TOOL_SMOKE = {str(TOOL_SMOKE)!r}\n" + TOOL_HEAD
     if set(phases) & set(SPARSE):
-        body += f"TOOL_SMOKE = {str(TOOL_SMOKE)!r}\n" + SPARSE_HEAD
+        body += SPARSE_HEAD
     return body + "".join(CALLS[p] + "\n" for p in phases)
 
 
@@ -223,6 +245,20 @@ def _summary(lines):
                 out[f"sparse_{t['shape']['rows']}x{t['shape']['cap']}"] = _pick(t, (
                     "ms", "ms_l2_warm", "ms_head_only", "ms_head_only_l2_warm", "library_ms",
                     "library_ms_l2_warm", "gather_ms", "gather_ms_l2_warm", "plain_ms", "bound_ms"))
+        if phase == "kernels" and "compiled" in line:
+            out["logistic_compiled"] = line["compiled"]
+        if phase == "kernels" and "configurations" in line:
+            out["logistic_checked"] = _pick(line, ("configurations", "max_raw_ulps", "max_abs_err"))
+        if phase == "logistic_times":
+            out["logistic_compiled_sass"] = line["compiled"]
+            for t in line["shapes"]:
+                name = f"logistic_{t['rows']}x{t['d']}" + ("" if t["write_scaled"] else "_alone")
+                out[name] = _pick(t, ("path", "ms", "ms_l2_warm", "bound_ms"))
+            out["logistic_plain"] = _pick(line, ("plain_ms", "plain_ms_l2_warm"))
+            out["logistic_library_margin"] = _pick(line, ("library_margin_ms", "library_margin_ms_l2_warm"))
+        if phase == "serve" and "p50_ms" in line:
+            out["serve"] = _pick(line, ("p50_ms", "p99_ms", "rows_per_s", "megakernel_launches", "hot_batches",
+                                        "batches", "fallback_batches", "post_warmup_builds"))
         if phase == "serve_sparse" and "p50_ms" in line:
             out["serve_sparse"] = _pick(line, ("p50_ms", "p99_ms", "rows_per_s", "hot_batch_breakdown_ms"))
         if phase == "pipeline_sparse" and "idf_service" in line:
