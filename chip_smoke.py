@@ -7,9 +7,11 @@ Builds every hand-written kernel from ``flink_ml_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's main paths on the
 card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
 self-attention serving, wide-sparse, MLP, KMeans and self-attention
-training, and Pipelines fitted, transformed in the batch tier and served.
+training, and Pipelines fitted, transformed in the batch tier and served;
+checkpointed training killed and resumed, LinearSVC and LinearRegression,
+and a published version hot-swapped into a serving server.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25 and 26 after 9, and 22–24 after 17):
+runs 25–29 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -329,7 +331,46 @@ runs 25 and 26 after 9, and 22–24 after 17):
                (256 → 512 → 512 → 8) → Binarizer on rawPrediction on the
                MLP kernel; the published KMeans pipeline (StandardScaler →
                Normalizer → KMeans, k 10, d 100) → Binarizer on prediction
-               and IDF → IDF on the headline rows on the row-local kernel.
+               and IDF → IDF on the headline rows on the row-local kernel;
+27. fit_checkpoint — checkpointed SGD killed by a listener and resumed
+               from its newest intact snapshot (``CheckpointManager``, every 5
+               epochs): dense LeastSquare SGD on 100,000 × 100 seeded rows
+               (batch 4096, 30 iterations, killed at epoch 17), the resumed
+               coefficient against the uninterrupted fused fit (bit-equal
+               reported, within 1e-6 required) and the fused fit against
+               float64; a copy of the killed run's directory with its newest
+               snapshot truncated, quarantined and resumed from the one
+               before; a different config refused with
+               ``FingerprintMismatchError``; then the headline rows on the
+               host loop (the scatter step, 20 iterations, killed at epoch 12
+               and resumed): the resumed and the uninterrupted fused scatter
+               coefficients each within 1e-5 of the float64 SGD, no one-hot
+               crossing launched; ms/epoch of the host loop and the fused
+               scatter path on one cache (10 against 30 epochs), and the
+               save and restore times of the 16 MB coefficient;
+28. fit_linear_family — LinearSVC().fit on the headline rows through the
+               estimator (the one-hot path; the form it ran and its crossing
+               launches, 20 each), its coefficient and loss history against
+               float64 hinge SGD of the same schedule and its transform of
+               65,536 rows against float64 margins; LinearRegression().fit on
+               fit_checkpoint's dense rows (the fused SGD's coefficient) and
+               its transform, against float64;
+29. hot_swap — serve_sparse's PipelineModel([IDF, LogisticRegression])
+               published as v1 with ``publish_servable`` and served by
+               ``InferenceServer`` (fusion.mode=fast) through
+               ``attach_poller``; 4 clients send 64 requests of 1–4096 rows
+               and keep sending until the flip; v2 (the same IDF, the LR
+               coefficient of fit_checkpoint's resumed sparse fit) and a v3
+               with truncated model data are published mid-traffic: every
+               response against float64 numpy of the version it names, the
+               batches' versions in dispatch order never going back, 8
+               requests after the flip all v2, v3 in ``poller.failed``,
+               ``ml.serving.swaps`` and ``ml.serving.swap.failures`` each up
+               by exactly 1, 0 fallbacks, 0 chains built after warmup, sparse
+               kernel launches equal to the hot batches served plus v2's hot
+               warmup batches; v2's publish time, the time from its publish
+               to the first response it served, and each version's load and
+               warmup time on the poller's thread.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -396,6 +437,23 @@ CROSS_GRID = [(s, h, n) for s in (1, 4) for h in (1, 4, 128) for n in (1, 1000, 
 CROSS_EDGES = [(4, 4, 20000, "one_row"), (4, 128, 8192 + 7, "one_row"), (4, 4, 8192 + 7, "dead"),
                (4, 256, 8192 + 7, "dead"), (1, 128, 7, "dead")]
 DOT_RTOL = 1e-5  # |kernel - plain| <= DOT_RTOL * sum_row |q| + 1e-6: another summation order
+# fit_checkpoint: dense SGD on d 100 rows killed at epoch 17 and resumed, and
+# the headline rows on the host loop killed at epoch 12 and resumed.
+CKPT_DENSE_ROWS, CKPT_DENSE_D, CKPT_DENSE_BATCH, CKPT_DENSE_LR = 100_000, 100, 4096, 0.1
+CKPT_DENSE_ITERS, CKPT_DENSE_KILL, CKPT_SPARSE_KILL, CKPT_INTERVAL = 30, 17, 12, 5
+CKPT_SEED = 12
+CKPT_DENSE_ATOL = 1e-6  # the resumed dense fit against the fused one, if not bit-equal
+CKPT_EPOCH_ITERS = (10, 30)  # the two epoch counts differenced for ms/epoch
+CKPT_IO_REPS = 5
+# LinearSVC's margins on the headline rows are ~1e-4 (20 steps from zero):
+# past 1e-8 a float32 sum of 39 terms (error <= 39 * 2^-24 * 1e-4) cannot
+# land on the wrong side of the threshold.
+SVC_MARGIN = 1e-8
+HOT_SWAP_SEED = TRAIN_SEED + 12  # new rows of the headline generator
+HOT_SWAP_POLL_MS = 20.0
+HOT_SWAP_AFTER = 16  # responses before v2 is published
+HOT_SWAP_POST = 8  # requests sent after the flip, each to be served by v2
+HOT_SWAP_RESEND_S = 0.02  # a client's pause between requests once its 16 are served, until the flip
 # max |f32 fit - float64 SGD| / max |coef|: between the split-bf16 fit and
 # the float64 SGD whose crossings keep only the bf16 hi half (asserted apart)
 COEF_TOL = 1e-5
@@ -1108,9 +1166,10 @@ def _bf16(x):
     return b.view(np.float32).astype(np.float64)
 
 
-def _reference_sgd(indices, values, y, dim, hi_only=False):
+def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False):
     """Float64 numpy SGD of SGD's schedule and update (BinaryLogisticLoss,
-    no regularization): the coefficient and the loss history. With
+    or HingeLoss with ``hinge``; no regularization): the coefficient and the
+    loss history. With
     ``hi_only`` the crossings keep only their bf16 hi half (each entry's
     term of the margin and each row's multiplier rounded to bf16): the
     control that shows the coefficient check can tell a crossing that drops
@@ -1134,8 +1193,12 @@ def _reference_sgd(indices, values, y, dim, hi_only=False):
         wb = (start + np.arange(batch) >= offset).astype(np.float64)
         ys = 2.0 * yb - 1.0
         z = cross(vb * coef[ib]).sum(axis=1) * ys
-        loss = (wb * np.logaddexp(0.0, -z)).sum()
-        mult = cross(wb * (-ys / (1.0 + np.exp(z))))
+        if hinge:
+            loss = (wb * np.maximum(0.0, 1.0 - z)).sum()
+            mult = cross(np.where(1.0 - z > 0.0, -ys * wb, 0.0))
+        else:
+            loss = (wb * np.logaddexp(0.0, -z)).sum()
+            mult = cross(wb * (-ys / (1.0 + np.exp(z))))
         grad = np.bincount(ib.ravel(), weights=(vb * mult[:, None]).ravel(), minlength=dim)
         coef -= TRAIN_LR / wb.sum() * grad
         losses.append(loss / wb.sum())
@@ -6253,6 +6316,551 @@ def phase_pipeline_mixed(card: str, headline, idf_model, lr_model):
             "pipeline_mixed.idf_idf": idf_run["launches"]}
 
 
+def _fail_at(epoch):
+    from flink_ml_tpu_torch.iteration import IterationListener
+
+    class FailAt(IterationListener):
+        def on_epoch_watermark_incremented(self, e, context):
+            if e == epoch:
+                raise RuntimeError(f"killed at epoch {e}")
+
+    return FailAt()
+
+
+def _dense_ckpt_rows():
+    """fit_checkpoint's dense rows: CKPT_DENSE_ROWS × 100 standard normal
+    features and real labels of a seeded linear model plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(CKPT_SEED)
+    X = rng.standard_normal((CKPT_DENSE_ROWS, CKPT_DENSE_D)).astype(np.float32)
+    w = rng.standard_normal(CKPT_DENSE_D) / np.sqrt(CKPT_DENSE_D)
+    y = (X.astype(np.float64) @ w + 0.1 * rng.standard_normal(CKPT_DENSE_ROWS)).astype(np.float32)
+    return X, y
+
+
+def _reference_least_squares(X, y, iters):
+    """Float64 numpy SGD of SGD's schedule and update under LeastSquareLoss
+    (no regularization) on dense rows."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.ops.schedule import offset_schedule
+
+    n = y.shape[0]
+    batch = min(CKPT_DENSE_BATCH, n)
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    coef = np.zeros(X.shape[1])
+    for start, offset in zip(*offset_schedule(n, batch, iters)):
+        rows = slice(start, start + batch)
+        wb = (start + np.arange(batch) >= offset).astype(np.float64)
+        mult = wb * (X64[rows] @ coef - y64[rows])
+        coef -= CKPT_DENSE_LR / wb.sum() * (X64[rows].T @ mult)
+    return coef
+
+
+def _sync_seconds(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fit_checkpoint(card: str, headline):
+    """Checkpointed SGD killed by a listener and resumed, dense and on the
+    headline rows' host loop; a corrupt newest snapshot and a foreign
+    config (module docstring, phase 27). Returns the resumed sparse
+    coefficient (hot_swap's v2) and the dense rows."""
+    t_phase = time.perf_counter()
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.checkpoint import CheckpointManager, FingerprintMismatchError
+    from flink_ml_tpu_torch.iteration import DeviceDataCache, IterationListener
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss, LeastSquareLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    crossings = (O.DOT_CROSSING, O.MULT_CROSSING, O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+    for k in crossings:
+        k.reset_launches()
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        # -- dense leg ---------------------------------------------------------
+        X, y = _dense_ckpt_rows()
+        dense = DeviceDataCache({"features": X, "labels": y, "weights": np.ones(len(y), np.float32)})
+        loss = LeastSquareLoss.INSTANCE
+
+        def dense_sgd(**kw):
+            return SGD(max_iter=CKPT_DENSE_ITERS, learning_rate=CKPT_DENSE_LR,
+                       global_batch_size=CKPT_DENSE_BATCH, tol=0.0, **kw)
+
+        fused_coef = dense_sgd().optimize(np.zeros(CKPT_DENSE_D, np.float32), dense, loss)
+        mgr = CheckpointManager(os.path.join(root, "dense"), max_to_keep=2)
+        try:
+            dense_sgd(checkpoint_manager=mgr, checkpoint_interval=CKPT_INTERVAL,
+                      listeners=[_fail_at(CKPT_DENSE_KILL)]).optimize(np.zeros(CKPT_DENSE_D, np.float32), dense, loss)
+            raise AssertionError("the dense fit was not killed")
+        except RuntimeError as e:
+            if "killed at epoch" not in str(e):
+                raise
+        steps_at_kill = mgr.all_steps()
+        if steps_at_kill != [10, 15]:
+            raise AssertionError(f"dense snapshots at the kill: {steps_at_kill}, expected [10, 15]")
+        corrupt_dir = os.path.join(root, "dense-corrupt")
+        shutil.copytree(mgr.directory, corrupt_dir)
+        resumed = dense_sgd(checkpoint_manager=CheckpointManager(mgr.directory, max_to_keep=2),
+                            checkpoint_interval=CKPT_INTERVAL)
+        dense_resumed = resumed.optimize(np.zeros(CKPT_DENSE_D, np.float32), dense, loss)
+        dense_bit_equal = bool(np.array_equal(dense_resumed.view(np.int32), fused_coef.view(np.int32)))
+        dense_err = float(np.abs(dense_resumed - fused_coef).max())
+        if not dense_err <= CKPT_DENSE_ATOL:
+            raise AssertionError(f"the resumed dense coefficient is {dense_err} off the fused fit")
+        if len(resumed.loss_history) != CKPT_DENSE_ITERS - 15:
+            raise AssertionError(f"{len(resumed.loss_history)} epochs after resuming from 15")
+
+        # corruption: the newest snapshot truncated → quarantined, resumed from the one before
+        npz = os.path.join(corrupt_dir, "ckpt-15", "arrays.npz")
+        with open(npz, "r+b") as f:
+            f.truncate(os.path.getsize(npz) // 2)
+        q0 = metrics.get(MLMetrics.CHECKPOINT_GROUP, MLMetrics.CHECKPOINT_QUARANTINED, 0)
+        f0 = metrics.get(MLMetrics.CHECKPOINT_GROUP, MLMetrics.CHECKPOINT_FALLBACKS, 0)
+        fallback = dense_sgd(checkpoint_manager=CheckpointManager(corrupt_dir, max_to_keep=2),
+                             checkpoint_interval=CKPT_INTERVAL)
+        fallback_coef = fallback.optimize(np.zeros(CKPT_DENSE_D, np.float32), dense, loss)
+        if not os.path.isdir(os.path.join(corrupt_dir, "ckpt-15.corrupt")):
+            raise AssertionError("the truncated snapshot was not quarantined")
+        if len(fallback.loss_history) != CKPT_DENSE_ITERS - 10:
+            raise AssertionError(f"{len(fallback.loss_history)} epochs after falling back to 10")
+        quarantined = metrics.get(MLMetrics.CHECKPOINT_GROUP, MLMetrics.CHECKPOINT_QUARANTINED) - q0
+        fallbacks = metrics.get(MLMetrics.CHECKPOINT_GROUP, MLMetrics.CHECKPOINT_FALLBACKS) - f0
+        if (quarantined, fallbacks) != (1, 1):
+            raise AssertionError(f"quarantined {quarantined}, fallbacks {fallbacks}; expected 1 and 1")
+        fallback_err = float(np.abs(fallback_coef - fused_coef).max())
+        if not fallback_err <= CKPT_DENSE_ATOL:
+            raise AssertionError(f"the fallen-back dense coefficient is {fallback_err} off the fused fit")
+        try:
+            SGD(max_iter=CKPT_DENSE_ITERS, learning_rate=CKPT_DENSE_LR / 2, global_batch_size=CKPT_DENSE_BATCH,
+                tol=0.0, checkpoint_manager=CheckpointManager(mgr.directory), checkpoint_interval=CKPT_INTERVAL,
+                ).optimize(np.zeros(CKPT_DENSE_D, np.float32), dense, loss)
+            raise AssertionError("a different config resumed another run's snapshots")
+        except FingerprintMismatchError as e:
+            mismatch = str(e)[:120]
+        ref = _reference_least_squares(X, y, CKPT_DENSE_ITERS)
+        dense_scale = float(np.abs(ref).max())
+        dense_ref_err = float(np.abs(fused_coef.astype(np.float64) - ref).max())
+        if not dense_ref_err <= COEF_TOL * dense_scale:
+            raise AssertionError(f"the dense fit is {dense_ref_err} off the float64 SGD (scale {dense_scale})")
+        del dense
+
+        # -- sparse leg: the headline rows on the host loop ---------------------
+        idx, labels = headline
+        cache = DeviceDataCache({
+            "indices": idx.astype(np.int32), "values": np.ones(idx.shape, np.float32),
+            "labels": labels.astype(np.float32), "weights": np.ones(len(labels), np.float32),
+        })
+        logistic = BinaryLogisticLoss.INSTANCE
+
+        def sparse_sgd(iters=TRAIN_ITERS, **kw):
+            return SGD(max_iter=iters, learning_rate=TRAIN_LR, global_batch_size=TRAIN_BATCH, tol=0.0, **kw)
+
+        zeros = np.zeros(TRAIN_DIM, np.float32)
+        fused_sparse = sparse_sgd(sparse_kernel="scatter").optimize(zeros, cache, logistic)
+        smgr = CheckpointManager(os.path.join(root, "sparse"), max_to_keep=2)
+        try:
+            sparse_sgd(checkpoint_manager=smgr, checkpoint_interval=CKPT_INTERVAL,
+                       listeners=[_fail_at(CKPT_SPARSE_KILL)]).optimize(zeros, cache, logistic)
+            raise AssertionError("the sparse fit was not killed")
+        except RuntimeError as e:
+            if "killed at epoch" not in str(e):
+                raise
+        sparse_steps = smgr.all_steps()
+        resumed_sparse = sparse_sgd(checkpoint_manager=CheckpointManager(smgr.directory, max_to_keep=2),
+                                    checkpoint_interval=CKPT_INTERVAL)
+        sparse_coef = resumed_sparse.optimize(zeros, cache, logistic)
+        if len(resumed_sparse.loss_history) != TRAIN_ITERS - sparse_steps[-1]:
+            raise AssertionError(f"{len(resumed_sparse.loss_history)} epochs after resuming from {sparse_steps}")
+        sref, _ = _reference_sgd(idx, np.ones(idx.shape), labels, TRAIN_DIM)
+        sparse_scale = float(np.abs(sref).max())
+        errs = {name: float(np.abs(c.astype(np.float64) - sref).max())
+                for name, c in (("resumed", sparse_coef), ("uninterrupted", fused_sparse))}
+        for name, err in errs.items():
+            if not err <= COEF_TOL * sparse_scale:
+                raise AssertionError(f"the {name} sparse coefficient is {err} off the float64 SGD "
+                                     f"(scale {sparse_scale})")
+        launched = {k.name: k.launches for k in crossings if k.launches}
+        if launched:
+            raise AssertionError(f"the host loop launched one-hot crossings: {launched}")
+
+        # ms/epoch: the host loop (a listener, no manager) against the fused
+        # scatter path on the same cache, two epoch counts differenced
+        class Quiet(IterationListener):
+            pass
+
+        ms = {}
+        for form in ("host_loop", "fused", "fused", "host_loop"):
+            kw = {"listeners": [Quiet()]} if form == "host_loop" else {"sparse_kernel": "scatter"}
+            t = [_sync_seconds(lambda: sparse_sgd(iters, **kw).optimize(zeros, cache, logistic))[1]
+                 for iters in CKPT_EPOCH_ITERS]
+            ms.setdefault(form, []).append((t[1] - t[0]) / (CKPT_EPOCH_ITERS[1] - CKPT_EPOCH_ITERS[0]) * 1e3)
+
+        # save and restore of the 16 MB coefficient, restored onto the card
+        coef_dev = torch.from_numpy(sparse_coef).cuda()
+        io_mgr = CheckpointManager(os.path.join(root, "io"), max_to_keep=1)
+        save_ms, restore_ms = [], []
+        for rep in range(CKPT_IO_REPS):
+            _, t = _sync_seconds(lambda: io_mgr.save(rep + 1, [coef_dev, np.asarray(rep, np.int32)]))
+            save_ms.append(t * 1e3)
+            (step, state), t = _sync_seconds(lambda: io_mgr.restore_latest(device=coef_dev.device))
+            restore_ms.append(t * 1e3)
+            if step != rep + 1 or state[0].device != coef_dev.device or not torch.equal(state[0], coef_dev):
+                raise AssertionError("the restored coefficient is not the saved one on the card")
+        del cache, coef_dev
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("fit_checkpoint", card=card, seconds=time.perf_counter() - t_phase, dense={
+        "rows": CKPT_DENSE_ROWS, "d": CKPT_DENSE_D, "batch": CKPT_DENSE_BATCH, "iterations": CKPT_DENSE_ITERS,
+        "killed_at": CKPT_DENSE_KILL, "snapshots_at_kill": steps_at_kill,
+        "resumed_bit_equal_to_fused": dense_bit_equal, "resumed_max_abs_diff": dense_err,
+        "epochs_after_resume": len(resumed.loss_history),
+        "corrupt_newest": {"quarantined": quarantined, "fallbacks": fallbacks,
+                           "epochs_after_resume": len(fallback.loss_history), "max_abs_diff": fallback_err},
+        "fingerprint_mismatch": mismatch,
+        "fused_vs_f64_max_abs_err": dense_ref_err, "f64_scale": dense_scale,
+    }, sparse={
+        "rows": len(labels), "dim": TRAIN_DIM, "batch": TRAIN_BATCH, "iterations": TRAIN_ITERS,
+        "killed_at": CKPT_SPARSE_KILL, "snapshots_at_kill": sparse_steps,
+        "epochs_after_resume": len(resumed_sparse.loss_history),
+        "max_abs_err_vs_f64": errs, "f64_scale": sparse_scale, "coef_tol": COEF_TOL,
+        "ms_per_epoch": {k: _median(v) for k, v in ms.items()}, "ms_per_epoch_runs": ms,
+        "checkpoint_bytes": int(sparse_coef.nbytes), "save_ms": _median(save_ms), "restore_ms": _median(restore_ms),
+        "save_ms_runs": save_ms, "restore_ms_runs": restore_ms,
+    })
+    return sparse_coef, (X, y, fused_coef)
+
+
+def phase_fit_linear_family(card: str, headline, dense_rows):
+    """LinearSVC on the headline rows through the estimator (the one-hot
+    path) and LinearRegression on fit_checkpoint's dense rows, each held
+    against float64 (module docstring, phase 28). Returns the crossing
+    launches of the form the LinearSVC fit ran."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.models.classification.linearsvc import LinearSVC
+    from flink_ml_tpu_torch.models.regression.linear_regression import LinearRegression
+
+    premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+    build_k = (O.DOT_CROSSING, O.MULT_CROSSING)
+    idx, y = headline
+    df = _sparse_frame(idx, label=y)
+    est = (LinearSVC().set_max_iter(TRAIN_ITERS).set_global_batch_size(TRAIN_BATCH)
+           .set_learning_rate(TRAIN_LR).set_tol(0.0))
+    calls, restore = _count_plain_calls()
+    try:
+        for k in premat_k + build_k:
+            k.reset_launches()
+        svc, fit_s = _sync_seconds(lambda: est.fit(df))
+        launches = {k.name: k.launches for k in premat_k + build_k}
+    finally:
+        restore()
+    if calls:
+        raise AssertionError(f"plain crossings were called on the card: {sorted(set(calls))}")
+    ran, idle = (premat_k, build_k) if est.onehot_premat_active else (build_k, premat_k)
+    if any(launches[k.name] != TRAIN_ITERS for k in ran) or any(launches[k.name] for k in idle):
+        raise AssertionError(f"the LinearSVC fit's crossing launches are {launches}")
+    ref, ref_losses = _reference_sgd(idx, np.ones(idx.shape), y, TRAIN_DIM, hinge=True)
+    scale = float(np.abs(ref).max())
+    svc_err = float(np.abs(svc.coefficient.astype(np.float64) - ref).max())
+    if not svc_err <= COEF_TOL * scale:
+        raise AssertionError(f"the LinearSVC coefficient is {svc_err} off the float64 hinge SGD (scale {scale})")
+    loss_err = float(np.max(np.abs(np.asarray(est.loss_history) - ref_losses) / np.abs(ref_losses)))
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"the LinearSVC loss history is {loss_err} off the float64 one (relative)")
+    rows = TRAIN_BATCH
+    out, transform_s = _sync_seconds(lambda: svc.transform(df.take(np.arange(rows))))
+    coef64 = np.asarray(svc.coefficient, np.float32).astype(np.float64)
+    margin = coef64[idx[:rows]].sum(axis=1)
+    raw = np.asarray(out.column("rawPrediction"))
+    raw_err = float(np.abs(raw - np.stack([margin, -margin], axis=1)).max())
+    if not raw_err <= 1e-6 * max(1.0, float(np.abs(margin).max())):
+        raise AssertionError(f"LinearSVC rawPrediction is {raw_err} off float64")
+    decided = np.abs(margin) > SVC_MARGIN
+    np.testing.assert_array_equal(np.asarray(out.column("prediction"))[decided], (margin >= 0)[decided])
+    del df
+
+    X, yd, fused_coef = dense_rows
+    dense_df = DataFrame.from_dict({"features": X, "label": yd})
+    lin = (LinearRegression().set_max_iter(CKPT_DENSE_ITERS).set_global_batch_size(CKPT_DENSE_BATCH)
+           .set_learning_rate(CKPT_DENSE_LR).set_tol(0.0))
+    lin_model, lin_fit_s = _sync_seconds(lambda: lin.fit(dense_df))
+    lin_vs_sgd = float(np.abs(lin_model.coefficient - fused_coef).max())
+    if not lin_vs_sgd <= CKPT_DENSE_ATOL:
+        raise AssertionError(f"LinearRegression.fit is {lin_vs_sgd} off fit_checkpoint's fused SGD")
+    lref = _reference_least_squares(X, yd, CKPT_DENSE_ITERS)
+    lscale = float(np.abs(lref).max())
+    lin_err = float(np.abs(lin_model.coefficient.astype(np.float64) - lref).max())
+    if not lin_err <= COEF_TOL * lscale:
+        raise AssertionError(f"the LinearRegression coefficient is {lin_err} off float64 (scale {lscale})")
+    pred, lin_transform_s = _sync_seconds(lambda: lin_model.transform(dense_df))
+    want = X.astype(np.float64) @ np.asarray(lin_model.coefficient, np.float32).astype(np.float64)
+    pred_err = float(np.abs(np.asarray(pred.column("prediction")) - want).max())
+    if not pred_err <= 1e-5 * float(np.abs(want).max()):
+        raise AssertionError(f"LinearRegression predictions are {pred_err} off float64")
+    torch.cuda.empty_cache()
+    form = "premat" if est.onehot_premat_active else "build"
+    emit("fit_linear_family", card=card, seconds=time.perf_counter() - t_phase, linearsvc={
+        "rows": len(idx), "dim": TRAIN_DIM, "batch": TRAIN_BATCH, "iterations": TRAIN_ITERS, "form": form,
+        "crossing_launches": launches, "fit_s": fit_s, "coef_max_abs_err_vs_f64": svc_err, "f64_scale": scale,
+        "loss_max_rel_err_vs_f64": loss_err, "loss_first": est.loss_history[0], "loss_last": est.loss_history[-1],
+        "transform_rows": rows, "transform_s": transform_s, "raw_max_abs_err_vs_f64": raw_err,
+        "decided_share": float(decided.mean()),
+    }, linear_regression={
+        "rows": len(yd), "d": CKPT_DENSE_D, "fit_s": lin_fit_s, "max_abs_diff_vs_fused_sgd": lin_vs_sgd,
+        "coef_max_abs_err_vs_f64": lin_err, "f64_scale": lscale, "transform_s": lin_transform_s,
+        "pred_max_abs_err_vs_f64": pred_err,
+    })
+    return {k.name: launches[k.name] for k in ran}
+
+
+class _CorruptPublish:
+    """A stage whose saved LogisticRegression model data is truncated:
+    published through the atomic path, so the poller meets a complete but
+    unloadable version."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def save(self, path):
+        import os
+
+        self.model.save(path)
+        npz = os.path.join(path, "stages", f"{1:08d}", "data", "model_data.npz")
+        with open(npz, "r+b") as f:
+            f.truncate(os.path.getsize(npz) // 2)
+
+
+def phase_hot_swap(card: str, idf_model, lr_model, v2_coef):
+    """serve_sparse's IDF → LR published as v1 and served through the
+    poller; v2 (fit_checkpoint's resumed coefficient) and a corrupt v3
+    published under traffic (module docstring, phase 29). Returns the
+    sparse kernel's launches."""
+    t_phase = time.perf_counter()
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegressionModel
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.params.param import update_existing_params
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig, publish_servable
+    from flink_ml_tpu_torch.serving.plan import CompiledServingPlan, chain_kinds
+
+    lr2 = LogisticRegressionModel()
+    update_existing_params(lr2, lr_model)
+    lr2.coefficient = np.asarray(v2_coef, np.float32)
+    versions = {1: PipelineModel([idf_model, lr_model]), 2: PipelineModel([idf_model, lr2])}
+    idf32 = np.asarray(idf_model.idf, np.float32)
+    coef64 = {v: np.asarray(m.stages[1].coefficient, np.float32).astype(np.float64) for v, m in versions.items()}
+    if np.array_equal(coef64[1], coef64[2]):
+        raise AssertionError("v1 and v2 carry the same coefficient: the swap would be invisible")
+
+    rng = np.random.default_rng(HOT_SWAP_SEED)
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT + HOT_SWAP_POST
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(n_req)]
+    for j, i in enumerate(range(0, n_req, 8)):  # hot keys on every run
+        sizes[i] = (MAX_BATCH, MAX_BATCH // 2, MAX_BATCH // 4)[j % 3]
+    nnz = [TRAIN_NNZ if i % 4 else (1, 3, 9, 24)[(i // 4) % 4] for i in range(n_req)]
+    payload_ids = [_hashed_rows(rng, n, k) for n, k in zip(sizes, nnz)]
+    payloads = [_sparse_frame(ids) for ids in payload_ids]
+
+    def check(i, out, version):
+        ids = payload_ids[i]
+        want = idf32[ids]
+        got = out["tfidf"]
+        if len(got) != len(ids):
+            raise AssertionError(f"{len(got)} rows back for {len(ids)}")
+        for r in range(0, len(ids), 7):
+            if not (np.array_equal(got[r].indices, ids[r]) and np.array_equal(got[r].values, want[r])):
+                raise AssertionError(f"row {r}: tfidf is not the f32 product")
+        margin = (want.astype(np.float64) * coef64[version][ids]).sum(axis=1)
+        p = 1.0 / (1.0 + np.exp(-margin))
+        np.testing.assert_allclose(out["rawPrediction"], np.stack([1.0 - p, p], axis=1), rtol=0, atol=1e-5)
+        decided = np.abs(margin) > PREDICTION_MARGIN
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[decided],
+                                      (margin >= 0).astype(np.float64)[decided])
+
+    # every ingest of every version's plan, warm or not, in order
+    lock = threading.Lock()
+    ingests = []
+    ingest = CompiledServingPlan._ingest
+
+    def recording_ingest(self, segment, df, bucket, cap=None, warm=False):
+        got = ingest(self, segment, df, bucket, cap=cap, warm=warm)
+        with lock:
+            ingests.append((warm, got[1]))
+        return got
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    CompiledServingPlan._ingest = recording_ingest
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        d = tmp.name
+        publish_servable(versions[1], d)
+        server = InferenceServer(name="chip-smoke-hot-swap", serving_config=config,
+                                 warmup_template=payloads[0].take([0]), device="cuda")
+        scope = server.scope
+        with server:
+            poller = server.attach_poller(d, interval_ms=HOT_SWAP_POLL_MS)
+            stage_ms = {"load": [], "warmup": []}  # each version's load and warmup on the poller's thread
+
+            def timed(name, fn):
+                def run(arg):
+                    t = time.perf_counter()
+                    try:
+                        return fn(arg)
+                    finally:
+                        stage_ms[name].append((time.perf_counter() - t) * 1e3)
+                return run
+
+            poller.loader, poller.warmup = timed("load", poller.loader), timed("warmup", poller.warmup)
+            deadline = time.perf_counter() + 300
+            while server.model_version != 1 and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            if server.model_version != 1:
+                raise AssertionError(f"v1 was not swapped in: {dict(poller.failed)}")
+            # per-batch version snapshots, in dispatch order
+            batch_versions = []
+            current = server.registry.current
+
+            def recording_current():
+                pair = current()
+                batch_versions.append(pair[0])
+                return pair
+
+            server.registry.current = recording_current
+            kinds = chain_kinds(server.registry._current[1]._fastpath_plan)
+            hot = {k for k, kind in kinds.items() if "megakernel" in kind}
+            # The main path's run starts here: counts to 0, then traffic.
+            with lock:
+                del ingests[:]
+            for k in KERNELS:
+                k.reset_launches()
+            plain_calls, restore = _count_calls(mk, ("sparse_idf_logistic_plain", "scale_logistic_plain"))
+            swaps0 = metrics.get(scope, MLMetrics.SERVING_SWAPS, 0)
+            fail0 = metrics.get(scope, MLMetrics.SERVING_SWAP_FAILURES, 0)
+            fallback0 = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+            compiles0 = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+            done = []  # (request, version, completion time), in completion order
+            failures = []
+            first = N_CLIENTS * REQUESTS_PER_CLIENT
+            flipped = threading.Event()
+
+            def serve(i):
+                try:
+                    resp = server.predict(payloads[i])
+                    done.append((i, resp.model_version, time.perf_counter()))
+                    check(i, resp.dataframe, resp.model_version)
+                except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                    failures.append(f"request {i} ({sizes[i]} rows): {type(e).__name__}: {e}")
+
+            def client(c):
+                # its own requests, then again in turn, paced, until the flip:
+                # traffic flows through v2's load, warmup and swap without
+                # starving the poller's thread of the interpreter
+                mine = list(range(c, first, N_CLIENTS))
+                for i in mine:
+                    serve(i)
+                for n in range(10_000):
+                    if flipped.wait(HOT_SWAP_RESEND_S) or failures:
+                        break
+                    serve(mine[n % len(mine)])
+
+            try:
+                threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+                for th in threads:
+                    th.start()
+                while len(done) < HOT_SWAP_AFTER and any(th.is_alive() for th in threads):
+                    time.sleep(0.001)
+                t_publish = time.perf_counter()
+                publish_servable(versions[2], d)
+                t_published = time.perf_counter()
+                publish_servable(_CorruptPublish(versions[2]), d)
+                deadline = time.perf_counter() + 300
+                while (server.model_version != 2 or 3 not in poller.failed) and time.perf_counter() < deadline:
+                    time.sleep(0.005)
+                t_swapped = time.perf_counter()
+                flipped.set()
+                for i in range(first, n_req):  # strictly after the flip
+                    serve(i)
+                for th in threads:
+                    th.join(timeout=600)
+            finally:
+                restore()
+                server.registry.current = current
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("hot_swap clients did not finish within 600 s")
+            launches = mk.SPARSE_IDF_LOGISTIC.launches
+            other = {k.name: k.launches for k in KERNELS if k is not mk.SPARSE_IDF_LOGISTIC}
+            failed = {v: f"{type(e).__name__}: {str(e)[:80]}" for v, e in poller.failed.items()}
+            swaps = metrics.get(scope, MLMetrics.SERVING_SWAPS, 0) - swaps0
+            swap_failures = metrics.get(scope, MLMetrics.SERVING_SWAP_FAILURES, 0) - fail0
+            fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback0
+            compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles0
+            final_version = server.model_version
+    finally:
+        CompiledServingPlan._ingest = ingest
+        tmp.cleanup()
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    served = {i: v for i, v, _ in done}
+    if set(failed) != {3} or final_version != 2:
+        raise AssertionError(f"poller.failed {failed}, serving v{final_version}: expected v3 failed, v2 serving")
+    if (swaps, swap_failures) != (1, 1):
+        raise AssertionError(f"swaps rose by {swaps} and swap failures by {swap_failures}, expected 1 and 1")
+    if batch_versions != sorted(batch_versions) or set(batch_versions) != {1, 2}:
+        raise AssertionError(f"batches took versions out of order: {batch_versions}")
+    if any(served[i] != 2 for i in range(first, n_req)):
+        raise AssertionError(f"v1 served after the flip: {[served[i] for i in range(first, n_req)]}")
+    first_v2 = min(t for _, v, t in done if v == 2)
+    traffic = [key for warm, key in ingests if not warm]
+    warm_hot = sum(1 for warm, key in ingests if warm and key in hot)
+    hot_batches = sum(1 for key in traffic if key in hot)
+    if len(traffic) != len(batch_versions):
+        raise AssertionError(f"{len(traffic)} batches ingested, {len(batch_versions)} dispatched")
+    if not hot_batches or launches != hot_batches + warm_hot:
+        raise AssertionError(f"sparse kernel launches {launches} != hot batches {hot_batches} "
+                             f"+ v2's hot warmup batches {warm_hot}")
+    if fallback or compiles:
+        raise AssertionError(f"{fallback} fallback batches, {compiles} chains built after warmup")
+    if plain_calls or any(other.values()):
+        raise AssertionError(f"plain versions {sorted(set(plain_calls))} or other kernels {other} ran")
+    emit("hot_swap", card=card, seconds=time.perf_counter() - t_phase, requests=n_req, rows=sum(sizes), batches=len(batch_versions),
+         batches_per_version={v: batch_versions.count(v) for v in (1, 2)},
+         responses=len(done), responses_per_version={v: sum(u == v for _, u, _ in done) for v in (1, 2)},
+         v2_publish_ms=(t_published - t_publish) * 1e3,
+         published_to_first_v2_response_ms=(first_v2 - t_published) * 1e3,
+         published_to_v3_rejected_ms=(t_swapped - t_published) * 1e3,
+         poller_load_ms=stage_ms["load"], poller_warmup_ms=stage_ms["warmup"],
+         poller_failed=failed, swaps=swaps, swap_failures=swap_failures,
+         hot_keys=sorted(hot), hot_batches=hot_batches, v2_warmup_hot_batches=warm_hot,
+         megakernel_launches=launches, fallback_batches=fallback, post_warmup_builds=compiles)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6304,7 +6912,11 @@ def main() -> int:
         record(phase, {SPARSE_IDF_LOGISTIC.name: n})
     for phase, got in phase_pipeline_mixed(smi, headline, idf_model, lr_model).items():
         record(phase, got)
-    del headline, idf_model, lr_model
+    v2_coef, dense_rows = phase_fit_checkpoint(smi, headline)
+    torch.cuda.empty_cache()
+    record("fit_linearsvc", phase_fit_linear_family(smi, headline, dense_rows))
+    record("hot_swap", {SPARSE_IDF_LOGISTIC.name: phase_hot_swap(smi, idf_model, lr_model, v2_coef)})
+    del headline, idf_model, lr_model, v2_coef, dense_rows
     mlp_alone = phase_kernels_mlp(rng, smi)
     record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
     torch.cuda.empty_cache()

@@ -71,6 +71,21 @@ class Options:
         "Per-request deadline when the caller does not pass one; a request "
         "not completed by its deadline raises ServingDeadlineError.",
     )
+    SERVING_POLL_INTERVAL_MS = ConfigOption(
+        "serving.poll.interval.ms",
+        float,
+        1000.0,
+        "How often ModelVersionPoller re-scans the model directory for a "
+        "newer published version.",
+    )
+    SERVING_POLL_BACKOFF_MAX_MS = ConfigOption(
+        "serving.poll.backoff.max.ms",
+        float,
+        30_000.0,
+        "Ceiling of the ModelVersionPoller's jittered exponential backoff on "
+        "consecutive scan failures; one successful scan resets the wait to "
+        "serving.poll.interval.ms.",
+    )
     SERVING_FASTPATH = ConfigOption(
         "serving.fastpath",
         _parse_bool,

@@ -1,9 +1,11 @@
-"""Serving metrics — the counters and gauges the plan, batcher and server bump.
+"""Metrics — the counters and gauges the plan, batcher, server and
+checkpoint manager bump.
 
-Twin of ``flink_ml_tpu/metrics.py``, cut to the names the serving path and
-the batch plan publish; each name is identical to the JAX package's, so dashboards and
-tests read both packages the same way. A process-local registry of named
-gauges, counters and histograms grouped per scope (``ml.serving[<name>]``).
+Twin of ``flink_ml_tpu/metrics.py``, cut to the names the serving path, the
+batch plan and the checkpoint manager publish; each name is identical to
+the JAX package's, so dashboards and tests read both packages the same way.
+A process-local registry of named gauges, counters and histograms grouped
+per scope (``ml.serving[<name>]``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,12 @@ class MLMetrics:
     TIMESTAMP = "ml.model.timestamp"
     VERSION = "ml.model.version"
 
+    # Checkpoint-failover counters (scope = CHECKPOINT_GROUP, process-global).
+    CHECKPOINT_GROUP = "ml.checkpoint"
+    CHECKPOINT_QUARANTINED = "ml.checkpoint.quarantined"
+    CHECKPOINT_FALLBACKS = "ml.checkpoint.fallbacks"
+    CHECKPOINT_TMP_SWEPT = "ml.checkpoint.tmp.swept"
+
     # Online-serving runtime (scope = "ml.serving[<server name>]").
     SERVING_GROUP = "ml.serving"
     SERVING_QUEUE_DEPTH = "ml.serving.queue.depth"  # rows waiting, gauge
@@ -25,6 +33,8 @@ class MLMetrics:
     SERVING_REJECTED = "ml.serving.rejected"  # ServingOverloadedError, counter
     SERVING_TIMEOUTS = "ml.serving.timeouts"  # deadline expiries, counter
     SERVING_SWAPS = "ml.serving.swaps"  # hot model swaps, counter
+    SERVING_SWAP_FAILURES = "ml.serving.swap.failures"  # rejected versions, counter
+    SERVING_POLL_ERRORS = "ml.serving.poll.errors"  # poller scan failures, counter
     SERVING_BATCH_SIZE = "ml.serving.batch.size"  # pre-padding rows, histogram
     SERVING_LATENCY_MS = "ml.serving.latency.ms"  # enqueue→response, histogram
     SERVING_LATENCY_P50_MS = "ml.serving.latency.p50.ms"  # gauge from histogram

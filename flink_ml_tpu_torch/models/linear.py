@@ -29,7 +29,9 @@ from flink_ml_tpu_torch.params.shared import (
     HasWeightCol,
 )
 
-__all__ = ["LinearEstimatorBase", "LinearModelBase"]
+from flink_ml_tpu_torch.ops.kernels import compute_dots  # noqa: F401 — re-exported as in the JAX package
+
+__all__ = ["LinearEstimatorBase", "LinearModelBase", "compute_dots"]
 
 
 class LinearModelBase(ModelArraysMixin, Model, HasFeaturesCol, HasPredictionCol):

@@ -14,12 +14,14 @@ the id is clipped into range.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from flink_ml_tpu_torch.ops.distance import DistanceMeasure
 
 __all__ = [
     "binarize_fn",
+    "compute_dots",
     "dot_fn",
     "elementwise_product_fn",
     "gather_clamped",
@@ -39,6 +41,23 @@ __all__ = [
 def dot_fn(X: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
     """Dense margins ``X @ coef``: [n, d] · [d] → [n]."""
     return X @ coef
+
+
+def compute_dots(df, features_col: str, coefficient, device: torch.device) -> torch.Tensor:
+    """Margins ``x·coef`` [n] float32 on ``device`` for a DataFrame's
+    features column, dense or SparseVector (JAX ``ops/kernels.py:179``). A
+    sparse column stays in its padded-CSR batch (:func:`sparse_dot_fn`), so
+    a wide transform never builds an [n, d] array. Shared by the linear
+    family's transforms."""
+    coef = torch.from_numpy(np.ascontiguousarray(coefficient, np.float32)).to(device)
+    if df.is_sparse(features_col):
+        batch = df.sparse_batch(features_col)
+        if batch.dim != coef.shape[0]:
+            raise ValueError(f"features dim {batch.dim} != model dim {coef.shape[0]}")
+        values = torch.from_numpy(batch.values).to(device)
+        return sparse_dot_fn(values, torch.from_numpy(batch.indices).to(device), coef)
+    X = torch.from_numpy(np.ascontiguousarray(df.vectors(features_col), np.float32)).to(device)
+    return dot_fn(X, coef)
 
 
 def logistic_from_dots_fn(dots: torch.Tensor):

@@ -22,9 +22,20 @@ Three epoch forms:
   the premat pair when the materialised one-hots fit the device's memory
   budget (``onehot_premat``), else the build-form pair.
 
-Not ported yet, each raising an error that names ROADMAP.md: the host loop
-with checkpoints or listeners, the sharded ``train.mesh`` tier (and with it
-tensor parallelism and multi-slice), and streamed (``HostDataCache``) fits.
+A fit with a checkpoint manager, a checkpoint interval or listeners runs
+the host loop instead (``_optimize_host_loop``): one epoch a turn of the
+bounded iteration loop (``iteration/iteration.py``) over the dense or
+scatter-sparse epoch, the variables ``[coef, offset]`` snapshotted between
+epochs, as the JAX package's host loop does. It never takes the one-hot
+path (JAX ``optimizer.py:1065-1069``), and ``sparse_kernel='onehot'`` with
+any of the three raises. Resumed or not, it runs the fused path's epoch
+function on the same slices: on the CPU its coefficient is bit-equal to the
+fused fit's, and on the card the dense step's is (the scatter step's
+``index_add_`` sums by atomics there).
+
+Not ported yet, each raising an error that names ROADMAP.md: the sharded
+``train.mesh`` tier (and with it tensor parallelism and multi-slice), and
+streamed (``HostDataCache``) fits.
 """
 from __future__ import annotations
 
@@ -180,10 +191,6 @@ class SGD(Optimizer):
             raise ValueError(
                 f"onehot_premat must be 'auto', 'on' or 'off', got {onehot_premat!r}"
             )
-        if checkpoint_manager is not None or checkpoint_interval or listeners:
-            raise NotImplementedError(
-                f"SGD with checkpoints or listeners (the host iteration loop) {_NOT_PORTED}"
-            )
         if dtype not in _NP_DTYPES:
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
         self.sparse_kernel = sparse_kernel
@@ -198,7 +205,33 @@ class SGD(Optimizer):
         self.elastic_net = elastic_net
         self.dtype = dtype
         self.device = device
+        self.checkpoint_manager = checkpoint_manager
+        self.checkpoint_interval = checkpoint_interval
+        self.listeners = list(listeners)
         self.loss_history: List[float] = []
+
+    def _run_fingerprint(self, loss_func, rows: int, dim: int) -> str:
+        """Run/config identity recorded with checkpoints: a different job
+        pointed at the same directory fails loudly instead of resuming stale
+        state. The JAX package's string for the same fit (one device:
+        ``n_data = n_model = 1``)."""
+        import hashlib
+        import json
+
+        sig = {
+            "loss": type(loss_func).__name__,
+            "max_iter": self.max_iter,
+            "lr": self.learning_rate,
+            "batch": self.global_batch_size,
+            "tol": self.tol,
+            "reg": self.reg,
+            "elastic_net": self.elastic_net,
+            "rows": rows,
+            "dim": dim,
+            "n_data": 1,
+            "n_model": 1,
+        }
+        return hashlib.sha256(json.dumps(sig, sort_keys=True).encode()).hexdigest()[:16]
 
     def optimize(
         self,
@@ -248,7 +281,13 @@ class SGD(Optimizer):
         local_batch = min(self.global_batch_size, train_data.local_rows)
         check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
 
-        if self._pick_onehot(sparse, train_data, local_batch, dim):
+        fused = self.checkpoint_manager is None and not self.checkpoint_interval and not self.listeners
+        if not fused and sparse and self.sparse_kernel == "onehot":
+            raise ValueError(
+                "sparse_kernel='onehot' runs only on the fused path; remove "
+                "checkpoint managers/listeners or use 'auto'"
+            )
+        if fused and self._pick_onehot(sparse, train_data, local_batch, dim):
             result = self._optimize_onehot(init_model, train_data, loss_func, local_batch, check_loss, dim)
             if result is not None:
                 return result
@@ -268,11 +307,59 @@ class SGD(Optimizer):
                                    local_batch, lr, reg, en)
 
         coef = torch.as_tensor(np.asarray(init_model, _NP_DTYPES[self.dtype]), device=train_data.device)
+        if not fused:
+            return self._optimize_host_loop(coef, train_data, loss_func, local_batch, check_loss, epoch)
         coef = self._run_chunks(
             coef, train_data.local_rows, local_batch,
             fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
         )
         return coef.cpu().numpy()
+
+    def _optimize_host_loop(self, coef, train_data, loss_func, local_batch: int,
+                            check_loss: bool, epoch: Callable) -> np.ndarray:
+        """One epoch a turn of the bounded iteration loop, with the
+        manager's snapshots and the listeners (JAX ``optimizer.py:1599``).
+        The variables are ``[coef, offset]``: the offset is a host int32
+        scalar, so the slice start never waits for the device. ``loss_history``
+        holds a float an epoch when tol is on, else the device scalars read
+        once at the end."""
+        from flink_ml_tpu_torch.iteration import (
+            IterationBodyResult,
+            IterationConfig,
+            TerminateOnMaxIterOrTol,
+            iterate_bounded_until_termination,
+        )
+
+        if self.checkpoint_manager is not None:
+            self.checkpoint_manager.set_fingerprint(
+                self._run_fingerprint(loss_func, int(train_data.n_valid), int(coef.shape[0]))
+            )
+        m = train_data.local_rows
+        criteria = TerminateOnMaxIterOrTol(self.max_iter, self.tol)
+        self.loss_history = []
+
+        def body(variables, ep):
+            cur_coef, cur_offset = variables
+            offset = int(cur_offset)
+            new_coef, mean_loss = epoch(cur_coef, min(offset, m - local_batch), offset)
+            next_offset = np.asarray(0 if offset + local_batch >= m else offset + local_batch, np.int32)
+            if check_loss:  # the criteria needs the value now
+                self.loss_history.append(float(mean_loss))
+                cont = criteria(ep, self.loss_history[-1])
+            else:
+                self.loss_history.append(mean_loss)
+                cont = criteria(ep, None)
+            return IterationBodyResult([new_coef, next_offset], outputs=[new_coef],
+                                       termination_criteria=cont)
+
+        config = IterationConfig(checkpoint_manager=self.checkpoint_manager,
+                                 checkpoint_interval=self.checkpoint_interval)
+        outputs = iterate_bounded_until_termination(
+            [coef, np.asarray(0, np.int32)], body, config=config, listeners=self.listeners
+        )
+        if not check_loss and self.loss_history:  # one readback of the deferred scalars
+            self.loss_history = [float(x) for x in torch.stack(self.loss_history).cpu().numpy()]
+        return outputs[0].cpu().numpy()
 
     def _run_chunks(self, coef, m: int, local_batch: int, chunk: int, check_loss: bool,
                     epoch: Callable) -> torch.Tensor:

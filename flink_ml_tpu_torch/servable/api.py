@@ -5,12 +5,14 @@ out, computed on ``device`` (``None`` → the GPU, see ``device.py``).
 ``kernel_spec()`` optionally describes the same math as a
 :class:`~flink_ml_tpu_torch.servable.kernel_spec.KernelSpec` so the serving
 plan can chain it with its neighbours. Model data comes from the
-``data/model_data.npz`` a saved stage carries, or from arrays in memory
+``data/model_data.npz`` a saved stage carries, from npz byte streams
+(``ModelServable.set_model_data``), or from arrays in memory
 (``servable/convert.py``).
 """
 from __future__ import annotations
 
-from typing import Dict
+import io
+from typing import BinaryIO, Dict
 
 import numpy as np
 
@@ -21,8 +23,23 @@ from flink_ml_tpu_torch.utils import read_write as rw
 __all__ = [
     "TransformerServable",
     "ModelServable",
+    "ModelDataConflictError",
     "load_servable",
 ]
+
+
+class ModelDataConflictError(ValueError):
+    """Two model-data streams carry the same array name: ``set_model_data``
+    refuses to let the later stream win, which would serve from half of
+    each."""
+
+    def __init__(self, key: str, stream_index: int):
+        self.key = key
+        self.stream_index = stream_index
+        super().__init__(
+            f"model data stream {stream_index} redefines array {key!r} already "
+            "provided by an earlier stream"
+        )
 
 
 class TransformerServable(WithParams):
@@ -54,6 +71,21 @@ class ModelServable(TransformerServable):
     """A TransformerServable with model data."""
 
     _MODEL_ARRAY_NAMES = ()
+
+    def set_model_data(self, *model_data_inputs: BinaryIO) -> "ModelServable":
+        """Read model arrays from npz byte streams (``ModelServable.java:32``'s
+        varargs ``setModelData``), merged by name; a name in two streams
+        raises ``ModelDataConflictError``."""
+        if not model_data_inputs:
+            raise ValueError("expected at least 1 model data stream, got 0")
+        arrays: Dict[str, np.ndarray] = {}
+        for i, stream in enumerate(model_data_inputs):
+            with np.load(io.BytesIO(stream.read())) as z:
+                for k in z.files:
+                    if k in arrays:
+                        raise ModelDataConflictError(k, i)
+                    arrays[k] = z[k]
+        return self._apply_model_arrays(arrays)
 
     def _apply_model_arrays(self, arrays: Dict[str, np.ndarray]) -> "ModelServable":
         for name in self._MODEL_ARRAY_NAMES:

@@ -28,6 +28,15 @@ class PipelineModelServable(TransformerServable):
             df = servable.transform(df, device=device)
         return df
 
+    def set_model_data(self, *model_data_inputs) -> "PipelineModelServable":
+        """One stream to each stage that holds model data, in order."""
+        i = 0
+        for servable in self.servables:
+            if getattr(servable, "_MODEL_ARRAY_NAMES", ()):
+                servable.set_model_data(model_data_inputs[i])
+                i += 1
+        return self
+
     @staticmethod
     def load(path: str) -> "PipelineModelServable":
         """Load from a directory written by either package's

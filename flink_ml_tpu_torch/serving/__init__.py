@@ -7,12 +7,16 @@ from flink_ml_tpu_torch.serving.errors import (
     ServingExecutionError,
     ServingOverloadedError,
 )
+from flink_ml_tpu_torch.serving.registry import ModelRegistry, ModelVersionPoller, publish_servable
 from flink_ml_tpu_torch.serving.server import InferenceServer, ServingConfig, ServingResponse
 
 __all__ = [
     "InferenceServer",
     "ServingConfig",
     "ServingResponse",
+    "ModelRegistry",
+    "ModelVersionPoller",
+    "publish_servable",
     "ServingError",
     "ServingOverloadedError",
     "ServingDeadlineError",

@@ -146,9 +146,21 @@ class MicroBatcher:
         self._queue: List[PendingRequest] = []
         self._queued_rows = 0
         self._closed = False
+        self._draining = False
         self.executed_batch_sizes: List[Tuple[int, int]] = []  # (rows, bucket) history
         self._thread = threading.Thread(target=self._loop, name=f"micro-batcher[{scope}]", daemon=True)
         self._thread.start()
+
+    @property
+    def draining(self) -> bool:
+        """Whether a close is in progress or done (JAX ``batcher.py:246``)."""
+        with self._lock:
+            return self._draining
+
+    @property
+    def closed(self) -> bool:
+        with self._lock:
+            return self._closed
 
     # -- client side ----------------------------------------------------------
     def submit(self, df: DataFrame, timeout_s: float) -> PendingRequest:
@@ -162,7 +174,7 @@ class MicroBatcher:
             )
         req = PendingRequest(df, deadline=time.perf_counter() + timeout_s)
         with self._cond:
-            if self._closed:
+            if self._closed or self._draining:
                 raise ServingClosedError("server is shut down; request rejected")
             if self._queued_rows + rows > self.queue_capacity_rows:
                 metrics.counter(self.scope, MLMetrics.SERVING_REJECTED)
@@ -334,6 +346,7 @@ class MicroBatcher:
         with self._cond:
             if self._closed:
                 return
+            self._draining = True
             if not drain:
                 for req in self._queue:
                     if req._state == _PENDING:

@@ -3,10 +3,11 @@
 
 Wraps a servable (or a whole ``PipelineModelServable``) behind a dynamic
 micro-batcher (``batcher.py``), a versioned registry with atomic hot swap
-(``registry.py``), admission control and the ``ml.serving.*`` metrics under
-scope ``ml.serving[<name>]``. On the fast path every version is served by a
-:class:`~flink_ml_tpu_torch.serving.plan.CompiledServingPlan` built and warmed
-on the swapping thread before the version flips.
+and an optional directory poller (``registry.py``), admission control and
+the ``ml.serving.*`` metrics under scope ``ml.serving[<name>]``. On the
+fast path every version is served by a
+:class:`~flink_ml_tpu_torch.serving.plan.CompiledServingPlan` built and
+warmed on the swapping thread before the version flips.
 
 The server runs on the GPU unless it is given ``device="cpu"``; without a
 card the default raises at construction.
@@ -25,7 +26,7 @@ from flink_ml_tpu_torch.servable.sparse import resolve_sparse_hints
 from flink_ml_tpu_torch.serving.batcher import MicroBatcher, pad_to
 from flink_ml_tpu_torch.serving.errors import ServingClosedError
 from flink_ml_tpu_torch.serving.plan import CompiledServingPlan
-from flink_ml_tpu_torch.serving.registry import ModelRegistry
+from flink_ml_tpu_torch.serving.registry import ModelRegistry, ModelVersionPoller
 
 __all__ = ["ServingConfig", "ServingResponse", "InferenceServer"]
 
@@ -60,6 +61,7 @@ class ServingConfig:
         fastpath: Optional[bool] = None,
         pipeline_depth: Optional[int] = None,
         fusion_mode: Optional[str] = None,
+        poll_interval_ms: Optional[float] = None,
     ):
         def pick(value, cast, option):
             return cast(value) if value is not None else config.get(option)
@@ -71,6 +73,7 @@ class ServingConfig:
         self.fastpath = pick(fastpath, bool, Options.SERVING_FASTPATH)
         self.pipeline_depth = pick(pipeline_depth, int, Options.SERVING_PIPELINE_DEPTH)
         self.fusion_mode = pick(fusion_mode, str, Options.FUSION_MODE)
+        self.poll_interval_ms = pick(poll_interval_ms, float, Options.SERVING_POLL_INTERVAL_MS)
 
     def __repr__(self) -> str:
         return (
@@ -79,7 +82,7 @@ class ServingConfig:
             f"queue_capacity_rows={self.queue_capacity_rows}, "
             f"default_timeout_ms={self.default_timeout_ms}, "
             f"fastpath={self.fastpath}, pipeline_depth={self.pipeline_depth}, "
-            f"fusion_mode={self.fusion_mode})"
+            f"fusion_mode={self.fusion_mode}, poll_interval_ms={self.poll_interval_ms})"
         )
 
 
@@ -131,6 +134,7 @@ class InferenceServer:
         self._template_lock = threading.Lock()
         self._state_lock = threading.Lock()
         self._closed = False
+        self._poller: Optional[ModelVersionPoller] = None
         # Resolved once: every version's plan is built under it, and a plan a
         # servable carries from elsewhere rebuilds on key mismatch.
         self._fusion = resolve_fusion_tier(self.config.fusion_mode) if self.config.fastpath else None
@@ -236,6 +240,23 @@ class InferenceServer:
         self.warmup(servable)
         self.registry.swap(version, servable)
 
+    def attach_poller(self, directory: str, *, loader=None, interval_ms: Optional[float] = None,
+                      start: bool = True) -> ModelVersionPoller:
+        """Watch ``directory`` for published versions (``registry.publish_servable``)
+        and hot-swap each in as it appears, warmed by this server's
+        ``warmup`` before the flip. ``close()`` stops the poller."""
+        poller = ModelVersionPoller(
+            directory, self.registry, loader=loader, warmup=self.warmup,
+            interval_ms=interval_ms if interval_ms is not None else self.config.poll_interval_ms,
+        )
+        with self._state_lock:
+            if self._poller is not None:
+                raise RuntimeError("a poller is already attached")
+            self._poller = poller
+        if start:
+            poller.start()
+        return poller
+
     @property
     def model_version(self) -> Optional[int]:
         return self.registry.version
@@ -247,12 +268,16 @@ class InferenceServer:
 
     # -- shutdown --------------------------------------------------------------
     def close(self, drain: bool = True) -> None:
-        """Stop the batcher. ``drain=True`` serves everything already queued
-        first; ``drain=False`` fails queued requests with ``ServingClosedError``."""
+        """Stop the poller and the batcher. ``drain=True`` serves everything
+        already queued first; ``drain=False`` fails queued requests with
+        ``ServingClosedError``."""
         with self._state_lock:
             if self._closed:
                 return
             self._closed = True
+            poller = self._poller
+        if poller is not None:
+            poller.stop()  # joins the poll thread: outside the lock
         self._batcher.close(drain=drain)
 
     def __enter__(self) -> "InferenceServer":

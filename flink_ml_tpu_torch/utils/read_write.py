@@ -63,6 +63,10 @@ _KMEANS_EST = "flink_ml_tpu_torch.models.clustering.kmeans.KMeans"
 _MLP_EST = "flink_ml_tpu_torch.models.classification.mlp_classifier.MLPClassifier"
 _LOGISTIC_EST = "flink_ml_tpu_torch.models.classification.logistic_regression.LogisticRegression"
 _IDF_EST = "flink_ml_tpu_torch.models.feature.idf.IDF"
+_SVC_MODEL = "flink_ml_tpu_torch.models.classification.linearsvc.LinearSVCModel"
+_SVC_EST = "flink_ml_tpu_torch.models.classification.linearsvc.LinearSVC"
+_LINREG_MODEL = "flink_ml_tpu_torch.models.regression.linear_regression.LinearRegressionModel"
+_LINREG_EST = "flink_ml_tpu_torch.models.regression.linear_regression.LinearRegression"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -103,11 +107,15 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.models.classification.mlp_classifier.MLPClassifier": (None, _MLP_EST),
     "flink_ml_tpu.models.classification.logistic_regression.LogisticRegression": (None, _LOGISTIC_EST),
     "flink_ml_tpu.models.feature.idf.IDF": (None, _IDF_EST),
-    # The JAX package has no servable for the attention model: it loads as
-    # the stage only.
+    # The JAX package has no servable for the attention model, LinearSVC or
+    # LinearRegression: each loads as the stage only.
     "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifierModel":
         (None, _ATTN_MODEL),
     "flink_ml_tpu.models.classification.attention_classifier.SelfAttentionClassifier": (None, _ATTN),
+    "flink_ml_tpu.models.classification.linearsvc.LinearSVCModel": (None, _SVC_MODEL),
+    "flink_ml_tpu.models.classification.linearsvc.LinearSVC": (None, _SVC_EST),
+    "flink_ml_tpu.models.regression.linear_regression.LinearRegressionModel": (None, _LINREG_MODEL),
+    "flink_ml_tpu.models.regression.linear_regression.LinearRegression": (None, _LINREG_EST),
 }
 
 

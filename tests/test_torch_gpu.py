@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _logistic_check_widths, _logistic_past_one_pass
+from chip_smoke import _fail_at, _logistic_check_widths, _logistic_past_one_pass
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.servable import (
     LogisticRegressionModelServable,
@@ -2393,3 +2393,130 @@ def test_server_runs_the_mixed_pipeline_on_the_table_kernel(cuda):
     for r, w in zip(resp.column("tfidf"), ref.column("tfidf")):
         np.testing.assert_array_equal(r.indices, w.indices)
         np.testing.assert_array_equal(r.values, w.values)
+
+
+# ---------------------------------------------------------------------------
+# checkpointed training, LinearSVC and a hot swap on the card (chip_smoke's
+# fit_checkpoint, fit_linear_family and hot_swap phases, small)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ("dense", "sparse"))
+def test_sgd_killed_and_resumed_on_the_card_lands_on_the_fused_fit(cuda, tmp_path, layout):
+    """Dense: bit-equal (cuBLAS sums in one order at fixed shapes). Sparse:
+    the scatter step's ``index_add_`` sums by atomics, so within 1e-6."""
+    from flink_ml_tpu_torch.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss, LeastSquareLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    rng = np.random.default_rng(61)
+    if layout == "dense":
+        X = rng.normal(size=(4096, 32)).astype(np.float32)
+        data, dim, loss = {"features": X, "labels": X @ rng.normal(size=32).astype(np.float32)}, 32, \
+            LeastSquareLoss.INSTANCE
+    else:
+        dim = 1 << 16
+        data = {"indices": rng.integers(0, dim, size=(4096, 16)).astype(np.int32),
+                "values": np.ones((4096, 16), np.float32),
+                "labels": (rng.random(4096) > 0.5).astype(np.float32)}
+        loss = BinaryLogisticLoss.INSTANCE
+    kw = dict(max_iter=30, learning_rate=0.1, global_batch_size=512, tol=0.0)
+    fused = SGD(sparse_kernel="scatter", **kw).optimize(np.zeros(dim, np.float32), data, loss)
+    mgr = CheckpointManager(str(tmp_path))
+    with pytest.raises(RuntimeError, match="killed"):
+        SGD(checkpoint_manager=mgr, checkpoint_interval=5, listeners=[_fail_at(17)], **kw).optimize(
+            np.zeros(dim, np.float32), data, loss)
+    resumed = SGD(checkpoint_manager=mgr, checkpoint_interval=5, **kw)
+    coef = resumed.optimize(np.zeros(dim, np.float32), data, loss)
+    assert len(resumed.loss_history) == 15
+    if layout == "dense":
+        np.testing.assert_array_equal(coef, fused)
+    else:
+        np.testing.assert_allclose(coef, fused, rtol=0, atol=1e-6)
+    step, state = mgr.restore_latest(device=cuda)
+    assert step == 25 and state[0].device == cuda and state[1].dtype == np.int32
+
+
+def test_linearsvc_fit_runs_the_onehot_crossings_on_the_card(cuda):
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.models.classification.linearsvc import LinearSVC
+
+    d, n, nnz = 1 << 14, 8192, 8
+    rng = np.random.default_rng(62)
+    rows = [np.sort(rng.choice(d, nnz, replace=False)) for _ in range(n)]
+    vals = rng.normal(size=(n, nnz))
+    w = rng.normal(size=d)
+    y = np.array([float(v @ w[r] > 0) for r, v in zip(rows, vals)])
+    df = DataFrame.from_dict({"features": [SparseVector(d, r, v) for r, v in zip(rows, vals)], "label": y})
+
+    def est():
+        return LinearSVC().set_max_iter(6).set_global_batch_size(1024).set_learning_rate(0.3).set_tol(0.0)
+
+    crossings = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT, O.DOT_CROSSING, O.MULT_CROSSING)
+    for k in crossings:
+        k.reset_launches()
+    card = est()
+    model = card.fit(df)
+    assert card.onehot_premat_active
+    assert [k.launches for k in crossings] == [6, 6, 0, 0]
+    cpu = est().fit(df, device="cpu")
+    np.testing.assert_allclose(model.coefficient, cpu.coefficient, rtol=0, atol=1e-6)
+    out = model.transform(df.take(np.arange(64)))
+    ref = cpu.transform(df.take(np.arange(64)), device="cpu")
+    np.testing.assert_allclose(out.column("rawPrediction"), ref.column("rawPrediction"), rtol=1e-5, atol=1e-6)
+
+
+def test_a_published_version_hot_swaps_into_the_card_server(cuda, tmp_path):
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.linalg.vectors import SparseVector
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegressionModel
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.serving import publish_servable
+
+    d = 1000
+    rng = np.random.default_rng(63)
+    idf = IDFModel().set_input_col("features").set_output_col("tfidf")
+    idf.idf, idf.doc_freq, idf.num_docs = np.abs(rng.normal(size=d)) + 0.1, np.ones(d), np.asarray(9.0)
+    models = {}
+    for v in (1, 2, 3):
+        lr = LogisticRegressionModel().set_features_col("tfidf")
+        lr.coefficient = rng.normal(size=d).astype(np.float32)
+        models[v] = PipelineModel([idf, lr])
+
+    class Truncated:
+        def save(self, path):
+            models[3].save(path)
+            npz = f"{path}/stages/{1:08d}/data/model_data.npz"
+            blob = open(npz, "rb").read()
+            open(npz, "wb").write(blob[:100])
+
+    def frame(n):
+        return DataFrame(["features"], None, [[
+            SparseVector(d, np.sort(rng.choice(d, size=int(k), replace=False)), rng.random(int(k)))
+            for k in rng.integers(1, 9, size=n)]])
+
+    publish_servable(models[1], str(tmp_path))
+    config.set(Options.FUSION_MEGAKERNEL_MIN_SCORE, 1.0)
+    try:
+        cfg = ServingConfig(max_batch_size=256, queue_capacity_rows=1024, fusion_mode="fast")
+        with InferenceServer(name="gpu-hot-swap", serving_config=cfg, warmup_template=frame(1)) as srv:
+            poller = srv.attach_poller(str(tmp_path), start=False)
+            assert poller.poll_once() == 1
+            req = frame(200)
+            SPARSE_IDF_LOGISTIC.reset_launches()
+            assert srv.predict(req).model_version == 1
+            assert SPARSE_IDF_LOGISTIC.launches == 1
+            publish_servable(models[2], str(tmp_path))
+            publish_servable(Truncated(), str(tmp_path))
+            assert poller.poll_once() == 2 and set(poller.failed) == {3}
+            resp = srv.predict(req)
+            assert resp.model_version == 2
+            assert metrics.get(srv.scope, MLMetrics.SERVING_SWAP_FAILURES) == 1
+    finally:
+        config.unset(Options.FUSION_MEGAKERNEL_MIN_SCORE)
+    want = models[2].transform(req, device="cpu")
+    np.testing.assert_allclose(resp.dataframe.column("rawPrediction"), want.column("rawPrediction"),
+                               rtol=0, atol=1e-6)

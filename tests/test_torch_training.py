@@ -410,10 +410,6 @@ def test_sgd_rejects_what_is_not_ported(monkeypatch):
         SGD(sparse_kernel="dense")
     with pytest.raises(ValueError, match="onehot_premat"):
         SGD(onehot_premat="maybe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SGD(checkpoint_manager=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SGD(listeners=[object()])
     cols = {"features": np.zeros((4, 2), np.float32), "labels": np.zeros(4, np.float32)}
     with pytest.raises(TypeError, match="ROADMAP.md"):
         SGD(device="cpu").optimize(np.zeros(2), object(), BinaryLogisticLoss.INSTANCE)
