@@ -9,9 +9,10 @@ card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
 self-attention serving, wide-sparse, MLP, KMeans and self-attention
 training, and Pipelines fitted, transformed in the batch tier and served;
 checkpointed training killed and resumed, LinearSVC and LinearRegression,
-and a published version hot-swapped into a serving server.
+a published version hot-swapped into a serving server, and text pipelines
+(the host featurizers and the ``entries`` convention).
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25–29 after 9, and 22–24 after 17):
+runs 25–31 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -370,7 +371,44 @@ runs 25–29 after 9, and 22–24 after 17):
                kernel launches equal to the hot batches served plus v2's hot
                warmup batches; v2's publish time, the time from its publish
                to the first response it served, and each version's load and
-               warmup time on the poller's thread.
+               warmup time on the poller's thread;
+30. text     — Tokenizer → HashingTF (numFeatures 2^18, the default) → IDF
+               → LogisticRegression (globalBatchSize 8192, 20 iterations)
+               fitted by ``Pipeline.fit`` on hashingtf-benchmark.json's rows
+               (RandomStringArrayGenerator: seed 2, 100,000 rows of 10
+               strings over 10 values, joined by spaces), labelled by a
+               seeded rule over the tokens: 13 windows, so the one-hot path
+               (the form it took and its crossing launches, 20 of each of
+               that form's kernels, none of the other, no plain crossing);
+               the IDF against float64 document frequencies, the
+               coefficient and loss history against float64 SGD on the
+               fit's tf-idf rows with the bf16-hi-only control outside, as
+               in 6; ms/step of SGD in that form on one cache (20 against
+               60 iterations); the fitted PipelineModel in the batch tier
+               (exact, 65,536-row chunks): every row on the chain, no
+               kernel, bit-equal to the per-stage path, tf and tf-idf
+               exact against float64 numpy of murmur3, counts and idf; then
+               saved, ``load_servable``d and served by ``InferenceServer``
+               (fusion.mode=fast, the sparse fast path, warmed over 13
+               buckets × nnz caps 1…64) to 64 requests of 1–4096 new
+               documents from 4 clients: keys ``(bucket, cap)``, 0
+               fallbacks, 0 chains built after warmup; tf and tf-idf exact
+               against float64 numpy, probabilities within 1e-5, prediction
+               equal to the per-stage path and rawPrediction within the
+               fast tier's envelope of it; p50/p99 and a 4096-document
+               batch's breakdown (tokenize, featurize, upload, chain, the
+               chain's device time by CUDA events, readback);
+31. featurize — two legs in the batch tier (exact, 65,536-row chunks), each
+               bit-equal to the per-stage path with every row on the chain:
+               CountVectorizer fitted on countvectorizer-benchmark.json's
+               rows (seed 2, 20,000 rows of 100 strings over 100 values;
+               the leg raises ``sparse.nnz.cap.max`` to 128), the counts
+               against numpy, then one more transform at the default cap of
+               64, which falls back per stage once under ``off_ladder``
+               with the same bits; FeatureHasher at
+               featurehasher-benchmark.json (5 DoubleGenerator columns,
+               f0–f2 categorical, numFeatures 1000, seed 2, 100,000 rows),
+               each row's values summing to 3 + f3 + f4.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -651,6 +689,25 @@ FIT_ATTN_GRAD_RTOL = 1e-4
 # loss's own float32 rounding; lr 1e-3 does not blow up), the bf16 fit ~5e-6
 FIT_ATTN_LOSS_RTOL = 1e-6
 FIT_ATTN_PROB_ATOL = 1e-7  # the fitted model's probabilities vs float64: serve_attention's bound
+# text: hashingtf-benchmark.json's RandomStringArrayGenerator (seed 2,
+# 100,000 rows of arraySize 10 over numDistinctValues 10, the default), each
+# row's strings joined by spaces for the Tokenizer; HashingTF at numFeatures
+# 2^18 (the default); LogisticRegression at globalBatchSize 8192, 13
+# windows, so the 'auto' gate takes the one-hot path
+TEXT_SEED, TEXT_ROWS, TEXT_ARRAY, TEXT_DISTINCT = 2, 100_000, 10, 10
+TEXT_DIM, TEXT_BATCH, TEXT_ITERS, TEXT_LR = 1 << 18, 8192, 20, 0.5
+TEXT_LABEL_SEED = 21  # the seeded weights of the label rule over the tokens
+TEXT_SERVE_SEED = 22  # new documents from the same generator
+TEXT_STEP_ITERS = (20, 60)  # the two iteration counts differenced for ms/step
+TEXT_PROB_ATOL = 1e-5  # served probabilities vs float64 numpy
+# featurize: countvectorizer-benchmark.json (seed 2, 20,000 rows of
+# arraySize 100 over numDistinctValues 100; 100 raw entries a row, so the
+# leg raises sparse.nnz.cap.max to 128) and featurehasher-benchmark.json (5
+# DoubleGenerator columns at arity 0, f0–f2 categorical, numFeatures 1000,
+# seed 2, 100,000 rows)
+CV_SEED, CV_ROWS, CV_ARRAY, CV_DISTINCT, CV_CAP_MAX = 2, 20_000, 100, 100, 128
+FH_SEED, FH_ROWS, FH_DIM = 2, 100_000, 1000
+FH_COLS, FH_CATEGORICAL = ("f0", "f1", "f2", "f3", "f4"), ("f0", "f1", "f2")
 
 
 
@@ -1166,10 +1223,12 @@ def _bf16(x):
     return b.view(np.float32).astype(np.float64)
 
 
-def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False):
+def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False,
+                   batch=TRAIN_BATCH, iters=TRAIN_ITERS, lr=TRAIN_LR):
     """Float64 numpy SGD of SGD's schedule and update (BinaryLogisticLoss,
-    or HingeLoss with ``hinge``; no regularization): the coefficient and the
-    loss history. With
+    or HingeLoss with ``hinge``; no regularization) at ``batch``, ``iters``
+    and ``lr``: the coefficient and the loss history. Padding slots (value
+    0) add nothing. With
     ``hi_only`` the crossings keep only their bf16 hi half (each entry's
     term of the margin and each row's multiplier rounded to bf16): the
     control that shows the coefficient check can tell a crossing that drops
@@ -1182,12 +1241,12 @@ def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False):
         return _bf16(x) if hi_only else x
 
     n = y.shape[0]
-    batch = min(TRAIN_BATCH, n)
+    batch = min(batch, n)
     coef = np.zeros(dim)
     losses = []
     idx = indices.astype(np.int64)
     val = values.astype(np.float64)
-    for start, offset in zip(*offset_schedule(n, batch, TRAIN_ITERS)):
+    for start, offset in zip(*offset_schedule(n, batch, iters)):
         rows = slice(start, start + batch)
         ib, vb, yb = idx[rows], val[rows], y[rows].astype(np.float64)
         wb = (start + np.arange(batch) >= offset).astype(np.float64)
@@ -1200,7 +1259,7 @@ def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False):
             loss = (wb * np.logaddexp(0.0, -z)).sum()
             mult = cross(wb * (-ys / (1.0 + np.exp(z))))
         grad = np.bincount(ib.ravel(), weights=(vb * mult[:, None]).ravel(), minlength=dim)
-        coef -= TRAIN_LR / wb.sum() * grad
+        coef -= lr / wb.sum() * grad
         losses.append(loss / wb.sum())
     return coef, losses
 
@@ -6861,6 +6920,448 @@ def phase_hot_swap(card: str, idf_model, lr_model, v2_coef):
     return launches
 
 
+def _random_string_arrays(seed, rows, array_size, distinct):
+    """RandomStringArrayGenerator (flink_ml_tpu/benchmark/datagenerator.py)
+    for one column: ``rows`` arrays of ``array_size`` strings, each the
+    decimal of a uniform integer below ``distinct``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[str(v) for v in row] for row in rng.integers(0, distinct, (rows, array_size)).tolist()]
+
+
+def _double_columns(seed, names, rows):
+    """DoubleGenerator (flink_ml_tpu/benchmark/datagenerator.py) at arity 0:
+    per column, ``rows`` uniform doubles in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {name: rng.random(rows) for name in names}
+
+
+def _murmur3_index(term: str, dim: int) -> int:
+    """The reference's HashingTF index of a string, computed here for the
+    float64 reference: guava murmur3_32(0) over the UTF-16LE code units
+    (``hashUnencodedChars``), then nonNegativeMod."""
+    data = term.encode("utf-16-le")
+    mask = 0xFFFFFFFF
+
+    def mix_k(k):
+        k = (k * 0xCC9E2D51) & mask
+        k = ((k << 15) | (k >> 17)) & mask
+        return (k * 0x1B873593) & mask
+
+    h = 0
+    body = len(data) - len(data) % 4
+    for i in range(0, body, 4):
+        h ^= mix_k(int.from_bytes(data[i:i + 4], "little"))
+        h = ((h << 13) | (h >> 19)) & mask
+        h = (h * 5 + 0xE6546B64) & mask
+    if len(data) > body:
+        h ^= mix_k(int.from_bytes(data[body:], "little"))
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & mask
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & mask
+    h ^= h >> 16
+    signed = h - (1 << 32) if h >= 1 << 31 else h
+    return signed % dim  # Python's % is nonNegativeMod for a positive dim
+
+
+def _text_rows(seed, rows):
+    """Documents of the text phase's generator, and each one's term counts
+    over the distinct strings ([rows, TEXT_DISTINCT], by string value)."""
+    import numpy as np
+
+    arrays = _random_string_arrays(seed, rows, TEXT_ARRAY, TEXT_DISTINCT)
+    counts = np.zeros((rows, TEXT_DISTINCT), np.int64)
+    for r, row in enumerate(arrays):
+        for t in row:
+            counts[r, int(t)] += 1
+    return [" ".join(row) for row in arrays], counts
+
+
+def _text_ids():
+    """The hashed index of each distinct string in ascending order, and the
+    order (string values by index) that sorts them; fails on a collision."""
+    import numpy as np
+
+    index = np.asarray([_murmur3_index(str(v), TEXT_DIM) for v in range(TEXT_DISTINCT)])
+    order = np.argsort(index)
+    if len(np.unique(index)) != TEXT_DISTINCT:
+        raise AssertionError(f"two of the strings hash to one index: {index}")
+    return index[order], order
+
+
+def _text_reference(counts, idf32, coef32):
+    """The float64 numpy reference of a batch: per document the hashed ids
+    (sorted), their term counts, tf-idf as the float32 product of count and
+    float32 idf (exact in float64, then rounded once), and the probability
+    of the float64 margin over the float32 tf-idf and coefficient."""
+    import numpy as np
+
+    ids, order = _text_ids()
+    cnt = counts[:, order]
+    tfidf = (cnt * idf32.astype(np.float64)[ids][None, :]).astype(np.float32).astype(np.float64)
+    margin = (tfidf * coef32.astype(np.float64)[ids][None, :]).sum(axis=1)
+    return ids, cnt, tfidf, 1.0 / (1.0 + np.exp(-margin)), margin
+
+
+def _text_check_tf(column, ids, counts, tfidf, where, values=False):
+    """A tf (or, with ``values``, tf-idf) SparseVector column exactly equal
+    to the reference rows: the ids a row holds and their counts (tf-idf)."""
+    import numpy as np
+
+    for r, v in enumerate(column):
+        held = counts[r] > 0
+        want = tfidf[r][held] if values else counts[r][held].astype(np.float64)
+        if v.size() != TEXT_DIM or not np.array_equal(v.indices, ids[held]) or not np.array_equal(v.values, want):
+            raise AssertionError(f"{where}: row {r} is {v} against ids {ids[held]} values {want}")
+
+
+def _same_frames(a, b, where):
+    """Two DataFrames bit for bit: names, dense columns by their bits,
+    SparseVector columns by size, indices and value bits, others by value."""
+    import numpy as np
+
+    if a.get_column_names() != b.get_column_names():
+        raise AssertionError(f"{where}: columns {a.get_column_names()} != {b.get_column_names()}")
+    for name in a.get_column_names():
+        ca, cb = a.column(name), b.column(name)
+        if isinstance(ca, np.ndarray):
+            cb = np.asarray(cb)
+            if ca.dtype != cb.dtype or ca.shape != cb.shape or ca.tobytes() != cb.tobytes():
+                raise AssertionError(f"{where}: column {name} differs")
+        elif len(ca) and hasattr(ca[0], "indices"):
+            for r, (u, v) in enumerate(zip(ca, cb)):
+                if not (u.size() == v.size() and np.array_equal(u.indices, v.indices)
+                        and u.values.tobytes() == v.values.tobytes()):
+                    raise AssertionError(f"{where}: column {name} row {r} differs")
+        elif list(ca) != list(cb):
+            raise AssertionError(f"{where}: column {name} differs")
+
+
+def _fused_and_per_stage(model, df, where):
+    """``model.transform(df)`` in the batch tier (exact, 65,536-row chunks)
+    and per stage: ``(fused, per-stage, readings)``, failing unless the
+    fused segment took every row and the two frames agree bit for bit."""
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+
+    scope = "ml.batch[plan]"
+    config.set(Options.FUSION_MODE, "exact")
+    config.set(Options.BATCH_CHUNK_ROWS, PIPELINE_CHUNK_ROWS)
+    try:
+        rows0 = metrics.get(scope, MLMetrics.BATCH_FUSED_ROWS, 0)
+        out, seconds, launches, builds, chunks = _batch_transform(model, df)
+        fused_rows = metrics.get(scope, MLMetrics.BATCH_FUSED_ROWS, 0) - rows0
+        config.set(Options.BATCH_FASTPATH, False)
+        per_stage, per_stage_s = _sync_seconds(lambda: model.transform(df))
+    finally:
+        for option in (Options.FUSION_MODE, Options.BATCH_CHUNK_ROWS, Options.BATCH_FASTPATH):
+            config.unset(option)
+    if fused_rows != len(df) or launches:
+        raise AssertionError(f"{where}: {fused_rows} of {len(df)} rows fused, kernels {launches}")
+    _same_frames(out, per_stage, where)
+    return out, per_stage, {"rows": len(df), "chunks": chunks, "builds": builds, "seconds": seconds,
+                            "per_stage_seconds": per_stage_s}
+
+
+def phase_text(card: str):
+    """Tokenizer → HashingTF → IDF → LogisticRegression fitted on the card at
+    hashingtf-benchmark.json's rows, batch-transformed and served (module
+    docstring, phase 30). Returns the launches of the crossings the fit ran."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import Pipeline, PipelineModel
+    from flink_ml_tpu_torch.iteration import DeviceDataCache
+    from flink_ml_tpu_torch.linalg import onehot_sparse as O
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+    from flink_ml_tpu_torch.models.common import extract_labeled_data
+    from flink_ml_tpu_torch.models.feature import IDF, HashingTF, Tokenizer
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+    from flink_ml_tpu_torch.servable.planner import FusedSegment, PlanExecution, run_segment, to_device
+    from flink_ml_tpu_torch.servable.sparse import resolve_nnz_cap_max
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    t0 = time.perf_counter()
+    docs, counts = _text_rows(TEXT_SEED, TEXT_ROWS)
+    w = np.random.default_rng(TEXT_LABEL_SEED).normal(size=TEXT_DISTINCT)
+    y = (counts @ (w - w.mean()) > 0).astype(np.float64)  # the label rule over the tokens
+    df = DataFrame.from_dict({"text": docs, "label": y})
+    data_s = time.perf_counter() - t0
+
+    # The fit: the pipeline's transforms and IDF on the way, the one-hot path at the end.
+    premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+    build_k = (O.DOT_CROSSING, O.MULT_CROSSING)
+    est = (LogisticRegression().set_features_col("tfidf").set_max_iter(TEXT_ITERS)
+           .set_global_batch_size(TEXT_BATCH).set_learning_rate(TEXT_LR).set_tol(0.0))
+    pipeline = Pipeline([Tokenizer().set_input_col("text").set_output_col("tokens"),
+                         HashingTF().set_input_col("tokens").set_output_col("tf"),
+                         IDF().set_input_col("tf").set_output_col("tfidf"), est])
+    calls, restore = _count_plain_calls()
+    try:
+        for k in premat_k + build_k:
+            k.reset_launches()
+        model, fit_s = _sync_seconds(lambda: pipeline.fit(df))
+        launches = {k.name: k.launches for k in premat_k + build_k}
+    finally:
+        restore()
+    if model.stages[1].get_num_features() != TEXT_DIM:
+        raise AssertionError("HashingTF's default numFeatures is not 2^18")
+    ran, idle = (premat_k, build_k) if est.onehot_premat_active else (build_k, premat_k)
+    if calls:
+        raise AssertionError(f"plain crossings were called on the card: {sorted(set(calls))}")
+    if any(launches[k.name] != TEXT_ITERS for k in ran) or any(launches[k.name] for k in idle):
+        raise AssertionError(f"the text fit's crossing launches are {launches}: no one-hot path ran")
+    idf_model, lr_model = model.stages[2], model.stages[3]
+    ids, order = _text_ids()
+    doc_freq = (counts > 0).sum(axis=0)[order]
+    idf_ref = np.log((TEXT_ROWS + 1.0) / (doc_freq + 1.0))
+    if not (np.array_equal(idf_model.doc_freq[ids], doc_freq)
+            and np.allclose(idf_model.idf[ids], idf_ref, rtol=1e-15, atol=0)
+            and np.count_nonzero(idf_model.doc_freq) == len(ids)):
+        raise AssertionError("the fitted IDF is not the float64 document-frequency reference")
+
+    # The coefficient against float64 SGD on the fit's own float32 tf-idf rows.
+    idf32 = np.asarray(idf_model.idf, np.float32)
+    _ids, cnt, tfidf, _p, _m = _text_reference(counts, idf32, np.zeros(TEXT_DIM, np.float32))
+    rows_idx = np.broadcast_to(ids, cnt.shape)
+    ref, ref_losses = _reference_sgd(rows_idx, tfidf, y, TEXT_DIM, batch=TEXT_BATCH, iters=TEXT_ITERS,
+                                     lr=TEXT_LR)
+    control, _ = _reference_sgd(rows_idx, tfidf, y, TEXT_DIM, hi_only=True, batch=TEXT_BATCH,
+                                iters=TEXT_ITERS, lr=TEXT_LR)
+    coef = np.asarray(lr_model.coefficient)
+    scale = float(np.abs(ref).max())
+    coef_err = float(np.abs(coef.astype(np.float64) - ref).max())
+    control_err = float(np.abs(control - ref).max())
+    loss_err = float(np.max(np.abs(np.asarray(est.loss_history) - ref_losses) / np.abs(ref_losses)))
+    if not coef_err <= COEF_TOL * scale:
+        raise AssertionError(f"the text coefficient is {coef_err} off the float64 SGD (scale {scale})")
+    if not control_err > COEF_TOL * scale:
+        raise AssertionError(f"the hi-half-only control is within the tolerance ({control_err}, scale {scale})")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"the text loss history is {loss_err} off the float64 one (relative)")
+
+    # ms/step: SGD on the fit's tf-idf rows, the form the fit ran, two iteration counts on one cache.
+    tfidf_df = PipelineModel(model.stages[:3]).transform(df)
+    cols = extract_labeled_data(tfidf_df, "tfidf", "label", None, allow_sparse=True)
+    dim = cols.pop("dim")
+    cache = DeviceDataCache(cols)
+    del tfidf_df, cols
+    form = "on" if est.onehot_premat_active else "off"
+
+    def sgd_seconds(iters):
+        opt = SGD(max_iter=iters, global_batch_size=TEXT_BATCH, tol=0.0, learning_rate=TEXT_LR,
+                  onehot_premat=form)
+        return _sync_seconds(lambda: opt.optimize(np.zeros(dim, np.float32), cache,
+                                                  BinaryLogisticLoss.INSTANCE))[1]
+
+    sgd_seconds(TEXT_STEP_ITERS[0])  # the cache's one-hot layout, built once
+    step_ms = []
+    for _ in range(3):
+        t = [sgd_seconds(iters) for iters in TEXT_STEP_ITERS]
+        step_ms.append((t[1] - t[0]) / (TEXT_STEP_ITERS[1] - TEXT_STEP_ITERS[0]) * 1e3)
+    del cache
+    torch.cuda.empty_cache()
+
+    # The batch tier, exact: every row on the chain, fused equal to per-stage bit for bit.
+    out, _, batch = _fused_and_per_stage(model, df, "text batch tier")
+    (segment,) = [s for s in model._plan_cache[1].segments if isinstance(s, FusedSegment)]
+    batch["programs"] = [p.kind for p in segment.programs]
+    if batch["chunks"] != -(-TEXT_ROWS // PIPELINE_CHUNK_ROWS) or segment.external_inputs != ("tokens",):
+        raise AssertionError(f"text batch tier: {batch}, inputs {segment.external_inputs}")
+    _text_check_tf(out.column("tf")[:4096], ids, cnt[:4096], tfidf[:4096], "batch tf")
+    _text_check_tf(out.column("tfidf")[:4096], ids, cnt[:4096], tfidf[:4096], "batch tfidf", values=True)
+
+    # Serving: the fitted model saved, loaded and served with the sparse fast path.
+    import tempfile
+
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+
+    rng = np.random.default_rng(TEXT_SERVE_SEED)
+    sizes = _traffic_sizes(rng)
+    pool, pool_counts = _text_rows(TEXT_SERVE_SEED, sum(sizes))
+    starts = np.cumsum([0] + sizes[:-1])
+    payloads = [{"text": pool[s:s + n]} for s, n in zip(starts, sizes)]
+    coef32 = np.asarray(lr_model.coefficient, np.float32)
+    want = [_text_reference(pool_counts[s:s + n], idf32, coef32) for s, n in zip(starts, sizes)]
+    expected = [model.transform(DataFrame.from_dict(p)) for p in payloads]  # the per-stage path's answers
+
+    def check(i, frame):
+        ids_i, cnt_i, tfidf_i, p, margin = want[i]
+        _text_check_tf(frame.column("tf"), ids_i, cnt_i, tfidf_i, f"request {i} tf")
+        _text_check_tf(frame.column("tfidf"), ids_i, cnt_i, tfidf_i, f"request {i} tfidf", values=True)
+        raw = np.asarray(frame.column("rawPrediction"))
+        np.testing.assert_allclose(raw, np.stack([1.0 - p, p], axis=1), rtol=0, atol=TEXT_PROB_ATOL)
+        ulps = ulp_diff(raw, expected[i].column("rawPrediction"))
+        if ulps > ULP_ENVELOPE["sparse_idf_logistic"]:
+            raise AssertionError(f"request {i}: rawPrediction {ulps} ulps off the per-stage path")
+        if not np.array_equal(frame.column("prediction"), expected[i].column("prediction")):
+            raise AssertionError(f"request {i}: predictions differ from the per-stage path")
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        model.save(f"{tmp.name}/text")
+        servable = PipelineModel.load_servable(f"{tmp.name}/text")
+    finally:
+        tmp.cleanup()
+    cfg = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    t0 = time.perf_counter()
+    server = InferenceServer(servable, name="chip-smoke-text", serving_config=cfg,
+                             warmup_template=DataFrame.from_dict({"text": docs[:1]}), device="cuda")
+    warmup_s = time.perf_counter() - t0
+    sscope = server.scope
+    with server:
+        plan = servable._fastpath_plan
+        kinds = chain_kinds(plan)
+        for k in KERNELS:
+            k.reset_launches()
+        batches_before = len(server.executed_batch_sizes)
+        fallback0 = metrics.get(sscope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles0 = metrics.get(sscope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        latencies, wall, failures = _serve_and_check(server, payloads, "text", check)
+        served_launches = {k.name: k.launches for k in KERNELS if k.launches}
+        batches = server.executed_batch_sizes[batches_before:]
+        fallback = metrics.get(sscope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback0
+        compiles = metrics.get(sscope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles0
+    if failures:
+        raise AssertionError(f"{len(failures)} text responses failed: {failures[:5]}")
+    if fallback or compiles:
+        raise AssertionError(f"text serving: {fallback} fallback batches, {compiles} chains built after warmup")
+    if any(not (isinstance(k, tuple) and len(k) == 2) for k in kinds) or served_launches:
+        raise AssertionError(f"text serving keys {sorted(kinds)}, kernels launched {served_launches}")
+    (segment,) = [s for s in plan.segments if isinstance(s, FusedSegment)]
+
+    # Where a 4096-document batch's time goes on the served path (host clock,
+    # the device synchronised after each step; the chain's device time by
+    # CUDA events), median of 5.
+    batch_df = DataFrame.from_dict(payloads[sizes.index(MAX_BATCH)])
+    tokenizer = servable.servables[0]
+    steps = {"tokenize": [], "featurize": [], "upload": [], "chain": [], "chain_device": [], "readback": []}
+    for _ in range(6):
+        t0 = time.perf_counter()
+        tokens = tokenizer.transform(batch_df)
+        t1 = time.perf_counter()
+        arrays, cap = segment.gather_sparse(tokens, "tokens", cap_max=resolve_nnz_cap_max())
+        t2 = time.perf_counter()
+        inputs = {n: to_device(a, segment.device) for n, a in arrays.items()}
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outputs = run_segment(segment, (MAX_BATCH, cap), inputs)
+        end.record()
+        end.synchronize()
+        t4 = time.perf_counter()
+        PlanExecution(tokens, segment.pending(outputs)).finalize()
+        t5 = time.perf_counter()
+        for name, ms in zip(steps, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3, (t4 - t3) * 1e3,
+                                    start.elapsed_time(end), (t5 - t4) * 1e3)):
+            steps[name].append(ms)
+    breakdown = {name: _median(v[1:]) for name, v in steps.items()}  # the first warms the host caches
+    lat = sorted(latencies)
+    form_name = "premat" if est.onehot_premat_active else "build"
+    emit("text", card=card, seconds=time.perf_counter() - t_phase, rows=TEXT_ROWS, dim=TEXT_DIM,
+         data_s=data_s, fit={
+             "form": form_name, "crossing_launches": launches, "iterations": TEXT_ITERS,
+             "batch": TEXT_BATCH, "windows": -(-TEXT_ROWS // TEXT_BATCH), "fit_s": fit_s,
+             "ms_per_step": _median(step_ms), "ms_per_step_runs": step_ms,
+             "coef_max_abs_err_vs_f64": coef_err, "coef_scale": scale,
+             "hi_only_control_max_abs_err_vs_f64": control_err, "loss_max_rel_err_vs_f64": loss_err,
+             "loss_first": est.loss_history[0], "loss_last": est.loss_history[-1],
+             "label_share": float(y.mean())},
+         batch={**batch, "fused_equals_per_stage": "bit for bit"},
+         serve={"warmup_s": warmup_s, "keys": len(kinds), "caps": sorted({c for _, c in kinds}),
+                "requests": len(payloads), "documents": sum(sizes), "batches": len(batches),
+                "fallback_batches": fallback, "post_warmup_builds": compiles,
+                "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                "docs_per_s": sum(sizes) / wall, "wall_s": wall,
+                "featurize_ms_per_4096_docs": breakdown["tokenize"] + breakdown["featurize"],
+                "chain_ms_per_4096_docs": breakdown["chain_device"], "chain_nnz_cap": cap,
+                "hot_batch_breakdown_ms": breakdown, "hot_batch_runs_ms": steps,
+                "device_busy_share_of_batch": breakdown["chain_device"] / sum(
+                    breakdown[k] for k in ("tokenize", "featurize", "upload", "chain", "readback"))})
+    return {k.name: launches[k.name] for k in ran}
+
+
+def phase_featurize(card: str):
+    """CountVectorizer and FeatureHasher at their published configurations,
+    batch-transformed fused against per-stage (module docstring, phase 31)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.feature import CountVectorizer, FeatureHasher
+
+    # CountVectorizer: 100 raw entries a row, so the leg sets the cap ladder to 128.
+    docs = _random_string_arrays(CV_SEED, CV_ROWS, CV_ARRAY, CV_DISTINCT)
+    cv_df = DataFrame.from_dict({"input": docs})
+    cv_model, cv_fit_s = _sync_seconds(lambda: CountVectorizer().fit(cv_df))
+    vocab = cv_model.vocabulary
+    if sorted(vocab) != sorted(str(v) for v in range(CV_DISTINCT)):
+        raise AssertionError(f"the vocabulary holds {len(vocab)} terms, not the {CV_DISTINCT} drawn")
+    cv_pipe = PipelineModel([cv_model])
+    config.set(Options.SPARSE_NNZ_CAP_MAX, CV_CAP_MAX)
+    try:
+        cv_out, _, cv_readings = _fused_and_per_stage(cv_pipe, cv_df, "CountVectorizer")
+    finally:
+        config.unset(Options.SPARSE_NNZ_CAP_MAX)
+    position = {t: i for i, t in enumerate(vocab)}
+    for r in range(0, CV_ROWS, 97):  # counts against numpy
+        want = np.bincount([position[t] for t in docs[r]], minlength=len(vocab)).astype(np.float64)
+        v = cv_out.column("output")[r]
+        if not np.array_equal(v.to_array(), want):
+            raise AssertionError(f"CountVectorizer row {r} is not the token counts")
+    # At the default cap of 64 the batch is off the ladder: per stage, labelled, the same bits.
+    scope = "ml.batch[plan]"
+    reason = MLMetrics.fallback_reason("batch", "off_ladder")
+    off0 = metrics.get(scope, reason, 0)
+    config.set(Options.FUSION_MODE, "exact")
+    try:
+        cv_pipe.invalidate_batch_plan()
+        off_out, off_s = _sync_seconds(lambda: cv_pipe.transform(cv_df))
+    finally:
+        config.unset(Options.FUSION_MODE)
+    off_ladder = metrics.get(scope, reason, 0) - off0
+    if off_ladder != 1:
+        raise AssertionError(f"the cap-64 transform fell back {off_ladder} times under off_ladder, not once")
+    _same_frames(off_out, cv_out, "CountVectorizer at cap 64")
+    del cv_df, cv_out, off_out, docs
+
+    # FeatureHasher: three categorical columns and two numeric ones.
+    columns = _double_columns(FH_SEED, FH_COLS, FH_ROWS)
+    fh_df = DataFrame.from_dict(columns)
+    hasher = (FeatureHasher().set_input_cols(*FH_COLS).set_categorical_cols(*FH_CATEGORICAL)
+              .set_num_features(FH_DIM))
+    fh_out, _, fh_readings = _fused_and_per_stage(PipelineModel([hasher]), fh_df, "FeatureHasher")
+    numeric = columns["f3"] + columns["f4"]
+    for r in range(0, FH_ROWS, 97):
+        v = fh_out.column("output")[r]
+        if v.size() != FH_DIM or not abs(v.values.sum() - (len(FH_CATEGORICAL) + numeric[r])) <= 1e-6:
+            raise AssertionError(f"FeatureHasher row {r}: {v} does not sum to 3 + f3 + f4")
+    torch.cuda.empty_cache()
+    emit("featurize", card=card, seconds=time.perf_counter() - t_phase,
+         count_vectorizer={"rows": CV_ROWS, "tokens_per_row": CV_ARRAY, "vocabulary": len(vocab),
+                           "nnz_cap_max": CV_CAP_MAX, "fit_s": cv_fit_s, **cv_readings,
+                           "cap64_off_ladder_fallbacks": off_ladder, "cap64_seconds": off_s,
+                           "fused_equals_per_stage": "bit for bit"},
+         feature_hasher={"rows": FH_ROWS, "columns": list(FH_COLS), "categorical": list(FH_CATEGORICAL),
+                         "num_features": FH_DIM, **fh_readings, "fused_equals_per_stage": "bit for bit"})
+
+
 def main() -> int:
     import torch
 
@@ -6917,6 +7418,8 @@ def main() -> int:
     record("fit_linearsvc", phase_fit_linear_family(smi, headline, dense_rows))
     record("hot_swap", {SPARSE_IDF_LOGISTIC.name: phase_hot_swap(smi, idf_model, lr_model, v2_coef)})
     del headline, idf_model, lr_model, v2_coef, dense_rows
+    record("text", phase_text(smi))
+    phase_featurize(smi)
     mlp_alone = phase_kernels_mlp(rng, smi)
     record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
     torch.cuda.empty_cache()

@@ -51,6 +51,7 @@ from flink_ml_tpu_torch.config import Options, config
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.servable.fusion import plan_recorder, resolve_fusion_tier
+from flink_ml_tpu_torch.servable.kernel_spec import SPARSE_KINDS
 from flink_ml_tpu_torch.servable.planner import (
     FallbackStage,
     FusedSegment,
@@ -152,13 +153,13 @@ class CompiledBatchPlan:
 
     def _gather(self, segment: FusedSegment, df: DataFrame) -> Dict[str, np.ndarray]:
         """One host-side read of every external input of the segment for the
-        whole call: dense columns as float32, sparse ones packed once at
-        their ladder cap (the triple's [n, K] / [n] arrays then slice per
+        whole call: dense columns as float32, sparse and entries ones packed
+        once at their ladder cap (the [n, K] / [n] arrays then slice per
         chunk like dense columns). Raises :class:`IneligibleBatch`."""
         full: Dict[str, np.ndarray] = {}
         cap_max = resolve_nnz_cap_max()
         for name in segment.external_inputs:
-            if segment.input_kind(name) == "sparse":
+            if segment.input_kind(name) in SPARSE_KINDS:
                 arrays, _cap = segment.gather_sparse(df, name, cap_max=cap_max)
                 full.update(arrays)
             else:

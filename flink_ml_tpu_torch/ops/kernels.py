@@ -11,6 +11,15 @@ The sparse functions take the sparse calling convention's padded layout
 padding slots id 0 / value 0. A gather clamps an id outside ``[0, d)`` the
 way the JAX package's indexing does: a negative id counts from the end, then
 the id is clipped into range.
+
+The host-featurized ``"entries"`` kind (HashingTF, CountVectorizer,
+FeatureHasher) arrives as raw entries, duplicates allowed:
+:func:`sparse_combine_fn` sorts and folds them into the convention's
+sorted-unique layout, :func:`sparse_threshold_fn` drops entries under a
+per-row bar, and both compact through :func:`sparse_compact_fn`. In the JAX
+package these are plain jnp, not Pallas, so they are plain PyTorch here;
+every sort is stable and every sum runs in slot order, so CPU and CUDA
+give the JAX package's bits.
 """
 from __future__ import annotations
 
@@ -33,9 +42,14 @@ __all__ = [
     "normalize_fn",
     "scale_fn",
     "segment_sum",
+    "sparse_combine_fn",
+    "sparse_compact_fn",
     "sparse_dot_fn",
     "sparse_idf_scale_fn",
+    "sparse_threshold_fn",
 ]
+
+_INT32_MAX = 2**31 - 1
 
 
 def dot_fn(X: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
@@ -172,3 +186,55 @@ def sparse_idf_scale_fn(values: torch.Tensor, ids: torch.Tensor, idf: torch.Tens
     """Sparse term-frequency entries scaled by their dimension's idf — one
     gather and one multiply per slot; ids and nnz pass through."""
     return values * gather_clamped(idf, ids)
+
+
+def _valid_slots(shape_like: torch.Tensor, nnz: torch.Tensor) -> torch.Tensor:
+    """[n, K] mask of a row's real (non-padding) slots: slot index < row nnz."""
+    slots = torch.arange(shape_like.shape[1], device=shape_like.device)
+    return slots[None, :] < nnz[:, None]
+
+
+def sparse_compact_fn(values: torch.Tensor, ids: torch.Tensor, keep: torch.Tensor):
+    """The kept entries of each row moved to its leading slots in their
+    order, the tail zeroed: ``(values, ids, keep) -> (values, ids, nnz)``.
+    A stable sort on the drop mask moves every kept entry forward without
+    reordering kept against kept."""
+    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    svals = torch.gather(torch.where(keep, values, 0.0), 1, order)
+    sids = torch.gather(torch.where(keep, ids, 0), 1, order)
+    return svals, sids, keep.sum(dim=1, dtype=torch.int32)
+
+
+def sparse_combine_fn(values: torch.Tensor, ids: torch.Tensor, nnz: torch.Tensor):
+    """Per-row duplicate-combine of raw entries (JAX ``ops/kernels.py:528``):
+    each row's entries sorted by id (stable, padding keyed ``INT32_MAX``
+    so it sorts last), the values of each equal-id run summed strictly in
+    slot order, one entry kept per id, compacted. The fold runs over the
+    slot columns, one float32 ``v + where(same, acc, 0)`` a step as in the
+    JAX ``lax.scan``: FeatureHasher's float values make the order matter,
+    which a cumulative sum or an atomic scatter would not keep."""
+    valid = _valid_slots(ids, nnz)
+    skey = torch.where(valid, ids, _INT32_MAX)
+    order = torch.argsort(skey, dim=1, stable=True)
+    sids = torch.gather(skey, 1, order)
+    svals = torch.gather(torch.where(valid, values, 0.0), 1, order)
+    svalid = torch.gather(valid, 1, order)
+    # same[:, j]: slot j continues slot j-1's id run (padding never matches
+    # a real id: its key is INT32_MAX)
+    prev = torch.cat([torch.full_like(sids[:, :1], -1), sids[:, :-1]], dim=1)
+    same = sids == prev
+    run = torch.empty_like(svals)
+    acc = torch.zeros_like(svals[:, 0])
+    for j in range(svals.shape[1]):
+        acc = svals[:, j] + torch.where(same[:, j], acc, 0.0)
+        run[:, j] = acc
+    nxt = torch.cat([same[:, 1:], torch.zeros_like(same[:, :1])], dim=1)
+    return sparse_compact_fn(run, sids, svalid & ~nxt)  # each run's last slot holds its sum
+
+
+def sparse_threshold_fn(values: torch.Tensor, ids: torch.Tensor, nnz: torch.Tensor,
+                        threshold: torch.Tensor):
+    """Entries below the per-row ``threshold [n]`` dropped
+    (CountVectorizer's minTF), the survivors compacted."""
+    keep = _valid_slots(ids, nnz) & (values >= threshold[:, None])
+    return sparse_compact_fn(values, ids, keep)

@@ -17,6 +17,7 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
+    "HasCategoricalCols",
     "HasDistanceMeasure",
     "HasElasticNet",
     "HasFeaturesCol",
@@ -25,6 +26,7 @@ __all__ = [
     "HasLearningRate",
     "HasMaxIter",
     "HasMultiClass",
+    "HasNumFeatures",
     "HasReg",
     "HasSeed",
     "HasTol",
@@ -108,6 +110,16 @@ class HasOutputCols(WithParams):
 
     def set_output_cols(self, *value: str):
         return self.set(self.OUTPUT_COLS, list(value))
+
+
+class HasCategoricalCols(WithParams):
+    CATEGORICAL_COLS = StringArrayParam("categoricalCols", "Categorical column names.", [])
+
+    def get_categorical_cols(self):
+        return self.get(self.CATEGORICAL_COLS)
+
+    def set_categorical_cols(self, *value: str):
+        return self.set(self.CATEGORICAL_COLS, list(value))
 
 
 class HasLabelCol(WithParams):
@@ -257,3 +269,13 @@ class HasRelativeError(WithParams):
 
     def set_relative_error(self, value: float):
         return self.set(self.RELATIVE_ERROR, value)
+
+
+class HasNumFeatures(WithParams):
+    NUM_FEATURES = IntParam("numFeatures", "Number of features.", 262144, ParamValidators.gt(0))
+
+    def get_num_features(self) -> int:
+        return self.get(self.NUM_FEATURES)
+
+    def set_num_features(self, value: int):
+        return self.set(self.NUM_FEATURES, value)

@@ -14,10 +14,13 @@ device-resident model tensors:
     shape (a list column falls back, as its per-stage path does host math);
   * ``"sparse"`` — the sparse calling convention (``servable/sparse.py``):
     the column enters as ``col!values`` / ``col!ids`` / ``col!nnz`` packed
-    at a ladder nnz cap, and ``kernel_fn`` reads the expanded names.
+    at a ladder nnz cap, and ``kernel_fn`` reads the expanded names;
+  * ``"entries"`` — host-featurized raw entries (token hashing, vocabulary
+    lookup): the spec's ``host_ingests[col]`` builds the quadruple
+    ``!values`` / ``!ids`` / ``!nnz`` / ``!len`` on the host at ingest, and
+    the device kernel owns the duplicate combine.
 
-  The JAX package's ``"entries"`` and ``"shape"`` kinds are not ported yet
-  (ROADMAP.md);
+  The JAX package's ``"shape"`` kind is not ported yet (ROADMAP.md);
 - ``outputs`` — ``(column name, DataType)`` pairs in ``add_column`` order; a
   None DataType takes the output's shape at readback (a DOUBLE scalar
   column for a 1-D result, a vector column for a 2-D one), for stages whose
@@ -40,6 +43,9 @@ device-resident model tensors:
   measure, Normalizer's ``p``, Binarizer's ``thresholds``, Imputer's
   placeholder); a Pallas kernel traces ``kernel_fn`` and needs none, a CUDA
   kernel cannot read a closure;
+- ``host_ingests`` — for each ``"entries"`` input,
+  ``fn(df, cap, cap_max, truncate) -> (arrays, cap, nnz_total)``: the host
+  featurizer the ingest runs, never inside a program;
 - ``sparse_flops_per_nnz`` — the cost model's FLOPs per entry slot of a
   sparse spec (``servable/fusion.py``; default there).
 """
@@ -49,11 +55,16 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from flink_ml_tpu_torch.servable.sparse import sparse_names
+from flink_ml_tpu_torch.servable.sparse import entries_names, sparse_names
 
-__all__ = ["KernelSpec"]
+__all__ = ["KernelSpec", "SPARSE_KINDS"]
 
-_VALID_KINDS = ("vector", "scalar", "dense", "sparse")
+_VALID_KINDS = ("vector", "scalar", "dense", "sparse", "entries")
+
+#: Input kinds that ride the sparse calling convention: ``"sparse"`` (a
+#: SparseVector column packed to the triple) and ``"entries"`` (a
+#: host-featurized column packed to the quadruple by its ``host_ingest``).
+SPARSE_KINDS = ("sparse", "entries")
 
 
 class KernelSpec:
@@ -61,7 +72,7 @@ class KernelSpec:
 
     __slots__ = ("input_cols", "outputs", "model_arrays", "kernel_fn", "input_kinds",
                  "elementwise", "fusable", "fusion_op", "fusion_params", "sparse_outputs",
-                 "sparse_input_dims", "sparse_flops_per_nnz")
+                 "sparse_input_dims", "host_ingests", "sparse_flops_per_nnz")
 
     def __init__(
         self,
@@ -77,6 +88,7 @@ class KernelSpec:
         fusion_params: Optional[Mapping[str, Any]] = None,
         sparse_outputs: Optional[Mapping[str, int]] = None,
         sparse_input_dims: Optional[Mapping[str, int]] = None,
+        host_ingests: Optional[Mapping[str, Callable]] = None,
         sparse_flops_per_nnz: Optional[float] = None,
     ):
         self.input_cols: Tuple[str, ...] = tuple(input_cols)
@@ -105,6 +117,10 @@ class KernelSpec:
         self.sparse_input_dims: Dict[str, int] = {
             k: int(v) for k, v in (sparse_input_dims or {}).items()
         }
+        self.host_ingests: Dict[str, Callable] = dict(host_ingests or {})
+        for name, kind in self.input_kinds.items():
+            if kind == "entries" and name not in self.host_ingests:
+                raise ValueError(f"entries-kind column {name!r} needs a host_ingests entry")
         self.sparse_flops_per_nnz = (
             None if sparse_flops_per_nnz is None else float(sparse_flops_per_nnz)
         )
@@ -116,15 +132,21 @@ class KernelSpec:
     @property
     def is_sparse(self) -> bool:
         """Whether any input or output rides the sparse convention."""
-        return bool(self.sparse_outputs) or "sparse" in self.input_kinds.values()
+        return bool(self.sparse_outputs) or any(k in SPARSE_KINDS for k in self.input_kinds.values())
 
     def input_kind(self, name: str) -> str:
         return self.input_kinds.get(name, "vector")
 
     def program_input_names(self, col: str) -> Tuple[str, ...]:
         """The program-level names one input column expands to: the
-        convention triple for a sparse column, the column itself otherwise."""
-        return sparse_names(col) if self.input_kind(col) == "sparse" else (col,)
+        convention triple for a sparse column, the quadruple for an entries
+        column, the column itself otherwise."""
+        kind = self.input_kind(col)
+        if kind == "sparse":
+            return sparse_names(col)
+        if kind == "entries":
+            return entries_names(col)
+        return (col,)
 
     @property
     def program_outputs(self) -> Tuple[str, ...]:

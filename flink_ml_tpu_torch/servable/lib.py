@@ -35,13 +35,19 @@ from flink_ml_tpu_torch.params.shared import (
 )
 from flink_ml_tpu_torch.servable.api import ModelServable
 from flink_ml_tpu_torch.servable.kernel_spec import KernelSpec
-from flink_ml_tpu_torch.servable.sparse import pack_sparse_column, sparse_names
+from flink_ml_tpu_torch.servable.sparse import (
+    entries_names,
+    pack_entry_rows,
+    pack_sparse_column,
+    sparse_names,
+)
 
 __all__ = [
     "KMeansModelServable",
     "LogisticRegressionModelServable",
     "MLPClassifierModelServable",
     "StandardScalerModelServable",
+    "entry_tensors",
     "logistic_predict",
     "packed_tensors",
 ]
@@ -62,6 +68,15 @@ def packed_tensors(df: DataFrame, col: str, dim: int, device: torch.device):
     dense [n, dim] array."""
     arrays, _cap, _dim, _nnz = pack_sparse_column(df, col, dim=dim)
     return tuple(torch.from_numpy(arrays[name]).to(device) for name in sparse_names(col))
+
+
+def entry_tensors(col: str, rows, lengths, device: torch.device):
+    """A host featurizer's raw entries as the ``"entries"`` quadruple's
+    ``(values, ids, nnz, len)`` tensors on ``device``, packed at their
+    natural ladder cap (``pack_entry_rows``): the per-stage path of
+    HashingTF, CountVectorizer and FeatureHasher."""
+    arrays, _cap, _total = pack_entry_rows(col, rows, lengths)
+    return tuple(torch.from_numpy(arrays[name]).to(device) for name in entries_names(col))
 
 
 def logistic_predict(df: DataFrame, features_col: str, coefficient, device: torch.device):

@@ -19,9 +19,10 @@ Program partition, as in the JAX package:
   chain.
 
 Sparse columns ride the sparse calling convention (``servable/sparse.py``):
-a ``"sparse"``-kind input enters as its values/ids/nnz triple
-(:meth:`FusedSegment.gather_sparse`), a sparse output leaves as one and is
-rebuilt into SparseVectors at readback. Which stages take the convention is
+a ``"sparse"``-kind input enters as its values/ids/nnz triple and an
+``"entries"``-kind one as the quadruple its spec's host ingest featurizes
+(:meth:`FusedSegment.gather_sparse`); a sparse output leaves as a triple and
+is rebuilt into SparseVectors at readback. Which stages take the convention is
 decided statically when the segments are built (:func:`build_segments`).
 
 "Compiling" a key here means choosing each program's kind and recording the
@@ -42,6 +43,7 @@ import torch
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.servable.fusion import chain_score
+from flink_ml_tpu_torch.servable.kernel_spec import SPARSE_KINDS
 from flink_ml_tpu_torch.servable.megakernels import build_megakernel_fn, chain_eligible, inputs_fit
 from flink_ml_tpu_torch.servable.sparse import (
     SPARSE_MARK,
@@ -205,7 +207,7 @@ class FusedSegment:
         self.external_inputs: Tuple[str, ...] = tuple(external)
         #: Whether an external input rides the sparse convention — such a
         #: segment keys its chains by (bucket, nnz cap).
-        self.has_sparse_inputs = any(self.input_kind(n) == "sparse" for n in external)
+        self.has_sparse_inputs = any(self.input_kind(n) in SPARSE_KINDS for n in external)
         # One upload per model array, when the segment is built (warmup/swap
         # time): the hot path only ever passes these tensors back in.
         self.device_models = tuple(
@@ -269,11 +271,22 @@ class FusedSegment:
         cap_max: Optional[int] = None,
         truncate: bool = False,
     ) -> Tuple[Dict[str, np.ndarray], int]:
-        """One host-side pack of a ``"sparse"``-kind external input at a
-        ladder cap (``servable/sparse.py``): ``(arrays, nnz_cap)``. Raises
+        """One host-side pack of a sparse-convention external input at a
+        ladder cap (``servable/sparse.py``): a ``"sparse"`` column packs its
+        SparseVectors, an ``"entries"`` column runs the consuming spec's host
+        featurizer. Returns ``(arrays, nnz_cap)``. Raises
         :class:`IneligibleBatch` for what the convention cannot take: rows
         over ``cap_max`` (``off_ladder``), a column that is not sparse or of
         another dim (``signature``)."""
+        if self.input_kind(name) == "entries":
+            ingest = next(s.host_ingests[name] for s in self.specs if name in s.host_ingests)
+            try:
+                arrays, used_cap, _total = ingest(df, cap, cap_max, truncate)
+            except OffLadderError as e:
+                raise IneligibleBatch(str(e), reason="off_ladder") from e
+            except (ValueError, TypeError, KeyError) as e:  # a column the featurizer cannot read
+                raise IneligibleBatch(f"column {name!r} not featurizable: {e}") from e
+            return arrays, used_cap
         if not df.is_sparse(name):
             raise IneligibleBatch(
                 f"column {name!r} is not sparse — the segment expects the sparse convention",

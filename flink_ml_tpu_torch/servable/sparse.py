@@ -1,5 +1,5 @@
 """The sparse calling convention of the compiled plans — twin of
-``flink_ml_tpu/servable/sparse.py`` for ``"sparse"``-kind columns.
+``flink_ml_tpu/servable/sparse.py``.
 
 **Layout.** A SparseVector column ``c`` crosses a program boundary as three
 dense tensors:
@@ -8,20 +8,20 @@ dense tensors:
 
 with each row's entries in its leading slots in sorted-unique id order, and
 padding slots carrying id 0 / value 0.0 (exact identity terms under
-``ops/kernels.segment_sum``).
+``ops/kernels.segment_sum``). Host-featurized inputs (token lists, hashed
+feature rows) enter as raw **entries**: the same triple with duplicates
+allowed and the device combine pending, plus ``c!len [n] i32``, each row's
+raw element count (CountVectorizer's fractional minTF reads it).
 
 **Bucket ladder.** K is the power-of-two **nnz cap** above the batch's
 longest row (``linalg.sparse_batch.ladder_cap``), so a serving plan builds
 ≤ 1 chain per (row bucket, nnz cap) and warmup can cover the whole ladder.
 A batch whose rows exceed ``sparse.nnz.cap.max`` is **off-ladder** and
 falls back per-stage.
-
-The JAX package's host-featurized ``"entries"`` kind (HashingTF,
-CountVectorizer, FeatureHasher) is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,12 +32,18 @@ from flink_ml_tpu_torch.linalg.vectors import SparseVector
 __all__ = [
     "OffLadderError",
     "SPARSE_MARK",
+    "entries_names",
+    "ids_name",
+    "len_name",
+    "nnz_name",
+    "pack_entry_rows",
     "pack_sparse_column",
     "rebuild_sparse_column",
     "resolve_nnz_cap_max",
     "resolve_sparse_hints",
     "resolve_warm_caps",
     "sparse_names",
+    "values_name",
 ]
 
 #: Marker heading the DataType slot of a sparse output's readback parts:
@@ -46,9 +52,30 @@ __all__ = [
 SPARSE_MARK = "__sparse__"
 
 
+def values_name(col: str) -> str:
+    return f"{col}!values"
+
+
+def ids_name(col: str) -> str:
+    return f"{col}!ids"
+
+
+def nnz_name(col: str) -> str:
+    return f"{col}!nnz"
+
+
+def len_name(col: str) -> str:
+    return f"{col}!len"
+
+
 def sparse_names(col: str) -> Tuple[str, str, str]:
     """Program-level names of a ``"sparse"``-kind column, in convention order."""
-    return (f"{col}!values", f"{col}!ids", f"{col}!nnz")
+    return (values_name(col), ids_name(col), nnz_name(col))
+
+
+def entries_names(col: str) -> Tuple[str, str, str, str]:
+    """Program-level names of an ``"entries"``-kind (host-featurized) column."""
+    return (values_name(col), ids_name(col), nnz_name(col), len_name(col))
 
 
 class OffLadderError(ValueError):
@@ -132,6 +159,37 @@ def pack_sparse_column(
         values[rows, slots] = np.concatenate([v.values[:use] for v in clipped])
     arrays = dict(zip(sparse_names(col), (values, ids, k.astype(np.int32))))
     return arrays, use, dim, total
+
+
+def pack_entry_rows(
+    col: str,
+    rows: Sequence[Sequence[Tuple[int, float]]],
+    lengths: Sequence[int],
+    *,
+    cap: Optional[int] = None,
+    cap_max: Optional[int] = None,
+    truncate: bool = False,
+) -> Tuple[Dict[str, np.ndarray], int, int]:
+    """Pack host-featurized raw entries (``(id, value)`` pairs, duplicates
+    allowed) into the ``"entries"`` quadruple at a ladder cap — the shared
+    tail of every host ingest (HashingTF's term hashing, CountVectorizer's
+    vocabulary lookup, FeatureHasher's row hashing). Returns ``(arrays, cap,
+    nnz_total)``; the cap rules are :func:`pack_sparse_column`'s."""
+    n = len(rows)
+    lens = np.fromiter((len(r) for r in rows), np.int64, n)
+    use = _resolve_cap(int(lens.max()) if n else 0, cap, cap_max, truncate)
+    k = np.minimum(lens, use)
+    ids = np.zeros((n, use), np.int32)
+    values = np.zeros((n, use), np.float32)
+    total = int(k.sum())
+    if total:
+        flat = [e for r in rows for e in r[:use]]
+        at = (np.repeat(np.arange(n), k), np.arange(total) - np.repeat(np.cumsum(k) - k, k))
+        ids[at] = np.fromiter((e[0] for e in flat), np.int64, total)
+        values[at] = np.fromiter((e[1] for e in flat), np.float64, total)
+    arrays = dict(zip(entries_names(col), (values, ids, k.astype(np.int32),
+                                           np.asarray(lengths, np.int32))))
+    return arrays, use, total
 
 
 def resolve_sparse_hints(df: Optional[Any]) -> Optional[Dict[str, int]]:

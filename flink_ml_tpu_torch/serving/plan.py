@@ -34,6 +34,7 @@ from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.servable.builder import PipelineModelServable
 from flink_ml_tpu_torch.servable.fusion import plan_recorder, resolve_fusion_tier
+from flink_ml_tpu_torch.servable.kernel_spec import SPARSE_KINDS
 from flink_ml_tpu_torch.servable.planner import (
     FallbackStage,
     FusedSegment,
@@ -158,7 +159,7 @@ class CompiledServingPlan:
         shared_cap = cap or 0
         cap_max = resolve_nnz_cap_max()
         for name in segment.external_inputs:
-            if segment.input_kind(name) == "sparse":
+            if segment.input_kind(name) in SPARSE_KINDS:
                 triple, col_cap = segment.gather_sparse(
                     df, name, cap=cap, cap_max=cap_max, truncate=warm
                 )

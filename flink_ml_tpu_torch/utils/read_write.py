@@ -67,6 +67,14 @@ _SVC_MODEL = "flink_ml_tpu_torch.models.classification.linearsvc.LinearSVCModel"
 _SVC_EST = "flink_ml_tpu_torch.models.classification.linearsvc.LinearSVC"
 _LINREG_MODEL = "flink_ml_tpu_torch.models.regression.linear_regression.LinearRegressionModel"
 _LINREG_EST = "flink_ml_tpu_torch.models.regression.linear_regression.LinearRegression"
+_TOKENIZER = "flink_ml_tpu_torch.models.feature.tokenizer.Tokenizer"
+_REGEX_TOKENIZER = "flink_ml_tpu_torch.models.feature.tokenizer.RegexTokenizer"
+_STOP_WORDS = "flink_ml_tpu_torch.models.feature.stop_words_remover.StopWordsRemover"
+_NGRAM = "flink_ml_tpu_torch.models.feature.ngram.NGram"
+_HASHING_TF = "flink_ml_tpu_torch.models.feature.hashing_tf.HashingTF"
+_FEATURE_HASHER = "flink_ml_tpu_torch.models.feature.feature_hasher.FeatureHasher"
+_CV_MODEL = "flink_ml_tpu_torch.models.feature.count_vectorizer.CountVectorizerModel"
+_CV_EST = "flink_ml_tpu_torch.models.feature.count_vectorizer.CountVectorizer"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -101,6 +109,16 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.models.feature.binarizer.Binarizer": (_BINARIZER, _BINARIZER),
     "flink_ml_tpu.models.feature.imputer.ImputerModel": (_IMPUTER_MODEL, _IMPUTER_MODEL),
     "flink_ml_tpu.models.feature.imputer.Imputer": (None, _IMPUTER),
+    # The text stages: the stateless ones and CountVectorizerModel are their
+    # own servables in both packages (``count_vectorizer.py:218``).
+    "flink_ml_tpu.models.feature.tokenizer.Tokenizer": (_TOKENIZER, _TOKENIZER),
+    "flink_ml_tpu.models.feature.tokenizer.RegexTokenizer": (_REGEX_TOKENIZER, _REGEX_TOKENIZER),
+    "flink_ml_tpu.models.feature.stop_words_remover.StopWordsRemover": (_STOP_WORDS, _STOP_WORDS),
+    "flink_ml_tpu.models.feature.ngram.NGram": (_NGRAM, _NGRAM),
+    "flink_ml_tpu.models.feature.hashing_tf.HashingTF": (_HASHING_TF, _HASHING_TF),
+    "flink_ml_tpu.models.feature.feature_hasher.FeatureHasher": (_FEATURE_HASHER, _FEATURE_HASHER),
+    "flink_ml_tpu.models.feature.count_vectorizer.CountVectorizerModel": (_CV_MODEL, _CV_MODEL),
+    "flink_ml_tpu.models.feature.count_vectorizer.CountVectorizer": (None, _CV_EST),
     # The Estimators a saved Pipeline holds load as the port's Estimators.
     "flink_ml_tpu.models.feature.standard_scaler.StandardScaler": (None, _SCALER_EST),
     "flink_ml_tpu.models.clustering.kmeans.KMeans": (None, _KMEANS_EST),

@@ -2520,3 +2520,66 @@ def test_a_published_version_hot_swaps_into_the_card_server(cuda, tmp_path):
     want = models[2].transform(req, device="cpu")
     np.testing.assert_allclose(resp.dataframe.column("rawPrediction"), want.column("rawPrediction"),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cap", (1, 10, 64, 128))
+def test_entries_combine_on_the_card_is_bit_equal_to_the_cpu(cuda, cap):
+    from flink_ml_tpu_torch.ops.kernels import sparse_combine_fn, sparse_threshold_fn
+
+    rng = np.random.default_rng(cap)
+    n = 4099
+    nnz = rng.integers(0, cap + 1, n).astype(np.int32)
+    ids = rng.integers(0, 7 if cap > 1 else 3, (n, cap)).astype(np.int32)
+    values = rng.choice(np.float32([1e8, 1.0, -1e8, 0.25, -0.0, 3.0]), (n, cap))
+    host = [torch.from_numpy(a) for a in (values, ids, nnz)]
+    want = sparse_combine_fn(*host)
+    got = sparse_combine_fn(*(t.to(cuda) for t in host))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        g, w = g.cpu(), w
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    thr = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32))
+    want = sparse_threshold_fn(*want, thr)
+    got = sparse_threshold_fn(*got, thr.to(cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_text_pipeline_served_on_the_card(cuda, tmp_path):
+    from flink_ml_tpu_torch.builder import Pipeline, PipelineModel
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+    from flink_ml_tpu_torch.models.feature import IDF, HashingTF, Tokenizer
+
+    rng = np.random.default_rng(64)
+    words = [f"w{i}" for i in range(50)]
+    docs = [" ".join(rng.choice(words, int(k))) for k in rng.integers(0, 13, 600)]
+    labels = np.asarray([float(sum(t < "w3" for t in d.split()) > 2) for d in docs])
+    df = DataFrame.from_dict({"text": docs, "label": labels})
+    stages = [Tokenizer().set_input_col("text").set_output_col("tokens"),
+              HashingTF().set_input_col("tokens").set_output_col("tf").set_num_features(1 << 12),
+              IDF().set_input_col("tf").set_output_col("tfidf"),
+              LogisticRegression().set_features_col("tfidf").set_max_iter(5).set_global_batch_size(128)]
+    model = Pipeline(stages).fit(df)
+    model.save(str(tmp_path / "m"))
+    config.set(Options.SPARSE_NNZ_CAP_MAX, 16)
+    try:
+        servable = PipelineModel.load_servable(str(tmp_path / "m"))
+        cfg = ServingConfig(max_batch_size=64, fusion_mode="fast")
+        with InferenceServer(servable, name="gpu-text", serving_config=cfg, warmup_template=df.take([0])) as srv:
+            for start, n in ((0, 1), (1, 64), (65, 37), (102, 5)):
+                take = np.arange(start, start + n)
+                resp = srv.predict(df.take(take))
+                want = model.transform(df.take(take), device="cpu")
+                for col in ("tf", "tfidf"):
+                    for g, w in zip(resp.dataframe.column(col), want.column(col)):
+                        assert np.array_equal(g.indices, w.indices) and np.array_equal(g.values, w.values)
+                np.testing.assert_allclose(resp.dataframe.column("rawPrediction"),
+                                           want.column("rawPrediction"), rtol=0, atol=1e-6)
+            assert metrics.get(srv.scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) == 0
+            assert metrics.get(srv.scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) == 0
+    finally:
+        config.unset(Options.SPARSE_NNZ_CAP_MAX)

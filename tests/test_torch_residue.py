@@ -466,6 +466,16 @@ def _every_port_stage():
     from flink_ml_tpu.models.feature.idf import IDF as JIDF
     from flink_ml_tpu.models.feature.imputer import Imputer as JImputer
     from flink_ml_tpu.models.feature.standard_scaler import StandardScaler as JStandardScaler
+    from flink_ml_tpu.models.feature.count_vectorizer import (
+        CountVectorizer as JCountVectorizer,
+        CountVectorizerModel as JCountVectorizerModel,
+    )
+    from flink_ml_tpu.models.feature.feature_hasher import FeatureHasher as JFeatureHasher
+    from flink_ml_tpu.models.feature.hashing_tf import HashingTF as JHashingTF
+    from flink_ml_tpu.models.feature.ngram import NGram as JNGram
+    from flink_ml_tpu.models.feature.stop_words_remover import StopWordsRemover as JStopWordsRemover
+    from flink_ml_tpu.models.feature.tokenizer import RegexTokenizer as JRegexTokenizer
+    from flink_ml_tpu.models.feature.tokenizer import Tokenizer as JTokenizer
 
     from flink_ml_tpu_torch.builder import Pipeline
     from flink_ml_tpu_torch.linalg.vectors import DenseVector
@@ -480,6 +490,16 @@ def _every_port_stage():
     from flink_ml_tpu_torch.models.feature.idf import IDF
     from flink_ml_tpu_torch.models.feature.imputer import Imputer
     from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler
+    from flink_ml_tpu_torch.models.feature import (
+        CountVectorizer,
+        CountVectorizerModel,
+        FeatureHasher,
+        HashingTF,
+        NGram,
+        RegexTokenizer,
+        StopWordsRemover,
+        Tokenizer,
+    )
 
     rng = np.random.default_rng(6)
     scaler = StandardScalerModel().set_input_col("x").set_output_col("xs")
@@ -511,12 +531,28 @@ def _every_port_stage():
         "scaler": StandardScaler(), "kmeans": KMeans(), "mlp": MLPClassifier(), "lr": LogisticRegression(),
         "idf": IDF(), "imputer": Imputer(), "attention": SelfAttentionClassifier(),
     })
+    cv = CountVectorizerModel().set_input_col("tok").set_min_tf(0.5).set_binary(True)
+    cv.vocabulary = ["b", "a", "😀", "c d"]
+    stages.update({
+        "tokenizer": Tokenizer().set_input_col("s").set_output_col("tok"),
+        "regex_tokenizer": RegexTokenizer().set_pattern(r"\w+").set_gaps(False).set_min_token_length(2),
+        "stop_words_remover": StopWordsRemover().set_input_cols("tok").set_output_cols("kept")
+        .set_stop_words("a", "the").set_case_sensitive(True),
+        "ngram": NGram().set_n(3),
+        "hashing_tf": HashingTF().set_num_features(1000).set_binary(True),
+        "feature_hasher": FeatureHasher().set_input_cols("x", "c").set_categorical_cols("c"),
+        "count_vectorizer_model": cv,
+        "count_vectorizer": CountVectorizer().set_min_df(0.5).set_max_df(3.0).set_vocabulary_size(7),
+    })
     jax_classes = {
         "idf_model": JIDFModel, "lr_model": JLogisticRegressionModel, "scaler_model": JStandardScalerModel,
         "mlp_model": JMLPClassifierModel, "kmeans_model": JKMeansModel, "imputer_model": JImputerModel,
         "attention_model": JAttnModel, "normalizer": JNormalizer, "product": JProduct, "binarizer": JBinarizer,
         "pipeline": JPipeline, "pipeline_model": JPipelineModel, "scaler": JStandardScaler, "kmeans": JKMeans,
         "mlp": JMLP, "lr": JLR, "idf": JIDF, "imputer": JImputer, "attention": JAttn,
+        "tokenizer": JTokenizer, "regex_tokenizer": JRegexTokenizer, "stop_words_remover": JStopWordsRemover,
+        "ngram": JNGram, "hashing_tf": JHashingTF, "feature_hasher": JFeatureHasher,
+        "count_vectorizer_model": JCountVectorizerModel, "count_vectorizer": JCountVectorizer,
     }
     return stages, jax_classes
 
@@ -544,8 +580,10 @@ def test_every_port_stage_saved_loads_in_the_jax_package(tmp_path):
             assert type(loaded) is jcls, name
             assert type(loaded).__module__.startswith("flink_ml_tpu."), name
             assert _json(loaded) == _json(stage), name
+            assert getattr(loaded, "vocabulary", None) == getattr(stage, "vocabulary", None), name
         back = type(stage).load(path)
         assert type(back) is type(stage) and _json(back) == _json(stage), name
+        assert getattr(back, "vocabulary", None) == getattr(stage, "vocabulary", None), name
         assert type(rw.load_stage(path)) is type(stage), name
 
 
