@@ -9,10 +9,11 @@ card — dense, sparse, MLP, KMeans, feature-chain, Imputer and
 self-attention serving, wide-sparse, MLP, KMeans and self-attention
 training, and Pipelines fitted, transformed in the batch tier and served;
 checkpointed training killed and resumed, LinearSVC and LinearRegression,
-a published version hot-swapped into a serving server, and text pipelines
-(the host featurizers and the ``entries`` convention).
+a published version hot-swapped into a serving server, text pipelines
+(the host featurizers and the ``entries`` convention), and data-parallel
+training on ``train.mesh`` in worlds of 1, 2 and 4 ranks.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25–31 after 9, and 22–24 after 17):
+runs 25–32 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -409,6 +410,31 @@ runs 25–31 after 9, and 22–24 after 17):
                featurehasher-benchmark.json (5 DoubleGenerator columns,
                f0–f2 categorical, numFeatures 1000, seed 2, 100,000 rows),
                each row's values summing to 3 + f3 + f4.
+32. sharded  — data-parallel training on ``train.mesh``: worlds of 1 rank
+               (NCCL) and 2 and 4 ranks (gloo on CUDA tensors: the ranks
+               share the one card, where NCCL refuses them), spawned after
+               the kernels are built, every rank handed the same whole input.
+               Each world fits LogisticRegression at
+               logisticregression-benchmark.json (100,000 × 100, batch
+               100,000, 20 iterations) and KMeans at kmeans-benchmark.json
+               on the deterministic tier — coefficient, centroids and counts
+               bit-equal on every rank and across the widths; the dense
+               coefficient within 1e-5 of float64, every KMeans epoch of
+               the width-1 program against float64 as in 13 — and SGD on
+               the headline wide-sparse rows on the psum path: every rank
+               launches each crossing of the form taken 20 times and no
+               plain crossing, each width within 1e-5 of float64 of its own
+               schedule. Width 2 also fits MLPClassifier at
+               mlpclassifier-benchmark.json (serve_mlp's rows, standardised
+               on the host; losses against float64 of the width-2 schedule
+               under 11's limits) and a checkpointed dense SGD fit killed at
+               epoch 10 by a listener and resumed from a
+               ``ShardedCheckpointManager``, bit-equal to its clean fit;
+               width 4 restores that snapshot. Readings, with no scaling
+               claim (the ranks share one card): each world's backend,
+               ms/epoch, the mapreduce ``all_gather`` ms, each rank's peak
+               memory beside the card's, and whether cuBLAS's bits for a
+               row change with the row count (the products the tier avoids).
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -708,6 +734,20 @@ TEXT_PROB_ATOL = 1e-5  # served probabilities vs float64 numpy
 CV_SEED, CV_ROWS, CV_ARRAY, CV_DISTINCT, CV_CAP_MAX = 2, 20_000, 100, 100, 128
 FH_SEED, FH_ROWS, FH_DIM = 2, 100_000, 1000
 FH_COLS, FH_CATEGORICAL = ("f0", "f1", "f2", "f3", "f4"), ("f0", "f1", "f2")
+# sharded: worlds of 1 (NCCL), 2 and 4 ranks (gloo: the ranks share the one
+# card) on train.mesh; logisticregression-benchmark.json (100,000 × 100,
+# LabeledPointWithWeightGenerator at seed 2, globalBatchSize 100,000, maxIter
+# 20, learningRate 0.1, tol 1e-6), kmeans-benchmark.json (fit_kmeans' rows),
+# the headline wide-sparse fit (train's), mlpclassifier-benchmark.json at width
+# 2 (serve_mlp's rows, standardised on the host) and a checkpointed dense SGD
+# fit at width 2 restored at width 4
+SHARDED_WIDTHS = (1, 2, 4)
+SHARDED_MLP_WIDTH, SHARDED_CKPT_WIDTH, SHARDED_RESTORE_WIDTH = 2, 2, 4
+LR_ROWS, LR_D, LR_BATCH, LR_ITERS, LR_LR, LR_TOL, LR_SEED = 100_000, 100, 100_000, 20, 0.1, 1e-6, 2
+SHARDED_EPOCH_ITERS = (20, 40)  # the two iteration counts differenced for ms/epoch
+SHARDED_CKPT_BATCH, SHARDED_CKPT_ITERS, SHARDED_CKPT_KILL = 8192, 20, 10
+SHARDED_GATHER_REPS = 20
+SHARDED_COEF_TOL = 1e-5  # dense and sparse fits against float64 of their schedule
 
 
 
@@ -1224,11 +1264,13 @@ def _bf16(x):
 
 
 def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False,
-                   batch=TRAIN_BATCH, iters=TRAIN_ITERS, lr=TRAIN_LR):
+                   batch=TRAIN_BATCH, iters=TRAIN_ITERS, lr=TRAIN_LR, n_data=1):
     """Float64 numpy SGD of SGD's schedule and update (BinaryLogisticLoss,
     or HingeLoss with ``hinge``; no regularization) at ``batch``, ``iters``
     and ``lr``: the coefficient and the loss history. Padding slots (value
-    0) add nothing. With
+    0) add nothing. On ``n_data`` ranks (the psum paths) each epoch's batch
+    is every rank's ``ceil(batch / n_data)`` rows of its contiguous share,
+    the share's padding past the last row weighted 0. With
     ``hi_only`` the crossings keep only their bf16 hi half (each entry's
     term of the margin and each row's multiplier rounded to bf16): the
     control that shows the coefficient check can tell a crossing that drops
@@ -1241,15 +1283,19 @@ def _reference_sgd(indices, values, y, dim, hi_only=False, hinge=False,
         return _bf16(x) if hi_only else x
 
     n = y.shape[0]
-    batch = min(batch, n)
+    m = -(-n // n_data)
+    batch = min(-(-batch // n_data), m)
     coef = np.zeros(dim)
     losses = []
     idx = indices.astype(np.int64)
     val = values.astype(np.float64)
-    for start, offset in zip(*offset_schedule(n, batch, iters)):
-        rows = slice(start, start + batch)
+    for start, offset in zip(*offset_schedule(m, batch, iters)):
+        local = start + np.arange(batch)
+        rows = np.concatenate([k * m + local for k in range(n_data)])
+        real = rows < n
+        rows = np.minimum(rows, n - 1) if n_data > 1 else slice(start, start + batch)
         ib, vb, yb = idx[rows], val[rows], y[rows].astype(np.float64)
-        wb = (start + np.arange(batch) >= offset).astype(np.float64)
+        wb = (np.tile(local, n_data) >= offset).astype(np.float64) * real
         ys = 2.0 * yb - 1.0
         z = cross(vb * coef[ib]).sum(axis=1) * ys
         if hinge:
@@ -2437,11 +2483,13 @@ def _mlp_rows(rng, population, rows):
     return X, np.argmax(((X - loc) / spread) @ teacher, axis=1).astype(np.float64)
 
 
-def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device):
+def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device, n_data=1):
     """The MLP fit written out plainly in ``dtype``: the same initial draws,
     windows (the tail clamped and its re-read rows weighted 0) and adam
-    formula, the gradient of the window's mean loss by autograd. Returns
-    the per-epoch mean losses and the ``(W, b)`` layers."""
+    formula, the gradient of the window's mean loss by autograd. On
+    ``n_data`` ranks each epoch's window is every rank's ``ceil(batch /
+    n_data)`` rows of its contiguous share (the share's padding weighted 0).
+    Returns the per-epoch mean losses and the ``(W, b)`` layers."""
     import numpy as np
     import torch
 
@@ -2456,14 +2504,23 @@ def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device):
     X = torch.as_tensor(X, device=device).to(dtype)
     y = torch.as_tensor(y_idx, device=device).long()
     n, offset, losses = X.shape[0], 0, []
+    m = -(-n // n_data)
+    batch = min(-(-batch // n_data), m) if n_data > 1 else batch
     for t in range(1, iters + 1):
-        start = min(offset, n - batch)
-        w = ((start + torch.arange(batch, device=device)) >= offset).to(dtype)
-        h = X[start:start + batch]
+        start = min(offset, m - batch)
+        local = start + torch.arange(batch, device=device)
+        w = (local >= offset).to(dtype)
+        if n_data > 1:
+            at = torch.cat([k * m + local for k in range(n_data)])
+            w = w.repeat(n_data) * (at < n).to(dtype)
+            at = at.clamp_max(n - 1)
+            h, yb = X[at], y[at]
+        else:
+            h, yb = X[start:start + batch], y[start:start + batch]
         for i in range(0, len(params) - 2, 2):
             h = torch.relu(h @ params[i] + params[i + 1])
         logits = h @ params[-2] + params[-1]
-        rows = torch.logsumexp(logits, dim=1) - logits.gather(1, y[start:start + batch, None])[:, 0]
+        rows = torch.logsumexp(logits, dim=1) - logits.gather(1, yb[:, None])[:, 0]
         loss = (rows * w).sum() / w.sum()
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
@@ -2472,7 +2529,7 @@ def _reference_mlp_fit(X, y_idx, dims, seed, lr, batch, iters, dtype, device):
                 nu[i] = 0.001 * g * g + 0.999 * nu[i]
                 p -= lr * (mu[i] / (1 - 0.9 ** t)) / (torch.sqrt(nu[i] / (1 - 0.999 ** t)) + 1e-8)
         losses.append(float(loss.detach()))
-        offset = 0 if offset + batch >= n else offset + batch
+        offset = 0 if offset + batch >= m else offset + batch
     return losses, [(params[i].detach(), params[i + 1].detach()) for i in range(0, len(params), 2)]
 
 
@@ -2947,18 +3004,25 @@ def _kmeans_published_rows():
     return np.random.default_rng(KMEANS_DATA_SEED).random((KMEANS_ROWS, KMEANS_D))
 
 
-def _kmeans_epoch_check(X, init, measure, epochs, control=None):
-    """Replay ``epochs`` epochs of the port's fit (``_epoch_update``) from
-    ``init`` on ``X`` (float32, on the card) — with ``control`` applied to the
-    features first, if given — and hold each epoch against float64 from its
-    own starting centroids: assignments equal to the float64 argmin wherever
-    the gap exceeds the margin, counts equal to its assignment's, and the new
+def _kmeans_epoch_check(X, init, measure, epochs, control=None, sharded=False):
+    """Replay ``epochs`` epochs of the port's fit (``_epoch_update``, or with
+    ``sharded`` the deterministic tier's width-1 epoch, ``_sharded_epoch_tot``
+    on distances by ``_fixed_order_pairwise``) from ``init`` on ``X``
+    (float32, on the card) — with ``control`` applied to the features first,
+    if given — and hold each epoch against float64 from its own starting
+    centroids: assignments equal to the float64 argmin wherever the gap
+    exceeds the margin, counts equal to its assignment's, and the new
     centroids within KMEANS_CENTROID_ATOL of the float64 means of the exact
     features over its assignment. Returns ``(final centroids, per-epoch
     readings, whether every epoch passed)``."""
     import torch
 
-    from flink_ml_tpu_torch.models.clustering.kmeans import _epoch_update
+    from flink_ml_tpu_torch.models.clustering.kmeans import (
+        _epoch_update,
+        _fixed_order_pairwise,
+        _sharded_epoch_tot,
+        _tot_update,
+    )
     from flink_ml_tpu_torch.ops.distance import DistanceMeasure
 
     m = DistanceMeasure.get_instance(measure)
@@ -2968,8 +3032,12 @@ def _kmeans_epoch_check(X, init, measure, epochs, control=None):
     mask = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
     c, readings, ok = init, [], True
     for _ in range(epochs):
-        new, counts = _epoch_update(m, k, c, feats, mask)
-        assign = m.find_closest(feats, c)
+        if sharded:
+            new, counts = _tot_update(_sharded_epoch_tot(measure, k, c, feats, mask, None), c)
+            assign = torch.argmin(_fixed_order_pairwise(measure, feats, c), dim=1)
+        else:
+            new, counts = _epoch_update(m, k, c, feats, mask)
+            assign = m.find_closest(feats, c)
         dist = _kmeans_distances64(measure, X64, c)
         decided = _kmeans_decided(dist)
         mismatched = int(((assign != torch.argmin(dist, dim=1)) & decided).sum())
@@ -7362,6 +7430,341 @@ def phase_featurize(card: str):
                          "num_features": FH_DIM, **fh_readings, "fused_equals_per_stage": "bit for bit"})
 
 
+def _lr_published_rows():
+    """logisticregression-benchmark.json's rows: LabeledPointWithWeightGenerator
+    at seed LR_SEED — features U[0, 1) [100,000 × 100], labels of arity 2,
+    weights U[0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(LR_SEED)
+    X = rng.random((LR_ROWS, LR_D))
+    y = rng.integers(0, 2, LR_ROWS).astype(np.float64)
+    return X, y, rng.random(LR_ROWS)
+
+
+def _reference_dense_logistic(X, y, w, iters, lr):
+    """Float64 full-batch gradient descent of the deterministic tier's
+    schedule at globalBatchSize == rows (every epoch's window is every row):
+    BinaryLogisticLoss, weighted rows, no regularization."""
+    import numpy as np
+
+    X64, ys, w64 = X.astype(np.float32).astype(np.float64), 2.0 * y - 1.0, w.astype(np.float32).astype(np.float64)
+    coef = np.zeros(X.shape[1])
+    for _ in range(iters):
+        z = (X64 @ coef) * ys
+        mult = w64 * (-ys / (1.0 + np.exp(z)))
+        coef -= lr / w64.sum() * (X64.T @ mult)
+    return coef
+
+
+def _mlp_sharded_rows():
+    """serve_mlp's rows, standardised on the host (float64 moments,
+    float32 features): the sharded MLP fit's input."""
+    import numpy as np
+
+    X, y = _mlp_rows(np.random.default_rng(MLP_SEED + 10), _mlp_population(), MLP_ROWS)
+    X = (X - X.mean(axis=0)) / X.std(axis=0, ddof=1)
+    return X.astype(np.float32), y
+
+
+def _sharded_rank(rank, world, init, backend, out_dir):
+    """One rank of a sharded world: joins the process group on the card,
+    sets train.mesh to the world size and runs the world's fits through the
+    entry points a user calls, each rank on the same whole input. Writes its
+    readings (JSON) and arrays (npz) to ``out_dir``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                            device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    try:
+        import flink_ml_tpu_torch.linalg.onehot_sparse as O
+        from flink_ml_tpu_torch.api.dataframe import DataFrame
+        from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+        from flink_ml_tpu_torch.config import Options, config
+        from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+        from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+        from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+        from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss, LeastSquareLoss
+        from flink_ml_tpu_torch.ops.optimizer import SGD
+        from flink_ml_tpu_torch.parallel.collectives import all_gather_blocks
+        from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
+
+        config.set(Options.TRAIN_MESH, world)
+        ts = resolve_train_sharding()
+        ctx = ts.ctx
+        readings = {"rank": rank, "backend": ctx.backend, "device": str(ctx.device),
+                    "host_staged": ctx.host_staged, "card_bytes": torch.cuda.mem_get_info()[1]}
+        arrays = {}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        def peak(name):
+            readings[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        # dense LogisticRegression at the published config
+        X, y, w = _lr_published_rows()
+        df = DataFrame.from_dict({"features": X, "label": y, "weight": w})
+
+        def lr(iters):
+            return (LogisticRegression().set_weight_col("weight").set_max_iter(iters)
+                    .set_global_batch_size(LR_BATCH).set_learning_rate(LR_LR).set_tol(LR_TOL))
+
+        torch.cuda.reset_peak_memory_stats()
+        model, fit_s = timed(lambda: lr(LR_ITERS).fit(df))
+        arrays["lr_coef"] = model.coefficient
+        peak("lr")
+        spans = [timed(lambda: lr(iters).fit(df))[1] for iters in SHARDED_EPOCH_ITERS]
+        readings["lr"] = {"fit_s": fit_s, "ms_per_epoch": (spans[1] - spans[0])
+                          / (SHARDED_EPOCH_ITERS[1] - SHARDED_EPOCH_ITERS[0]) * 1e3}
+
+        # KMeans at the published config
+        pts = _kmeans_published_rows()
+        kdf = DataFrame.from_dict({"features": pts})
+
+        def km(iters):
+            return KMeans().set_k(KMEANS_K).set_max_iter(iters)
+
+        model, fit_s = timed(lambda: km(KMEANS_ITERS).fit(kdf))
+        arrays["kmeans_centroids"], arrays["kmeans_weights"] = model.centroids, model.weights
+        peak("kmeans")
+        spans = [timed(lambda: km(iters).fit(kdf))[1] for iters in (KMEANS_ITERS, 2 * KMEANS_ITERS)]
+        readings["kmeans"] = {"fit_s": fit_s, "ms_per_epoch": (spans[1] - spans[0]) / KMEANS_ITERS * 1e3}
+
+        # the mapreduce all_gather at each fit's partial shape
+        gathers = {}
+        for name, shape in (("lr", (LR_BATCH // 8 // world, LR_D + 2)),
+                            ("kmeans", (-(-KMEANS_ROWS // (8 * world)), KMEANS_K, KMEANS_D + 1))):
+            part = torch.ones(shape, device=ctx.device)
+            if world > 1:
+                all_gather_blocks(part, ctx)  # warm
+                gathers[name] = timed(lambda: [all_gather_blocks(part, ctx)
+                                               for _ in range(SHARDED_GATHER_REPS)])[1] / SHARDED_GATHER_REPS * 1e3
+        readings["all_gather_ms"] = gathers
+
+        # the headline wide-sparse fit: each crossing of the form taken
+        # launched once a step on every rank, no plain crossing
+        idx, ys = _headline_data()
+        cols = {"indices": idx.astype(np.int32), "values": np.ones(idx.shape, np.float32), "labels": ys}
+        kernels = (O.DOT_CROSSING, O.MULT_CROSSING, O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+        calls, restore = _count_plain_calls()
+        try:
+            for k in kernels:
+                k.reset_launches()
+            opt = SGD(max_iter=TRAIN_ITERS, learning_rate=TRAIN_LR, global_batch_size=TRAIN_BATCH, tol=0.0)
+            coef, fit_s = timed(lambda: opt.optimize(np.zeros(TRAIN_DIM, np.float32), cols,
+                                                     BinaryLogisticLoss.INSTANCE))
+            launches = {k.name: k.launches for k in kernels}
+        finally:
+            restore()
+        arrays["sparse_coef"] = coef
+        peak("sparse")
+        readings["sparse"] = {"fit_s": fit_s, "launches": launches, "plain_calls": len(calls),
+                              "premat": opt.onehot_premat_active, "layout_s": opt.layout_seconds,
+                              "losses": opt.loss_history}
+
+        if world == SHARDED_MLP_WIDTH:
+            Xm, ym = _mlp_sharded_rows()
+            est = (MLPClassifier().set_hidden_layers(*MLP_WIDTHS[1:-1]).set_max_iter(MLP_ITERS)
+                   .set_global_batch_size(MLP_BATCH))
+            model, fit_s = timed(lambda: est.fit(DataFrame.from_dict({"features": Xm, "label": ym})))
+            peak("mlp")
+            readings["mlp"] = {"fit_s": fit_s, "losses": est.loss_history, "seed": est.get_seed(),
+                               "lr": est.get_learning_rate()}
+
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        if world == SHARDED_CKPT_WIDTH:
+            Xc, yc = _dense_ckpt_rows()
+            data = {"features": Xc, "labels": yc}
+            kw = dict(max_iter=SHARDED_CKPT_ITERS, learning_rate=CKPT_DENSE_LR,
+                      global_batch_size=SHARDED_CKPT_BATCH, tol=0.0, checkpoint_interval=CKPT_INTERVAL)
+            clean = SGD(checkpoint_manager=ShardedCheckpointManager(os.path.join(ckpt_dir, "clean"), sharding=ts),
+                        **kw).optimize(np.zeros(CKPT_DENSE_D, np.float32), data, LeastSquareLoss.INSTANCE)
+            mgr = ShardedCheckpointManager(os.path.join(ckpt_dir, "killed"), sharding=ts)
+            try:
+                SGD(checkpoint_manager=mgr, listeners=[_fail_at(SHARDED_CKPT_KILL)], **kw).optimize(
+                    np.zeros(CKPT_DENSE_D, np.float32), data, LeastSquareLoss.INSTANCE)
+                raise AssertionError("the listener did not stop the checkpointed fit")
+            except RuntimeError as e:
+                if "killed at epoch" not in str(e):
+                    raise
+            killed_steps = mgr.all_steps()
+            resumed = SGD(checkpoint_manager=mgr, **kw).optimize(
+                np.zeros(CKPT_DENSE_D, np.float32), data, LeastSquareLoss.INSTANCE)
+            arrays["ckpt_clean"], arrays["ckpt_resumed"] = clean, resumed
+            readings["ckpt"] = {"killed_steps": killed_steps, "steps": mgr.all_steps()}
+        if world == SHARDED_RESTORE_WIDTH:
+            step, state = ShardedCheckpointManager(os.path.join(ckpt_dir, "killed"), sharding=ts).restore_latest()
+            arrays["restored_coef"] = state[0].cpu().numpy()
+            readings["restored"] = {"step": step, "offset": int(state[1]), "device": str(state[0].device)}
+        np.savez(os.path.join(out_dir, f"w{world}_r{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"w{world}_r{rank}.json"), "w") as f:
+            json.dump(readings, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(card: str):
+    """Data-parallel training on train.mesh (module docstring, phase 32).
+    Returns the crossing kernels' launches over every rank of every world."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import flink_ml_tpu_torch.linalg.onehot_sparse as O
+    from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+    from flink_ml_tpu_torch.parallel.train_sharding import pick_backend
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="sharded-")
+    worlds = {}
+    for world in SHARDED_WIDTHS:
+        backend = pick_backend(world)
+        t0 = time.perf_counter()
+        mp.start_processes(_sharded_rank, args=(world, f"file://{out_dir}/init_w{world}", backend, out_dir),
+                           nprocs=world, join=True, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"w{world}_r{r}.json")) as f:
+                got = json.load(f)
+            with np.load(os.path.join(out_dir, f"w{world}_r{r}.npz")) as z:
+                got["arrays"] = {k: z[k] for k in z.files}
+            ranks.append(got)
+        worlds[world] = ranks
+        emit("sharded", card=card, world=world, backend=backend, seconds=time.perf_counter() - t0,
+             ranks=[{k: v for k, v in got.items() if k != "arrays" and k != "sparse"}
+                    | {"sparse": {k: v for k, v in got["sparse"].items() if k != "losses"}} for got in ranks])
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(what)
+
+    # every rank returns the same model, and each width the same as width 1
+    for world, ranks in worlds.items():
+        check(all(r["backend"] == ("nccl" if world == 1 else "gloo") for r in ranks),
+              f"world {world} took {[r['backend'] for r in ranks]}")
+        for got in ranks[1:]:
+            for name, a in ranks[0]["arrays"].items():
+                check(np.array_equal(a, got["arrays"][name]), f"world {world}: rank {got['rank']}'s {name} differs")
+    base = worlds[1][0]["arrays"]
+    for world in SHARDED_WIDTHS[1:]:
+        for name in ("lr_coef", "kmeans_centroids", "kmeans_weights"):
+            check(np.array_equal(worlds[world][0]["arrays"][name], base[name]),
+                  f"{name} at width {world} is not bit-equal to width 1")
+
+    # dense: float64 of the schedule (globalBatchSize is every row)
+    X, y, w = _lr_published_rows()
+    ref = _reference_dense_logistic(X, y, w, LR_ITERS, LR_LR)
+    lr_err = float(np.abs(base["lr_coef"] - ref).max())
+    # KMeans: every epoch of the width-1 deterministic program against float64
+    dev = torch.device("cuda", 0)
+    pts = _kmeans_published_rows()
+    X32 = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    pick = np.random.default_rng(KMeans().get_seed()).choice(KMEANS_ROWS, size=KMEANS_K, replace=False)
+    final, km_readings, km_ok = _kmeans_epoch_check(X32, X32[torch.from_numpy(pick).to(dev)], "euclidean",
+                                                    KMEANS_ITERS, sharded=True)
+    km_replayed = np.array_equal(final.cpu().numpy().astype(np.float64), base["kmeans_centroids"])
+    del X32
+    # sparse: each width against float64 of its own schedule
+    idx, ys = _headline_data()
+    sparse = {}
+    for world in SHARDED_WIDTHS:
+        ref_coef, ref_losses = _reference_sgd(idx, np.ones(idx.shape), ys, TRAIN_DIM, n_data=world)
+        sparse[world] = {"max_abs_err": float(np.abs(worlds[world][0]["arrays"]["sparse_coef"] - ref_coef).max()),
+                         "loss_max_rel": float(np.max(np.abs(np.asarray(worlds[world][0]["sparse"]["losses"])
+                                                             - ref_losses) / np.abs(ref_losses)))}
+    # MLP at width 2 against float64 of the width-2 schedule
+    mlp = worlds[SHARDED_MLP_WIDTH][0]["mlp"]
+    Xm, ym = _mlp_sharded_rows()
+    ref_losses, _ = _reference_mlp_fit(Xm, np.searchsorted(np.unique(ym), ym), list(MLP_WIDTHS), mlp["seed"],
+                                       mlp["lr"], MLP_BATCH, MLP_ITERS, torch.float64, dev,
+                                       n_data=SHARDED_MLP_WIDTH)
+    mlp_rel = np.abs(np.asarray(mlp["losses"]) - ref_losses) / np.abs(ref_losses)
+    # the checkpointed fit and its snapshot at width 4
+    ck = worlds[SHARDED_CKPT_WIDTH][0]
+    step, state = ShardedCheckpointManager(os.path.join(out_dir, "ckpt", "killed")).restore_latest()
+    restored = worlds[SHARDED_RESTORE_WIDTH]
+
+    # the per-row products the deterministic tier does not take: do cuBLAS's
+    # bits for a row change with the row count? (a reading)
+    Xd = torch.from_numpy(X.astype(np.float32)).to(dev)
+    coef = torch.from_numpy(base["lr_coef"]).to(dev)
+    C = torch.from_numpy(base["kmeans_centroids"].astype(np.float32)).to(dev)
+    full, full_c = Xd @ coef, Xd @ C.T
+    product_rows_differing = {
+        str(rows): {"gemv": int((Xd[:rows] @ coef != full[:rows]).sum()),
+                    "gemm_centroids": int((Xd[:rows] @ C.T != full_c[:rows]).any(dim=1).sum())}
+        for rows in (LR_ROWS // 2, LR_ROWS // 4, 8)
+    }
+    del Xd, full, full_c
+
+    launches = {}
+    for world, ranks in worlds.items():
+        for r in ranks:
+            for name, n in r["sparse"]["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    result = {
+        "widths": list(SHARDED_WIDTHS),
+        "backends": {w: worlds[w][0]["backend"] for w in SHARDED_WIDTHS},
+        "lr": {"max_abs_err_vs_float64": lr_err, "tolerance": SHARDED_COEF_TOL,
+               "ms_per_epoch": {w: [r["lr"]["ms_per_epoch"] for r in worlds[w]] for w in SHARDED_WIDTHS}},
+        "kmeans": {"epochs": km_readings, "replay_equals_fit": km_replayed,
+                   "ms_per_epoch": {w: [r["kmeans"]["ms_per_epoch"] for r in worlds[w]] for w in SHARDED_WIDTHS}},
+        "all_gather_ms": {w: worlds[w][0]["all_gather_ms"] for w in SHARDED_WIDTHS},
+        "sparse": {w: dict(sparse[w], premat=worlds[w][0]["sparse"]["premat"],
+                           launches_per_rank=[r["sparse"]["launches"] for r in worlds[w]],
+                           plain_calls=[r["sparse"]["plain_calls"] for r in worlds[w]],
+                           fit_s=[r["sparse"]["fit_s"] for r in worlds[w]],
+                           layout_s=[r["sparse"]["layout_s"] for r in worlds[w]]) for w in SHARDED_WIDTHS},
+        "mlp": {"width": SHARDED_MLP_WIDTH, "first_loss_rel": float(mlp_rel[0]), "loss_max_rel": float(mlp_rel.max()),
+                "fit_s": [r["mlp"]["fit_s"] for r in worlds[SHARDED_MLP_WIDTH]]},
+        "ckpt": dict(ck["ckpt"], resumed_equals_clean=bool(np.array_equal(ck["arrays"]["ckpt_resumed"],
+                                                                           ck["arrays"]["ckpt_clean"])),
+                     restored_at_4=[r["restored"] for r in restored]),
+        "peak_bytes": {w: [{k: v for k, v in r.items() if k.endswith("_peak_bytes")} for r in worlds[w]]
+                       for w in SHARDED_WIDTHS},
+        "card_bytes": worlds[1][0]["card_bytes"],
+        "product_rows_differing_from_the_full_batch": product_rows_differing,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit("sharded", card=card, **result)  # before the gates, so a failure shows its numbers
+    check(lr_err <= SHARDED_COEF_TOL, f"dense LR off float64 by {lr_err}")
+    check(km_ok and km_replayed, f"KMeans epochs off float64 or not the fit: {km_readings}")
+    for world in SHARDED_WIDTHS:
+        got = sparse[world]
+        check(got["max_abs_err"] <= SHARDED_COEF_TOL, f"sparse fit at width {world} off float64: {got}")
+        for r in worlds[world]:
+            got = r["sparse"]["launches"]
+            taken = sorted(n for n, c in got.items() if c)
+            form = [O.DOT_CROSSING_PREMAT.name, O.MULT_CROSSING_PREMAT.name] if r["sparse"]["premat"] \
+                else [O.DOT_CROSSING.name, O.MULT_CROSSING.name]
+            check(taken == sorted(form) and all(got[n] == TRAIN_ITERS for n in taken)
+                  and r["sparse"]["plain_calls"] == 0,
+                  f"width {world} rank {r['rank']}: crossing launches {got}, plain calls {r['sparse']['plain_calls']}")
+    check(mlp_rel[0] <= FIT_FIRST_LOSS_RTOL and mlp_rel.max() <= FIT_LOSS_RTOL,
+          f"MLP at width {SHARDED_MLP_WIDTH} off float64: {mlp_rel.tolist()}")
+    check(result["ckpt"]["resumed_equals_clean"], "the resumed fit differs from the clean one")
+    for r in restored:
+        check(r["restored"]["step"] == step and np.array_equal(r["arrays"]["restored_coef"], state[0].numpy())
+              and r["restored"]["offset"] == int(state[1]), f"width-4 restore of the snapshot differs: {r['restored']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7420,6 +7823,8 @@ def main() -> int:
     del headline, idf_model, lr_model, v2_coef, dense_rows
     record("text", phase_text(smi))
     phase_featurize(smi)
+    torch.cuda.empty_cache()
+    record("sharded", {k: n for k, n in phase_sharded(smi).items() if n})
     mlp_alone = phase_kernels_mlp(rng, smi)
     record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
     torch.cuda.empty_cache()

@@ -201,9 +201,25 @@ class Options:
         "train.mesh",
         int,
         None,
-        "Data-axis width of the sharded training mesh. The port trains on one "
-        "device: SGD raises while this is set (the sharded tier is still to "
-        "be ported, ROADMAP.md).",
+        "Data-axis width of the sharded training mesh (parallel/train_sharding.py): "
+        "the world size of the torch.distributed process group the fit runs on. "
+        "Unset: single-device training. Set, including 1: SGD and KMeans run the "
+        "deterministic sharded tier (block-cyclic deal, mapreduce collectives, "
+        "fits bit-identical across widths); the sparse and MLP fits all-reduce.",
+    )
+    TRAIN_MESH_MODEL = ConfigOption(
+        "train.mesh.model",
+        int,
+        1,
+        "Model-axis width of the sharded training mesh. The port takes only 1 "
+        "and raises on anything else (tensor parallelism is not ported, ROADMAP.md).",
+    )
+    TRAIN_MESH_HOSTS = ConfigOption(
+        "train.mesh.hosts",
+        int,
+        1,
+        "Host count of a multi-host training run. >1 requires torchrun's "
+        "environment, from which the one init_process_group call is made.",
     )
 
     @classmethod

@@ -287,35 +287,49 @@ class OneHotSparseLayout:
         local_batch: int,
         sub_rows: int = SUB_ROWS,
         max_stack_bytes: Optional[int] = None,
+        n_shards: int = 1,
+        shard: int = 0,
     ) -> Optional["OneHotSparseLayout"]:
         """Transpose a padded-CSR batch ([n, K], value 0 = padding) into
         per-(window, sub-batch) class-major stacks. With ``max_stack_bytes``,
         returns None (after the counting pass, before any stack is
-        allocated) when the stacks would exceed it. Float values pack into
-        an f32 stack."""
+        allocated) when one shard's stacks would exceed it. Float values pack
+        into an f32 stack.
+
+        On a mesh of ``n_shards`` ranks each holding its contiguous
+        ``ceil(n / n_shards)`` rows (``DeviceDataCache`` on a mesh), the
+        counting pass runs over every shard's units, so every rank derives
+        the same plan — the same ``perm``, ``class_meta`` and ``n_flat`` — from
+        the same whole host columns, and the all-reduce of the permuted
+        gradient adds like blocks; only ``shard``'s stacks are filled."""
         indices = np.asarray(indices, np.int64)
         values = np.asarray(values)
         n = indices.shape[0]
-        local_batch = min(local_batch, n)
+        m = -(-n // n_shards)  # a shard's rows (the cache pads to this)
+        local_batch = min(local_batch, m)
         sub = min(sub_rows, local_batch)
         n_sub = -(-local_batch // sub)
 
-        starts, _ = offset_schedule(n, local_batch, max(1, -(-n // local_batch)))
+        starts, _ = offset_schedule(m, local_batch, max(1, -(-m // local_batch)))
         window_starts = list(dict.fromkeys(int(s) for s in starts))
         n_windows = len(window_starts)
 
         nblk = -(-dim // BLOCK)
         validate_indices(indices, dim)
 
-        # Pass 1 (counting): per-block max entry count over every unit.
+        # Pass 1 (counting): per-block max entry count over every unit of
+        # every shard.
         max_count = np.zeros(nblk, np.int64)
-        bounds = []
-        for w0 in window_starts:
-            for b0 in range(0, local_batch, sub):
-                r0 = w0 + b0
-                r1 = min(r0 + sub, w0 + local_batch, n)
-                np.maximum(max_count, block_counts(indices[r0:r1], values[r0:r1], nblk), out=max_count)
-                bounds.append((r0, r1))
+        bounds = {}
+        for s in range(n_shards):
+            lo_s = s * m
+            for w0 in window_starts:
+                for b0 in range(0, local_batch, sub):
+                    r0 = lo_s + w0 + b0
+                    r1 = min(r0 + sub, lo_s + min(w0 + local_batch, m), n)
+                    np.maximum(max_count, block_counts(indices[r0:r1], values[r0:r1], nblk), out=max_count)
+                    if s == shard:
+                        bounds[w0, b0] = (r0, r1)
 
         plan = OneHotSparsePlan.from_max_counts(max_count, dim, sub)
         if max_stack_bytes is not None and plan.stack_bytes(n_windows * n_sub) > max_stack_bytes:
@@ -325,10 +339,9 @@ class OneHotSparseLayout:
         lidx = np.zeros(shape, np.int8)
         rowid = np.zeros(shape, np.int16)
         lvals = np.zeros(shape, np.float32 if values.dtype.kind == "f" else values.dtype)
-        unit_iter = iter(bounds)
-        for wi in range(n_windows):
+        for wi, w0 in enumerate(window_starts):
             for bi in range(n_sub):
-                r0, r1 = next(unit_iter)
+                r0, r1 = bounds[w0, bi * sub]
                 plan.fill_unit(indices[r0:r1], values[r0:r1], lidx[wi, bi], rowid[wi, bi], lvals[wi, bi])
 
         return cls(

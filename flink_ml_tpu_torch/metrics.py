@@ -2,7 +2,7 @@
 checkpoint manager bump.
 
 Twin of ``flink_ml_tpu/metrics.py``, cut to the names the serving path, the
-batch plan and the checkpoint manager publish; each name is identical to
+batch plan, the checkpoint managers and the sharded trainers publish; each name is identical to
 the JAX package's, so dashboards and tests read both packages the same way.
 A process-local registry of named gauges, counters and histograms grouped
 per scope (``ml.serving[<name>]``).
@@ -24,6 +24,14 @@ class MLMetrics:
     CHECKPOINT_QUARANTINED = "ml.checkpoint.quarantined"
     CHECKPOINT_FALLBACKS = "ml.checkpoint.fallbacks"
     CHECKPOINT_TMP_SWEPT = "ml.checkpoint.tmp.swept"
+    CHECKPOINT_SHARD_PIECES = "ml.checkpoint.shard.pieces"  # per-shard leaves written, counter
+
+    # Sharded-training counters (scope = TRAIN_GROUP, process-global:
+    # parallel/train_sharding.py). Each rank counts its own process's fits.
+    TRAIN_GROUP = "ml.train"
+    TRAIN_SHARD_INGEST_ROWS = "ml.train.shard.ingest.rows"  # rows dealt onto the mesh, counter
+    TRAIN_SHARD_PAD_ROWS = "ml.train.shard.pad.rows"  # zero-mask padding rows, counter
+    TRAIN_SHARDED_FITS = "ml.train.sharded.fits"  # fits run on the deterministic tier, counter
 
     # Online-serving runtime (scope = "ml.serving[<server name>]").
     SERVING_GROUP = "ml.serving"

@@ -1,5 +1,5 @@
 """MLP classifier — twin of ``flink_ml_tpu/models/classification/mlp_classifier.py``
-on one device.
+on one device or a mesh.
 
 A fully connected relu network with a softmax head, trained by minibatch
 adam on softmax cross-entropy. The network is an ``nn.Module`` that keeps
@@ -18,8 +18,16 @@ end. ``computeType=bfloat16`` casts each matrix product's operands to
 bfloat16, as ``_forward`` does in the JAX package; parameters, optimizer
 state and loss stay float32.
 
-Not ported yet, each raising an error that names ROADMAP.md: ``fit_stream``
-(the host-tier cache) and the sharded ``train.mesh`` tier.
+On ``train.mesh`` (JAX :317-345) the mesh is a data-parallel knob: every
+rank is handed the whole input and uploads its contiguous share
+(``DeviceDataCache`` on the mesh); each epoch it takes ``ceil(B / N)`` rows
+of its share, all-reduces the packed gradients, weight and loss sums, and
+every rank runs the same adam step. The global minibatch changes with the
+width and the all-reduce sums in the library's order, so this fit is outside
+the bit contract of SGD and KMeans, as it is in the JAX package.
+
+Not ported yet, raising an error that names ROADMAP.md: ``fit_stream`` (the
+host-tier cache, queue A 7).
 """
 from __future__ import annotations
 
@@ -34,10 +42,13 @@ from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.models.common import extract_labeled_data
 from flink_ml_tpu_torch.ops.kernels import mlp_predict_fn
 from flink_ml_tpu_torch.ops.optimizer import _batch_rows, fused_chunk_len
 from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
+from flink_ml_tpu_torch.parallel.collectives import all_reduce_packed
+from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
 from flink_ml_tpu_torch.params.param import (
     IntArrayParam,
     ParamValidators,
@@ -108,10 +119,11 @@ class _MlpParams(
         return torch.bfloat16 if self.get_compute_type() == "bfloat16" else None
 
 
-def _mlp_flops_per_epoch(dims: Sequence[int], local_batch: int) -> float:
-    """Matrix-product FLOPs of one minibatch epoch (forward 2 + backward 4
-    per weight per row): the chunk-length cost model's input."""
-    return 6.0 * local_batch * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+def _mlp_flops_per_epoch(dims: Sequence[int], local_batch: int, n_data: int = 1) -> float:
+    """Matrix-product FLOPs of one global minibatch epoch (forward 2 +
+    backward 4 per weight per row): the chunk-length cost model's input."""
+    return 6.0 * local_batch * n_data * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
 
 
 def _init_params(rng: np.random.Generator, dims: List[int]) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -269,18 +281,21 @@ class MLPClassifier(Estimator, _MlpParams):
         data = extract_labeled_data(df, self.get_features_col(), self.get_label_col(), None)
         classes = np.unique(data["labels"])
         y_idx = np.searchsorted(classes, data["labels"]).astype(np.float32)
+        ts = resolve_train_sharding(device)
         cache = DeviceDataCache(
-            {"x": data["features"], "y": y_idx, "w": data["weights"]}, device=device
+            {"x": data["features"], "y": y_idx, "w": data["weights"]}, device=device,
+            ctx=None if ts is None else ts.ctx,
         )
-        return self.fit_cache(cache, classes)
+        model = self.fit_cache(cache, classes)
+        if ts is not None:
+            metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
+        return model
 
     def fit_cache(self, cache: DeviceDataCache, classes: np.ndarray) -> MLPClassifierModel:
         """The resident fit on ``cache``: columns ``x`` [n, d] float32, ``y``
-        [n] the class index (float32) into ``classes``, ``w`` [n] weights."""
-        from flink_ml_tpu_torch.config import Options, config
-
-        if config.get(Options.TRAIN_MESH):
-            raise NotImplementedError(f"train.mesh is set: sharded MLP training {_NOT_PORTED}")
+        [n] the class index (float32) into ``classes``, ``w`` [n] weights.
+        A cache on a mesh trains data-parallel over its ranks."""
+        ctx = cache.ctx
         X, y, w = cache["x"], cache["y"], cache["w"]
         dims = [int(X.shape[1]), *[int(h) for h in self.get_hidden_layers()], len(classes)]
         net = _MLP(_init_params(np.random.default_rng(self.get_seed()), dims), cache.device)
@@ -288,12 +303,12 @@ class MLPClassifier(Estimator, _MlpParams):
         lr = self.get_learning_rate()
         mu = [torch.zeros_like(p) for p in params]
         nu = [torch.zeros_like(p) for p in params]
-        local_batch = min(self.get_global_batch_size(), cache.local_rows)
+        local_batch = min(-(-self.get_global_batch_size() // cache.n_data), cache.local_rows)
         tol = self.get_tol()
         check_loss = bool(np.isfinite(tol) and tol > 0)
         max_iter = self.get_max_iter()
         chunk = fused_chunk_len(
-            max_iter, check_loss, flops_per_epoch=_mlp_flops_per_epoch(dims, local_batch)
+            max_iter, check_loss, flops_per_epoch=_mlp_flops_per_epoch(dims, local_batch, cache.n_data)
         )
         compute_dtype = self._compute_dtype()
         starts, offsets = offset_schedule(cache.local_rows, local_batch, max_iter)
@@ -313,7 +328,9 @@ class MLPClassifier(Estimator, _MlpParams):
                 loss_sum = torch.sum(losses * wb)
                 grads = torch.autograd.grad(loss_sum, params)
                 with torch.no_grad():
-                    safe_w = torch.clamp(torch.sum(wb), min=1e-30)
+                    # JAX _epoch_math's psum of (grads, [weight, loss]), packed
+                    *grads, loss_sum, wsum = all_reduce_packed([*grads, loss_sum.detach(), torch.sum(wb)], ctx)
+                    safe_w = torch.clamp(wsum, min=1e-30)
                     # optax's count advances on executed epochs only; once
                     # ``done``, no later epoch of the run is kept anyway
                     t += 1

@@ -1,5 +1,5 @@
 """K-means clustering — twin of ``flink_ml_tpu/models/clustering/kmeans.py``
-on one device.
+on one device or a mesh.
 
 fit: ``k`` rows drawn as the initial centroids by
 ``np.random.default_rng(seed).choice(n, k, replace=False)`` on the host, as
@@ -19,8 +19,18 @@ the one readback is the final model's.
 model data is ``centroids [k, d]`` and ``weights [k]`` (the last epoch's
 cluster sizes).
 
-Not ported yet, each raising an error that names ROADMAP.md: ``fit_stream``
-(the host-tier cache) and the sharded ``train.mesh`` tier.
+On ``train.mesh`` (JAX :263-275) every rank is handed the whole input and
+the fit runs the deterministic tier: the points dealt block-cyclically
+(``TrainSharding.deal_cache``), and per epoch each point's ``[one_hot ·
+x | one_hot]`` contribution folded through ``collectives.mapreduce_sum``
+(``_sharded_epoch_tot``) before the same update. The closest centroid comes
+from distances whose every sum is ``row_fold_sum``'s pairwise fold over d
+(``_fixed_order_pairwise``), never a product whose algorithm depends on the
+local batch, so an assignment cannot flip with the width: centroids and
+counts are bit-identical at every width.
+
+Not ported yet, raising an error that names ROADMAP.md: ``fit_stream`` (the
+host-tier cache, queue A 7).
 """
 from __future__ import annotations
 
@@ -33,8 +43,11 @@ from flink_ml_tpu_torch.api.core import Estimator, Model
 from flink_ml_tpu_torch.api.types import DataTypes
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.models.common import ModelArraysMixin
 from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+from flink_ml_tpu_torch.parallel.collectives import BLOCK_ROWS, block_partials, fold_partials, row_fold_sum
+from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
 from flink_ml_tpu_torch.params.param import ParamValidators, StringParam, update_existing_params
 from flink_ml_tpu_torch.params.shared import (
     HasDistanceMeasure,
@@ -67,6 +80,64 @@ def _epoch_update(measure: DistanceMeasure, k: int, centroids: torch.Tensor,
     sums, counts = _assign_partials(measure, k, centroids, X, mask)
     safe = torch.clamp_min(counts, 1.0)[:, None]
     return torch.where(counts[:, None] > 0, sums / safe, centroids), counts
+
+
+#: Elements of one chunk of the sharded epoch's ``[rows, k, d]`` tensors;
+#: chunks are whole 8-row blocks, so the chunking leaves every bit as it is.
+_SHARDED_CHUNK_ELEMENTS = 1 << 24
+
+
+def _fixed_order_pairwise(measure_name: str, X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """[rows, d] × [k, d] → [rows, k] distances, each of the measure's sums
+    (``ops/distance.py``'s formulas in their order) taken by ``row_fold_sum``
+    over d: a row's distances are the same bits whatever rows surround it."""
+    if measure_name == "manhattan":
+        return row_fold_sum(torch.abs(X[:, None, :] - C[None, :, :]))
+    dots = row_fold_sum(X[:, None, :] * C[None, :, :])
+    p2, c2 = row_fold_sum(X * X), row_fold_sum(C * C)
+    if measure_name == "euclidean":
+        return torch.sqrt(torch.clamp_min(p2[:, None] + c2[None, :] - 2.0 * dots, 0.0))
+    if measure_name == "cosine":
+        return 1.0 - dots / torch.sqrt(p2)[:, None] / torch.sqrt(c2)[None, :]
+    raise ValueError(f"distanceMeasure {measure_name} is not recognized")
+
+
+def _sharded_epoch_tot(measure_name: str, k: int, centroids: torch.Tensor, X: torch.Tensor,
+                       mask: torch.Tensor, ctx) -> torch.Tensor:
+    """The replicated totals ``[k, d+1]`` of one epoch (``tot[:, :-1]``
+    sums, ``tot[:, -1]`` counts): each point's ``[one_hot·x | one_hot]``
+    folded by ``mapreduce_sum`` — bit-identical at every width for the same
+    global point order. The rank's rows go through in chunks of whole 8-row
+    blocks, so ``[rows, k, d + 1]`` is bounded."""
+    rows, d = X.shape
+    step = max(BLOCK_ROWS, _SHARDED_CHUNK_ELEMENTS // max(1, k * (d + 1)) // BLOCK_ROWS * BLOCK_ROWS)
+    arange = torch.arange(k, device=X.device)
+    parts = []
+    for r0 in range(0, rows, step):
+        x, m = X[r0:r0 + step], mask[r0:r0 + step]
+        assign = torch.argmin(_fixed_order_pairwise(measure_name, x, centroids), dim=1)
+        hot = (assign[:, None] == arange).to(X.dtype) * m[:, None]
+        aug = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+        parts.append(block_partials(hot[:, :, None] * aug[:, None, :]))
+    return fold_partials(torch.cat(parts), ctx)
+
+
+def _tot_update(tot: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The centroid update from the totals: ``_epoch_update``'s rule."""
+    sums, counts = tot[:, :-1], tot[:, -1]
+    safe = torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where(counts[:, None] > 0, sums / safe, centroids), counts
+
+
+def _sharded_train_loop(measure_name: str, k: int, n_epochs: int, centroids: torch.Tensor,
+                        X: torch.Tensor, mask: torch.Tensor, ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deterministic tier's ``_train_loop``: ``n_epochs`` epochs through
+    ``_sharded_epoch_tot``, the same on every rank."""
+    counts = torch.zeros(k, dtype=X.dtype, device=X.device)
+    for _ in range(n_epochs):
+        centroids, counts = _tot_update(_sharded_epoch_tot(measure_name, k, centroids, X, mask, ctx),
+                                        centroids)
+    return centroids, counts
 
 
 def _train_loop(measure_name: str, k: int, n_epochs: int, centroids: torch.Tensor,
@@ -124,32 +195,52 @@ class KMeans(Estimator, HasFeaturesCol, HasPredictionCol, HasDistanceMeasure, Ha
         return self.set(self.INIT_MODE, value)
 
     def fit(self, *inputs, device=None) -> KMeansModel:
-        """Cluster the features column on ``device`` (None → the GPU)."""
+        """Cluster the features column on ``device`` (None → the GPU; on a
+        mesh, this rank's card)."""
         (df,) = inputs
         X = df.vectors(self.get_features_col()).astype(np.float32)
         self._check_rows(X.shape[0])  # before anything reaches the device
+        ts = resolve_train_sharding(device)
+        if ts is not None:
+            return self._fit_sharded(X, ts)
         return self.fit_cache(DeviceDataCache({"x": X}, device=device))
 
-    def fit_cache(self, cache: DeviceDataCache) -> KMeansModel:
-        """The resident fit on ``cache``'s column ``x`` [n, d] float32."""
-        from flink_ml_tpu_torch.config import Options, config
+    def _initial_rows(self, n: int) -> np.ndarray:
+        """The random-sample init (``KMeans.selectRandomCentroids``): ``k``
+        row indices drawn on the host as the JAX package draws them."""
+        return np.random.default_rng(self.get_seed()).choice(n, size=self.get_k(), replace=False)
 
-        if config.get(Options.TRAIN_MESH):
-            raise NotImplementedError(f"train.mesh is set: sharded KMeans training {_NOT_PORTED}")
+    def _fit_sharded(self, X: np.ndarray, ts) -> KMeansModel:
+        """The deterministic tier: the points dealt over ``ts``'s ranks and
+        every epoch reduced by the mapreduce tier."""
         k = self.get_k()
-        self._check_rows(cache.n_valid)
-        resolve_device(cache.device)  # float32 products stay in full float32 (TF32 off)
-        pick = np.random.default_rng(self.get_seed()).choice(cache.n_valid, size=k, replace=False)
-        X = cache["x"]
-        init = X[torch.from_numpy(pick).to(X.device)]
+        cache = ts.deal_cache({"x": X})
+        init = ts.replicate(X[self._initial_rows(X.shape[0])])
         with torch.no_grad():
-            centroids, counts = _train_loop(self.get_distance_measure(), k, self.get_max_iter(),
-                                            init, X, cache.mask)
+            centroids, counts = _sharded_train_loop(self.get_distance_measure(), k, self.get_max_iter(),
+                                                    init, cache["x"], cache.mask, ts.ctx)
+        metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
+        return self._model(centroids, counts)
+
+    def _model(self, centroids: torch.Tensor, counts: torch.Tensor) -> KMeansModel:
         model = KMeansModel()
         update_existing_params(model, self)
         model.centroids = centroids.cpu().numpy().astype(np.float64)
         model.weights = counts.cpu().numpy().astype(np.float64)
         return model
+
+    def fit_cache(self, cache: DeviceDataCache) -> KMeansModel:
+        """The resident single-device fit on ``cache``'s column ``x`` [n, d]
+        float32 (``fit`` takes the sharded tier under ``train.mesh``)."""
+        k = self.get_k()
+        self._check_rows(cache.n_valid)
+        resolve_device(cache.device)  # float32 products stay in full float32 (TF32 off)
+        X = cache["x"]
+        init = X[torch.from_numpy(self._initial_rows(cache.n_valid)).to(X.device)]
+        with torch.no_grad():
+            centroids, counts = _train_loop(self.get_distance_measure(), k, self.get_max_iter(),
+                                            init, X, cache.mask)
+        return self._model(centroids, counts)
 
     def _check_rows(self, n: int) -> None:
         if n < self.get_k():

@@ -1,4 +1,5 @@
-"""Minibatch SGD on one device — twin of ``flink_ml_tpu/ops/optimizer.py``.
+"""Minibatch SGD on one device or a mesh of ranks — twin of
+``flink_ml_tpu/ops/optimizer.py``.
 
 Reference: ``SGD.java`` — per epoch the next ``globalBatchSize`` rows of the
 cached data (``nextBatchOffset`` cycling), the feedback ``[gradSum,
@@ -33,9 +34,24 @@ function on the same slices: on the CPU its coefficient is bit-equal to the
 fused fit's, and on the card the dense step's is (the scatter step's
 ``index_add_`` sums by atomics there).
 
-Not ported yet, each raising an error that names ROADMAP.md: the sharded
-``train.mesh`` tier (and with it tensor parallelism and multi-slice), and
-streamed (``HostDataCache``) fits.
+On a mesh (``train.mesh``, an explicit ``sharding`` or ``ctx``; JAX
+``optimize`` :972-1016) every rank is handed the whole input, uploads only
+its own rows and returns the same coefficient:
+
+- a dense fused fit with a ``TrainSharding`` runs the deterministic tier
+  (``_optimize_deterministic``): the rows dealt block-cyclically, per-row
+  ``[mult·x | w | loss]`` folded through ``collectives.mapreduce_sum``, the
+  margin summed by ``row_fold_sum`` — bit-identical at every width;
+- every other fit (sparse scatter and one-hot, the host loop with a
+  checkpoint manager or listeners, a ``ctx`` mesh) runs the psum paths: each
+  rank takes ``ceil(B / N)`` rows of its contiguous share per epoch and
+  all-reduces the packed ``[grad | weight | loss]``. Their global minibatch
+  changes with the width, as in the JAX package, so they are held to the
+  JAX package at the same width. The one-hot layout's plan is counted over
+  every rank's rows, so every rank permutes the gradient alike.
+
+Not ported yet, each raising an error that names ROADMAP.md: tensor
+parallelism (``train.mesh.model`` > 1) and streamed (``HostDataCache``) fits.
 """
 from __future__ import annotations
 
@@ -45,10 +61,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.ops.lossfunc import LossFunc
 from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
+from flink_ml_tpu_torch.parallel.collectives import all_reduce_packed, mapreduce_sum, row_fold_sum, rowwise
+from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
 
 __all__ = ["Optimizer", "SGD", "fused_chunk_len", "regularize"]
 
@@ -96,11 +116,10 @@ def _batch_rows(y, w, mask, start: int, offset: int, local_batch: int):
     return y[rows], w[rows] * mask[rows] * tail_valid
 
 
-def _sgd_epoch_math(coef, start: int, offset: int, feats, y, w, mask, loss_func,
-                    local_batch: int, lr: float, reg: float, elastic_net: float):
-    """One epoch of dense or scatter-path sparse SGD. ``feats`` is a dense
-    [m, d] tensor or a padded-CSR ``(indices [m, K], values [m, K])`` pair.
-    Returns ``(new_coef, mean_loss)``."""
+def _sgd_partials(coef, start: int, offset: int, feats, y, w, mask, loss_func, local_batch: int):
+    """A rank's ``(grad, weight_sum, loss_sum)`` of one dense or
+    scatter-path sparse epoch. ``feats`` is a dense [m, d] tensor or a
+    padded-CSR ``(indices [m, K], values [m, K])`` pair."""
     yb, wb = _batch_rows(y, w, mask, start, offset, local_batch)
     if isinstance(feats, tuple):
         # Padding slots (index 0, value 0) and zero-weight rows add 0.
@@ -113,7 +132,33 @@ def _sgd_epoch_math(coef, start: int, offset: int, feats, y, w, mask, loss_func,
         loss_sum, grad = loss_func.loss_and_grad_sum(
             coef, feats[start:start + local_batch], yb, wb
         )
-    return _apply_update(coef, grad, torch.sum(wb), loss_sum, lr, reg, elastic_net)
+    return grad, torch.sum(wb), loss_sum
+
+
+def _sgd_epoch_math(coef, start: int, offset: int, feats, y, w, mask, loss_func,
+                    local_batch: int, lr: float, reg: float, elastic_net: float, ctx=None):
+    """One epoch of dense or scatter-path sparse SGD, the packed ``[grad |
+    weight | loss]`` all-reduced over ``ctx``'s ranks (JAX
+    ``optimizer.py:259-268``). Returns ``(new_coef, mean_loss)``."""
+    grad, wsum, loss_sum = all_reduce_packed(
+        _sgd_partials(coef, start, offset, feats, y, w, mask, loss_func, local_batch), ctx
+    )
+    return _apply_update(coef, grad, wsum, loss_sum, lr, reg, elastic_net)
+
+
+def _deterministic_epoch_math(coef, start: int, X, y, w, mask, loss_func, local_batch: int,
+                              lr: float, reg: float, elastic_net: float, ctx=None):
+    """One epoch of the deterministic tier (JAX ``_sgd_epoch_math``'s
+    ``deterministic`` branch, :205-221): per-row ``[mult·x | w | loss]``
+    reduced by ``mapreduce_sum``'s block/tree fold, the margin by
+    ``row_fold_sum`` and the loss by ``rowwise`` — every sum in an order set
+    by the global batch and d, and every row's arithmetic the same, whatever
+    the local batch. The window never clamps (start == offset)."""
+    Xb = X[start:start + local_batch]
+    yb, wb = _batch_rows(y, w, mask, start, start, local_batch)
+    row_loss, mult = rowwise(loss_func.row_loss_and_mult, row_fold_sum(Xb * coef), yb, wb)
+    packed = mapreduce_sum(torch.cat([mult[:, None] * Xb, wb[:, None], row_loss[:, None]], dim=1), ctx)
+    return _apply_update(coef, packed[:-2], packed[-2], packed[-1], lr, reg, elastic_net)
 
 
 _TOL_CHUNK = 64  # epochs per readback when a tol criteria is active
@@ -165,7 +210,11 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class SGD(Optimizer):
-    """Minibatch SGD on one device (``device`` None → the GPU)."""
+    """Minibatch SGD on one device (``device`` None → the GPU) or a mesh.
+
+    ``sharding``: a ``TrainSharding`` (the deterministic tier for dense
+    fused fits); ``ctx``: a ``MeshContext`` (the psum paths). Neither given,
+    ``train.mesh`` decides per fit; one of them, not both."""
 
     def __init__(
         self,
@@ -182,7 +231,11 @@ class SGD(Optimizer):
         listeners=(),
         sparse_kernel: str = "auto",
         onehot_premat: str = "auto",
+        ctx=None,
+        sharding=None,
     ):
+        if sharding is not None and ctx is not None:
+            raise ValueError("pass ctx or sharding, not both")
         if sparse_kernel not in ("auto", "onehot", "scatter"):
             raise ValueError(
                 f"sparse_kernel must be 'auto', 'onehot' or 'scatter', got {sparse_kernel!r}"
@@ -208,13 +261,15 @@ class SGD(Optimizer):
         self.checkpoint_manager = checkpoint_manager
         self.checkpoint_interval = checkpoint_interval
         self.listeners = list(listeners)
+        self.ctx = ctx
+        self.sharding = sharding
         self.loss_history: List[float] = []
 
-    def _run_fingerprint(self, loss_func, rows: int, dim: int) -> str:
+    def _run_fingerprint(self, loss_func, rows: int, dim: int, n_data: int = 1) -> str:
         """Run/config identity recorded with checkpoints: a different job
         pointed at the same directory fails loudly instead of resuming stale
-        state. The JAX package's string for the same fit (one device:
-        ``n_data = n_model = 1``)."""
+        state. The JAX package's string for the same fit on ``n_data``
+        shards."""
         import hashlib
         import json
 
@@ -228,7 +283,7 @@ class SGD(Optimizer):
             "elastic_net": self.elastic_net,
             "rows": rows,
             "dim": dim,
-            "n_data": 1,
+            "n_data": n_data,
             "n_model": 1,
         }
         return hashlib.sha256(json.dumps(sig, sort_keys=True).encode()).hexdigest()[:16]
@@ -244,14 +299,13 @@ class SGD(Optimizer):
         ``train_data``: a DeviceDataCache or a dict of host columns with
         ``labels`` [n], optional ``weights`` [n], and either dense
         ``features`` [n, d] or padded-CSR ``indices``/``values`` [n, K]."""
-        from flink_ml_tpu_torch.config import Options, config
-
-        if config.get(Options.TRAIN_MESH):
-            raise NotImplementedError(
-                f"train.mesh is set: sharded training (and tensor parallelism) {_NOT_PORTED}"
-            )
+        ts = self.sharding
+        if ts is None and self.ctx is None:
+            ts = resolve_train_sharding(self.device)
+        ctx = self.ctx or (ts.ctx if ts is not None else None)
         self.onehot_premat_active = False
         self.layout_seconds = 0.0
+        fused = self.checkpoint_manager is None and not self.checkpoint_interval and not self.listeners
         if isinstance(train_data, Mapping):
             cols = dict(train_data)
             if "indices" not in cols and self.sparse_kernel == "onehot":
@@ -261,16 +315,24 @@ class SGD(Optimizer):
                 )
             if "weights" not in cols:
                 cols["weights"] = np.ones(np.asarray(cols["labels"]).shape[0])
+            if ts is not None and "features" in cols and fused:
+                # The deterministic tier: dense fused fits ingest under the
+                # block-cyclic deal and reduce width-invariantly. Sparse and
+                # checkpointed/listener fits run the psum paths below on the
+                # same mesh.
+                return self._optimize_deterministic(init_model, cols, loss_func, ts)
             np_dtype = _NP_DTYPES[self.dtype]
             train_data = DeviceDataCache(
                 {k: np.asarray(v, np.int32 if k == "indices" else np_dtype) for k, v in cols.items()},
-                device=resolve_device(self.device),
+                device=None if ctx is not None else resolve_device(self.device), ctx=ctx,
             )
         elif not isinstance(train_data, DeviceDataCache):
             raise TypeError(
                 f"train_data must be a DeviceDataCache or a dict of columns, got "
                 f"{type(train_data).__name__}; streamed (HostDataCache) fits {_NOT_PORTED}"
             )
+        else:
+            ctx = train_data.ctx  # the cache's layout decides the mesh
         sparse = "indices" in train_data.arrays
         if not sparse and self.sparse_kernel == "onehot":
             raise ValueError(
@@ -278,10 +340,10 @@ class SGD(Optimizer):
                 "training data; this fit has dense features"
             )
         dim = int(np.asarray(init_model).shape[0])
-        local_batch = min(self.global_batch_size, train_data.local_rows)
+        n_data = train_data.n_data
+        local_batch = min(-(-self.global_batch_size // n_data), train_data.local_rows)
         check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
 
-        fused = self.checkpoint_manager is None and not self.checkpoint_interval and not self.listeners
         if not fused and sparse and self.sparse_kernel == "onehot":
             raise ValueError(
                 "sparse_kernel='onehot' runs only on the fused path; remove "
@@ -304,15 +366,48 @@ class SGD(Optimizer):
 
         def epoch(coef, start, offset):
             return _sgd_epoch_math(coef, start, offset, feats, y, w, mask, loss_func,
-                                   local_batch, lr, reg, en)
+                                   local_batch, lr, reg, en, ctx)
 
         coef = torch.as_tensor(np.asarray(init_model, _NP_DTYPES[self.dtype]), device=train_data.device)
         if not fused:
             return self._optimize_host_loop(coef, train_data, loss_func, local_batch, check_loss, epoch)
+        starts, offsets = offset_schedule(train_data.local_rows, local_batch, self.max_iter)
         coef = self._run_chunks(
-            coef, train_data.local_rows, local_batch,
-            fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
+            coef, starts, offsets, fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
         )
+        return coef.cpu().numpy()
+
+    def _optimize_deterministic(self, init_model, cols, loss_func, ts) -> np.ndarray:
+        """Dense fused SGD on the deterministic tier (JAX :1132).
+
+        The rows ingest once under the block-cyclic deal and every epoch
+        reduces through ``mapreduce_sum``: for a rounded global batch B the
+        fit is bit-identical at every width (the batch rounds up to the
+        quantum 8·N; pick B a multiple of 8·N_max to compare widths). Epoch e
+        consumes the global window [e·B mod n', +B) of the padded set, which
+        the deal makes the contiguous local window [start / N, +B / N) on
+        every rank."""
+        n = int(np.asarray(cols["labels"]).shape[0])
+        B = ts.round_batch(min(self.global_batch_size, max(n, 1)))
+        np_dtype = _NP_DTYPES[self.dtype]
+        cache = ts.deal_cache({k: np.asarray(v, np_dtype) for k, v in cols.items()},
+                              global_batch=B, dtype=np_dtype)
+        local_batch = cache.local_batch
+        check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
+        X, y, w = cache["features"], cache["labels"], cache["weights"]
+        mask = cache.mask.to(self.dtype)
+        lr, reg, en, ctx = self.learning_rate, self.reg, self.elastic_net, ts.ctx
+
+        def epoch(coef, start, _offset):
+            return _deterministic_epoch_math(coef, start, X, y, w, mask, loss_func, local_batch,
+                                             lr, reg, en, ctx)
+
+        # n' is a multiple of B, so the window never wraps or clamps
+        starts = ((np.arange(self.max_iter, dtype=np.int64) * B) % cache.n_padded // ts.n_data).astype(np.int32)
+        coef = ts.replicate(np.asarray(init_model, np_dtype))
+        coef = self._run_chunks(coef, starts, starts, fused_chunk_len(self.max_iter, check_loss),
+                                check_loss, epoch)
+        metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
         return coef.cpu().numpy()
 
     def _optimize_host_loop(self, coef, train_data, loss_func, local_batch: int,
@@ -330,9 +425,16 @@ class SGD(Optimizer):
             iterate_bounded_until_termination,
         )
 
-        if self.checkpoint_manager is not None:
-            self.checkpoint_manager.set_fingerprint(
-                self._run_fingerprint(loss_func, int(train_data.n_valid), int(coef.shape[0]))
+        mgr = self.checkpoint_manager
+        if mgr is not None and train_data.n_data > 1 and not isinstance(mgr, ShardedCheckpointManager):
+            raise ValueError(
+                "a checkpointed fit on a mesh of several ranks needs a ShardedCheckpointManager "
+                "(rank 0 writes, the others wait); a CheckpointManager would be written by every rank"
+            )
+        if mgr is not None:
+            mgr.set_fingerprint(
+                self._run_fingerprint(loss_func, int(train_data.n_valid), int(coef.shape[0]),
+                                      train_data.n_data)
             )
         m = train_data.local_rows
         criteria = TerminateOnMaxIterOrTol(self.max_iter, self.tol)
@@ -361,12 +463,13 @@ class SGD(Optimizer):
             self.loss_history = [float(x) for x in torch.stack(self.loss_history).cpu().numpy()]
         return outputs[0].cpu().numpy()
 
-    def _run_chunks(self, coef, m: int, local_batch: int, chunk: int, check_loss: bool,
+    def _run_chunks(self, coef, starts, offsets, chunk: int, check_loss: bool,
                     epoch: Callable) -> torch.Tensor:
-        """Run the epochs in chunks of ``chunk``: ``done``, the losses and
-        the executed count stay on the device within a chunk, and the host
-        reads them once at its end. Fills ``loss_history``."""
-        starts, offsets = offset_schedule(m, local_batch, self.max_iter)
+        """Run the epochs of the schedule ``(starts, offsets)`` in chunks of
+        ``chunk``: ``done``, the losses and the executed count stay on the
+        device within a chunk, and the host reads them once at its end. The
+        losses are the reduced ones, the same on every rank, so every rank
+        stops at the same epoch. Fills ``loss_history``."""
         tol = self.tol if check_loss else None
         done = torch.zeros((), dtype=torch.bool, device=coef.device)
         self.loss_history = []
@@ -405,9 +508,10 @@ class SGD(Optimizer):
     def _pick_onehot(self, sparse, train_data, local_batch, dim) -> bool:
         """Whether a sparse fit runs the one-hot path: forced by
         ``sparse_kernel='onehot'``, forbidden by ``'scatter'``; under
-        ``'auto'`` for wide coefficients (``dim >= 2^14``), batches of at
-        least 2^16 index slots and at most 64 windows. f32 only: the
-        crossings carry values as split-bf16 pairs."""
+        ``'auto'`` for wide coefficients (``dim >= 2^14``), at least 2^16
+        index slots over the whole (padded) data set and at most 64 windows,
+        so every rank of a mesh decides alike. f32 only: the crossings carry
+        values as split-bf16 pairs."""
         if not sparse or self.sparse_kernel == "scatter":
             return False
         host = train_data.host_columns
@@ -422,7 +526,7 @@ class SGD(Optimizer):
         n_windows = -(-train_data.local_rows // local_batch)
         return (
             feasible
-            and int(train_data["indices"].numel()) >= 1 << 16
+            and int(train_data["indices"].numel()) * train_data.n_data >= 1 << 16
             and n_windows <= self._ONEHOT_MAX_WINDOWS
             and dim >= self._ONEHOT_MIN_DIM
         )
@@ -436,16 +540,18 @@ class SGD(Optimizer):
 
         from flink_ml_tpu_torch.linalg.onehot_sparse import OneHotSparseLayout, row_order
 
-        key = (dim, local_batch)
+        key = (dim, local_batch)  # a cache's mesh and rank never change
         memo = train_data._onehot_memo
         if memo is not None and memo[0] == key and (memo[2] is not None or not force):
             return memo[1], memo[2]
         dev = train_data.device
         budget = None if force else int(self._ONEHOT_HBM_FRACTION * _hbm_bytes_limit(dev))
         t0 = time.perf_counter()
+        ctx = train_data.ctx
         lay = OneHotSparseLayout.build(
             train_data.host_columns["indices"], train_data.host_columns["values"],
             dim, local_batch, max_stack_bytes=budget,
+            n_shards=train_data.n_data, shard=0 if ctx is None else ctx.rank,
         )
         self.layout_seconds = time.perf_counter() - t0
         if lay is None:
@@ -511,7 +617,7 @@ class SGD(Optimizer):
         y, w = train_data["labels"], train_data["weights"]
         mask = train_data.mask
         pad = lay.n_sub * lay.sub_batch - local_batch
-        lr, reg, en = self.learning_rate, self.reg, self.elastic_net
+        lr, reg, en, ctx = self.learning_rate, self.reg, self.elastic_net, train_data.ctx
 
         def epoch(coef_perm, start, offset):
             wi = win_of[start]
@@ -524,10 +630,10 @@ class SGD(Optimizer):
                 premat=(oh[0], oh[1], wi) if premat else None,
                 order=None if premat else (row_ptr[wi], entry_of[wi]),
             )
+            grad, loss_sum, wsum = all_reduce_packed((grad, loss_sum, wsum), ctx)
             return _apply_update(coef_perm, grad, wsum, loss_sum, lr, reg, en)
 
         coef = torch.from_numpy(lay.permute_coef(np.asarray(init_model, np.float32)))
-        coef = self._run_chunks(
-            coef.to(train_data.device), train_data.local_rows, local_batch, chunk, check_loss, epoch,
-        )
+        starts, offsets = offset_schedule(train_data.local_rows, local_batch, self.max_iter)
+        coef = self._run_chunks(coef.to(train_data.device), starts, offsets, chunk, check_loss, epoch)
         return lay.unpermute_coef(coef.cpu().numpy())

@@ -10,8 +10,9 @@ tensors, the plain fold for CPU tensors. Gradients flow through it all: the
 transposes, the fold (an ``autograd.Function`` whose backward is the two
 backward kernels on the card, the plain VJP on the CPU) and
 ``acc / clamp(l, 1e-30)``. Rotating K/V over ranks (``torch.distributed``
-send/recv) comes with the port's collectives (ROADMAP.md Queue A 6); the
-fold already takes the global positions a rotation would give it.
+send/recv over the training mesh of ``parallel/mesh.py``) is the part of
+ROADMAP.md Queue A 6 still to come; the fold already takes the global
+positions a rotation would give it.
 """
 from __future__ import annotations
 

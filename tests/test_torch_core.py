@@ -196,7 +196,7 @@ def test_config_options_share_keys_defaults_and_env_names():
         "fusion.mode", "fusion.megakernel", "fusion.megakernel.min.score",
         "sparse.fastpath", "sparse.nnz.cap.max", "sparse.warmup.caps",
         "batch.fastpath", "batch.chunk.rows", "batch.prefetch.depth", "batch.mesh", "batch.mesh.model",
-        "train.mesh",
+        "train.mesh", "train.mesh.model", "train.mesh.hosts",
     }
     for key, opt in port.items():
         assert opt.default == ref[key].default, key

@@ -2583,3 +2583,27 @@ def test_text_pipeline_served_on_the_card(cuda, tmp_path):
             assert metrics.get(srv.scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) == 0
     finally:
         config.unset(Options.SPARSE_NNZ_CAP_MAX)
+
+
+def test_a_two_rank_world_on_the_card_fits_the_bits_of_one_rank(cuda, tmp_path):
+    """train.mesh on the one card: a world of 2 ranks (gloo on CUDA tensors:
+    NCCL refuses two ranks on one device) fits dense SGD and KMeans bit for
+    bit as a world of 1 does, every rank the same model."""
+    from tests.torch_sharded_worker import run_world
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(4099, 100)).astype(np.float32)
+    y = (X @ rng.normal(size=100) > 0).astype(np.float32)
+    pts = np.concatenate([rng.normal(c, 0.5, (2001, 100)) for c in (-1.0, 0.0, 1.0)]).astype(np.float32)
+    scenarios = [
+        ("dense_sgd", "sgd", dict(data={"features": X, "labels": y}, dim=100, max_iter=20,
+                                  learning_rate=0.1, global_batch_size=1024, tol=0.0, reg=0.01)),
+        ("kmeans", "kmeans", dict(points=pts, k=10, seed=5, iters=10, measure="euclidean")),
+    ]
+    one = run_world(1, scenarios, str(tmp_path), device="cuda")
+    two = run_world(2, scenarios, str(tmp_path), device="cuda")
+    for name, keys in (("dense_sgd", ("coef", "losses")), ("kmeans", ("centroids", "weights"))):
+        for rank in two[name]:
+            for k in keys:
+                np.testing.assert_array_equal(rank[k], one[name][0][k], err_msg=f"{name} {k}")
+    assert np.isfinite(one["dense_sgd"][0]["coef"]).all() and one["kmeans"][0]["weights"].sum() == len(pts)

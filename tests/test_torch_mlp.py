@@ -109,6 +109,7 @@ def _reset_config():
     other files in the same process."""
     yield
     config.unset(Options.TRAIN_MESH)
+    config.unset(Options.TRAIN_MESH_MODEL)
 
 
 def _t(a):
@@ -367,6 +368,11 @@ def test_unported_training_tiers_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MLPClassifier().fit_stream(None)
     config.set(Options.TRAIN_MESH, 2)
+    # the sharded tier is ported: a mesh of 2 needs a world of 2 ranks
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        MLPClassifier().fit(DataFrame.from_dict({"features": X, "label": y}), device="cpu")
+    # tensor parallelism is not
+    config.set(Options.TRAIN_MESH_MODEL, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MLPClassifier().fit(DataFrame.from_dict({"features": X, "label": y}), device="cpu")
 

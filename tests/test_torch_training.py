@@ -417,6 +417,11 @@ def test_sgd_rejects_what_is_not_ported(monkeypatch):
         SGD(device="cpu", sparse_kernel="onehot").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)
     monkeypatch.setenv(Options.TRAIN_MESH.env_var, "2")
     assert config.get(Options.TRAIN_MESH) == 2
+    # the sharded tier is ported: a mesh of 2 needs a world of 2 ranks
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        SGD(device="cpu").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)
+    # tensor parallelism is not
+    monkeypatch.setenv(Options.TRAIN_MESH_MODEL.env_var, "2")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SGD(device="cpu").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)
 

@@ -1,0 +1,226 @@
+"""The ranks of the port's sharded-training tests: gloo worlds on the CPU,
+or on the one card.
+
+``run_world(world, scenarios, out_dir, device)`` spawns ``world`` processes
+that join one process group through a file under ``out_dir`` (gloo on the
+CPU; on the card the transport ``pick_backend`` takes), set ``train.mesh``
+to the world size and run each scenario on ``device``, as a user's ranks
+would: every rank is handed the same whole input and calls the same entry
+point. Rank r writes scenario ``name``'s arrays to
+``out_dir/{name}_w{world}_r{r}.npz``; ``run_world`` returns them per rank.
+
+Run as a script under torchrun (``python -m torch.distributed.run
+--standalone --nproc-per-node N tests/torch_sharded_worker.py OUT``), each
+rank makes no process group itself: ``train.mesh`` set to the world size
+makes the port's ``ensure_distributed`` initialise it from torchrun's
+environment, and the rank writes a LogisticRegression fit's coefficient to
+``OUT/torchrun_r{rank}.npy``.
+
+This module imports torch, numpy and the port only: a spawned rank imports
+it and never the test module, which imports JAX.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+Scenario = Tuple[str, str, dict]  # (name, function in this module, keyword arguments)
+
+
+def run_world(world: int, scenarios: Sequence[Scenario], out_dir: str,
+              device: str = "cpu") -> Dict[str, List[dict]]:
+    """Run ``scenarios`` on a world of ``world`` ranks on ``device``; a
+    rank's failure raises here with its traceback."""
+    from flink_ml_tpu_torch.parallel.train_sharding import pick_backend
+
+    init = f"file://{os.path.join(out_dir, f'init_w{world}_{device}')}"
+    mp.start_processes(_rank_main, args=(world, init, out_dir, list(scenarios), device,
+                                         pick_backend(world, device)),
+                       nprocs=world, join=True, start_method="spawn")
+    results = {}
+    for name, _fn, _kw in scenarios:
+        results[name] = []
+        for r in range(world):
+            with np.load(os.path.join(out_dir, f"{name}_w{world}_r{r}.npz")) as z:
+                results[name].append({k: z[k] for k in z.files})
+    return results
+
+
+def _rank_main(rank: int, world: int, init: str, out_dir: str, scenarios: List[Scenario],
+               device: str, backend: str) -> None:
+    from flink_ml_tpu_torch.config import Options, config
+
+    torch.set_num_threads(1)
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    try:
+        config.set(Options.TRAIN_MESH, world)
+        for name, fn, kwargs in scenarios:
+            out = globals()[fn](device=device, **kwargs)
+            np.savez(os.path.join(out_dir, f"{name}_w{world}_r{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# --- scenarios ----------------------------------------------------------------
+
+
+def _loss(name):
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss, LeastSquareLoss
+
+    return {"logistic": BinaryLogisticLoss.INSTANCE, "least_squares": LeastSquareLoss.INSTANCE}[name]
+
+
+def sgd(data: dict, dim: int, device: str, loss: str = "logistic", **kw) -> dict:
+    """``SGD.optimize`` on the whole columns (``train.mesh`` routes it)."""
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    opt = SGD(device=device, **kw)
+    coef = opt.optimize(np.zeros(dim, np.float32), data, _loss(loss))
+    return {"coef": coef, "losses": np.asarray(opt.loss_history, np.float64)}
+
+
+def logistic_regression(features: np.ndarray, labels: np.ndarray, iters: int, batch: int, device: str) -> dict:
+    """``LogisticRegression().fit(df)``: the entry point a user calls."""
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+
+    df = DataFrame.from_dict({"features": features, "label": labels})
+    model = (LogisticRegression().set_max_iter(iters).set_global_batch_size(batch)
+             .set_learning_rate(0.1).set_tol(0.0).fit(df, device=device))
+    return {"coef": np.asarray(model.coefficient)}
+
+
+def kmeans(points: np.ndarray, k: int, seed: int, iters: int, measure: str, device: str) -> dict:
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+
+    def count(name):
+        return metrics.get(MLMetrics.TRAIN_GROUP, name, 0)
+
+    names = (MLMetrics.TRAIN_SHARDED_FITS, MLMetrics.TRAIN_SHARD_INGEST_ROWS, MLMetrics.TRAIN_SHARD_PAD_ROWS)
+    before = [count(n) for n in names]
+    model = (KMeans().set_k(k).set_seed(seed).set_max_iter(iters).set_distance_measure(measure)
+             .fit(DataFrame.from_dict({"features": points}), device=device))
+    fits, ingest, pad = (count(n) - b for n, b in zip(names, before))
+    return {"centroids": model.centroids, "weights": model.weights, "fits": np.asarray(fits),
+            "ingest_rows": np.asarray(ingest), "pad_rows": np.asarray(pad)}
+
+
+def mlp(features: np.ndarray, labels: np.ndarray, hidden: int, iters: int, batch: int, seed: int,
+        device: str) -> dict:
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+
+    est = (MLPClassifier().set_hidden_layers(hidden).set_max_iter(iters).set_global_batch_size(batch)
+           .set_seed(seed).set_tol(0.0))
+    model = est.fit(DataFrame.from_dict({"features": features, "label": labels}), device=device)
+    out = {"losses": np.asarray(est.loss_history, np.float64)}
+    for i, (W, b) in enumerate(model.params):
+        out[f"W{i}"], out[f"b{i}"] = W, b
+    return out
+
+
+def rank_rows(rank: int) -> np.ndarray:
+    """Rank ``rank``'s own [rank + 3, 4] rows for the collectives scenario."""
+    return np.random.default_rng(100 + rank).normal(size=(rank + 3, 4)).astype(np.float32)
+
+
+def collectives(device: str) -> dict:
+    """``all_reduce_sum`` / ``all_reduce_mean`` of each rank's own rows,
+    ``psum_tree`` of a tree of rank-valued tensors, ``place_state``."""
+    from flink_ml_tpu_torch.parallel import all_reduce_mean, all_reduce_sum, psum_tree
+    from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
+
+    ts = resolve_train_sharding(device)
+    ctx = ts.ctx
+    rows = rank_rows(ctx.rank)
+    r = torch.tensor(float(ctx.rank + 1), device=ctx.device)
+    tree = psum_tree({"a": [r, r * 2], "b": (r * torch.ones(3, device=ctx.device),)}, ctx)
+    placed = ts.place_state([np.arange(3.0), (np.ones(2),)])
+    return {"sum": all_reduce_sum(rows, ctx).cpu().numpy(), "mean": all_reduce_mean(rows, ctx).cpu().numpy(),
+            "a0": tree["a"][0].cpu().numpy(), "a1": tree["a"][1].cpu().numpy(), "b": tree["b"][0].cpu().numpy(),
+            "placed_on": np.asarray([str(placed[0].device), str(placed[1][0].device)]),
+            "placed": placed[0].cpu().numpy()}
+
+
+class _FailAt:
+    """A listener that raises at one epoch."""
+
+    def __init__(self, epoch):
+        self.epoch = epoch
+
+    def on_epoch_watermark_incremented(self, epoch, context):
+        if epoch == self.epoch:
+            raise RuntimeError(f"injected failure at epoch {epoch}")
+
+    def on_iteration_terminated(self, context):
+        pass
+
+
+def sgd_killed_and_resumed(data: dict, dim: int, ckpt_dir: str, fail_at: int, device: str, **kw) -> dict:
+    """The host loop on the mesh with a ``ShardedCheckpointManager``: a
+    clean fit, then a fit whose listener raises at ``fail_at`` and its
+    resumption from the manager's snapshots."""
+    from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+    from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
+
+    ts = resolve_train_sharding(device)
+    loss = _loss("least_squares")
+    clean_mgr = ShardedCheckpointManager(os.path.join(ckpt_dir, "clean"), sharding=ts)
+    clean = SGD(device=device, checkpoint_manager=clean_mgr, checkpoint_interval=5, **kw)
+    coef_clean = clean.optimize(np.zeros(dim, np.float32), data, loss)
+    mgr = ShardedCheckpointManager(os.path.join(ckpt_dir, "killed"), sharding=ts)
+    try:
+        SGD(device=device, checkpoint_manager=mgr, checkpoint_interval=5, listeners=[_FailAt(fail_at)],
+            **kw).optimize(np.zeros(dim, np.float32), data, loss)
+        raise AssertionError("the listener did not stop the fit")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    steps = np.asarray(mgr.all_steps())
+    resumed = SGD(device=device, checkpoint_manager=mgr, checkpoint_interval=5, **kw)
+    coef = resumed.optimize(np.zeros(dim, np.float32), data, loss)
+    return {"clean": coef_clean, "resumed": coef, "steps": steps,
+            "clean_losses": np.asarray(clean.loss_history), "resumed_losses": np.asarray(resumed.loss_history)}
+
+
+def restore_snapshot(ckpt_dir: str, device: str) -> dict:
+    """The newest snapshot under ``ckpt_dir`` restored on this world's mesh
+    (its leaves are replicated, so any width takes it)."""
+    from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+    from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
+
+    step, state = ShardedCheckpointManager(ckpt_dir, sharding=resolve_train_sharding(device)).restore_latest()
+    return {"step": np.asarray(step), "coef": np.asarray(state[0]), "offset": np.asarray(state[1])}
+
+
+def torchrun_rows():
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(500, 6)).astype(np.float32)
+    return X, (X @ np.linspace(-1.0, 1.0, 6) > 0).astype(np.float32)
+
+
+def _torchrun_main(out_dir: str) -> None:
+    from flink_ml_tpu_torch.config import Options, config
+
+    torch.set_num_threads(1)
+    config.set(Options.TRAIN_MESH, int(os.environ["WORLD_SIZE"]))
+    X, y = torchrun_rows()
+    coef = logistic_regression(X, y, iters=15, batch=128, device="cpu")["coef"]
+    np.save(os.path.join(out_dir, f"torchrun_r{dist.get_rank()}.npy"), coef)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    import sys
+
+    _torchrun_main(sys.argv[1])
