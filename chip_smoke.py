@@ -10,10 +10,11 @@ self-attention serving, wide-sparse, MLP, KMeans and self-attention
 training, and Pipelines fitted, transformed in the batch tier and served;
 checkpointed training killed and resumed, LinearSVC and LinearRegression,
 a published version hot-swapped into a serving server, text pipelines
-(the host featurizers and the ``entries`` convention), and data-parallel
-training on ``train.mesh`` in worlds of 1, 2 and 4 ranks.
+(the host featurizers and the ``entries`` convention), data-parallel
+training on ``train.mesh`` in worlds of 1, 2 and 4 ranks, and tensor,
+sequence and expert parallelism in gloo worlds of 2 and 4 ranks.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25–32 after 9, and 22–24 after 17):
+runs 25–33 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -435,6 +436,37 @@ runs 25–32 after 9, and 22–24 after 17):
                ms/epoch, the mapreduce ``all_gather`` ms, each rank's peak
                memory beside the card's, and whether cuBLAS's bits for a
                row change with the row count (the products the tier avoids).
+33. model_parallel — tensor, sequence and expert parallelism on gloo worlds
+               sharing the card: 4 ranks (train.mesh 2 × train.mesh.model
+               2), then 2 (1 × 2). Each world fits the headline wide-sparse
+               rows (train's schedule) with the coefficient sharded over the
+               model axis, premat and then build form on one cache: every
+               rank launches each crossing of the form 20 times on its
+               model-local stacks (``nblk_local`` < ``nblk``) and no plain
+               crossing; rank 0's first launch of each crossing held
+               against its plain version (the premat forms bit-equal to the
+               build forms on the same q and multiplier); both forms'
+               coefficients bit-equal, on every rank, within 1e-5 of
+               float64 of the n_data schedule and within rtol 2e-3 / atol
+               1e-4 of 32's n_model 1 fit at the same n_data. 2 × 2 also
+               fits dense SGD (fit_checkpoint's rows) with a
+               ``ShardedCheckpointManager`` that the 1 × 2 world restores
+               equal; 1 × 2 fits LogisticRegression at
+               logisticregression-benchmark.json (dense TP, within 1e-5 of
+               float64) and the headline rows on the scatter path (1e-5).
+               Each world then fits SelfAttentionClassifier at 21's
+               configuration with its sequence split over the ranks: a
+               fold, dq and dkv launch per rank and ring step, every one
+               of rank 0's held against the plain versions, the chained
+               folds' incoming state carrying gradient back; step 1's loss
+               and gradients against the one-rank computation (21's
+               limits), the fitted model's probabilities against float64
+               (1e-7); and runs moe_ffn_sharded (8192 tokens, d 512, h
+               2048, 8 experts) at capacity 1.25 T / E and at one that
+               drops tokens: routing exact, outputs within 1e-5 of the
+               dense computation of the same routing, dropped rows 0.
+               Readings: each rank's launches, ms/step, rotation ms a step
+               and peak memory, MoE ms, the phase's seconds.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -748,6 +780,19 @@ SHARDED_EPOCH_ITERS = (20, 40)  # the two iteration counts differenced for ms/ep
 SHARDED_CKPT_BATCH, SHARDED_CKPT_ITERS, SHARDED_CKPT_KILL = 8192, 20, 10
 SHARDED_GATHER_REPS = 20
 SHARDED_COEF_TOL = 1e-5  # dense and sparse fits against float64 of their schedule
+# model_parallel: gloo worlds of 4 (train.mesh 2 × train.mesh.model 2) and 2
+# (1 × 2) ranks sharing the card; the headline sparse fit (train's), dense LR
+# at logisticregression-benchmark.json's config and the scatter path at 1 ×
+# 2, a checkpointed dense fit at 2 × 2 restored at 1 × 2; the classifier at
+# fit_attention's configuration with its sequence split over the world; MoE
+# at T 8192 tokens, d 512, h 2048, 8 experts, capacity 1.25 T / E and one
+# that drops tokens
+MP_WORLDS, MP_MODEL = (4, 2), 2
+MP_INV_RTOL, MP_INV_ATOL = 2e-3, 1e-4  # n_model 2 vs 1: JAX's invariance bound (test_onehot_sparse.py:543)
+MP_ATTN_STEP_ITERS = (8, 16)  # the two iteration counts differenced for ms/step
+MOE_T, MOE_D, MOE_H, MOE_E, MOE_SEED = 8192, 512, 2048, 8, 14
+MOE_CAPACITY_FACTOR, MOE_SMALL_CAPACITY = 1.25, 64
+MOE_ATOL = 1e-5  # outputs vs the dense computation of the same routing
 
 
 
@@ -7617,7 +7662,8 @@ def _sharded_rank(rank, world, init, backend, out_dir):
 
 def phase_sharded(card: str):
     """Data-parallel training on train.mesh (module docstring, phase 32).
-    Returns the crossing kernels' launches over every rank of every world."""
+    Returns the crossing kernels' launches over every rank of every world,
+    and rank 0's headline sparse coefficient by width."""
     import os
     import tempfile
 
@@ -7762,6 +7808,539 @@ def phase_sharded(card: str):
     for r in restored:
         check(r["restored"]["step"] == step and np.array_equal(r["arrays"]["restored_coef"], state[0].numpy())
               and r["restored"]["offset"] == int(state[1]), f"width-4 restore of the snapshot differs: {r['restored']}")
+    return launches, {w: worlds[w][0]["arrays"]["sparse_coef"] for w in SHARDED_WIDTHS}
+
+
+def _model_parallel_rank(rank, world, init, out_dir, ckpt_dir):
+    """One rank of a model_parallel world (gloo, the ranks sharing the one
+    card): train.mesh world / MP_MODEL × MP_MODEL, then the headline
+    wide-sparse fit in both one-hot forms on model-local stacks, the dense
+    and scatter fits (1 × 2) or a checkpointed dense fit (2 × 2), the
+    sequence-sharded SelfAttentionClassifier and expert-parallel MoE. Writes
+    its readings (JSON) and arrays (npz) to ``out_dir``; rank 0 keeps the
+    inputs and outputs of its kernels' launches for the parent's checks."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        import flink_ml_tpu_torch.linalg.onehot_sparse as O
+        import flink_ml_tpu_torch.parallel.flash as flash_mod
+        import flink_ml_tpu_torch.parallel.ring as ring_mod
+        from flink_ml_tpu_torch.api.dataframe import DataFrame
+        from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+        from flink_ml_tpu_torch.config import Options, config
+        from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+        from flink_ml_tpu_torch.models.classification import attention_classifier as attn
+        from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegression
+        from flink_ml_tpu_torch.native import KERNELS
+        from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss, LeastSquareLoss
+        from flink_ml_tpu_torch.ops.optimizer import SGD
+        from flink_ml_tpu_torch.parallel.mesh import MeshContext
+        from flink_ml_tpu_torch.parallel.moe import moe_ffn_sharded, route_top1
+        from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n_data = world // MP_MODEL
+        config.set(Options.TRAIN_MESH, n_data)
+        config.set(Options.TRAIN_MESH_MODEL, MP_MODEL)
+        ts = resolve_train_sharding()
+        ctx = ts.ctx
+        readings = {"rank": rank, "data_index": ctx.data_index, "model_index": ctx.model_index,
+                    "backend": ctx.backend, "host_staged": ctx.host_staged}
+        arrays = {}
+        keep = {}  # rank 0: the first launch of each wrapper, (args, out)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        def launches():
+            return {k.name: k.launches for k in KERNELS if k.launches}
+
+        def first_launch(module, name):
+            """Keep rank 0's first call of ``module.name``: its arguments
+            (the premat one-hot stacks left out: the build form's row ids
+            rebuild a unit's) and its output."""
+            real = getattr(module, name)
+
+            def kept(*args):
+                out = real(*args)
+                if rank == 0 and name not in keep:
+                    small = args[:1] + args[3:] if "premat" in name else args
+                    keep[name] = ([a.clone() if isinstance(a, torch.Tensor) else
+                                   tuple(x.clone() for x in a) if isinstance(a, tuple) else a for a in small],
+                                  out.clone())
+                return out
+            setattr(module, name, kept)
+            return lambda: setattr(module, name, real)
+
+        # --- tensor parallelism, sparse: the headline fit on model-local stacks
+        idx, ys = _headline_data()
+        cols = {"indices": idx.astype(np.int32), "values": np.ones(idx.shape, np.float32),
+                "labels": ys.astype(np.float32), "weights": np.ones(ys.shape[0], np.float32)}
+        cache = DeviceDataCache(cols, ctx=ctx)
+        sparse = {}
+        for form in ("on", "off"):
+            torch.cuda.reset_peak_memory_stats()
+            undo = [first_launch(O, n) for n in ("dot_crossing", "mult_crossing", "dot_crossing_premat",
+                                                  "mult_crossing_premat")]
+            calls, restore = _count_plain_calls()
+            try:
+                for k in KERNELS:
+                    k.reset_launches()
+                opt = SGD(max_iter=TRAIN_ITERS, learning_rate=TRAIN_LR, global_batch_size=TRAIN_BATCH, tol=0.0,
+                          sparse_kernel="onehot", onehot_premat=form, sharding=ts)
+                coef, fit_s = timed(lambda: opt.optimize(np.zeros(TRAIN_DIM, np.float32), cache,
+                                                         BinaryLogisticLoss.INSTANCE))
+                got = launches()
+            finally:
+                restore()
+                for u in undo:
+                    u()
+            _, again_s = timed(lambda: SGD(max_iter=TRAIN_ITERS, learning_rate=TRAIN_LR,
+                                           global_batch_size=TRAIN_BATCH, tol=0.0, sparse_kernel="onehot",
+                                           onehot_premat=form,
+                                           sharding=ts).optimize(np.zeros(TRAIN_DIM, np.float32), cache,
+                                                                 BinaryLogisticLoss.INSTANCE))
+            lay = cache._onehot_memo[1]
+            arrays[f"sparse_{form}"] = coef
+            sparse[form] = {"launches": got, "plain_calls": len(calls), "premat": opt.onehot_premat_active,
+                            "fit_s": fit_s, "layout_s": opt.layout_seconds,
+                            "ms_per_step": again_s / TRAIN_ITERS * 1e3,
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "nblk": lay.nblk, "nblk_local": lay.nblk_local, "n_flat": lay.n_flat,
+                            "losses": opt.loss_history}
+        readings["sparse"] = sparse
+        if rank == 0:
+            readings["sparse_first_launch"] = _mp_check_crossings(keep)
+        keep.clear()
+        del cache
+        torch.cuda.empty_cache()
+
+        if n_data == 1:
+            # --- dense TP at logisticregression-benchmark.json's config, 1 × 2
+            X, y, w = _lr_published_rows()
+            df = DataFrame.from_dict({"features": X, "label": y, "weight": w})
+            model, fit_s = timed(lambda: LogisticRegression().set_weight_col("weight").set_max_iter(LR_ITERS)
+                                 .set_global_batch_size(LR_BATCH).set_learning_rate(LR_LR).set_tol(LR_TOL).fit(df))
+            arrays["lr_coef"] = model.coefficient
+            readings["lr"] = {"fit_s": fit_s, "ms_per_epoch": fit_s / LR_ITERS * 1e3}
+            # --- sparse scatter TP, 1 × 2
+            for k in KERNELS:
+                k.reset_launches()
+            opt = SGD(max_iter=TRAIN_ITERS, learning_rate=TRAIN_LR, global_batch_size=TRAIN_BATCH, tol=0.0,
+                      sparse_kernel="scatter", sharding=ts)
+            arrays["scatter_coef"], fit_s = timed(lambda: opt.optimize(np.zeros(TRAIN_DIM, np.float32), cols,
+                                                                       BinaryLogisticLoss.INSTANCE))
+            readings["scatter"] = {"fit_s": fit_s, "launches": launches()}
+            # --- the 2 × 2 world's snapshot, restored on this 1 × 2 mesh
+            step, state = ShardedCheckpointManager(os.path.join(ckpt_dir, "tp")).restore_latest()
+            arrays["restored_coef"] = np.asarray(state[0].cpu() if isinstance(state[0], torch.Tensor) else state[0])
+            readings["restored"] = {"step": step}
+        else:
+            # --- a checkpointed dense TP fit, 2 × 2: the model-sharded coefficient snapshotted
+            Xc, yc = _dense_ckpt_rows()
+            mgr = ShardedCheckpointManager(os.path.join(ckpt_dir, "tp"), sharding=ts)
+            coef, fit_s = timed(lambda: SGD(max_iter=SHARDED_CKPT_ITERS, learning_rate=CKPT_DENSE_LR,
+                                            global_batch_size=SHARDED_CKPT_BATCH, tol=0.0, sharding=ts,
+                                            checkpoint_manager=mgr, checkpoint_interval=CKPT_INTERVAL).optimize(
+                np.zeros(CKPT_DENSE_D, np.float32), {"features": Xc, "labels": yc}, LeastSquareLoss.INSTANCE))
+            arrays["ckpt_coef"] = coef
+            readings["ckpt"] = {"steps": mgr.all_steps(), "fit_s": fit_s}
+        del cols, idx, ys
+        torch.cuda.empty_cache()
+
+        # --- sequence parallelism: the classifier with its sequence split over the world
+        seq = MeshContext(device="cuda")
+        tok, y = _attention_documents(FIT_ATTN_DOCS, FIT_ATTN_TOKEN_SEED)
+        df = DataFrame.from_dict({"features": tok.astype(np.float64), "label": y})
+
+        def estimator(iters):
+            return (attn.SelfAttentionClassifier().set_embedding_dim(ATTN_E).set_num_heads(ATTN_H)
+                    .set_vocab_size(ATTN_VOCAB).set_global_batch_size(FIT_ATTN_BATCH)
+                    .set_learning_rate(FIT_ATTN_LR).set_max_iter(iters).set_seed(ATTN_PARAM_SEED))
+
+        estimator(1).fit(df)  # warm
+        real = {"fold": ring_mod.fused_fold, "dq": flash_mod.fold_bwd_dq, "dkv": flash_mod.fold_bwd_dkv,
+                "exchange": ring_mod._exchange}
+        captured = {"fold": [], "dq": [], "dkv": []}
+        exchange_s = [0.0, 0]
+
+        def kept(kind):
+            def run(*args):
+                out = real[kind](*args)
+                if rank == 0:
+                    captured[kind].append(([a.detach() if isinstance(a, torch.Tensor) else a for a in args],
+                                           tuple(o.detach() for o in out)))
+                return out
+            return run
+
+        def exchange(*args):
+            t0 = time.perf_counter()
+            out = real["exchange"](*args)
+            exchange_s[0] += time.perf_counter() - t0
+            exchange_s[1] += 1
+            return out
+
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(flash_mod, ("reference_fold", "reference_fold_bwd"))
+        ring_mod.fused_fold, flash_mod.fold_bwd_dq, flash_mod.fold_bwd_dkv = kept("fold"), kept("dq"), kept("dkv")
+        ring_mod._exchange = exchange
+        try:
+            est = estimator(FIT_ATTN_ITERS)
+            model, fit_s = timed(lambda: est.fit(df))
+            attn_launches = launches()
+        finally:
+            ring_mod.fused_fold, flash_mod.fold_bwd_dq, flash_mod.fold_bwd_dkv = real["fold"], real["dq"], real["dkv"]
+            ring_mod._exchange = real["exchange"]
+            restore()
+        if rank == 0:
+            readings["attention_checks"] = _mp_check_flash(captured, world)
+        captured.clear()
+        torch.cuda.empty_cache()
+        walls = {it: timed(lambda: estimator(it).fit(df))[1] for it in MP_ATTN_STEP_ITERS}
+        lo_it, hi_it = MP_ATTN_STEP_ITERS
+        # step 1's loss and gradients, summed over the world
+        y_idx = np.searchsorted(model.labels, y)
+        init = attn._init_params(np.random.default_rng(ATTN_PARAM_SEED), ATTN_VOCAB, ATTN_E, ATTN_CLASSES)
+        params32 = {n: torch.from_numpy(a).to(seq.device) for n, a in init.items()}
+        t_loc = FIT_ATTN_T // world
+        tok_w = torch.from_numpy(tok[:FIT_ATTN_BATCH, seq.rank * t_loc:(seq.rank + 1) * t_loc]).to(seq.device).long()
+        loss1, grads1 = attn._loss_and_grads(params32, tok_w, torch.from_numpy(y_idx[:FIT_ATTN_BATCH]).to(seq.device),
+                                             torch.ones(FIT_ATTN_BATCH, device=seq.device), FIT_ATTN_T, ATTN_H, seq)
+        arrays.update({f"attn_grad_{n}": g.cpu().numpy() for n, g in grads1.items()})
+        held, _held_y = _attention_documents(FIT_ATTN_HELD, FIT_ATTN_TOKEN_SEED + 1)
+        out = model.transform(DataFrame.from_dict({"features": held.astype(np.float64)}))
+        arrays["attn_probs"] = np.asarray(out.column("rawPrediction"))
+        arrays.update({f"attn_param_{n}": a for n, a in model.params.items()})
+        readings["attention"] = {
+            "launches": attn_launches, "plain_calls": len(plain_calls), "fit_s": fit_s,
+            "losses": est.loss_history, "step1_loss": float(loss1),
+            "ms_per_step": (walls[hi_it] - walls[lo_it]) / (hi_it - lo_it) * 1e3,
+            "rotations": exchange_s[1], "rotation_ms_per_step": exchange_s[0] / FIT_ATTN_ITERS * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del params32, grads1
+        torch.cuda.empty_cache()
+
+        # --- expert parallelism: moe_ffn_sharded over two all-to-alls
+        rng = np.random.default_rng(MOE_SEED)
+        x = rng.standard_normal((MOE_T, MOE_D)).astype(np.float32)
+        router = rng.standard_normal((MOE_D, MOE_E)).astype(np.float32)
+        w1 = (rng.standard_normal((MOE_E, MOE_D, MOE_H)) / np.sqrt(MOE_D)).astype(np.float32)
+        w2 = (rng.standard_normal((MOE_E, MOE_H, MOE_D)) / np.sqrt(MOE_H)).astype(np.float32)
+        moe = {}
+        t = MOE_T // world
+        for cap in (int(MOE_CAPACITY_FACTOR * MOE_T / MOE_E), MOE_SMALL_CAPACITY):
+            got, moe_s = timed(lambda: moe_ffn_sharded(x, router, w1, w2, cap, ctx=seq))
+            _, moe_again = timed(lambda: moe_ffn_sharded(x, router, w1, w2, cap, ctx=seq))
+            xs = torch.from_numpy(x[seq.rank * t:(seq.rank + 1) * t]).to(seq.device)
+            expert = route_top1(xs, torch.from_numpy(router).to(seq.device), cap)[0]
+            out = got.cpu().numpy()
+            kept_mask = np.any(out != 0, axis=1)  # the timed call's own: a dropped token's row is exactly 0
+            arrays[f"moe_out_{cap}"] = out
+            arrays[f"moe_expert_{cap}"] = expert.cpu().numpy()
+            arrays[f"moe_keep_{cap}"] = kept_mask
+            moe[cap] = {"first_s": moe_s, "ms": moe_again * 1e3, "dropped": int((~kept_mask).sum())}
+        readings["moe"] = moe
+
+        np.savez(os.path.join(out_dir, f"mp_w{world}_r{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"mp_w{world}_r{rank}.json"), "w") as f:
+            json.dump(readings, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mp_check_crossings(keep):
+    """Rank 0's first launch of each crossing (``keep``: name -> (args,
+    output)) on model-local stacks: the premat forms bit-equal to the build
+    forms on the same q and multiplier, and the four kernels held against
+    their plain versions on the build form's unit (``_check_crossings``)."""
+    import torch
+
+    import flink_ml_tpu_torch.linalg.onehot_sparse as O
+
+    (q, rowid, row_hi, order), dot_b = keep["dot_crossing"]
+    (m3, _rowid), mult_b = keep["mult_crossing"]
+    (q_p, _wi), dot_p = keep["dot_crossing_premat"]
+    (m3_p, _wi), mult_p = keep["mult_crossing_premat"]
+    if not (torch.equal(q, q_p) and torch.equal(dot_b, dot_p)):
+        raise AssertionError("model_parallel: the first premat and build-form dots differ")
+    if not (torch.equal(m3, m3_p) and torch.equal(mult_p[:, :q.shape[1]], mult_b)):
+        raise AssertionError("model_parallel: the first premat and build-form mults differ")
+    if not torch.equal(dot_b, O.dot_crossing(q, rowid, row_hi, order)):
+        raise AssertionError("model_parallel: the build-form dot is not repeatable")
+    errs = _check_crossings(q, rowid, m3, row_hi, order, O.premat_row_onehots(rowid, row_hi),
+                            "model_parallel rank 0 first launch")
+    return {"max_abs_err": errs, "n_sub": int(q.shape[0]), "n_flat_local": int(q.shape[1]), "row_hi": int(row_hi)}
+
+
+def _mp_check_flash(captured, world):
+    """Every fold, dq and dkv launch rank 0 made in the sequence-sharded fit
+    against ``reference_fold`` / ``reference_fold_bwd``, a document at a
+    time (``_check_flash``, ``_check_flash_bwd``)."""
+    import torch
+
+    from flink_ml_tpu_torch.parallel import reference_fold, reference_fold_bwd
+
+    dev = torch.device("cuda", 0)
+    n_calls = {k: len(v) for k, v in captured.items()}
+    if n_calls != {k: FIT_ATTN_ITERS * world for k in captured}:
+        raise AssertionError(f"rank 0 launched {n_calls}, expected {world} of each a step")
+    fold_err, bwd_errs = 0.0, {n: 0.0 for n in FLASH_BWD_NAMES}
+    with torch.no_grad():
+        for f_args, f_out in captured["fold"]:
+            tensors, (q_pos0, k_pos0, causal, n_valid, scale) = f_args[:6], f_args[6:]
+            Tq, Tk = tensors[0].shape[2], tensors[1].shape[2]
+            if Tq != FIT_ATTN_T // world:
+                raise AssertionError(f"the fold ran at {tuple(tensors[0].shape)}")
+            for i in range(FIT_ATTN_BATCH):
+                ins = [x[i:i + 1] for x in tensors]
+                want = reference_fold(*ins, q_pos0, k_pos0, causal, n_valid, scale)
+                idle = _idle_rows(ATTN_H, Tq, Tk, q_pos0, k_pos0, causal, n_valid, dev)
+                s_mag = scale * torch.einsum("bhqd,bhkd->bhqk", ins[0].abs(), ins[1].abs()).amax(-1)
+                fold_err = max(fold_err, _check_flash([x[i:i + 1] for x in f_out], want, ins[3:], idle, s_mag,
+                                                      f"model_parallel fold {q_pos0}/{k_pos0} doc {i}")[0])
+        for (dq_args, dq_out), (dkv_args, dkv_out) in zip(captured["dq"], captured["dkv"]):
+            if not (dkv_args[0] is dq_args[0] or torch.equal(dkv_args[0], dq_args[0])):
+                raise AssertionError("the dkv kernel did not take the dq kernel's inputs")
+            Tq, Tk = dq_args[0].shape[2], dq_args[1].shape[2]
+            for i in range(FIT_ATTN_BATCH):
+                doc_in = [x[i:i + 1] for x in dq_args[:6]]
+                doc_cot = [x[i:i + 1] for x in dq_args[11:]]
+                want = reference_fold_bwd(*doc_in, *dq_args[6:11], *doc_cot)
+                got = (dq_out[0][i:i + 1], dkv_out[0][i:i + 1], dkv_out[1][i:i + 1],
+                       *(x[i:i + 1] for x in dq_out[1:4]))
+                idle = _idle_rows(ATTN_H, Tq, Tk, *dq_args[6:10], dev)
+                unattended = _unattended_keys(ATTN_H, Tq, Tk, *dq_args[6:10], dev)
+                errs, _, _ = _check_flash_bwd(got, want, doc_in[3], idle, unattended,
+                                              f"model_parallel bwd {dq_args[6]}/{dq_args[7]} doc {i}")
+                for n, e in errs.items():
+                    bwd_errs[n] = max(bwd_errs[n], e)
+    # from the second fold of a step on, the incoming state carries gradient
+    nonzero = sum(int(bool(out[1].abs().max() > 0 or out[2].abs().max() > 0)) for _a, out in captured["dq"])
+    return {"fold_max_abs_err_vs_plain": fold_err, "bwd_max_abs_err_vs_plain": bwd_errs,
+            "bwd_rtol": FLASH_BWD_RTOL, "dq_calls_with_nonzero_dm_dl_in": nonzero, "launches_held": n_calls}
+
+
+def _moe_dense(x, router, w1, w2, capacity, world, dev):
+    """The dense one-rank computation of top-1 routing on ``world`` ranks,
+    written apart from the port's ``route_top1``: each rank's tokens go to
+    their argmax expert with its softmax gate, each expert keeps the first
+    ``capacity`` of a rank's tokens in token order, and its kept tokens go
+    through its FFN as one product pair, scaled by the gate. Returns (out,
+    expert, keep) over every token."""
+    import torch
+
+    X = torch.from_numpy(x).to(dev)
+    R, W1, W2 = (torch.from_numpy(a).to(dev) for a in (router, w1, w2))
+    t = X.shape[0] // world
+    out, experts, keeps = torch.zeros_like(X), [], []
+    for r in range(world):
+        xs = X[r * t:(r + 1) * t]
+        probs = torch.softmax(xs @ R, dim=-1)
+        expert = torch.argmax(probs, dim=-1)
+        gate = probs[torch.arange(t, device=dev), expert]
+        keep = torch.zeros(t, dtype=torch.bool, device=dev)
+        for e in range(W1.shape[0]):
+            sel = torch.nonzero(expert == e)[:capacity, 0]
+            keep[sel] = True
+            if sel.numel():
+                h = torch.relu(xs[sel] @ W1[e])
+                out[r * t + sel] = (h @ W2[e]) * gate[sel, None]
+        experts.append(expert)
+        keeps.append(keep)
+    return out.cpu().numpy(), torch.cat(experts).cpu().numpy(), torch.cat(keeps).cpu().numpy()
+
+
+def phase_model_parallel(card: str, sparse_dp):
+    """Tensor, sequence and expert parallelism on gloo worlds sharing the
+    card (module docstring, phase 33). ``sparse_dp``: phase_sharded's
+    headline sparse coefficients by width (n_model 1). Returns the
+    launches of every kernel over every rank of both worlds."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import flink_ml_tpu_torch.linalg.onehot_sparse as O
+    from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
+    from flink_ml_tpu_torch.models.classification import attention_classifier as attn
+    from flink_ml_tpu_torch.parallel import FLASH_FOLD, FLASH_FOLD_BWD_DKV, FLASH_FOLD_BWD_DQ, reference_fold, \
+        reference_fold_bwd
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="model-parallel-")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worlds = {}
+    for world in MP_WORLDS:  # the 2 × 2 world first: it writes the snapshot the 1 × 2 world restores
+        t0 = time.perf_counter()
+        mp.start_processes(_model_parallel_rank, args=(world, f"file://{out_dir}/init_w{world}", out_dir, ckpt_dir),
+                           nprocs=world, join=True, start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"mp_w{world}_r{r}.json")) as f:
+                got = json.load(f)
+            with np.load(os.path.join(out_dir, f"mp_w{world}_r{r}.npz")) as z:
+                got["arrays"] = {k: z[k] for k in z.files}
+            ranks.append(got)
+        worlds[world] = ranks
+        emit("model_parallel", card=card, world=world, mesh=[world // MP_MODEL, MP_MODEL],
+             seconds=time.perf_counter() - t0,
+             ranks=[{k: v for k, v in got.items() if k not in ("arrays", "sparse", "attention")}
+                    | {"sparse": {f: {k: v for k, v in s.items() if k != "losses"} for f, s in got["sparse"].items()},
+                       "attention": {k: v for k, v in got["attention"].items() if k != "losses"}} for got in ranks])
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(what)
+
+    idx, ys = _headline_data()
+    result = {"worlds": list(MP_WORLDS), "model_axis": MP_MODEL, "sparse": {}, "attention": {}, "moe": {}}
+    for world, ranks in worlds.items():
+        n_data = world // MP_MODEL
+        for got in ranks[1:]:
+            for name, a in ranks[0]["arrays"].items():
+                if not name.startswith(("moe_", "attn_grad_")):  # a rank's own tokens, or summed already
+                    check(np.array_equal(a, got["arrays"][name]), f"world {world}: rank {got['rank']}'s {name} differs")
+        # TP sparse: float64 of the n_data schedule, the n_model 1 fit, launches on model-local stacks
+        ref, _ = _reference_sgd(idx, np.ones(idx.shape), ys, TRAIN_DIM, n_data=n_data)
+        a0 = ranks[0]["arrays"]
+        forms = {}
+        for form in ("on", "off"):
+            coef = a0[f"sparse_{form}"]
+            dp = sparse_dp[n_data]
+            forms[form] = {"max_abs_err_vs_float64": float(np.abs(coef - ref).max()),
+                           "max_abs_diff_vs_n_model_1": float(np.abs(coef - dp).max()),
+                           "within_jax_invariance_bound": bool(np.allclose(coef, dp, rtol=MP_INV_RTOL,
+                                                                           atol=MP_INV_ATOL)),
+                           "per_rank": [r["sparse"][form] | {"losses": None} for r in ranks]}
+        check(np.array_equal(a0["sparse_on"], a0["sparse_off"]), f"world {world}: premat and build fits differ")
+        result["sparse"][world] = forms
+        result["sparse"][world]["first_launch"] = ranks[0]["sparse_first_launch"]
+        for r in ranks:
+            for form, want in (("on", (O.DOT_CROSSING_PREMAT.name, O.MULT_CROSSING_PREMAT.name)),
+                               ("off", (O.DOT_CROSSING.name, O.MULT_CROSSING.name))):
+                got = r["sparse"][form]
+                check(got["launches"] == {n: TRAIN_ITERS for n in want} and got["plain_calls"] == 0,
+                      f"world {world} rank {r['rank']} {form}: launches {got['launches']}, plain {got['plain_calls']}")
+                check(got["nblk_local"] < got["nblk"], f"world {world}: the stacks are not model-local: {got}")
+        for r in ranks:
+            got = r["attention"]
+            check(got["launches"] == {FLASH_FOLD.name: FIT_ATTN_ITERS * world,
+                                      FLASH_FOLD_BWD_DQ.name: FIT_ATTN_ITERS * world,
+                                      FLASH_FOLD_BWD_DKV.name: FIT_ATTN_ITERS * world}
+                  and got["plain_calls"] == 0, f"world {world} rank {r['rank']}: attention launches {got}")
+            check(got["rotations"] == 2 * (world - 1) * FIT_ATTN_ITERS,
+                  f"world {world}: {got['rotations']} rotations in {FIT_ATTN_ITERS} steps")
+        result["attention"][world] = {**ranks[0]["attention_checks"],
+                                      "ms_per_step": [r["attention"]["ms_per_step"] for r in ranks],
+                                      "rotation_ms_per_step": [r["attention"]["rotation_ms_per_step"] for r in ranks],
+                                      "fit_s": [r["attention"]["fit_s"] for r in ranks],
+                                      "peak_bytes": [r["attention"]["peak_bytes"] for r in ranks],
+                                      "losses": ranks[0]["attention"]["losses"]}
+        # MoE against the dense computation of the same routing
+        rng = np.random.default_rng(MOE_SEED)
+        x = rng.standard_normal((MOE_T, MOE_D)).astype(np.float32)
+        router = rng.standard_normal((MOE_D, MOE_E)).astype(np.float32)
+        w1 = (rng.standard_normal((MOE_E, MOE_D, MOE_H)) / np.sqrt(MOE_D)).astype(np.float32)
+        w2 = (rng.standard_normal((MOE_E, MOE_H, MOE_D)) / np.sqrt(MOE_H)).astype(np.float32)
+        for cap in (int(MOE_CAPACITY_FACTOR * MOE_T / MOE_E), MOE_SMALL_CAPACITY):
+            want, expert, keep = _moe_dense(x, router, w1, w2, cap, world, dev)
+            got = np.concatenate([r["arrays"][f"moe_out_{cap}"] for r in ranks])
+            check(np.array_equal(np.concatenate([r["arrays"][f"moe_expert_{cap}"] for r in ranks]), expert)
+                  and np.array_equal(np.concatenate([r["arrays"][f"moe_keep_{cap}"] for r in ranks]), keep),
+                  f"world {world} capacity {cap}: the routing differs")
+            err = float(np.abs(got - want).max())
+            dropped = ~keep
+            result["moe"].setdefault(world, {})[cap] = {
+                "max_abs_err": err, "dropped": int(dropped.sum()), "dropped_rows_zero": bool(np.all(got[dropped] == 0)),
+                "ms": [r["moe"][str(cap)]["ms"] for r in ranks]}
+            check(err <= MOE_ATOL, f"world {world} capacity {cap}: moe off the dense computation by {err}")
+            check(np.all(got[dropped] == 0), f"world {world} capacity {cap}: a dropped token's row is not 0")
+        check(result["moe"][world][MOE_SMALL_CAPACITY]["dropped"] > 0, "the small capacity dropped no token")
+
+    # the classifier: step 1 and the fitted model, against world 1 and float64
+    tok, y = _attention_documents(FIT_ATTN_DOCS, FIT_ATTN_TOKEN_SEED)
+    y_idx = np.searchsorted(np.unique(y), y)
+    init = attn._init_params(np.random.default_rng(ATTN_PARAM_SEED), ATTN_VOCAB, ATTN_E, ATTN_CLASSES)
+    params32 = {n: torch.from_numpy(a).to(dev) for n, a in init.items()}
+    loss1, grads1 = attn._loss_and_grads(params32, torch.from_numpy(tok[:FIT_ATTN_BATCH]).to(dev).long(),
+                                         torch.from_numpy(y_idx[:FIT_ATTN_BATCH]).to(dev),
+                                         torch.ones(FIT_ATTN_BATCH, device=dev), FIT_ATTN_T, ATTN_H)
+    held, _ = _attention_documents(FIT_ATTN_HELD, FIT_ATTN_TOKEN_SEED + 1)
+    for world, ranks in worlds.items():
+        a0 = ranks[0]["arrays"]
+        loss_rel = abs(ranks[0]["attention"]["step1_loss"] - float(loss1)) / abs(float(loss1))
+        grad_rel = max(float(np.abs(a0[f"attn_grad_{n}"] - g.cpu().numpy()).max() / g.abs().max()) for n, g in grads1.items())
+        fitted64 = {n[len("attn_param_"):]: torch.from_numpy(a.astype(np.float64)).to(dev)
+                    for n, a in a0.items() if n.startswith("attn_param_")}
+        prob_err = 0.0
+        with torch.no_grad():
+            for i in range(FIT_ATTN_HELD):
+                want = torch.softmax(_attention_float64(fitted64, torch.from_numpy(held[i]).to(dev), ATTN_H)[0],
+                                     dim=-1).cpu().numpy()
+                prob_err = max(prob_err, float(np.abs(a0["attn_probs"][i] - want).max()))
+        result["attention"][world].update({"step1_loss_rel_vs_world_1": loss_rel, "loss_rtol": FIT_ATTN_LOSS_RTOL,
+                                           "step1_grad_rel_vs_world_1": grad_rel, "grad_rtol": FIT_ATTN_GRAD_RTOL,
+                                           "served_max_prob_err_vs_float64": prob_err,
+                                           "prob_atol": FIT_ATTN_PROB_ATOL})
+    # dense TP, scatter TP and the snapshot
+    one = next(r for w, r in worlds.items() if w // MP_MODEL == 1)
+    X, y_lr, w_lr = _lr_published_rows()
+    lr_err = float(np.abs(one[0]["arrays"]["lr_coef"] - _reference_dense_logistic(X, y_lr, w_lr, LR_ITERS, LR_LR)).max())
+    ref1, _ = _reference_sgd(idx, np.ones(idx.shape), ys, TRAIN_DIM, n_data=1)
+    scatter_err = float(np.abs(one[0]["arrays"]["scatter_coef"] - ref1).max())
+    two = next(r for w, r in worlds.items() if w // MP_MODEL == 2)
+    step, state = ShardedCheckpointManager(os.path.join(ckpt_dir, "tp")).restore_latest()
+    snap = np.asarray(state[0])
+    result.update({
+        "dense_lr": {"mesh": [1, MP_MODEL], "max_abs_err_vs_float64": lr_err, "tolerance": SHARDED_COEF_TOL,
+                     "ms_per_epoch": [r["lr"]["ms_per_epoch"] for r in one]},
+        "scatter": {"mesh": [1, MP_MODEL], "max_abs_err_vs_float64": scatter_err,
+                    "fit_s": [r["scatter"]["fit_s"] for r in one], "launches": one[0]["scatter"]["launches"]},
+        "snapshot": {"saved_on": [2, MP_MODEL], "restored_on": [1, MP_MODEL], "step": step,
+                     "steps": two[0]["ckpt"]["steps"], "padded_len": int(snap.shape[0]),
+                     "restored_equal": bool(np.array_equal(one[0]["arrays"]["restored_coef"], snap))},
+        "seconds": time.perf_counter() - t_phase,
+    })
+    emit("model_parallel", card=card, **result)  # before the gates, so a failure shows its numbers
+    for world in MP_WORLDS:
+        for form, got in result["sparse"][world].items():
+            if form not in ("on", "off"):
+                continue
+            check(got["max_abs_err_vs_float64"] <= SHARDED_COEF_TOL, f"TP sparse {form} at world {world}: {got}")
+            check(got["within_jax_invariance_bound"], f"TP sparse {form} at world {world} off the n_model 1 fit")
+        att = result["attention"][world]
+        check(att["step1_loss_rel_vs_world_1"] <= FIT_ATTN_LOSS_RTOL, f"world {world} step-1 loss: {att}")
+        check(att["step1_grad_rel_vs_world_1"] <= FIT_ATTN_GRAD_RTOL, f"world {world} step-1 gradients: {att}")
+        check(att["served_max_prob_err_vs_float64"] <= FIT_ATTN_PROB_ATOL, f"world {world} probabilities: {att}")
+        check(att["dq_calls_with_nonzero_dm_dl_in"] >= (world - 1) * FIT_ATTN_ITERS,
+              f"world {world}: the chained folds carried no gradient back: {att}")
+    check(lr_err <= SHARDED_COEF_TOL, f"dense TP LR off float64 by {lr_err}")
+    check(scatter_err <= SHARDED_COEF_TOL, f"scatter TP off float64 by {scatter_err}")
+    check(result["snapshot"]["restored_equal"] and snap.shape[0] % MP_MODEL == 0, "the TP snapshot did not restore")
+    launches = {}
+    for ranks in worlds.values():
+        for r in ranks:
+            for got in list(r["sparse"].values()) + [r["attention"]]:
+                for name, n in got["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
     return launches
 
 
@@ -7824,7 +8403,11 @@ def main() -> int:
     record("text", phase_text(smi))
     phase_featurize(smi)
     torch.cuda.empty_cache()
-    record("sharded", {k: n for k, n in phase_sharded(smi).items() if n})
+    sharded_launches, sparse_dp = phase_sharded(smi)
+    record("sharded", {k: n for k, n in sharded_launches.items() if n})
+    torch.cuda.empty_cache()
+    record("model_parallel", {k: n for k, n in phase_model_parallel(smi, sparse_dp).items() if n})
+    del sparse_dp
     mlp_alone = phase_kernels_mlp(rng, smi)
     record("serve_mlp", {ROWLOCAL_MLP.name: phase_serve_mlp(smi)})
     torch.cuda.empty_cache()

@@ -211,8 +211,9 @@ class Options:
         "train.mesh.model",
         int,
         1,
-        "Model-axis width of the sharded training mesh. The port takes only 1 "
-        "and raises on anything else (tensor parallelism is not ported, ROADMAP.md).",
+        "Model-axis width of the sharded training mesh (tensor parallelism for wide "
+        "coefficients): the fit runs on train.mesh × train.mesh.model ranks and rides "
+        "the all-reduce paths, outside the deterministic tier.",
     )
     TRAIN_MESH_HOSTS = ConfigOption(
         "train.mesh.hosts",

@@ -8,7 +8,12 @@ every row on one device (``local_rows == n_valid``). On a
 cache shards over its mesh's data axis, every rank is handed the whole input
 and uploads only its contiguous share: the rows are zero-padded to a multiple
 of N, rank k holds ``[k·m, (k+1)·m)`` with ``m = ceil(n / N)``, and the mask
-is 0 on the padding. The streamed capacity tier (``HostDataCache``) is not
+is 0 on the padding; the ranks of one data index (the model shards of a
+tensor-parallel mesh) hold the same rows. A column named in
+``column_specs`` with the model axis on its second dimension (JAX
+``P(data, model)``) is column-sliced as well: its width zero-padded to a
+multiple of ``n_model`` and the rank's slice uploaded, so dense tensor
+parallelism never holds the whole matrix on a rank. The streamed capacity tier (``HostDataCache``) is not
 ported yet (ROADMAP.md).
 """
 from __future__ import annotations
@@ -21,6 +26,11 @@ import torch
 from flink_ml_tpu_torch.device import resolve_device
 
 __all__ = ["DeviceDataCache"]
+
+
+def _model_axis_spec(spec) -> bool:
+    """Whether a JAX-style spec tuple names the model axis on dimension 1."""
+    return spec is not None and len(spec) > 1 and spec[1] == "model"
 
 
 class DeviceDataCache:
@@ -37,7 +47,8 @@ class DeviceDataCache:
     """
 
     def __init__(self, columns: Dict[str, np.ndarray],
-                 device: Optional[Union[str, torch.device]] = None, ctx=None):
+                 device: Optional[Union[str, torch.device]] = None, ctx=None,
+                 column_specs: Optional[Dict[str, tuple]] = None):
         self.ctx = ctx
         self.device = ctx.device if ctx is not None else resolve_device(device)
         lengths = {np.asarray(c).shape[0] for c in columns.values()}
@@ -50,11 +61,18 @@ class DeviceDataCache:
         self.n_padded = m * n_data
         self.host_columns: Dict[str, np.ndarray] = {}
         self.arrays: Dict[str, torch.Tensor] = {}
+        self.model_sharded = set()
         for name, col in columns.items():
             col = np.asarray(col)
             if name in ("indices", "values"):
                 self.host_columns[name] = col
             local = col[lo:hi]
+            if _model_axis_spec((column_specs or {}).get(name)) and ctx is not None:
+                c0, c1, d_pad = ctx.model_range(col.shape[1])
+                if d_pad > col.shape[1]:  # zero columns: zero margins, zero gradients
+                    local = np.concatenate([local, np.zeros((local.shape[0], d_pad - col.shape[1]), col.dtype)], 1)
+                local = local[:, c0:c1]
+                self.model_sharded.add(name)
             if hi - lo < m:  # the rank holding the padding
                 local = np.concatenate([local, np.zeros((m - (hi - lo),) + col.shape[1:], col.dtype)])
             self.arrays[name] = torch.from_numpy(np.ascontiguousarray(local)).to(self.device)

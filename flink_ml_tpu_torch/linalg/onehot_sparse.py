@@ -151,20 +151,28 @@ def block_counts(indices: np.ndarray, values: np.ndarray, nblk: int) -> np.ndarr
 
 
 class OneHotSparsePlan:
-    """The static class structure of one layout, on one device (the JAX
-    plan's ``n_model == 1`` case).
+    """The static class structure of one layout (JAX ``OneHotSparsePlan``).
 
     Built from per-block maximum entry counts over every sub-batch unit:
     each block's count rounds up to a power of two (its class width), and
-    blocks are ordered by class. ``class_meta`` holds ``(n_blocks, width,
-    flat_offset, block_offset)`` per nonempty class; ``perm``/``inv_perm``
-    map block ids between original and class-major order; ``base_of_pos``
-    is the first flat slot of the block at each class-major position.
+    blocks are ordered by class. ``class_meta`` holds ``(n_blocks_local,
+    width, flat_offset, block_offset)`` per nonempty class; ``perm``/
+    ``inv_perm`` map block ids between original and class-major order;
+    ``base_of_pos`` is the first (shard-local) flat slot of the block at
+    each class-major position.
+
+    **Tensor parallelism** (``n_model > 1``): each class's block count is
+    padded to a multiple of ``n_model`` and its blocks dealt round-robin to
+    the model shards (``owner_of_pos``, ``local_block_of_pos``), so every
+    shard carries the same ``class_meta`` and ``n_flat`` — one shard's
+    local layout — and owns a contiguous slice of every class. The
+    coefficient lives shard-major, ``[n_model, nblk_local, BLOCK]``
+    flattened; a rank holds its ``[nblk_local · BLOCK]`` row of it.
     """
 
     __slots__ = (
-        "dim", "nblk", "sub_batch", "n_flat", "class_meta", "perm", "inv_perm",
-        "width_of_pos", "base_of_pos",
+        "dim", "nblk", "nblk_local", "n_model", "sub_batch", "n_flat", "class_meta", "perm",
+        "inv_perm", "width_of_pos", "owner_of_pos", "base_of_pos", "local_block_of_pos",
     )
 
     def __init__(self, **kw):
@@ -172,7 +180,8 @@ class OneHotSparsePlan:
             setattr(self, k, kw[k])
 
     @classmethod
-    def from_max_counts(cls, max_count: np.ndarray, dim: int, sub_batch: int) -> "OneHotSparsePlan":
+    def from_max_counts(cls, max_count: np.ndarray, dim: int, sub_batch: int,
+                        n_model: int = 1) -> "OneHotSparsePlan":
         if sub_batch > np.iinfo(np.int16).max:
             # the packed int16 rowid would wrap and silently drop entries
             raise ValueError(
@@ -189,36 +198,46 @@ class OneHotSparsePlan:
         occ_sorted = occ[order]
 
         class_meta: List[Tuple[int, int, int, int]] = []
+        owner_of_pos = np.zeros(nblk, np.int32)
         base_of_pos = np.zeros(nblk, np.int64)
-        flat_off = 0
+        local_block_of_pos = np.zeros(nblk, np.int64)
+        flat_off = 0  # shard-local flat offset
+        block_off = 0  # shard-local block offset
         widths, first = np.unique(occ_sorted, return_index=True)
         ends = np.append(first[1:], nblk)
         for wdt, p0, p1 in zip(widths, first, ends):
             f_c = int(p1 - p0)
+            local_f = -(-f_c // n_model)  # padded: the same local count on every shard
+            rel = np.arange(f_c, dtype=np.int64)
+            owner_of_pos[p0:p1] = (rel % n_model).astype(np.int32)
+            local_block_of_pos[p0:p1] = block_off + rel // n_model
             if wdt > 0:
                 # Zero-width classes own coefficient blocks but no slots and
                 # no round: never-observed features keep their coefficient
                 # (and its regularisation) like the scatter path.
-                base_of_pos[p0:p1] = flat_off + np.arange(f_c, dtype=np.int64) * int(wdt)
-                class_meta.append((f_c, int(wdt), flat_off, int(p0)))
-                flat_off += f_c * int(wdt)
+                base_of_pos[p0:p1] = flat_off + (rel // n_model) * int(wdt)
+                class_meta.append((local_f, int(wdt), flat_off, block_off))
+                flat_off += local_f * int(wdt)
+            block_off += local_f
         if flat_off == 0:
             raise ValueError("no nonzero entries; nothing to train on")
         return cls(
-            dim=int(dim), nblk=nblk, sub_batch=int(sub_batch), n_flat=flat_off,
-            class_meta=tuple(class_meta), perm=perm, inv_perm=inv_perm,
-            width_of_pos=occ_sorted.astype(np.int64), base_of_pos=base_of_pos,
+            dim=int(dim), nblk=nblk, nblk_local=block_off, n_model=int(n_model),
+            sub_batch=int(sub_batch), n_flat=flat_off, class_meta=tuple(class_meta), perm=perm,
+            inv_perm=inv_perm, width_of_pos=occ_sorted.astype(np.int64), owner_of_pos=owner_of_pos,
+            base_of_pos=base_of_pos, local_block_of_pos=local_block_of_pos,
         )
 
     def stack_bytes(self, n_units: int) -> int:
-        """Bytes of ``n_units`` units' packed stacks (int8 lane + int16
-        rowid + f32 value per slot)."""
-        return 7 * n_units * self.n_flat
+        """Bytes of ``n_units`` units' packed stacks across every model
+        shard (int8 lane + int16 rowid + f32 value per slot)."""
+        return 7 * n_units * self.n_model * self.n_flat
 
-    def fill_unit(self, idx_u, val_u, out_lidx, out_rowid, out_lvals) -> None:
+    def fill_unit(self, idx_u, val_u, out_lidx, out_rowid, out_lvals, model_index: int = 0) -> None:
         """Transpose one sub-batch unit ([rows <= sub_batch, K] padded CSR)
-        into its class-major stack slices (preallocated, zeroed, [n_flat]).
-        Raises if a block's entry count exceeds its planned width."""
+        into model shard ``model_index``'s class-major stack slices
+        (preallocated, zeroed, [n_flat]); the other shards' entries are left
+        out. Raises if a block's entry count exceeds its planned width."""
         idx_u = np.asarray(idx_u, np.int64)
         val_u = np.asarray(val_u)
         nz = val_u != 0.0
@@ -236,40 +255,50 @@ class OneHotSparsePlan:
                 "sub-batch unit exceeds the plan's per-block occupancy — the "
                 "plan was built from a counting pass that did not cover this data"
             )
-        slot = self.base_of_pos[sp] + ranks
-        out_lidx[slot] = lanes[o2]
-        out_rowid[slot] = rows_rel[o2].astype(np.int16)
-        out_lvals[slot] = val_u[nz][o2]
+        slot, lanes, rows_rel, vals = self.base_of_pos[sp] + ranks, lanes[o2], rows_rel[o2], val_u[nz][o2]
+        if self.n_model > 1:  # this model shard's entries only
+            mine = self.owner_of_pos[sp] == model_index
+            slot, lanes, rows_rel, vals = slot[mine], lanes[mine], rows_rel[mine], vals[mine]
+        out_lidx[slot] = lanes
+        out_rowid[slot] = rows_rel.astype(np.int16)
+        out_lvals[slot] = vals
 
     def permute_coef(self, coef: np.ndarray) -> np.ndarray:
-        """Original [dim] coefficient -> class-major padded [nblk * BLOCK]."""
+        """Original [dim] coefficient -> shard-major class-major padded
+        ``[n_model * nblk_local * BLOCK]`` (for ``n_model == 1`` the plain
+        class-major permutation)."""
         coef = np.asarray(coef)
         c = np.zeros((self.nblk, BLOCK), coef.dtype)
         c.reshape(-1)[: self.dim] = coef
-        return c[self.perm].reshape(-1)
+        out = np.zeros((self.n_model, self.nblk_local, BLOCK), coef.dtype)
+        out[self.owner_of_pos, self.local_block_of_pos] = c[self.perm]
+        return out.reshape(-1)
 
     def unpermute_coef(self, coef_perm: np.ndarray) -> np.ndarray:
-        """Class-major padded coefficient -> original [dim]."""
-        c = np.asarray(coef_perm).reshape(self.nblk, BLOCK)
+        """Shard-major padded coefficient -> original [dim]."""
+        c = np.asarray(coef_perm).reshape(self.n_model, self.nblk_local, BLOCK)
         orig = np.zeros((self.nblk, BLOCK), c.dtype)
-        orig[self.perm] = c
+        orig[self.perm] = c[self.owner_of_pos, self.local_block_of_pos]
         return orig.reshape(-1)[: self.dim]
 
     def __repr__(self) -> str:
         return (
             f"OneHotSparsePlan(dim={self.dim}, sub={self.sub_batch}, "
-            f"flat={self.n_flat}, classes={[(f, w) for f, w, _, _ in self.class_meta]})"
+            f"flat={self.n_flat}, n_model={self.n_model}, "
+            f"classes={[(f, w) for f, w, _, _ in self.class_meta]})"
         )
 
 
 class OneHotSparseLayout:
     """Static host-built layout for one resident dataset and minibatch
-    schedule: a :class:`OneHotSparsePlan` plus the filled ``[n_windows,
-    n_sub, n_flat]`` stacks. Windows are the distinct minibatch slice starts
-    of ``offset_schedule``."""
+    schedule: a :class:`OneHotSparsePlan` plus one rank's filled
+    ``[n_windows, n_sub, n_flat]`` stacks — its ``(data shard, model
+    shard)`` cell of the JAX layout's ``[n_shards, n_model, n_windows,
+    n_sub, n_flat]``. Windows are the distinct minibatch slice starts of
+    ``offset_schedule``."""
 
     __slots__ = (
-        "plan", "dim", "n_windows", "n_sub", "n_flat", "nblk", "class_meta",
+        "plan", "dim", "n_windows", "n_sub", "n_flat", "nblk", "n_model", "class_meta",
         "perm", "inv_perm", "lidx", "rowid", "lvals", "window_starts",
         "local_batch", "sub_batch",
     )
@@ -289,6 +318,8 @@ class OneHotSparseLayout:
         max_stack_bytes: Optional[int] = None,
         n_shards: int = 1,
         shard: int = 0,
+        n_model: int = 1,
+        model_index: int = 0,
     ) -> Optional["OneHotSparseLayout"]:
         """Transpose a padded-CSR batch ([n, K], value 0 = padding) into
         per-(window, sub-batch) class-major stacks. With ``max_stack_bytes``,
@@ -301,7 +332,9 @@ class OneHotSparseLayout:
         counting pass runs over every shard's units, so every rank derives
         the same plan — the same ``perm``, ``class_meta`` and ``n_flat`` — from
         the same whole host columns, and the all-reduce of the permuted
-        gradient adds like blocks; only ``shard``'s stacks are filled."""
+        gradient adds like blocks; only ``shard``'s stacks are filled. With
+        ``n_model`` > 1 the plan deals its blocks over the model shards and
+        only model shard ``model_index``'s entries are filled."""
         indices = np.asarray(indices, np.int64)
         values = np.asarray(values)
         n = indices.shape[0]
@@ -331,8 +364,9 @@ class OneHotSparseLayout:
                     if s == shard:
                         bounds[w0, b0] = (r0, r1)
 
-        plan = OneHotSparsePlan.from_max_counts(max_count, dim, sub)
-        if max_stack_bytes is not None and plan.stack_bytes(n_windows * n_sub) > max_stack_bytes:
+        plan = OneHotSparsePlan.from_max_counts(max_count, dim, sub, n_model)
+        # one rank's share: a model shard of one data shard
+        if max_stack_bytes is not None and plan.stack_bytes(n_windows * n_sub) // n_model > max_stack_bytes:
             return None
 
         shape = (n_windows, n_sub, plan.n_flat)
@@ -342,11 +376,12 @@ class OneHotSparseLayout:
         for wi, w0 in enumerate(window_starts):
             for bi in range(n_sub):
                 r0, r1 = bounds[w0, bi * sub]
-                plan.fill_unit(indices[r0:r1], values[r0:r1], lidx[wi, bi], rowid[wi, bi], lvals[wi, bi])
+                plan.fill_unit(indices[r0:r1], values[r0:r1], lidx[wi, bi], rowid[wi, bi], lvals[wi, bi],
+                               model_index)
 
         return cls(
             plan=plan, dim=int(dim), n_windows=n_windows, n_sub=n_sub,
-            n_flat=plan.n_flat, nblk=nblk, class_meta=plan.class_meta,
+            n_flat=plan.n_flat, nblk=nblk, n_model=int(n_model), class_meta=plan.class_meta,
             perm=plan.perm, inv_perm=plan.inv_perm, lidx=lidx, rowid=rowid,
             lvals=lvals, window_starts=window_starts, local_batch=local_batch,
             sub_batch=sub,
@@ -355,6 +390,11 @@ class OneHotSparseLayout:
     @property
     def row_hi(self) -> int:
         return -(-self.sub_batch // _ROW_LO)
+
+    @property
+    def nblk_local(self) -> int:
+        """One model shard's block count (``nblk`` when ``n_model == 1``)."""
+        return self.plan.nblk_local
 
     def permute_coef(self, coef: np.ndarray) -> np.ndarray:
         return self.plan.permute_coef(coef)
@@ -665,6 +705,7 @@ def onehot_batch_step(
     row_hi: int,
     premat=None,
     order=None,
+    model_ctx=None,
 ):
     """One full minibatch: per-sub-batch forward + crossings + backward,
     gradients accumulated, returning ``(grad_perm, loss_sum, weight_sum)``
@@ -675,7 +716,13 @@ def onehot_batch_step(
     (``wb`` carries mask and tail gating). ``premat``: ``(oh_hi, oh_lo, wi)``
     — the run's materialised one-hots and this minibatch's window — runs
     the premat crossings; otherwise the build-form crossings run, the dot
-    walking ``order`` (this window's :func:`row_order`)."""
+    walking ``order`` (this window's :func:`row_order`).
+
+    Under tensor parallelism the stacks are this model shard's and ``nblk``
+    its local block count; ``model_ctx`` is the mesh whose model axis the
+    partial row dots are all-reduced over before the loss (JAX
+    ``model_axis``), after which the multiplier is the same on every shard
+    and the gradient stays block-local."""
     n_sub, n_flat = (int(s) for s in lidx_w.shape)
     g = gather_round(coef_perm, lidx_w, class_meta)
     q = lvals_w * g
@@ -684,6 +731,10 @@ def onehot_batch_step(
         dot3 = dot_crossing_premat(q, oh_hi, oh_lo, wi)
     else:
         dot3 = dot_crossing(q, rowid_w, row_hi, order)
+    if model_ctx is not None and model_ctx.n_model > 1:
+        from flink_ml_tpu_torch.parallel.collectives import all_reduce_tensor
+
+        dot3 = all_reduce_tensor(dot3, model_ctx, "model")
     dot = dot3.reshape(n_sub, row_hi * _ROW_LO)[:, :sub_batch].reshape(-1)
     loss_sum, mult = loss_func.loss_and_mult(dot, yb, wb)
     mult3 = F.pad(mult.reshape(n_sub, sub_batch), (0, row_hi * _ROW_LO - sub_batch))

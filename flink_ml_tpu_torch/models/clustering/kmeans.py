@@ -201,8 +201,13 @@ class KMeans(Estimator, HasFeaturesCol, HasPredictionCol, HasDistanceMeasure, Ha
         X = df.vectors(self.get_features_col()).astype(np.float32)
         self._check_rows(X.shape[0])  # before anything reaches the device
         ts = resolve_train_sharding(device)
-        if ts is not None:
+        if ts is not None and ts.n_model == 1:
             return self._fit_sharded(X, ts)
+        if ts is not None:
+            # the deterministic tier is data-parallel only (JAX kmeans.py:323):
+            # on a tensor-parallel mesh every rank fits the whole input on
+            # its own card, each to the same centroids
+            device = ts.ctx.device
         return self.fit_cache(DeviceDataCache({"x": X}, device=device))
 
     def _initial_rows(self, n: int) -> np.ndarray:

@@ -16,7 +16,7 @@ coefficient once ``done``). The host reads them once per chunk
 
 Three epoch forms:
 
-- dense features: ``loss_and_grad_sum`` (two matrix products);
+- dense features: ``X @ coef`` and ``X.T @ mult`` (two matrix products);
 - sparse padded CSR, scatter path: gather dot and ``index_add_`` gradient;
 - sparse, one-hot path (wide coefficients): the class-major layout of
   ``linalg/onehot_sparse.py`` and its four hand-written CUDA crossings —
@@ -50,8 +50,17 @@ its own rows and returns the same coefficient:
   JAX package at the same width. The one-hot layout's plan is counted over
   every rank's rows, so every rank permutes the gradient alike.
 
-Not ported yet, each raising an error that names ROADMAP.md: tensor
-parallelism (``train.mesh.model`` > 1) and streamed (``HostDataCache``) fits.
+Tensor parallelism (``train.mesh.model`` > 1, or a ``ctx`` with a model
+axis; JAX :160-205, :394-470, :502-616) shards the coefficient over the
+model axis on all three paths, fused and in the host loop: sparse scatter
+gathers and scatters each rank's index range, dense takes the rank's column
+slice of the features (padded to a multiple of ``n_model``), and one-hot
+runs the plan's model shard of the stacks at its local block count. Each
+path all-reduces the partial margins over the model axis before the loss,
+keeps the gradient local, and returns the whole coefficient on every rank.
+
+Not ported yet, raising an error that names ROADMAP.md: streamed
+(``HostDataCache``) fits.
 """
 from __future__ import annotations
 
@@ -67,7 +76,13 @@ from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.ops.lossfunc import LossFunc
 from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
-from flink_ml_tpu_torch.parallel.collectives import all_reduce_packed, mapreduce_sum, row_fold_sum, rowwise
+from flink_ml_tpu_torch.parallel.collectives import (
+    all_reduce_packed,
+    all_reduce_tensor,
+    mapreduce_sum,
+    row_fold_sum,
+    rowwise,
+)
 from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
 
 __all__ = ["Optimizer", "SGD", "fused_chunk_len", "regularize"]
@@ -89,6 +104,46 @@ def regularize(coef, reg: float, elastic_net: float, learning_rate: float):
     loss = l1 * torch.sum(torch.abs(coef)) + l2 / 2.0 * torch.sum(coef * coef)
     update = learning_rate * (l1 * torch.sign(coef) + l2 * coef)
     return coef - update, loss
+
+
+def _gather_model(local: torch.Tensor, ctx) -> torch.Tensor:
+    """The whole ``[n_model · |local|]`` vector of every model shard's
+    ``local`` slice, on every rank of the model axis: the slice placed in
+    zeros and all-reduced, so every entry is one shard's value plus exact
+    zeros."""
+    full = local.new_zeros((ctx.n_model,) + tuple(local.shape))
+    full[ctx.model_index] = local
+    return all_reduce_tensor(full, ctx, "model").reshape(-1)
+
+
+class _ModelShardedSnapshots:
+    """A ``ShardedCheckpointManager`` seen by a tensor-parallel host loop:
+    ``save`` writes the rank's coefficient slice as a piece of the padded
+    ``[d_pad]`` coefficient (the JAX model-sharded leaf, deduplicated over
+    the data axis by placement), ``restore_latest`` hands the rank its slice
+    of the reassembled coefficient back. Everything else is the manager's."""
+
+    def __init__(self, mgr, ctx, dim: int):
+        self._mgr = mgr
+        self._lo, self._hi, self._d_pad = ctx.model_range(dim)
+
+    def __getattr__(self, name):
+        return getattr(self._mgr, name)
+
+    def save(self, step: int, variables):
+        from flink_ml_tpu_torch.checkpoint import ShardedLeaf
+
+        coef, *rest = variables
+        return self._mgr.save(step, [ShardedLeaf((self._d_pad,), [(((self._lo, self._hi),), coef)]), *rest])
+
+    def restore_latest(self, device=None):
+        got = self._mgr.restore_latest(device=device)
+        if got is None:
+            return None
+        step, (coef, *rest) = got
+        coef = torch.as_tensor(np.asarray(coef.cpu() if isinstance(coef, torch.Tensor) else coef))
+        coef = coef[self._lo:self._hi].contiguous()
+        return step, [coef if device is None else coef.to(device), *rest]
 
 
 class Optimizer:
@@ -116,32 +171,46 @@ def _batch_rows(y, w, mask, start: int, offset: int, local_batch: int):
     return y[rows], w[rows] * mask[rows] * tail_valid
 
 
-def _sgd_partials(coef, start: int, offset: int, feats, y, w, mask, loss_func, local_batch: int):
+def _sgd_partials(coef, start: int, offset: int, feats, y, w, mask, loss_func, local_batch: int, ctx=None):
     """A rank's ``(grad, weight_sum, loss_sum)`` of one dense or
     scatter-path sparse epoch. ``feats`` is a dense [m, d] tensor or a
-    padded-CSR ``(indices [m, K], values [m, K])`` pair."""
+    padded-CSR ``(indices [m, K], values [m, K])`` pair.
+
+    ``coef`` is the rank's slice of the coefficient on ``ctx``'s model axis
+    (JAX :160-205): dense, ``feats`` is the matching column slice; sparse,
+    the rank gathers and scatters only its index range ``[lo, lo +
+    |coef|)``. The partial margins are all-reduced over the model axis, so
+    the multiplier is the same on every model shard and the gradient slice
+    is local. With one model shard (or no ``ctx``) the range is the whole
+    coefficient and the all-reduce returns its input."""
     yb, wb = _batch_rows(y, w, mask, start, offset, local_batch)
     if isinstance(feats, tuple):
-        # Padding slots (index 0, value 0) and zero-weight rows add 0.
-        ib = feats[0][start:start + local_batch].reshape(-1).long()
+        # Padding slots (index 0, value 0), another shard's indices and
+        # zero-weight rows add 0.
         vb = feats[1][start:start + local_batch]
-        dot = torch.sum(vb * coef[ib].reshape(vb.shape), dim=1)
+        local_d = coef.shape[0]
+        ib = feats[0][start:start + local_batch].long() - (0 if ctx is None else ctx.model_index) * local_d
+        in_range = (ib >= 0) & (ib < local_d)
+        ib = torch.where(in_range, ib, 0).reshape(-1)
+        vb = torch.where(in_range, vb, 0.0)
+        dot = all_reduce_tensor(torch.sum(vb * coef[ib].reshape(vb.shape), dim=1), ctx, "model")
         loss_sum, mult = loss_func.loss_and_mult(dot, yb, wb)
         grad = torch.zeros_like(coef).index_add_(0, ib, (vb * mult[:, None]).reshape(-1))
     else:
-        loss_sum, grad = loss_func.loss_and_grad_sum(
-            coef, feats[start:start + local_batch], yb, wb
-        )
+        Xb = feats[start:start + local_batch]
+        loss_sum, mult = loss_func.loss_and_mult(all_reduce_tensor(Xb @ coef, ctx, "model"), yb, wb)
+        grad = Xb.T @ mult
     return grad, torch.sum(wb), loss_sum
 
 
 def _sgd_epoch_math(coef, start: int, offset: int, feats, y, w, mask, loss_func,
                     local_batch: int, lr: float, reg: float, elastic_net: float, ctx=None):
     """One epoch of dense or scatter-path sparse SGD, the packed ``[grad |
-    weight | loss]`` all-reduced over ``ctx``'s ranks (JAX
-    ``optimizer.py:259-268``). Returns ``(new_coef, mean_loss)``."""
+    weight | loss]`` all-reduced over ``ctx``'s data axes (JAX
+    ``optimizer.py:259-268``); ``coef`` is the rank's model slice
+    (``_sgd_partials``). Returns ``(new_coef, mean_loss)``."""
     grad, wsum, loss_sum = all_reduce_packed(
-        _sgd_partials(coef, start, offset, feats, y, w, mask, loss_func, local_batch), ctx
+        _sgd_partials(coef, start, offset, feats, y, w, mask, loss_func, local_batch, ctx), ctx
     )
     return _apply_update(coef, grad, wsum, loss_sum, lr, reg, elastic_net)
 
@@ -265,7 +334,7 @@ class SGD(Optimizer):
         self.sharding = sharding
         self.loss_history: List[float] = []
 
-    def _run_fingerprint(self, loss_func, rows: int, dim: int, n_data: int = 1) -> str:
+    def _run_fingerprint(self, loss_func, rows: int, dim: int, n_data: int = 1, n_model: int = 1) -> str:
         """Run/config identity recorded with checkpoints: a different job
         pointed at the same directory fails loudly instead of resuming stale
         state. The JAX package's string for the same fit on ``n_data``
@@ -284,7 +353,7 @@ class SGD(Optimizer):
             "rows": rows,
             "dim": dim,
             "n_data": n_data,
-            "n_model": 1,
+            "n_model": n_model,
         }
         return hashlib.sha256(json.dumps(sig, sort_keys=True).encode()).hexdigest()[:16]
 
@@ -315,16 +384,21 @@ class SGD(Optimizer):
                 )
             if "weights" not in cols:
                 cols["weights"] = np.ones(np.asarray(cols["labels"]).shape[0])
-            if ts is not None and "features" in cols and fused:
-                # The deterministic tier: dense fused fits ingest under the
-                # block-cyclic deal and reduce width-invariantly. Sparse and
-                # checkpointed/listener fits run the psum paths below on the
-                # same mesh.
+            if ts is not None and ts.n_model == 1 and "features" in cols and fused:
+                # The deterministic tier: dense fused data-parallel fits
+                # ingest under the block-cyclic deal and reduce
+                # width-invariantly. Sparse, TP and checkpointed/listener
+                # fits run the psum paths below on the same mesh.
                 return self._optimize_deterministic(init_model, cols, loss_func, ts)
             np_dtype = _NP_DTYPES[self.dtype]
+            # On a TP mesh dense features ingest in their training layout,
+            # the rank's column slice (JAX :1007-1016)
+            specs = ({"features": ("data", "model")}
+                     if "features" in cols and ctx is not None and ctx.n_model > 1 else None)
             train_data = DeviceDataCache(
                 {k: np.asarray(v, np.int32 if k == "indices" else np_dtype) for k, v in cols.items()},
                 device=None if ctx is not None else resolve_device(self.device), ctx=ctx,
+                column_specs=specs,
             )
         elif not isinstance(train_data, DeviceDataCache):
             raise TypeError(
@@ -341,6 +415,7 @@ class SGD(Optimizer):
             )
         dim = int(np.asarray(init_model).shape[0])
         n_data = train_data.n_data
+        model_sharded = ctx is not None and ctx.n_model > 1
         local_batch = min(-(-self.global_batch_size // n_data), train_data.local_rows)
         check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
 
@@ -362,20 +437,49 @@ class SGD(Optimizer):
             serial = 2 * local_batch * int(feats[0].shape[-1])  # gather + scatter
         else:
             feats, serial = train_data["features"], 0
+            if model_sharded:
+                feats = self._tp_features(train_data, ctx)
         lr, reg, en = self.learning_rate, self.reg, self.elastic_net
 
         def epoch(coef, start, offset):
             return _sgd_epoch_math(coef, start, offset, feats, y, w, mask, loss_func,
                                    local_batch, lr, reg, en, ctx)
 
-        coef = torch.as_tensor(np.asarray(init_model, _NP_DTYPES[self.dtype]), device=train_data.device)
+        coef = self._place_coef(ctx, init_model, train_data.device, model_sharded)
         if not fused:
-            return self._optimize_host_loop(coef, train_data, loss_func, local_batch, check_loss, epoch)
-        starts, offsets = offset_schedule(train_data.local_rows, local_batch, self.max_iter)
-        coef = self._run_chunks(
-            coef, starts, offsets, fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
-        )
-        return coef.cpu().numpy()
+            coef = self._optimize_host_loop(coef, train_data, loss_func, local_batch, check_loss, epoch,
+                                            dim, model_sharded)
+        else:
+            starts, offsets = offset_schedule(train_data.local_rows, local_batch, self.max_iter)
+            coef = self._run_chunks(
+                coef, starts, offsets, fused_chunk_len(self.max_iter, check_loss, serial), check_loss, epoch,
+            )
+        if model_sharded:
+            coef = _gather_model(coef, ctx)
+        return coef.cpu().numpy()[:dim]
+
+    @staticmethod
+    def _tp_features(train_data, ctx) -> torch.Tensor:
+        """The rank's column slice of the dense features, padded to a
+        multiple of ``n_model`` (JAX :896-910): the cache's own column when
+        it ingested the features so, else a slice made for this fit and not
+        kept (it dies with the fit)."""
+        X = train_data["features"]
+        if "features" in train_data.model_sharded:
+            return X
+        c0, c1, d_pad = ctx.model_range(int(X.shape[1]))
+        if d_pad > X.shape[1]:
+            X = F.pad(X, (0, d_pad - int(X.shape[1])))
+        return X[:, c0:c1].contiguous()
+
+    def _place_coef(self, ctx, host_coef, device, model_sharded: bool) -> torch.Tensor:
+        """The coefficient on ``device``: whole, or this rank's slice of it
+        padded to a multiple of ``n_model`` (JAX :912-925)."""
+        host_coef = np.asarray(host_coef, _NP_DTYPES[self.dtype])
+        if model_sharded:
+            c0, c1, d_pad = ctx.model_range(host_coef.shape[0])
+            host_coef = np.concatenate([host_coef, np.zeros(d_pad - host_coef.shape[0], host_coef.dtype)])[c0:c1]
+        return torch.as_tensor(host_coef, device=device)
 
     def _optimize_deterministic(self, init_model, cols, loss_func, ts) -> np.ndarray:
         """Dense fused SGD on the deterministic tier (JAX :1132).
@@ -411,13 +515,17 @@ class SGD(Optimizer):
         return coef.cpu().numpy()
 
     def _optimize_host_loop(self, coef, train_data, loss_func, local_batch: int,
-                            check_loss: bool, epoch: Callable) -> np.ndarray:
+                            check_loss: bool, epoch: Callable, dim: int,
+                            model_sharded: bool = False) -> torch.Tensor:
         """One epoch a turn of the bounded iteration loop, with the
         manager's snapshots and the listeners (JAX ``optimizer.py:1599``).
         The variables are ``[coef, offset]``: the offset is a host int32
         scalar, so the slice start never waits for the device. ``loss_history``
         holds a float an epoch when tol is on, else the device scalars read
-        once at the end."""
+        once at the end. Under tensor parallelism ``coef`` is the rank's
+        model slice, snapshotted as a model-sharded leaf of the padded
+        coefficient (``_ModelShardedSnapshots``). Returns the final
+        coefficient tensor."""
         from flink_ml_tpu_torch.iteration import (
             IterationBodyResult,
             IterationConfig,
@@ -426,16 +534,20 @@ class SGD(Optimizer):
         )
 
         mgr = self.checkpoint_manager
-        if mgr is not None and train_data.n_data > 1 and not isinstance(mgr, ShardedCheckpointManager):
+        ctx = train_data.ctx
+        ranks = 1 if ctx is None else ctx.n_data * ctx.n_model
+        if mgr is not None and ranks > 1 and not isinstance(mgr, ShardedCheckpointManager):
             raise ValueError(
                 "a checkpointed fit on a mesh of several ranks needs a ShardedCheckpointManager "
                 "(rank 0 writes, the others wait); a CheckpointManager would be written by every rank"
             )
         if mgr is not None:
             mgr.set_fingerprint(
-                self._run_fingerprint(loss_func, int(train_data.n_valid), int(coef.shape[0]),
-                                      train_data.n_data)
+                self._run_fingerprint(loss_func, int(train_data.n_valid), dim, train_data.n_data,
+                                      1 if ctx is None else ctx.n_model)
             )
+            if model_sharded:
+                mgr = _ModelShardedSnapshots(mgr, ctx, dim)
         m = train_data.local_rows
         criteria = TerminateOnMaxIterOrTol(self.max_iter, self.tol)
         self.loss_history = []
@@ -454,14 +566,13 @@ class SGD(Optimizer):
             return IterationBodyResult([new_coef, next_offset], outputs=[new_coef],
                                        termination_criteria=cont)
 
-        config = IterationConfig(checkpoint_manager=self.checkpoint_manager,
-                                 checkpoint_interval=self.checkpoint_interval)
+        config = IterationConfig(checkpoint_manager=mgr, checkpoint_interval=self.checkpoint_interval)
         outputs = iterate_bounded_until_termination(
             [coef, np.asarray(0, np.int32)], body, config=config, listeners=self.listeners
         )
         if not check_loss and self.loss_history:  # one readback of the deferred scalars
             self.loss_history = [float(x) for x in torch.stack(self.loss_history).cpu().numpy()]
-        return outputs[0].cpu().numpy()
+        return outputs[0]
 
     def _run_chunks(self, coef, starts, offsets, chunk: int, check_loss: bool,
                     epoch: Callable) -> torch.Tensor:
@@ -540,18 +651,21 @@ class SGD(Optimizer):
 
         from flink_ml_tpu_torch.linalg.onehot_sparse import OneHotSparseLayout, row_order
 
-        key = (dim, local_batch)  # a cache's mesh and rank never change
+        ctx = train_data.ctx
+        # the stacks (and the build form's row_order) are the rank's
+        # (data, model) cell of the layout
+        cell = (1, 1, 0, 0) if ctx is None else (ctx.n_data, ctx.n_model, ctx.data_index, ctx.model_index)
+        key = (dim, local_batch) + cell
         memo = train_data._onehot_memo
         if memo is not None and memo[0] == key and (memo[2] is not None or not force):
             return memo[1], memo[2]
         dev = train_data.device
         budget = None if force else int(self._ONEHOT_HBM_FRACTION * _hbm_bytes_limit(dev))
         t0 = time.perf_counter()
-        ctx = train_data.ctx
         lay = OneHotSparseLayout.build(
             train_data.host_columns["indices"], train_data.host_columns["values"],
             dim, local_batch, max_stack_bytes=budget,
-            n_shards=train_data.n_data, shard=0 if ctx is None else ctx.rank,
+            n_shards=cell[0], shard=cell[2], n_model=cell[1], model_index=cell[3],
         )
         self.layout_seconds = time.perf_counter() - t0
         if lay is None:
@@ -583,7 +697,7 @@ class SGD(Optimizer):
         ):
             self._drop_premat_memo(train_data)
             return False, ()
-        key = (lay.dim, lay.local_batch, lay.row_hi)
+        key = (lay.dim, lay.local_batch, lay.row_hi, lay.n_model)
         memo = train_data._onehot_premat_memo
         if memo is not None and memo[0] == key:
             return True, memo[1]
@@ -626,14 +740,19 @@ class SGD(Optimizer):
                 yb, wb = F.pad(yb, (0, pad)), F.pad(wb, (0, pad))
             grad, loss_sum, wsum = onehot_batch_step(
                 coef_perm, lidx[wi], rowid[wi], lvals[wi], yb, wb, loss_func,
-                lay.class_meta, lay.nblk, lay.sub_batch, lay.row_hi,
+                lay.class_meta, lay.nblk_local, lay.sub_batch, lay.row_hi,
                 premat=(oh[0], oh[1], wi) if premat else None,
                 order=None if premat else (row_ptr[wi], entry_of[wi]),
+                model_ctx=ctx,
             )
             grad, loss_sum, wsum = all_reduce_packed((grad, loss_sum, wsum), ctx)
             return _apply_update(coef_perm, grad, wsum, loss_sum, lr, reg, en)
 
-        coef = torch.from_numpy(lay.permute_coef(np.asarray(init_model, np.float32)))
+        # the rank's row of the shard-major [n_model, nblk_local * 128] coefficient
+        coef = lay.permute_coef(np.asarray(init_model, np.float32)).reshape(lay.n_model, -1)
+        coef = torch.from_numpy(coef[0 if ctx is None else ctx.model_index].copy())
         starts, offsets = offset_schedule(train_data.local_rows, local_batch, self.max_iter)
         coef = self._run_chunks(coef.to(train_data.device), starts, offsets, chunk, check_loss, epoch)
+        if lay.n_model > 1:
+            coef = _gather_model(coef, ctx)
         return lay.unpermute_coef(coef.cpu().numpy())

@@ -1,8 +1,11 @@
 """Distributed substrate — twin of ``flink_ml_tpu/parallel/``: the training
-mesh of ``torch.distributed`` processes (``mesh.py``), its collectives and
-the deterministic mapreduce tier (``collectives.py``), the block-cyclic deal
-of training rows (``train_sharding.py``), and the ring-attention fold and its
-backward (``flash.py``) with ring attention on one shard (``ring.py``)."""
+mesh of ``torch.distributed`` processes laid out ``[slice, data, model]``
+with a process subgroup per axis (``mesh.py``), its collectives and the
+deterministic mapreduce tier (``collectives.py``), the block-cyclic deal of
+training rows (``train_sharding.py``), the ring-attention fold and its
+backward (``flash.py``), ring attention with K/V blocks rotating between
+ranks (``ring.py``), and expert-parallel mixture-of-experts over two
+all-to-alls (``moe.py``)."""
 from flink_ml_tpu_torch.parallel.collectives import (
     BLOCK_ROWS,
     all_reduce_mean,
@@ -34,11 +37,13 @@ from flink_ml_tpu_torch.parallel.flash import (
 from flink_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    SLICE_AXIS,
     MeshContext,
     get_mesh_context,
     mesh_context,
     set_mesh_context,
 )
+from flink_ml_tpu_torch.parallel.moe import moe_ffn, moe_ffn_sharded
 from flink_ml_tpu_torch.parallel.ring import ring_attention, ring_attention_sharded
 from flink_ml_tpu_torch.parallel.train_sharding import (
     ShardedTrainCache,
@@ -52,6 +57,7 @@ __all__ = [
     "BLOCK_ROWS",
     "DATA_AXIS",
     "MODEL_AXIS",
+    "SLICE_AXIS",
     "MeshContext",
     "ShardedTrainCache",
     "TrainSharding",
@@ -62,6 +68,8 @@ __all__ = [
     "get_mesh_context",
     "mapreduce_sum",
     "mesh_context",
+    "moe_ffn",
+    "moe_ffn_sharded",
     "pick_backend",
     "psum_tree",
     "resolve_train_sharding",

@@ -13,7 +13,9 @@ an epoch. A collective that fails raises, and the fit with it.
 Two tiers, as in the JAX package:
 
 - ``psum_tree`` / ``all_reduce_sum`` / ``all_reduce_mean``: an all-reduce
-  of each leaf. The ring's summation order is the library's, so a sum at
+  of each leaf, over a named axis of the mesh (``"model"``, ``"data"``,
+  ``("slice", "data")``; the data axes when none is named) — one process
+  subgroup of ``parallel/mesh.py``. The ring's summation order is the library's, so a sum at
   width N may differ from width 1 in the last ulp — the sparse and MLP
   fits ride this tier, outside the bit contract.
 - The deterministic mapreduce tier: ``block_partials`` (the per-8-row-block
@@ -57,6 +59,7 @@ __all__ = [
     "block_partials",
     "fold_partials",
     "mapreduce_sum",
+    "psum_replicated",
     "psum_tree",
     "row_fold_sum",
     "rowwise",
@@ -72,24 +75,55 @@ def _collective(ctx: Optional[MeshContext]) -> bool:
     return ctx is not None and ctx.n_data > 1
 
 
-def all_reduce_tensor(t: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
-    """The elementwise sum of ``t`` over the mesh's ranks, on every rank
-    (``t`` itself at width 1)."""
-    if not _collective(ctx):
+def all_reduce_tensor(t: torch.Tensor, ctx: MeshContext, axis=None) -> torch.Tensor:
+    """The elementwise sum of ``t`` over the ranks of ``ctx``'s ``axis``
+    (``"model"``, ``"data"``, ``("slice", "data")``; None → the data axes),
+    on every rank of it — the JAX package's ``psum(t, axis)``; ``t`` itself
+    when the axis has one rank."""
+    if ctx is None:
+        return t
+    group, size = ctx.axis_group(axis)
+    if size <= 1:
         return t
     buf = t.detach().to("cpu", copy=True) if ctx.host_staged else t.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device) if ctx.host_staged else buf
 
 
-def all_reduce_packed(tensors, ctx: Optional[MeshContext]) -> list:
-    """``tensors`` (one dtype, any shapes) summed over the mesh in ONE
-    all-reduce of their concatenation — a step's gradient and its weight
-    and loss sums travel together, as in the JAX package's packed psum;
-    returned as they are at width 1."""
-    if not _collective(ctx):
+class _PsumReplicated(torch.autograd.Function):
+    """Sum of per-rank partials into a value every rank then uses alike;
+    the VJP hands each rank the (replicated) cotangent unchanged."""
+
+    @staticmethod
+    def forward(fctx, t, ctx, axis):
+        return all_reduce_tensor(t, ctx, axis)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None, None
+
+
+def psum_replicated(t: torch.Tensor, ctx: Optional[MeshContext], axis=None) -> torch.Tensor:
+    """``all_reduce_tensor`` with autograd: each rank's ``t`` is its partial
+    of a sum that every rank goes on to use in the same replicated
+    computation (a loss), so the gradient of each partial is the gradient of
+    the sum — the per-rank parameter gradients it produces are partials,
+    summed over the axis before an update."""
+    if ctx is None or ctx.axis_group(axis)[1] <= 1:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _PsumReplicated.apply(t, ctx, axis)
+    return all_reduce_tensor(t, ctx, axis)
+
+
+def all_reduce_packed(tensors, ctx: Optional[MeshContext], axis=None) -> list:
+    """``tensors`` (one dtype, any shapes) summed over ``axis`` (None → the
+    data axes) in ONE all-reduce of their concatenation — a step's gradient
+    and its weight and loss sums travel together, as in the JAX package's
+    packed psum; returned as they are when the axis has one rank."""
+    if ctx is None or ctx.axis_group(axis)[1] <= 1:
         return list(tensors)
-    flat = all_reduce_tensor(torch.cat([t.reshape(-1) for t in tensors]), ctx)
+    flat = all_reduce_tensor(torch.cat([t.reshape(-1) for t in tensors]), ctx, axis)
     out, pos = [], 0
     for t in tensors:
         out.append(flat[pos:pos + t.numel()].reshape(t.shape))
@@ -97,14 +131,15 @@ def all_reduce_packed(tensors, ctx: Optional[MeshContext]) -> list:
     return out
 
 
-def psum_tree(tree: Any, ctx: Optional[MeshContext] = None) -> Any:
-    """``all_reduce_tensor`` over every tensor of a list/tuple/dict tree."""
+def psum_tree(tree: Any, ctx: Optional[MeshContext] = None, axis=None) -> Any:
+    """``all_reduce_tensor`` over ``axis`` of every tensor of a
+    list/tuple/dict tree."""
     ctx = ctx or get_mesh_context()
     if isinstance(tree, (list, tuple)):
-        return type(tree)(psum_tree(x, ctx) for x in tree)
+        return type(tree)(psum_tree(x, ctx, axis) for x in tree)
     if isinstance(tree, dict):
-        return {k: psum_tree(v, ctx) for k, v in tree.items()}
-    return all_reduce_tensor(tree, ctx)
+        return {k: psum_tree(v, ctx, axis) for k, v in tree.items()}
+    return all_reduce_tensor(tree, ctx, axis)
 
 
 def all_reduce_sum(array, ctx: Optional[MeshContext] = None) -> torch.Tensor:
@@ -188,7 +223,13 @@ def all_gather_blocks(part: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     """Every rank's [L, ...] partials as [N · L, ...] in GLOBAL block order
     under the block-cyclic deal: rank k holds global blocks k, k + N, …, so
     gathered[k, i] is block i·N + k and a swap of the first two axes
-    restores the order."""
+    restores the order. The deterministic tier is data-parallel and
+    single-slice only (JAX ``optimizer.py:144-148``, ``:407-410``)."""
+    if ctx.n_model > 1 or ctx.n_slices > 1:
+        raise ValueError(
+            "deterministic reduction covers the dense data-parallel layout only "
+            "(train.mesh with train.mesh.model == 1, one slice)"
+        )
     src = part.detach().to("cpu", copy=True) if ctx.host_staged else part.detach().contiguous()
     got = [torch.empty_like(src) for _ in range(ctx.n_data)]
     dist.all_gather(got, src, group=ctx.group)

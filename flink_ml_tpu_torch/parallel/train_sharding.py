@@ -20,6 +20,12 @@ on the width:
 Every rank is handed the whole input (as the JAX package's single
 controller sees every row) and uploads only its own rows.
 
+Tensor parallelism (``train.mesh.model`` > 1) adds a model axis: the fit
+runs on ``n_data × n_model`` ranks, rank ``d·n_model + m`` holding data
+shard d's rows and model shard m's slice of the coefficient; the
+deterministic tier stays data-parallel, and TP fits run the psum paths
+(``ops/optimizer.py``).
+
 ``resolve_train_sharding`` is the config-driven entry: an explicit
 ``train.mesh = 1`` resolves to a width-1 ``TrainSharding`` that runs the
 deterministic program with no process group; unset or 0 keeps the
@@ -38,7 +44,7 @@ import torch.distributed as dist
 
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.parallel.collectives import BLOCK_ROWS
-from flink_ml_tpu_torch.parallel.mesh import _TP_NOT_PORTED, MeshContext
+from flink_ml_tpu_torch.parallel.mesh import MeshContext
 
 __all__ = [
     "ShardedTrainCache",
@@ -100,28 +106,31 @@ def ensure_distributed(n_hosts: Optional[int] = None, backend: Optional[str] = N
 
 
 class TrainSharding:
-    """Placement and deal discipline of one sharded fit over ``n_data``
-    ranks. The quanta and the deal are arithmetic on ``n_data``; the rank's
-    :class:`MeshContext` is made on first use of :attr:`ctx`, and raises
-    there unless the process group has ``n_data`` ranks."""
+    """Placement and deal discipline of one sharded fit over ``n_data`` ×
+    ``n_model`` ranks (the train mesh is single-slice, as in JAX). The
+    quanta and the deal are arithmetic on ``n_data``: the deal runs over
+    the rank's data index, so the model shards of one data index hold the
+    same rows. The rank's :class:`MeshContext` is made on first use of
+    :attr:`ctx`, and raises there unless the process group has ``n_data ·
+    n_model`` ranks."""
 
     def __init__(self, n_data: int = 1, n_model: int = 1,
                  device: Optional[Union[str, torch.device]] = None, ctx: Optional[MeshContext] = None):
         if n_data < 1 or n_model < 1:
             raise ValueError(f"train mesh axes must be >= 1, got {n_data}x{n_model}")
-        if n_model != 1:
-            raise NotImplementedError(_TP_NOT_PORTED)
-        if ctx is not None and ctx.n_data != n_data:
-            raise ValueError(f"a mesh context of {ctx.n_data} ranks cannot hold train.mesh {n_data}")
+        if ctx is not None and (ctx.n_data, ctx.n_model) != (n_data, n_model):
+            raise ValueError(
+                f"a mesh context of {ctx.n_data}x{ctx.n_model} ranks cannot hold train.mesh {n_data}x{n_model}"
+            )
         self.n_data = int(n_data)
-        self.n_model = 1
+        self.n_model = int(n_model)
         self._device = device
         self._ctx = ctx
 
     @property
     def ctx(self) -> MeshContext:
         if self._ctx is None:
-            self._ctx = MeshContext(n_data=self.n_data, device=self._device)
+            self._ctx = MeshContext(n_data=self.n_data, n_model=self.n_model, device=self._device)
         return self._ctx
 
     @property
@@ -183,8 +192,8 @@ class TrainSharding:
 class ShardedTrainCache:
     """The rank's share of a training set under the block-cyclic deal.
 
-    Rank k uploads rows ``[k·L, (k+1)·L)`` of the permuted, padded set (L =
-    n_padded / N): padding rows carry zeros and a zero mask, so they add
+    The ranks of data index k upload rows ``[k·L, (k+1)·L)`` of the
+    permuted, padded set (L = n_padded / N): padding rows carry zeros and a zero mask, so they add
     nothing to any fold. The surface of ``iteration.DeviceDataCache``
     (``cache[name]``, ``mask``, ``local_rows``, ``n_valid``). Bumps the
     ingest and padding counters of ``MLMetrics.TRAIN_GROUP`` by this fit's
@@ -202,7 +211,7 @@ class ShardedTrainCache:
         self.n_padded = sharding.padded_rows(n, self.global_batch)
         L = self.n_padded // sharding.n_data
         ctx = sharding.ctx
-        rows = sharding.deal_permutation(self.n_padded)[ctx.rank * L:(ctx.rank + 1) * L]
+        rows = sharding.deal_permutation(self.n_padded)[ctx.data_index * L:(ctx.data_index + 1) * L]
         valid = rows < n
         self.device = ctx.device
         self.arrays: Dict[str, torch.Tensor] = {}
@@ -237,18 +246,16 @@ class ShardedTrainCache:
 def resolve_train_sharding(device: Optional[Union[str, torch.device]] = None) -> Optional[TrainSharding]:
     """A TrainSharding iff ``train.mesh`` is set (an explicit 1 included);
     None when it is unset or 0. Makes the process group a torchrun launch
-    asks for, and raises when ``train.mesh`` is not the world size or
-    ``train.mesh.model`` > 1 — training narrower than asked, or on a tier
-    not ported, must not pass silently."""
+    asks for, and raises when ``train.mesh`` × ``train.mesh.model`` is
+    not the world size — training narrower or wider than asked must not
+    pass silently."""
     from flink_ml_tpu_torch.config import Options, config
 
     n_data = config.get(Options.TRAIN_MESH)
     if not n_data or int(n_data) < 1:
         return None
     n_model = config.get(Options.TRAIN_MESH_MODEL) or 1
-    if int(n_model) > 1:
-        raise NotImplementedError(_TP_NOT_PORTED)
     ensure_distributed(device=device)
-    ts = TrainSharding(int(n_data), device=device)
+    ts = TrainSharding(int(n_data), int(n_model), device=device)
     ts.ctx  # noqa: B018 — the world-size check, before any row is read
     return ts

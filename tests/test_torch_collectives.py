@@ -222,8 +222,8 @@ def test_resolution_of_train_mesh():
     config.set(Options.TRAIN_MESH, 4)
     with pytest.raises(ValueError, match="process group of 4 ranks"):
         resolve_train_sharding("cpu")
-    config.set(Options.TRAIN_MESH_MODEL, 2)
-    with pytest.raises(NotImplementedError, match="A 6"):
+    config.set(Options.TRAIN_MESH_MODEL, 2)  # tensor parallelism: train.mesh x train.mesh.model ranks
+    with pytest.raises(ValueError, match="process group of 8 ranks"):
         resolve_train_sharding("cpu")
     config.unset(Options.TRAIN_MESH_MODEL)
     config.set(Options.TRAIN_MESH, 1)
@@ -255,8 +255,8 @@ def test_the_process_global_mesh_and_its_block():
         assert get_mesh_context() is outer
     finally:
         set_mesh_context(None)
-    with pytest.raises(NotImplementedError, match="A 6"):
-        MeshContext(n_model=2)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        MeshContext(n_model=2)  # a model axis of 2 needs a world of 2
 
 
 def test_sgd_takes_ctx_or_sharding_not_both():

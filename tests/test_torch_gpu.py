@@ -2607,3 +2607,38 @@ def test_a_two_rank_world_on_the_card_fits_the_bits_of_one_rank(cuda, tmp_path):
             for k in keys:
                 np.testing.assert_array_equal(rank[k], one[name][0][k], err_msg=f"{name} {k}")
     assert np.isfinite(one["dense_sgd"][0]["coef"]).all() and one["kmeans"][0]["weights"].sum() == len(pts)
+
+
+def test_tensor_parallel_onehot_and_the_ring_across_two_ranks_on_the_card(cuda, tmp_path):
+    """A world of 2 gloo ranks on the card: one-hot SGD on a 1 × 2 mesh runs
+    the crossings on model-local stacks and lands within JAX's invariance
+    bound (rtol 2e-3 / atol 1e-4) of the one-rank fit, every rank the same
+    coefficient; the ring over the 2 ranks (K/V rotated between them, the
+    fold, dq and dkv kernels at T / 2) gives the one-rank ring's output and
+    gradients within 2e-5."""
+    from flink_ml_tpu_torch.parallel.ring import ring_attention
+    from tests.torch_sharded_worker import run_world
+
+    rng = np.random.default_rng(8)
+    dim, n, K = 1 << 14, 4096, 8
+    sparse = {"indices": rng.integers(0, dim, size=(n, K)).astype(np.int32),
+              "values": rng.normal(size=(n, K)).astype(np.float32),
+              "labels": (rng.random(n) > 0.5).astype(np.float32)}
+    kw = dict(data=sparse, dim=dim, sparse_kernel="onehot", max_iter=8, global_batch_size=1024, tol=0.0,
+              learning_rate=0.4)
+    B, T, H, D = 2, 512, 2, 64
+    q, k, v, g = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(4))
+    scenarios = [("onehot_tp", "sgd_on_mesh", dict(mesh=(1, 2, 1), **kw)),
+                 ("ring", "ring", dict(q=q, k=k, v=v, g=g, causal=True, n_valid=None))]
+    one = run_world(1, [("onehot", "sgd_on_mesh", dict(mesh=(1, 1, 1), **kw))], str(tmp_path), device="cuda")
+    two = run_world(2, scenarios, str(tmp_path), device="cuda", mesh=(1, 2))
+    for r in two["onehot_tp"][1:]:
+        np.testing.assert_array_equal(r["coef"], two["onehot_tp"][0]["coef"])
+    np.testing.assert_allclose(two["onehot_tp"][0]["coef"], one["onehot"][0]["coef"], rtol=2e-3, atol=1e-4)
+    leaves = [torch.from_numpy(x).to(cuda).requires_grad_(True) for x in (q, k, v)]
+    out = ring_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(cuda))
+    joined = {key: np.concatenate([r[key] for r in two["ring"]], axis=1) for key in ("out", "dq", "dk", "dv")}
+    np.testing.assert_allclose(joined["out"], out.detach().cpu().numpy(), rtol=2e-5, atol=2e-5)
+    for key, want in zip(("dq", "dk", "dv"), grads):
+        np.testing.assert_allclose(joined[key], want.cpu().numpy(), rtol=2e-5, atol=2e-5, err_msg=key)

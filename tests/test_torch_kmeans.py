@@ -346,9 +346,9 @@ def test_unported_training_tiers_raise_naming_the_roadmap():
     # the sharded tier is ported: a mesh of 2 needs a world of 2 ranks
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         KMeans().fit(DataFrame.from_dict({"features": X}), device="cpu")
-    # tensor parallelism is not
+    # tensor parallelism is too: a 2 x 2 mesh needs a world of 4 ranks
     config.set(Options.TRAIN_MESH_MODEL, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group of 4 ranks"):
         KMeans().fit(DataFrame.from_dict({"features": X}), device="cpu")
 
 

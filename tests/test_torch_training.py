@@ -420,9 +420,9 @@ def test_sgd_rejects_what_is_not_ported(monkeypatch):
     # the sharded tier is ported: a mesh of 2 needs a world of 2 ranks
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         SGD(device="cpu").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)
-    # tensor parallelism is not
+    # tensor parallelism is too: a 2 x 2 mesh needs a world of 4 ranks
     monkeypatch.setenv(Options.TRAIN_MESH_MODEL.env_var, "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group of 4 ranks"):
         SGD(device="cpu").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)
 
 

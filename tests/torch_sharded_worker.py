@@ -22,7 +22,7 @@ it and never the test module, which imports JAX.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,38 +32,54 @@ import torch.multiprocessing as mp
 Scenario = Tuple[str, str, dict]  # (name, function in this module, keyword arguments)
 
 
+#: A rank that waits on a collective longer than this fails, and the world
+#: with it, instead of stalling the suite.
+TIMEOUT_S = 120
+
+
 def run_world(world: int, scenarios: Sequence[Scenario], out_dir: str,
-              device: str = "cpu") -> Dict[str, List[dict]]:
-    """Run ``scenarios`` on a world of ``world`` ranks on ``device``; a
-    rank's failure raises here with its traceback."""
+              device: str = "cpu", mesh: Optional[Tuple[int, int]] = None,
+              tag: str = "") -> Dict[str, List[dict]]:
+    """Run ``scenarios`` on a world of ``world`` ranks on ``device`` with
+    ``train.mesh`` × ``train.mesh.model`` = ``mesh`` (default ``(world,
+    1)``); a rank's failure raises here with its traceback. ``tag`` keeps
+    two worlds of one width apart in ``out_dir``."""
     from flink_ml_tpu_torch.parallel.train_sharding import pick_backend
 
-    init = f"file://{os.path.join(out_dir, f'init_w{world}_{device}')}"
+    mesh = mesh or (world, 1)
+    key = f"w{world}{tag}"
+    init = f"file://{os.path.join(out_dir, f'init_{key}_{device}')}"
     mp.start_processes(_rank_main, args=(world, init, out_dir, list(scenarios), device,
-                                         pick_backend(world, device)),
+                                         pick_backend(world, device), mesh, key),
                        nprocs=world, join=True, start_method="spawn")
     results = {}
     for name, _fn, _kw in scenarios:
         results[name] = []
         for r in range(world):
-            with np.load(os.path.join(out_dir, f"{name}_w{world}_r{r}.npz")) as z:
+            with np.load(os.path.join(out_dir, f"{name}_{key}_r{r}.npz")) as z:
                 results[name].append({k: z[k] for k in z.files})
     return results
 
 
 def _rank_main(rank: int, world: int, init: str, out_dir: str, scenarios: List[Scenario],
-               device: str, backend: str) -> None:
+               device: str, backend: str, mesh: Tuple[int, int] = None, key: str = "") -> None:
+    import datetime
+
     from flink_ml_tpu_torch.config import Options, config
 
     torch.set_num_threads(1)
     if device != "cpu":
         torch.cuda.set_device(0)
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
-        config.set(Options.TRAIN_MESH, world)
+        n_data, n_model = mesh or (world, 1)
+        config.set(Options.TRAIN_MESH, n_data)
+        if n_model > 1:
+            config.set(Options.TRAIN_MESH_MODEL, n_model)
         for name, fn, kwargs in scenarios:
             out = globals()[fn](device=device, **kwargs)
-            np.savez(os.path.join(out_dir, f"{name}_w{world}_r{rank}.npz"), **out)
+            np.savez(os.path.join(out_dir, f"{name}_{key or f'w{world}'}_r{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
@@ -86,6 +102,21 @@ def sgd(data: dict, dim: int, device: str, loss: str = "logistic", **kw) -> dict
     return {"coef": coef, "losses": np.asarray(opt.loss_history, np.float64)}
 
 
+def sgd_on_mesh(data: dict, dim: int, mesh: Tuple[int, int, int], device: str,
+                loss: str = "logistic", **kw) -> dict:
+    """``SGD.optimize`` with an explicit ``MeshContext(n_data, n_model,
+    n_slices)`` (the psum paths; JAX's ``SGD(ctx=...)``)."""
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+
+    n_data, n_model, n_slices = mesh
+    ctx = MeshContext(n_data, n_model, device=device, n_slices=n_slices)
+    opt = SGD(ctx=ctx, **kw)
+    coef = opt.optimize(np.zeros(dim, np.float32), data, _loss(loss))
+    return {"coef": coef, "losses": np.asarray(opt.loss_history, np.float64),
+            "premat": np.asarray(opt.onehot_premat_active)}
+
+
 def logistic_regression(features: np.ndarray, labels: np.ndarray, iters: int, batch: int, device: str) -> dict:
     """``LogisticRegression().fit(df)``: the entry point a user calls."""
     from flink_ml_tpu_torch.api.dataframe import DataFrame
@@ -95,6 +126,35 @@ def logistic_regression(features: np.ndarray, labels: np.ndarray, iters: int, ba
     model = (LogisticRegression().set_max_iter(iters).set_global_batch_size(batch)
              .set_learning_rate(0.1).set_tol(0.0).fit(df, device=device))
     return {"coef": np.asarray(model.coefficient)}
+
+
+def groups_reused(features: np.ndarray, labels: np.ndarray, iters: int, batch: int, device: str) -> dict:
+    """Two ``LogisticRegression().fit(df)`` calls in a row on the world's
+    mesh: the axis subgroups each fit asks for, and the process groups
+    ``dist.new_group`` made during each, counted."""
+    from flink_ml_tpu_torch.parallel import mesh
+
+    asked, made = [], []
+    real_new, real_sub = dist.new_group, mesh._subgroup
+
+    def new_group(*a, **kw):
+        made[-1] += 1
+        return real_new(*a, **kw)
+
+    def subgroup(ranks):
+        asked[-1] += 1
+        return real_sub(ranks)
+
+    coefs = []
+    dist.new_group, mesh._subgroup = new_group, subgroup
+    try:
+        for _ in range(2):
+            asked.append(0)
+            made.append(0)
+            coefs.append(logistic_regression(features, labels, iters, batch, device)["coef"])
+    finally:
+        dist.new_group, mesh._subgroup = real_new, real_sub
+    return {"asked": np.asarray(asked), "made": np.asarray(made), "coef0": coefs[0], "coef1": coefs[1]}
 
 
 def kmeans(points: np.ndarray, k: int, seed: int, iters: int, measure: str, device: str) -> dict:
@@ -126,6 +186,108 @@ def mlp(features: np.ndarray, labels: np.ndarray, hidden: int, iters: int, batch
     for i, (W, b) in enumerate(model.params):
         out[f"W{i}"], out[f"b{i}"] = W, b
     return out
+
+
+def ring(q: np.ndarray, k: np.ndarray, v: np.ndarray, g: np.ndarray, causal: bool, n_valid, device: str) -> dict:
+    """``ring_attention_sharded`` of the whole [B, T, H, D] inputs on the
+    world's data axis, and the VJP of this rank's slice of the output with
+    the cotangent ``g``'s slice: the rank's dq, dk and dv."""
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+    from flink_ml_tpu_torch.parallel.ring import ring_attention, ring_attention_sharded
+
+    ctx = MeshContext(device=device)
+    out = ring_attention_sharded(q, k, v, causal=causal, ctx=ctx, n_valid=n_valid)
+    t = q.shape[1] // ctx.n_data
+    sl = slice(ctx.rank * t, (ctx.rank + 1) * t)
+    leaves = [torch.from_numpy(np.ascontiguousarray(x[:, sl])).to(ctx.device).requires_grad_(True)
+              for x in (q, k, v)]
+    got = ring_attention(*leaves, causal=causal, n_valid=n_valid, ctx=ctx)
+    dq, dk, dv = torch.autograd.grad(got, leaves, torch.from_numpy(np.ascontiguousarray(g[:, sl])).to(ctx.device))
+    return {"out": out.detach().cpu().numpy(), "out_grad_path": got.detach().cpu().numpy(),
+            "dq": dq.cpu().numpy(), "dk": dk.cpu().numpy(), "dv": dv.cpu().numpy()}
+
+
+def attention_classifier(tokens: np.ndarray, labels: np.ndarray, params: dict, held: np.ndarray,
+                         device: str) -> dict:
+    """``SelfAttentionClassifier.fit`` and the fitted model's ``transform``
+    of ``held`` with the sequence split over the world."""
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.classification.attention_classifier import SelfAttentionClassifier
+
+    est = SelfAttentionClassifier()
+    for name, value in params.items():
+        getattr(est, f"set_{name}")(value)
+    df = DataFrame.from_dict({"features": tokens, "label": labels})
+    model = est.fit(df, device=device)
+    out = model.transform(DataFrame.from_dict({"features": held}), device=device)
+    res = {"losses": np.asarray(est.loss_history, np.float64),
+           "probs": np.asarray(out.vectors(model.get_raw_prediction_col())),
+           "pred": np.asarray(out.scalars(model.get_prediction_col()))}
+    res.update({f"p_{k}": v for k, v in model.params.items()})
+    return res
+
+
+def ring_uneven(device: str) -> dict:
+    """``ring_attention_sharded`` of a sequence the world does not divide:
+    the error it raises."""
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+    from flink_ml_tpu_torch.parallel.ring import ring_attention_sharded
+
+    ctx = MeshContext(device=device)
+    x = np.zeros((1, 2 * ctx.n_data + 1, 1, 8), np.float32)
+    try:
+        ring_attention_sharded(x, x, x, ctx=ctx)
+    except ValueError as e:
+        return {"error": np.asarray(str(e))}
+    return {"error": np.asarray("")}
+
+
+def moe(x: np.ndarray, router: np.ndarray, w1: np.ndarray, w2: np.ndarray, g: np.ndarray, capacity: int,
+        device: str) -> dict:
+    """``moe_ffn_sharded`` of the whole inputs on the world's data axis; the
+    rank's experts (``route_top1``) and the tokens the call kept (its
+    nonzero rows: a dropped token's row is exactly 0); and the VJP of its
+    output slice with ``g``'s slice in its tokens, the router and its
+    experts."""
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+    from flink_ml_tpu_torch.parallel.moe import moe_ffn, moe_ffn_sharded, route_top1
+
+    ctx = MeshContext(device=device)
+    n, i = ctx.n_data, ctx.rank
+    out = moe_ffn_sharded(x, router, w1, w2, capacity, ctx=ctx)
+    t, e = x.shape[0] // n, w1.shape[0] // n
+    dev = ctx.device
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).requires_grad_(True)
+
+    leaves = [leaf(x[i * t:(i + 1) * t]), leaf(router), leaf(w1[i * e:(i + 1) * e]), leaf(w2[i * e:(i + 1) * e])]
+    got = moe_ffn(*leaves, capacity, ctx)
+    grads = torch.autograd.grad(got, leaves, torch.from_numpy(np.ascontiguousarray(g[i * t:(i + 1) * t])).to(dev))
+    expert = route_top1(leaves[0].detach(), leaves[1].detach(), capacity)[0]
+    out = out.detach().cpu().numpy()
+    return {"out": out, "expert": expert.cpu().numpy(), "keep": np.any(out != 0, axis=1),
+            **{f"d{k}": gr.cpu().numpy() for k, gr in zip(("x", "router", "w1", "w2"), grads)}}
+
+
+def moe_uneven(device: str) -> dict:
+    """``moe_ffn_sharded`` of token and expert counts the world does not
+    divide: the errors it raises."""
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+    from flink_ml_tpu_torch.parallel.moe import moe_ffn_sharded
+
+    ctx = MeshContext(device=device)
+    n, d = ctx.n_data, 4
+    errors = []
+    for t, e in ((2 * n + 1, n), (2 * n, n + 1)):
+        x, router = np.zeros((t, d), np.float32), np.zeros((d, e), np.float32)
+        w1, w2 = np.zeros((e, d, d), np.float32), np.zeros((e, d, d), np.float32)
+        try:
+            moe_ffn_sharded(x, router, w1, w2, 4, ctx=ctx)
+            errors.append("")
+        except ValueError as err:
+            errors.append(str(err))
+    return {"errors": np.asarray(errors)}
 
 
 def rank_rows(rank: int) -> np.ndarray:
