@@ -11,10 +11,11 @@ training, and Pipelines fitted, transformed in the batch tier and served;
 checkpointed training killed and resumed, LinearSVC and LinearRegression,
 a published version hot-swapped into a serving server, text pipelines
 (the host featurizers and the ``entries`` convention), data-parallel
-training on ``train.mesh`` in worlds of 1, 2 and 4 ranks, and tensor,
-sequence and expert parallelism in gloo worlds of 2 and 4 ranks.
+training on ``train.mesh`` in worlds of 1, 2 and 4 ranks, tensor,
+sequence and expert parallelism in gloo worlds of 2 and 4 ranks, and
+streamed fits out of a host-tier cache larger than a window.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 25–33 after 9, and 22–24 after 17):
+runs 34 after 7, 25–33 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -467,6 +468,42 @@ runs 25–33 after 9, and 22–24 after 17):
                dense computation of the same routing, dropped rows 0.
                Readings: each rank's launches, ms/step, rotation ms a step
                and peak memory, MoE ms, the phase's seconds.
+34. streamed — fits out of a host-tier cache, streamed onto the card a
+               window at a time (``iteration/streaming.py``): the headline
+               model (6's schedule) on 2^20 rows from TRAIN_SEED, appended
+               in 65,536-row chunks under a 64 MiB budget so most chunks
+               spill to a temporary directory, 262,144-row windows (4
+               windows, 5 loads over 20 epochs). SGD in three legs: premat
+               ("auto") and build ("off") on a ``NativeDataCache`` (the
+               type asserted: ``create_capacity_cache`` falls back when g++
+               fails), scatter on a ``HostDataCache``; each crossing of the
+               leg's form launched 20 times and no plain crossing, the
+               first launch of each held against its plain version as in
+               33, premat and build bit-identical, every coefficient within
+               1e-5 of 6's float64 SGD (losses 1e-5 relative), the
+               bf16-hi-only control outside; each leg's ms an epoch of the
+               window loop, host ms of each window load, device ms of each
+               run (CUDA events) and each load's parts (the cache's
+               ``rows``, the host fill, the upload call), the idle share
+               and the peak memory beside two windows' forecast. One
+               window's ``rows`` timed 3 times on each cache, the first
+               window and the last (all spilled, the page cache warm). The
+               premat leg again with a ``CheckpointManager`` every 4
+               epochs, its newest snapshot deleted and resumed: bit-equal
+               to the clean fit, its loss history equal.
+               KMeans.fit_stream at kmeans-benchmark.json in 16,384-row
+               chunks from a spilled cache: each epoch (its centroids
+               snapshotted every epoch) against float64 as in 13 and
+               against the resident epoch from the same centroids, with
+               bf16-rounded centroids as the control that must fail.
+               MLPClassifier.fit_stream at mlpclassifier-benchmark.json
+               (32's standardised rows) in 16,384-row windows against the
+               resident fit under 11's limits, bit-equality reported. A
+               gloo world of 2 on the card at 2^18 rows: the streamed
+               one-hot fit on the data axis bit-equal on both ranks and to
+               the world's resident fit, within 1e-5 of float64 of the
+               width-2 schedule, and KMeans.fit_stream on the
+               deterministic tier bit-equal to width 1.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -793,6 +830,18 @@ MP_ATTN_STEP_ITERS = (8, 16)  # the two iteration counts differenced for ms/step
 MOE_T, MOE_D, MOE_H, MOE_E, MOE_SEED = 8192, 512, 2048, 8, 14
 MOE_CAPACITY_FACTOR, MOE_SMALL_CAPACITY = 1.25, 64
 MOE_ATOL = 1e-5  # outputs vs the dense computation of the same routing
+# streamed: the headline model (train's: d 2^22, 39 hashed features, batch
+# 65,536, lr 0.5, 20 iterations) on 2^20 rows from TRAIN_SEED in a host-tier
+# cache of 65,536-row chunks under a 64 MiB budget (most chunks spill),
+# 262,144-row windows (4 windows, 5 window loads over 20 epochs); Criteo's
+# billions of rows cut to 2^20 for the run's time. kmeans-benchmark.json in
+# 16,384-row chunks from a spilled cache; mlpclassifier-benchmark.json in
+# 16,384-row windows; a gloo world of 2 at 2^18 rows
+STREAM_ROWS, STREAM_CHUNK_ROWS, STREAM_BUDGET = 1 << 20, 65_536, 64 << 20
+STREAM_WINDOW_ROWS, STREAM_CKPT_INTERVAL = 262_144, 4
+STREAM_KMEANS_CHUNK, STREAM_KMEANS_BUDGET, STREAM_MLP_WINDOW = 16_384, 8 << 20, 16_384
+STREAM_WORLD, STREAM_WORLD_ROWS, STREAM_WORLD_WINDOW = 2, 1 << 18, 65_536
+STREAM_ROWS_REPS = 3
 
 
 
@@ -1273,13 +1322,14 @@ def _hashed_rows(rng, rows, nnz):
         idx[dup] = np.sort(rng.integers(0, TRAIN_DIM, size=(dup.size, nnz)), axis=1)
 
 
-def _headline_data():
+def _headline_data(rows=TRAIN_ROWS):
     """The headline dataset from TRAIN_SEED: 39 distinct hashed features per
-    row, value 1.0, labels from a sparse random separator (bench.py)."""
+    row, value 1.0, labels from a sparse random separator (bench.py);
+    ``rows`` rows of it."""
     import numpy as np
 
     rng = np.random.default_rng(TRAIN_SEED)
-    idx = _hashed_rows(rng, TRAIN_ROWS, TRAIN_NNZ)
+    idx = _hashed_rows(rng, rows, TRAIN_NNZ)
     w_true = (rng.random(TRAIN_DIM) < 0.001) * rng.standard_normal(TRAIN_DIM)
     y = (w_true[idx].sum(axis=1) > 0).astype(np.float64)
     return idx, y
@@ -3083,20 +3133,34 @@ def _kmeans_epoch_check(X, init, measure, epochs, control=None, sharded=False):
         else:
             new, counts = _epoch_update(m, k, c, feats, mask)
             assign = m.find_closest(feats, c)
-        dist = _kmeans_distances64(measure, X64, c)
-        decided = _kmeans_decided(dist)
-        mismatched = int(((assign != torch.argmin(dist, dim=1)) & decided).sum())
-        hot = (assign[:, None] == torch.arange(k, device=X.device)).double()
-        n_assigned = hot.sum(dim=0)
-        means = torch.where(n_assigned[:, None] > 0, (hot.T @ X64) / n_assigned.clamp_min(1.0)[:, None],
-                            c.double())
-        err = float((new.double() - means).abs().max())
-        counts_equal = bool(torch.equal(counts.double(), n_assigned))
-        readings.append({"mismatched": mismatched, "inside_margin": int((~decided).sum()),
-                         "centroid_err": err, "counts_equal": counts_equal})
-        ok = ok and mismatched == 0 and err <= KMEANS_CENTROID_ATOL and counts_equal
+        reading, epoch_ok = _kmeans_epoch_reading(X64, measure, c, assign, new, counts)
+        readings.append(reading)
+        ok = ok and epoch_ok
         c = new
     return c, readings, ok
+
+
+def _kmeans_epoch_reading(X64, measure, c, assign, new, counts=None):
+    """One epoch from centroids ``c`` against float64: ``assign`` equal to
+    the float64 argmin wherever the gap exceeds the margin, ``new`` within
+    KMEANS_CENTROID_ATOL of the float64 means of the exact features over
+    ``assign``, and ``counts`` (when given) equal to its sizes. Returns
+    ``(reading, passed)``."""
+    import torch
+
+    k = int(c.shape[0])
+    dist = _kmeans_distances64(measure, X64, c)
+    decided = _kmeans_decided(dist)
+    mismatched = int(((assign != torch.argmin(dist, dim=1)) & decided).sum())
+    hot = (assign[:, None] == torch.arange(k, device=X64.device)).double()
+    n_assigned = hot.sum(dim=0)
+    means = torch.where(n_assigned[:, None] > 0, (hot.T @ X64) / n_assigned.clamp_min(1.0)[:, None],
+                        c.double())
+    err = float((new.double() - means).abs().max())
+    counts_equal = counts is None or bool(torch.equal(counts.double(), n_assigned))
+    reading = {"mismatched": mismatched, "inside_margin": int((~decided).sum()),
+               "centroid_err": err, "counts_equal": counts_equal}
+    return reading, mismatched == 0 and err <= KMEANS_CENTROID_ATOL and counts_equal
 
 
 def phase_fit_kmeans(card: str):
@@ -7869,21 +7933,8 @@ def _model_parallel_rank(rank, world, init, out_dir, ckpt_dir):
             return {k.name: k.launches for k in KERNELS if k.launches}
 
         def first_launch(module, name):
-            """Keep rank 0's first call of ``module.name``: its arguments
-            (the premat one-hot stacks left out: the build form's row ids
-            rebuild a unit's) and its output."""
-            real = getattr(module, name)
-
-            def kept(*args):
-                out = real(*args)
-                if rank == 0 and name not in keep:
-                    small = args[:1] + args[3:] if "premat" in name else args
-                    keep[name] = ([a.clone() if isinstance(a, torch.Tensor) else
-                                   tuple(x.clone() for x in a) if isinstance(a, tuple) else a for a in small],
-                                  out.clone())
-                return out
-            setattr(module, name, kept)
-            return lambda: setattr(module, name, real)
+            """Keep rank 0's first call of ``module.name`` (``_first_launch``)."""
+            return _first_launch(module, name, keep, rank == 0)
 
         # --- tensor parallelism, sparse: the headline fit on model-local stacks
         idx, ys = _headline_data()
@@ -8062,11 +8113,32 @@ def _model_parallel_rank(rank, world, init, out_dir, ckpt_dir):
         dist.destroy_process_group()
 
 
-def _mp_check_crossings(keep):
-    """Rank 0's first launch of each crossing (``keep``: name -> (args,
-    output)) on model-local stacks: the premat forms bit-equal to the build
-    forms on the same q and multiplier, and the four kernels held against
-    their plain versions on the build form's unit (``_check_crossings``)."""
+def _first_launch(module, name, keep, take=True):
+    """Keep the first call of ``module.name`` in ``keep`` (when ``take``):
+    its arguments (the premat one-hot stacks left out: the build form's row
+    ids rebuild a unit's) and its output. Returns the undo."""
+    import torch
+
+    real = getattr(module, name)
+
+    def kept(*args):
+        out = real(*args)
+        if take and name not in keep:
+            small = args[:1] + args[3:] if "premat" in name else args
+            keep[name] = ([a.clone() if isinstance(a, torch.Tensor) else
+                           tuple(x.clone() for x in a) if isinstance(a, tuple) else a for a in small],
+                          out.clone())
+        return out
+    setattr(module, name, kept)
+    return lambda: setattr(module, name, real)
+
+
+def _mp_check_crossings(keep, where="model_parallel"):
+    """The first launch of each crossing (``keep``: name -> (args, output);
+    rank 0's, on model-local stacks in ``model_parallel``): the premat forms
+    bit-equal to the build forms on the same q and multiplier, and the four
+    kernels held against their plain versions on the build form's unit
+    (``_check_crossings``)."""
     import torch
 
     import flink_ml_tpu_torch.linalg.onehot_sparse as O
@@ -8076,13 +8148,13 @@ def _mp_check_crossings(keep):
     (q_p, _wi), dot_p = keep["dot_crossing_premat"]
     (m3_p, _wi), mult_p = keep["mult_crossing_premat"]
     if not (torch.equal(q, q_p) and torch.equal(dot_b, dot_p)):
-        raise AssertionError("model_parallel: the first premat and build-form dots differ")
+        raise AssertionError(f"{where}: the first premat and build-form dots differ")
     if not (torch.equal(m3, m3_p) and torch.equal(mult_p[:, :q.shape[1]], mult_b)):
-        raise AssertionError("model_parallel: the first premat and build-form mults differ")
+        raise AssertionError(f"{where}: the first premat and build-form mults differ")
     if not torch.equal(dot_b, O.dot_crossing(q, rowid, row_hi, order)):
-        raise AssertionError("model_parallel: the build-form dot is not repeatable")
+        raise AssertionError(f"{where}: the build-form dot is not repeatable")
     errs = _check_crossings(q, rowid, m3, row_hi, order, O.premat_row_onehots(rowid, row_hi),
-                            "model_parallel rank 0 first launch")
+                            f"{where} first launch")
     return {"max_abs_err": errs, "n_sub": int(q.shape[0]), "n_flat_local": int(q.shape[1]), "row_hi": int(row_hi)}
 
 
@@ -8344,6 +8416,387 @@ def phase_model_parallel(card: str, sparse_dp):
     return launches
 
 
+def _stream_cache(cache, idx, y, chunk_rows=STREAM_CHUNK_ROWS):
+    """``cache`` filled with the headline rows ``idx``/``y`` (value 1.0) in
+    ``chunk_rows``-row chunks, then finished."""
+    import numpy as np
+
+    ones = np.ones((chunk_rows, idx.shape[1]), np.float32)
+    for a in range(0, len(y), chunk_rows):
+        b = min(a + chunk_rows, len(y))
+        cache.append({"indices": idx[a:b], "values": ones[:b - a], "labels": y[a:b].astype(np.float32)})
+    cache.finish()
+    return cache
+
+
+def _kmeans_cache(X32, budget=None, spill_dir=None):
+    """A ``HostDataCache`` of the KMeans rows in STREAM_KMEANS_CHUNK-row chunks."""
+    from flink_ml_tpu_torch.iteration import HostDataCache
+
+    cache = HostDataCache(budget, spill_dir)
+    for a in range(0, len(X32), STREAM_KMEANS_CHUNK):
+        cache.append({"features": X32[a:a + STREAM_KMEANS_CHUNK]})
+    cache.finish()
+    return cache
+
+
+def _stream_readings(opt, seconds, peak):
+    """A streamed fit's readings: ms per epoch of its window loop, each
+    window load's host ms and its parts' (the cache's ``rows``, the host
+    fill, the upload call), each run's device ms (CUDA events), the device's
+    idle share over the loop, and the peak device memory beside two
+    windows' forecast."""
+    st = opt.stream_stats
+    loop_ms = st["loop_s"] * 1e3
+    busy = sum(st["run_ms"])
+    out = {"fit_s": seconds, "plan_s": st["plan_s"], "loop_s": st["loop_s"], "runs": st["runs"],
+           "ms_per_epoch": loop_ms / max(1, len(opt.loss_history)),
+           "window_load_ms": [x * 1e3 for x in st["load_s"]],
+           **{f"window_{part}_ms": [p[f"{part}_s"] * 1e3 for p in st["load_parts"]]
+              for part in ("rows", "fill", "upload")},
+           "run_device_ms": st["run_ms"],
+           "idle_share": 1.0 - busy / loop_ms if loop_ms > 0 else None, "peak_bytes": peak}
+    if "window_bytes" in st:
+        out["two_windows_forecast_bytes"] = 2 * st["window_bytes"]
+    return out
+
+
+def _streamed_rank(rank, world, init, out_dir):
+    """One rank of the streamed phase's gloo world on the card: train.mesh
+    set to the world, the streamed one-hot fit and the resident fit of the
+    same rows on the psum path, and KMeans.fit_stream on the deterministic
+    tier; writes its readings (JSON) and arrays (npz) to ``out_dir``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    try:
+        import flink_ml_tpu_torch.linalg.onehot_sparse as O
+        from flink_ml_tpu_torch.config import Options, config
+        from flink_ml_tpu_torch.iteration import HostDataCache
+        from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+        from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+        from flink_ml_tpu_torch.ops.optimizer import SGD
+
+        config.set(Options.TRAIN_MESH, world)
+        crossings = (O.DOT_CROSSING, O.MULT_CROSSING, O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+        idx, y = _headline_data(STREAM_WORLD_ROWS)
+        idx = idx.astype(np.int32)
+
+        def sgd(**kw):
+            return SGD(max_iter=TRAIN_ITERS, global_batch_size=TRAIN_BATCH, tol=0.0, learning_rate=TRAIN_LR,
+                       sparse_kernel="onehot", **kw)
+
+        for k in crossings:
+            k.reset_launches()
+        t0 = time.perf_counter()
+        opt = sgd(stream_window_rows=STREAM_WORLD_WINDOW)
+        coef = opt.optimize(np.zeros(TRAIN_DIM, np.float32), _stream_cache(HostDataCache(), idx, y),
+                            BinaryLogisticLoss.INSTANCE)
+        stream_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in crossings}
+        resident = sgd().optimize(np.zeros(TRAIN_DIM, np.float32),
+                                  {"indices": idx, "values": np.ones(idx.shape, np.float32),
+                                   "labels": y.astype(np.float32)}, BinaryLogisticLoss.INSTANCE)
+        kcache = _kmeans_cache(_kmeans_published_rows().astype(np.float32))
+        t0 = time.perf_counter()
+        km = KMeans().set_k(KMEANS_K).set_max_iter(KMEANS_ITERS).fit_stream(kcache, chunk_rows=STREAM_KMEANS_CHUNK)
+        kmeans_s = time.perf_counter() - t0
+        np.savez(os.path.join(out_dir, f"r{rank}.npz"), coef=coef, resident=resident,
+                 losses=np.asarray(opt.loss_history), centroids=km.centroids, weights=km.weights)
+        with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "launches": launches, "premat": opt.onehot_premat_active,
+                       "stream_s": stream_s, "kmeans_s": kmeans_s,
+                       "window_load_ms": [x * 1e3 for x in opt.stream_stats["load_s"]]}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_streamed(card: str):
+    """Streamed fits out of a host-tier cache (module docstring, phase 34).
+    Returns the crossing kernels' launches on the streamed path: the premat
+    leg's premat pair and the build leg's build pair."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import flink_ml_tpu_torch.linalg.onehot_sparse as O
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.device import resolve_device
+    from flink_ml_tpu_torch.iteration import HostDataCache, create_capacity_cache
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans, _epoch_update
+    from flink_ml_tpu_torch.native.cache import NativeDataCache
+    from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"streamed: {what}")
+
+    t_phase = time.perf_counter()
+    dev = resolve_device()
+    premat_k = (O.DOT_CROSSING_PREMAT, O.MULT_CROSSING_PREMAT)
+    build_k = (O.DOT_CROSSING, O.MULT_CROSSING)
+    tmp = tempfile.mkdtemp(prefix="streamed-")
+    try:
+        t0 = time.perf_counter()
+        idx, y = _headline_data(STREAM_ROWS)
+        idx = idx.astype(np.int32)
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = _stream_cache(create_capacity_cache(STREAM_BUDGET, os.path.join(tmp, "native")), idx, y)
+        check(isinstance(native, NativeDataCache), f"create_capacity_cache gave a {type(native).__name__}: "
+              "the C++ chunk store did not build")
+        host = _stream_cache(HostDataCache(STREAM_BUDGET, os.path.join(tmp, "host")), idx, y)
+        fill_s = time.perf_counter() - t0
+        check(native.spilled_chunks > 0 and any("files" in e for e in host._log), "no chunk spilled")
+
+        keep = {}
+
+        def sgd_fit(cache, form="auto", kernel="onehot", mgr=None):
+            opt = SGD(max_iter=TRAIN_ITERS, global_batch_size=TRAIN_BATCH, tol=0.0, learning_rate=TRAIN_LR,
+                      sparse_kernel=kernel, onehot_premat=form, stream_window_rows=STREAM_WINDOW_ROWS,
+                      checkpoint_manager=mgr, checkpoint_interval=STREAM_CKPT_INTERVAL if mgr else 0)
+            undo = [_first_launch(O, n, keep) for n in ("dot_crossing", "mult_crossing", "dot_crossing_premat",
+                                                         "mult_crossing_premat")]
+            calls, restore = _count_plain_calls()
+            try:
+                for k in premat_k + build_k:
+                    k.reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                coef = opt.optimize(np.zeros(TRAIN_DIM, np.float32), cache, BinaryLogisticLoss.INSTANCE)
+                seconds = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in premat_k + build_k}
+            finally:
+                restore()
+                for u in undo:
+                    u()
+            check(not calls, f"plain crossings were called on the card: {sorted(set(calls))}")
+            return opt, coef, launches, _stream_readings(opt, seconds, torch.cuda.max_memory_allocated())
+
+        legs = {}
+        for name, cache, form, kernel, used in (("premat", native, "auto", "onehot", premat_k),
+                                                ("build", native, "off", "onehot", build_k),
+                                                ("scatter", host, "auto", "scatter", ())):
+            opt, coef, launches, readings = sgd_fit(cache, form, kernel)
+            check(opt.onehot_premat_active == (name == "premat"), f"{name} leg ran premat={opt.onehot_premat_active}")
+            for k in premat_k + build_k:
+                want = TRAIN_ITERS if k in used else 0
+                check(launches[k.name] == want, f"{k.name} launched {launches[k.name]} times in the {name} leg, "
+                      f"not {want}")
+            legs[name] = {"coef": coef, "losses": opt.loss_history, "launches": launches, **readings}
+            torch.cuda.empty_cache()
+        path_launches = {**{k.name: legs["premat"]["launches"][k.name] for k in premat_k},
+                         **{k.name: legs["build"]["launches"][k.name] for k in build_k}}
+        first_launch = _mp_check_crossings(keep, "streamed")
+        keep.clear()
+        check(np.array_equal(legs["premat"]["coef"].view(np.int32), legs["build"]["coef"].view(np.int32)),
+              "the premat and build coefficients are not bit-identical")
+
+        ones = np.ones(idx.shape, np.float32)
+        ref, ref_losses = _reference_sgd(idx, ones, y, TRAIN_DIM)
+        control, _ = _reference_sgd(idx, ones, y, TRAIN_DIM, hi_only=True)
+        scale = float(np.abs(ref).max())
+        control_err = float(np.abs(control - ref).max())
+        errs = {}
+        for name, leg in legs.items():
+            errs[name] = {"coef": float(np.abs(leg["coef"].astype(np.float64) - ref).max()),
+                          "loss_rel": float(np.max(np.abs(np.asarray(leg["losses"]) - ref_losses)
+                                                   / np.abs(ref_losses)))}
+        emit("streamed", card=card, part="sgd", rows=STREAM_ROWS, chunk_rows=STREAM_CHUNK_ROWS,
+             budget_bytes=STREAM_BUDGET, window_rows=STREAM_WINDOW_ROWS, data_s=data_s, fill_s=fill_s,
+             spilled_chunks={"native": native.spilled_chunks, "host": sum("files" in e for e in host._log)},
+             chunks=len(native._chunk_rows), legs={k: {kk: v for kk, v in leg.items() if kk not in ("coef", "losses")}
+                                                    for k, leg in legs.items()},
+             coef_scale=scale, coef_tol=COEF_TOL, max_abs_err_vs_f64=errs,
+             hi_only_control_max_abs_err_vs_f64=control_err, first_launch=first_launch)
+        for name, e in errs.items():
+            check(e["coef"] <= COEF_TOL * scale, f"the {name} coefficient is off float64 by {e['coef']}")
+            check(e["loss_rel"] <= 1e-5, f"the {name} losses are off float64 by {e['loss_rel']} (relative)")
+        check(control_err > COEF_TOL * scale, f"the hi-half-only control is within the tolerance ({control_err})")
+
+        # one window's rows out of each cache: the first window (chunks in
+        # RAM and spilled) and the last (all spilled; the page cache warm)
+        rows_ms = {}
+        for name, cache in (("native", native), ("host", host)):
+            for j in (0, STREAM_ROWS // STREAM_WINDOW_ROWS - 1):
+                times = []
+                for _ in range(STREAM_ROWS_REPS):
+                    t0 = time.perf_counter()
+                    got = cache.rows(j * STREAM_WINDOW_ROWS, (j + 1) * STREAM_WINDOW_ROWS)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(got["indices"], idx[j * STREAM_WINDOW_ROWS:(j + 1) * STREAM_WINDOW_ROWS]),
+                      f"the {name} cache's window {j} rows differ from the appended ones")
+                rows_ms[f"{name}_window{j}"] = times
+        del got
+        emit("streamed", card=card, part="rows", window_rows=STREAM_WINDOW_ROWS, reps=STREAM_ROWS_REPS,
+             rows_ms=rows_ms, page_cache="warm")
+
+        # a streamed one-hot fit killed after its newest snapshot and resumed
+        ckpt = os.path.join(tmp, "ckpt")
+        mgr = CheckpointManager(ckpt)
+        clean_opt, clean, _, _ = sgd_fit(native, mgr=mgr)
+        steps = mgr.all_steps()
+        shutil.rmtree(os.path.join(ckpt, f"ckpt-{steps[-1]}"))
+        opt, resumed, resumed_launches, resumed_readings = sgd_fit(native, mgr=CheckpointManager(ckpt))
+        keep.clear()
+        check(np.array_equal(clean.view(np.int32), legs["premat"]["coef"].view(np.int32)),
+              "the checkpointed fit differs from the clean one")
+        check(np.array_equal(resumed.view(np.int32), clean.view(np.int32)), "the resumed fit differs from the clean one")
+        check(opt.loss_history == clean_opt.loss_history, "the resumed loss history differs from the clean one")
+        emit("streamed", card=card, part="resume", steps=steps, resumed_from=steps[-2],
+             resumed_runs=resumed_readings["runs"], resumed_launches=resumed_launches,
+             resumed_fit_s=resumed_readings["fit_s"], resumed="bit-equal to the clean fit")
+        del native, host, idx, y, ones, legs, ref, control
+        torch.cuda.empty_cache()
+
+        # KMeans.fit_stream at kmeans-benchmark.json from a spilled cache
+        X = _kmeans_published_rows()
+        X32 = X.astype(np.float32)
+        kcache = _kmeans_cache(X32, STREAM_KMEANS_BUDGET, os.path.join(tmp, "kmeans"))
+        check(any("files" in e for e in kcache._log), "no KMeans chunk spilled")
+
+        def estimator():
+            return KMeans().set_k(KMEANS_K).set_max_iter(KMEANS_ITERS)
+
+        t0 = time.perf_counter()
+        streamed = estimator().fit_stream(kcache, chunk_rows=STREAM_KMEANS_CHUNK)
+        kmeans_s = time.perf_counter() - t0
+        kdir = os.path.join(tmp, "kmeans_ckpt")
+        kmgr = CheckpointManager(kdir, max_to_keep=0)  # every epoch's centroids
+        again = estimator().fit_stream(kcache, chunk_rows=STREAM_KMEANS_CHUNK, checkpoint_manager=kmgr,
+                                       checkpoint_interval=1)
+        check(np.array_equal(again.centroids, streamed.centroids) and np.array_equal(again.weights, streamed.weights),
+              "two streamed KMeans fits differ")
+        check(streamed.weights.sum() == KMEANS_ROWS, f"weights sum {streamed.weights.sum()}")
+        est = estimator()
+        resident = est.fit(DataFrame.from_dict({"features": X}))
+        m = DistanceMeasure.get_instance(est.get_distance_measure())
+        Xd = torch.from_numpy(X32).to(dev)
+        X64 = Xd.double()
+        pick = np.random.default_rng(est.get_seed()).choice(KMEANS_ROWS, size=KMEANS_K, replace=False)
+        path = [X32[pick]] + [np.asarray(kmgr.restore(s)[0], np.float32) for s in kmgr.all_steps()]
+        epochs, ok, control_ok = [], True, True
+        with torch.no_grad():
+            for c_np, new_np in zip(path[:-1], path[1:]):
+                c, new = torch.from_numpy(c_np).to(dev), torch.from_numpy(new_np).to(dev)
+                assign = torch.cat([m.find_closest(Xd[a:a + STREAM_KMEANS_CHUNK], c)
+                                    for a in range(0, KMEANS_ROWS, STREAM_KMEANS_CHUNK)])
+                reading, epoch_ok = _kmeans_epoch_reading(X64, est.get_distance_measure(), c, assign, new)
+                _, c_ok = _kmeans_epoch_reading(X64, est.get_distance_measure(), c, assign,
+                                                new.to(torch.bfloat16).to(torch.float32))
+                r_new, _ = _epoch_update(m, KMEANS_K, c, Xd, torch.ones_like(Xd[:, 0]))
+                r_assign = m.find_closest(Xd, c)
+                reading["assign_differs_from_fit"] = int((r_assign != assign).sum())
+                reading["centroid_diff_from_fit"] = float((r_new - new).abs().max())
+                ok = ok and epoch_ok and (reading["assign_differs_from_fit"] > 0
+                                          or reading["centroid_diff_from_fit"] <= KMEANS_CENTROID_ATOL)
+                control_ok = control_ok and c_ok
+                epochs.append(reading)
+        emit("streamed", card=card, part="kmeans", rows=KMEANS_ROWS, d=KMEANS_D, k=KMEANS_K,
+             chunk_rows=STREAM_KMEANS_CHUNK, spilled_chunks=sum("files" in e for e in kcache._log),
+             fit_s=kmeans_s, ms_per_epoch=kmeans_s / KMEANS_ITERS * 1e3, epochs=epochs,
+             final_centroid_diff_from_fit=float(np.abs(streamed.centroids - resident.centroids).max()),
+             weights_equal_fit=bool(np.array_equal(streamed.weights, resident.weights)),
+             control="each epoch's centroids rounded to bfloat16")
+        check(len(path) == KMEANS_ITERS + 1 and np.array_equal(path[-1].astype(np.float64), streamed.centroids),
+              "the snapshots do not end on the fitted centroids")
+        check(ok, "a streamed KMeans epoch is off float64 or off the resident epoch")
+        check(not control_ok, "the bfloat16 centroid control passes the float64 check")
+        del Xd, X64, kcache
+        torch.cuda.empty_cache()
+
+        # MLPClassifier.fit_stream at mlpclassifier-benchmark.json
+        Xm, ym = _mlp_sharded_rows()
+
+        def mlp_est():
+            return (MLPClassifier().set_hidden_layers(*MLP_WIDTHS[1:-1]).set_max_iter(MLP_ITERS)
+                    .set_global_batch_size(MLP_BATCH))
+
+        est_r, est_s = mlp_est(), mlp_est()
+        m_res = est_r.fit(DataFrame.from_dict({"features": Xm, "label": ym}))
+        mcache = HostDataCache(STREAM_BUDGET, os.path.join(tmp, "mlp"))
+        for a in range(0, len(ym), STREAM_MLP_WINDOW):
+            mcache.append({"features": Xm[a:a + STREAM_MLP_WINDOW], "labels": ym[a:a + STREAM_MLP_WINDOW]})
+        mcache.finish()
+        t0 = time.perf_counter()
+        m_st = est_s.fit_stream(mcache, window_rows=STREAM_MLP_WINDOW)
+        mlp_s = time.perf_counter() - t0
+        held = DataFrame.from_dict({"features": Xm[:MLP_HOLDOUT_ROWS]})
+        p_res = np.asarray(m_res.transform(held).column("rawPrediction"))
+        p_st = np.asarray(m_st.transform(held).column("rawPrediction"))
+        rel = np.abs(np.asarray(est_s.loss_history) - est_r.loss_history) / np.abs(est_r.loss_history)
+        bit_equal = all(np.array_equal(a, b) for la, lb in zip(m_st.params, m_res.params) for a, b in zip(la, lb))
+        emit("streamed", card=card, part="mlp", rows=len(ym), widths=list(MLP_WIDTHS), batch=MLP_BATCH,
+             window_rows=STREAM_MLP_WINDOW, fit_s=mlp_s, ms_per_epoch=mlp_s / MLP_ITERS * 1e3,
+             first_loss_rel=float(rel[0]), loss_max_rel=float(rel.max()),
+             prob_mean_abs=float(np.abs(p_st - p_res).mean()), params_bit_equal_to_fit=bit_equal)
+        check(rel[0] <= FIT_FIRST_LOSS_RTOL and rel.max() <= FIT_LOSS_RTOL, f"MLP losses off the fit by {rel.max()}")
+        check(float(np.abs(p_st - p_res).mean()) <= FIT_PROB_MEAN_ATOL, "MLP probabilities off the fit")
+
+        # a gloo world of 2 on the card, at 2^18 rows
+        config.set(Options.TRAIN_MESH, 1)
+        try:
+            width1 = estimator().fit_stream(_kmeans_cache(X32), chunk_rows=STREAM_KMEANS_CHUNK)
+        finally:
+            config.unset(Options.TRAIN_MESH)
+        out_dir = os.path.join(tmp, "world")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        mp.start_processes(_streamed_rank, args=(STREAM_WORLD, f"file://{out_dir}/init", out_dir),
+                           nprocs=STREAM_WORLD, join=True, start_method="spawn")
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(STREAM_WORLD):
+            with open(os.path.join(out_dir, f"r{r}.json")) as f:
+                got = json.load(f)
+            with np.load(os.path.join(out_dir, f"r{r}.npz")) as z:
+                got["arrays"] = {k: z[k] for k in z.files}
+            ranks.append(got)
+        base = ranks[0]["arrays"]
+        for got in ranks[1:]:
+            for name, a in base.items():
+                check(np.array_equal(a, got["arrays"][name]), f"rank {got['rank']}'s {name} differs from rank 0's")
+        idx, y = _headline_data(STREAM_WORLD_ROWS)
+        wref, _ = _reference_sgd(idx, np.ones(idx.shape), y, TRAIN_DIM, n_data=STREAM_WORLD)
+        world_err = float(np.abs(base["coef"].astype(np.float64) - wref).max())
+        emit("streamed", card=card, part="world", world=STREAM_WORLD, rows=STREAM_WORLD_ROWS,
+             window_rows=STREAM_WORLD_WINDOW, seconds=world_s,
+             ranks=[{k: v for k, v in got.items() if k != "arrays"} for got in ranks],
+             coef_max_abs_err_vs_f64=world_err, coef_scale=float(np.abs(wref).max()),
+             streamed_bit_equal_to_resident=bool(np.array_equal(base["coef"], base["resident"])),
+             kmeans_bit_equal_to_width_1=bool(np.array_equal(base["centroids"], width1.centroids)
+                                              and np.array_equal(base["weights"], width1.weights)))
+        check(np.array_equal(base["coef"], base["resident"]),
+              "the world's streamed fit is not bit-equal to its resident fit")
+        check(world_err <= COEF_TOL * float(np.abs(wref).max()), f"the world's coefficient is off float64 by {world_err}")
+        check(np.array_equal(base["centroids"], width1.centroids) and np.array_equal(base["weights"], width1.weights),
+              "KMeans.fit_stream at width 2 is not bit-equal to width 1")
+        for got in ranks:
+            for k in premat_k + build_k:
+                want = TRAIN_ITERS if (k in premat_k) == got["premat"] else 0
+                check(got["launches"][k.name] == want, f"rank {got['rank']} launched {k.name} "
+                      f"{got['launches'][k.name]} times, not {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("streamed", card=card, part="done", seconds=time.perf_counter() - t_phase)
+    return path_launches
+
+
 def main() -> int:
     import torch
 
@@ -8387,6 +8840,8 @@ def main() -> int:
     record("train", train_launches)
     measured.update(phase_crossings_headline(cache, smi))
     del cache
+    torch.cuda.empty_cache()
+    record("streamed", phase_streamed(smi))
     torch.cuda.empty_cache()
     measured[SPARSE_IDF_LOGISTIC.name] = phase_kernels_sparse(rng, smi, headline[0])
     sparse_launches, idf_model, lr_model = phase_serve_sparse(smi, headline)

@@ -1,6 +1,7 @@
 """Runtime configuration tier — the ``serving.*``, ``fusion.*`` and
-``sparse.*`` options the serving path reads, and the ``train.*`` options the
-trainer checks.
+``sparse.*`` options the serving path reads, the ``train.*`` options the
+trainer checks, and the ``datacache.*`` / ``native.datacache.enabled``
+options of the host-tier training cache.
 
 Twin of ``flink_ml_tpu/config.py``: the option keys, defaults and the
 environment-variable names derived from them (``serving.max.batch.size`` →
@@ -14,7 +15,7 @@ import os
 import threading
 from typing import Any, Callable, Dict
 
-__all__ = ["ConfigOption", "Configuration", "Options", "config"]
+__all__ = ["ConfigOption", "Configuration", "Options", "config", "resolve_cache_config"]
 
 
 class ConfigOption:
@@ -197,6 +198,36 @@ class Options:
         "1 and raises on anything else, as for batch.mesh.",
     )
 
+    DATACACHE_SPILL_DIR = ConfigOption(
+        "datacache.spill.dir",
+        str,
+        None,
+        "Base path for capacity-tier cache spill files "
+        "(ref iteration.data-cache.path). Default: none — past-budget chunks "
+        "stay in host RAM unless a spill dir is configured.",
+    )
+    DATACACHE_MEMORY_BUDGET_BYTES = ConfigOption(
+        "datacache.memory.budget.bytes",
+        int,
+        1 << 30,
+        "Host RAM a capacity-tier cache may hold before spilling to disk "
+        "(the managed-memory fraction role of the reference's MemorySegment pool).",
+    )
+    TRAIN_STREAM_WINDOW_ROWS = ConfigOption(
+        "train.stream.window.rows",
+        int,
+        65_536,
+        "Per-shard device window size (rows) for streamed training out of a "
+        "host-tier cache larger than the card's memory.",
+    )
+    NATIVE_DATACACHE_ENABLED = ConfigOption(
+        "native.datacache.enabled",
+        _parse_bool,
+        True,
+        "Whether create_capacity_cache may use the C++ chunk store "
+        "(native/datacache.cpp, built with the host compiler) when it builds.",
+    )
+
     TRAIN_MESH = ConfigOption(
         "train.mesh",
         int,
@@ -258,3 +289,14 @@ class Configuration:
 
 
 config = Configuration()
+
+
+def resolve_cache_config(memory_budget_bytes, spill_dir):
+    """Capacity-cache construction arguments resolved against the config
+    tier: an argument given wins, else ``datacache.memory.budget.bytes`` and
+    ``datacache.spill.dir`` decide."""
+    if memory_budget_bytes is None:
+        memory_budget_bytes = config.get(Options.DATACACHE_MEMORY_BUDGET_BYTES)
+    if spill_dir is None:
+        spill_dir = config.get(Options.DATACACHE_SPILL_DIR)
+    return memory_budget_bytes, spill_dir

@@ -1,5 +1,7 @@
 """The iteration runtime: the bounded iteration loop, its termination
-criteria and the training-data cache (``datacache.DeviceDataCache``)."""
+criteria, the training-data caches (``datacache.DeviceDataCache`` on the
+device, ``HostDataCache`` and ``create_capacity_cache`` on the host) and the
+streamed-window loop (``streaming.WindowSchedule``, ``WindowedStream``)."""
 from flink_ml_tpu_torch.iteration.iteration import (
     IterationBodyResult,
     IterationConfig,
@@ -14,7 +16,12 @@ from flink_ml_tpu_torch.iteration.termination import (
     TerminateOnMaxIter,
     TerminateOnMaxIterOrTol,
 )
-from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.iteration.datacache import (
+    DeviceDataCache,
+    HostDataCache,
+    create_capacity_cache,
+)
+from flink_ml_tpu_torch.iteration.streaming import WindowedStream, WindowSchedule
 
 __all__ = [
     "IterationBodyResult",
@@ -28,4 +35,8 @@ __all__ = [
     "TerminateOnMaxIter",
     "TerminateOnMaxIterOrTol",
     "DeviceDataCache",
+    "HostDataCache",
+    "create_capacity_cache",
+    "WindowedStream",
+    "WindowSchedule",
 ]

@@ -62,8 +62,9 @@ class ReplayableDataStreamList:
     which it sees only in epoch 0 (``no_replay``).
 
     A replayed source is re-materialised each epoch: a fresh iterator from a
-    zero-argument factory, a DataFrame (one chunk of its columns), a list or
-    tuple of chunks, or any other object as a one-chunk stream. A one-shot
+    zero-argument factory, a capacity-tier cache (its ``iter_rows``), a
+    DataFrame (one chunk of its columns), a list or tuple of chunks, or any
+    other object as a one-chunk stream. A one-shot
     iterator cannot be replayed and raises ``TypeError``. A non-replayed
     source is empty after epoch 0.
     """
@@ -79,6 +80,8 @@ class ReplayableDataStreamList:
     def _fresh_iterator(source, replayed: bool = True):
         if callable(source):
             return source()
+        if hasattr(source, "iter_rows"):  # capacity-tier caches
+            return source.iter_rows()
         if hasattr(source, "collect") and hasattr(source, "column"):  # DataFrame
             return iter([{n: source.column(n) for n in source.get_column_names()}])
         if hasattr(source, "__next__"):

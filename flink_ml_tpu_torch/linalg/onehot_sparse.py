@@ -228,6 +228,11 @@ class OneHotSparsePlan:
             base_of_pos=base_of_pos, local_block_of_pos=local_block_of_pos,
         )
 
+    @property
+    def row_hi(self) -> int:
+        """Row-id split major width of a sub-batch (``ceil(sub_batch / 128)``)."""
+        return -(-self.sub_batch // _ROW_LO)
+
     def stack_bytes(self, n_units: int) -> int:
         """Bytes of ``n_units`` units' packed stacks across every model
         shard (int8 lane + int16 rowid + f32 value per slot)."""
@@ -389,7 +394,7 @@ class OneHotSparseLayout:
 
     @property
     def row_hi(self) -> int:
-        return -(-self.sub_batch // _ROW_LO)
+        return self.plan.row_hi
 
     @property
     def nblk_local(self) -> int:

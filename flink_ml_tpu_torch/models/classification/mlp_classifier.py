@@ -26,8 +26,15 @@ every rank runs the same adam step. The global minibatch changes with the
 width and the all-reduce sums in the library's order, so this fit is outside
 the bit contract of SGD and KMeans, as it is in the JAX package.
 
-Not ported yet, raising an error that names ROADMAP.md: ``fit_stream`` (the
-host-tier cache, queue A 7).
+fit_stream (JAX :385): the rows stream out of a host-tier cache (columns
+``features``, ``labels`` — class values, mapped to indices into
+``classes`` and refused when outside them — and optional ``weights``)
+through ``iteration/streaming.py``'s ``plan_windows``/``run_windows``: the
+resident fit's epochs (``_AdamRun``) run on each window while the next one
+is read and copied, every epoch whose minibatch lies in the window in one
+run. On ``train.mesh`` each rank streams its own data shard's rows, as the
+resident fit uploads its share. With batch-aligned shards every epoch reads
+the rows the resident fit would.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.models.common import extract_labeled_data
 from flink_ml_tpu_torch.ops.kernels import mlp_predict_fn
-from flink_ml_tpu_torch.ops.optimizer import _batch_rows, fused_chunk_len
+from flink_ml_tpu_torch.ops.optimizer import _batch_rows, _read_losses, fused_chunk_len
 from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
 from flink_ml_tpu_torch.parallel.collectives import all_reduce_packed
 from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
@@ -70,8 +77,6 @@ from flink_ml_tpu_torch.servable.lib import MLPClassifierModelServable
 from flink_ml_tpu_torch.utils import read_write as rw
 
 __all__ = ["MLPClassifier", "MLPClassifierModel"]
-
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 # optax.adam's defaults
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -271,6 +276,68 @@ def _adam_step(params, grads, mu, nu, t: int, lr: float):
     return stepped
 
 
+class _AdamRun:
+    """One adam fit's state on its device — the network, the moments, the
+    step count and the ``done`` flag — and its epochs, queued a chunk at a
+    time without reading anything back (the JAX fused chunk program)."""
+
+    def __init__(self, net: _MLP, lr: float, compute_dtype, local_batch: int, ctx, tol: Optional[float],
+                 device):
+        self.net = net
+        self.params = list(net.parameters())
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.t = 0
+        self.done = torch.zeros((), dtype=torch.bool, device=device)
+        self.lr, self.compute_dtype, self.local_batch, self.ctx, self.tol = lr, compute_dtype, local_batch, ctx, tol
+
+    def launch(self, X, y, w, mask, starts_c, offsets_c, active_c):
+        """Queue the chunk's epochs on ``X``/``y``/``w``/``mask``: each reads
+        the schedule's window with its clamped tail zero-weighted
+        (``_batch_rows``), takes the weighted loss sum's gradient by
+        autograd, all-reduces gradients, weight and loss over the data axes,
+        divides by the weight and applies ``_adam_step``; ``done`` freezes
+        the parameters under ``tol``. Returns the pending ``(recorded
+        losses, executed count)``."""
+        params, b = self.params, self.local_batch
+        recorded = []
+        executed_n = torch.zeros((), dtype=torch.float32, device=self.done.device)
+        for start, offset, act in zip(starts_c, offsets_c, active_c):
+            if not act:  # padding epochs of the last chunk: no-ops
+                continue
+            start = int(start)
+            yb, wb = _batch_rows(y, w, mask, start, int(offset), b)
+            logits = self.net(X[start:start + b], self.compute_dtype).to(torch.float32)
+            losses = torch.logsumexp(logits, dim=-1) - logits.gather(1, yb.long()[:, None])[:, 0]
+            loss_sum = torch.sum(losses * wb)
+            grads = torch.autograd.grad(loss_sum, params)
+            with torch.no_grad():
+                # JAX _epoch_math's psum of (grads, [weight, loss]), packed
+                *grads, loss_sum, wsum = all_reduce_packed([*grads, loss_sum.detach(), torch.sum(wb)], self.ctx)
+                safe_w = torch.clamp(wsum, min=1e-30)
+                # optax's count advances on executed epochs only; once
+                # ``done``, no later epoch of the run is kept anyway
+                self.t += 1
+                stepped = _adam_step(params, [g / safe_w for g in grads], self.mu, self.nu, self.t, self.lr)
+                mean_loss = loss_sum / safe_w
+                executed = ~self.done
+                for i, (p_new, m_new, v_new) in enumerate(stepped):
+                    if self.tol is not None:
+                        p_new = torch.where(executed, p_new, params[i])
+                        m_new = torch.where(executed, m_new, self.mu[i])
+                        v_new = torch.where(executed, v_new, self.nu[i])
+                    params[i].copy_(p_new)
+                    self.mu[i], self.nu[i] = m_new, v_new
+                recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
+                executed_n = executed_n + executed.to(torch.float32)
+                if self.tol is not None:  # stop once loss < tol (NaN continues)
+                    self.done = self.done | (executed & (mean_loss < self.tol))
+        return recorded, executed_n
+
+    def layers(self) -> list:
+        return [(W.detach().cpu().numpy(), b.detach().cpu().numpy()) for W, b in self.net.layers()]
+
+
 class MLPClassifier(Estimator, _MlpParams):
     """Minibatch adam training of the MLP on one device."""
 
@@ -291,75 +358,102 @@ class MLPClassifier(Estimator, _MlpParams):
             metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
         return model
 
+    def _adam_run(self, dims: List[int], local_batch: int, ctx, device) -> _AdamRun:
+        tol = self.get_tol()
+        net = _MLP(_init_params(np.random.default_rng(self.get_seed()), dims), device)
+        return _AdamRun(net, self.get_learning_rate(), self._compute_dtype(), local_batch, ctx,
+                        tol if np.isfinite(tol) and tol > 0 else None, device)
+
+    def _model(self, run: _AdamRun, classes) -> MLPClassifierModel:
+        model = MLPClassifierModel()
+        update_existing_params(model, self)
+        model.params = run.layers()
+        model.labels = np.asarray(classes, np.float64)
+        return model
+
     def fit_cache(self, cache: DeviceDataCache, classes: np.ndarray) -> MLPClassifierModel:
         """The resident fit on ``cache``: columns ``x`` [n, d] float32, ``y``
         [n] the class index (float32) into ``classes``, ``w`` [n] weights.
         A cache on a mesh trains data-parallel over its ranks."""
-        ctx = cache.ctx
         X, y, w = cache["x"], cache["y"], cache["w"]
         dims = [int(X.shape[1]), *[int(h) for h in self.get_hidden_layers()], len(classes)]
-        net = _MLP(_init_params(np.random.default_rng(self.get_seed()), dims), cache.device)
-        params = list(net.parameters())
-        lr = self.get_learning_rate()
-        mu = [torch.zeros_like(p) for p in params]
-        nu = [torch.zeros_like(p) for p in params]
         local_batch = min(-(-self.get_global_batch_size() // cache.n_data), cache.local_rows)
-        tol = self.get_tol()
-        check_loss = bool(np.isfinite(tol) and tol > 0)
+        run = self._adam_run(dims, local_batch, cache.ctx, cache.device)
+        check_loss = run.tol is not None
         max_iter = self.get_max_iter()
         chunk = fused_chunk_len(
             max_iter, check_loss, flops_per_epoch=_mlp_flops_per_epoch(dims, local_batch, cache.n_data)
         )
-        compute_dtype = self._compute_dtype()
         starts, offsets = offset_schedule(cache.local_rows, local_batch, max_iter)
-        done = torch.zeros((), dtype=torch.bool, device=cache.device)
         self.loss_history = []
-        t = 0
         for starts_c, offsets_c, active_c, n_active in chunked_schedule(starts, offsets, max_iter, chunk):
-            recorded = []
-            executed_n = torch.zeros((), dtype=torch.float32, device=cache.device)
-            for start, offset, act in zip(starts_c, offsets_c, active_c):
-                if not act:  # padding epochs of the last chunk: no-ops
-                    continue
-                start = int(start)
-                yb, wb = _batch_rows(y, w, cache.mask, start, int(offset), local_batch)
-                logits = net(X[start:start + local_batch], compute_dtype).to(torch.float32)
-                losses = torch.logsumexp(logits, dim=-1) - logits.gather(1, yb.long()[:, None])[:, 0]
-                loss_sum = torch.sum(losses * wb)
-                grads = torch.autograd.grad(loss_sum, params)
-                with torch.no_grad():
-                    # JAX _epoch_math's psum of (grads, [weight, loss]), packed
-                    *grads, loss_sum, wsum = all_reduce_packed([*grads, loss_sum.detach(), torch.sum(wb)], ctx)
-                    safe_w = torch.clamp(wsum, min=1e-30)
-                    # optax's count advances on executed epochs only; once
-                    # ``done``, no later epoch of the run is kept anyway
-                    t += 1
-                    stepped = _adam_step(params, [g / safe_w for g in grads], mu, nu, t, lr)
-                    mean_loss = loss_sum / safe_w
-                    executed = ~done
-                    for i, (p_new, m_new, v_new) in enumerate(stepped):
-                        if check_loss:
-                            p_new = torch.where(executed, p_new, params[i])
-                            m_new = torch.where(executed, m_new, mu[i])
-                            v_new = torch.where(executed, v_new, nu[i])
-                        params[i].copy_(p_new)
-                        mu[i], nu[i] = m_new, v_new
-                    recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
-                    executed_n = executed_n + executed.to(torch.float32)
-                    if check_loss:  # stop once loss < tol (NaN continues)
-                        done = done | (executed & (mean_loss < tol))
-            host = torch.cat([torch.stack(recorded), executed_n[None]]).cpu().numpy()
-            got = [float(x) for x in host[: int(host[-1])]]
+            got = _read_losses(run.launch(X, y, w, cache.mask, starts_c, offsets_c, active_c))
             self.loss_history.extend(got)
             if check_loss and len(got) < n_active:  # done flipped mid-chunk
                 break
-        model = MLPClassifierModel()
-        update_existing_params(model, self)
-        model.params = [
-            (W.detach().cpu().numpy(), b.detach().cpu().numpy()) for W, b in net.layers()
-        ]
-        model.labels = np.asarray(classes, np.float64)
-        return model
+        return self._model(run, classes)
 
-    def fit_stream(self, cache, classes=None, window_rows=None) -> MLPClassifierModel:
-        raise NotImplementedError(f"MLPClassifier.fit_stream (a host-tier cache) {_NOT_PORTED}")
+    def fit_stream(self, cache, classes=None, window_rows=None, device=None) -> MLPClassifierModel:
+        """Train out of a host-tier cache larger than the card on ``device``
+        (None → the GPU; on ``train.mesh``, this rank's card). ``classes``
+        None: the cache's distinct labels, read in one pass. ``window_rows``
+        None: ``train.stream.window.rows``. Records ``loss_history``."""
+        from flink_ml_tpu_torch.config import Options, config
+        from flink_ml_tpu_torch.iteration.streaming import plan_windows, run_windows
+
+        if window_rows is None:  # the config tier decides
+            window_rows = config.get(Options.TRAIN_STREAM_WINDOW_ROWS)
+        ts = resolve_train_sharding(device)
+        ctx = None if ts is None else ts.ctx
+        dev = ctx.device if ctx is not None else resolve_device(device)
+        n_data = 1 if ctx is None else ctx.n_data
+        if classes is None:
+            uniq: set = set()
+            for chunk in cache.iter_rows():
+                uniq.update(np.unique(np.asarray(chunk["labels"])).tolist())
+            classes = sorted(uniq)
+        classes = np.sort(np.asarray(classes, np.float64))
+
+        def to_index(a):
+            a64 = a.astype(np.float64)
+            idx = np.searchsorted(classes, a64)
+            bad = (idx >= len(classes)) | (classes[np.minimum(idx, len(classes) - 1)] != a64)
+            if bad.any():  # a silent mis-map would train on wrong targets
+                raise ValueError(f"labels {np.unique(a64[bad])} not in classes {classes}")
+            return idx
+
+        local_batch = max(1, -(-self.get_global_batch_size() // n_data))
+        local_batch = min(local_batch, -(-int(cache.num_rows) // n_data))
+        max_iter = self.get_max_iter()
+        d = int(np.asarray(cache.rows(0, 1)["features"]).shape[-1])
+        dims = [d, *[int(h) for h in self.get_hidden_layers()], len(classes)]
+        run = self._adam_run(dims, local_batch, ctx, dev)
+        check_loss = run.tol is not None
+        stream, sched = plan_windows(
+            cache, {"x": "features", "y": "labels", "w": "weights"}, ctx, window_rows, local_batch, max_iter,
+            transforms={"y": to_index}, check_loss=check_loss,
+            flops_per_epoch=_mlp_flops_per_epoch(dims, local_batch, n_data), device=dev,
+        )
+        if ts is not None:
+            metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
+        self.loss_history = []
+        pending = []
+
+        def dispatch(i, win, starts_c, active_c, n_active):
+            # starts double as offsets: the window's masked padding is the short tail batch
+            losses = run.launch(win["x"], win["y"], win["w"], win["__mask__"], starts_c, starts_c, active_c)
+
+            def observe():
+                if not check_loss:
+                    pending.append(losses)
+                    return False
+                got = _read_losses(losses)
+                self.loss_history.extend(got)
+                return len(got) < n_active  # done mid-run
+
+            return observe
+
+        run_windows(stream, sched, dispatch)
+        for losses in pending:
+            self.loss_history.extend(_read_losses(losses))
+        return self._model(run, classes)

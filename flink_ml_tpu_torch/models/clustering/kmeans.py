@@ -29,8 +29,21 @@ from distances whose every sum is ``row_fold_sum``'s pairwise fold over d
 local batch, so an assignment cannot flip with the width: centroids and
 counts are bit-identical at every width.
 
-Not ported yet, raising an error that names ROADMAP.md: ``fit_stream`` (the
-host-tier cache, queue A 7).
+fit_stream (JAX :291): the points replay every epoch from a host-tier cache
+(column ``features``; ``HostDataCache``, ``NativeDataCache``) through the
+bounded iteration loop's ``ReplayableDataStreamList``, re-chunked into
+``chunk_rows``-row device chunks (``iteration/stream.py`` ``rebatch``). Each
+chunk's partial sums and counts (``_assign_partials``) are queued and copied
+back without waiting; the host waits on a chunk's copy only after the next
+chunk is queued, and folds them in float64 (the reference's countWindowAll
+reduce). The same seed draws the same initial rows as ``fit``. A checkpoint
+manager snapshots ``[centroids]`` every ``checkpoint_interval`` epochs
+(fingerprint ``"algo": "KMeans.fit_stream"``); a run resumed at the terminal
+epoch recomputes the counts with one streamed pass. On ``train.mesh`` each
+chunk is dealt over the ranks (``TrainSharding.deal_cache``) and reduced by
+``_sharded_epoch_tot``, the chunk totals added on the device in chunk order:
+bit-identical across widths. ``train.mesh.model`` > 1 drops to one card a
+rank, as ``fit`` does.
 """
 from __future__ import annotations
 
@@ -60,8 +73,6 @@ from flink_ml_tpu_torch.params.shared import (
 from flink_ml_tpu_torch.servable.lib import KMeansModelServable, kmeans_predict
 
 __all__ = ["KMeans", "KMeansModel"]
-
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 
 def _assign_partials(measure: DistanceMeasure, k: int, centroids: torch.Tensor,
@@ -252,5 +263,146 @@ class KMeans(Estimator, HasFeaturesCol, HasPredictionCol, HasDistanceMeasure, Ha
             raise ValueError(f"KMeans needs at least k={self.get_k()} points, got {n}")
 
     def fit_stream(self, cache, chunk_rows: int = 65_536, checkpoint_manager=None,
-                   checkpoint_interval: int = 0, listeners=()) -> KMeansModel:
-        raise NotImplementedError(f"KMeans.fit_stream (a host-tier cache) {_NOT_PORTED}")
+                   checkpoint_interval: int = 0, listeners=(), device=None) -> KMeansModel:
+        """KMeans on a host-tier cache larger than the card, on ``device``
+        (None → the GPU; on a mesh, this rank's card). ``checkpoint_manager``
+        and ``checkpoint_interval`` give it SGD's kill/resume contract: the
+        snapshot is ``(epoch, [centroids])`` and a rerun resumes at the last
+        snapshotted epoch and lands on the same model."""
+        import hashlib
+        import json
+
+        from flink_ml_tpu_torch.iteration import (
+            IterationBodyResult,
+            IterationConfig,
+            ReplayableDataStreamList,
+            iterate_bounded_until_termination,
+        )
+        from flink_ml_tpu_torch.iteration.stream import rebatch
+
+        ts = resolve_train_sharding(device)
+        if ts is not None and ts.n_model != 1:
+            device, ts = ts.ctx.device, None  # the deterministic tier is data-parallel only
+        k = self.get_k()
+        n = int(cache.num_rows)
+        self._check_rows(n)
+        init = np.concatenate([np.asarray(cache.rows(int(i), int(i) + 1)["features"], np.float32)
+                               for i in self._initial_rows(n)])
+        if checkpoint_manager is not None:
+            sig = {"algo": "KMeans.fit_stream", "k": k, "seed": self.get_seed(), "max_iter": self.get_max_iter(),
+                   "distance": self.get_distance_measure(), "rows": n, "dim": int(init.shape[1])}
+            if ts is not None:
+                # the deterministic tier is width-invariant: the fingerprint
+                # names the tier, so a run resumes at another width
+                sig["tier"] = "deterministic"
+            checkpoint_manager.set_fingerprint(
+                hashlib.sha256(json.dumps(sig, sort_keys=True).encode()).hexdigest()[:16])
+        measure_name = self.get_distance_measure()
+        measure = DistanceMeasure.get_instance(measure_name)
+        dev = ts.ctx.device if ts is not None else resolve_device(device)
+        final_counts = np.zeros(k, np.float64)
+
+        def sharded_tot(centroids, points) -> np.ndarray:
+            """One deterministic epoch's ``[k, d+1]`` totals: each chunk
+            dealt and folded by the mapreduce tier, the chunk totals added
+            on the device in chunk order, read once."""
+            c_dev = ts.replicate(np.asarray(centroids, np.float32))
+            total = None
+            with torch.no_grad():
+                for chunk in rebatch(points, chunk_rows):
+                    window = ts.deal_cache({"x": np.asarray(chunk["features"], np.float32)})
+                    tot = _sharded_epoch_tot(measure_name, k, c_dev, window["x"], window.mask, ts.ctx)
+                    total = tot if total is None else total + tot
+            return total.cpu().numpy().astype(np.float32)
+
+        def host_fold(centroids, points) -> Tuple[np.ndarray, np.ndarray]:
+            """One epoch's float64 sums and counts: chunk i's partials are
+            queued and their copy back issued, then chunk i - 1's are waited
+            for and folded, so the next chunk's upload and kernels are queued
+            before the host waits."""
+            c_dev = torch.from_numpy(np.asarray(centroids, np.float32)).to(dev)
+            sums = np.zeros((k, init.shape[1]), np.float64)
+            counts = np.zeros(k, np.float64)
+            prev = None
+            with torch.no_grad():
+                for chunk in rebatch(points, chunk_rows):
+                    x = _to_device(chunk["features"], dev)
+                    issued = _to_host(_assign_partials(measure, k, c_dev, x, torch.ones_like(x[:, 0])))
+                    if prev is not None:
+                        s_, c_ = prev()
+                        sums += s_
+                        counts += c_
+                    prev = issued
+            if prev is not None:
+                s_, c_ = prev()
+                sums += s_
+                counts += c_
+            return sums, counts
+
+        def body(variables, epoch, streams):
+            nonlocal final_counts
+            (centroids,) = variables
+            if ts is not None:
+                tot = sharded_tot(centroids, streams["points"])
+                sums, counts = tot[:, :-1], tot[:, -1]
+                new = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1.0)[:, None],
+                               np.asarray(centroids, np.float32)).astype(np.float32)
+            else:
+                sums, counts = host_fold(centroids, streams["points"])
+                new = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1.0)[:, None],
+                               centroids).astype(np.float32)
+            final_counts = counts.astype(np.float64)
+            return IterationBodyResult([new], outputs=[new])
+
+        outputs = iterate_bounded_until_termination(
+            [init], body,
+            config=IterationConfig(max_epochs=self.get_max_iter(), checkpoint_manager=checkpoint_manager,
+                                   checkpoint_interval=checkpoint_interval),
+            data=ReplayableDataStreamList(replay={"points": cache}), listeners=listeners,
+        )
+        if outputs:
+            (centroids,) = outputs
+        else:
+            # resumed at the terminal epoch: the body never ran, so the
+            # snapshot is the final model; one streamed pass recounts
+            _, (centroids,) = checkpoint_manager.restore_latest()
+            centroids = np.asarray(centroids)
+            if ts is not None:
+                final_counts = sharded_tot(centroids, cache.iter_rows())[:, -1].astype(np.float64)
+            else:
+                final_counts = host_fold(centroids, cache.iter_rows())[1]
+        if ts is not None:
+            metrics.counter(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS)
+        model = KMeansModel()
+        update_existing_params(model, self)
+        model.centroids = np.asarray(centroids, np.float64)
+        model.weights = np.asarray(final_counts, np.float64)
+        return model
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: copied out first when it is read-only (a
+    spill file's memory map), then on CUDA pinned and copied without
+    waiting."""
+    t = torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
+    return t if device.type == "cpu" else t.pin_memory().to(device, non_blocking=True)
+
+
+def _to_host(tensors):
+    """Issue the copy of ``tensors`` back to the host without waiting;
+    returns a callable that waits for it and gives them as float64 arrays."""
+    if tensors[0].device.type == "cpu":
+        return lambda: tuple(t.numpy().astype(np.float64) for t in tensors)
+    hosts = []
+    for t in tensors:
+        host = torch.empty(tuple(t.shape), dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        hosts.append(host)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait():
+        copied.synchronize()
+        return tuple(h.numpy().astype(np.float64) for h in hosts)
+
+    return wait

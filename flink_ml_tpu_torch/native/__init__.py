@@ -15,6 +15,10 @@ raises on a nonzero code and counts the launch.
 
 Nothing here runs at import: the build and the ``ctypes`` load happen inside
 the first launch, so machines without nvcc or a card import the package.
+
+The host-side C++ chunk store of the capacity-tier cache
+(``native/datacache.cpp``, built with g++ into the same directory) is bound
+in ``native/chunk_store.py``; its three names are re-exported here.
 """
 from __future__ import annotations
 
@@ -28,7 +32,10 @@ import time
 from pathlib import Path
 from typing import List, NamedTuple, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNELS", "BuildResult", "CudaKernel", "build", "check_tensor"]
+__all__ = [
+    "BUILD_DIR", "CSRC_DIR", "KERNELS", "BuildResult", "CudaKernel", "NativeChunkStore", "build",
+    "check_tensor", "load_datacache_lib", "native_available",
+]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -169,3 +176,10 @@ def check_tensor(name: str, t, shape, device, dtype=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+from flink_ml_tpu_torch.native.chunk_store import (  # noqa: E402 — after BUILD_DIR, which it reads
+    NativeChunkStore,
+    load_datacache_lib,
+    native_available,
+)

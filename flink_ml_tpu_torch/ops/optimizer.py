@@ -59,8 +59,26 @@ runs the plan's model shard of the stacks at its local block count. Each
 path all-reduces the partial margins over the model axis before the loss,
 keeps the gradient local, and returns the whole coefficient on every rank.
 
-Not ported yet, raising an error that names ROADMAP.md: streamed
-(``HostDataCache``) fits.
+Streamed fits (JAX ``_optimize_streaming`` :1651, ``_optimize_streaming_onehot``
+:1457): ``optimize`` on a host-tier cache (``HostDataCache``,
+``NativeDataCache``, larger than the card) streams per-shard windows of
+``stream_window_rows`` rows (``train.stream.window.rows``) onto the device
+through ``iteration/streaming.py``'s ``run_windows``: every epoch whose
+minibatch lies in the resident window runs in one run of launches while the
+next window is read, pinned and copied. The dense and scatter paths run the
+resident epoch on the window (``_sgd_epoch_math``); sparse fits take the
+one-hot path under the resident rule's feasibility (``_pick_onehot_streamed``),
+whose one counting pass over the cache (``streamed_onehot_plan``) sizes one
+``OneHotSparsePlan`` for every window, each window's stacks filled on the
+host against it (``_OneHotWindowStream``) and its ``row_order`` (build form)
+or row one-hots (premat, ``_premat_streamed``) made on the device when it
+lands. A window's minibatches play the resident layout's windows, so the
+epoch is ``onehot_batch_step`` as in ``_optimize_onehot``. Checkpoints are
+taken at run boundaries (``{next_run, coef, done, loss_history}``, the
+logical coefficient), listeners are refused. On a mesh every rank loads only
+its data shard's rows of each window and, one-hot, fills only its model
+index's stacks; sparse fits shard the coefficient over the model axis, dense
+ones keep it whole.
 """
 from __future__ import annotations
 
@@ -73,6 +91,7 @@ import torch.nn.functional as F
 from flink_ml_tpu_torch.checkpoint import ShardedCheckpointManager
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.iteration.datacache import DeviceDataCache
+from flink_ml_tpu_torch.iteration.streaming import WindowedStream, is_host_cache
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.ops.lossfunc import LossFunc
 from flink_ml_tpu_torch.ops.schedule import chunked_schedule, offset_schedule
@@ -85,9 +104,7 @@ from flink_ml_tpu_torch.parallel.collectives import (
 )
 from flink_ml_tpu_torch.parallel.train_sharding import resolve_train_sharding
 
-__all__ = ["Optimizer", "SGD", "fused_chunk_len", "regularize"]
-
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+__all__ = ["Optimizer", "SGD", "fused_chunk_len", "regularize", "streamed_onehot_plan"]
 
 
 def regularize(coef, reg: float, elastic_net: float, learning_rate: float):
@@ -253,6 +270,32 @@ def fused_chunk_len(max_iter: int, check_loss: bool, serial_elems_per_epoch: int
     return max(1, min(max_iter, cap))
 
 
+def _launch_chunk(coef, done, starts_c, offsets_c, active_c, epoch: Callable, tol):
+    """Queue one chunk's epochs without reading anything back: the
+    coefficient frozen once ``done`` (``tol`` given: loss < tol; NaN
+    continues), each executed epoch's mean loss recorded (inf after done).
+    Returns ``(coef, done, (recorded, executed_n))``, all on the device."""
+    recorded, executed_n = [], torch.zeros((), dtype=coef.dtype, device=coef.device)
+    for start, offset, act in zip(starts_c, offsets_c, active_c):
+        if not act:  # padding epochs of the last chunk: no-ops
+            continue
+        new_coef, mean_loss = epoch(coef, int(start), int(offset))
+        executed = ~done
+        coef = torch.where(executed, new_coef, coef)
+        recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
+        executed_n = executed_n + executed.to(coef.dtype)
+        if tol is not None:
+            done = done | (executed & (mean_loss < tol))
+    return coef, done, (recorded, executed_n)
+
+
+def _read_losses(pending) -> List[float]:
+    """The executed epochs' losses of a ``_launch_chunk`` (one readback)."""
+    recorded, executed_n = pending
+    host = torch.cat([torch.stack(recorded).to(executed_n.dtype), executed_n[None]]).cpu().numpy()
+    return [float(x) for x in host[: int(host[-1])]]
+
+
 def _host_ram_bytes() -> int:
     """MemTotal from /proc/meminfo, or 0 when unreadable."""
     try:
@@ -276,6 +319,91 @@ def _hbm_bytes_limit(device: torch.device) -> int:
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def streamed_onehot_plan(cache, n_rows: int, n_data: int, window: int, local_batch: int, dim: int,
+                         n_model: int = 1):
+    """One counting pass over a host-tier cache → the ``OneHotSparsePlan``
+    of every (shard, window, minibatch, sub-batch) unit of a streamed run
+    (JAX :630). ``window`` is the batch-aligned width of the matching
+    ``WindowSchedule``. Reads the cache once, a minibatch at a time; every
+    rank counts every shard, so all derive the same plan."""
+    from flink_ml_tpu_torch.linalg.onehot_sparse import (
+        BLOCK,
+        SUB_ROWS,
+        OneHotSparsePlan,
+        block_counts,
+        validate_indices,
+    )
+
+    m = -(-n_rows // n_data)
+    b = local_batch
+    sub = min(SUB_ROWS, b)
+    nblk = -(-dim // BLOCK)
+    max_count = np.zeros(nblk, np.int64)
+    for k in range(n_data):
+        lo_s = k * m
+        hi_s = min(lo_s + m, n_rows)
+        for w0 in range(0, m, window):
+            for b0 in range(w0, min(w0 + window, m), b):
+                r0 = lo_s + b0
+                r1 = min(lo_s + b0 + b, hi_s)
+                if r1 <= r0:
+                    continue
+                got = cache.rows(r0, r1)
+                idx_mb = np.asarray(got["indices"], np.int64)
+                val_mb = np.asarray(got["values"])
+                validate_indices(idx_mb, dim)
+                for s0 in range(0, r1 - r0, sub):
+                    np.maximum(max_count, block_counts(idx_mb[s0:s0 + sub], val_mb[s0:s0 + sub], nblk),
+                               out=max_count)
+    return OneHotSparsePlan.from_max_counts(max_count, dim, sub, n_model)
+
+
+class _OneHotWindowStream(WindowedStream):
+    """The one-hot path's window loader (JAX :718): a ``WindowedStream`` of
+    the window's labels, weights and mask that also fills each minibatch's
+    sub-batch units into this model shard's plan-conformant stacks ``[n_mb,
+    n_sub, n_flat]`` on the host (``host_extra``) and, on the device as the
+    window lands, builds what the crossings walk: the row one-hots
+    (``premat``) or the build form's ``row_order`` (``on_device``). Nothing
+    but the 7-byte slots and the row columns crosses the host link."""
+
+    def __init__(self, cache, ctx, plan, window: int, local_batch: int, n_sub: int, premat: bool, device):
+        super().__init__(cache, {"labels": "labels", "weights": "weights"}, ctx, window, device=device)
+        self.plan = plan
+        self.local_batch = int(local_batch)
+        self.n_sub = int(n_sub)
+        self.premat = bool(premat)
+
+    def host_extra(self, rows):
+        plan, b = self.plan, self.local_batch
+        mi = 0 if self.ctx is None else self.ctx.model_index
+        n_mb = -(-min(self.window, self.m) // b)
+        shape = (n_mb, self.n_sub, plan.n_flat)
+        host = {"lidx": np.zeros(shape, np.int8), "rowid": np.zeros(shape, np.int16),
+                "lvals": np.zeros(shape, np.float32)}
+        if rows is None:
+            return host
+        idx_w, val_w = np.asarray(rows["indices"]), np.asarray(rows["values"])
+        n, sub = len(idx_w), plan.sub_batch
+        for mb in range(min(n_mb, -(-n // b))):
+            r0, r1 = mb * b, min(mb * b + b, n)
+            for bi in range(self.n_sub):  # filled in place: no staging copy a unit
+                s0 = r0 + bi * sub
+                if s0 >= r1:
+                    break
+                s1 = min(s0 + sub, r1)
+                plan.fill_unit(idx_w[s0:s1], val_w[s0:s1], host["lidx"][mb, bi], host["rowid"][mb, bi],
+                               host["lvals"][mb, bi], mi)
+        return host
+
+    def on_device(self, win):
+        from flink_ml_tpu_torch.linalg.onehot_sparse import premat_row_onehots, row_order
+
+        if self.premat:
+            return {"oh": premat_row_onehots(win["rowid"], self.plan.row_hi)}
+        return {"order": row_order(win["rowid"], self.plan.row_hi, live=win["lvals"] != 0)}
 
 
 class SGD(Optimizer):
@@ -302,6 +430,7 @@ class SGD(Optimizer):
         onehot_premat: str = "auto",
         ctx=None,
         sharding=None,
+        stream_window_rows: Optional[int] = None,
     ):
         if sharding is not None and ctx is not None:
             raise ValueError("pass ctx or sharding, not both")
@@ -332,13 +461,24 @@ class SGD(Optimizer):
         self.listeners = list(listeners)
         self.ctx = ctx
         self.sharding = sharding
-        self.loss_history: List[float] = []
+        if stream_window_rows is None:  # the config tier decides
+            from flink_ml_tpu_torch.config import Options, config
 
-    def _run_fingerprint(self, loss_func, rows: int, dim: int, n_data: int = 1, n_model: int = 1) -> str:
+            stream_window_rows = config.get(Options.TRAIN_STREAM_WINDOW_ROWS)
+        self.stream_window_rows = stream_window_rows
+        self.loss_history: List[float] = []
+        #: a streamed fit's readings: host seconds of the counting pass and
+        #: of each window load and its parts (``WindowedStream.parts``), device
+        #: ms of each run (CUDA events; empty on the CPU), wall seconds of the
+        #: window loop
+        self.stream_stats: dict = {}
+
+    def _run_fingerprint(self, loss_func, rows: int, dim: int, n_data: int = 1, n_model: int = 1,
+                         extra=None) -> str:
         """Run/config identity recorded with checkpoints: a different job
         pointed at the same directory fails loudly instead of resuming stale
         state. The JAX package's string for the same fit on ``n_data``
-        shards."""
+        shards; ``extra`` adds the streamed paths' keys (JAX :866-890)."""
         import hashlib
         import json
 
@@ -355,6 +495,7 @@ class SGD(Optimizer):
             "n_data": n_data,
             "n_model": n_model,
         }
+        sig.update(extra or {})
         return hashlib.sha256(json.dumps(sig, sort_keys=True).encode()).hexdigest()[:16]
 
     def optimize(
@@ -374,6 +515,8 @@ class SGD(Optimizer):
         ctx = self.ctx or (ts.ctx if ts is not None else None)
         self.onehot_premat_active = False
         self.layout_seconds = 0.0
+        if is_host_cache(train_data):
+            return self._optimize_streaming(init_model, train_data, loss_func, ctx)
         fused = self.checkpoint_manager is None and not self.checkpoint_interval and not self.listeners
         if isinstance(train_data, Mapping):
             cols = dict(train_data)
@@ -402,8 +545,8 @@ class SGD(Optimizer):
             )
         elif not isinstance(train_data, DeviceDataCache):
             raise TypeError(
-                f"train_data must be a DeviceDataCache or a dict of columns, got "
-                f"{type(train_data).__name__}; streamed (HostDataCache) fits {_NOT_PORTED}"
+                f"train_data must be a DeviceDataCache, a host-tier cache or a dict of columns, "
+                f"got {type(train_data).__name__}"
             )
         else:
             ctx = train_data.ctx  # the cache's layout decides the mesh
@@ -587,20 +730,8 @@ class SGD(Optimizer):
         for starts_c, offsets_c, active_c, n_active in chunked_schedule(
             starts, offsets, self.max_iter, chunk
         ):
-            recorded, executed_n = [], torch.zeros((), dtype=coef.dtype, device=coef.device)
-            for start, offset, act in zip(starts_c, offsets_c, active_c):
-                if not act:  # padding epochs of the last chunk: no-ops
-                    continue
-                new_coef, mean_loss = epoch(coef, int(start), int(offset))
-                executed = ~done
-                coef = torch.where(executed, new_coef, coef)
-                recorded.append(torch.where(executed, mean_loss, torch.full_like(mean_loss, np.inf)))
-                executed_n = executed_n + executed.to(coef.dtype)
-                if tol is not None:  # stop once loss < tol (NaN continues)
-                    done = done | (executed & (mean_loss < tol))
-            # the one host readback of the chunk
-            host = torch.cat([torch.stack(recorded).to(coef.dtype), executed_n[None]]).cpu().numpy()
-            got = [float(x) for x in host[: int(host[-1])]]
+            coef, done, pending = _launch_chunk(coef, done, starts_c, offsets_c, active_c, epoch, tol)
+            got = _read_losses(pending)  # the one host readback of the chunk
             self.loss_history.extend(got)
             if check_loss and len(got) < n_active:  # done flipped mid-chunk
                 break
@@ -756,3 +887,284 @@ class SGD(Optimizer):
         if lay.n_model > 1:
             coef = _gather_model(coef, ctx)
         return lay.unpermute_coef(coef.cpu().numpy())
+
+    # -- streamed (host-tier cache) paths ----------------------------------------
+
+    def _optimize_streaming(self, init_model, cache, loss_func: LossFunc, ctx) -> np.ndarray:
+        """Train out of a host-tier cache larger than the card (JAX :1651):
+        per-shard windows stream through the resident epoch, one run of
+        launches per window visit, the next window loaded while the device
+        computes. With batch-aligned shards every epoch reads exactly the
+        rows and weights the resident path would."""
+        from flink_ml_tpu_torch.iteration.streaming import plan_windows
+
+        if self.listeners:
+            raise ValueError(
+                "per-epoch listeners are not supported on the streamed "
+                "(larger-than-device) path; train from a DeviceDataCache instead"
+            )
+        n_data = 1 if ctx is None else ctx.n_data
+        n_rows = int(cache.num_rows)
+        local_batch = min(-(-self.global_batch_size // n_data), -(-n_rows // n_data))
+        row0 = cache.rows(0, 1)
+        sparse = "indices" in row0
+        if not sparse and self.sparse_kernel == "onehot":
+            raise ValueError(
+                "sparse_kernel='onehot' applies to sparse (indices/values) "
+                "training data; this fit has dense features"
+            )
+        dim = int(np.asarray(init_model).shape[0])
+        check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
+        device = ctx.device if ctx is not None else resolve_device(self.device)
+        self.stream_stats = {"plan_s": 0.0}
+        # A streamed sparse coefficient shards over the model axis (each
+        # shard scatters its index range); a streamed dense one stays whole
+        # on every model shard: windows ingest row-sharded only (JAX :1686).
+        model_sharded = sparse and ctx is not None and ctx.n_model > 1
+        K = int(np.asarray(row0["indices"]).shape[-1]) if sparse else 0
+        if sparse and self._pick_onehot_streamed(n_rows, K, dim):
+            result = self._optimize_streaming_onehot(init_model, cache, loss_func, ctx, local_batch, dim,
+                                                     check_loss, n_rows, device)
+            if result is not None:
+                return result
+            # auto: two windows' stacks would overrun the budget — scatter instead
+        if sparse:
+            columns = {"indices": "indices", "values": "values", "labels": "labels", "weights": "weights"}
+        else:
+            columns = {"features": "features", "labels": "labels", "weights": "weights"}
+        np_dtype = _NP_DTYPES[self.dtype]
+        stream, sched = plan_windows(
+            cache, columns, ctx, self.stream_window_rows, local_batch, self.max_iter, dtype=np_dtype,
+            dtypes={"indices": np.int32} if sparse else None,
+            serial_elems_per_epoch=2 * local_batch * K,  # the gather and the scatter
+            check_loss=check_loss, device=device,
+        )
+        lr, reg, en = self.learning_rate, self.reg, self.elastic_net
+        part_ctx = ctx if model_sharded else None  # a whole coefficient sums its margins alone
+
+        def epoch_of(win):
+            feats = (win["indices"], win["values"]) if sparse else win["features"]
+            y, w, mask = win["labels"], win["weights"], win["__mask__"]
+
+            def epoch(coef, start, offset):
+                grad, wsum, loss_sum = all_reduce_packed(
+                    _sgd_partials(coef, start, offset, feats, y, w, mask, loss_func, local_batch, part_ctx), ctx)
+                return _apply_update(coef, grad, wsum, loss_sum, lr, reg, en)
+
+            return epoch
+
+        def place(host_coef):
+            return self._place_coef(ctx, np.asarray(host_coef)[:dim], device, model_sharded)
+
+        def logical(coef):
+            if model_sharded:
+                coef = _gather_model(coef, ctx)
+            return coef.cpu().numpy()[:dim]
+
+        return self._run_streamed(stream, sched, loss_func, ctx, n_rows, dim, np.asarray(init_model),
+                                  place, logical, epoch_of, {"window": sched.window, "streamed": True})
+
+    def _pick_onehot_streamed(self, n_rows: int, K: int, dim: int) -> bool:
+        """Whether a streamed sparse fit runs the one-hot path (JAX :1437):
+        forced by 'onehot' (f32 only), forbidden by 'scatter'; under 'auto'
+        for f32 fits of at least 2^16 index slots and ``dim >= 2^14``."""
+        if self.sparse_kernel == "scatter":
+            return False
+        feasible = self.dtype == torch.float32
+        if self.sparse_kernel == "onehot":
+            if not feasible:
+                raise ValueError(
+                    "sparse_kernel='onehot' on the streamed path requires an "
+                    "f32 fit; use 'auto' or 'scatter' for this configuration"
+                )
+            return True
+        return feasible and n_rows * K >= 1 << 16 and dim >= self._ONEHOT_MIN_DIM
+
+    def _premat_streamed(self, plan, n_mb: int, n_sub: int, device) -> bool:
+        """The streamed premat decision (JAX :1319): nothing is memoised —
+        each window's one-hots are made on the device as it lands and freed
+        when it rotates out — so 'auto' budgets the two live windows'
+        one-hots and stacks."""
+        from flink_ml_tpu_torch.linalg.onehot_sparse import premat_bytes
+
+        if self.onehot_premat != "auto":
+            return self.onehot_premat == "on"
+        n_units = n_mb * n_sub
+        per_dev = 2 * (premat_bytes(n_units, plan.n_flat, plan.row_hi) + 7 * n_units * plan.n_flat)
+        return per_dev <= self._ONEHOT_PREMAT_HBM_FRACTION * _hbm_bytes_limit(device)
+
+    def _optimize_streaming_onehot(self, init_model, cache, loss_func, ctx, local_batch: int, dim: int,
+                                   check_loss: bool, n_rows: int, device):
+        """Streamed sparse SGD on the one-hot crossings (JAX :1457): one
+        counting pass sizes a global ``OneHotSparsePlan``, each window's
+        stacks are filled on the host against it inside the prefetch gap,
+        and the resident one-hot epoch runs with the window's minibatches as
+        its windows. Returns None when 'auto' finds two windows' stacks
+        would overrun the budget (the caller then takes the scatter path)."""
+        import time
+
+        from flink_ml_tpu_torch.iteration.streaming import WindowSchedule
+        from flink_ml_tpu_torch.linalg.onehot_sparse import BLOCK, SUB_ROWS, onehot_batch_step, premat_bytes
+
+        n_data = 1 if ctx is None else ctx.n_data
+        n_model = 1 if ctx is None else ctx.n_model
+        m = -(-n_rows // n_data)
+        b = local_batch
+        W = max(b, min(int(self.stream_window_rows), m))  # WindowSchedule's batch-aligned width
+        W = -(-W // b) * b
+        n_mb = -(-min(W, m) // b)
+        sub = min(SUB_ROWS, b)
+        n_sub = -(-b // sub)
+        t0 = time.perf_counter()
+        plan = streamed_onehot_plan(cache, n_rows, n_data, W, b, dim, n_model)
+        self.layout_seconds = self.stream_stats["plan_s"] = time.perf_counter() - t0
+        if self.sparse_kernel != "onehot":
+            # two windows of stacks live at once; stack_bytes counts every model shard
+            per_dev = 2 * plan.stack_bytes(n_mb * n_sub) // max(1, n_model)
+            if per_dev > self._ONEHOT_HBM_FRACTION * _hbm_bytes_limit(device):
+                return None
+        flops = 4.0 * n_sub * plan.n_flat * (sub + 2 * BLOCK)
+        sched = WindowSchedule(m, b, self.stream_window_rows, self.max_iter, check_loss=check_loss,
+                               flops_per_epoch=flops)
+        premat = self._premat_streamed(plan, n_mb, n_sub, device)
+        self.onehot_premat_active = premat
+        units = n_mb * n_sub
+        # one window on the device: its stacks, its one-hots or row order,
+        # its label, weight and mask rows
+        self.stream_stats["window_bytes"] = 7 * units * plan.n_flat + 12 * W + (
+            premat_bytes(units, plan.n_flat, plan.row_hi) if premat
+            else 4 * units * (plan.row_hi * 128 + 1 + plan.n_flat))
+        stream = _OneHotWindowStream(cache, ctx, plan, W, b, n_sub, premat, device)
+        pad = n_sub * plan.sub_batch - b
+        lr, reg, en = self.learning_rate, self.reg, self.elastic_net
+
+        def epoch_of(win):
+            lidx, rowid, lvals = win["lidx"], win["rowid"], win["lvals"]
+            y, w, mask = win["labels"], win["weights"], win["__mask__"]
+            oh, order = win.get("oh"), win.get("order")
+
+            def epoch(coef_perm, start, offset):
+                wi = start // b  # a window's minibatches are the resident layout's windows
+                yb, wb = _batch_rows(y, w, mask, start, offset, b)
+                if pad:
+                    yb, wb = F.pad(yb, (0, pad)), F.pad(wb, (0, pad))
+                grad, loss_sum, wsum = onehot_batch_step(
+                    coef_perm, lidx[wi], rowid[wi], lvals[wi], yb, wb, loss_func,
+                    plan.class_meta, plan.nblk_local, plan.sub_batch, plan.row_hi,
+                    premat=(oh[0], oh[1], wi) if premat else None,
+                    order=None if premat else (order[0][wi], order[1][wi]),
+                    model_ctx=ctx,
+                )
+                grad, loss_sum, wsum = all_reduce_packed((grad, loss_sum, wsum), ctx)
+                return _apply_update(coef_perm, grad, wsum, loss_sum, lr, reg, en)
+
+            return epoch
+
+        def place(host_coef):
+            # the rank's row of the shard-major [n_model, nblk_local * 128] coefficient
+            coef = plan.permute_coef(np.asarray(host_coef, np.float32)[:dim]).reshape(n_model, -1)
+            return torch.from_numpy(coef[0 if ctx is None else ctx.model_index].copy()).to(device)
+
+        def logical(coef):
+            if n_model > 1:
+                coef = _gather_model(coef, ctx)
+            return plan.unpermute_coef(coef.cpu().numpy())
+
+        return self._run_streamed(stream, sched, loss_func, ctx, n_rows, dim, np.asarray(init_model),
+                                  place, logical, epoch_of,
+                                  {"window": W, "streamed": True, "kernel": "onehot"})
+
+    def _run_streamed(self, stream, sched, loss_func, ctx, n_rows: int, dim: int, coef_host,
+                      place: Callable, logical: Callable, epoch_of: Callable, extra: dict) -> np.ndarray:
+        """The window loop both streamed paths share (JAX :1521-1597 and
+        :1741-1825): resume from the manager's newest snapshot, queue one
+        run a window visit (``dispatch``, which reads nothing back), and in
+        ``observe`` read the losses when ``tol`` needs them (else they stay
+        pending until the end, or the next snapshot) and snapshot
+        ``{next_run, coef, done, loss_history}`` at run boundaries once
+        ``checkpoint_interval`` epochs have passed; the saved coefficient is
+        the logical one and the saved history holds every epoch before it
+        (the JAX package saves only the losses it has read, :1586).
+        ``place``/``logical`` map a host coefficient to the device layout and
+        back."""
+        import time
+
+        from flink_ml_tpu_torch.iteration.streaming import run_windows
+
+        mgr = self.checkpoint_manager
+        n_data, n_model = (1, 1) if ctx is None else (ctx.n_data, ctx.n_model)
+        if mgr is not None and n_data * n_model > 1 and not isinstance(mgr, ShardedCheckpointManager):
+            raise ValueError(
+                "a checkpointed fit on a mesh of several ranks needs a ShardedCheckpointManager "
+                "(rank 0 writes, the others wait); a CheckpointManager would be written by every rank"
+            )
+        check_loss = bool(np.isfinite(self.tol) and self.tol > 0)
+        tol = self.tol if check_loss else None
+        start_run, done_host = 0, False
+        self.loss_history = []
+        if mgr is not None:
+            mgr.set_fingerprint(self._run_fingerprint(loss_func, n_rows, dim, n_data, n_model, extra))
+            restored = mgr.restore_latest()
+            if restored is not None:
+                _, st = restored
+                start_run = int(np.asarray(st["next_run"]))
+                coef_host = np.asarray(st["coef"].cpu() if isinstance(st["coef"], torch.Tensor) else st["coef"])
+                done_host = bool(np.asarray(st["done"].cpu() if isinstance(st["done"], torch.Tensor) else st["done"]))
+                self.loss_history = [float(x) for x in np.asarray(st["loss_history"]).reshape(-1)]
+        coef = place(coef_host)
+        device = coef.device
+        state = {"coef": coef, "done": torch.tensor(done_host, device=device),
+                 "epochs": sum(len(s) for _, s in sched.runs[:start_run]), "last_saved": None, "runs": 0}
+        pending: list = []
+        events: list = []
+
+        def dispatch(i, win, starts_c, active_c, n_active):
+            epoch = epoch_of(win)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) \
+                if device.type == "cuda" else None
+            if ev is not None:
+                ev[0].record()
+            # starts double as offsets: the window's masked padding is the short tail batch
+            state["coef"], state["done"], losses = _launch_chunk(state["coef"], state["done"], starts_c,
+                                                                 starts_c, active_c, epoch, tol)
+            if ev is not None:
+                ev[1].record()
+                events.append(ev)
+            state["epochs"] += n_active
+            state["runs"] += 1
+
+            def observe():
+                stop = False
+                if check_loss:
+                    got = _read_losses(losses)
+                    self.loss_history.extend(got)
+                    stop = len(got) < n_active  # done flipped mid-run
+                else:
+                    pending.append(losses)
+                if mgr is not None and self.checkpoint_interval > 0:
+                    last = state["last_saved"]
+                    if last is None or state["epochs"] - last >= self.checkpoint_interval:
+                        for got in pending:  # one readback a snapshot; saving reads the coefficient anyway
+                            self.loss_history.extend(_read_losses(got))
+                        pending.clear()
+                        mgr.save(state["epochs"], {
+                            "next_run": i + 1,
+                            "coef": logical(state["coef"]),
+                            "done": np.asarray(bool(state["done"])),
+                            "loss_history": np.asarray(self.loss_history, np.float64),
+                        })
+                        state["last_saved"] = state["epochs"]
+                return stop
+
+            return observe
+
+        t0 = time.perf_counter()
+        self.stream_stats["load_s"] = run_windows(stream, sched, dispatch, start_run=start_run)
+        self.stream_stats["load_parts"] = stream.parts
+        for losses in pending:  # one readback of runs that have finished or are queued
+            self.loss_history.extend(_read_losses(losses))
+        result = logical(state["coef"])
+        self.stream_stats["loop_s"] = time.perf_counter() - t0
+        self.stream_stats["run_ms"] = [a.elapsed_time(b) for a, b in events]
+        self.stream_stats["runs"] = state["runs"]
+        return result

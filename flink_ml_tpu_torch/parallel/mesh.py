@@ -28,6 +28,12 @@ of the world needs it and reused by every later mesh (a fit builds its own
 ``MeshContext``), so a process that retrains holds one set of groups, not
 one a fit.
 
+The subgroups and the installed mesh are dropped at exit
+(:func:`release_groups`), so the groups ``dist.destroy_process_group`` left
+behind are destroyed, and their gloo worker threads joined, while the
+interpreter still runs: a worker thread that outlives it may drop the last
+reference to a tensor during finalisation and abort the process.
+
 Width 1 needs no process group: a ``MeshContext`` of one shard runs the
 same programs with every collective skipped, which is what makes an explicit
 ``train.mesh = 1`` the reference the wider meshes are held to.
@@ -38,7 +44,9 @@ annotations) and have no counterpart here.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
+import gc
 import os
 import threading
 from typing import Optional, Union
@@ -56,6 +64,7 @@ __all__ = [
     "get_mesh_context",
     "mesh_context",
     "rank_device",
+    "release_groups",
     "sequence_mesh",
     "set_mesh_context",
 ]
@@ -89,6 +98,27 @@ def _subgroup(ranks: list):
         if key not in _groups:
             _groups[key] = dist.new_group(list(ranks))
         return _groups[key]
+
+
+def release_groups() -> None:
+    """Drop the axis subgroups kept here, the default group they were made
+    in and the installed mesh (registered to run at exit). A group whose
+    last reference goes is destroyed and its worker threads joined; a gloo
+    worker thread still running when the interpreter finalises may release
+    a tensor then, which aborts the process ("terminate called without an
+    active exception")."""
+    global _groups_world, _current
+    with _groups_lock:
+        held = _groups_world is not None  # subgroups were made (a mesh of one axis holds none)
+        _groups.clear()
+        _groups_world = None
+    with _lock:
+        _current = None
+    if held:
+        gc.collect()  # a mesh in a reference cycle holds its subgroups as well
+
+
+atexit.register(release_groups)
 
 
 def _world() -> tuple:

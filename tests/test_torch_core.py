@@ -197,6 +197,8 @@ def test_config_options_share_keys_defaults_and_env_names():
         "sparse.fastpath", "sparse.nnz.cap.max", "sparse.warmup.caps",
         "batch.fastpath", "batch.chunk.rows", "batch.prefetch.depth", "batch.mesh", "batch.mesh.model",
         "train.mesh", "train.mesh.model", "train.mesh.hosts",
+        "datacache.spill.dir", "datacache.memory.budget.bytes", "train.stream.window.rows",
+        "native.datacache.enabled",
     }
     for key, opt in port.items():
         assert opt.default == ref[key].default, key

@@ -2642,3 +2642,107 @@ def test_tensor_parallel_onehot_and_the_ring_across_two_ranks_on_the_card(cuda, 
     np.testing.assert_allclose(joined["out"], out.detach().cpu().numpy(), rtol=2e-5, atol=2e-5)
     for key, want in zip(("dq", "dk", "dv"), grads):
         np.testing.assert_allclose(joined[key], want.cpu().numpy(), rtol=2e-5, atol=2e-5, err_msg=key)
+
+
+def _spilled_sparse_cache(tmp_path, kind, rows=8192, d=1 << 15, K=12, seed=11):
+    """A host-tier cache (``kind``: host or native) of seeded sparse rows,
+    most of its 1024-row chunks spilled, and the rows themselves."""
+    from flink_ml_tpu_torch.iteration import HostDataCache
+    from flink_ml_tpu_torch.native.cache import NativeDataCache
+
+    rng = np.random.default_rng(seed)
+    cols = {"indices": rng.integers(0, d, (rows, K)).astype(np.int32),
+            "values": (rng.random((rows, K)) < 0.9).astype(np.float32),
+            "labels": (rng.random(rows) > 0.5).astype(np.float32)}
+    cache = (HostDataCache if kind == "host" else NativeDataCache)(1 << 18, str(tmp_path / kind))
+    for a in range(0, rows, 1024):
+        cache.append({k: v[a:a + 1024] for k, v in cols.items()})
+    cache.finish()
+    return cache, cols
+
+
+def test_streamed_onehot_sgd_on_the_card_runs_both_forms_and_lands_on_the_resident_fit(cuda, tmp_path):
+    """Streamed one-hot SGD from a spilled native cache on the card: one
+    launch of each crossing of the form an epoch, premat and build
+    bit-identical, within 1e-4 of the CPU's streamed fit (plain versions),
+    and equal to the resident fit of the same rows (the same plan, stacks
+    and kernels); every run's device time read by CUDA events."""
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    cache, cols = _spilled_sparse_cache(tmp_path, "native")
+    assert cache.spilled_chunks > 0
+    kw = dict(max_iter=10, global_batch_size=1024, tol=0.0, learning_rate=0.5, sparse_kernel="onehot")
+    coefs = {}
+    for premat in ("on", "off"):
+        for k in CROSSINGS:
+            k.reset_launches()
+        sgd = SGD(onehot_premat=premat, stream_window_rows=2048, device=cuda, **kw)
+        coefs[premat] = sgd.optimize(np.zeros(1 << 15, np.float32), cache, BinaryLogisticLoss.INSTANCE)
+        used = CROSSINGS[2:] if premat == "on" else CROSSINGS[:2]
+        assert all(k.launches == 10 for k in used) and all(k.launches == 0 for k in CROSSINGS if k not in used)
+        assert len(sgd.stream_stats["run_ms"]) == sgd.stream_stats["runs"] == 5
+    np.testing.assert_array_equal(coefs["on"], coefs["off"])
+    resident = SGD(device=cuda, **kw).optimize(np.zeros(1 << 15, np.float32), cols, BinaryLogisticLoss.INSTANCE)
+    np.testing.assert_array_equal(coefs["on"], resident)
+    cpu = SGD(stream_window_rows=2048, device="cpu", **kw).optimize(np.zeros(1 << 15, np.float32), cache,
+                                                                    BinaryLogisticLoss.INSTANCE)
+    np.testing.assert_allclose(coefs["on"], cpu, rtol=1e-4, atol=1e-7)  # plain versions, other orders
+
+
+def test_streamed_dense_kmeans_and_mlp_on_the_card_match_their_resident_fits(cuda, tmp_path):
+    """The dense streamed SGD path, KMeans.fit_stream and
+    MLPClassifier.fit_stream from spilled caches on the card against their
+    resident fits of the same rows (batch-aligned windows)."""
+    from flink_ml_tpu_torch.iteration import HostDataCache
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+    from flink_ml_tpu_torch.ops.lossfunc import BinaryLogisticLoss
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(4096, 32)).astype(np.float32)
+    y = (X @ rng.normal(size=32) > 0).astype(np.float32)
+    cache = HostDataCache(1 << 16, str(tmp_path / "dense"))
+    for a in range(0, 4096, 512):
+        cache.append({"features": X[a:a + 512], "labels": y[a:a + 512]})
+    cache.finish()
+    kw = dict(max_iter=12, global_batch_size=512, tol=0.0, learning_rate=0.3, device=cuda)
+    got = SGD(stream_window_rows=1024, **kw).optimize(np.zeros(32, np.float32), cache, BinaryLogisticLoss.INSTANCE)
+    want = SGD(**kw).optimize(np.zeros(32, np.float32), {"features": X, "labels": y}, BinaryLogisticLoss.INSTANCE)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    km = KMeans().set_k(4).set_seed(2).set_max_iter(6)
+    streamed = km.fit_stream(cache, chunk_rows=1024)
+    resident = km.fit(DataFrame.from_dict({"features": X}))
+    np.testing.assert_allclose(streamed.centroids, resident.centroids, rtol=0, atol=1e-5)
+    assert streamed.weights.sum() == 4096
+    est = MLPClassifier().set_hidden_layers(16).set_max_iter(6).set_global_batch_size(512).set_tol(0.0)
+    m_s = est.fit_stream(cache, window_rows=1024)
+    m_r = est.fit(DataFrame.from_dict({"features": X, "label": y}))
+    for (Ws, bs), (Wr, br) in zip(m_s.params, m_r.params):
+        np.testing.assert_allclose(Ws, Wr, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(bs, br, rtol=1e-5, atol=1e-6)
+
+
+def test_a_streamed_world_of_two_on_the_card(cuda, tmp_path):
+    """A world of 2 gloo ranks on the card: streamed one-hot SGD on the data
+    axis, every rank the same coefficient and equal to the world's resident
+    fit; KMeans.fit_stream on the deterministic tier bit-equal to width 1."""
+    from tests.torch_sharded_worker import run_world
+
+    _cache, cols = _spilled_sparse_cache(tmp_path, "host", rows=4096)
+    kw = dict(data=cols, dim=1 << 15, sparse_kernel="onehot", max_iter=8, global_batch_size=1024, tol=0.0,
+              learning_rate=0.4)
+    pts = np.random.default_rng(4).normal(size=(3000, 8)).astype(np.float32)
+    scenarios = [("streamed", "sgd_streamed", dict(stream_window_rows=1024, **kw)),
+                 ("resident", "sgd", kw),
+                 ("kmeans", "kmeans_streamed", dict(points=pts, k=5, seed=3, iters=6, chunk_rows=512))]
+    one = run_world(1, scenarios[2:], str(tmp_path), device="cuda")
+    two = run_world(2, scenarios, str(tmp_path), device="cuda")
+    for name in ("streamed", "kmeans"):
+        for r in two[name][1:]:
+            for key in r:
+                np.testing.assert_array_equal(r[key], two[name][0][key])
+    np.testing.assert_array_equal(two["streamed"][0]["coef"], two["resident"][0]["coef"])
+    np.testing.assert_array_equal(two["kmeans"][0]["centroids"], one["kmeans"][0]["centroids"])
+    np.testing.assert_array_equal(two["kmeans"][0]["weights"], one["kmeans"][0]["weights"])

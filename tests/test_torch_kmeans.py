@@ -340,8 +340,13 @@ def test_a_centroid_without_points_keeps_its_position():
 
 def test_unported_training_tiers_raise_naming_the_roadmap():
     X = _uniform(64, D, seed=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        KMeans().fit_stream(None)
+    # fit_stream is ported (queue A 7): with no cache it fails as the JAX
+    # fit_stream does, reading the cache's row count
+    with pytest.raises(AttributeError, match="num_rows"):
+        KMeans().fit_stream(None, device="cpu")
+    with mesh_context(MeshContext(n_data=1, n_model=1)):
+        with pytest.raises(AttributeError, match="num_rows"):
+            JKMeans().fit_stream(None)
     config.set(Options.TRAIN_MESH, 2)
     # the sharded tier is ported: a mesh of 2 needs a world of 2 ranks
     with pytest.raises(ValueError, match="process group of 2 ranks"):

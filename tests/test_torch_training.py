@@ -411,7 +411,8 @@ def test_sgd_rejects_what_is_not_ported(monkeypatch):
     with pytest.raises(ValueError, match="onehot_premat"):
         SGD(onehot_premat="maybe")
     cols = {"features": np.zeros((4, 2), np.float32), "labels": np.zeros(4, np.float32)}
-    with pytest.raises(TypeError, match="ROADMAP.md"):
+    # streamed fits are ported (queue A 7): what is neither a cache nor columns is refused
+    with pytest.raises(TypeError, match="a DeviceDataCache, a host-tier cache or a dict of columns"):
         SGD(device="cpu").optimize(np.zeros(2), object(), BinaryLogisticLoss.INSTANCE)
     with pytest.raises(ValueError, match="dense features"):
         SGD(device="cpu", sparse_kernel="onehot").optimize(np.zeros(2), cols, BinaryLogisticLoss.INSTANCE)

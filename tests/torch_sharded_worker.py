@@ -64,6 +64,9 @@ def run_world(world: int, scenarios: Sequence[Scenario], out_dir: str,
 def _rank_main(rank: int, world: int, init: str, out_dir: str, scenarios: List[Scenario],
                device: str, backend: str, mesh: Tuple[int, int] = None, key: str = "") -> None:
     import datetime
+    import faulthandler
+
+    faulthandler.enable()  # a rank that dies in native code still prints where
 
     from flink_ml_tpu_torch.config import Options, config
 
@@ -363,6 +366,102 @@ def restore_snapshot(ckpt_dir: str, device: str) -> dict:
 
     step, state = ShardedCheckpointManager(ckpt_dir, sharding=resolve_train_sharding(device)).restore_latest()
     return {"step": np.asarray(step), "coef": np.asarray(state[0]), "offset": np.asarray(state[1])}
+
+
+# --- streamed fits (a host-tier cache on every rank) ------------------------------
+
+
+def host_cache(columns: dict, chunk: int = 40):
+    """A ``HostDataCache`` of ``columns`` in ``chunk``-row chunks (every rank
+    builds the same one, as every rank is handed the whole input)."""
+    from flink_ml_tpu_torch.iteration.datacache import HostDataCache
+
+    cache = HostDataCache()
+    n = len(next(iter(columns.values())))
+    for a in range(0, n, chunk):
+        cache.append({k: v[a:a + chunk] for k, v in columns.items()})
+    cache.finish()
+    return cache
+
+
+def _streamed_sgd(ctx_mesh, device, **kw):
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+    from flink_ml_tpu_torch.parallel.mesh import MeshContext
+
+    if ctx_mesh is None:  # train.mesh routes the fit
+        return SGD(device=device, **kw)
+    n_data, n_model, n_slices = ctx_mesh
+    return SGD(ctx=MeshContext(n_data, n_model, device=device, n_slices=n_slices), **kw)
+
+
+def sgd_streamed(data: dict, dim: int, device: str, mesh: Optional[Tuple[int, int, int]] = None,
+                 loss: str = "logistic", **kw) -> dict:
+    """``SGD.optimize`` on a host-tier cache of ``data``: on ``train.mesh``,
+    or on an explicit ``MeshContext(n_data, n_model, n_slices)``."""
+    opt = _streamed_sgd(mesh, device, **kw)
+    coef = opt.optimize(np.zeros(dim, np.float32), host_cache(data), _loss(loss))
+    return {"coef": coef, "losses": np.asarray(opt.loss_history, np.float64),
+            "premat": np.asarray(opt.onehot_premat_active)}
+
+
+def sgd_streamed_killed_and_resumed(data: dict, dim: int, ckpt_dir: str, device: str,
+                                    mesh: Tuple[int, int, int], other_mesh: Tuple[int, int, int], **kw) -> dict:
+    """A streamed fit with a ``ShardedCheckpointManager`` on ``mesh``: clean,
+    then resumed after its newest snapshot is deleted; the saved coefficient's
+    shape; and whether a fit on ``other_mesh`` refuses the directory."""
+    import shutil
+
+    from flink_ml_tpu_torch.checkpoint import FingerprintMismatchError, ShardedCheckpointManager
+
+    cache = host_cache(data)
+    clean = _streamed_sgd(mesh, device, **kw).optimize(np.zeros(dim, np.float32), cache, _loss("logistic"))
+    path = os.path.join(ckpt_dir, "x".join(map(str, mesh)))
+    mgr = ShardedCheckpointManager(path)
+    opt = _streamed_sgd(mesh, device, checkpoint_manager=mgr, checkpoint_interval=2, **kw)
+    full = opt.optimize(np.zeros(dim, np.float32), cache, _loss("logistic"))
+    steps = mgr.all_steps()
+    saved = mgr.restore(steps[-1])
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(os.path.join(path, f"ckpt-{steps[-1]}"))
+    dist.barrier()
+    resumed = _streamed_sgd(mesh, device, checkpoint_manager=ShardedCheckpointManager(path),
+                            checkpoint_interval=2, **kw).optimize(np.zeros(dim, np.float32), cache, _loss("logistic"))
+    try:
+        _streamed_sgd(other_mesh, device, checkpoint_manager=ShardedCheckpointManager(path),
+                      checkpoint_interval=2, **kw).optimize(np.zeros(dim, np.float32), cache, _loss("logistic"))
+        refused = 0
+    except FingerprintMismatchError:
+        refused = 1
+    return {"clean": clean, "full": full, "resumed": resumed, "steps": np.asarray(steps),
+            "saved_shape": np.asarray(np.asarray(saved["coef"]).shape), "refused": np.asarray(refused)}
+
+
+def kmeans_streamed(points: np.ndarray, k: int, seed: int, iters: int, chunk_rows: int, device: str) -> dict:
+    """``KMeans.fit_stream`` on a host-tier cache of ``points``."""
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+
+    before = metrics.get(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS, 0)
+    model = (KMeans().set_k(k).set_seed(seed).set_max_iter(iters)
+             .fit_stream(host_cache({"features": points}, chunk=61), chunk_rows=chunk_rows, device=device))
+    fits = metrics.get(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS, 0) - before
+    return {"centroids": model.centroids, "weights": model.weights, "fits": np.asarray(fits)}
+
+
+def mlp_streamed(features: np.ndarray, labels: np.ndarray, hidden: int, iters: int, batch: int, seed: int,
+                 window_rows: int, device: str) -> dict:
+    """``MLPClassifier.fit_stream`` on a host-tier cache."""
+    from flink_ml_tpu_torch.models.classification.mlp_classifier import MLPClassifier
+
+    est = (MLPClassifier().set_hidden_layers(hidden).set_max_iter(iters).set_global_batch_size(batch)
+           .set_seed(seed).set_tol(0.0))
+    model = est.fit_stream(host_cache({"features": features, "labels": labels}), window_rows=window_rows,
+                           device=device)
+    out = {"losses": np.asarray(est.loss_history, np.float64)}
+    for i, (W, b) in enumerate(model.params):
+        out[f"W{i}"], out[f"b{i}"] = W, b
+    return out
 
 
 def torchrun_rows():
