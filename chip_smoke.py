@@ -12,10 +12,11 @@ checkpointed training killed and resumed, LinearSVC and LinearRegression,
 a published version hot-swapped into a serving server, text pipelines
 (the host featurizers and the ``entries`` convention), data-parallel
 training on ``train.mesh`` in worlds of 1, 2 and 4 ranks, tensor,
-sequence and expert parallelism in gloo worlds of 2 and 4 ranks, and
-streamed fits out of a host-tier cache larger than a window.
+sequence and expert parallelism in gloo worlds of 2 and 4 ranks,
+streamed fits out of a host-tier cache larger than a window, and the
+serving and batch plans on a shard grid (``serving.mesh``, ``batch.mesh``).
 Phases, one JSON line each (the numbers give the order of description; main
-runs 34 after 7, 25–33 after 9, and 22–24 after 17):
+runs 34 and 35 after 7, 25–33 after 9, and 22–24 after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -504,6 +505,44 @@ runs 34 after 7, 25–33 after 9, and 22–24 after 17):
                the world's resident fit, within 1e-5 of float64 of the
                width-2 schedule, and KMeans.fit_stream on the
                deterministic tier bit-equal to width 1.
+35. sharded_serving — the plan tiers on a shard grid, every shard on the
+               one card (``servable/sharding.py``; the shards time-share
+               it, so no gain over mesh 1 is expected). Three models served
+               by ``InferenceServer`` at ``serving.mesh`` 1, 2 and 4, in the
+               exact and the fast tier, max batch 4096, 64 requests of
+               1–4096 rows from 4 clients: the published KMeans pipeline
+               (StandardScaler → Normalizer → KMeans, fitted on
+               kmeans-benchmark.json's 100,000 × 100 rows, k 10), the
+               published MLP 256→512→512→8 (seeded weights) and IDF → LR
+               on SparseVector rows (d 2^22, nnz cap 64, seeded). Every
+               response bit-equal per row to the mesh-1 plan at its
+               bucket — at mesh 2 and 4 to it run inside
+               ``rowstable.required()``, the row-stable forms a plan with
+               data shards takes on the card, with how far the default
+               (cuBLAS) mesh-1 plan lies from that recorded —, mesh 1
+               against float64 (KMeans and MLP); in the fast
+               tier the chain's megakernel launched once per data shard of
+               every hot batch (launches = N × hot batches), none in the
+               exact tier, no plain version called, 0 fallbacks, 0 chains
+               built and 0 model arrays uploaded after warmup, every shard
+               16-byte aligned. The MLP at mesh 4 (fast) swapped v1 → v2,
+               rolled back to v1 and swapped on to v3 under traffic: every
+               response bit-equal to the mesh-1 plan of the version it
+               names, each version flipped in after its warmup of every
+               bucket on every shard, no model upload on the batcher's
+               thread, every client's last response v3. Tensor
+               parallelism: the MLP at ``serving.mesh`` 2 ×
+               ``serving.mesh.model`` 2 (W0 and W1 split, W2 replicated),
+               rawPrediction within rtol 1e-5 / atol 1e-6 of mesh 1 and
+               within 1e-5 of float64. The batch tier: the KMeans pipeline
+               on 100,000, 100,008 and 100,003 rows at ``batch.mesh`` 1, 2
+               and 4 in 65,536-row chunks, both tiers — tails of 34,464
+               (no pad rows), 34,472 (8 pad rows at 2, 24 at 4) and 34,467
+               (replicated), bit-equal to ``batch.mesh`` 1 (in the
+               row-stable forms, the default's drift recorded), launches one a
+               shard of each hot chunk — and IDF → LR on 100,008 sparse
+               rows at ``batch.mesh`` 2. Readings: p50/p99 and rows/s at
+               each mesh and tier, seconds per transform.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -842,6 +881,18 @@ STREAM_WINDOW_ROWS, STREAM_CKPT_INTERVAL = 262_144, 4
 STREAM_KMEANS_CHUNK, STREAM_KMEANS_BUDGET, STREAM_MLP_WINDOW = 16_384, 8 << 20, 16_384
 STREAM_WORLD, STREAM_WORLD_ROWS, STREAM_WORLD_WINDOW = 2, 1 << 18, 65_536
 STREAM_ROWS_REPS = 3
+
+# Phase 35 (sharded_serving): the three served models at serving.mesh 1, 2, 4
+# in both tiers (the shards share the one card), the MLP at serving.mesh 2 ×
+# serving.mesh.model 2, and the KMeans pipeline in the batch tier at 100,000,
+# 100,008 and 100,003 rows: 65,536-row chunks leave tails of 34,464 (shards
+# with no pad rows), 34,472 (8 pad rows at batch.mesh 2, 24 at 4) and 34,467
+# (replicated).
+SHARDED_SERVING_SEED = 35
+SHARDED_SERVING_MESHES = (1, 2, 4)
+SHARDED_TP_MESH = (2, 2)
+SHARDED_BATCH_ROWS = (KMEANS_ROWS, KMEANS_ROWS + 8, KMEANS_ROWS + 3)
+SHARDED_SWAP_POST = 4  # requests each client sends after the last flip, each to be served by v3
 
 
 
@@ -5694,7 +5745,7 @@ def _time_chains(dev):
     for name, specs in chains.items():
         models = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in spec.model_arrays.items()}
                   for spec in specs]
-        merged = _Program(specs, models, PLAN_FUSED)
+        merged = _Program(specs, [models], PLAN_FUSED)
         program = mk._rowlocal_program(specs)
         if program is None or not mk.chain_eligible(specs):
             raise AssertionError(f"{name}: not a table chain")
@@ -8797,6 +8848,515 @@ def phase_streamed(card: str):
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# 35. sharded_serving — the plan tiers on a shard grid (servable/sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_responses(server, payloads, column, n_clients=N_CLIENTS):
+    """Closed-loop clients as ``_serve_and_check``, keeping each response:
+    ``(responses, latencies ms, wall s, failures)``."""
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+
+    responses, latencies, failures = [None] * len(payloads), [None] * len(payloads), []
+
+    def client(c):
+        for i in range(c, len(payloads), n_clients):
+            t_req = time.perf_counter()
+            try:
+                frame = payloads[i] if isinstance(payloads[i], dict) else {column: payloads[i]}
+                responses[i] = server.predict(DataFrame.from_dict(frame))
+                latencies[i] = (time.perf_counter() - t_req) * 1000.0
+            except BaseException as e:  # noqa: BLE001 — reported by the caller, fails the run
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("clients did not finish within 600 s")
+    return responses, latencies, time.perf_counter() - t0, failures
+
+
+def _fold_drift(a, b, into):
+    """How far a frame ``a`` computed in the row-stable forms lies from the
+    default (cuBLAS) one ``b``, added into ``into``: per dense float column,
+    the rows that differ and their largest ulp distance."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.servable.fusion import ulp_diff
+
+    for name in a.get_column_names():
+        ca = a.column(name)
+        if not isinstance(ca, np.ndarray) or ca.dtype.kind != "f":
+            continue
+        cb = np.asarray(b.column(name))
+        got = into.setdefault(name, {"rows_differing": 0, "max_ulps": 0})
+        got["rows_differing"] += int((ca.reshape(len(ca), -1) != cb.reshape(len(cb), -1)).any(axis=1).sum())
+        got["max_ulps"] = max(got["max_ulps"], ulp_diff(ca, cb))
+    return into
+
+
+def _mesh1_reference(servable, tier, template):
+    """The mesh-1 plan of ``servable`` at ``tier`` on the card, built apart
+    from any server: ``execute(df)`` at the caller's bucket. A sharded plan
+    is held against it run inside ``rowstable.required()``: the mesh-1 plan
+    in the row-stable forms the sharded one takes on the card."""
+    from flink_ml_tpu_torch.servable.fusion import resolve_fusion_tier
+    from flink_ml_tpu_torch.servable.sparse import resolve_sparse_hints
+    from flink_ml_tpu_torch.serving.plan import CompiledServingPlan
+
+    return CompiledServingPlan.build(servable, scope=f"ml.serving[chip-smoke-mesh1-{tier}]",
+                                     fusion=resolve_fusion_tier(tier), device="cuda",
+                                     sparse=resolve_sparse_hints(template))
+
+
+def _sharded_serve(servable, name, payloads, column, template, tier, mesh, kernel, reference,
+                   mesh_model=1):
+    """Serve ``servable`` at ``serving.mesh`` × ``serving.mesh.model`` and
+    ``tier`` to the payloads from N_CLIENTS clients. Counts every kernel's
+    launches over the traffic alone, then holds every response bit-equal
+    per row to ``reference`` (the mesh-1 plan, inside
+    ``rowstable.required()`` at mesh > 1) at the response's bucket, and
+    records how far the default mesh-1 plan (cuBLAS) lies from it.
+    Fails unless, in the fast tier, ``kernel`` launched once per data shard
+    of every batch whose key is hot (none in the exact tier), no plain
+    version was called, no batch fell back, and no chain was built and no
+    model array uploaded after warmup. Returns the readings."""
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.ops import rowstable
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig, pad_to
+    from flink_ml_tpu_torch.serving.plan import chain_kinds
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode=tier,
+                           mesh=mesh, mesh_model=mesh_model)
+    t0 = time.perf_counter()
+    server = InferenceServer(servable, name=name, serving_config=config, warmup_template=template, device="cuda")
+    warmup_s = time.perf_counter() - t0
+    scope = server.scope
+    with server:
+        plan = servable._fastpath_plan
+        sharding = plan.sharding
+        n_data = sharding.n_data if sharding is not None else 1
+        if n_data != mesh or (sharding is not None) != (mesh * mesh_model > 1):
+            raise AssertionError(f"{name}: plan built on {sharding!r} for mesh {mesh} x {mesh_model}")
+        kinds = chain_kinds(plan)
+        keys, lock, ingest = [], threading.Lock(), plan._ingest
+
+        def recording_ingest(segment, df, bucket, cap=None, warm=False):
+            got = ingest(segment, df, bucket, cap=cap, warm=warm)
+            if not warm:
+                with lock:
+                    keys.append(got[1])
+            return got
+
+        plan._ingest = recording_ingest
+        uploads = sharding.model_uploads if sharding is not None else None
+        aligned = None
+        if sharding is not None:  # each shard its own allocation: 16-byte aligned, as mesh 1's bucket
+            parts = sharding.put_batch(np.zeros((MAX_BATCH, 4), np.float32))
+            aligned = [p.data_ptr() % 16 == 0 for p in parts]
+        # The path's run starts here: counts to 0, then traffic.
+        for k in KERNELS:
+            k.reset_launches()
+        plain_calls, restore = _count_calls(mk, _PLAIN_MEGAKERNELS)
+        batches_before = len(server.executed_batch_sizes)
+        fallback_before = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0)
+        compiles_before = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+        try:
+            responses, latencies, wall, failures = _sharded_responses(server, payloads, column)
+        finally:
+            restore()
+        launches = {k.name: k.launches for k in KERNELS}
+        batches = server.executed_batch_sizes[batches_before:]
+        fallback = metrics.get(scope, MLMetrics.SERVING_FALLBACK_BATCHES, 0) - fallback_before
+        compiles = metrics.get(scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+        del plan._ingest
+    if failures:
+        raise AssertionError(f"{name}: {len(failures)} requests failed: {failures[:5]}")
+    hot = {key for key, kind in kinds.items() if "megakernel" in kind}
+    hot_batches = sum(1 for key in keys if key in hot)
+    want = {k.name: (n_data * hot_batches if k is kernel and tier == "fast" else 0) for k in KERNELS}
+    if launches != want or (tier == "fast" and not hot_batches):
+        raise AssertionError(f"{name}: launches {launches}, expected {want} ({hot_batches} hot batches "
+                             f"x {n_data} shards)")
+    if fallback or compiles or plain_calls:
+        raise AssertionError(f"{name}: {fallback} fallbacks, {compiles} chains built after warmup, "
+                             f"plain versions called {sorted(set(plain_calls))}")
+    if sharding is not None and sharding.model_uploads != uploads:
+        raise AssertionError(f"{name}: {sharding.model_uploads - uploads} model uploads on the serving path")
+    if sharding is not None and any(b % (8 * n_data) for _, b in batches):
+        raise AssertionError(f"{name}: a bucket off the mesh ladder in {batches}")
+    drift = {}
+    for i, resp in enumerate(responses):
+        frame = payloads[i] if isinstance(payloads[i], dict) else {column: payloads[i]}
+        df = DataFrame.from_dict(frame)
+        padded = pad_to(df, resp.bucket)
+        with rowstable.required(n_data > 1):
+            want_df = reference.execute(padded).take(np.arange(len(df)))
+        _same_frames(resp.dataframe, want_df, f"{name} request {i} (bucket {resp.bucket}) against mesh 1")
+        if n_data > 1:
+            _fold_drift(want_df, reference.execute(padded).take(np.arange(len(df))), drift)
+    lat = sorted(latencies)
+    return responses, {
+        "tier": tier, "mesh": mesh, "mesh_model": mesh_model, "warmup_s": warmup_s,
+        "warmed_keys": len(kinds), "requests": len(payloads), "batches": len(batches),
+        "hot_batches": hot_batches, "launches": launches[kernel.name], "fallback_batches": fallback,
+        "post_warmup_builds": compiles, "post_warmup_model_uploads": 0 if uploads is not None else None,
+        "model_uploads_at_build": uploads, "shards_16_byte_aligned": aligned,
+        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "rows_per_s": sum(len(r.dataframe) for r in responses) / wall, "bit_equal_to_mesh1": True,
+        "reference": "mesh-1 plan in the row-stable forms" if n_data > 1 else "mesh-1 plan",
+        "row_stable_vs_default_mesh1": drift or None,
+    }
+
+
+def _sharded_swap(servables, payloads, template):
+    """Serve ``servables[1]`` at mesh 4 (fast tier) and, under traffic from
+    N_CLIENTS clients, swap to v2, roll back to v1 and swap on to v3 (v2's
+    servable). Every response bit-equal per row to the mesh-1 plan of the
+    version it names, and that version flipped in only after its warmup
+    (every bucket on every shard); no chain built after warmup and no model
+    array uploaded on the batcher's thread."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.ops import rowstable
+    from flink_ml_tpu_torch.servable import sharding as sharding_mod
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig, pad_to
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast", mesh=4)
+    put_model = sharding_mod.PlanSharding.put_model
+    upload_threads = []
+
+    def recording_put_model(self, array):
+        upload_threads.append(threading.current_thread().name)
+        return put_model(self, array)
+
+    sharding_mod.PlanSharding.put_model = recording_put_model
+    refs = {v: _mesh1_reference(s, "fast", template) for v, s in servables.items()}
+    flips, warmed = [], set()
+    try:
+        server = InferenceServer(servables[1], name="chip-smoke-sharded-swap", serving_config=config,
+                                 warmup_template=template, device="cuda")
+        warmed.add(1)
+        with server:
+            done, lock = [], threading.Lock()
+            compiles_before = metrics.get(server.scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0)
+
+            def flipper():
+                for after, version, how in ((len(payloads) // 4, 2, "swap"), (len(payloads) // 2, 1, "rollback"),
+                                            (3 * len(payloads) // 4, 3, "swap")):
+                    while len(done) < after:
+                        time.sleep(0.005)
+                    t0 = time.perf_counter()
+                    (server.rollback if how == "rollback" else server.swap)(version, servables[version])
+                    plan = servables[version]._fastpath_plan
+                    warmed_keys = set(k for s in plan.segments if hasattr(s, "compiled") for k in s.compiled)
+                    if not set(server._batcher.buckets) <= warmed_keys:
+                        raise AssertionError(f"v{version} flipped in with buckets {sorted(warmed_keys)} warmed")
+                    warmed.add(version)
+                    flips.append({"version": version, "how": how, "after_responses": len(done),
+                                  "warm_and_flip_s": time.perf_counter() - t0})
+
+            flip_errors = []
+
+            def run_flips():
+                try:
+                    flipper()
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    flip_errors.append(e)
+
+            th = threading.Thread(target=run_flips)
+            th.start()
+            responses, failures, last = [], [], [None] * N_CLIENTS
+
+            def client(c):
+                # this client's share of the payloads, then round again until
+                # the last flip is done, then SHARDED_SWAP_POST more
+                i, post = c, 0
+                while i < len(payloads) or len(flips) < 3 or post < SHARDED_SWAP_POST:
+                    j = i % len(payloads)
+                    try:
+                        resp = server.predict(DataFrame.from_dict({"features": payloads[j]}))
+                        with lock:
+                            responses.append((j, resp))
+                            last[c] = resp.model_version
+                    except BaseException as e:  # noqa: BLE001 — reported below
+                        failures.append(f"request {j}: {type(e).__name__}: {e}")
+                    with lock:
+                        done.append(j)
+                    post += i >= len(payloads) and len(flips) == 3 and not flip_errors
+                    if flip_errors:
+                        break
+                    i += N_CLIENTS
+
+            clients = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            for t in clients:
+                t.start()
+            for t in clients:
+                t.join(timeout=600)
+            th.join(timeout=600)
+            if th.is_alive() or any(t.is_alive() for t in clients):
+                raise AssertionError("swap under traffic did not finish within 600 s")
+            compiles = metrics.get(server.scope, MLMetrics.SERVING_FASTPATH_COMPILES, 0) - compiles_before
+    finally:
+        sharding_mod.PlanSharding.put_model = put_model
+    if failures or flip_errors:
+        raise AssertionError(f"swap under traffic: {failures[:5]} {flip_errors}")
+    if [f["version"] for f in flips] != [2, 1, 3]:
+        raise AssertionError(f"flips {flips}")
+    versions = [r.model_version for _, r in responses]
+    if not set(versions) <= warmed or compiles or last != [3] * N_CLIENTS:
+        raise AssertionError(f"versions served {versions}, warmed {sorted(warmed)}, {compiles} builds")
+    batcher_uploads = [t for t in upload_threads if t.startswith("micro-batcher")]
+    if batcher_uploads:
+        raise AssertionError(f"{len(batcher_uploads)} model uploads on the batcher's thread")
+    for i, resp in responses:
+        df = DataFrame.from_dict({"features": payloads[i]})
+        with rowstable.required():
+            want = refs[resp.model_version].execute(pad_to(df, resp.bucket)).take(np.arange(len(df)))
+        _same_frames(resp.dataframe, want, f"swap request {i} (v{resp.model_version}, bucket {resp.bucket})")
+    return {"flips": flips, "responses": len(responses),
+            "responses_by_version": {v: versions.count(v) for v in sorted(set(versions))},
+            "post_warmup_builds": compiles, "model_uploads": len(upload_threads),
+            "model_uploads_on_batcher_thread": 0, "bit_equal_to_mesh1": True}
+
+
+def _chunk_launches(plan, rows, mesh):
+    """The megakernel launches a fast-tier batch transform of ``rows`` rows
+    makes at ``batch.mesh`` ``mesh``: per hot chunk, one a data shard, or one
+    for a replicated tail (one card: one distinct device)."""
+    (segment,) = [s for s in plan.segments if hasattr(s, "plan_kinds")]
+    want = 0
+    for lo in range(0, rows, PIPELINE_CHUNK_ROWS):
+        n = min(PIPELINE_CHUNK_ROWS, rows - lo)
+        replicated = mesh > 1 and n % 8 != 0
+        padded = n if mesh == 1 or replicated else n + (-n) % (8 * mesh)
+        (key,) = [k for k in segment.plan_kinds
+                  if k[0][1][0] == padded and (k[-1] == "replicated") == replicated]
+        if "megakernel" in segment.plan_kinds[key]:
+            want += 1 if replicated else mesh
+    return want
+
+
+def _sharded_batch(model, X, tier, mesh, scope="ml.batch[plan]"):
+    """``model.transform`` of the rows ``X`` at ``batch.mesh`` ``mesh`` and
+    ``tier`` in PIPELINE_CHUNK_ROWS chunks: ``(output, plan, readings)``."""
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+
+    counters = (MLMetrics.BATCH_SHARD_PAD_ROWS, MLMetrics.BATCH_SHARD_REPLICATED_CHUNKS, MLMetrics.BATCH_SHARD_ROWS)
+    df = X if isinstance(X, DataFrame) else DataFrame.from_dict({"features": X})
+    config.set(Options.FUSION_MODE, tier)
+    config.set(Options.BATCH_CHUNK_ROWS, PIPELINE_CHUNK_ROWS)
+    config.set(Options.BATCH_MESH, mesh)
+    try:
+        before = [metrics.get(scope, c, 0) for c in counters]
+        out, seconds, launches, builds, chunks = _batch_transform(model, df, scope)
+        pad, repl, shard_rows = (metrics.get(scope, c, 0) - b for c, b in zip(counters, before))
+        plan = model._plan_cache[1]
+    finally:
+        for option in (Options.FUSION_MODE, Options.BATCH_CHUNK_ROWS, Options.BATCH_MESH):
+            config.unset(option)
+    if (plan.sharding.n_data if plan.sharding is not None else 1) != mesh:
+        raise AssertionError(f"batch plan on {plan.sharding!r} for batch.mesh {mesh}")
+    return out, plan, {"tier": tier, "mesh": mesh, "rows": len(df), "seconds": seconds, "chunks": chunks,
+                       "pad_rows": pad, "replicated_chunks": repl, "shard_rows": shard_rows,
+                       "launches": launches, "builds": builds}
+
+
+def phase_sharded_serving(card: str):
+    """The serving and batch plans on a shard grid on the one card (module
+    docstring, phase 35). Returns the megakernels' launches on the sharded
+    serving path."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.builder import PipelineModel
+    from flink_ml_tpu_torch.models.classification.logistic_regression import LogisticRegressionModel
+    from flink_ml_tpu_torch.models.feature.idf import IDFModel
+    from flink_ml_tpu_torch.ops import rowstable
+    from flink_ml_tpu_torch.ops.tensor_parallel import ColumnShards
+    from flink_ml_tpu_torch.servable import PipelineModelServable
+    from flink_ml_tpu_torch.serving import pad_to
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SHARDED_SERVING_SEED)
+
+    # the three models: the published KMeans pipeline (fitted), the published
+    # MLP (seeded weights), IDF -> LR on the sparse convention (seeded)
+    X = _kmeans_published_rows()
+    t0 = time.perf_counter()
+    kmeans_model = _published_kmeans_pipeline().fit(DataFrame.from_dict({"features": X}))
+    kmeans_fit_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        kmeans_model.save(f"{tmp}/pipeline")
+        kmeans_servable = PipelineModel.load_servable(f"{tmp}/pipeline")
+    mlp = {v: _seeded_mlp(MLP_WIDTHS, "features", np.random.default_rng(SHARDED_SERVING_SEED + v)) for v in (1, 2)}
+    mlp[3] = mlp[2]
+    idf = IDFModel().set_input_col("features").set_output_col("tfidf")
+    idf.idf = rng.random(TRAIN_DIM) * 4.0
+    lr = LogisticRegressionModel().set_features_col("tfidf")
+    lr.coefficient = (rng.standard_normal(TRAIN_DIM) * 0.05).astype(np.float32)
+    sparse_servable = PipelineModelServable([idf, lr])
+
+    sizes = _traffic_sizes(rng)
+    kmeans_payloads = [rng.random((n, KMEANS_D)) for n in sizes]
+    mlp_payloads = [rng.standard_normal((n, MLP_WIDTHS[0])) for n in sizes]
+    sparse_ids = [_hashed_rows(rng, n, TRAIN_NNZ if i % 4 else (1, 3, 9, 24)[(i // 4) % 4])
+                  for i, n in enumerate(sizes)]
+    sparse_payloads = [{"features": _sparse_frame(ids).column("features")} for ids in sparse_ids]
+    models = (
+        ("kmeans", kmeans_servable, kmeans_payloads, DataFrame.from_dict({"features": kmeans_payloads[0][:1]}),
+         mk.ROWLOCAL),
+        ("mlp", mlp[1], mlp_payloads, DataFrame.from_dict({"features": mlp_payloads[0][:1]}), mk.ROWLOCAL_MLP),
+        ("sparse", sparse_servable, sparse_payloads, _sparse_frame(sparse_ids[0][:1]), mk.SPARSE_IDF_LOGISTIC),
+    )
+
+    launches = {}
+    served = []
+    scaler, _norm, km = kmeans_model.stages
+    layers64 = [(W.astype(np.float64), b.astype(np.float64)) for W, b in mlp[1].layers]
+    for label, servable, payloads, template, kernel in models:
+        for tier in ("exact", "fast"):
+            reference = _mesh1_reference(servable, tier, template)
+            for mesh in SHARDED_SERVING_MESHES:
+                responses, reading = _sharded_serve(servable, f"chip-smoke-sharded-{label}-{tier}-{mesh}", payloads,
+                                                    "features", template, tier, mesh, kernel, reference)
+                if mesh == 1:  # mesh N is bit-equal to it: mesh 1 against float64
+                    for i, resp in enumerate(responses):
+                        out = resp.dataframe
+                        if label == "kmeans":
+                            scaled64, norm64, dist = _kmeans_pipeline_float64(kmeans_model, payloads[i])
+                            dec = _decided_rows(dist)
+                            np.testing.assert_allclose(out.column("scaled"), scaled64, rtol=1e-6, atol=1e-6)
+                            np.testing.assert_allclose(out.column("norm"), norm64, rtol=1e-5, atol=1e-6)
+                            np.testing.assert_array_equal(np.asarray(out.column("prediction"))[dec],
+                                                          np.argmin(dist, axis=1)[dec])
+                        elif label == "mlp":
+                            h = np.asarray(payloads[i], np.float32).astype(np.float64)
+                            for W, b in layers64[:-1]:
+                                h = np.maximum(h @ W + b, 0.0)
+                            logits = h @ layers64[-1][0] + layers64[-1][1]
+                            p = np.exp(logits - logits.max(1, keepdims=True))
+                            p /= p.sum(1, keepdims=True)
+                            np.testing.assert_allclose(out.column("rawPrediction"), p, rtol=0,
+                                                       atol=PIPELINE_MLP_PROB_ATOL)
+                if tier == "fast" and mesh > 1:
+                    launches[kernel.name] = launches.get(kernel.name, 0) + reading["launches"]
+                served.append({"model": label, **reading})
+                emit("sharded_serving", card=card, part="serve", model=label, **reading)
+            del reference
+
+    swap = _sharded_swap(mlp, mlp_payloads, models[1][3])
+    emit("sharded_serving", card=card, part="swap_rollback", mesh=4, tier="fast", **swap)
+
+    # tensor parallelism: the MLP at serving.mesh 2 x serving.mesh.model 2
+    tp_payloads = mlp_payloads[:16]
+    tp_ref = _mesh1_reference(mlp[1], "exact", models[1][3])
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="exact",
+                           mesh=SHARDED_TP_MESH[0], mesh_model=SHARDED_TP_MESH[1])
+    tp_servable = _seeded_mlp(MLP_WIDTHS, "features", np.random.default_rng(SHARDED_SERVING_SEED + 1))
+    with InferenceServer(tp_servable, name="chip-smoke-sharded-tp", serving_config=config,
+                         warmup_template=models[1][3], device="cuda") as server:
+        (segment,) = tp_servable._fastpath_plan.segments
+        split = sorted(k for k, v in segment.shard_models[0][0].items() if isinstance(v, ColumnShards))
+        if split != ["W0", "W1"]:
+            raise AssertionError(f"tensor-parallel split arrays {split}, expected W0 and W1 (W2 is 8 wide)")
+        tp_resp, tp_lat, tp_wall, tp_fail = _sharded_responses(server, tp_payloads, "features")
+    if tp_fail:
+        raise AssertionError(f"tensor-parallel requests failed: {tp_fail[:5]}")
+    tp_err, tp_err64 = 0.0, 0.0
+    for i, resp in enumerate(tp_resp):
+        df = DataFrame.from_dict({"features": tp_payloads[i]})
+        want = tp_ref.execute(pad_to(df, resp.bucket)).take(np.arange(len(df)))
+        got = np.asarray(resp.dataframe.column("rawPrediction"))
+        np.testing.assert_allclose(got, want.column("rawPrediction"), rtol=1e-5, atol=1e-6)
+        tp_err = max(tp_err, float(np.abs(got - want.column("rawPrediction")).max()))
+        h = np.asarray(tp_payloads[i], np.float32).astype(np.float64)
+        for W, b in layers64[:-1]:
+            h = np.maximum(h @ W + b, 0.0)
+        logits = h @ layers64[-1][0] + layers64[-1][1]
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        np.testing.assert_allclose(got, p, rtol=0, atol=PIPELINE_MLP_PROB_ATOL)
+        tp_err64 = max(tp_err64, float(np.abs(got - p).max()))
+    emit("sharded_serving", card=card, part="tensor_parallel", mesh=list(SHARDED_TP_MESH), split_arrays=split,
+         requests=len(tp_payloads), max_abs_diff_vs_mesh1=tp_err, envelope={"rtol": 1e-5, "atol": 1e-6},
+         max_abs_err_vs_float64=tp_err64, p50_ms=sorted(tp_lat)[len(tp_lat) // 2])
+
+    # the batch tier: the KMeans pipeline at 100,000 / 100,008 / 100,003 rows
+    batch = []
+    for rows in SHARDED_BATCH_ROWS:
+        Xb = np.random.default_rng(KMEANS_DATA_SEED).random((rows, KMEANS_D))
+        tail = rows % PIPELINE_CHUNK_ROWS
+        for tier in ("exact", "fast"):
+            default, _plan, reading = _sharded_batch(kmeans_model, Xb, tier, 1)
+            with rowstable.required():
+                base, _plan, _ = _sharded_batch(kmeans_model, Xb, tier, 1)
+            reading["row_stable_vs_default"] = _fold_drift(base, default, {})
+            batch.append(reading)
+            for mesh in SHARDED_SERVING_MESHES[1:]:
+                out, plan, reading = _sharded_batch(kmeans_model, Xb, tier, mesh)
+                _same_frames(out, base, f"batch {rows} rows {tier} mesh {mesh}")
+                want_pad = (-tail) % (8 * mesh) if tail % 8 == 0 else 0
+                want_repl = 0 if tail % 8 == 0 else 1
+                if (reading["pad_rows"], reading["replicated_chunks"]) != (want_pad, want_repl):
+                    raise AssertionError(f"batch {rows} rows mesh {mesh}: pad {reading['pad_rows']}, replicated "
+                                         f"{reading['replicated_chunks']}; the rule gives {want_pad}, {want_repl}")
+                if tier == "fast":
+                    want = _chunk_launches(plan, rows, mesh)
+                    if not want or reading["launches"] != {mk.ROWLOCAL.name: want}:
+                        raise AssertionError(f"batch {rows} rows mesh {mesh}: launches {reading['launches']}, "
+                                             f"expected {want} of {mk.ROWLOCAL.name}")
+                    launches[mk.ROWLOCAL.name] = launches.get(mk.ROWLOCAL.name, 0) + want
+                reading["bit_equal_to_mesh1"] = True
+                batch.append(reading)
+    emit("sharded_serving", card=card, part="batch", model="kmeans", chunk_rows=PIPELINE_CHUNK_ROWS, runs=batch)
+
+    # IDF -> LR in the batch tier at batch.mesh 2
+    sparse_rows = _hashed_rows(np.random.default_rng(SHARDED_SERVING_SEED + 7), KMEANS_ROWS + 8, TRAIN_NNZ)
+    sparse_df = _sparse_frame(sparse_rows)
+    sparse_model = PipelineModel([idf, lr])
+    sparse_batch = []
+    for tier in ("exact", "fast"):
+        default, _plan, r1 = _sharded_batch(sparse_model, sparse_df, tier, 1)
+        with rowstable.required():
+            base, _plan, _ = _sharded_batch(sparse_model, sparse_df, tier, 1)
+        r1["row_stable_vs_default"] = _fold_drift(base, default, {})
+        out, plan, r2 = _sharded_batch(sparse_model, sparse_df, tier, 2)
+        _same_frames(out, base, f"sparse batch {tier} mesh 2")
+        if tier == "fast":
+            want = _chunk_launches(plan, len(sparse_rows), 2)
+            if r2["launches"] != {mk.SPARSE_IDF_LOGISTIC.name: want} or not want:
+                raise AssertionError(f"sparse batch mesh 2: launches {r2['launches']}, expected {want}")
+            launches[mk.SPARSE_IDF_LOGISTIC.name] = launches.get(mk.SPARSE_IDF_LOGISTIC.name, 0) + want
+        r2["bit_equal_to_mesh1"] = True
+        sparse_batch += [r1, r2]
+    emit("sharded_serving", card=card, part="batch", model="idf_lr", chunk_rows=PIPELINE_CHUNK_ROWS,
+         runs=sparse_batch)
+    emit("sharded_serving", card=card, part="done", kmeans_fit_s=kmeans_fit_s, launches=launches,
+         note="every shard runs on the one card: shards time-share it, so no gain over mesh 1 is expected",
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -8842,6 +9402,8 @@ def main() -> int:
     del cache
     torch.cuda.empty_cache()
     record("streamed", phase_streamed(smi))
+    torch.cuda.empty_cache()
+    record("sharded_serving", phase_sharded_serving(smi))
     torch.cuda.empty_cache()
     measured[SPARSE_IDF_LOGISTIC.name] = phase_kernels_sparse(rng, smi, headline[0])
     sparse_launches, idf_model, lr_model = phase_serve_sparse(smi, headline)

@@ -1,6 +1,7 @@
 """CompiledBatchPlan — the batch transform fast path.
 
-Twin of ``flink_ml_tpu/builder/batch_plan.py`` on one device, in float32.
+Twin of ``flink_ml_tpu/builder/batch_plan.py``, in float32, on one device or
+on a plan's shard grid.
 ``PipelineModel.transform`` per stage reads every column to the device and
 back for each stage; for chains of kernel-spec stages the plan instead runs
 the serving tier's chain compiler (``servable/planner.py``) over offline
@@ -33,9 +34,18 @@ Programs are keyed by the ingest signature itself (chunk rows × column
 shapes and dtypes) and built on first sight: a batch tier has no warmup.
 ``ml.batch.fastpath.compiles`` counts the signatures seen.
 
-The JAX package's persistent plan cache, precision tiers and mesh path are
-not ported (ROADMAP Queue A 10 / A 6): ``batch.mesh`` and
-``batch.mesh.model`` other than 1 raise.
+**Mesh sharding** (``batch.mesh`` / ``batch.mesh.model`` above 1,
+``servable/sharding.py``): each chunk's rows go up through
+``PlanSharding.put_batch``, one copy per data shard, and the chain runs once
+per shard. A ragged final chunk whose rows are a multiple of
+``MIN_SHARD_ROWS`` rounds up to a multiple of ``MIN_SHARD_ROWS · n_data``
+(pad rows repeat row 0 and are sliced off at readback, counted by
+``ml.batch.shard.pad.rows``); any other tail runs **replicated**, once on
+each distinct device at its natural shape, read back from the first — so
+per-row results stay bit-identical to the single-device path either way.
+
+The JAX package's persistent plan cache and precision tiers are not ported
+(ROADMAP Queue A 10).
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.metrics import MLMetrics, metrics
 from flink_ml_tpu_torch.servable.fusion import plan_recorder, resolve_fusion_tier
 from flink_ml_tpu_torch.servable.kernel_spec import SPARSE_KINDS
+from flink_ml_tpu_torch.servable.sharding import resolve_plan_sharding
 from flink_ml_tpu_torch.servable.planner import (
     FallbackStage,
     FusedSegment,
@@ -74,33 +85,30 @@ class BatchPlanInapplicable(Exception):
     returned multiple DataFrames): the caller reruns the per-stage path."""
 
 
-def _check_batch_mesh() -> None:
-    """Raise unless ``batch.mesh`` and ``batch.mesh.model`` are 1: the port
-    runs the batch plan on one device."""
-    mesh = (config.get(Options.BATCH_MESH), config.get(Options.BATCH_MESH_MODEL))
-    if mesh != (1, 1):
-        raise NotImplementedError(
-            f"batch.mesh={mesh[0]}, batch.mesh.model={mesh[1]}: the sharded batch plan "
-            "is still to be ported (ROADMAP.md, Queue A 6); the port runs it on one device"
-        )
-
-
 class CompiledBatchPlan:
     """Compiled form of a PipelineModel's stage chain for offline data.
     Build via :meth:`build`; ``None`` means no stage has a kernel spec and
     the per-stage path should run."""
 
-    def __init__(self, segments: List[Any], scope: str, device: torch.device, fusion: Any):
+    def __init__(self, segments: List[Any], scope: str, device: torch.device, fusion: Any,
+                 sharding: Optional[Any] = None):
         self.segments = segments
         self.scope = scope
         self.device = device
         self.fusion = fusion
+        self.sharding = sharding
         self._on_plan = plan_recorder(scope)
         n_fused = sum(len(s.specs) for s in segments if isinstance(s, FusedSegment))
         n_fallback = sum(1 for s in segments if isinstance(s, FallbackStage))
         metrics.gauge(scope, MLMetrics.BATCH_FUSED_STAGES, n_fused)
         metrics.gauge(scope, MLMetrics.BATCH_FALLBACK_STAGES, n_fallback)
         metrics.gauge(scope, MLMetrics.FUSION_MODE, 1 if fusion.fast else 0)
+        if sharding is not None:
+            metrics.gauge(scope, MLMetrics.BATCH_SHARD_COUNT, sharding.n_data)
+
+    def __repr__(self) -> str:
+        return (f"CompiledBatchPlan(scope={self.scope!r}, device={self.device}, "
+                f"fusion={self.fusion.mode!r}, sharding={self.sharding!r})")
 
     # -- construction ---------------------------------------------------------
     @staticmethod
@@ -111,23 +119,31 @@ class CompiledBatchPlan:
         device=None,
         fusion: Optional[Any] = None,
         sparse: Optional[Dict[str, int]] = None,
+        sharding: Optional[Any] = None,
     ) -> Optional["CompiledBatchPlan"]:
         """Group consecutive kernel-spec stages into fused segments and move
         their model arrays to ``device`` (None → the GPU; no card raises
-        ``RuntimeError``). Raises whatever ``kernel_spec()`` raises: an
-        unloaded model fails here as its ``transform`` would. ``fusion``
-        defaults to the ``fusion.mode`` config, ``sparse`` is the ``{column:
-        dim}`` of inputs known to arrive sparse (None: the convention is off).
-        Publishes ``ml.batch.fastpath.plan.build.ms``."""
+        ``RuntimeError``), or onto ``sharding``'s shard grid — by default the
+        ``batch.mesh`` / ``batch.mesh.model`` config (1 × 1: one device).
+        Raises whatever ``kernel_spec()`` raises: an unloaded model fails
+        here as its ``transform`` would. ``fusion`` defaults to the
+        ``fusion.mode`` config, ``sparse`` is the ``{column: dim}`` of inputs
+        known to arrive sparse (None: the convention is off). Publishes
+        ``ml.batch.fastpath.plan.build.ms``."""
         t0 = time.perf_counter()
-        _check_batch_mesh()
-        device = resolve_device(device)
+        if sharding is None:
+            device = resolve_device(device)
+            sharding = resolve_plan_sharding(
+                config.get(Options.BATCH_MESH), config.get(Options.BATCH_MESH_MODEL), device
+            )
+        if sharding is not None:
+            device = sharding.data_devices[0]
         if fusion is None:
             fusion = resolve_fusion_tier()
-        segments = build_segments(stages, device, fusion, sparse)
+        segments = build_segments(stages, device, fusion, sparse, sharding)
         if not any(isinstance(s, FusedSegment) for s in segments):
             return None
-        plan = CompiledBatchPlan(segments, scope, device, fusion)
+        plan = CompiledBatchPlan(segments, scope, device, fusion, sharding)
         metrics.gauge(scope, MLMetrics.BATCH_PLAN_BUILD_MS, (time.perf_counter() - t0) * 1000.0)
         return plan
 
@@ -185,23 +201,44 @@ class CompiledBatchPlan:
         compute = torch.cuda.current_stream(device) if cuda else None
         copy_stream = torch.cuda.Stream(device) if cuda else None
 
-        def ingest(lo: int) -> Tuple[Hashable, Dict[str, torch.Tensor], Optional[Any]]:
+        sharding = self.sharding
+
+        def upload(lo: int, hi: int) -> Tuple[Any, int, bool]:
+            # ``(device inputs, padded rows, replicated)`` of one chunk. On a
+            # shard grid a chunk of a multiple of MIN_SHARD_ROWS rows pads up
+            # to the mesh quantum (row 0 repeated) and splits over the data
+            # shards; any other tail goes whole to each distinct device.
+            rows = hi - lo
+            if sharding is None:
+                return {name: to_device(arr[lo:hi], device) for name, arr in full.items()}, rows, False
+            if not sharding.shardable_rows(rows):
+                return sharding.put_columns({name: arr[lo:hi] for name, arr in full.items()},
+                                            replicated=True), rows, True
+            padded = sharding.padded_rows(rows)
+            pad = np.zeros(padded - rows, np.int64)
+            return sharding.put_columns({name: arr[lo:hi] if padded == rows
+                                         else np.concatenate([arr[lo:hi], arr[lo + pad]])
+                                         for name, arr in full.items()}), padded, False
+
+        def ingest(lo: int) -> Tuple[Hashable, Any, Optional[Any], int, bool]:
             # Contiguous row views of the gathered arrays onto the device: on
             # CUDA staged in pinned memory and copied on the side stream, so
             # the copy runs while the compute stream works on earlier chunks.
             hi = min(lo + chunk_rows, n)
             if not cuda:
-                inputs = {name: to_device(arr[lo:hi], device) for name, arr in full.items()}
+                inputs, padded, replicated = upload(lo, hi)
                 uploaded = None
             else:
                 with torch.cuda.stream(copy_stream):
-                    inputs = {name: to_device(arr[lo:hi], device) for name, arr in full.items()}
+                    inputs, padded, replicated = upload(lo, hi)
                     uploaded = torch.cuda.Event()
                     uploaded.record(copy_stream)
+            first = inputs if isinstance(inputs, dict) else inputs[0]
             key = tuple(
-                (name, tuple(inputs[name].shape), str(inputs[name].dtype)) for name in sorted(inputs)
-            )
-            return key, inputs, uploaded
+                (name, (padded,) + tuple(first[name].shape[1:]), str(first[name].dtype))
+                for name in sorted(first)
+            ) + (("replicated",) if replicated else ())
+            return key, inputs, uploaded, padded, replicated
 
         def on_compile() -> None:
             metrics.counter(self.scope, MLMetrics.BATCH_COMPILES)
@@ -217,20 +254,31 @@ class CompiledBatchPlan:
             if done is not None:
                 done.synchronize()  # the chunk's readback copies have landed
             for name, host in hosts:
-                out_bufs[name][lo:hi] = host.numpy()  # float32 → float64 is value-exact
+                # float32 → float64 is value-exact; [:hi - lo] drops a padded
+                # chunk's pad rows
+                out_bufs[name][lo:hi] = host.numpy()[:hi - lo]
             chunk_hist.observe((time.perf_counter() - t_dispatch) * 1000.0)
 
         nxt = ingest(starts[0])
         for i, lo in enumerate(starts):
-            key, inputs, uploaded = nxt
+            key, inputs, uploaded, padded, replicated = nxt
             hi = min(lo + chunk_rows, n)
             t_dispatch = time.perf_counter()
             if uploaded is not None:
                 compute.wait_event(uploaded)
-                for t in inputs.values():
-                    t.record_stream(compute)  # allocated on the copy stream, used here
-            outputs = run_segment(segment, key, inputs, on_compile=on_compile, on_plan=self._on_plan)
+                for shard in ([inputs] if isinstance(inputs, dict) else inputs):
+                    for t in shard.values():
+                        t.record_stream(compute)  # allocated on the copy stream, used here
+            outputs = run_segment(segment, key, inputs, on_compile=on_compile, on_plan=self._on_plan,
+                                  replicated=replicated)
             pending = segment.pending(outputs)
+            if sharding is not None:
+                if replicated:
+                    metrics.counter(self.scope, MLMetrics.BATCH_SHARD_REPLICATED_CHUNKS)
+                else:
+                    metrics.counter(self.scope, MLMetrics.BATCH_SHARD_ROWS, padded // sharding.n_data)
+                    if padded != hi - lo:
+                        metrics.counter(self.scope, MLMetrics.BATCH_SHARD_PAD_ROWS, padded - (hi - lo))
             if not out_bufs:  # shapes are fixed by the programs: allocate once
                 for name, dtype, tensor, np_dtype in pending:
                     out_bufs[name] = np.empty((n,) + tuple(tensor.shape[1:]), np_dtype)

@@ -122,9 +122,10 @@ class PipelineModel(Model):
 
     def _fingerprint(self, sparse_hints, device) -> Tuple:
         """Cheap identity of the chain a plan snapshots: the device its model
-        tensors live on, the fusion-tier config its programs were partitioned
-        under (a ``fusion.mode`` flip rebuilds rather than keep the old
-        tier's numerics), the sparse hints its segments were specialised
+        tensors live on and the ``batch.mesh`` × ``batch.mesh.model`` shard
+        grid they sit on (a mesh change rebuilds), the fusion-tier config its
+        programs were partitioned under (a ``fusion.mode`` flip rebuilds
+        rather than keep the old tier's numerics), the sparse hints its segments were specialised
         for, and each stage's identity and param map. Model data is covered
         by ``set_model_data`` dropping the plan; changing a stage's arrays in
         place needs :meth:`invalidate_batch_plan`."""
@@ -134,7 +135,8 @@ class PipelineModel(Model):
             config.get(Options.FUSION_MEGAKERNEL_MIN_SCORE),
         )
         sparse_key = None if sparse_hints is None else tuple(sorted(sparse_hints.items()))
-        return (str(device), fusion_key, sparse_key) + tuple(
+        mesh_key = (config.get(Options.BATCH_MESH), config.get(Options.BATCH_MESH_MODEL))
+        return (str(device), mesh_key, fusion_key, sparse_key) + tuple(
             (id(stage), json.dumps(stage.param_map_to_json(), sort_keys=True, default=str))
             for stage in self.stages
         )

@@ -1,6 +1,6 @@
-"""Runtime configuration tier — the ``serving.*``, ``fusion.*`` and
-``sparse.*`` options the serving path reads, the ``train.*`` options the
-trainer checks, and the ``datacache.*`` / ``native.datacache.enabled``
+"""Runtime configuration tier — the ``serving.*``, ``fusion.*``,
+``sparse.*`` and ``batch.*`` options the plan tiers read, the ``train.*`` and
+``mesh.*`` options the trainer reads, and the ``datacache.*`` / ``native.datacache.enabled``
 options of the host-tier training cache.
 
 Twin of ``flink_ml_tpu/config.py``: the option keys, defaults and the
@@ -182,20 +182,54 @@ class Options:
         "back. 2 overlaps the host gather and upload of chunk j+1 with the "
         "device work of chunk j; 1 = strictly one chunk at a time.",
     )
+    SERVING_MESH = ConfigOption(
+        "serving.mesh",
+        int,
+        1,
+        "Data-parallel mesh width of the serving fast path: a bucket's rows "
+        "split into N shards, the chain run once per shard on the plan's "
+        "shard grid (servable/sharding.py), model arrays placed at swap time. "
+        "1 (default) = the single-device path. Buckets become multiples of "
+        "MIN_SHARD_ROWS * N so per-row results stay bit-identical to mesh=1.",
+    )
+    SERVING_MESH_MODEL = ConfigOption(
+        "serving.mesh.model",
+        int,
+        1,
+        "Tensor-parallel axis of the serving mesh: wide 2-D model arrays (the "
+        "MLP's W{i}, KMeans' centroids) split their output dimension over this "
+        "many shards. Not bit-exact — results carry an envelope of mesh 1 "
+        "(rtol 1e-5, atol 1e-6). 1 (default) = no tensor parallelism.",
+    )
     BATCH_MESH = ConfigOption(
         "batch.mesh",
         int,
         1,
-        "Data-parallel mesh width of the batch transform fast path. The port "
-        "runs the plan on one device: any value but 1 raises (the sharded tier "
-        "is still to be ported, ROADMAP.md).",
+        "Data-parallel mesh width of the batch transform fast path: each chunk's "
+        "rows split over N shards. Ragged final chunks round up to a multiple of "
+        "MIN_SHARD_ROWS * N (pad rows sliced off, counted by "
+        "ml.batch.shard.pad.rows); other tails run replicated so per-row results "
+        "stay bit-identical to mesh=1. 1 = the single-device path.",
     )
     BATCH_MESH_MODEL = ConfigOption(
         "batch.mesh.model",
         int,
         1,
-        "Tensor-parallel axis of the batch transform mesh. The port takes only "
-        "1 and raises on anything else, as for batch.mesh.",
+        "Tensor-parallel axis of the batch transform mesh — the same split and "
+        "envelope as serving.mesh.model. 1 = off.",
+    )
+    MESH_DATA_AXIS_SIZE = ConfigOption(
+        "mesh.data.axis.size",
+        int,
+        None,
+        "Data-parallel axis size of the default training mesh "
+        "(parallel/mesh.py MeshContext). Default: the world size / model axis size.",
+    )
+    MESH_MODEL_AXIS_SIZE = ConfigOption(
+        "mesh.model.axis.size",
+        int,
+        1,
+        "Model-parallel axis size of the default training mesh.",
     )
 
     DATACACHE_SPILL_DIR = ConfigOption(

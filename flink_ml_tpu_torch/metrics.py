@@ -57,6 +57,11 @@ class MLMetrics:
     SERVING_WARMUP_COMPILE_MS = "ml.serving.fastpath.warmup.compile.ms"  # warmup wall time, gauge
     SERVING_INFLIGHT_DEPTH = "ml.serving.inflight.depth"  # dispatched-not-finalized batches, gauge
 
+    # Mesh-sharded serving (serving.mesh > 1 — servable/sharding.py).
+    SERVING_SHARD_COUNT = "ml.serving.shard.count"  # data-axis width of the plan's mesh, gauge
+    SERVING_SHARD_MODEL_AXIS = "ml.serving.shard.model.axis"  # tensor-parallel width, gauge
+    SERVING_SHARD_ROWS = "ml.serving.shard.rows"  # per-shard rows through fused batches, counter
+
     # Fusion tier of the compiled plans (fusion.mode).
     FUSION_MODE = "ml.fusion.mode"  # 0 = exact, 1 = fast, gauge
     FUSION_PROGRAMS_EXACT = "ml.fusion.programs.exact"  # exact-partition programs built, counter
@@ -74,6 +79,12 @@ class MLMetrics:
     BATCH_COMPILES = "ml.batch.fastpath.compiles"  # chains built (one per new chunk signature), counter
     BATCH_PLAN_BUILD_MS = "ml.batch.fastpath.plan.build.ms"  # build + model upload wall time, gauge
     BATCH_CHUNK_MS = "ml.batch.fastpath.chunk.ms"  # dispatch→readback per chunk, histogram
+
+    # Mesh-sharded batch transform (batch.mesh > 1 — servable/sharding.py).
+    BATCH_SHARD_COUNT = "ml.batch.shard.count"  # data-axis width of the plan's mesh, gauge
+    BATCH_SHARD_ROWS = "ml.batch.shard.rows"  # per-shard rows through sharded chunks, counter
+    BATCH_SHARD_PAD_ROWS = "ml.batch.shard.pad.rows"  # DP round-up pad rows on ragged chunks, counter
+    BATCH_SHARD_REPLICATED_CHUNKS = "ml.batch.shard.replicated.chunks"  # tails run replicated, counter
 
     #: Reason labels of the per-reason fast-path fallback counters: a sparse
     #: column where the segment expects a dense kind, a column that is not a

@@ -15,10 +15,21 @@ differ only where a sum is taken in another order:
 
 ``find_closest`` takes the first minimum, and a NaN counts as the minimum:
 ``torch.argmin`` returns the first NaN, as ``jnp.argmin`` does.
+
+With ``stable=True`` (the serving bodies, ``ops/kernels.py``
+``kmeans_assign_fn``) the product ``x·cᵀ`` and every row sum go through
+``ops/rowstable.py``: on the CPU, and on CUDA inside a sharded plan, a
+row's distances then do not depend on how many rows share the call, which
+the sharded plans' bit-equality rests on; training keeps cuBLAS / MKL. Centroids split along ``d`` by a tensor-parallel plan
+(``ops/tensor_parallel.py``) arrive as ``ColumnShards``: every sum over ``d``
+then adds the model shards' partial sums in their fixed order.
 """
 from __future__ import annotations
 
 import torch
+
+from flink_ml_tpu_torch.ops import rowstable
+from flink_ml_tpu_torch.ops.tensor_parallel import ColumnShards, column_partials, ordered_sum
 
 __all__ = ["CosineDistance", "DistanceMeasure", "EuclideanDistance", "ManhattanDistance"]
 
@@ -50,53 +61,64 @@ class DistanceMeasure:
                 f"'euclidean, manhattan, cosine'."
             )
 
-    def pairwise(self, points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-        """[n, d] × [k, d] → [n, k] distances."""
+    def pairwise(self, points: torch.Tensor, centroids: torch.Tensor, stable: bool = False) -> torch.Tensor:
+        """[n, d] × [k, d] → [n, k] distances; ``stable`` takes every product
+        and sum in its row-stable form (module docstring)."""
         raise NotImplementedError
 
     def distance(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The distance of one pair of vectors [d]."""
         return self.pairwise(a[None, :], b[None, :])[0, 0]
 
-    def find_closest(self, points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    def find_closest(self, points: torch.Tensor, centroids: torch.Tensor, stable: bool = False) -> torch.Tensor:
         """[n, d] × [k, d] → [n] int64 indices of the closest centroid: the
         first minimum, NaN counting as the minimum."""
-        return torch.argmin(self.pairwise(points, centroids), dim=1)
+        return torch.argmin(self.pairwise(points, centroids, stable), dim=1)
 
 
-def _sq_norms(v: torch.Tensor) -> torch.Tensor:
+def _sq_norms(v, stable: bool) -> torch.Tensor:
     """``Σ v²`` per row."""
-    return torch.sum(v * v, dim=1)
+    if isinstance(v, ColumnShards):
+        return ordered_sum([_sq_norms(p, stable).to(v[0].device) for p in v])
+    return rowstable.sum_last(v * v) if stable else torch.sum(v * v, dim=1)
+
+
+def _dots(points: torch.Tensor, centroids, stable: bool) -> torch.Tensor:
+    """``points @ centroids.T`` [n, k]."""
+    if isinstance(centroids, ColumnShards):
+        return ordered_sum(column_partials(points, centroids, lambda x, c: _dots(x, c, stable)))
+    return rowstable.matmul(points, centroids.T) if stable else points @ centroids.T
 
 
 class EuclideanDistance(DistanceMeasure):
     NAME = "euclidean"
 
-    def pairwise(self, points, centroids):
-        p2 = _sq_norms(points)[:, None]
-        c2 = _sq_norms(centroids)[None, :]
-        sq = torch.clamp_min(p2 + c2 - 2.0 * points @ centroids.T, 0.0)  # NaN passes
+    def pairwise(self, points, centroids, stable=False):
+        p2 = _sq_norms(points, stable)[:, None]
+        c2 = _sq_norms(centroids, stable).to(points.device)[None, :]
+        sq = torch.clamp_min(p2 + c2 - 2.0 * _dots(points, centroids, stable), 0.0)  # NaN passes
         return torch.sqrt(sq)
 
 
 class ManhattanDistance(DistanceMeasure):
     NAME = "manhattan"
 
-    def pairwise(self, points, centroids):
+    def pairwise(self, points, centroids, stable=False):
+        if isinstance(centroids, ColumnShards):
+            return ordered_sum(column_partials(points, centroids, lambda x, c: self.pairwise(x, c, stable)))
         k, d = centroids.shape
         step = max(1, _MANHATTAN_CHUNK_ELEMENTS // max(1, k * d))
-        if points.shape[0] <= step:
-            return torch.sum(torch.abs(points[:, None, :] - centroids[None, :, :]), dim=-1)
+        total = rowstable.sum_last if stable else (lambda t: torch.sum(t, dim=-1))
         return torch.cat([
-            torch.sum(torch.abs(points[i:i + step, None, :] - centroids[None, :, :]), dim=-1)
-            for i in range(0, points.shape[0], step)
+            total(torch.abs(points[i:i + step, None, :] - centroids[None, :, :]))
+            for i in range(0, max(1, points.shape[0]), step)
         ])
 
 
 class CosineDistance(DistanceMeasure):
     NAME = "cosine"
 
-    def pairwise(self, points, centroids):
-        pn = torch.sqrt(_sq_norms(points))[:, None]
-        cn = torch.sqrt(_sq_norms(centroids))[None, :]
-        return 1.0 - (points @ centroids.T) / pn / cn
+    def pairwise(self, points, centroids, stable=False):
+        pn = torch.sqrt(_sq_norms(points, stable))[:, None]
+        cn = torch.sqrt(_sq_norms(centroids, stable)).to(points.device)[None, :]
+        return 1.0 - _dots(points, centroids, stable) / pn / cn

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flink_ml_tpu_torch.ops import rowstable, tensor_parallel
 from flink_ml_tpu_torch.ops.distance import DistanceMeasure
 
 __all__ = [
@@ -53,8 +54,9 @@ _INT32_MAX = 2**31 - 1
 
 
 def dot_fn(X: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """Dense margins ``X @ coef``: [n, d] · [d] → [n]."""
-    return X @ coef
+    """Dense margins ``X @ coef``: [n, d] · [d] → [n], through
+    ``ops/rowstable.py`` (cuBLAS on CUDA outside a sharded plan)."""
+    return rowstable.matmul(X, coef)
 
 
 def compute_dots(df, features_col: str, coefficient, device: torch.device) -> torch.Tensor:
@@ -75,18 +77,21 @@ def compute_dots(df, features_col: str, coefficient, device: torch.device) -> to
 
 
 def logistic_from_dots_fn(dots: torch.Tensor):
-    """prediction = dot ≥ 0, rawPrediction = [1−p, p] with p = sigmoid(dot)."""
-    prob = torch.sigmoid(dots)
+    """prediction = dot ≥ 0, rawPrediction = [1−p, p] with p = sigmoid(dot),
+    each row's bits independent of the row count (``ops/rowstable.py``: on
+    CUDA ``torch.sigmoid`` as it is)."""
+    prob = rowstable.sigmoid(dots)
     pred = (dots >= 0).to(dots.dtype)
     return pred, torch.stack([1.0 - prob, prob], dim=1)
 
 
 def kmeans_assign_fn(measure_name: str):
     """Closest-centroid assignment ``(X [n, d], centroids [k, d]) -> [n]``
-    int64 indices under ``measure_name`` (``ops/distance.py``): the body of
-    the per-stage transform, the merged program and the kmeans megakernel's
-    plain version."""
-    return DistanceMeasure.get_instance(measure_name).find_closest
+    int64 indices under ``measure_name`` (``ops/distance.py``), through
+    ``ops/rowstable.py``: the body of the per-stage transform, the merged program
+    and the kmeans megakernel's plain version."""
+    measure = DistanceMeasure.get_instance(measure_name)
+    return lambda X, centroids: measure.find_closest(X, centroids, stable=True)
 
 
 def mlp_predict_fn(layers, X: torch.Tensor):
@@ -96,12 +101,14 @@ def mlp_predict_fn(layers, X: torch.Tensor):
     ``(W [d_in, d_out], b [d_out])`` pairs, any length. The op order is the
     JAX package's (``mlp_classifier._forward`` + the predict head), and
     ``torch.argmax`` returns the first maximal index, NaN counting as the
-    maximum, as ``jnp.argmax`` does."""
+    maximum, as ``jnp.argmax`` does. The products go through
+    ``ops/rowstable.py`` (cuBLAS on CUDA outside a sharded plan); a ``W`` split by a tensor-parallel plan is a
+    ``ColumnShards`` (``ops/tensor_parallel.py``)."""
     h = X
     for W, b in layers[:-1]:
-        h = torch.relu(h @ W + b)
+        h = torch.relu(tensor_parallel.matmul(h, W) + b)
     W, b = layers[-1]
-    logits = (h @ W + b).to(torch.float32)
+    logits = (tensor_parallel.matmul(h, W) + b).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     return torch.argmax(logits, dim=-1).to(torch.float32), probs
 
@@ -128,8 +135,8 @@ def normalize_fn(X: torch.Tensor, p: float) -> torch.Tensor:
     """Each row of ``X`` [n, d] scaled to unit p-norm, ``norm = (Σ|x|^p)^(1/p)``
     with ``p`` ≥ 1 static; a zero row stays zero and a NaN spreads over its
     row (``Normalizer.java``). The JAX package's op order: the power, the
-    row sum, the root, then one divide."""
-    norm = torch.sum(torch.abs(X) ** p, dim=1, keepdim=True) ** (1.0 / p)
+    row sum (``ops/rowstable.py``), the root, then one divide."""
+    norm = rowstable.sum_last(torch.abs(X) ** p)[:, None] ** (1.0 / p)
     return X / torch.where(norm == 0.0, 1.0, norm)
 
 

@@ -47,6 +47,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from flink_ml_tpu_torch.ops.rowstable import fold_sum, rowwise
 from flink_ml_tpu_torch.parallel.mesh import MeshContext, get_mesh_context
 
 __all__ = [
@@ -191,32 +192,7 @@ def row_fold_sum(t: torch.Tensor) -> torch.Tensor:
     """[..., d] → [...]: each row's d terms summed by the pairwise fold of
     ``tree_fold_sum`` over the last axis — an order set by d alone, whatever
     the number of rows or the device."""
-    while t.shape[-1] > 1:
-        if t.shape[-1] % 2:
-            t = torch.cat([t, torch.zeros_like(t[..., :1])], dim=-1)
-        t = t[..., 0::2] + t[..., 1::2]
-    return t[..., 0]
-
-
-#: ``rowwise``'s padding quantum (a multiple of ATen's widest unrolled
-#: float lane group, 2 × 16) and chunk (ATen's grain size, below which an
-#: elementwise kernel runs on one thread).
-_LANE_ROWS = 64
-_CHUNK_ROWS = 32768
-
-
-def rowwise(fn, *rows: torch.Tensor):
-    """``fn(*rows)`` for an elementwise ``fn`` of [n] tensors returning a
-    tuple of [n] tensors, each row's result the same bits whatever n. On
-    the CPU the rows are zero-padded to a multiple of 64 and evaluated in
-    chunks of 32,768, so every row takes ATen's vector path on one thread;
-    on CUDA ``fn`` runs as it is."""
-    if rows[0].device.type != "cpu":
-        return fn(*rows)
-    n = rows[0].shape[0]
-    padded = [torch.cat([r, r.new_zeros(-n % _LANE_ROWS)]) for r in rows]
-    outs = [fn(*(r[i:i + _CHUNK_ROWS] for r in padded)) for i in range(0, padded[0].shape[0], _CHUNK_ROWS)]
-    return tuple(torch.cat(parts)[:n] for parts in zip(*outs))
+    return fold_sum(t, -1)
 
 
 def all_gather_blocks(part: torch.Tensor, ctx: MeshContext) -> torch.Tensor:

@@ -54,6 +54,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
+from flink_ml_tpu_torch.config import Options, config
 from flink_ml_tpu_torch.device import resolve_device
 
 __all__ = [
@@ -145,8 +146,10 @@ def rank_device(device: Optional[Union[str, torch.device]] = None, rank: Optiona
 class MeshContext:
     """One rank's view of the training mesh ``[slice, data, model]``.
 
-    ``n_data`` is the per-slice data width (None: the world divided by
-    ``n_model · n_slices``); the mesh must hold exactly the process group's
+    ``n_data`` is the per-slice data width (None: ``mesh.data.axis.size``,
+    unset by default, else the world divided by ``n_model · n_slices``) and
+    ``n_model`` the model width (None: ``mesh.model.axis.size``, 1 by
+    default), as the JAX package's ``MeshContext`` reads them; the mesh must hold exactly the process group's
     ranks (1 without a group): a mesh narrower or wider than the processes
     that run it would train on rows no rank holds, or hold rows twice.
     ``group`` None is the default process group; a mesh with a model or
@@ -154,11 +157,15 @@ class MeshContext:
     other.
     """
 
-    def __init__(self, n_data: Optional[int] = None, n_model: int = 1,
+    def __init__(self, n_data: Optional[int] = None, n_model: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None, group=None, n_slices: int = 1):
         initialized, world, rank = _world()
         if initialized and group is not None:
             world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if n_model is None:
+            n_model = config.get(Options.MESH_MODEL_AXIS_SIZE)
+        if n_data is None:
+            n_data = config.get(Options.MESH_DATA_AXIS_SIZE)
         n_model, n_slices = int(n_model), int(n_slices)
         if n_data is None:
             n_data = max(1, world // (n_model * n_slices))

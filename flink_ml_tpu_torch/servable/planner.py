@@ -1,5 +1,5 @@
-"""Stage-chain planner — twin of ``flink_ml_tpu/servable/planner.py`` for the
-unsharded serving path, dense and sparse.
+"""Stage-chain planner — twin of ``flink_ml_tpu/servable/planner.py``,
+dense and sparse, on one device or on a plan's shard grid.
 
 Consecutive :class:`~flink_ml_tpu_torch.servable.kernel_spec.KernelSpec`
 stages form a :class:`FusedSegment`: its model arrays move to the device once
@@ -32,6 +32,21 @@ batch plan's chunk signature (rows × column shapes and dtypes), each built
 lazily the first time it is seen. A
 megakernel that fails to build or launch raises: no merged program stands in
 for it.
+
+Mesh sharding (``servable/sharding.py``): a segment built with a
+:class:`~flink_ml_tpu_torch.servable.sharding.PlanSharding` holds its model
+tensors per data shard (``put_model``: one upload per distinct device,
+wide 2-D arrays split over the model axis), and :func:`run_segment` runs the
+key's chain once per data shard, on that shard's rows and device, then
+concatenates each output column — one tensor per column, one readback per
+batch. The program kind is chosen once per key at the bucket's rows, so a
+data-sharded fast-tier key launches its megakernel once per shard where
+mesh 1 launches it once; a segment with a model axis runs the merged
+programs, as the JAX package's SPMD segments do. A ragged block the
+caller cannot shard runs ``replicated``: once on each distinct device. A
+segment with more than one data shard runs its programs inside
+``ops/rowstable.py``'s ``required``, so on CUDA its bodies take their
+row-stable forms; a mesh-1 segment stays on cuBLAS.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import torch
 
 from flink_ml_tpu_torch.api.dataframe import DataFrame
 from flink_ml_tpu_torch.api.types import BasicType, DataTypes
+from flink_ml_tpu_torch.ops import rowstable
 from flink_ml_tpu_torch.servable.fusion import chain_score
 from flink_ml_tpu_torch.servable.kernel_spec import SPARSE_KINDS
 from flink_ml_tpu_torch.servable.megakernels import build_megakernel_fn, chain_eligible, inputs_fit
@@ -97,13 +113,16 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class _Program:
     """One program of a segment's chain: a single spec, a merged run of
-    elementwise specs (exact tier) or a maximal fusable run (fast tier)."""
+    elementwise specs (exact tier) or a maximal fusable run (fast tier).
+    ``shard_models[s]`` holds each spec's model tensors on data shard ``s``
+    (one entry on one device); ``models`` is shard 0's."""
 
-    __slots__ = ("specs", "models", "inputs", "kind")
+    __slots__ = ("specs", "shard_models", "inputs", "kind")
 
-    def __init__(self, specs: Sequence[Any], models: Sequence[Dict[str, torch.Tensor]], kind: str):
+    def __init__(self, specs: Sequence[Any], shard_models: Sequence[Sequence[Dict[str, Any]]],
+                 kind: str):
         self.specs = tuple(specs)
-        self.models = tuple(models)
+        self.shard_models = tuple(tuple(m) for m in shard_models)
         self.kind = kind
         needed: List[str] = []
         produced: set = set()
@@ -115,10 +134,14 @@ class _Program:
             produced.update(spec.program_outputs)
         self.inputs: Tuple[str, ...] = tuple(needed)
 
-    def __call__(self, cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    @property
+    def models(self) -> Tuple[Dict[str, Any], ...]:
+        return self.shard_models[0]
+
+    def __call__(self, cols: Dict[str, torch.Tensor], shard: int = 0) -> Dict[str, torch.Tensor]:
         cols = dict(cols)
         outs: Dict[str, torch.Tensor] = {}
-        for spec, model in zip(self.specs, self.models):
+        for spec, model in zip(self.specs, self.shard_models[shard]):
             stage_out = spec.kernel_fn(model, cols)
             cols.update(stage_out)
             outs.update(stage_out)
@@ -129,17 +152,17 @@ class _MegaProgram:
     """A hot fast-tier run as the hand-written megakernel — same calling
     convention as :class:`_Program`."""
 
-    __slots__ = ("specs", "models", "inputs", "kind", "_fn")
+    __slots__ = ("specs", "shard_models", "inputs", "kind", "_fn")
 
     def __init__(self, program: _Program, mega_fn: Callable):
         self.specs = program.specs
-        self.models = program.models
+        self.shard_models = program.shard_models
         self.inputs = program.inputs
         self.kind = PLAN_MEGAKERNEL
         self._fn = mega_fn
 
-    def __call__(self, cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self._fn(self.models, cols)
+    def __call__(self, cols: Dict[str, torch.Tensor], shard: int = 0) -> Dict[str, torch.Tensor]:
+        return self._fn(self.shard_models[shard], cols)
 
 
 def _partition_exact(specs: Sequence[Any]) -> List[Tuple[int, int]]:
@@ -185,15 +208,17 @@ class FusedSegment:
     """A maximal run of consecutive kernel-spec stages with its per-key chains."""
 
     __slots__ = (
-        "stages", "specs", "external_inputs", "device", "device_models", "programs",
-        "compiled", "signatures", "fusion", "mega", "plan_kinds", "has_sparse_inputs",
+        "stages", "specs", "external_inputs", "device", "shard_models", "programs",
+        "compiled", "signatures", "fusion", "sharding", "mega", "plan_kinds",
+        "has_sparse_inputs",
     )
 
     def __init__(self, staged: Sequence[Tuple[Any, Any]], device: torch.device,
-                 fusion: Optional[Any] = None):
+                 fusion: Optional[Any] = None, sharding: Optional[Any] = None):
         self.stages = [stage for stage, _ in staged]
         self.specs = [spec for _, spec in staged]
-        self.device = device
+        self.sharding = sharding
+        self.device = device if sharding is None else sharding.data_devices[0]
         self.fusion = fusion  # resolved FusionTier, or None ≡ exact
         produced: set = set()
         external: List[str] = []
@@ -208,23 +233,34 @@ class FusedSegment:
         #: Whether an external input rides the sparse convention — such a
         #: segment keys its chains by (bucket, nnz cap).
         self.has_sparse_inputs = any(self.input_kind(n) in SPARSE_KINDS for n in external)
-        # One upload per model array, when the segment is built (warmup/swap
-        # time): the hot path only ever passes these tensors back in.
-        self.device_models = tuple(
-            {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-             for k, v in spec.model_arrays.items()}
-            for spec in self.specs
-        )
+        # One upload per model array (per distinct device of a shard grid),
+        # when the segment is built (warmup/swap time): the hot path only
+        # ever passes these tensors back in.
+        if sharding is None:
+            per_shard = [tuple(
+                {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in spec.model_arrays.items()}
+                for spec in self.specs
+            )]
+        else:
+            placed = [{k: sharding.put_model(v) for k, v in spec.model_arrays.items()}
+                      for spec in self.specs]
+            per_shard = [tuple({k: v[s] for k, v in spec.items()} for spec in placed)
+                         for s in range(sharding.n_data)]
+        #: data shard -> each spec's model tensors (one entry on one device)
+        self.shard_models: Tuple[Tuple[Dict[str, Any], ...], ...] = tuple(per_shard)
         if fusion is not None and fusion.fast:
             runs, kind = _partition_fast(self.specs), PLAN_FUSED
         else:
             runs, kind = _partition_exact(self.specs), PLAN_EXACT
         self.programs: List[_Program] = [
-            _Program(self.specs[i:j], self.device_models[i:j], kind) for i, j in runs
+            _Program(self.specs[i:j], [m[i:j] for m in self.shard_models], kind) for i, j in runs
         ]
-        #: fast tier only: program index -> megakernel candidate
+        #: fast tier only: program index -> megakernel candidate; none on a
+        #: model axis, whose split arrays only the merged programs read
         self.mega: Dict[int, _MegaProgram] = {}
-        if fusion is not None and fusion.fast and fusion.megakernel:
+        if (fusion is not None and fusion.fast and fusion.megakernel
+                and (sharding is None or sharding.n_model == 1)):
             self.mega = _fast_megakernels(self.programs)
         #: key -> the chain of programs chosen for it, in order
         self.compiled: Dict[Hashable, List[Any]] = {}
@@ -354,10 +390,13 @@ class FallbackStage:
 
 def build_segments(stages: Sequence[Any], device: torch.device,
                    fusion: Optional[Any] = None,
-                   sparse: Optional[Dict[str, int]] = None) -> List[Any]:
+                   sparse: Optional[Dict[str, int]] = None,
+                   sharding: Optional[Any] = None) -> List[Any]:
     """Group consecutive kernel-spec stages into :class:`FusedSegment` runs,
     everything else into :class:`FallbackStage`. Raises whatever
-    ``kernel_spec()`` raises (an unloaded model fails at plan build).
+    ``kernel_spec()`` raises (an unloaded model fails at plan build). With a
+    ``sharding`` (:class:`~flink_ml_tpu_torch.servable.sharding.PlanSharding`)
+    the segments hold their model tensors on its shard grid.
 
     ``sparse`` turns on the sparse calling convention: the ``{column: dim}``
     of inputs known to arrive sparse (the serving template's), or None when
@@ -383,7 +422,7 @@ def build_segments(stages: Sequence[Any], device: torch.device,
                     known.pop(name, None)  # a densely overwritten column
             continue
         if run:
-            segments.append(FusedSegment(run, device, fusion))
+            segments.append(FusedSegment(run, device, fusion, sharding))
             run = []
         # A fallback stage's outputs are opaque: the known set keeps the
         # hints of columns no spec touched; a stage that densifies a hinted
@@ -391,7 +430,7 @@ def build_segments(stages: Sequence[Any], device: torch.device,
         # answer.
         segments.append(FallbackStage(stage))
     if run:
-        segments.append(FusedSegment(run, device, fusion))
+        segments.append(FusedSegment(run, device, fusion, sharding))
     return segments
 
 
@@ -407,30 +446,65 @@ def _program_shapes(inputs: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
     return rows, width, nnz_cap
 
 
+def _shard_inputs(segment: FusedSegment, inputs: Any, replicated: bool) -> List[Tuple[int, Dict[str, torch.Tensor]]]:
+    """``[(data shard, its program inputs), ...]`` of one batch: a sharded
+    segment takes ``PlanSharding.put_columns``'s list of per-shard dicts (per
+    replica for a replicated block) or one dict of whole columns, split here
+    into ``n_data`` row views; one device takes one dict."""
+    sharding = segment.sharding
+    if sharding is None:
+        return [(0, inputs)]
+    if replicated:
+        blocks = [inputs] if isinstance(inputs, dict) else list(inputs)
+        return list(zip(sharding.replica_shards(), blocks))
+    if isinstance(inputs, dict):
+        rows = next(iter(inputs.values())).shape[0] if inputs else 0
+        if rows % sharding.n_data:
+            raise IneligibleBatch(
+                f"{rows} rows not divisible by the {sharding.n_data}-way data axis — "
+                "pad to a mesh multiple or run replicated"
+            )
+        m = rows // sharding.n_data
+        inputs = [{n: t[i * m:(i + 1) * m] for n, t in inputs.items()} for i in range(sharding.n_data)]
+    if len(inputs) != sharding.n_data or len({next(iter(s.values())).shape[0] for s in inputs if s}) > 1:
+        raise IneligibleBatch(f"{len(inputs)} uneven row shards for the {sharding.n_data}-way data axis")
+    return list(enumerate(inputs))
+
+
 def run_segment(
     segment: FusedSegment,
     key: Hashable,
-    inputs: Dict[str, torch.Tensor],
+    inputs: Any,
     *,
     on_compile: Optional[Callable[[], None]] = None,
     on_plan: Optional[Callable[[str, float], None]] = None,
+    replicated: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Run the segment's chain for ``key`` on device ``inputs``. The first
-    time a key is seen its chain is built: ``on_compile()`` once, and
-    ``on_plan(kind, score)`` per program with the cost model's choice (a
-    megakernel candidate runs when the key's input columns fit its kernel
-    and the score at this key's rows — and nnz cap, for a sparse chain —
-    clears the tier's bar)."""
+    """Run the segment's chain for ``key`` on device ``inputs`` (a dict of
+    columns; on a shard grid also a list of per-shard dicts, see
+    :func:`_shard_inputs`). The first time a key is seen its chain is built:
+    ``on_compile()`` once, and ``on_plan(kind, score)`` per program with the
+    cost model's choice (a megakernel candidate runs when the key's input
+    columns fit its kernel and the score at the whole block's rows — and nnz
+    cap, for a sparse chain — clears the tier's bar). On a shard grid the
+    chain runs once per data shard and each output comes back as one tensor
+    of the block's rows, on shard 0's device; a ``replicated`` block runs
+    once on each distinct device and returns the first run's outputs (the
+    caller keys replicated blocks apart)."""
+    shards = _shard_inputs(segment, inputs, replicated)
     chain = segment.compiled.get(key)
     if chain is None:
         if on_compile is not None:
             on_compile()
-        rows, width, nnz_cap = _program_shapes(inputs)
+        first = shards[0][1]
+        rows, width, nnz_cap = _program_shapes(first)
+        if not replicated:
+            rows *= len(shards)
         chain = []
         for idx, prog in enumerate(segment.programs):
             mega = segment.mega.get(idx)
             if (mega is not None
-                    and inputs_fit(prog.specs, {n: inputs[n] for n in prog.inputs if n in inputs})
+                    and inputs_fit(prog.specs, {n: first[n] for n in prog.inputs if n in first})
                     and segment.fusion.megakernel_hot(prog.specs, rows, width, nnz_cap)):
                 prog = mega
             if on_plan is not None:
@@ -439,15 +513,24 @@ def run_segment(
         segment.compiled[key] = chain
         segment.plan_kinds[key] = tuple(p.kind for p in chain)
         segment.signatures[key] = {
-            name: (tuple(arr.shape), arr.dtype) for name, arr in inputs.items()
+            name: ((rows,) + tuple(arr.shape[1:]), arr.dtype) for name, arr in first.items()
         }
-    cols = dict(inputs)
-    outs: Dict[str, torch.Tensor] = {}
-    for prog in chain:
-        prog_out = prog({n: cols[n] for n in prog.inputs})
-        cols.update(prog_out)
-        outs.update(prog_out)
-    return outs
+    runs = []
+    # more than one data shard: the bodies take their row-stable forms on
+    # CUDA too, so a shard's rows keep the bits they have in the bucket
+    with rowstable.required(segment.sharding is not None and segment.sharding.n_data > 1):
+        for shard, cols in shards:
+            cols = dict(cols)
+            outs: Dict[str, torch.Tensor] = {}
+            for prog in chain:
+                prog_out = prog({n: cols[n] for n in prog.inputs}, shard)
+                cols.update(prog_out)
+                outs.update(prog_out)
+            runs.append(outs)
+    if replicated or len(runs) == 1:
+        return runs[0]
+    device = segment.device
+    return {name: torch.cat([r[name].to(device) for r in runs]) for name in runs[0]}
 
 
 class PlanExecution:

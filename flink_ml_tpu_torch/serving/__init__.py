@@ -7,10 +7,13 @@ from flink_ml_tpu_torch.serving.errors import (
     ServingExecutionError,
     ServingOverloadedError,
 )
+from flink_ml_tpu_torch.serving.batcher import pad_to
+from flink_ml_tpu_torch.serving.plan import CompiledServingPlan
 from flink_ml_tpu_torch.serving.registry import ModelRegistry, ModelVersionPoller, publish_servable
 from flink_ml_tpu_torch.serving.server import InferenceServer, ServingConfig, ServingResponse
 
 __all__ = [
+    "CompiledServingPlan",
     "InferenceServer",
     "ServingConfig",
     "ServingResponse",
@@ -23,4 +26,5 @@ __all__ = [
     "ServingClosedError",
     "ServingExecutionError",
     "NoModelError",
+    "pad_to",
 ]

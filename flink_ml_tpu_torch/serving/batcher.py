@@ -4,11 +4,14 @@ Concurrent small requests coalesce into a fixed set of padded batch shapes:
 
 1. the first queued request is held at most ``max_delay_ms`` while more arrive;
 2. whole requests are claimed FIFO up to ``max_batch_size`` rows;
-3. the batch pads to the next power-of-two **bucket** by repeating row 0
-   (row-wise transforms: pad rows influence nothing and are sliced off);
+3. the batch pads to the next **bucket** by repeating row 0 (row-wise
+   transforms: pad rows influence nothing and are sliced off) — the powers
+   of two up to ``max_batch_size``, or a sharded plan's mesh ladder
+   (``PlanSharding.serving_buckets``: multiples of ``MIN_SHARD_ROWS · N``);
 4. one execution serves the padded batch and per-request slices go back.
 
-So a model version builds at most ``log2(max_batch_size)+1`` chains.
+So a model version builds at most ``log2(max_batch_size)+1`` chains. The
+``(rows, bucket)`` history records the true rows against the padded bucket.
 
 Admission control: the queue is bounded in rows and a full queue rejects
 synchronously with ``ServingOverloadedError``. Requests still queued past
@@ -130,6 +133,7 @@ class MicroBatcher:
         response_factory: Callable[[DataFrame, int, float, int], object],
         dispatch: Optional[Callable[[DataFrame], Optional[object]]] = None,
         pipeline_depth: int = 1,
+        buckets: Optional[Sequence[int]] = None,
     ):
         self._execute = execute
         self._dispatch = dispatch
@@ -137,7 +141,10 @@ class MicroBatcher:
         self.max_batch_size = int(max_batch_size)
         self.max_delay_s = float(max_delay_ms) / 1000.0
         self.queue_capacity_rows = int(queue_capacity_rows)
-        self.buckets = power_of_two_buckets(self.max_batch_size)
+        # The server passes a sharded plan's mesh ladder, so every padded
+        # batch splits evenly over its shards.
+        self.buckets = (tuple(buckets) if buckets is not None
+                        else power_of_two_buckets(self.max_batch_size))
         self.scope = scope
         self._response_factory = response_factory
 

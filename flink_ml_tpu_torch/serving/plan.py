@@ -2,8 +2,8 @@
 device-resident model tensors, warmed before a version serves, with one
 readback per batch.
 
-Twin of ``flink_ml_tpu/serving/plan.py`` for the unsharded path. The chain
-machinery is ``servable/planner.py``; this module adds the serving policy:
+Twin of ``flink_ml_tpu/serving/plan.py``. The chain machinery is
+``servable/planner.py``; this module adds the serving policy:
 
 - chains are keyed by the micro-batcher's padded bucket — and, for a segment
   with sparse inputs, by ``(bucket, nnz cap)``, the cap being the batch's
@@ -16,7 +16,14 @@ machinery is ``servable/planner.py``; this module adds the serving policy:
 - a batch the chain cannot take (a sparse column where the segment expects a
   dense one, rows above ``sparse.nnz.cap.max``, another width) runs that
   segment through the per-stage ``transform`` and bumps
-  ``ml.serving.fastpath.fallback.batches`` and the per-reason counter.
+  ``ml.serving.fastpath.fallback.batches`` and the per-reason counter;
+- with a :class:`~flink_ml_tpu_torch.servable.sharding.PlanSharding`
+  (``serving.mesh`` / ``serving.mesh.model`` above 1) the model tensors sit
+  on the shard grid from build time, a bucket's rows go up as one tensor a
+  data shard, the chain runs once per shard, and warmup runs every ladder
+  bucket on every shard; a bucket off the mesh ladder (not a multiple of
+  ``MIN_SHARD_ROWS · n_data``) cannot shard bit-exactly and falls back
+  per-stage under the ``off_ladder`` reason.
 
 ``dispatch`` uploads the batch and launches the chain without waiting for the
 device; the returned :class:`PlanExecution`'s ``finalize`` is the only place
@@ -56,11 +63,14 @@ class CompiledServingPlan:
     and the per-stage path should serve."""
 
     def __init__(self, segments: List[Any], scope: str, device, fusion,
-                 sparse: Optional[Dict[str, int]] = None):
+                 sparse: Optional[Dict[str, int]] = None, sharding: Optional[Any] = None):
         self.segments = segments
         self.scope = scope
         self.device = device
         self.fusion = fusion
+        #: The shard grid the segments were built on (None: one device) —
+        #: part of the server's rebuild key.
+        self.sharding = sharding
         #: The sparse hints the segments were built under (None = the
         #: convention is off) — part of the server's rebuild key.
         self.sparse_hints = sparse
@@ -70,6 +80,13 @@ class CompiledServingPlan:
         metrics.gauge(scope, MLMetrics.SERVING_FUSED_STAGES, n_fused)
         metrics.gauge(scope, MLMetrics.SERVING_FALLBACK_STAGES, n_fallback)
         metrics.gauge(scope, MLMetrics.FUSION_MODE, 1 if fusion.fast else 0)
+        if sharding is not None:
+            metrics.gauge(scope, MLMetrics.SERVING_SHARD_COUNT, sharding.n_data)
+            metrics.gauge(scope, MLMetrics.SERVING_SHARD_MODEL_AXIS, sharding.n_model)
+
+    def __repr__(self) -> str:
+        return (f"CompiledServingPlan(scope={self.scope!r}, device={self.device}, "
+                f"fusion={self.fusion.mode!r}, sharding={self.sharding!r})")
 
     @staticmethod
     def build(
@@ -79,16 +96,18 @@ class CompiledServingPlan:
         fusion: Optional[Any] = None,
         device=None,
         sparse: Optional[Dict[str, int]] = None,
+        sharding: Optional[Any] = None,
     ) -> Optional["CompiledServingPlan"]:
         """Group the servable's consecutive kernel-spec stages into segments
         and move their model arrays to ``device`` (``None`` → the GPU; no
-        card raises ``RuntimeError``). ``fusion`` is the resolved
+        card raises ``RuntimeError``), or onto ``sharding``'s shard grid —
+        at warmup/swap time, never on the serving path. ``fusion`` is the resolved
         :class:`~flink_ml_tpu_torch.servable.fusion.FusionTier`, default the
         ``fusion.mode`` config. ``sparse`` is the ``{column: dim}`` of inputs
         known to arrive sparse (``servable.sparse.resolve_sparse_hints`` of
         the warmup template), or None with the convention off. Raises
         whatever ``kernel_spec()`` raises."""
-        device = resolve_device(device)
+        device = resolve_device(device) if sharding is None else sharding.data_devices[0]
         stages = (
             list(servable.servables)
             if isinstance(servable, PipelineModelServable)
@@ -96,10 +115,10 @@ class CompiledServingPlan:
         )
         if fusion is None:
             fusion = resolve_fusion_tier()
-        segments = build_segments(stages, device, fusion, sparse)
+        segments = build_segments(stages, device, fusion, sparse, sharding)
         if not any(isinstance(s, FusedSegment) for s in segments):
             return None
-        return CompiledServingPlan(segments, scope, device, fusion, sparse)
+        return CompiledServingPlan(segments, scope, device, fusion, sparse, sharding)
 
     # -- warmup ---------------------------------------------------------------
     def warmup(self, template: DataFrame, buckets: Sequence[int]) -> None:
@@ -108,7 +127,7 @@ class CompiledServingPlan:
         before the version flip. Sparse segments warm every cap of
         ``servable.sparse.resolve_warm_caps()``, packing the template at each
         rung (rows longer than a rung are clipped: the results are
-        discarded)."""
+        discarded). On a shard grid each bucket's chain runs on every shard."""
         t0 = time.perf_counter()
         warm_caps: Tuple[Optional[int], ...] = (None,)
         if any(isinstance(s, FusedSegment) and s.has_sparse_inputs for s in self.segments):
@@ -146,14 +165,25 @@ class CompiledServingPlan:
         bucket: int,
         cap: Optional[int] = None,
         warm: bool = False,
-    ) -> Tuple[Dict[str, Any], Hashable]:
+    ) -> Tuple[Any, Hashable]:
         """One host-side gather of the segment's input columns, checked
         against the key's recorded signature, then moved to the device.
         Returns ``(device inputs, key)``: the key is the padded bucket, or
         ``(bucket, cap)`` when the segment has sparse inputs — all
         its sparse columns padded to the widest rung among them, so a batch
         has one cap. ``cap`` forces the rung (warmup walks the ladder;
-        ``warm`` clips rows a small rung cannot hold)."""
+        ``warm`` clips rows a small rung cannot hold). On a shard grid the
+        device inputs are one dict per data shard (``PlanSharding.put_columns``),
+        and a bucket off the mesh ladder raises ``off_ladder``."""
+        sharding = self.sharding
+        if sharding is not None and bucket % sharding.row_multiple:
+            # local shapes would gain remainder rows: only a caller that
+            # bypasses the mesh ladder gets here, and it serves per-stage
+            raise IneligibleBatch(
+                f"bucket {bucket} not a multiple of the sharded bucket quantum "
+                f"{sharding.row_multiple}",
+                reason="off_ladder",
+            )
         arrays: Dict[str, np.ndarray] = {}
         packed: List[Dict[str, np.ndarray]] = []
         shared_cap = cap or 0
@@ -182,7 +212,9 @@ class CompiledServingPlan:
                         f"column {name!r} shape {arr.shape} != built {signature[name][0]}",
                         reason="signature",
                     )
-        return {name: to_device(arr, self.device) for name, arr in arrays.items()}, key
+        if sharding is None:
+            return {name: to_device(arr, self.device) for name, arr in arrays.items()}, key
+        return sharding.put_columns(arrays), key
 
     def dispatch(self, padded_df: DataFrame) -> PlanExecution:
         """Run the plan on an already-padded batch. Fused segments launch
@@ -220,6 +252,8 @@ class CompiledServingPlan:
             fused_ran = True
         if fused_ran:
             metrics.counter(self.scope, MLMetrics.SERVING_FUSED_BATCHES)
+            if self.sharding is not None:
+                metrics.counter(self.scope, MLMetrics.SERVING_SHARD_ROWS, bucket // self.sharding.n_data)
         return PlanExecution(df, pending)
 
     def execute(self, padded_df: DataFrame) -> DataFrame:

@@ -89,12 +89,17 @@ class ModelRegistry:
             raise NoModelError("no model version loaded yet")
         return current
 
-    def swap(self, version: int, servable) -> None:
-        """Atomically install ``(version, servable)``; versions must advance,
-        so a response's ``model_version`` is unambiguous."""
+    def swap(self, version: int, servable, *, allow_rollback: bool = False) -> None:
+        """Atomically install ``(version, servable)``. Versions must advance,
+        so a response's ``model_version`` is unambiguous — except under
+        ``allow_rollback``, the controlled revert to an OLDER version
+        (``InferenceServer.rollback``); never to the serving version itself,
+        which would make two servables indistinguishable in responses."""
         with self._lock:
             previous = self._current
-            if previous is not None and version <= previous[0]:
+            if previous is not None and version == previous[0]:
+                raise ValueError(f"hot swap must advance the version: {version} is already serving")
+            if previous is not None and version < previous[0] and not allow_rollback:
                 raise ValueError(
                     f"hot swap must advance the version: {version} <= serving {previous[0]}"
                 )

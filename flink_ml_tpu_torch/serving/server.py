@@ -10,7 +10,10 @@ fast path every version is served by a
 warmed on the swapping thread before the version flips.
 
 The server runs on the GPU unless it is given ``device="cpu"``; without a
-card the default raises at construction.
+card the default raises at construction. With ``serving.mesh`` or
+``serving.mesh.model`` above 1 (``ServingConfig(mesh=, mesh_model=)``) every
+version's plan runs on one shard grid resolved at construction
+(``servable/sharding.py``), and the batcher pads to its mesh bucket ladder.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from flink_ml_tpu_torch.config import Options, config
 from flink_ml_tpu_torch.device import resolve_device
 from flink_ml_tpu_torch.metrics import MLMetrics
 from flink_ml_tpu_torch.servable.fusion import resolve_fusion_tier
+from flink_ml_tpu_torch.servable.sharding import resolve_plan_sharding
 from flink_ml_tpu_torch.servable.sparse import resolve_sparse_hints
 from flink_ml_tpu_torch.serving.batcher import MicroBatcher, pad_to
 from flink_ml_tpu_torch.serving.errors import ServingClosedError
@@ -62,6 +66,8 @@ class ServingConfig:
         pipeline_depth: Optional[int] = None,
         fusion_mode: Optional[str] = None,
         poll_interval_ms: Optional[float] = None,
+        mesh: Optional[int] = None,
+        mesh_model: Optional[int] = None,
     ):
         def pick(value, cast, option):
             return cast(value) if value is not None else config.get(option)
@@ -74,6 +80,8 @@ class ServingConfig:
         self.pipeline_depth = pick(pipeline_depth, int, Options.SERVING_PIPELINE_DEPTH)
         self.fusion_mode = pick(fusion_mode, str, Options.FUSION_MODE)
         self.poll_interval_ms = pick(poll_interval_ms, float, Options.SERVING_POLL_INTERVAL_MS)
+        self.mesh = pick(mesh, int, Options.SERVING_MESH)
+        self.mesh_model = pick(mesh_model, int, Options.SERVING_MESH_MODEL)
 
     def __repr__(self) -> str:
         return (
@@ -82,7 +90,8 @@ class ServingConfig:
             f"queue_capacity_rows={self.queue_capacity_rows}, "
             f"default_timeout_ms={self.default_timeout_ms}, "
             f"fastpath={self.fastpath}, pipeline_depth={self.pipeline_depth}, "
-            f"fusion_mode={self.fusion_mode}, poll_interval_ms={self.poll_interval_ms})"
+            f"fusion_mode={self.fusion_mode}, poll_interval_ms={self.poll_interval_ms}, "
+            f"mesh={self.mesh}, mesh_model={self.mesh_model})"
         )
 
 
@@ -105,6 +114,12 @@ class ServingResponse:
             f"model_version={self.model_version}, latency_ms={self.latency_ms:.2f}, "
             f"bucket={self.bucket})"
         )
+
+
+def _placement(device, sharding):
+    """A plan's placement: its shard grid's shape and devices (a sharded
+    plan's own device is its first data shard's), or its one device."""
+    return (sharding.key, sharding.devices) if sharding is not None else device
 
 
 class InferenceServer:
@@ -138,6 +153,13 @@ class InferenceServer:
         # Resolved once: every version's plan is built under it, and a plan a
         # servable carries from elsewhere rebuilds on key mismatch.
         self._fusion = resolve_fusion_tier(self.config.fusion_mode) if self.config.fastpath else None
+        # The shard grid, resolved once like the fusion tier: every version's
+        # plan is built on it (weights placed at swap time), and a ladder the
+        # mesh cannot take fails here, at construction.
+        self._sharding = (
+            resolve_plan_sharding(self.config.mesh, self.config.mesh_model, self.device)
+            if self.config.fastpath else None
+        )
         self._batcher = MicroBatcher(
             self._execute,
             max_batch_size=self.config.max_batch_size,
@@ -147,17 +169,19 @@ class InferenceServer:
             response_factory=ServingResponse,
             dispatch=self._dispatch if self.config.fastpath else None,
             pipeline_depth=self.config.pipeline_depth,
+            buckets=(self._sharding.serving_buckets(self.config.max_batch_size)
+                     if self._sharding is not None else None),
         )
         if servable is not None:
             self.swap(version, servable)
 
     # -- the one place a batch meets a model ----------------------------------
     def _plan_stale(self, plan, sparse_hints) -> bool:
-        """Whether a cached plan was built for another device, fusion tier or
-        sparseness than this server's: it then holds the wrong model tensors
-        or program partition and must rebuild."""
+        """Whether a cached plan was built for another device, shard grid,
+        fusion tier or sparseness than this server's: it then holds the wrong
+        model tensors or program partition and must rebuild."""
         return plan is not None and (
-            plan.device != self.device
+            _placement(plan.device, plan.sharding) != _placement(self.device, self._sharding)
             or plan.fusion.key != self._fusion.key
             or plan.sparse_hints != sparse_hints
         )
@@ -177,7 +201,7 @@ class InferenceServer:
         if plan is _PLAN_UNSET or self._plan_stale(plan, sparse_hints):
             plan = CompiledServingPlan.build(
                 servable, scope=self.scope, fusion=self._fusion, device=self.device,
-                sparse=sparse_hints,
+                sparse=sparse_hints, sharding=self._sharding,
             )
             servable._fastpath_plan = plan
         return plan
@@ -219,10 +243,11 @@ class InferenceServer:
 
     # -- model lifecycle -------------------------------------------------------
     def warmup(self, servable) -> None:
-        """Build the servable's plan (model arrays to the device) and run one
-        template batch per bucket — per bucket and nnz cap for sparse
-        segments — on the caller's thread, so the serving path never builds a
-        chain or uploads weights."""
+        """Build the servable's plan (model arrays to the device, or to every
+        device of the shard grid) and run one template batch per bucket — per
+        bucket and nnz cap for sparse segments, on every shard — on the
+        caller's thread, so the serving path never builds a chain or uploads
+        weights."""
         with self._template_lock:
             template = self._warmup_template
         plan = self._plan_for(servable)
@@ -239,6 +264,14 @@ class InferenceServer:
         must advance)."""
         self.warmup(servable)
         self.registry.swap(version, servable)
+
+    def rollback(self, version: int, servable) -> None:
+        """Warm then atomically revert serving to an OLDER ``version``. The
+        discipline of ``swap``: the restored version's plan is built and
+        warmed on every shard on the caller's thread before the flip, so the
+        rollback puts no build on the serving path."""
+        self.warmup(servable)
+        self.registry.swap(version, servable, allow_rollback=True)
 
     def attach_poller(self, directory: str, *, loader=None, interval_ms: Optional[float] = None,
                       start: bool = True) -> ModelVersionPoller:

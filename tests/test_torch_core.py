@@ -193,6 +193,7 @@ def test_config_options_share_keys_defaults_and_env_names():
         "serving.max.batch.size", "serving.max.delay.ms", "serving.queue.capacity.rows",
         "serving.default.timeout.ms", "serving.fastpath", "serving.pipeline.depth",
         "serving.poll.interval.ms", "serving.poll.backoff.max.ms",
+        "serving.mesh", "serving.mesh.model", "mesh.data.axis.size", "mesh.model.axis.size",
         "fusion.mode", "fusion.megakernel", "fusion.megakernel.min.score",
         "sparse.fastpath", "sparse.nnz.cap.max", "sparse.warmup.caps",
         "batch.fastpath", "batch.chunk.rows", "batch.prefetch.depth", "batch.mesh", "batch.mesh.model",

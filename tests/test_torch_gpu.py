@@ -2746,3 +2746,70 @@ def test_a_streamed_world_of_two_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(two["streamed"][0]["coef"], two["resident"][0]["coef"])
     np.testing.assert_array_equal(two["kmeans"][0]["centroids"], one["kmeans"][0]["centroids"])
     np.testing.assert_array_equal(two["kmeans"][0]["weights"], one["kmeans"][0]["weights"])
+
+
+@pytest.mark.parametrize("mode", ("exact", "fast"))
+@pytest.mark.parametrize("n", (2, 4))
+def test_sharded_serving_on_the_card_is_bit_equal_to_mesh_one(cuda, mode, n):
+    """scaler → logistic → kmeans at ``serving.mesh`` N on the one card:
+    every response bit-equal per row to the mesh-1 plan at its bucket run
+    inside ``rowstable.required()`` (the row-stable forms a plan with data
+    shards takes on the card) and, in the fast tier, one megakernel launch
+    per shard of each hot batch; outside that block the bodies are cuBLAS's
+    products as they are; then a tensor-parallel MLP (2 × 2) within rtol
+    1e-5 / atol 1e-6 of the default mesh-1 plan."""
+    from flink_ml_tpu_torch.ops import kernels as K, rowstable
+    from flink_ml_tpu_torch.servable import KMeansModelServable, MLPClassifierModelServable
+    from flink_ml_tpu_torch.servable.fusion import resolve_fusion_tier
+    from flink_ml_tpu_torch.servable.megakernels import ROWLOCAL
+    from flink_ml_tpu_torch.servable.sharding import PlanSharding
+    from flink_ml_tpu_torch.serving import CompiledServingPlan, pad_to
+
+    d = 100
+    rng = np.random.default_rng(5)
+    sc = StandardScalerModelServable().set_input_col("features").set_output_col("scaled").set_with_mean(True)
+    sc.mean, sc.std = rng.normal(size=d), np.abs(rng.normal(size=d)) + 0.5
+    lr = LogisticRegressionModelServable().set_features_col("scaled")
+    lr.coefficient = rng.normal(size=d) / 10.0
+    km = KMeansModelServable().set_features_col("scaled").set_prediction_col("cluster")
+    km.centroids, km.weights = rng.normal(size=(10, d)), np.ones(10)
+    pipe = PipelineModelServable([sc, lr, km])
+    template = DataFrame.from_dict({"features": rng.normal(size=(1, d))})
+    tier = resolve_fusion_tier(mode)
+    mesh1 = CompiledServingPlan.build(pipe, scope=f"ml.serving[gpu-mesh1-{mode}]", fusion=tier, device=cuda)
+    cfg = ServingConfig(max_batch_size=1024, max_delay_ms=0.0, fusion_mode=mode, mesh=n)
+    payloads = [rng.normal(size=(rows, d)) for rows in (1, 7, 100, 513, 1024, 33)]
+    with InferenceServer(pipe, name=f"gpu-sharded-{mode}-{n}", serving_config=cfg,
+                         warmup_template=template, device=cuda) as server:
+        ROWLOCAL.reset_launches()
+        responses = [server.predict(DataFrame.from_dict({"features": x})) for x in payloads]
+        launches = ROWLOCAL.launches
+        kinds = {b: k for s in pipe._fastpath_plan.segments for b, k in s.plan_kinds.items()}
+    hot = sum(1 for r in responses if "megakernel" in kinds[r.bucket])
+    assert launches == (n * hot if mode == "fast" else 0)
+    assert hot or mode == "exact"
+    for x, resp in zip(payloads, responses):
+        df = DataFrame.from_dict({"features": x})
+        with rowstable.required():
+            want = mesh1.execute(pad_to(df, resp.bucket)).take(np.arange(len(x)))
+        for name in want.get_column_names():
+            np.testing.assert_array_equal(np.asarray(resp.dataframe[name]), np.asarray(want[name]), err_msg=name)
+    X = torch.randn(1024, d, device=cuda)
+    coef, C = torch.randn(d, device=cuda), torch.randn(10, d, device=cuda)
+    assert torch.equal(K.dot_fn(X, coef), X @ coef)
+    assert torch.equal(K.kmeans_assign_fn("euclidean")(X, C),
+                       torch.argmin(torch.sqrt(torch.clamp_min(
+                           (X * X).sum(1)[:, None] + (C * C).sum(1)[None, :] - 2.0 * (X @ C.T), 0.0)), dim=1))
+
+    arrays = {"labels": np.arange(8, dtype=np.float64)}
+    for i, (a, b) in enumerate(((256, 512), (512, 512), (512, 8))):
+        arrays[f"W{i}"] = (rng.normal(size=(a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
+        arrays[f"b{i}"] = (rng.normal(size=b) * 0.1).astype(np.float32)
+    x = DataFrame.from_dict({"features": rng.normal(size=(256, 256))})
+    base = CompiledServingPlan.build(MLPClassifierModelServable().set_features_col("features")._apply_model_arrays(arrays),
+                                     scope="ml.serving[gpu-tp-base]", fusion=resolve_fusion_tier("exact"), device=cuda)
+    tp = CompiledServingPlan.build(MLPClassifierModelServable().set_features_col("features")._apply_model_arrays(arrays),
+                                   scope="ml.serving[gpu-tp]", fusion=resolve_fusion_tier("exact"),
+                                   sharding=PlanSharding(2, 2, cuda))
+    np.testing.assert_allclose(np.asarray(tp.execute(x)["rawPrediction"]), np.asarray(base.execute(x)["rawPrediction"]),
+                               rtol=1e-5, atol=1e-6)

@@ -571,13 +571,25 @@ def test_no_spec_builds_no_plan_and_a_multi_output_stage_gives_way():
 
 
 def test_batch_mesh_other_than_one_raises():
+    """``batch.mesh`` / ``batch.mesh.model`` 2 no longer raise: the plan
+    rebuilds on a 2-shard grid and its rows are bit-equal to mesh 1 (the
+    16-wide chain holds no array the model axis splits)."""
     model = PipelineModel(_chain())
-    for option in (Options.BATCH_MESH, Options.BATCH_MESH_MODEL):
+    df = _vec_df(40, 16)
+    base = model.transform(df, device="cpu")
+    assert model._plan_cache[1].sharding is None
+    for option, key in ((Options.BATCH_MESH, (2, 1)), (Options.BATCH_MESH_MODEL, (1, 2))):
         config.set(option, 2)
-        with pytest.raises(NotImplementedError, match="batch.mesh"):
-            model.transform(_vec_df(8, 16), device="cpu")
-        config.unset(option)
+        try:
+            out = model.transform(df, device="cpu")
+            assert model._plan_cache[1].sharding.key == key
+        finally:
+            config.unset(option)
+        for name in base.get_column_names():
+            np.testing.assert_array_equal(np.asarray(out[name]), np.asarray(base[name]), err_msg=name)
     assert Options.BATCH_MESH.default == Options.BATCH_MESH_MODEL.default == 1
+    assert (Options.BATCH_MESH.default, Options.BATCH_MESH_MODEL.default) == (
+        JOptions.BATCH_MESH.default, JOptions.BATCH_MESH_MODEL.default)
     assert (Options.BATCH_FASTPATH.default, Options.BATCH_CHUNK_ROWS.default,
             Options.BATCH_PREFETCH_DEPTH.default) == (JOptions.BATCH_FASTPATH.default,
                                                       JOptions.BATCH_CHUNK_ROWS.default,
