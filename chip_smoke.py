@@ -13,10 +13,13 @@ a published version hot-swapped into a serving server, text pipelines
 (the host featurizers and the ``entries`` convention), data-parallel
 training on ``train.mesh`` in worlds of 1, 2 and 4 ranks, tensor,
 sequence and expert parallelism in gloo worlds of 2 and 4 ranks,
-streamed fits out of a host-tier cache larger than a window, and the
-serving and batch plans on a shard grid (``serving.mesh``, ``batch.mesh``).
+streamed fits out of a host-tier cache larger than a window, the
+serving and batch plans on a shard grid (``serving.mesh``, ``batch.mesh``),
+and online training over an unbounded stream with its versions published
+to a server.
 Phases, one JSON line each (the numbers give the order of description; main
-runs 34 and 35 after 7, 25–33 after 9, and 22–24 after 17):
+runs 34 and 35 after 7, 25–29 and 36 after 9, 30–33 after 36, and 22–24
+after 17):
 
 1. device    — the card, its power limit;
 2. build     — nvcc for every kernel source, all started together, with the
@@ -433,7 +436,9 @@ runs 34 and 35 after 7, 25–33 after 9, and 22–24 after 17):
                under 11's limits) and a checkpointed dense SGD fit killed at
                epoch 10 by a listener and resumed from a
                ``ShardedCheckpointManager``, bit-equal to its clean fit;
-               width 4 restores that snapshot. Readings, with no scaling
+               width 4 restores that snapshot. Every world also runs 36's
+               OnlineKMeans stream on the deterministic tier, every version
+               bit-equal on every rank and across the widths. Readings, with no scaling
                claim (the ranks share one card): each world's backend,
                ms/epoch, the mapreduce ``all_gather`` ms, each rank's peak
                memory beside the card's, and whether cuBLAS's bits for a
@@ -543,6 +548,44 @@ runs 34 and 35 after 7, 25–33 after 9, and 22–24 after 17):
                shard of each hot chunk — and IDF → LR on 100,008 sparse
                rows at ``batch.mesh`` 2. Readings: p50/p99 and rows/s at
                each mesh and tier, seconds per transform.
+36. online   — OnlineLogisticRegression over an unbounded stream
+               (``QueueBatchStream``, one FTRL step a 4096-row batch at d
+               256, alpha 0.5, beta 0.1: bench.py's continuous loop), 64
+               versions a leg on the card: A at reg 0, B at reg 0.01 and
+               elasticNet 0.5 (L1 zeroes the faint three quarters of the
+               features). Every version's coefficient against a float64
+               numpy FTRL of the same batches (rtol 1e-5 / atol 1e-6, the
+               zero pattern equal, the float64 run more than 1e-4 from the
+               L1 threshold everywhere), with a bf16-feature control that
+               must land outside; the FTRL state float32; ms a version
+               (host clock, versions 33 against 64), and over versions
+               17–32 a ``torch.profiler`` trace: the upload and coefficient
+               readback ms a version and the device's idle share. Leg A
+               again under traffic: every 8th version published with
+               ``publish_servable`` into a directory an ``InferenceServer``
+               (fusion.mode=fast, max batch 4096) polls, 4 closed-loop
+               clients sending 1–4096-row requests throughout; each
+               version's publish to its first response, p50/p99, every
+               response against float64 of the version that served it,
+               scale → logistic launches equal to the hot batches plus
+               the new versions' hot warmup batches, 0 fallbacks, 0 chains
+               built after warmup, the plain version never called; then a
+               4096-row batch of each published version through the kernel
+               and its plain version (largest ulp distance). Leg A with a
+               ``CheckpointManager`` every 4 versions, dropped after 20 and
+               resumed from a replaying source: versions 21–64, each
+               bit-equal to the uninterrupted run. OnlineKMeans at
+               kmeans-benchmark.json's width (d 100, k 10, uniform rows),
+               decayFactor 0.5, 32 versions of 4096 rows: each version
+               against float64 from its own starting model (assignments
+               past the margin, weights, centroids); its train.mesh leg
+               runs in 32's worlds, bit-equal across the widths.
+               OnlineStandardScaler at d 100 over 16 event-time windows of
+               1000 ms (4096 rows each): ms a window, and the gated
+               transform at maxAllowedModelDelayMs 0 and 500, each row
+               served by the version installed or the earliest later one
+               fresh enough for it, against float64 of its statistics, the
+               rest buffered and served once their version arrives.
 
 Then a ``{"kernels": [...]}`` line for every kernel (twelve) with its
 launches on each path that runs it, the ``nvidia-smi`` name/power-limit line,
@@ -893,6 +936,32 @@ SHARDED_SERVING_MESHES = (1, 2, 4)
 SHARDED_TP_MESH = (2, 2)
 SHARDED_BATCH_ROWS = (KMEANS_ROWS, KMEANS_ROWS + 8, KMEANS_ROWS + 3)
 SHARDED_SWAP_POST = 4  # requests each client sends after the last flip, each to be served by v3
+
+# Phase 36 (online): OnlineLogisticRegression over an unbounded stream at
+# bench.py's continuous-loop shape (bench_continuous_loop: d 256, 4096-row
+# global batches, alpha 0.5, beta 0.1), one FTRL step a batch, 64 versions a
+# leg: A at reg 0, B at reg 0.01 / elasticNet 0.5 (the last three quarters of
+# the features scaled by 1e-2, so L1 zeroes them). Leg A again under traffic,
+# every 8th version published to a served directory; a checkpointed run at
+# interval 4 killed after 20 versions and resumed. OnlineKMeans at
+# kmeans-benchmark.json's width (d 100, k 10, uniform rows), 4096-row
+# batches, decayFactor 0.5, 32 versions; OnlineStandardScaler at d 100,
+# EventTimeTumblingWindows(1000), 16 windows of 4096 rows, gated at
+# maxAllowedModelDelayMs 0 and 500.
+ONLINE_D, ONLINE_BATCH, ONLINE_VERSIONS, ONLINE_SEED = 256, 4096, 64, 36
+ONLINE_ALPHA, ONLINE_BETA = 0.5, 0.1
+ONLINE_LEGS = (("A", 0.0, 0.0), ("B", 0.01, 0.5))  # (leg, reg, elasticNet)
+ONLINE_PROFILE_VERSIONS = 16  # versions traced for the idle share (after as many warm ones)
+ONLINE_PUBLISH_EVERY = 8
+ONLINE_CKPT_INTERVAL, ONLINE_KILL_AT = 4, 20
+ONLINE_CONTROL_VERSIONS = 16  # versions of the bf16-feature control
+ONLINE_COEF_RTOL, ONLINE_COEF_ATOL = 1e-5, 1e-6  # every version's coefficient against float64 FTRL
+ONLINE_L1_MARGIN = 1e-4  # leg B's float64 least | |z| - l1 |: no threshold flip hides in the tolerance
+ONLINE_REQUESTS = 64  # request payloads the clients cycle through, 1-4096 rows
+ONLINE_KMEANS_VERSIONS, ONLINE_KMEANS_DECAY = 32, 0.5
+ONLINE_SCALER_D, ONLINE_SCALER_WINDOWS, ONLINE_SCALER_WINDOW_MS = 100, 16, 1000
+ONLINE_SCALER_DELAYS = (0, 500)
+ONLINE_SCALER_ATOL = 1e-5  # served scaled values against float64 of the version that served them
 
 
 
@@ -1501,6 +1570,8 @@ def _profile_steps(run, expect=()):
     return {
         "iterations": PROFILE_ITERS, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None,
+        "copy_ms": {kind: sum(ms for name, ms, _ in events if f"Memcpy {kind}" in name)
+                    for kind in ("HtoD", "DtoH")},
         "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in events[:12]],
     }
 
@@ -7148,6 +7219,574 @@ def phase_hot_swap(card: str, idf_model, lr_model, v2_coef):
     return launches
 
 
+def _online_batches():
+    """The online stream's ONLINE_VERSIONS batches from ONLINE_SEED: float32
+    standard-normal features, the last three quarters scaled by 1e-2, and
+    labels of a teacher plus noise, float32. The teacher weighs each of the
+    first quarter by 1 to 2 in magnitude, so under leg B's L1 term every
+    dimension's |z| stays clear of l1 from the first version on: far above
+    it, or (the faint features) far below."""
+    import numpy as np
+
+    rng = np.random.default_rng(ONLINE_SEED)
+    d, faint = ONLINE_D, ONLINE_D // 4
+    w_true = np.concatenate([np.sign(rng.normal(size=faint)) * rng.uniform(1.0, 2.0, faint), np.zeros(d - faint)])
+    scale = np.where(np.arange(d) >= faint, 1e-2, 1.0).astype(np.float32)
+    batches = []
+    for _ in range(ONLINE_VERSIONS):
+        X = rng.standard_normal((ONLINE_BATCH, d), dtype=np.float32) * scale
+        y = (X.astype(np.float64) @ w_true + 0.3 * rng.standard_normal(ONLINE_BATCH) > 0).astype(np.float32)
+        batches.append({"features": X, "label": y})
+    return batches
+
+
+def _ftrl64(batches, reg, elastic_net, control=None):
+    """Float64 FTRL of ``batches`` (features through ``control`` first, if
+    given) from a zero coefficient: each version's coefficient, and the
+    least | |z| - l1 | over every version and dimension."""
+    import numpy as np
+
+    l1, l2 = elastic_net * reg, (1.0 - elastic_net) * reg
+    coef = np.zeros(ONLINE_D)
+    n, z = np.zeros(ONLINE_D), np.zeros(ONLINE_D)
+    coefs, margin = [], math.inf
+    for b in batches:
+        X = np.asarray(b["features"], np.float64) if control is None else control(b["features"])
+        y = np.asarray(b["label"], np.float64)
+        p = 1.0 / (1.0 + np.exp(-(X @ coef)))
+        g = X.T @ (p - y) / len(y)
+        sigma = (np.sqrt(n + g * g) - np.sqrt(n)) / ONLINE_ALPHA
+        z = z + g - sigma * coef
+        n = n + g * g
+        margin = min(margin, float(np.min(np.abs(np.abs(z) - l1))))
+        coef = np.where(np.abs(z) <= l1, 0.0, (np.sign(z) * l1 - z) / ((ONLINE_BETA + np.sqrt(n)) / ONLINE_ALPHA + l2))
+        coefs.append(coef)
+    return coefs, margin
+
+
+def _online_lr(reg, elastic_net):
+    """An OnlineLogisticRegression from a zero coefficient at the phase's shape."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.classification.online_logistic_regression import OnlineLogisticRegression
+
+    return (OnlineLogisticRegression()
+            .set_initial_model_data(DataFrame(["coefficient"], None, [[DenseVector(np.zeros(ONLINE_D))]]))
+            .set_alpha(ONLINE_ALPHA).set_beta(ONLINE_BETA).set_reg(reg).set_elastic_net(elastic_net)
+            .set_global_batch_size(ONLINE_BATCH))
+
+
+def _queue(batches, close=True):
+    """A QueueBatchStream holding ``batches``, closed unless asked not to be."""
+    from flink_ml_tpu_torch.models.online import QueueBatchStream
+
+    stream = QueueBatchStream()
+    for b in batches:
+        stream.add(b)
+    return stream.close() if close else stream
+
+
+def _ftrl_versus(got, ref):
+    """Each version's largest excess of |got - ref| over the tolerance
+    (≤ 0: inside), the largest absolute error and whether each version's
+    zero pattern equals float64's."""
+    import numpy as np
+
+    excess, err, zeros_equal = [], 0.0, True
+    for g, r in zip(got, ref):
+        g = np.asarray(g, np.float64)
+        excess.append(float(np.max(np.abs(g - r) - (ONLINE_COEF_ATOL + ONLINE_COEF_RTOL * np.abs(r)))))
+        err = max(err, float(np.max(np.abs(g - r))))
+        zeros_equal = zeros_equal and bool(np.array_equal(g == 0, r == 0))
+    return excess, err, zeros_equal
+
+
+def _online_lr_leg(batches, leg, reg, elastic_net, dev):
+    """One leg's 64 versions on the card: versions 1–16 warm, 17–32 traced
+    by torch.profiler, 33–64 timed on the host clock; every version held
+    against float64 FTRL."""
+    model = _online_lr(reg, elastic_net).fit(_queue(batches), device=dev)
+    got, stamps = [], []
+
+    def hook(version, coef):
+        stamps.append(time.perf_counter())
+        got.append(coef)
+
+    profile = _profile_steps(lambda: model.advance(ONLINE_PROFILE_VERSIONS, on_snapshot=hook),
+                             expect=("Memcpy HtoD", "Memcpy DtoH"))
+    model.advance(on_snapshot=hook)
+    if model.version_history != list(range(1, ONLINE_VERSIONS + 1)) or len(got) != ONLINE_VERSIONS:
+        raise AssertionError(f"leg {leg}: versions {model.version_history}")
+    ref, margin = _ftrl64(batches, reg, elastic_net)
+    excess, err, zeros_equal = _ftrl_versus(got, ref)
+    first = 2 * ONLINE_PROFILE_VERSIONS  # stamps[first] is version 2P + 1
+    traced = ONLINE_PROFILE_VERSIONS
+    reading = {
+        "reg": reg, "elastic_net": elastic_net, "versions": len(got),
+        "ms_per_version": (stamps[-1] - stamps[first]) / (len(stamps) - 1 - first) * 1e3,
+        "versions_differenced": [first + 1, len(stamps)],
+        "traced_versions": traced,
+        "upload_ms_per_version": profile["copy_ms"]["HtoD"] / traced,
+        "readback_ms_per_version": profile["copy_ms"]["DtoH"] / traced,
+        "device_busy_ms_per_version": profile["device_busy_ms"] / traced,
+        "wall_ms_per_traced_version": profile["wall_ms"] / traced,
+        "idle_share": profile["idle_share"], "top": profile["top"][:6],
+        "max_abs_err_vs_float64": err, "worst_excess_over_tol": max(excess),
+        "zero_pattern_equal": zeros_equal, "zeros_last_version": int((got[-1] == 0).sum()),
+        "float64_least_l1_margin": margin,
+        "state_dtypes": sorted({str(t.dtype) for t in model._snapshots.state}),
+    }
+    if max(excess) > 0 or not zeros_equal:
+        raise AssertionError(f"leg {leg}: a version lies outside rtol {ONLINE_COEF_RTOL} / atol "
+                             f"{ONLINE_COEF_ATOL} of float64 FTRL or its zeros differ: {reading}")
+    if reg * elastic_net > 0 and margin <= ONLINE_L1_MARGIN:  # at l1 0 only an exact 0 flips
+        raise AssertionError(f"leg {leg}: the float64 run comes within {margin} of the L1 threshold")
+    if (reading["zeros_last_version"] > 0) != (reg * elastic_net > 0):
+        raise AssertionError(f"leg {leg}: {reading['zeros_last_version']} zeros at reg {reg}, en {elastic_net}")
+    if reading["state_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"leg {leg}: FTRL state in {reading['state_dtypes']}")
+    return got, ref, reading
+
+
+def _online_serve_leg(batches, coefs_a, ref_a, dev):
+    """Leg A trained again under traffic, every ONLINE_PUBLISH_EVERY-th
+    version published and flipped in by the poller; returns the readings,
+    the kernel's launches on the path and the published coefficients."""
+    import tempfile
+
+    import numpy as np
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.native import KERNELS
+    from flink_ml_tpu_torch.serving import InferenceServer, ServingConfig, publish_servable
+    from flink_ml_tpu_torch.serving.plan import CompiledServingPlan, chain_kinds
+
+    rng = np.random.default_rng(ONLINE_SEED + 1)
+    sizes = [int(min(MAX_BATCH, max(1, round(2 ** rng.uniform(0, 12))))) for _ in range(ONLINE_REQUESTS)]
+    sizes[::16] = [4096, 1500, 2048, 1024][: len(sizes[::16])]  # hot buckets on every run
+    payloads = [rng.standard_normal((n, ONLINE_D), dtype=np.float32) for n in sizes]
+    frames = [DataFrame.from_dict({"features": x}) for x in payloads]
+    payloads64 = [x.astype(np.float64) for x in payloads]
+    published = {}  # version -> float64 of the published float32 coefficient
+
+    def check(i, out, version):
+        margin = payloads64[i] @ published[version]
+        p = 1.0 / (1.0 + np.exp(-margin))
+        np.testing.assert_allclose(out["rawPrediction"], np.stack([1.0 - p, p], axis=1), rtol=0, atol=1e-5)
+        decided = np.abs(margin) > PREDICTION_MARGIN
+        np.testing.assert_array_equal(np.asarray(out["prediction"])[decided],
+                                      (margin >= 0).astype(np.float64)[decided])
+
+    lock = threading.Lock()
+    ingests = []
+    ingest = CompiledServingPlan._ingest
+
+    def recording_ingest(self, segment, df, bucket, cap=None, warm=False):
+        got = ingest(self, segment, df, bucket, cap=cap, warm=warm)
+        with lock:
+            ingests.append((warm, got[1]))
+        return got
+
+    config = ServingConfig(max_batch_size=MAX_BATCH, queue_capacity_rows=4 * MAX_BATCH, fusion_mode="fast")
+    stream = _queue([], close=False)
+    model = _online_lr(*ONLINE_LEGS[0][1:]).fit(stream, device=dev)
+    got, step_ms = [], []
+
+    def train_one(v):
+        stream.add(batches[v - 1])
+        t0 = time.perf_counter()
+        if model.advance(1) != 1 or model.model_version != v:
+            raise AssertionError(f"the served leg did not reach version {v}")
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(model.coefficient)
+
+    def publish(v):
+        published[v] = np.asarray(model.coefficient, np.float32).astype(np.float64)
+        t = time.perf_counter()
+        publish_servable(model, d, version=v)
+        return t, time.perf_counter()
+
+    CompiledServingPlan._ingest = recording_ingest
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    try:
+        server = InferenceServer(name="chip-smoke-online", serving_config=config,
+                                 warmup_template=frames[0].take([0]), device="cuda")
+        scope = server.scope
+        with server:
+            poller = server.attach_poller(d, interval_ms=HOT_SWAP_POLL_MS)
+            stage_ms = {"load": [], "warmup": []}
+
+            def timed(name, fn):
+                def run(arg):
+                    t = time.perf_counter()
+                    try:
+                        return fn(arg)
+                    finally:
+                        stage_ms[name].append((time.perf_counter() - t) * 1e3)
+                return run
+
+            poller.loader, poller.warmup = timed("load", poller.loader), timed("warmup", poller.warmup)
+            for v in range(1, ONLINE_PUBLISH_EVERY + 1):
+                train_one(v)
+            publish(ONLINE_PUBLISH_EVERY)
+            deadline = time.perf_counter() + 300
+            while server.model_version != ONLINE_PUBLISH_EVERY and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            if server.model_version != ONLINE_PUBLISH_EVERY:
+                raise AssertionError(f"version {ONLINE_PUBLISH_EVERY} was not swapped in: {dict(poller.failed)}")
+            kinds = chain_kinds(server.registry._current[1]._fastpath_plan)
+            hot = {k for k, kind in kinds.items() if "megakernel" in kind}
+            batch_versions = []
+            current = server.registry.current
+
+            def recording_current():
+                pair = current()
+                batch_versions.append(pair[0])
+                return pair
+
+            server.registry.current = recording_current
+            # The main path's run starts here: counts to 0, then traffic.
+            with lock:
+                del ingests[:]
+            for k in KERNELS:
+                k.reset_launches()
+            plain_calls, restore = _count_calls(mk, ("scale_logistic_plain",))
+            base = {name: metrics.get(scope, name, 0) for name in (
+                MLMetrics.SERVING_SWAPS, MLMetrics.SERVING_SWAP_FAILURES, MLMetrics.SERVING_FALLBACK_BATCHES,
+                MLMetrics.SERVING_FASTPATH_COMPILES)}
+            done, latencies, failures = [], [], []
+            stop = threading.Event()
+
+            def client(c):
+                i = c
+                while not stop.is_set() and not failures:
+                    t0 = time.perf_counter()
+                    try:
+                        resp = server.predict(frames[i])
+                        t1 = time.perf_counter()
+                        done.append((i, resp.model_version, t1))
+                        latencies.append((t1 - t0) * 1e3)
+                        check(i, resp.dataframe, resp.model_version)
+                    except BaseException as e:  # noqa: BLE001 — reported below, fails the run
+                        failures.append(f"request {i} ({sizes[i]} rows): {type(e).__name__}: {e}")
+                    i = (i + N_CLIENTS) % len(frames)
+
+            flips = {}
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            try:
+                for th in threads:
+                    th.start()
+                for v in range(ONLINE_PUBLISH_EVERY + 1, ONLINE_VERSIONS + 1):
+                    train_one(v)
+                    if v % ONLINE_PUBLISH_EVERY:
+                        continue
+                    t_publish, t_published = publish(v)
+                    deadline = time.perf_counter() + 300
+                    first = None
+                    while first is None and time.perf_counter() < deadline and not failures:
+                        first = next((t for _, u, t in list(done) if u == v), None)
+                        time.sleep(0.001)
+                    if first is None:
+                        raise AssertionError(f"no response of version {v}: {dict(poller.failed)} {failures[:3]}")
+                    flips[v] = {"publish_ms": (t_published - t_publish) * 1e3,
+                                "published_to_first_response_ms": (first - t_published) * 1e3}
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=600)
+                restore()
+                server.registry.current = current
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("online clients did not finish within 600 s")
+            launches = mk.SCALE_LOGISTIC.launches
+            other = {k.name: k.launches for k in KERNELS if k is not mk.SCALE_LOGISTIC}
+            deltas = {name: metrics.get(scope, name, 0) - b for name, b in base.items()}
+            failed = dict(poller.failed)
+    finally:
+        CompiledServingPlan._ingest = ingest
+        tmp.cleanup()
+    if failures:
+        raise AssertionError(f"{len(failures)} responses failed: {failures[:5]}")
+    versions = sorted(published)
+    if failed or deltas[MLMetrics.SERVING_SWAPS] != len(versions) - 1 or deltas[MLMetrics.SERVING_SWAP_FAILURES]:
+        raise AssertionError(f"poller failed {failed}, swaps {deltas}")
+    if batch_versions != sorted(batch_versions) or set(batch_versions) != set(versions):
+        raise AssertionError(f"batches took versions out of order or missed some: {sorted(set(batch_versions))}")
+    traffic = [key for warm, key in ingests if not warm]
+    warm_hot = sum(1 for warm, key in ingests if warm and key in hot)
+    hot_batches = sum(1 for key in traffic if key in hot)
+    if len(traffic) != len(batch_versions):
+        raise AssertionError(f"{len(traffic)} batches ingested, {len(batch_versions)} dispatched")
+    if not hot_batches or launches != hot_batches + warm_hot:
+        raise AssertionError(f"scale -> logistic launches {launches} != hot batches {hot_batches} "
+                             f"+ the new versions' hot warmup batches {warm_hot}")
+    if deltas[MLMetrics.SERVING_FALLBACK_BATCHES] or deltas[MLMetrics.SERVING_FASTPATH_COMPILES]:
+        raise AssertionError(f"fallbacks or chains built after warmup: {deltas}")
+    if plain_calls or any(other.values()):
+        raise AssertionError(f"plain versions {sorted(set(plain_calls))} or other kernels {other} ran")
+    lat = sorted(latencies)
+    bit_equal_a = all(np.array_equal(g, a) for g, a in zip(got, coefs_a))
+    excess, err, _ = _ftrl_versus(got, ref_a)
+    if max(excess) > 0:
+        raise AssertionError(f"the served leg's coefficients leave float64 FTRL's tolerance: {max(excess)}")
+    reading = {
+        "published_versions": versions, "flips": flips,
+        "poller_load_ms": stage_ms["load"], "poller_warmup_ms": stage_ms["warmup"],
+        "requests": len(done), "rows": sum(sizes[i] for i, _, _ in done),
+        "responses_per_version": {v: sum(u == v for _, u, _ in done) for v in versions},
+        "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "batches": len(batch_versions), "hot_keys": sorted(hot), "hot_batches": hot_batches,
+        "warmup_hot_batches": warm_hot, "megakernel_launches": launches,
+        "fallback_batches": deltas[MLMetrics.SERVING_FALLBACK_BATCHES],
+        "post_warmup_builds": deltas[MLMetrics.SERVING_FASTPATH_COMPILES],
+        "ms_per_version_under_traffic": float(np.mean(step_ms[ONLINE_PUBLISH_EVERY:])),
+        "bit_equal_to_leg_A": bit_equal_a, "max_abs_err_vs_float64": err,
+    }
+    return reading, launches, {v: published[v] for v in versions}, payloads[sizes.index(MAX_BATCH)]
+
+
+def _online_kernel_check(published, x_host, dev):
+    """One 4096-row batch of each published version through the scale ->
+    logistic kernel and its plain version on the card: raw's largest ulp
+    distance and absolute difference, prediction equal past the margin."""
+    import numpy as np
+    import torch
+
+    import flink_ml_tpu_torch.servable.megakernels as mk
+    from flink_ml_tpu_torch.servable.fusion import ULP_ENVELOPE, ulp_diff
+
+    x = torch.from_numpy(x_host).to(dev)
+    out = {}
+    for v, coef64 in published.items():
+        coef = torch.from_numpy(coef64.astype(np.float32)).to(dev)
+        _, pred_k, raw_k = mk.scale_logistic(x, None, None, coef, with_mean=False, with_std=False,
+                                             write_scaled=False)
+        _, pred_p, raw_p = mk.scale_logistic_plain(x, None, None, coef, with_mean=False, with_std=False)
+        raw_k, raw_p = raw_k.cpu().numpy(), raw_p.cpu().numpy()
+        margin = x_host.astype(np.float64) @ coef64
+        decided = np.abs(margin) > PREDICTION_MARGIN
+        if not np.array_equal(pred_k.cpu().numpy()[decided], pred_p.cpu().numpy()[decided]):
+            raise AssertionError(f"version {v}: the kernel's prediction differs from the plain version's")
+        ulps = ulp_diff(raw_k, raw_p)
+        if ulps > ULP_ENVELOPE["scale_logistic"]:
+            raise AssertionError(f"version {v}: raw {ulps} ulps from the plain version")
+        out[v] = {"max_ulps": ulps, "max_abs_err": float(np.max(np.abs(raw_k - raw_p)))}
+    return out
+
+
+def _online_kill_and_resume(batches, coefs_a, dev):
+    """Leg A with a CheckpointManager every ONLINE_CKPT_INTERVAL versions,
+    dropped after ONLINE_KILL_AT versions and resumed from a source that
+    replays the stream: every later version bit-equal to leg A's."""
+    import tempfile
+
+    import numpy as np
+
+    from flink_ml_tpu_torch.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as ck:
+        est = _online_lr(*ONLINE_LEGS[0][1:])
+        crashed = est.set_checkpoint(CheckpointManager(ck), ONLINE_CKPT_INTERVAL).fit(
+            _queue(batches[:ONLINE_KILL_AT]), device=dev)
+        if crashed.advance() != ONLINE_KILL_AT:
+            raise AssertionError("the killed run did not train its versions")
+        steps = CheckpointManager(ck).all_steps()
+        del crashed
+        t0 = time.perf_counter()
+        resumed = _online_lr(*ONLINE_LEGS[0][1:]).set_checkpoint(CheckpointManager(ck), ONLINE_CKPT_INTERVAL).fit(
+            _queue(batches), device=dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        start = resumed.model_version
+        got = {}
+        resumed.advance(on_snapshot=lambda v, coef: got.__setitem__(v, coef))
+    expected = list(range(ONLINE_KILL_AT + 1, ONLINE_VERSIONS + 1))
+    if start != ONLINE_KILL_AT or resumed.version_history != expected:
+        raise AssertionError(f"resumed at {start} with versions {resumed.version_history}")
+    unequal = [v for v in expected if not np.array_equal(got[v], coefs_a[v - 1])]
+    if unequal:
+        raise AssertionError(f"resumed versions {unequal[:5]} are not bit-equal to the uninterrupted run")
+    return {"killed_at": ONLINE_KILL_AT, "snapshots_kept": steps, "resumed_at": start,
+            "versions": [expected[0], expected[-1]], "bit_equal": True, "fit_with_restore_ms": restore_ms}
+
+
+def _online_kmeans_batches(seed=KMEANS_DATA_SEED + 36):
+    """ONLINE_KMEANS_VERSIONS batches of uniform rows at kmeans-benchmark.json's width."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"features": rng.random((ONLINE_BATCH, KMEANS_D), dtype=np.float32)}
+            for _ in range(ONLINE_KMEANS_VERSIONS)]
+
+
+def _online_kmeans_leg(dev):
+    """OnlineKMeans on the card, every version against float64 from its own
+    starting model: the step's assignment equal to the float64 argmin past
+    the margin, the weights exactly the decayed weights plus the counts, and
+    the centroids within KMEANS_CENTROID_ATOL of the float64 blend over the
+    same assignment."""
+    import numpy as np
+    import torch
+
+    from flink_ml_tpu_torch.models.clustering.online_kmeans import OnlineKMeans
+    from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+
+    batches = _online_kmeans_batches()
+    est = (OnlineKMeans().set_k(KMEANS_K).set_seed(KMEANS_DATA_SEED).set_decay_factor(ONLINE_KMEANS_DECAY)
+           .set_random_initial_model_data(dim=KMEANS_D))
+    model = est.fit(_queue(batches), device=dev)
+    prev = [(np.asarray(model.centroids, np.float32), np.asarray(model.weights, np.float32))]
+    stamps = []
+
+    def hook(version, payload):
+        stamps.append(time.perf_counter())
+        prev.append(payload)
+
+    model.advance(on_snapshot=hook)
+    measure = DistanceMeasure.get_instance("euclidean")
+    worst = {"mismatched": 0, "inside_margin": 0, "centroid_err": 0.0, "weights_rel_err": 0.0}
+    for v, b in enumerate(batches):
+        (c0, w0), (c1, w1) = prev[v], prev[v + 1]
+        X = torch.from_numpy(b["features"]).to(dev)
+        c0_t = torch.from_numpy(np.ascontiguousarray(c0, np.float32)).to(dev)
+        with torch.no_grad():
+            assign = measure.find_closest(X, c0_t)  # the step's own assignment: same inputs, same bits
+        dist = _kmeans_distances64("euclidean", X.double(), c0_t)
+        decided = _kmeans_decided(dist)
+        worst["mismatched"] += int(((assign != torch.argmin(dist, dim=1)) & decided).sum())
+        worst["inside_margin"] += int((~decided).sum())
+        hot = (assign[:, None] == torch.arange(KMEANS_K, device=dev)).double()
+        counts = hot.sum(dim=0).cpu().numpy()
+        sums = (hot.T @ X.double()).cpu().numpy()
+        w_ref = w0.astype(np.float64) * ONLINE_KMEANS_DECAY + counts
+        lam = np.where(w_ref > 0, counts / np.maximum(w_ref, 1e-16), 0.0)
+        means = sums / np.maximum(counts, 1.0)[:, None]
+        c_ref = np.where(counts[:, None] > 0, (1 - lam[:, None]) * c0.astype(np.float64) + lam[:, None] * means,
+                         c0.astype(np.float64))
+        worst["centroid_err"] = max(worst["centroid_err"], float(np.max(np.abs(c1 - c_ref))))
+        worst["weights_rel_err"] = max(worst["weights_rel_err"], float(np.max(
+            np.abs(w1 - w_ref) / np.maximum(w_ref, 1.0))))
+    # a weight is one float32 rounding of decayed weight + count away from float64
+    if worst["mismatched"] or worst["centroid_err"] > KMEANS_CENTROID_ATOL or worst["weights_rel_err"] > 2.0 ** -23:
+        raise AssertionError(f"OnlineKMeans against float64: {worst}")
+    first = ONLINE_KMEANS_VERSIONS // 4
+    return {"versions": len(stamps), "ms_per_version": (stamps[-1] - stamps[first]) / (len(stamps) - 1 - first) * 1e3,
+            "versions_differenced": [first + 1, len(stamps)], **worst}
+
+
+def _online_scaler_leg():
+    """OnlineStandardScaler over ONLINE_SCALER_WINDOWS event-time windows of
+    ONLINE_BATCH rows: ms a window; at each delay the gated transform's rows
+    each served by the earliest fresh enough version (scaled on the card,
+    against float64 of that version's statistics), the rest buffered and
+    served once their version arrives."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.api.dataframe import DataFrame
+    from flink_ml_tpu_torch.models.feature.standard_scaler import TIMESTAMP_COL, OnlineStandardScaler
+    from flink_ml_tpu_torch.ops.windows import EventTimeTumblingWindows
+
+    rng = np.random.default_rng(ONLINE_SEED + 2)
+    n_win, size = ONLINE_SCALER_WINDOWS, ONLINE_SCALER_WINDOW_MS
+    windows = [{"input": rng.normal(3.0, 2.0, (ONLINE_BATCH, ONLINE_SCALER_D)),
+                TIMESTAMP_COL: np.sort(rng.uniform(w * size, (w + 1) * size, ONLINE_BATCH))} for w in range(n_win)]
+    # float64 statistics of each version, and its timestamp
+    X = np.concatenate([w["input"] for w in windows])
+    stats = []
+    for v in range(n_win):
+        rows = X[: (v + 1) * ONLINE_BATCH]
+        stats.append((rows.mean(axis=0), rows.std(axis=0, ddof=1), float(windows[v][TIMESTAMP_COL].max())))
+    query = {"input": rng.normal(3.0, 2.0, (512, ONLINE_SCALER_D)),
+             TIMESTAMP_COL: rng.uniform(0, (n_win - 0.5) * size, 512)}  # every row has a fresh enough window
+    times = np.asarray([t for _, _, t in stats])
+
+    def scaler(delay=0):
+        return (OnlineStandardScaler().set_windows(EventTimeTumblingWindows.of(size)).set_with_mean(True)
+                .set_max_allowed_model_delay_ms(delay))
+
+    stamps = []
+    scaler().fit(_queue([DataFrame.from_dict(w) for w in windows])).advance(
+        on_snapshot=lambda v, p: stamps.append(time.perf_counter()))
+    first = n_win // 4
+    out = {"windows": len(stamps), "ms_per_window": (stamps[-1] - stamps[first]) / (len(stamps) - 1 - first) * 1e3,
+           "versions_differenced": [first, len(stamps) - 1]}
+    half = n_win // 2
+    for delay in ONLINE_SCALER_DELAYS:
+        stream = _queue([DataFrame.from_dict(w) for w in windows[:half]], close=False)
+        model = scaler(delay).fit(stream)
+        model.advance()
+        served = model.transform(DataFrame.from_dict(query), device="cuda")
+        pending = model.pending_rows
+        for w in windows[half:]:
+            stream.add(DataFrame.from_dict(w))
+        later = model.serve_pending(device="cuda")
+        parts = [f for f in (served, later) if f is not None]
+        ts = np.concatenate([f.scalars(TIMESTAMP_COL) for f in parts])
+        vers = np.concatenate([np.asarray(f["version"]) for f in parts])
+        inputs = np.concatenate([f.vectors("input") for f in parts])
+        outputs = np.concatenate([f.vectors("output") for f in parts])
+        # a row is served by the version installed when it came, or by the
+        # earliest later one fresh enough for it
+        want = np.asarray([max(half - 1, int(np.argmax(times >= t - delay))) for t in ts])
+        err = 0.0
+        for v in np.unique(vers):
+            sel = vers == v
+            mean, std, _ = stats[v]
+            err = max(err, float(np.max(np.abs(outputs[sel] - (inputs[sel] - mean) / std))))
+        reading = {"served_first": len(served), "pending": pending,
+                   "served_later": 0 if later is None else len(later), "pending_after": model.pending_rows,
+                   "versions_used": sorted(set(vers.tolist())), "max_abs_err_vs_float64": err,
+                   "model_version": model.model_version}
+        if (len(ts) != len(query[TIMESTAMP_COL]) or model.pending_rows or not pending
+                or not np.array_equal(vers, want) or err > ONLINE_SCALER_ATOL):
+            raise AssertionError(f"gated transform at delay {delay}: {reading}")
+        out[f"delay_{delay}"] = reading
+    return out
+
+
+def phase_online(card: str):
+    """Online training and its published versions served (module docstring,
+    phase 36). Returns the scale -> logistic kernel's launches on the path
+    and the largest difference of its per-version checks."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    batches = _online_batches()
+    gen_s = time.perf_counter() - t0
+    legs, coefs, refs = {}, {}, {}
+    for leg, reg, en in ONLINE_LEGS:
+        coefs[leg], refs[leg], legs[leg] = _online_lr_leg(batches, leg, reg, en, dev)
+    # the bf16-feature control must land outside the tolerance
+    control_batches = [{"features": _bf16(b["features"]).astype(np.float32), "label": b["label"]}
+                       for b in batches[:ONLINE_CONTROL_VERSIONS]]
+    control = _online_lr(*ONLINE_LEGS[0][1:]).fit(_queue(control_batches), device=dev)
+    control_got = []
+    control.advance(on_snapshot=lambda v, c: control_got.append(c))
+    control_excess, control_err, _ = _ftrl_versus(control_got, refs["A"][:ONLINE_CONTROL_VERSIONS])
+    if max(control_excess) <= 0:
+        raise AssertionError(f"the bf16 control stays inside the tolerance ({control_err})")
+    kill = _online_kill_and_resume(batches, coefs["A"], dev)
+    torch.cuda.synchronize()
+    served, launches, published, x4096 = _online_serve_leg(batches, coefs["A"], refs["A"], dev)
+    kernel = _online_kernel_check(published, x4096, dev)
+    kmeans = _online_kmeans_leg(dev)
+    scaler = _online_scaler_leg()
+    emit("online", card=card, seconds=time.perf_counter() - t_phase, batch_generation_s=gen_s,
+         shape={"d": ONLINE_D, "batch": ONLINE_BATCH, "versions": ONLINE_VERSIONS, "alpha": ONLINE_ALPHA,
+                "beta": ONLINE_BETA},
+         legs=legs, bf16_control={"versions": len(control_got), "max_abs_err_vs_float64": control_err,
+                                  "worst_excess_over_tol": max(control_excess)},
+         kill_and_resume=kill, serve=served, kernel_vs_plain=kernel, kmeans=kmeans, scaler=scaler)
+    return launches, max(k["max_abs_err"] for k in kernel.values())
+
+
 def _random_string_arrays(seed, rows, array_size, distinct):
     """RandomStringArrayGenerator (flink_ml_tpu/benchmark/datagenerator.py)
     for one column: ``rows`` arrays of ``array_size`` strings, each the
@@ -7702,6 +8341,28 @@ def _sharded_rank(rank, world, init, backend, out_dir):
         spans = [timed(lambda: km(iters).fit(kdf))[1] for iters in (KMEANS_ITERS, 2 * KMEANS_ITERS)]
         readings["kmeans"] = {"fit_s": fit_s, "ms_per_epoch": (spans[1] - spans[0]) / KMEANS_ITERS * 1e3}
 
+        # OnlineKMeans (phase 36's stream) on the deterministic tier: every
+        # version bit-equal across the ranks and the widths
+        from flink_ml_tpu_torch.models.clustering.online_kmeans import OnlineKMeans
+
+        stream = _queue([], close=False)
+        model = (OnlineKMeans().set_k(KMEANS_K).set_seed(KMEANS_DATA_SEED).set_decay_factor(ONLINE_KMEANS_DECAY)
+                 .set_random_initial_model_data(dim=KMEANS_D).fit(stream))
+        cs, ws, stamps = [], [], []
+        torch.cuda.synchronize()
+        dist.barrier()
+        for batch in _online_kmeans_batches():
+            stream.add(batch)
+            if model.advance(1) != 1:
+                raise AssertionError("OnlineKMeans did not take its batch")
+            stamps.append(time.perf_counter())
+            cs.append(model.centroids)
+            ws.append(model.weights)
+        arrays["online_kmeans_centroids"], arrays["online_kmeans_weights"] = np.stack(cs), np.stack(ws)
+        first = ONLINE_KMEANS_VERSIONS // 4
+        readings["online_kmeans"] = {"versions": len(stamps), "ms_per_version": (stamps[-1] - stamps[first])
+                                     / (len(stamps) - 1 - first) * 1e3}
+
         # the mapreduce all_gather at each fit's partial shape
         gathers = {}
         for name, shape in (("lr", (LR_BATCH // 8 // world, LR_D + 2)),
@@ -7824,7 +8485,8 @@ def phase_sharded(card: str):
                 check(np.array_equal(a, got["arrays"][name]), f"world {world}: rank {got['rank']}'s {name} differs")
     base = worlds[1][0]["arrays"]
     for world in SHARDED_WIDTHS[1:]:
-        for name in ("lr_coef", "kmeans_centroids", "kmeans_weights"):
+        for name in ("lr_coef", "kmeans_centroids", "kmeans_weights", "online_kmeans_centroids",
+                     "online_kmeans_weights"):
             check(np.array_equal(worlds[world][0]["arrays"][name], base[name]),
                   f"{name} at width {world} is not bit-equal to width 1")
 
@@ -9417,6 +10079,10 @@ def main() -> int:
     record("fit_linearsvc", phase_fit_linear_family(smi, headline, dense_rows))
     record("hot_swap", {SPARSE_IDF_LOGISTIC.name: phase_hot_swap(smi, idf_model, lr_model, v2_coef)})
     del headline, idf_model, lr_model, v2_coef, dense_rows
+    online_launches, online_err = phase_online(smi)
+    record("online", {SCALE_LOGISTIC.name: online_launches})
+    measured[SCALE_LOGISTIC.name]["max_abs_err"] = max(measured[SCALE_LOGISTIC.name]["max_abs_err"], online_err)
+    torch.cuda.empty_cache()
     record("text", phase_text(smi))
     phase_featurize(smi)
     torch.cuda.empty_cache()

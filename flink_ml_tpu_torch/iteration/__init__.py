@@ -1,5 +1,5 @@
-"""The iteration runtime: the bounded iteration loop, its termination
-criteria, the training-data caches (``datacache.DeviceDataCache`` on the
+"""The iteration runtime: the bounded and unbounded iteration loops, the
+bounded one's termination criteria, the training-data caches (``datacache.DeviceDataCache`` on the
 device, ``HostDataCache`` and ``create_capacity_cache`` on the host) and the
 streamed-window loop (``streaming.WindowSchedule``, ``WindowedStream``)."""
 from flink_ml_tpu_torch.iteration.iteration import (

@@ -1,13 +1,13 @@
-"""The bounded iteration loop — twin of ``flink_ml_tpu/iteration/iteration.py``.
+"""The iteration loops — twin of ``flink_ml_tpu/iteration/iteration.py``.
 
-Reference: ``Iterations.java:149`` (``iterateBoundedStreamsUntilTermination``).
-The host loop is the aligner: an epoch is one turn of the loop, the feedback
-edge is the rebinding of ``variables`` to the body's returned feedback
-(tensors stay on their device), and the iteration stops when the criteria
-is exhausted, when the body produces no feedback, or at ``max_epochs``.
-
-The unbounded loop (``iterate_unbounded``) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP.md (queue A 8).
+Reference: ``Iterations.java:149`` (``iterateBoundedStreamsUntilTermination``)
+and ``:123`` (``iterateUnboundedStreams``). The host loop is the aligner: an
+epoch is one turn of the loop, the feedback edge is the rebinding of
+``variables`` to the body's returned feedback (tensors stay on their
+device). The bounded loop stops when the criteria is exhausted, when the
+body produces no feedback, or at ``max_epochs``; the unbounded one
+(``iterate_unbounded``) runs one epoch per batch of its stream and yields
+each epoch's outputs.
 """
 from __future__ import annotations
 
@@ -266,11 +266,81 @@ def iterate_bounded_until_termination(
     return outputs + context.collected if context.collected else outputs
 
 
-def iterate_unbounded(*args, **kwargs):
-    """Ref ``Iterations.iterateUnboundedStreams``: not ported yet."""
-    raise NotImplementedError(
-        "iterate_unbounded is not ported to the PyTorch package yet (see ROADMAP.md, queue A 8)"
-    )
+def iterate_unbounded(
+    initial_variables: Sequence[Any],
+    stream,
+    body: Callable[..., IterationBodyResult],
+    config: Optional[IterationConfig] = None,
+    listeners: Sequence[IterationListener] = (),
+):
+    """Unbounded iteration (``Iterations.iterateUnboundedStreams``,
+    Iterations.java:123): one epoch per batch of ``stream`` and no
+    termination criteria — the iteration lives as long as its input.
+    ``body(variables, batch, epoch)`` returns the feedback and the outputs,
+    and this generator yields each epoch's outputs as the epoch ends (a
+    versioned model stream). A body that returns no feedback ends it.
+
+    Kill and resume: with a checkpoint manager the snapshot is ``(epoch,
+    variables)``, and the epoch *is* the stream position (one batch an
+    epoch). Each snapshot is taken before the epoch's outputs are yielded,
+    so a resumed run never emits an epoch its consumer has seen. On restore
+    the consumed prefix is skipped — ``stream.skip(n)`` where the source
+    seeks, else by dropping ``n`` batches — so the resume contract is a
+    source that replays from the beginning (or seeks); one that ends inside
+    the prefix raises ``ValueError``.
+    """
+    config = config or IterationConfig()
+    context = IterationContext()
+    throttle = _PipelineThrottle(config.pipeline_depth)
+    variables = list(initial_variables)
+    epoch = 0
+    restored = _maybe_restore(config, variables)
+    if restored is not None:
+        epoch, variables = restored
+        if epoch:
+            if hasattr(stream, "skip"):
+                stream.skip(epoch)
+            else:
+                stream = _drop_batches(stream, epoch)
+
+    for batch in stream:
+        result = _epoch_body(body, config)(variables, batch, epoch)
+        for listener in listeners:
+            listener.on_epoch_watermark_incremented(epoch, context)
+        epoch += 1
+        done = result.feedback_variables is None
+        if not done:
+            variables = list(result.feedback_variables)
+            throttle.admit(variables)
+            _maybe_checkpoint(config, epoch, variables)
+        for out in result.outputs:
+            yield out
+        while context.collected:
+            yield context.collected.pop(0)
+        if done:
+            break
+
+    for listener in listeners:
+        listener.on_iteration_terminated(context)
+    while context.collected:
+        yield context.collected.pop(0)
+
+
+def _drop_batches(stream, n: int):
+    """A replayed source past its first ``n`` (consumed) batches. A source
+    that ends inside them breaks the resume contract, and ending there
+    would look like a clean run, so it raises ``ValueError``."""
+    it = iter(stream)
+    for i in range(n):
+        try:
+            next(it)
+        except StopIteration:
+            raise ValueError(
+                f"replayed source ended {n - i} batch(es) before the checkpointed "
+                f"offset {n}; on resume the source must replay the stream from "
+                "the beginning"
+            ) from None
+    return it
 
 
 def _maybe_checkpoint(config: IterationConfig, epoch: int, variables) -> None:

@@ -8,7 +8,12 @@ from flink_ml_tpu_torch.models.feature.idf import IDF, IDFModel
 from flink_ml_tpu_torch.models.feature.imputer import Imputer, ImputerModel
 from flink_ml_tpu_torch.models.feature.ngram import NGram
 from flink_ml_tpu_torch.models.feature.normalizer import Normalizer
-from flink_ml_tpu_torch.models.feature.standard_scaler import StandardScaler, StandardScalerModel
+from flink_ml_tpu_torch.models.feature.standard_scaler import (
+    OnlineStandardScaler,
+    OnlineStandardScalerModel,
+    StandardScaler,
+    StandardScalerModel,
+)
 from flink_ml_tpu_torch.models.feature.stop_words_remover import StopWordsRemover
 from flink_ml_tpu_torch.models.feature.tokenizer import RegexTokenizer, Tokenizer
 
@@ -25,6 +30,8 @@ __all__ = [
     "ImputerModel",
     "NGram",
     "Normalizer",
+    "OnlineStandardScaler",
+    "OnlineStandardScalerModel",
     "RegexTokenizer",
     "StandardScaler",
     "StandardScalerModel",

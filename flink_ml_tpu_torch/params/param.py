@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, TypeV
 import numpy as np
 
 from flink_ml_tpu_torch.linalg.vectors import DenseVector, SparseVector, Vector
+from flink_ml_tpu_torch.ops.windows import Windows
 
 T = TypeVar("T")
 
@@ -193,6 +194,8 @@ def _json_encode_value(value: Any) -> Any:
         return float(value)
     if isinstance(value, (list, tuple)):
         return [_json_encode_value(v) for v in value]
+    if isinstance(value, Windows):
+        return value.to_json_dict()
     return value
 
 
@@ -203,6 +206,9 @@ def _json_decode_value(payload: Any) -> Any:
             return DenseVector(payload["values"])
         if t == "SparseVector":
             return SparseVector(payload["size"], payload["indices"], payload["values"])
+        decoded = Windows.from_json_dict(payload)
+        if decoded is not None:
+            return decoded
     if isinstance(payload, list):
         return [_json_decode_value(v) for v in payload]
     return payload

@@ -1,5 +1,5 @@
-"""Shared ``HasXxx`` param mixins — the ones the ported servables and the
-linear estimators declare.
+"""Shared ``HasXxx`` param mixins — the ones the ported servables, the
+linear estimators and the online estimators declare.
 
 Twin of ``flink_ml_tpu/params/shared.py``: same param names, defaults and
 validators, so a stage saved by the JAX package restores its params here.
@@ -7,9 +7,11 @@ Each mixin declares one Param as a class attribute plus typed accessors.
 """
 from __future__ import annotations
 
+from flink_ml_tpu_torch.ops.windows import GlobalWindows
 from flink_ml_tpu_torch.params.param import (
     FloatParam,
     IntParam,
+    Param,
     ParamValidators,
     StringArrayParam,
     StringParam,
@@ -17,6 +19,11 @@ from flink_ml_tpu_torch.params.param import (
 )
 
 __all__ = [
+    "HasBatchStrategy",
+    "HasDecayFactor",
+    "HasMaxAllowedModelDelayMs",
+    "HasModelVersionCol",
+    "HasWindows",
     "HasCategoricalCols",
     "HasDistanceMeasure",
     "HasElasticNet",
@@ -279,3 +286,64 @@ class HasNumFeatures(WithParams):
 
     def set_num_features(self, value: int):
         return self.set(self.NUM_FEATURES, value)
+
+
+class HasBatchStrategy(WithParams):
+    COUNT_STRATEGY = "count"
+
+    BATCH_STRATEGY = StringParam(
+        "batchStrategy", "Strategy to create mini batches from input data.", "count", ParamValidators.in_array(["count"])
+    )
+
+    def get_batch_strategy(self) -> str:
+        return self.get(self.BATCH_STRATEGY)
+
+
+class HasDecayFactor(WithParams):
+    DECAY_FACTOR = FloatParam(
+        "decayFactor",
+        "The forgetfulness of the previous centroids.",
+        0.0,
+        ParamValidators.in_range(0, 1),
+    )
+
+    def get_decay_factor(self) -> float:
+        return self.get(self.DECAY_FACTOR)
+
+    def set_decay_factor(self, value: float):
+        return self.set(self.DECAY_FACTOR, value)
+
+
+class HasModelVersionCol(WithParams):
+    MODEL_VERSION_COL = StringParam("modelVersionCol", "Column which contains the version of the model data.", "version")
+
+    def get_model_version_col(self) -> str:
+        return self.get(self.MODEL_VERSION_COL)
+
+    def set_model_version_col(self, value: str):
+        return self.set(self.MODEL_VERSION_COL, value)
+
+
+class HasMaxAllowedModelDelayMs(WithParams):
+    MAX_ALLOWED_MODEL_DELAY_MS = IntParam(
+        "maxAllowedModelDelayMs",
+        "Max difference in ms between data timestamp and model timestamp at prediction.",
+        0,
+        ParamValidators.gt_eq(0),
+    )
+
+    def get_max_allowed_model_delay_ms(self) -> int:
+        return self.get(self.MAX_ALLOWED_MODEL_DELAY_MS)
+
+    def set_max_allowed_model_delay_ms(self, value: int):
+        return self.set(self.MAX_ALLOWED_MODEL_DELAY_MS, value)
+
+
+class HasWindows(WithParams):
+    WINDOWS = Param("windows", "Windowing strategy that determines how to create mini-batches.", GlobalWindows())
+
+    def get_windows(self):
+        return self.get(self.WINDOWS)
+
+    def set_windows(self, value):
+        return self.set(self.WINDOWS, value)

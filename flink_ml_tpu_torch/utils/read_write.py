@@ -15,7 +15,9 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import pickle
 import time
+import zipfile
 from typing import Any, Dict, Optional, Tuple, Type
 
 import numpy as np
@@ -31,6 +33,8 @@ __all__ = [
     "stage_class_name",
     "jax_class_name",
     "model_data_path",
+    "save_column_arrays",
+    "load_column_arrays",
 ]
 
 _METADATA_FILE = "metadata"
@@ -75,6 +79,12 @@ _HASHING_TF = "flink_ml_tpu_torch.models.feature.hashing_tf.HashingTF"
 _FEATURE_HASHER = "flink_ml_tpu_torch.models.feature.feature_hasher.FeatureHasher"
 _CV_MODEL = "flink_ml_tpu_torch.models.feature.count_vectorizer.CountVectorizerModel"
 _CV_EST = "flink_ml_tpu_torch.models.feature.count_vectorizer.CountVectorizer"
+_ONLINE_LR_MODEL = "flink_ml_tpu_torch.models.classification.online_logistic_regression.OnlineLogisticRegressionModel"
+_ONLINE_LR = "flink_ml_tpu_torch.models.classification.online_logistic_regression.OnlineLogisticRegression"
+_ONLINE_KMEANS_MODEL = "flink_ml_tpu_torch.models.clustering.online_kmeans.OnlineKMeansModel"
+_ONLINE_KMEANS = "flink_ml_tpu_torch.models.clustering.online_kmeans.OnlineKMeans"
+_ONLINE_SCALER_MODEL = "flink_ml_tpu_torch.models.feature.standard_scaler.OnlineStandardScalerModel"
+_ONLINE_SCALER = "flink_ml_tpu_torch.models.feature.standard_scaler.OnlineStandardScaler"
 
 #: Saved ``className`` of the JAX package → (the port servable that loads it
 #: with ``load_servable(path)``, or None for an Estimator, which serves
@@ -134,6 +144,17 @@ CLASS_TABLE: Dict[str, Tuple[Optional[str], Optional[str]]] = {
     "flink_ml_tpu.models.classification.linearsvc.LinearSVC": (None, _SVC_EST),
     "flink_ml_tpu.models.regression.linear_regression.LinearRegressionModel": (None, _LINREG_MODEL),
     "flink_ml_tpu.models.regression.linear_regression.LinearRegression": (None, _LINREG_EST),
+    # The online stages: a published OnlineLogisticRegressionModel serves as
+    # the batch model's servable (JAX ``online_logistic_regression.py``
+    # ``load_servable``); the JAX package gives the other two models no
+    # servable, so they load as the stage only.
+    "flink_ml_tpu.models.classification.online_logistic_regression.OnlineLogisticRegressionModel":
+        (_LOGISTIC, _ONLINE_LR_MODEL),
+    "flink_ml_tpu.models.classification.online_logistic_regression.OnlineLogisticRegression": (None, _ONLINE_LR),
+    "flink_ml_tpu.models.clustering.online_kmeans.OnlineKMeansModel": (None, _ONLINE_KMEANS_MODEL),
+    "flink_ml_tpu.models.clustering.online_kmeans.OnlineKMeans": (None, _ONLINE_KMEANS),
+    "flink_ml_tpu.models.feature.standard_scaler.OnlineStandardScalerModel": (None, _ONLINE_SCALER_MODEL),
+    "flink_ml_tpu.models.feature.standard_scaler.OnlineStandardScaler": (None, _ONLINE_SCALER),
 }
 
 
@@ -221,3 +242,78 @@ def save_model_arrays(path: str, arrays: Dict[str, np.ndarray]) -> None:
 def load_model_arrays(path: str) -> Dict[str, np.ndarray]:
     with np.load(os.path.join(model_data_path(path), _ARRAYS_FILE), allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+# --- columns whose cells are vectors ------------------------------------------
+#
+# A column of Vector cells (an online scaler's buffered rows) is an object
+# array, which an npz stores pickled. A pickle names each cell's class, and
+# the JAX package's names a class of ``flink_ml_tpu``, which the port must
+# never import. So the port pickles its vectors under their JAX twins' names
+# (``flink_ml_tpu.linalg.vectors``: the same slots, the same state) without
+# importing them, and unpickles either package's names as its own vectors
+# and refuses any other ``flink_ml_tpu`` class.
+
+_VECTORS_MODULES = ("flink_ml_tpu.linalg.vectors", "flink_ml_tpu_torch.linalg.vectors")
+_VECTOR_CLASSES = ("DenseVector", "SparseVector")
+
+
+class _TwinPickler(pickle._Pickler):
+    """Pickles the port's vector classes by their JAX twins' names."""
+
+    def save_global(self, obj, name=None):
+        if getattr(obj, "__module__", None) == _VECTORS_MODULES[1] and obj.__qualname__ in _VECTOR_CLASSES:
+            self.write(pickle.GLOBAL + f"{_VECTORS_MODULES[0]}\n{obj.__qualname__}\n".encode())
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+class _TwinUnpickler(pickle.Unpickler):
+    """Reads either package's vectors as the port's."""
+
+    def find_class(self, module, name):
+        if module in _VECTORS_MODULES and name in _VECTOR_CLASSES:
+            from flink_ml_tpu_torch.linalg import vectors
+
+            return getattr(vectors, name)
+        if module.split(".")[0] in ("flink_ml_tpu", "flink_ml_tpu_torch"):
+            raise pickle.UnpicklingError(f"{module}.{name} is not read from a column file")
+        return super().find_class(module, name)
+
+
+def save_column_arrays(path: str, columns: Dict[str, np.ndarray]) -> None:
+    """An npz of named column arrays, as ``np.savez`` writes it; an object
+    column's cells pickled under the JAX package's vector class names."""
+    from numpy.lib import format as npy
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for name, arr in columns.items():
+            arr = np.asanyarray(arr)
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                if arr.dtype.hasobject:
+                    npy.write_array_header_1_0(f, npy.header_data_from_array_1_0(arr))
+                    _TwinPickler(f, protocol=3).dump(arr)
+                else:
+                    npy.write_array(f, arr, allow_pickle=False)
+
+
+def load_column_arrays(path: str) -> Dict[str, np.ndarray]:
+    """The named columns of an npz either package wrote (:func:`save_column_arrays`,
+    or ``np.savez`` of the JAX package), in the file's order."""
+    from numpy.lib import format as npy
+
+    out: Dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf:
+        for member in zf.namelist():
+            with zf.open(member) as f:
+                version = npy.read_magic(f)
+                read_header = npy.read_array_header_1_0 if version == (1, 0) else npy.read_array_header_2_0
+                _shape, _fortran, dtype = read_header(f)
+                if dtype.hasobject:
+                    arr = _TwinUnpickler(f).load()
+                else:
+                    with zf.open(member) as g:
+                        arr = npy.read_array(g, allow_pickle=False)
+            out[member[: -len(".npy")] if member.endswith(".npy") else member] = arr
+    return out

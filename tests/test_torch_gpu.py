@@ -2813,3 +2813,75 @@ def test_sharded_serving_on_the_card_is_bit_equal_to_mesh_one(cuda, mode, n):
                                    sharding=PlanSharding(2, 2, cuda))
     np.testing.assert_allclose(np.asarray(tp.execute(x)["rawPrediction"]), np.asarray(base.execute(x)["rawPrediction"]),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_the_ftrl_step_on_the_card_matches_its_cpu_run(cuda):
+    """OnlineLogisticRegression trained on the card, version by version,
+    against the same fit on the CPU: float32 state on the card, every
+    coefficient within rtol 1e-5 / atol 1e-6 and the L1 zero pattern equal."""
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.classification.online_logistic_regression import OnlineLogisticRegression
+    from flink_ml_tpu_torch.models.online import QueueBatchStream
+
+    d, rng = 256, np.random.default_rng(71)
+    scale = np.where(np.arange(d) >= 3 * d // 4, 1e-2, 1.0)
+    w_true = np.concatenate([rng.normal(size=d // 2), np.zeros(d - d // 2)])
+    batches = []
+    for _ in range(8):
+        X = rng.normal(size=(512, d)) * scale
+        batches.append({"features": X, "label": (X @ w_true > 0).astype(np.float64)})
+    runs = {}
+    for device in ("cpu", cuda):
+        stream = QueueBatchStream()
+        for b in batches:
+            stream.add(b)
+        model = (OnlineLogisticRegression().set_initial_model_data(DataFrame(["coefficient"], None,
+                                                                             [[DenseVector(np.zeros(d))]]))
+                 .set_alpha(0.5).set_reg(0.01).set_elastic_net(0.5).set_global_batch_size(512)
+                 .fit(stream.close(), device=device))
+        got = []
+        model.advance(on_snapshot=lambda v, coef: got.append(np.asarray(coef)))
+        runs[str(device)] = (got, model._snapshots.state)
+    (cpu, _), (card, state) = runs["cpu"], runs[str(cuda)]
+    assert all(t.is_cuda and t.dtype == torch.float32 for t in state)
+    assert len(cpu) == len(card) == 8
+    for v, (a, b) in enumerate(zip(card, cpu), start=1):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=f"version {v}")
+        np.testing.assert_array_equal(a == 0, b == 0, err_msg=f"version {v}: zero pattern")
+    assert np.any(card[-1] == 0)
+
+
+def test_published_online_versions_serve_on_the_scale_logistic_kernel(cuda, tmp_path):
+    """Versions of a live OnlineLogisticRegression fit on the card,
+    published and flipped in by the poller: each 4096-row batch runs
+    ("logistic",) on the scale -> logistic kernel once, against float64 of
+    the version that served it."""
+    from flink_ml_tpu_torch.linalg.vectors import DenseVector
+    from flink_ml_tpu_torch.models.classification.online_logistic_regression import OnlineLogisticRegression
+    from flink_ml_tpu_torch.models.online import QueueBatchStream
+    from flink_ml_tpu_torch.serving import publish_servable
+
+    d, rng = 256, np.random.default_rng(72)
+    w_true = rng.normal(size=d)
+    stream = QueueBatchStream()
+    model = (OnlineLogisticRegression().set_initial_model_data(DataFrame(["coefficient"], None,
+                                                                         [[DenseVector(np.zeros(d))]]))
+             .set_alpha(0.5).set_global_batch_size(4096).fit(stream, device=cuda))
+    req = DataFrame.from_dict({"features": rng.normal(size=(4096, d))})
+    cfg = ServingConfig(max_batch_size=4096, queue_capacity_rows=8192, fusion_mode="fast")
+    with InferenceServer(name="gpu-online", serving_config=cfg, warmup_template=req.take([0])) as srv:
+        poller = srv.attach_poller(str(tmp_path), start=False)
+        for version in (1, 2):
+            X = rng.normal(size=(4096, d))
+            stream.add({"features": X, "label": (X @ w_true > 0).astype(np.float64)})
+            assert model.advance(1) == 1
+            publish_servable(model, str(tmp_path))
+            assert poller.poll_once() == version
+            SCALE_LOGISTIC.reset_launches()
+            resp = srv.predict(req)
+            assert resp.model_version == version and SCALE_LOGISTIC.launches == 1
+            margin = req.vectors("features").astype(np.float32).astype(np.float64) @ model.coefficient.astype(
+                np.float64)
+            p = 1.0 / (1.0 + np.exp(-margin))
+            np.testing.assert_allclose(resp.dataframe.column("rawPrediction"), np.stack([1 - p, p], axis=1),
+                                       rtol=0, atol=1e-5)

@@ -221,8 +221,13 @@ def test_replay_rejects_one_shot_iterators_and_overlaps_and_reads_dataframes():
 
 
 def test_unbounded_loop_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A 8"):
-        iterate_unbounded([0.0], iter(()), lambda *a: None)
+    """ROADMAP queue A 8 is ported: the unbounded loop runs instead of
+    raising — nothing from an empty stream, one epoch a batch otherwise."""
+    assert list(iterate_unbounded([0.0], iter(()), lambda *a: None)) == []
+    got = list(iterate_unbounded(
+        [0.0], iter([1.0, 2.0]),
+        lambda v, batch, epoch: IterationBodyResult([v[0] + batch], outputs=[(epoch, v[0] + batch)])))
+    assert got == [(0, 1.0), (1, 3.0)]
 
 
 def test_throttle_depth_is_one_on_the_cpu_and_never_waits():

@@ -476,6 +476,18 @@ def _every_port_stage():
     from flink_ml_tpu.models.feature.stop_words_remover import StopWordsRemover as JStopWordsRemover
     from flink_ml_tpu.models.feature.tokenizer import RegexTokenizer as JRegexTokenizer
     from flink_ml_tpu.models.feature.tokenizer import Tokenizer as JTokenizer
+    from flink_ml_tpu.models.classification.online_logistic_regression import (
+        OnlineLogisticRegression as JOnlineLR,
+        OnlineLogisticRegressionModel as JOnlineLRModel,
+    )
+    from flink_ml_tpu.models.clustering.online_kmeans import (
+        OnlineKMeans as JOnlineKMeans,
+        OnlineKMeansModel as JOnlineKMeansModel,
+    )
+    from flink_ml_tpu.models.feature.standard_scaler import (
+        OnlineStandardScaler as JOnlineScaler,
+        OnlineStandardScalerModel as JOnlineScalerModel,
+    )
 
     from flink_ml_tpu_torch.builder import Pipeline
     from flink_ml_tpu_torch.linalg.vectors import DenseVector
@@ -500,6 +512,17 @@ def _every_port_stage():
         StopWordsRemover,
         Tokenizer,
     )
+    from flink_ml_tpu_torch.models.classification.online_logistic_regression import (
+        OnlineLogisticRegression,
+        OnlineLogisticRegressionModel,
+    )
+    from flink_ml_tpu_torch.models.clustering.online_kmeans import OnlineKMeans, OnlineKMeansModel
+    from flink_ml_tpu_torch.models.feature.standard_scaler import (
+        TIMESTAMP_COL,
+        OnlineStandardScaler,
+        OnlineStandardScalerModel,
+    )
+    from flink_ml_tpu_torch.ops.windows import EventTimeTumblingWindows
 
     rng = np.random.default_rng(6)
     scaler = StandardScalerModel().set_input_col("x").set_output_col("xs")
@@ -544,6 +567,27 @@ def _every_port_stage():
         "count_vectorizer_model": cv,
         "count_vectorizer": CountVectorizer().set_min_df(0.5).set_max_df(3.0).set_vocabulary_size(7),
     })
+    # the online stages: the model version, the scaler's timestamp and its
+    # buffered rows (sparse cells among them) travel with the model data
+    online_lr = OnlineLogisticRegressionModel().set_features_col("x").set_model_version_col("v")
+    online_lr.coefficient, online_lr.model_version = rng.normal(size=4).astype(np.float32), 7
+    online_km = OnlineKMeansModel().set_features_col("x").set_k(2)
+    online_km.centroids, online_km.weights = rng.normal(size=(2, 4)).astype(np.float32), np.asarray([3.0, 0.5])
+    online_km.model_version = 3
+    online_sc = OnlineStandardScalerModel().set_input_col("x").set_max_allowed_model_delay_ms(20)
+    online_sc.mean, online_sc.std = rng.normal(size=2), np.abs(rng.normal(size=2))
+    online_sc.model_version, online_sc.model_timestamp = 2, 250.0
+    online_sc._pending = [
+        DataFrame.from_dict({"x": rng.normal(size=(2, 2)), TIMESTAMP_COL: np.asarray([300.0, 310.0])}),
+        DataFrame(["x", TIMESTAMP_COL], None, [[SparseVector(2, [1], [7.0])], np.asarray([400.0])]),
+    ]
+    stages.update({
+        "online_lr_model": online_lr, "online_kmeans_model": online_km, "online_scaler_model": online_sc,
+        "online_lr": OnlineLogisticRegression().set_alpha(0.4).set_reg(0.01).set_elastic_net(0.5),
+        "online_kmeans": OnlineKMeans().set_k(3).set_decay_factor(0.5),
+        "online_scaler": OnlineStandardScaler().set_windows(EventTimeTumblingWindows.of(1000))
+        .set_max_allowed_model_delay_ms(500),
+    })
     jax_classes = {
         "idf_model": JIDFModel, "lr_model": JLogisticRegressionModel, "scaler_model": JStandardScalerModel,
         "mlp_model": JMLPClassifierModel, "kmeans_model": JKMeansModel, "imputer_model": JImputerModel,
@@ -553,6 +597,9 @@ def _every_port_stage():
         "tokenizer": JTokenizer, "regex_tokenizer": JRegexTokenizer, "stop_words_remover": JStopWordsRemover,
         "ngram": JNGram, "hashing_tf": JHashingTF, "feature_hasher": JFeatureHasher,
         "count_vectorizer_model": JCountVectorizerModel, "count_vectorizer": JCountVectorizer,
+        "online_lr_model": JOnlineLRModel, "online_kmeans_model": JOnlineKMeansModel,
+        "online_scaler_model": JOnlineScalerModel, "online_lr": JOnlineLR, "online_kmeans": JOnlineKMeans,
+        "online_scaler": JOnlineScaler,
     }
     return stages, jax_classes
 
@@ -562,6 +609,17 @@ def _json(stage):
     import json
 
     return json.dumps(stage.param_map_to_json(), sort_keys=True)
+
+
+def _online_state(stage):
+    """An online model's version, timestamp and buffered rows (each cell of
+    a vector column as its dense values); None for any other stage."""
+    if not hasattr(stage, "model_version"):
+        return None
+    pending = [[(name, [np.asarray(c.to_array() if hasattr(c, "to_array") else c, np.float64).tolist()
+                        for c in frame.column(name)]) for name in frame.get_column_names()]
+               for frame in getattr(stage, "_pending", [])]
+    return stage.model_version, getattr(stage, "model_timestamp", None), pending
 
 
 def test_every_port_stage_saved_loads_in_the_jax_package(tmp_path):
@@ -581,8 +639,10 @@ def test_every_port_stage_saved_loads_in_the_jax_package(tmp_path):
             assert type(loaded).__module__.startswith("flink_ml_tpu."), name
             assert _json(loaded) == _json(stage), name
             assert getattr(loaded, "vocabulary", None) == getattr(stage, "vocabulary", None), name
+            assert _online_state(loaded) == _online_state(stage), name
         back = type(stage).load(path)
         assert type(back) is type(stage) and _json(back) == _json(stage), name
+        assert _online_state(back) == _online_state(stage), name
         assert getattr(back, "vocabulary", None) == getattr(stage, "vocabulary", None), name
         assert type(rw.load_stage(path)) is type(stage), name
 

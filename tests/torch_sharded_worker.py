@@ -449,6 +449,43 @@ def kmeans_streamed(points: np.ndarray, k: int, seed: int, iters: int, chunk_row
     return {"centroids": model.centroids, "weights": model.weights, "fits": np.asarray(fits)}
 
 
+def online_kmeans(batches: list, k: int, seed: int, decay: float, device: str,
+                  mesh: Optional[Tuple[int, int]] = None) -> dict:
+    """``OnlineKMeans`` fed ``batches`` one version at a time: every
+    version's centroids and weights stacked, and the sharded fits counted.
+    With ``mesh`` the fit runs at ``train.mesh`` × ``train.mesh.model`` =
+    ``mesh`` instead of the world's setting (restored after)."""
+    from flink_ml_tpu_torch.config import Options, config
+    from flink_ml_tpu_torch.metrics import MLMetrics, metrics
+    from flink_ml_tpu_torch.models.clustering.online_kmeans import OnlineKMeans
+    from flink_ml_tpu_torch.models.online import QueueBatchStream
+
+    saved = (config.get(Options.TRAIN_MESH), config.get(Options.TRAIN_MESH_MODEL))
+    if mesh is not None:
+        config.set(Options.TRAIN_MESH, mesh[0])
+        config.set(Options.TRAIN_MESH_MODEL, mesh[1])
+    try:
+        before = metrics.get(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS, 0)
+        stream = QueueBatchStream()
+        model = (OnlineKMeans().set_k(k).set_seed(seed).set_decay_factor(decay)
+                 .set_random_initial_model_data(dim=batches[0]["features"].shape[1]).fit(stream, device=device))
+        centroids, weights = [], []
+        for batch in batches:
+            stream.add(batch)
+            assert model.advance(1) == 1
+            centroids.append(model.centroids)
+            weights.append(model.weights)
+        fits = metrics.get(MLMetrics.TRAIN_GROUP, MLMetrics.TRAIN_SHARDED_FITS, 0) - before
+    finally:
+        for opt, value in zip((Options.TRAIN_MESH, Options.TRAIN_MESH_MODEL), saved):
+            if value is None:
+                config.unset(opt)
+            else:
+                config.set(opt, value)
+    return {"centroids": np.stack(centroids), "weights": np.stack(weights), "fits": np.asarray(fits),
+            "versions": np.asarray(model.version_history)}
+
+
 def mlp_streamed(features: np.ndarray, labels: np.ndarray, hidden: int, iters: int, batch: int, seed: int,
                  window_rows: int, device: str) -> dict:
     """``MLPClassifier.fit_stream`` on a host-tier cache."""
